@@ -1,0 +1,590 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
+
+    python3 chip_smoke.py            # all phases; needs one CUDA device
+
+Phases, one JSON line each:
+  1. device  — card name and power limit (nvidia-smi), torch and CUDA versions;
+  2. build   — nvcc builds every kernel source under src/repro_torch/csrc;
+  3. kernels — each hand-written kernel against its plain torch version at the
+               shapes the serving path gives it, with kernel / plain / library
+               times (CUDA graphs of many launches, timed with CUDA events,
+               operands rotated past the 50 MB L2) and the bound from bytes
+               and operations;
+  4. parity  — internlm2-1.8b at full width, 4 layers, fp32 compute, 2-bit
+               packed: prefill + 4 teacher-forced paged decode steps through
+               the kernels vs through the plain paths; logits must agree;
+  5. serve   — internlm2-1.8b at full width, all 24 layers, 2-bit
+               ``ServeEngine.from_symog``, bf16, 4 slots, 8 requests of
+               24..400 prompt tokens and 32 new tokens each through the
+               continuous-batching scheduler; both kernels' launch counts
+               must equal the counts the path implies;
+  6. profile — a few decode steps of that engine under cProfile (host
+               functions) and torch.profiler (device busy time, top kernels).
+Then the ``kernels`` summary line, the nvidia-smi line, and the last line
+``{"ok": true, "device": {...}}``.  Any failure exits non-zero before it.
+The script imports no jax and nothing of the JAX package.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # dense, no sparsity
+FPMM_SHAPES = [  # internlm2-1.8b per-layer projections, K x N
+    ("q_proj", 2048, 2048), ("k_proj", 2048, 1024), ("v_proj", 2048, 1024),
+    ("o_proj", 2048, 2048), ("gate_proj", 2048, 8192), ("up_proj", 2048, 8192),
+    ("down_proj", 8192, 2048),
+]
+TOL = {  # kernel vs plain version
+    "float32": dict(rtol=1e-5, atol=1e-5),  # tests/test_kernels.py bar
+    "bfloat16": dict(rtol=1e-2, atol=1e-2),  # one bf16 rounding of the fp32 result
+}
+# attention: fp32 as tests/test_paged_attention.py; bf16 is a few output ulps
+# (kernel and plain version both reduce in fp32 and round to bf16 once)
+ATTN_TOL = {"float32": dict(rtol=2e-4, atol=2e-5), "bfloat16": dict(rtol=1e-2, atol=1e-2)}
+PARITY_ATOL = 1e-3  # fp32 logits, 4 layers: same math, other summation orders
+PARITY_LAYERS = 4
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+class Failed(Exception):
+    pass
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0] if out.stdout.strip() else "unavailable"
+
+
+def timed(fn, args_list, torch, reps: int = 5) -> float:
+    """ms per call: a CUDA graph of ``len(args_list)`` (>= 16) calls rotating
+    over the operand copies, replayed ``reps`` times between CUDA events."""
+    n = max(16, len(args_list))
+    for a in args_list[:2]:
+        fn(*a)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for i in range(n):
+            fn(*args_list[i % len(args_list)])
+    g.replay()
+    torch.cuda.synchronize()
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        g.replay()
+    t1.record()
+    t1.synchronize()
+    return t0.elapsed_time(t1) / (reps * n)
+
+
+def copies_for(nbytes: int) -> int:
+    """Operand copies whose total exceeds the 50 MB L2 (cold reads, as in
+    serving, where each layer's weights are read once per step)."""
+    return max(2, min(64, math.ceil(128e6 / max(nbytes, 1))))
+
+
+def bound(nbytes: int, flops: int, dtype_name: str):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ---------------------------------------------------------------------------
+# phase 3a: fixedpoint_matmul
+# ---------------------------------------------------------------------------
+def phase_fpmm(torch, dev):
+    from repro_torch.core import optimal_f, unpack_int
+    from repro_torch.kernels.fixedpoint_matmul import ops as fops
+    from repro_torch.kernels.fixedpoint_matmul.ref import fixedpoint_matmul_ref
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    rows, worst = [], 0.0
+    decode = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    cases = []
+    for n_bits in (2, 4):
+        for M in (4, 128):
+            for dt in (torch.bfloat16, torch.float32):
+                for name, K, N in FPMM_SHAPES:
+                    cases.append((n_bits, M, dt, name, K, N))
+    for n_bits, M, dt, name, K, N in cases:
+        dname = str(dt).split(".")[-1]
+        w = torch.randn((K, N), generator=gen, device=dev) / math.sqrt(K)
+        f, _ = optimal_f(w, n_bits)
+        f = f.to(torch.int32)
+        pw = fops.pack_weight(w, f, n_bits)
+        x = torch.randn((M, K), generator=gen, device=dev).to(dt)
+        bias = torch.randn((N,), generator=gen, device=dev) * 0.1 if M == 128 else None
+        y = fops.fixedpoint_matmul(x, pw, f, bias, n_bits=n_bits, n_out=N)
+        ref = fixedpoint_matmul_ref(x, pw, f, bias, n_bits=n_bits, n_out=N).to(dt)
+        torch.cuda.synchronize()
+        err = (y.float() - ref.float()).abs().max().item()
+        tol = TOL[dname]
+        ok = bool(torch.allclose(y.float(), ref.float(), **tol))
+        worst = max(worst, err)
+        wbytes = pw.numel()
+        io = x.numel() * x.element_size() + wbytes + 4 + M * N * x.element_size()
+        io += 0 if bias is None else N * 4
+        b_ms, b_by = bound(io, 2 * M * K * N, dname)
+        row = {"phase": "kernel", "kernel": "fixedpoint_matmul", "proj": name, "M": M, "K": K,
+               "N": N, "n_bits": n_bits, "dtype": dname, "bias": bias is not None,
+               "max_abs_err": err, "tol": tol, "pass": ok}
+        timing = n_bits == 2 or M == 4  # time every 2-bit case and the 4-bit decode cases
+        if timing:
+            n = copies_for(wbytes)
+            pws = [pw.clone() for _ in range(n)]
+            xs = [x.clone() for _ in range(n)]
+            wd = (unpack_int(pw, n_bits, N).float() * torch.exp2(-f.float())).to(dt)
+            nl = copies_for(wd.numel() * wd.element_size())
+            wds = [wd.clone() for _ in range(nl)]
+            row["ms"] = timed(lambda a, b: fops.fixedpoint_matmul(a, b, f, bias, n_bits=n_bits,
+                                                                   n_out=N),
+                              list(zip(xs, pws)), torch)
+            row["plain_ms"] = timed(lambda a, b: fixedpoint_matmul_ref(a, b, f, bias,
+                                                                       n_bits=n_bits, n_out=N),
+                                    list(zip(xs, pws)), torch)
+            row["library_ms"] = timed(lambda a, b: torch.matmul(a, b),
+                                      [(xs[i % n], wds[i]) for i in range(nl)], torch)
+            row["bound_ms"], row["bound_by"] = b_ms, b_by
+            row["achieved_GBps"] = io / (row["ms"] * 1e-3) / 1e9
+            del pws, xs, wds
+            if n_bits == 2 and M == 4 and dt == torch.bfloat16:
+                for k in decode:
+                    decode[k] += row[k]
+        emit(row)
+        rows.append(row)
+        if not ok:
+            raise Failed(f"fixedpoint_matmul {name} M={M} bits={n_bits} {dname}: err {err}")
+    return rows, worst, decode
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: paged attention
+# ---------------------------------------------------------------------------
+def _attn_case(torch, gen, dev, *, B, K, G, hd, block, max_blocks, T, dt, int8, q_mult):
+    n_phys = B * max_blocks + 1
+    perm = torch.randperm(n_phys - 1, generator=gen, device=dev)[: B * max_blocks] + 1
+    bt = perm.reshape(B, max_blocks).to(torch.int32)
+    pos_last = torch.randint(280, 320, (B,), generator=gen, device=dev)
+    pos0 = (pos_last - (T - 1)).to(torch.int32)
+    shape = (n_phys, block, K, hd)
+    kp = torch.randn(shape, generator=gen, device=dev)
+    vp = torch.randn(shape, generator=gen, device=dev)
+    if int8:
+        kp = torch.clamp(torch.round(kp * 0.5 * 32), -127, 127).to(torch.int8)
+        vp = torch.clamp(torch.round(vp * 0.5 * 32), -127, 127).to(torch.int8)
+    else:
+        kp, vp = kp.to(dt), vp.to(dt)
+    q = (torch.randn((B, T, K, G, hd), generator=gen, device=dev) * q_mult).to(dt)
+    return q, kp, vp, bt, pos0
+
+
+def phase_attn(torch, dev):
+    import torch.nn.functional as F
+    from repro_torch.kernels.paged_attention import ops as aops
+    from repro_torch.kernels.paged_attention.ref import gather_logical, paged_attention_ref
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    B, K, G, hd, block, max_blocks = 4, 8, 2, 128, 16, 32
+    # The int8 case scales q so that |logit|/cap is about 1 and keeps the window
+    # to 4-5 blocks: with the plain version on the same inputs, dropping the
+    # softcap moves the output by > 1 and a window off by one by ~0.08, both far
+    # outside the bf16 tolerance.
+    cases = [
+        dict(T=1, dt=torch.bfloat16, int8=False, window=None, cap=0.0, q_mult=1.0),
+        dict(T=4, dt=torch.bfloat16, int8=False, window=None, cap=0.0, q_mult=1.0),
+        dict(T=1, dt=torch.bfloat16, int8=True, window=64, cap=2.0, q_mult=4.0),
+        dict(T=1, dt=torch.float32, int8=False, window=None, cap=0.0, q_mult=1.0),
+    ]
+    rows, worst, main = [], 0.0, None
+    for c in cases:
+        T, dt, int8 = c["T"], c["dt"], c["int8"]
+        dname = str(dt).split(".")[-1]
+        q, kp, vp, bt, pos0 = _attn_case(torch, gen, dev, B=B, K=K, G=G, hd=hd, block=block,
+                                         max_blocks=max_blocks, T=T, dt=dt, int8=int8,
+                                         q_mult=c["q_mult"])
+        kv_scale = 2.0**-5 if int8 else 1.0
+        kw = dict(scale=hd**-0.5, cap=c["cap"], window=c["window"], kv_scale=kv_scale)
+        out = aops.paged_attention(q, kp, vp, bt, pos0, **kw)
+        ref = paged_attention_ref(q, kp, vp, bt, pos0, **kw)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = ATTN_TOL[dname]
+        ok = bool(torch.allclose(out.float(), ref.float(), **tol))
+        worst = max(worst, err)
+        # bytes this run's data needs: the blocks each row can see, once
+        vis_blocks = ((pos0.long() + T - 1) // block + 1).sum().item()
+        if c["window"] is not None:
+            lo = torch.clamp(pos0.long() - c["window"] + 1, min=0) // block
+            vis_blocks -= lo.sum().item()
+        kv_bytes = 2 * vis_blocks * block * K * hd * kp.element_size()
+        io = 2 * q.numel() * q.element_size() + kv_bytes + bt.numel() * 4 + B * 4
+        s_vis = (pos0.long() + T).sum().item()  # causal keys per row (upper bound per token)
+        flops = 4 * s_vis * T * K * G * hd
+        b_ms, b_by = bound(io, flops, dname)
+        n = copies_for(kp.numel() * kp.element_size() * 2)
+        pools = [(kp.clone(), vp.clone()) for _ in range(n)]
+        args = [(q, a, b) for a, b in pools]
+        row = {"phase": "kernel", "kernel": "paged_attention", "B": B, "K": K, "G": G, "hd": hd,
+               "block": block, "T": T, "kv_dtype": str(kp.dtype).split(".")[-1], "q_dtype": dname,
+               "window": c["window"], "cap": c["cap"], "q_mult": c["q_mult"], "max_abs_err": err,
+               "tol": tol, "pass": ok}
+        row["ms"] = timed(lambda a, b, cc: aops.paged_attention(a, b, cc, bt, pos0, **kw),
+                          args, torch)
+        row["plain_ms"] = timed(lambda a, b, cc: paged_attention_ref(a, b, cc, bt, pos0, **kw),
+                                args, torch)
+        # library yardstick: SDPA over the gathered (logical) cache; timed only
+        kl = gather_logical(kp, bt).to(dt) * kv_scale
+        vl = gather_logical(vp, bt).to(dt) * kv_scale
+        S = kl.shape[1]
+        kv_pos = torch.arange(S, device=dev)
+        q_pos = pos0.long()[:, None] + torch.arange(T, device=dev)[None]
+        mask = kv_pos[None, None] <= q_pos[:, :, None]
+        if c["window"] is not None:
+            mask = mask & (q_pos[:, :, None] - kv_pos[None, None] < c["window"])
+        qs = q.reshape(B, T, K * G, hd).transpose(1, 2)
+        ks = kl.transpose(1, 2).repeat_interleave(G, dim=1)
+        vs = vl.transpose(1, 2).repeat_interleave(G, dim=1)
+        nl = copies_for(ks.numel() * ks.element_size() * 2)
+        largs = [(qs, ks.clone(), vs.clone()) for _ in range(nl)]
+        row["library_ms"] = (
+            None if c["cap"] else
+            timed(lambda a, b, cc: F.scaled_dot_product_attention(a, b, cc,
+                                                                  attn_mask=mask[:, None]),
+                  largs, torch)
+        )
+        row["bound_ms"], row["bound_by"] = b_ms, b_by
+        row["achieved_GBps"] = io / (row["ms"] * 1e-3) / 1e9
+        del pools, args, largs
+        emit(row)
+        rows.append(row)
+        if main is None:
+            main = row
+        if not ok:
+            raise Failed(f"paged_attention case {c}: err {err}")
+    return rows, worst, main
+
+
+# ---------------------------------------------------------------------------
+# phase 4: full-width parity, kernels vs plain paths
+# ---------------------------------------------------------------------------
+def phase_parity(torch, dev, layers: int):
+    from repro_torch import configs
+    from repro_torch.core import SymogConfig, pack_tree, symog_init
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import decode_lm, init_lm, prefill_lm
+    from repro_torch.serve import ServeEngine
+    from repro_torch.serve.engine import _scatter_blocks
+
+    cfg = dataclasses.replace(configs.get_config("internlm2-1.8b"), n_layers=layers)
+    params = init_lm(11, cfg, device=dev)
+    scfg = SymogConfig(n_bits=2)
+    packed = pack_tree(params, symog_init(params, scfg), scfg)
+    del params
+    max_len, block, steps = 128, 16, 4
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(3)
+    lens = [37, 70]
+    prompts = [torch.randint(0, cfg.vocab_size, (L,), generator=gen) for L in lens]
+    forced = torch.randint(0, cfg.vocab_size, (steps, len(lens)), generator=gen)
+    logits = {}
+    for path, (pb, ab) in {"kernels": ("kernel", "fused"), "plain": ("unpack", "composed")}.items():
+        dispatch.set_packed_backend(pb)
+        dispatch.set_attention_backend(ab)
+        eng = ServeEngine(cfg, packed, max_len=max_len, compute_dtype=torch.float32, device=dev)
+        dispatch.set_packed_backend("auto")
+        dispatch.set_attention_backend("auto")
+        nb = max_len // block
+        n_phys = len(lens) * nb + 1
+        pool = {n: torch.zeros((layers, n_phys, block, cfg.n_kv_heads, cfg.head_dim),
+                               dtype=torch.float32, device=dev) for n in ("k", "v")}
+        caches = {"layers0": {"sub0": pool}}
+        bt = (torch.arange(len(lens) * nb, device=dev, dtype=torch.int32) + 1).reshape(len(lens), nb)
+        outs = []
+        for b, pr in enumerate(prompts):
+            lg, one = eng._with_backend(prefill_lm, eng.params, {"tokens": pr[None].to(dev)}, cfg,
+                                        max_len=max_len, compute_dtype=torch.float32)
+            outs.append(lg[0, -1])
+            for n in ("k", "v"):
+                _scatter_blocks(pool[n], one["layers0"]["sub0"][n], bt[b], 1, nb)
+        pos = torch.tensor(lens, dtype=torch.int32, device=dev)
+        active = torch.ones(len(lens), dtype=torch.bool, device=dev)
+        for s in range(steps):
+            lg, caches = eng._with_backend(decode_lm, eng.params, caches,
+                                           forced[s].to(dev)[:, None].to(torch.int32), pos, cfg,
+                                           compute_dtype=torch.float32, active=active,
+                                           block_tables=bt)
+            outs.extend(lg[:, 0])
+            pos = pos + 1
+        logits[path] = torch.stack(outs)
+        del eng, caches, pool
+    torch.cuda.synchronize()
+    a, b = logits["kernels"], logits["plain"]
+    err = (a - b).abs().max().item()
+    agree = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
+    finite = bool(torch.isfinite(a).all().item())
+    row = {"phase": "parity", "arch": "internlm2-1.8b", "layers": layers, "n_bits": 2,
+           "compute": "float32", "prompts": lens, "decode_steps": steps,
+           "logit_rows": int(a.shape[0]), "max_abs_logit_err": err, "atol": PARITY_ATOL,
+           "logit_scale": a.abs().max().item(), "argmax_agreement": agree, "finite": finite,
+           "pass": finite and err <= PARITY_ATOL}
+    emit(row)
+    if not row["pass"]:
+        raise Failed(f"parity: max |logit diff| {err} > {PARITY_ATOL}")
+    return row
+
+
+# ---------------------------------------------------------------------------
+# phase 5: full-width serve through the scheduler
+# ---------------------------------------------------------------------------
+def phase_serve(torch, dev):
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.core import SymogConfig, symog_init
+    from repro_torch.kernels.fixedpoint_matmul import ops as fops
+    from repro_torch.kernels.paged_attention import ops as aops
+    from repro_torch.models import init_lm
+    from repro_torch.models.layers import embed_logits
+    from repro_torch.serve import Request, ServeConfig, ServeEngine
+
+    cfg = configs.get_config("internlm2-1.8b")  # all 24 layers: no depth cut
+    t0 = time.perf_counter()
+    params = init_lm(7, cfg, device=dev)
+    scfg = SymogConfig(n_bits=2)
+    state = symog_init(params, scfg)
+    eng = ServeEngine.from_symog(cfg, params, state, scfg, max_len=512,
+                                 compute_dtype=torch.bfloat16, device=dev)
+    del params, state
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    lens = rng.integers(24, 401, size=8)
+    reqs = [Request(tokens=rng.integers(0, cfg.vocab_size, size=int(L)), max_new_tokens=32)
+            for L in lens]
+    fns = eng.scheduler_fns()
+    inner = fns.decode_step
+    dec = {"s": 0.0, "rows": 0, "steps": 0}
+
+    def timed_decode(params, caches, tokens, pos, active, bt):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = inner(params, caches, tokens, pos, active, bt)
+        torch.cuda.synchronize()
+        dec["s"] += time.perf_counter() - t
+        dec["rows"] += int(active.sum().item())
+        dec["steps"] += 1
+        return out
+
+    fns.decode_step = timed_decode
+    fops.launches = 0
+    aops.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    comps, sched = eng.serve(reqs, ServeConfig(n_slots=4, block_size=16), return_scheduler=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_fpmm, n_attn = fops.launches, aops.launches
+    fns.decode_step = inner
+    st = sched.stats
+    # every packed projection of every layer, once per decode step and once
+    # per admission prefill (the prefill cache reuses attention's k/v)
+    want_fpmm = 7 * cfg.n_layers * (st["decode_steps"] + st["prefills"])
+    want_attn = cfg.n_layers * st["decode_steps"]
+    reasons = sorted({c.finish_reason for c in comps})
+    lengths_ok = all(len(c.tokens) == 32 or c.finish_reason == "eos" for c in comps)
+    tokens_ok = all(0 <= t < cfg.vocab_size for c in comps for t in c.tokens)
+    mid_run = sum(1 for c in comps if c.admitted_step > 0)
+    # the tied head: the packed 92544x2048 table is dequantized on every call
+    h = torch.randn((4, 1, cfg.d_model), device=dev, dtype=torch.bfloat16)
+    head_ms = timed(lambda a: embed_logits(eng.params["embed"], a), [(h,)], torch)
+    row = {
+        "phase": "serve", "arch": "internlm2-1.8b", "layers": cfg.n_layers, "n_bits": 2,
+        "compute": "bfloat16", "n_slots": 4, "block_size": 16, "max_len": 512,
+        "requests": len(reqs), "prompt_lens": [int(x) for x in lens], "new_tokens": 32,
+        "setup_s": setup_s, "wall_s": wall, "decode_steps": st["decode_steps"],
+        "prefills": st["prefills"], "preemptions": st["preemptions"],
+        "admitted_mid_run": mid_run, "finish_reasons": reasons,
+        "tokens_emitted": st["tokens_emitted"],
+        "decode_tokens_per_s": dec["rows"] / dec["s"] if dec["s"] else None,
+        "decode_step_ms": dec["s"] / max(dec["steps"], 1) * 1e3,
+        "end_to_end_tokens_per_s": st["tokens_emitted"] / wall,
+        "head_dequant_matmul_ms": head_ms,
+        "kv_pool_bytes": sched.cache_bytes(), "weight_bytes": eng.weight_bytes(),
+        "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
+        "fixedpoint_matmul_launches": n_fpmm, "expected_fixedpoint_matmul_launches": want_fpmm,
+        "paged_attention_launches": n_attn, "expected_paged_attention_launches": want_attn,
+    }
+    row["pass"] = (
+        set(reasons) <= {"length", "eos"} and lengths_ok and tokens_ok
+        and n_fpmm == want_fpmm and n_attn == want_attn and n_fpmm > 0 and n_attn > 0
+    )
+    emit(row)
+    if not row["pass"]:
+        raise Failed(f"serve phase failed: {row}")
+    return row, eng
+
+
+# ---------------------------------------------------------------------------
+# phase 6: where a decode step's time goes (host profile + device busy share)
+# ---------------------------------------------------------------------------
+def phase_profile(torch, dev, eng, steps: int = 4):
+    import cProfile
+    import pstats
+
+    import numpy as np
+    from repro_torch.serve import Request, Scheduler, ServeConfig
+
+    rng = np.random.default_rng(1)
+    sched = Scheduler(eng, ServeConfig(n_slots=4, block_size=16))
+    for _ in range(4):
+        sched.submit(Request(tokens=rng.integers(0, eng.cfg.vocab_size, size=300),
+                             max_new_tokens=64))
+    for _ in range(3):  # admit all four, then two warm decode steps
+        sched.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        sched.step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / steps * 1e3
+    row = {"phase": "profile", "layers": eng.cfg.n_layers, "live_slots": sched._n_live,
+           "decode_step_ms": step_ms}
+    prof = cProfile.Profile()
+    prof.enable()
+    for _ in range(steps):
+        sched.step()
+    torch.cuda.synchronize()
+    prof.disable()
+    st = pstats.Stats(prof)
+    top = sorted(st.stats.items(), key=lambda kv: kv[1][2], reverse=True)[:12]
+    row["host_top_tottime_ms_per_step"] = [
+        [f"{os.path.basename(k[0])}:{k[1]}:{k[2]}", v[2] / steps * 1e3] for k, v in top
+    ]
+    # Only the profiler's own calls may fail softly (it is untried on some
+    # machines); an error raised by the port's steps fails the script.
+    tp = None
+    try:
+        from torch.profiler import ProfilerActivity, profile
+
+        tp = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        tp.start()
+    except Exception as e:
+        row["device_busy_ms_per_step"] = f"not measured ({type(e).__name__}: {e})"
+        tp = None
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        sched.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if tp is not None:
+        try:
+            tp.stop()
+            evs = tp.key_averages()
+        except Exception as e:
+            row["device_busy_ms_per_step"] = f"not measured ({type(e).__name__}: {e})"
+            evs = None
+        if evs is not None:
+            def dev_us(e):
+                return (getattr(e, "self_device_time_total", None)
+                        or getattr(e, "self_cuda_time_total", 0))
+
+            busy_us = sum(dev_us(e) for e in evs)
+            row["profiled_step_ms"] = wall / steps * 1e3
+            row["device_busy_ms_per_step"] = busy_us / steps / 1e3
+            row["device_idle_share"] = 1.0 - busy_us / 1e6 / wall if wall else None
+            kern = sorted((e for e in evs if dev_us(e) > 0), key=dev_us, reverse=True)[:10]
+            row["device_top_ms_per_step"] = [[e.key[:60], dev_us(e) / steps / 1e3,
+                                              e.count // steps] for e in kern]
+    emit(row)
+    return row
+
+
+def main() -> int:
+    argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(here, "src"))
+    try:
+        from repro_torch.kernels import build
+        from repro_torch.kernels.fixedpoint_matmul import ops as fops
+        from repro_torch.kernels.paged_attention import ops as aops
+    except ImportError as e:
+        print(f"chip_smoke: the port is not importable here ({e})", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False  # fp32 references stay fp32
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    smi = nvidia_smi()
+    emit({"phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
+          "cuda": torch.version.cuda, "name": torch.cuda.get_device_name(0),
+          "count": torch.cuda.device_count()})
+    t0 = time.perf_counter()
+    build.library()
+    regs = [ln.strip() for ln in build.build_log.splitlines() if "registers" in ln]
+    emit({"phase": "build", "seconds": time.perf_counter() - t0, "hash": build.source_hash(),
+          "ptxas": regs[:40]})
+
+    try:
+        fp_rows, fp_err, fp_decode = phase_fpmm(torch, dev)
+        attn_rows, at_err, at_main = phase_attn(torch, dev)
+        phase_parity(torch, dev, PARITY_LAYERS)
+        serve, eng = phase_serve(torch, dev)
+        phase_profile(torch, dev, eng)
+        del eng
+    except Failed as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+    summary = [
+        {"name": "fixedpoint_matmul", "route": "cuda",
+         "source": "src/repro_torch/csrc/fixedpoint_matmul.cu",
+         "replaces": "src/repro/kernels/fixedpoint_matmul/kernel.py:30",
+         "launches": serve["fixedpoint_matmul_launches"],
+         "max_abs_err": fp_err,
+         "ms": fp_decode["ms"], "plain_ms": fp_decode["plain_ms"],
+         "bound_ms": fp_decode["bound_ms"], "bound_by": "bytes",
+         "library_ms": fp_decode["library_ms"],
+         "work": "one decoder layer's 7 projections at M=4, 2-bit, bf16",
+         "pass": all(r["pass"] for r in fp_rows)},
+        {"name": "paged_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/paged_attention.cu",
+         "replaces": "src/repro/kernels/paged_attention/kernel.py:89",
+         "launches": serve["paged_attention_launches"],
+         "max_abs_err": at_err, "ms": at_main["ms"], "plain_ms": at_main["plain_ms"],
+         "bound_ms": at_main["bound_ms"], "bound_by": at_main["bound_by"],
+         "library_ms": at_main["library_ms"],
+         "work": "B=4 K=8 G=2 hd=128 block=16 T=1 bf16, ~300 cached tokens a row",
+         "pass": all(r["pass"] for r in attn_rows)},
+    ]
+    emit({"kernels": summary})
+    if "jax" in sys.modules or any(m == "repro" or m.startswith("repro.") for m in sys.modules):
+        print("chip_smoke: jax or the JAX package was imported", file=sys.stderr)
+        return 1
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,67 @@
+"""Kernel backend dispatch for both serving kernels (mirrors
+``repro/kernels/dispatch.py``).
+
+Packed matmul backends (``set_packed_backend``):
+
+  'kernel' — the hand-written CUDA ``fixedpoint_matmul``: packed words are
+             read once from device memory and unpacked next to the FMA.
+  'unpack' — dequantize-then-matmul in plain torch (the reference; exact,
+             since mantissa × 2^-f is exact).
+
+Attention backends (``set_attention_backend``):
+
+  'fused'    — the CUDA ``paged_attention`` kernel: the block-table walk
+               runs inside the online-softmax loop.
+  'composed' — paged_gather → mask → dense softmax attention in torch.
+
+Both default to 'auto', resolved per device: the kernels for CUDA tensors,
+the plain paths for CPU tensors.  ``ServeEngine`` pins the resolved values
+at construction and restores the globals around each call.
+"""
+from __future__ import annotations
+
+import torch
+
+PACKED_BACKENDS = ("auto", "kernel", "unpack")
+ATTN_BACKENDS = ("auto", "fused", "composed")
+
+_packed_backend = "auto"
+_attn_backend = "auto"
+
+
+def _check(name: str, options) -> str:
+    if name not in options:
+        raise ValueError(f"backend must be one of {options}, got {name!r}")
+    return name
+
+
+def set_packed_backend(name: str) -> None:
+    global _packed_backend
+    _packed_backend = _check(name, PACKED_BACKENDS)
+
+
+def get_packed_backend() -> str:
+    return _packed_backend
+
+
+def resolve_packed_backend(device) -> str:
+    """'auto' → 'kernel' for a CUDA device, 'unpack' elsewhere."""
+    if _packed_backend != "auto":
+        return _packed_backend
+    return "kernel" if torch.device(device).type == "cuda" else "unpack"
+
+
+def set_attention_backend(name: str) -> None:
+    global _attn_backend
+    _attn_backend = _check(name, ATTN_BACKENDS)
+
+
+def get_attention_backend() -> str:
+    return _attn_backend
+
+
+def resolve_attention_backend(device) -> str:
+    """'auto' → 'fused' for a CUDA device, 'composed' elsewhere."""
+    if _attn_backend != "auto":
+        return _attn_backend
+    return "fused" if torch.device(device).type == "cuda" else "composed"

@@ -1,0 +1,87 @@
+"""Public wrapper: packed fixed-point matmul for arbitrary (M, K, N).
+
+``fixedpoint_matmul`` launches the CUDA kernel (``csrc/fixedpoint_matmul.cu``)
+for CUDA tensors and runs its plain version (``ref.py``) for CPU tensors.
+It returns x's dtype (the JAX call sites pass ``out_dtype=x.dtype``).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.core.packing import pack_int, values_per_byte
+from repro_torch.core.quantizer import delta_from_f, quantize_int
+from repro_torch.kernels import build
+from repro_torch.kernels.fixedpoint_matmul.ref import fixedpoint_matmul_ref
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+launches = 0  # kernel launches (plain-version calls on the CPU do not count)
+
+
+def pack_weight(w: torch.Tensor, f, n_bits: int = 2) -> torch.Tensor:
+    """(K, N) float weight -> (K, N·n_bits/8) int8 packed mantissas."""
+    return pack_int(quantize_int(w, delta_from_f(f, device=w.device), n_bits), n_bits)
+
+
+def _as_compute(x: torch.Tensor) -> torch.Tensor:
+    return x if x.is_floating_point() else x.to(torch.float32)
+
+
+def _grid_shape(M: int, K: int, nbytes: int, n_sm: int):
+    """(m_tile, split): rows of x per block, and K splits so that the grid
+    holds ~4 blocks per SM when the column groups x row tiles are few, with
+    at least 64 weight rows (one step of the block's 8 warps) per split."""
+    m_tile = 1 if M == 1 else 2 if M == 2 else 4
+    base = math.ceil(nbytes / 128) * math.ceil(M / m_tile)
+    split = max(1, min(math.ceil(4 * n_sm / base), math.ceil(K / 64)))
+    rows = math.ceil(K / split)
+    return m_tile, math.ceil(K / rows)
+
+
+def _launch(x2, packed_w, f, bias, n_bits: int, n_out: int) -> torch.Tensor:
+    global launches
+    dev = x2.device
+    M, K = x2.shape
+    nbytes = n_out * n_bits // 8
+    code = _DTYPE_CODE.get(x2.dtype)
+    if code is None:
+        raise TypeError(f"fixedpoint_matmul kernel takes f32/bf16 x, got {x2.dtype}")
+    if n_bits not in (2, 4):
+        raise ValueError(f"fixedpoint_matmul kernel takes n_bits 2 or 4, got {n_bits}")
+    if packed_w.dtype != torch.int8 or packed_w.shape != (K, nbytes):
+        raise ValueError(f"packed_w must be int8 ({K}, {nbytes}), got "
+                         f"{packed_w.dtype} {tuple(packed_w.shape)}")
+    if not isinstance(f, torch.Tensor):
+        f = torch.tensor(f, dtype=torch.int32, device=dev)
+    if f.dtype != torch.int32 or f.numel() != 1:
+        raise ValueError(f"f must be one int32 exponent, got {f.dtype} {tuple(f.shape)}")
+    if packed_w.device != dev or f.device != dev or (bias is not None and bias.device != dev):
+        raise ValueError(f"operands must all lie on {dev}")
+    if bias is not None and (bias.dtype != torch.float32 or not bias.is_contiguous()):
+        bias = bias.to(torch.float32).contiguous()
+    x2, packed_w = x2.contiguous(), packed_w.contiguous()
+    m_tile, split = _grid_shape(M, K, nbytes, build.sm_count(dev))
+    y = torch.empty((M, n_out), dtype=x2.dtype, device=dev)
+    ws = torch.empty((split, M, n_out), dtype=torch.float32, device=dev)
+    err = build.library().fixedpoint_matmul_launch(
+        x2.data_ptr(), packed_w.data_ptr(), f.data_ptr(),
+        bias.data_ptr() if bias is not None else None, y.data_ptr(), ws.data_ptr(),
+        M, K, n_out, nbytes, n_bits, code, split, m_tile, build.current_stream(dev),
+    )
+    build.check(err, "fixedpoint_matmul")
+    launches += 1
+    return y
+
+
+def fixedpoint_matmul(x, packed_w, f, bias=None, *, n_bits: int = 2, n_out: int) -> torch.Tensor:
+    """y = x @ (unpack(packed_w)·2^{-f}) [+ bias] in x's dtype.  x: (..., K)."""
+    values_per_byte(n_bits)
+    x = _as_compute(x)
+    lead, K = x.shape[:-1], x.shape[-1]
+    x2 = x.reshape(-1, K)
+    if x2.is_cuda:
+        y = _launch(x2, packed_w, f, bias, n_bits, n_out)
+    else:
+        y = fixedpoint_matmul_ref(x2, packed_w, f, bias, n_bits=n_bits, n_out=n_out).to(x.dtype)
+    return y.reshape(*lead, n_out)

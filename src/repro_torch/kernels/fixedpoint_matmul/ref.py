@@ -1,0 +1,17 @@
+"""Plain torch version of ``fixedpoint_matmul``: unpack, then matmul in fp32.
+The CPU path of the wrapper and the oracle the CUDA kernel is held to."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.packing import unpack_int
+
+
+def fixedpoint_matmul_ref(x, packed_w, f, bias=None, *, n_bits: int, n_out: int):
+    """x (M, K) float; packed_w (K, n_out·n_bits/8) int8; f int scalar -> (M, N) f32."""
+    m = unpack_int(packed_w, n_bits, n_out).to(torch.float32)
+    scale = torch.exp2(-torch.as_tensor(f, device=x.device).to(torch.float32))
+    y = (x.to(torch.float32) @ m) * scale
+    if bias is not None:
+        y = y + bias.to(torch.float32)
+    return y

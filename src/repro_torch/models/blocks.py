@@ -1,0 +1,140 @@
+"""Per-layer blocks (mirrors ``repro/models/blocks.py``, attention+MLP kind
+'A' only — the decoder family of this slice).  ``window`` and ``rope_base``
+are per-layer values read from the config."""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.models.attention import (
+    AttnConfig,
+    attn_apply,
+    attn_decode,
+    attn_init,
+    attn_init_cache,
+    cache_write,
+)
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import (
+    layernorm_apply,
+    layernorm_init,
+    rmsnorm_apply,
+    rmsnorm_init,
+)
+from repro_torch.models.mlp import MLPConfig, mlp_apply, mlp_init
+
+
+def _attn_cfg(cfg: ModelConfig) -> AttnConfig:
+    return AttnConfig(
+        d_model=cfg.d_model,
+        n_heads=cfg.n_heads,
+        n_kv_heads=cfg.n_kv_heads,
+        head_dim=cfg.head_dim,
+        rope=cfg.use_rope,
+        qk_norm=cfg.qk_norm,
+        softcap=cfg.attn_softcap,
+        bias=cfg.attn_bias,
+        query_scale=cfg.query_scale,
+    )
+
+
+def _mlp_cfg(cfg: ModelConfig) -> MLPConfig:
+    return MLPConfig(
+        d_model=cfg.d_model, d_ff=cfg.d_ff, gated=cfg.mlp_gated, act=cfg.act, bias=cfg.attn_bias
+    )
+
+
+def _check_kind(cfg: ModelConfig, kind: str) -> None:
+    if kind != "A" or cfg.use_mla:
+        raise NotImplementedError(
+            f"block kind {kind!r} (mla={cfg.use_mla}) is not ported yet; the port serves "
+            "attention+MLP decoder blocks (ROADMAP Queue 1 item 12)"
+        )
+
+
+def _norm_init(cfg: ModelConfig, dtype, device, lead=()):
+    if cfg.norm == "rmsnorm":
+        return rmsnorm_init(cfg.d_model, dtype, device, lead)
+    return layernorm_init(cfg.d_model, dtype, device, lead)
+
+
+def _norm_apply(cfg: ModelConfig, p, x):
+    return rmsnorm_apply(p, x) if cfg.norm == "rmsnorm" else layernorm_apply(p, x)
+
+
+def block_init(gen, cfg: ModelConfig, kind: str, dtype=torch.float32,
+               lead: Tuple[int, ...] = ()) -> Dict[str, Any]:
+    _check_kind(cfg, kind)
+    dev = gen.device
+    p: Dict[str, Any] = {"pre_norm": _norm_init(cfg, dtype, dev, lead)}
+    p["attn"] = attn_init(gen, _attn_cfg(cfg), dtype, lead)
+    if cfg.post_norm:
+        p["post_attn_norm"] = _norm_init(cfg, dtype, dev, lead)
+    p["pre_mlp_norm"] = _norm_init(cfg, dtype, dev, lead)
+    p["mlp"] = mlp_init(gen, _mlp_cfg(cfg), dtype, lead)
+    if cfg.post_norm:
+        p["post_mlp_norm"] = _norm_init(cfg, dtype, dev, lead)
+    return p
+
+
+def _attn_prefill_cache(k, v, cfg: ModelConfig, cache_len: int):
+    """Pad the roped k/v prefill attention used into a (B, cache_len, K, hd)
+    cache.  Float caches store at compute dtype, as in the JAX package."""
+    compute_dtype = k.dtype
+    pad = cache_len - k.shape[1]
+    k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+    v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    dt = torch.int8 if cfg.kv_cache_dtype == "int8_fp" else compute_dtype
+    return {"k": cache_write(k, dt), "v": cache_write(v, dt)}
+
+
+def block_apply(p, x, *, cfg: ModelConfig, kind: str, positions, window=None,
+                rope_base=10000.0, compute_dtype=torch.bfloat16, cache_len: int = 0,
+                rope_table=None):
+    """Full-sequence block.  Returns (x, cache); ``cache_len`` > 0 also
+    returns the layer's prefill cache padded to that length."""
+    _check_kind(cfg, kind)
+    cache = None
+    h = _norm_apply(cfg, p["pre_norm"], x)
+    y, (k, v) = attn_apply(p["attn"], h, cfg=_attn_cfg(cfg), positions=positions,
+                           window=window, rope_base=rope_base, compute_dtype=compute_dtype,
+                           return_kv=True, rope_table=rope_table)
+    if cache_len:
+        cache = _attn_prefill_cache(k, v, cfg, cache_len)
+    if cfg.post_norm:
+        y = _norm_apply(cfg, p["post_attn_norm"], y)
+    x = x + y
+    h = _norm_apply(cfg, p["pre_mlp_norm"], x)
+    y = mlp_apply(p["mlp"], h, cfg=_mlp_cfg(cfg), compute_dtype=compute_dtype)
+    if cfg.post_norm:
+        y = _norm_apply(cfg, p["post_mlp_norm"], y)
+    return x + y, cache
+
+
+def block_cache_init(batch: int, max_len: int, cfg: ModelConfig, kind: str,
+                     dtype=torch.bfloat16, device=None, lead: Tuple[int, ...] = ()):
+    _check_kind(cfg, kind)
+    return attn_init_cache(batch, max_len, _attn_cfg(cfg), dtype, device, lead)
+
+
+def block_decode(p, x, cache, pos, *, cfg: ModelConfig, kind: str, window=None,
+                 rope_base=10000.0, compute_dtype=torch.bfloat16,
+                 block_tables: Optional[torch.Tensor] = None, rope_table=None,
+                 cache_index: Optional[torch.Tensor] = None):
+    """One decode step of a block; ``block_tables`` selects the paged cache
+    (``rope_table``/``cache_index``: see ``attn_decode``)."""
+    _check_kind(cfg, kind)
+    h = _norm_apply(cfg, p["pre_norm"], x)
+    y, cache = attn_decode(p["attn"], h, cache, pos, cfg=_attn_cfg(cfg), window=window,
+                           rope_base=rope_base, compute_dtype=compute_dtype,
+                           block_tables=block_tables, rope_table=rope_table,
+                           cache_index=cache_index)
+    if cfg.post_norm:
+        y = _norm_apply(cfg, p["post_attn_norm"], y)
+    x = x + y
+    h = _norm_apply(cfg, p["pre_mlp_norm"], x)
+    y = mlp_apply(p["mlp"], h, cfg=_mlp_cfg(cfg), compute_dtype=compute_dtype)
+    if cfg.post_norm:
+        y = _norm_apply(cfg, p["post_mlp_norm"], y)
+    return x + y, cache

@@ -1,0 +1,115 @@
+"""Port parity, fixed-point matmul (repro_torch.kernels.fixedpoint_matmul vs
+repro.kernels.fixedpoint_matmul).
+
+On the CPU the port's wrapper runs its plain version (unpack, fp32 matmul);
+it is held to the JAX Pallas kernel in interpret mode and to JAX's ref.py at
+rtol = atol = 1e-5 (the bar of tests/test_kernels.py).  The packed layer
+(``packed_dense_apply``, including o_proj's two contracted input dims) is
+held to the JAX layer the same way.  The CUDA kernel itself is compared to
+the plain version on the card (tests/test_torch_cuda.py; chip_smoke.py at the
+serving path's full-width shapes)."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.dispatch import set_packed_backend as j_set_backend  # noqa: E402
+from repro.kernels.fixedpoint_matmul import fixedpoint_matmul as j_fpmm  # noqa: E402
+from repro.kernels.fixedpoint_matmul import pack_weight as j_pack_weight  # noqa: E402
+from repro.kernels.fixedpoint_matmul.ref import fixedpoint_matmul_ref as j_ref  # noqa: E402
+from repro.core.packing import Packed as JPacked  # noqa: E402
+from repro.models.quantized import packed_dense_apply as j_pda  # noqa: E402
+from repro_torch.core import pack  # noqa: E402
+from repro_torch.kernels import dispatch  # noqa: E402
+from repro_torch.kernels.fixedpoint_matmul import fixedpoint_matmul, ops  # noqa: E402
+from repro_torch.kernels.fixedpoint_matmul import pack_weight  # noqa: E402
+from repro_torch.kernels.fixedpoint_matmul.ref import fixedpoint_matmul_ref  # noqa: E402
+from repro_torch.models.quantized import packed_dense_apply  # noqa: E402
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _case(seed, M, K, N, n_bits, f, bias=False):
+    rng = np.random.default_rng(seed)
+    w = (rng.standard_normal((K, N)) * 0.2).astype(np.float32)
+    x = rng.standard_normal((M, K)).astype(np.float32)
+    b = rng.standard_normal(N).astype(np.float32) if bias else None
+    pw = np.array(j_pack_weight(jnp.asarray(w), f, n_bits))  # writable copy for torch
+    return w, x, b, pw
+
+
+
+
+def test_pack_weight_bit_exact():
+    w, _, _, pw = _case(0, 1, 64, 96, 2, 3)
+    np.testing.assert_array_equal(pack_weight(torch.from_numpy(w), 3, 2).numpy(), pw)
+
+
+@pytest.mark.parametrize("mkn", [(4, 32, 64), (130, 256, 200), (1, 128, 128)])
+@pytest.mark.parametrize("n_bits", [2, 4])
+@pytest.mark.parametrize("f", [-1, 3])
+def test_port_matches_pallas_interpret(mkn, n_bits, f):
+    M, K, N = mkn
+    w, x, _, pw = _case(M + K + N + n_bits, M, K, N, n_bits, f)
+    want = np.asarray(j_fpmm(jnp.asarray(x), jnp.asarray(pw), f, n_bits=n_bits, n_out=N,
+                             interpret=True))
+    got = fixedpoint_matmul(torch.from_numpy(x), torch.from_numpy(pw),
+                            torch.tensor(f, dtype=torch.int32), n_bits=n_bits, n_out=N)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (M, N)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    ref = fixedpoint_matmul_ref(torch.from_numpy(x), torch.from_numpy(pw), f, n_bits=n_bits,
+                                n_out=N)
+    np.testing.assert_allclose(
+        ref.numpy(), np.asarray(j_ref(jnp.asarray(x), jnp.asarray(pw), f, n_bits=n_bits, n_out=N)),
+        **TOL)
+
+
+def test_bias_batched_input_and_bf16():
+    w, x, b, pw = _case(5, 6, 32, 48, 2, 2, bias=True)
+    x3 = x.reshape(2, 3, 32)
+    want = np.asarray(j_fpmm(jnp.asarray(x3), jnp.asarray(pw), 2, jnp.asarray(b), n_bits=2,
+                             n_out=48, interpret=True))
+    got = fixedpoint_matmul(torch.from_numpy(x3), torch.from_numpy(pw), 2, torch.from_numpy(b),
+                            n_bits=2, n_out=48)
+    assert tuple(got.shape) == (2, 3, 48)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    # bf16 activations come back in bf16 (the serving call sites' out_dtype)
+    got16 = fixedpoint_matmul(torch.from_numpy(x3).bfloat16(), torch.from_numpy(pw), 2,
+                              torch.from_numpy(b), n_bits=2, n_out=48)
+    assert got16.dtype == torch.bfloat16
+    np.testing.assert_allclose(got16.float().numpy(), want, rtol=5e-2, atol=5e-2)
+
+
+def test_cpu_calls_do_not_count_launches():
+    _, x, _, pw = _case(1, 2, 32, 64, 2, 1)
+    before = ops.launches
+    fixedpoint_matmul(torch.from_numpy(x), torch.from_numpy(pw), 1, n_bits=2, n_out=64)
+    assert ops.launches == before
+
+
+@pytest.mark.parametrize("backend", ["kernel", "unpack"])
+@pytest.mark.parametrize("n_in,shape", [(1, (32, 4, 8)), (2, (4, 8, 32))])
+def test_packed_dense_apply_matches_jax(backend, n_in, shape):
+    """q_proj-like (D -> H,hd) and o_proj-like (H,hd -> D, n_in=2) packed
+    layers, with bias, against the JAX layer under its interpret/unpack path."""
+    rng = np.random.default_rng(11 + n_in)
+    w = (rng.standard_normal(shape) * 0.2).astype(np.float32)
+    b = rng.standard_normal(shape[n_in:]).astype(np.float32)
+    x = rng.standard_normal((2, 3) + shape[:n_in]).astype(np.float32)
+    tp = pack(torch.from_numpy(w), torch.tensor(2, dtype=torch.int32), 2)
+    jp = JPacked(data=jnp.asarray(tp.data.numpy()), n_bits=2, f=jnp.asarray(2, jnp.int32))
+    try:
+        j_set_backend("interpret" if backend == "kernel" else "unpack")
+        want = np.asarray(j_pda({"kernel": jp, "bias": jnp.asarray(b)}, jnp.asarray(x), n_in=n_in))
+    finally:
+        j_set_backend("auto")
+    try:
+        dispatch.set_packed_backend(backend)
+        got = packed_dense_apply({"kernel": tp, "bias": torch.from_numpy(b)}, torch.from_numpy(x),
+                                 n_in=n_in)
+    finally:
+        dispatch.set_packed_backend("auto")
+    assert tuple(got.shape) == want.shape
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
