@@ -7,10 +7,13 @@ Phases, one JSON line each:
   1. device  — card name and power limit (nvidia-smi), torch and CUDA versions;
   2. build   — nvcc builds every kernel source under src/repro_torch/csrc;
   3. kernels — each hand-written kernel against its plain torch version at the
-               shapes the serving path gives it, with kernel / plain / library
-               times (CUDA graphs of many launches, timed with CUDA events,
-               operands rotated past the 50 MB L2) and the bound from bytes
-               and operations;
+               shapes its path gives it, with kernel / plain / library times
+               (CUDA events; the serving kernels in CUDA graphs of many
+               launches with operands rotated past the 50 MB L2) and the
+               bound from bytes and operations: 3a fixedpoint_matmul, 3b
+               paged_attention, 3c symog_update on every quantizable leaf
+               shape of internlm2-1.8b plus an odd n, half-step ties, the
+               clip and a misaligned operand;
   4. parity  — internlm2-1.8b at full width, 4 layers, fp32 compute, 2-bit
                packed: prefill + 4 teacher-forced paged decode steps through
                the kernels vs through the plain paths; logits must agree;
@@ -20,7 +23,13 @@ Phases, one JSON line each:
                continuous-batching scheduler; both kernels' launch counts
                must equal the counts the path implies;
   6. profile — a few decode steps of that engine under cProfile (host
-               functions) and torch.profiler (device busy time, top kernels).
+               functions) and torch.profiler (device busy time, top kernels);
+  7. train   — SYMOG training of internlm2-1.8b at full width and all 24
+               layers (fp32 master weights, bf16 compute, 4 x 512 tokens):
+               the Δ search, step 1's fused update against the composed one
+               leaf by leaf, 6 steps through ``make_train_step`` on the fused
+               route (8 symog_update launches per step), then the trained
+               weights packed and served.
 Then the ``kernels`` summary line, the nvidia-smi line, and the last line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before it.
 The script imports no jax and nothing of the JAX package.
@@ -282,6 +291,113 @@ def phase_attn(torch, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 3c: symog_update
+# ---------------------------------------------------------------------------
+SYMOG_TOL = dict(rtol=1e-6, atol=1e-7)  # tests/test_kernels.py:22-23
+SYMOG_FLOPS = 16  # per element: div, rint, 4 min/max, 5 mul, 5 add/sub
+
+
+def symog_leaf_shapes(cfg):
+    """Every quantizable leaf of internlm2-1.8b: the tied embedding and the
+    7 projections, each stacked over the layer axis (one f per leaf)."""
+    L, D, H, K, hd, F = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                         cfg.d_ff)
+    return [("embed", (cfg.vocab_size, D)), ("q_proj", (L, D, H, hd)),
+            ("k_proj", (L, D, K, hd)), ("v_proj", (L, D, K, hd)), ("o_proj", (L, H, hd, D)),
+            ("gate_proj", (L, D, F)), ("up_proj", (L, D, F)), ("down_proj", (L, F, D))]
+
+
+def events_ms(fn, reps: int, torch) -> float:
+    """ms per call of ``fn`` (work of 100s of MB per call: cold operands, no
+    graph needed), CUDA events around ``reps`` calls after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    t1.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def _symog_operands(torch, gen, dev, shape, n_bits, case):
+    """(w, g, v, kw): weights at init scale with their own Δ, gradients and
+    momentum of training scale, λ_eff = λ_end·2/M_l; or a case cut to fail on
+    a wrong kernel: 'ties' (half of w exactly on (k+½)Δ, g = v = 0,
+    λ_eff = 1, so a wrong rounding moves v' by Δ), 'clip' (a third of |w|
+    far above Δ·qmax), 'misaligned' (4 bytes off 16: the scalar path)."""
+    from repro_torch.core import optimal_f
+
+    n = math.prod(shape)
+    fan_in = shape[-2] if len(shape) >= 2 else 1
+    w = torch.randn(shape, generator=gen, device=dev) / math.sqrt(fan_in)
+    f, delta = optimal_f(w, n_bits)
+    delta = delta.to(dev, torch.float32)
+    d, q = float(delta), 2 ** (n_bits - 1) - 1
+    g = torch.randn(shape, generator=gen, device=dev) * 1e-4
+    v = torch.randn(shape, generator=gen, device=dev) * 1e-4
+    kw = dict(delta=delta, lam_eff=10.0 * math.exp(9.0) * 2.0 / n, lr=0.01, mu=0.9,
+              n_bits=n_bits)
+    flat = w.view(-1)
+    if case == "ties":
+        k = torch.randint(-q - 1, q + 1, (n // 2,), generator=gen, device=dev)
+        flat[: n // 2] = (k.float() + 0.5) * d
+        g.zero_()
+        v.zero_()
+        kw.update(lam_eff=1.0, lr=1e-3)
+    elif case == "clip":
+        sign = torch.randint(0, 2, (n // 3,), generator=gen, device=dev).float() * 2 - 1
+        flat[: n // 3] = sign * (q + 3) * d
+    elif case == "misaligned":
+        w, g, v = (torch.cat([torch.zeros(1, device=dev), t.reshape(-1)])[1:] for t in (w, g, v))
+    return w, g, v, kw
+
+
+def phase_symog(torch, dev, cfg):
+    from repro_torch.kernels.symog_update import ops as sops
+    from repro_torch.kernels.symog_update.ref import symog_update_ref
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    cases = [(name, shape, 2, "random") for name, shape in symog_leaf_shapes(cfg)]
+    cases += [("gate_proj", symog_leaf_shapes(cfg)[5][1], 4, "random"),
+              ("odd_n", (1_000_003,), 2, "random"), ("ties", (1 << 24,), 2, "ties"),
+              ("ties_4bit", (1_000_003,), 4, "ties"), ("clip", (1 << 24,), 2, "clip"),
+              ("misaligned", (1_000_003,), 2, "misaligned")]
+    rows, worst = [], 0.0
+    full = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "elements": 0}
+    for name, shape, n_bits, case in cases:
+        w, g, v, kw = _symog_operands(torch, gen, dev, shape, n_bits, case)
+        w_ref, v_ref = symog_update_ref(w, g, v, **kw)
+        sops.symog_update(w, g, v, **kw)
+        torch.cuda.synchronize()
+        err = max((w - w_ref).abs().max().item(), (v - v_ref).abs().max().item())
+        ok = bool(torch.allclose(w, w_ref, **SYMOG_TOL) and torch.allclose(v, v_ref, **SYMOG_TOL))
+        worst = max(worst, err)
+        del w_ref, v_ref
+        n = w.numel()
+        b_ms, b_by = bound(20 * n, SYMOG_FLOPS * n, "float32")
+        row = {"phase": "kernel", "kernel": "symog_update", "leaf": name, "shape": list(shape),
+               "n": n, "n_bits": n_bits, "case": case, "max_abs_err": err, "tol": SYMOG_TOL,
+               "pass": ok, "bound_ms": b_ms, "bound_by": b_by}
+        if case == "random" and n_bits == 2 and name != "odd_n":  # one full update
+            row["ms"] = events_ms(lambda: sops.symog_update(w, g, v, **kw), 5, torch)
+            row["plain_ms"] = events_ms(lambda: symog_update_ref(w, g, v, **kw), 3, torch)
+            row["achieved_GBps"] = 20 * n / (row["ms"] * 1e-3) / 1e9
+            for k in ("ms", "plain_ms", "bound_ms"):
+                full[k] += row[k]
+            full["elements"] += n
+        emit(row)
+        rows.append(row)
+        del w, g, v
+        if not ok:
+            raise Failed(f"symog_update {name} {shape} bits={n_bits} {case}: err {err}")
+    torch.cuda.empty_cache()
+    return rows, worst, full
+
+
+# ---------------------------------------------------------------------------
 # phase 4: full-width parity, kernels vs plain paths
 # ---------------------------------------------------------------------------
 def phase_parity(torch, dev, layers: int):
@@ -440,6 +556,20 @@ def phase_serve(torch, dev):
     return row, eng
 
 
+def kernel_times(evs):
+    """[(name, device us, count)] of the device-side entries of a profiler's
+    ``key_averages()`` (kernels, copies, memsets), largest first.  An
+    operator's entry (``aten::mm``) repeats the device time of the kernels
+    it launched, so summing every entry would count each kernel twice."""
+    from torch.autograd import DeviceType
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    out = [(e.key, dev_us(e), e.count) for e in evs if e.device_type == DeviceType.CUDA]
+    return sorted((k for k in out if k[1] > 0), key=lambda k: k[1], reverse=True)
+
+
 # ---------------------------------------------------------------------------
 # phase 6: where a decode step's time goes (host profile + device busy share)
 # ---------------------------------------------------------------------------
@@ -500,18 +630,175 @@ def phase_profile(torch, dev, eng, steps: int = 4):
             row["device_busy_ms_per_step"] = f"not measured ({type(e).__name__}: {e})"
             evs = None
         if evs is not None:
-            def dev_us(e):
-                return (getattr(e, "self_device_time_total", None)
-                        or getattr(e, "self_cuda_time_total", 0))
-
-            busy_us = sum(dev_us(e) for e in evs)
+            kern = kernel_times(evs)
+            busy_us = sum(us for _, us, _ in kern)
             row["profiled_step_ms"] = wall / steps * 1e3
             row["device_busy_ms_per_step"] = busy_us / steps / 1e3
             row["device_idle_share"] = 1.0 - busy_us / 1e6 / wall if wall else None
-            kern = sorted((e for e in evs if dev_us(e) > 0), key=dev_us, reverse=True)[:10]
-            row["device_top_ms_per_step"] = [[e.key[:60], dev_us(e) / steps / 1e3,
-                                              e.count // steps] for e in kern]
+            row["device_top_ms_per_step"] = [[k[:60], us / steps / 1e3, n // steps]
+                                             for k, us, n in kern[:10]]
     emit(row)
+    return row
+
+
+# ---------------------------------------------------------------------------
+# phase 7: SYMOG training at full width and depth, then serve the result
+# ---------------------------------------------------------------------------
+TRAIN_STEPS = 6
+TRAIN_TOL = dict(rtol=1e-5, atol=1e-7)  # fused vs composed, tests/test_kernels.py:56-57
+
+
+def _profiled_step(torch, step, state, batch):
+    """One train step under torch.profiler: (state, metrics, symog_update
+    device ms, {device busy ms, idle share, GEMM ms, top kernels}, wall ms);
+    the two middle fields say "not measured" / None if the trace fails."""
+    from torch.profiler import ProfilerActivity, profile
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    prof.start()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = step(state, batch)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    prof.stop()
+    try:
+        evs = prof.key_averages()
+    except Exception as e:  # the profiler's own failure only
+        return state, m, f"not measured ({type(e).__name__}: {e})", None, wall
+
+    kern = kernel_times(evs)
+    busy = sum(us for _, us, _ in kern) / 1e3
+    upd = sum(us for k, us, _ in kern if "symog_update" in k) / 1e3
+    gemm = sum(us for k, us, _ in kern
+               if any(t in k.lower() for t in ("gemm", "nvjet", "xmma", "cutlass"))) / 1e3
+    return state, m, upd, {"busy_ms": busy, "idle_share": 1.0 - busy / wall, "gemm_ms": gemm,
+                           "top": [[k[:60], us / 1e3, n] for k, us, n in kern[:12]]}, wall
+
+
+def phase_train(torch, dev):
+    import numpy as np
+    from repro_torch import configs, core, optim
+    from repro_torch.data import SyntheticLM, SyntheticLMConfig
+    from repro_torch.kernels.symog_update import ops as sops
+    from repro_torch.models import init_lm, lm_train_loss
+    from repro_torch.nn.tree import flatten_with_paths, tree_leaves
+    from repro_torch.serve import Request, ServeConfig, ServeEngine
+    from repro_torch.train import (composed_update, fused_update, init_train_state,
+                                   make_train_step)
+    from repro_torch.train.trainer import _accum_grads
+
+    cfg = configs.get_config("internlm2-1.8b")  # full width, all 24 layers
+    torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    params = init_lm(gen, cfg, device=dev)  # fp32 master weights
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    tx = optim.sgd(momentum=0.9)
+    scfg = core.SymogConfig(n_bits=2, total_steps=TRAIN_STEPS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = init_train_state(params, tx, scfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    quant_paths = [p for p, m in state.symog.mask.items() if m]
+    rqe_before = core.quant_error_metrics(state.params, state.symog, scfg)["rel_quant_error"].item()
+    data = SyntheticLM(SyntheticLMConfig(vocab_size=cfg.vocab_size, seq_len=512, global_batch=4,
+                                         seed=0))
+    batches = [{k: torch.as_tensor(v, device=dev) for k, v in next(data).items()}
+               for _ in range(TRAIN_STEPS)]
+    lr_fn = core.linear_lr(0.01, 0.001, TRAIN_STEPS)
+
+    # step 1 from one set of grads, fused vs composed, leaf by leaf (copies)
+    def loss_fn(p, b):
+        return lm_train_loss(p, b, cfg, compute_dtype=torch.bfloat16)
+
+    _, _, grads = _accum_grads(loss_fn, state.params, batches[0], 1)
+    lam, lr = core.lambda_at(scfg, 0), lr_fn(0)
+    g_by, v_by, f_by = (dict(flatten_with_paths(t)) for t in (grads, state.opt_state,
+                                                                state.symog.f))
+    cmp_rows, cmp_worst, cmp_ok = [], 0.0, True
+    for path, w in flatten_with_paths(state.params):
+        sub = core.SymogState(f={"w": f_by[path]}, mask={"w": state.symog.mask[path]})
+        g = {"w": g_by[path]}
+        fp, fv = fused_update({"w": w.clone()}, g, {"w": v_by[path].clone()}, sub, scfg, tx,
+                              lr=lr, lam=lam)
+        cp, cv = composed_update({"w": w}, g, {"w": v_by[path]}, sub, scfg, tx, lr=lr, lam=lam)
+        errs = [(fp["w"] - cp["w"]).abs().max().item(), (fv["w"] - cv["w"]).abs().max().item()]
+        ok = bool(torch.allclose(fp["w"], cp["w"], **TRAIN_TOL)
+                  and torch.allclose(fv["w"], cv["w"], **TRAIN_TOL))
+        cmp_rows.append([path, list(w.shape), errs[0], errs[1], ok])
+        cmp_worst, cmp_ok = max(cmp_worst, *errs), cmp_ok and ok
+        del fp, fv, cp, cv
+    del grads, g_by, v_by
+    torch.cuda.empty_cache()
+    emit({"phase": "train_step1_fused_vs_composed", "tol": TRAIN_TOL, "leaves": cmp_rows,
+          "max_abs_err": cmp_worst, "pass": cmp_ok})
+    if not cmp_ok:
+        raise Failed("train: fused and composed step-1 updates disagree")
+
+    # the main path: TRAIN_STEPS fused steps through make_train_step
+    step = make_train_step(cfg, tx, lr_fn, symog_cfg=scfg, compute_dtype=torch.bfloat16)
+    losses, step_ms, per_step_launches = [], [], []
+    prof = None
+    sops.launches = 0
+    for i, batch in enumerate(batches):
+        before = sops.launches
+        if i == TRAIN_STEPS - 1:
+            state, m, upd_ms, prof, wall = _profiled_step(torch, step, state, batch)
+        else:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            step_ms.append(wall)
+        per_step_launches.append(sops.launches - before)
+        losses.append(m["loss"].item())
+        emit({"phase": "train_step", "step": i, "loss": losses[-1], "ce": m["ce"].item(),
+              "grad_norm": m["grad_norm"].item(), "lr": m["lr"],
+              "symog_lambda": m["symog_lambda"], "ms": wall,
+              "symog_update_launches": per_step_launches[-1]})
+    n_launch = sops.launches
+    peak = torch.cuda.max_memory_allocated(dev)
+    rqe_after = core.quant_error_metrics(state.params, state.symog, scfg)["rel_quant_error"].item()
+    median_ms = float(np.median(step_ms[1:]))  # step 0 warms allocator and kernels
+    row = {"phase": "train", "arch": "internlm2-1.8b", "layers": cfg.n_layers,
+           "d_model": cfg.d_model, "params": n_params, "quantizable_leaves": len(quant_paths),
+           "batch": [4, 512], "compute": "bfloat16", "master": "float32", "n_bits": 2,
+           "optimizer": "sgd nesterov 0.9, linear_lr 0.01->0.001, SYMOG lambda0 10 alpha 9",
+           "symog_init_s": init_s, "losses": losses, "step_ms": step_ms,
+           "median_step_ms": median_ms, "symog_update_launches": n_launch,
+           "launches_per_step": per_step_launches, "profiled_step_ms": wall,
+           "update_device_ms": upd_ms, "profile": prof,
+           "update_share_of_step": (upd_ms / median_ms if isinstance(upd_ms, float) else None),
+           "peak_device_bytes": peak, "rel_quant_error_before": rqe_before,
+           "rel_quant_error_after": rqe_after}
+    row["pass"] = (all(math.isfinite(x) for x in losses)
+                   and per_step_launches == [len(quant_paths)] * TRAIN_STEPS
+                   and len(quant_paths) == 8)
+    emit(row)
+    if not row["pass"]:
+        raise Failed(f"train phase failed: {row}")
+
+    # serve the trained weights, packed, through the kernels
+    eng = ServeEngine.from_symog(cfg, state.params, state.symog, scfg, max_len=128,
+                                 compute_dtype=torch.bfloat16, device=dev)
+    del state, params
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(2)
+    reqs = [Request(tokens=rng.integers(0, cfg.vocab_size, size=L), max_new_tokens=8)
+            for L in (40, 100)]
+    comps = eng.serve(reqs, ServeConfig(n_slots=2, block_size=16))
+    srow = {"phase": "train_serve", "requests": len(reqs),
+            "tokens": [list(map(int, c.tokens)) for c in comps],
+            "finish_reasons": [c.finish_reason for c in comps]}
+    srow["pass"] = all(len(c.tokens) == 8 and c.finish_reason == "length" for c in comps)
+    emit(srow)
+    if not srow["pass"]:
+        raise Failed(f"serving the trained model failed: {srow}")
+    del eng
+    torch.cuda.empty_cache()
     return row
 
 
@@ -526,9 +813,8 @@ def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, os.path.join(here, "src"))
     try:
+        from repro_torch import configs
         from repro_torch.kernels import build
-        from repro_torch.kernels.fixedpoint_matmul import ops as fops
-        from repro_torch.kernels.paged_attention import ops as aops
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here ({e})", file=sys.stderr)
         return 2
@@ -548,10 +834,13 @@ def main() -> int:
     try:
         fp_rows, fp_err, fp_decode = phase_fpmm(torch, dev)
         attn_rows, at_err, at_main = phase_attn(torch, dev)
+        sy_rows, sy_err, sy_full = phase_symog(torch, dev, configs.get_config("internlm2-1.8b"))
         phase_parity(torch, dev, PARITY_LAYERS)
         serve, eng = phase_serve(torch, dev)
         phase_profile(torch, dev, eng)
         del eng
+        torch.cuda.empty_cache()
+        train = phase_train(torch, dev)
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -575,6 +864,17 @@ def main() -> int:
          "library_ms": at_main["library_ms"],
          "work": "B=4 K=8 G=2 hd=128 block=16 T=1 bf16, ~300 cached tokens a row",
          "pass": all(r["pass"] for r in attn_rows)},
+        {"name": "symog_update", "route": "cuda",
+         "source": "src/repro_torch/csrc/symog_update.cu",
+         "replaces": "src/repro/kernels/symog_update/kernel.py:25",
+         "launches": train["symog_update_launches"],
+         "max_abs_err": sy_err, "ms": sy_full["ms"], "plain_ms": sy_full["plain_ms"],
+         "bound_ms": sy_full["bound_ms"], "bound_by": "bytes", "library_ms": None,
+         "library_note": "no single PyTorch call computes the SYMOG step (quantize, "
+                         "regularizer gradient, Nesterov momentum and clip)",
+         "work": f"one full-width internlm2-1.8b update: the 8 quantizable leaves, "
+                 f"{sy_full['elements']} fp32 elements, 20 B each",
+         "pass": all(r["pass"] for r in sy_rows)},
     ]
     emit({"kernels": summary})
     if "jax" in sys.modules or any(m == "repro" or m.startswith("repro.") for m in sys.modules):

@@ -1,2 +1,3 @@
-"""Kernel layer: backend dispatch, the nvcc/ctypes build, and the two
-hand-written Hopper kernels of the serving path with their plain versions."""
+"""Kernel layer: backend dispatch, the nvcc/ctypes build, and the
+hand-written Hopper kernels (serving: fixed-point matmul, paged attention;
+training: the fused SYMOG update) with their plain versions."""

@@ -108,6 +108,8 @@ def library() -> ctypes.CDLL:
             F, F, F, P,
         ]
         lib.paged_attention_launch.restype = I
+        lib.symog_update_launch.argtypes = [P, P, P, P, ctypes.c_longlong, F, F, F, F, I, P]
+        lib.symog_update_launch.restype = I
         _lib = lib
     return _lib
 

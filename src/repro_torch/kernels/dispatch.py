@@ -1,5 +1,6 @@
-"""Kernel backend dispatch for both serving kernels (mirrors
-``repro/kernels/dispatch.py``).
+"""Kernel backend dispatch (mirrors ``repro/kernels/dispatch.py``; the
+update backend is the port's own: the JAX trainer never calls its fused
+kernel).
 
 Packed matmul backends (``set_packed_backend``):
 
@@ -14,9 +15,21 @@ Attention backends (``set_attention_backend``):
                runs inside the online-softmax loop.
   'composed' — paged_gather → mask → dense softmax attention in torch.
 
-Both default to 'auto', resolved per device: the kernels for CUDA tensors,
-the plain paths for CPU tensors.  ``ServeEngine`` pins the resolved values
-at construction and restores the globals around each call.
+Optimizer-update backends (``set_update_backend``), read by
+``train.make_train_step``:
+
+  'fused'    — one ``symog_update`` per quantizable leaf: the CUDA kernel for
+               CUDA tensors (its plain version for CPU tensors); only for
+               the paper's optimizer (``optim.sgd`` Nesterov, no decay, fp32
+               momentum, nothing chained) with SYMOG clipping on;
+  'composed' — the JAX trainer's order in torch: reg grad, ``tx.update``,
+               ``apply_updates``, ``clip_tree``.
+
+All default to 'auto', resolved per device: the kernels for CUDA tensors,
+the plain paths for CPU tensors ('auto' takes 'composed' for an optimizer
+the fused kernel does not compute).  ``ServeEngine`` pins the resolved
+values at construction and restores the globals around each call;
+``make_train_step`` pins the update backend when it is made.
 """
 from __future__ import annotations
 
@@ -24,9 +37,11 @@ import torch
 
 PACKED_BACKENDS = ("auto", "kernel", "unpack")
 ATTN_BACKENDS = ("auto", "fused", "composed")
+UPDATE_BACKENDS = ("auto", "fused", "composed")
 
 _packed_backend = "auto"
 _attn_backend = "auto"
+_update_backend = "auto"
 
 
 def _check(name: str, options) -> str:
@@ -64,4 +79,21 @@ def resolve_attention_backend(device) -> str:
     """'auto' → 'fused' for a CUDA device, 'composed' elsewhere."""
     if _attn_backend != "auto":
         return _attn_backend
+    return "fused" if torch.device(device).type == "cuda" else "composed"
+
+
+def set_update_backend(name: str) -> None:
+    global _update_backend
+    _update_backend = _check(name, UPDATE_BACKENDS)
+
+
+def get_update_backend() -> str:
+    return _update_backend
+
+
+def resolve_update_backend(device, backend: str = None) -> str:
+    """'auto' → 'fused' for a CUDA device, 'composed' elsewhere."""
+    backend = _update_backend if backend is None else backend
+    if backend != "auto":
+        return backend
     return "fused" if torch.device(device).type == "cuda" else "composed"

@@ -1,5 +1,6 @@
 """LM assembly for the decoder family (mirrors ``repro/models/lm.py``):
-embeddings → layer groups → head, plus prefill and decode.
+embeddings → layer groups → head, plus prefill, decode and the training
+loss.
 
 Consecutive layers of one kind form a group whose params carry a stacked
 leading layer axis (``GroupSpec``/``scan_groups``, the JAX scan layout), so
@@ -31,7 +32,7 @@ from repro_torch.models.layers import (
     softcap as softcap_fn,
 )
 from repro_torch.models.attention import decode_positions, paged_token_index
-from repro_torch.models.quantized import layer_slice, scan_ready
+from repro_torch.models.quantized import scan_ready, unstack_layers
 from repro_torch.nn.tree import tree_map
 
 # cache leaves that live in the paged block pool under the scheduler
@@ -130,9 +131,8 @@ def _group_layers(gp, spec: GroupSpec):
     if not spec.stacked:
         yield spec.offset, gp
         return
-    gp = scan_ready(gp, spec.count)
-    for i in range(spec.count):
-        yield spec.offset + i, layer_slice(gp, i)
+    for i, p_l in enumerate(unstack_layers(scan_ready(gp, spec.count), spec.count)):
+        yield spec.offset + i, p_l
 
 
 def _head(params, cfg: ModelConfig, x):
@@ -253,6 +253,33 @@ def prefill_lm(params, batch, cfg: ModelConfig, *, max_len: int, compute_dtype=t
     out = forward_lm(params, batch, cfg, compute_dtype=compute_dtype, prefill_len=max_len,
                      last_only=last_only, seq_len=seq_len)
     return out.logits, out.caches
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token negative log-likelihood in fp32 (``mask`` weights it)."""
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    ll = torch.gather(logp, -1, labels[..., None].to(torch.int64)).squeeze(-1)
+    if mask is None:
+        return -torch.mean(ll)
+    mask = mask.to(torch.float32)
+    return -torch.sum(ll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def lm_train_loss(params, batch, cfg: ModelConfig, *, compute_dtype=torch.bfloat16):
+    """(loss, metrics) of a dense decoder.  The MoE aux losses (and the MTP
+    loss, whose config field the port does not have yet) come with their
+    families: an MoE config raises."""
+    if cfg.moe:
+        raise NotImplementedError("the MoE aux losses are not ported yet (ROADMAP Queue 1 item 12)")
+    out = forward_lm(params, batch, cfg, compute_dtype=compute_dtype)
+    tokens = batch["tokens"]
+    mask = batch.get("loss_mask")
+    ce = cross_entropy(out.logits[:, :-1], tokens[:, 1:], None if mask is None else mask[:, 1:])
+    return ce, {"ce": ce, "loss": ce}
 
 
 class DecoderLM(torch.nn.Module):

@@ -15,7 +15,7 @@ read-out) dequantize on the fly through ``as_dense`` / ``packed_take``.
 from __future__ import annotations
 
 import math
-from typing import Any
+from typing import Any, List
 
 import torch
 
@@ -31,7 +31,7 @@ __all__ = [
     "as_dense",
     "unpack_params",
     "scan_ready",
-    "layer_slice",
+    "unstack_layers",
     "packed_dense_apply",
     "packed_take",
 ]
@@ -66,16 +66,21 @@ def scan_ready(tree: Any, count: int) -> Any:
     return tree_map(fix, tree)
 
 
-def layer_slice(tree: Any, i: int) -> Any:
-    """Layer i of a ``scan_ready`` stacked subtree (views, no copies) — the
-    Python-loop counterpart of ``lax.scan`` slicing the leading axis."""
+def unstack_layers(tree: Any, count: int) -> List[Any]:
+    """The ``count`` layers of a ``scan_ready`` stacked subtree — the
+    Python-loop counterpart of ``lax.scan`` slicing the leading axis.  Each
+    leaf is cut ONCE with ``torch.unbind`` (views, no copies), whose backward
+    stacks the per-layer gradients once; indexing ``leaf[i]`` per layer would
+    instead add a zero gradient the size of the whole stack for every layer."""
 
-    def take(leaf):
+    def cut(leaf):
         if is_packed(leaf):
-            return Packed(data=leaf.data[i], n_bits=leaf.n_bits, f=leaf.f[i])
-        return leaf[i]
+            return [Packed(data=d, n_bits=leaf.n_bits, f=f)
+                    for d, f in zip(leaf.data.unbind(0), leaf.f.unbind(0))]
+        return leaf.unbind(0)
 
-    return tree_map(take, tree)
+    cuts = tree_map(cut, tree)
+    return [tree_map(lambda parts, i=i: parts[i], cuts) for i in range(count)]
 
 
 def packed_dense_apply(p, x, *, n_in: int = 1, compute_dtype=None) -> torch.Tensor:
@@ -95,7 +100,7 @@ def packed_dense_apply(p, x, *, n_in: int = 1, compute_dtype=None) -> torch.Tens
     if pk.f.ndim != 0:
         raise NotImplementedError(
             "the fixedpoint_matmul kernel takes one exponent per call; slice stacked "
-            "layers first (layer_slice) — per-expert stacks are ROADMAP Queue 2 row 1b"
+            "layers first (unstack_layers) — per-expert stacks are ROADMAP Queue 2 row 1b"
         )
     in_dims, out_dims = pk.shape[:n_in], pk.shape[n_in:]
     K, N = math.prod(in_dims), math.prod(out_dims)

@@ -9,7 +9,9 @@ This file imports no jax (the card's machine has none); the JAX parity of
 the plain versions is held by the other tests/test_torch_*.py files.
 Tolerances: fp32 rtol = atol = 1e-5 for the matmul (tests/test_kernels.py)
 and 2e-4/2e-5 for attention (tests/test_paged_attention.py); bf16 1e-2, a
-few roundings of the fp32 result, for both."""
+few roundings of the fp32 result, for both; rtol 1e-6, atol 1e-7 for the
+SYMOG update (tests/test_kernels.py) and rtol 1e-5, atol 1e-7 for the fused
+against the composed train update (tests/test_kernels.py:56-57)."""
 import numpy as np
 import pytest
 
@@ -93,3 +95,99 @@ def test_paged_attention_matches_plain(dev, layout, T, window, cap, block, dtype
     want = paged_attention_ref(q, kp, vp, bt, pos0, **kw)
     tol = dict(rtol=2e-4, atol=2e-5) if qdt == torch.float32 else dict(rtol=1e-2, atol=1e-2)
     torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+def _symog_case(dev, n, n_bits, case, seed):
+    """(w, g, v, kw) on the card: 'random', 'ties' (half of w exactly on
+    (k+½)Δ, g = v = 0, λ_eff = 1: a wrong rounding moves v' by Δ), 'clip'
+    (a third of |w| far above Δ·qmax) or 'misaligned' (views 4 bytes off a
+    16-byte boundary: the scalar path)."""
+    rng = np.random.default_rng(seed)
+    delta, q = 2.0**-3, 2 ** (n_bits - 1) - 1
+    w = (rng.standard_normal(n) * 0.3).astype(np.float32)
+    g = (rng.standard_normal(n) * 0.05).astype(np.float32)
+    v = (rng.standard_normal(n) * 0.01).astype(np.float32)
+    kw = dict(delta=delta, lam_eff=0.7, lr=0.01, mu=0.9, n_bits=n_bits)
+    if case == "ties":
+        k = rng.integers(-q - 1, q + 1, size=n // 2)
+        w[: n // 2] = (k + 0.5) * delta
+        g[:], v[:] = 0.0, 0.0
+        kw.update(lam_eff=1.0, lr=1e-3)
+    if case == "clip":
+        w[: n // 3] = rng.choice([-1.0, 1.0], size=n // 3) * (q + 3) * delta
+    ts = [torch.from_numpy(a).to(dev) for a in (w, g, v)]
+    if case == "misaligned":
+        ts = [torch.cat([torch.zeros(1, device=dev), t])[1:] for t in ts]
+    return ts, kw
+
+
+@pytest.mark.parametrize("n,n_bits,case", [
+    (1_000_003, 2, "random"), (1 << 20, 4, "random"), (7, 2, "random"), (4096, 2, "ties"),
+    (4099, 4, "ties"), (65536, 2, "clip"), (65536, 4, "clip"), (10_001, 2, "misaligned"),
+])
+def test_symog_update_matches_plain(dev, n, n_bits, case):
+    from repro_torch.kernels.symog_update import ops as sops
+    from repro_torch.kernels.symog_update import symog_update
+    from repro_torch.kernels.symog_update.ref import symog_update_ref
+
+    (w, g, v), kw = _symog_case(dev, n, n_bits, case, seed=n % 97)
+    want_w, want_v = symog_update_ref(w, g, v, **kw)
+    before = sops.launches
+    got_w, got_v = symog_update(w, g, v, **kw)
+    torch.cuda.synchronize()
+    assert sops.launches == before + 1 and got_w is w and got_v is v
+    torch.testing.assert_close(got_w, want_w, rtol=1e-6, atol=1e-7)  # tests/test_kernels.py
+    torch.testing.assert_close(got_v, want_v, rtol=1e-6, atol=1e-7)
+
+
+def test_symog_update_rejects_bad_operands_on_card(dev):
+    from repro_torch.kernels.symog_update import symog_update
+
+    w = torch.zeros(64, device=dev)
+    kw = dict(delta=0.25, lam_eff=0.1, lr=0.01, mu=0.9)
+    with pytest.raises(TypeError):
+        symog_update(w, w.to(torch.bfloat16), w.clone(), **kw)
+    with pytest.raises(ValueError):
+        symog_update(w, w.cpu(), w.clone(), **kw)
+    with pytest.raises(ValueError):
+        symog_update(w, w.clone(), w.clone(), **dict(kw, delta=torch.tensor(0.25)))  # CPU Δ
+
+
+def test_fused_train_step_matches_composed(dev):
+    """A 2-layer internlm2-shaped model: from one set of grads the fused
+    route (8 kernel launches: embed + 7 stacked projections) equals the
+    composed route; then one whole fused train step runs on the kernels."""
+    import dataclasses
+
+    from repro_torch import configs, core, optim
+    from repro_torch.kernels.symog_update import ops as sops
+    from repro_torch.models import init_lm, lm_train_loss
+    from repro_torch.nn.tree import flatten_with_paths, tree_map
+    from repro_torch.train import (composed_update, fused_update, init_train_state,
+                                   make_train_step)
+    from repro_torch.train.trainer import _accum_grads
+
+    cfg = dataclasses.replace(configs.get_config("internlm2-1.8b"), n_layers=2, d_model=512,
+                              n_heads=4, n_kv_heads=2, d_ff=1024, vocab_size=8192)
+    tx = optim.sgd(momentum=0.9)
+    scfg = core.SymogConfig(n_bits=2, total_steps=10)
+    st = init_train_state(init_lm(0, cfg, device=dev), tx, scfg)
+    tok = torch.randint(0, cfg.vocab_size, (2, 64), device=dev)
+    _, _, grads = _accum_grads(lambda p, b: lm_train_loss(p, b, cfg), st.params,
+                               {"tokens": tok}, 1)
+    lam, lr = core.lambda_at(scfg, 5), 0.01
+    cp, cv = composed_update(st.params, grads, st.opt_state, st.symog, scfg, tx, lr=lr, lam=lam)
+    before = sops.launches
+    fp, fv = fused_update(tree_map(torch.clone, st.params), grads,
+                          tree_map(torch.clone, st.opt_state), st.symog, scfg, tx, lr=lr, lam=lam)
+    torch.cuda.synchronize()
+    assert sops.launches == before + 8
+    for (path, a), (_, b) in zip(flatten_with_paths(fp), flatten_with_paths(cp)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7, msg=path)
+    for (path, a), (_, b) in zip(flatten_with_paths(fv), flatten_with_paths(cv)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7, msg=path)
+    step = make_train_step(cfg, tx, core.constant(0.01), symog_cfg=scfg)
+    before = sops.launches
+    st, m = step(st, {"tokens": tok})
+    torch.cuda.synchronize()
+    assert sops.launches == before + 8 and bool(torch.isfinite(m["loss"]))
