@@ -13,15 +13,26 @@ Phases, one JSON line each:
                bound from bytes and operations: 3a fixedpoint_matmul, 3b
                paged_attention, 3c symog_update on every quantizable leaf
                shape of internlm2-1.8b plus an odd n, half-step ties, the
-               clip and a misaligned operand;
-  4. parity  — internlm2-1.8b at full width, 4 layers, fp32 compute, 2-bit
-               packed: prefill + 4 teacher-forced paged decode steps through
-               the kernels vs through the plain paths; logits must agree;
+               clip and a misaligned operand, 3d fixedpoint_matmul_experts
+               on olmoe-1b-7b's expert stacks (64 experts, one f each, C = 4
+               and 80, 2 and 4 bits, bf16 and fp32) and fixedpoint_matmul
+               at olmoe's packed head (M 4, K 2048, N 50304, fp32), 3e
+               paged attention over int8 and int4 SYMOG pools (olmoe's and
+               internlm2's decode shapes, exponents over [-8, 4], a window
+               + softcap case, an fp32 case);
+  4. parity  — internlm2-1.8b and olmoe-1b-7b at full width, 4 layers, fp32
+               compute, 2-bit packed: prefill + 4 teacher-forced paged decode
+               steps through the kernels vs through the plain paths; logits
+               must agree; olmoe a second time from an int4 SYMOG pool
+               (quantizing admission held array_equal to the same writes on
+               the CPU, quantized decode writes, the quantized kernel vs
+               ``_paged_read``, packed matmuls through the kernels on both
+               routes so that both write the same words);
   5. serve   — internlm2-1.8b at full width, all 24 layers, 2-bit
                ``ServeEngine.from_symog``, bf16, 4 slots, 8 requests of
                24..400 prompt tokens and 32 new tokens each through the
-               continuous-batching scheduler; both kernels' launch counts
-               must equal the counts the path implies;
+               continuous-batching scheduler; every kernel's launch count
+               must equal the count the path implies;
   6. profile — a few decode steps of that engine under cProfile (host
                functions) and torch.profiler (device busy time, top kernels);
   7. train   — SYMOG training of internlm2-1.8b at full width and all 24
@@ -29,7 +40,14 @@ Phases, one JSON line each:
                the Δ search, step 1's fused update against the composed one
                leaf by leaf, 6 steps through ``make_train_step`` on the fused
                route (8 symog_update launches per step), then the trained
-               weights packed and served.
+               weights packed and served;
+  8. olmoe   — olmoe-1b-7b at full width and all 16 layers, 2-bit packed
+               with one Δ per expert (``symog_init`` timed), served as in
+               phase 5 (same traffic and checks) from an int4 SYMOG KV pool;
+               the same requests again must give identical tokens; a bf16
+               pool's greedy agreement is printed; then its decode profile.
+Each serving and training path zeroes every kernel's launch count just
+before it runs and reads them just after.
 Then the ``kernels`` summary line, the nvidia-smi line, and the last line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before it.
 The script imports no jax and nothing of the JAX package.
@@ -291,6 +309,245 @@ def phase_attn(torch, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 3d: fixedpoint_matmul_experts (olmoe's expert stacks, one f per expert)
+# ---------------------------------------------------------------------------
+OLMOE_EXPERT_SHAPES = [  # olmoe-1b-7b per-layer expert stacks, E x K x N
+    ("gate_proj", 2048, 1024), ("up_proj", 2048, 1024), ("down_proj", 1024, 2048),
+]
+N_EXPERTS = 64
+
+
+def phase_fpmm_experts(torch, dev):
+    """Stacks as SYMOG makes them: Gaussian weights, expert e scaled by 2^s_e
+    (s_e in [-2, 2]) so that its own optimal f differs, packed with one f
+    per expert; the expert's rows of x scaled by 2^-s_e keep every output
+    at unit scale, where the fp32 bar of the 2-D phase applies."""
+    from repro_torch.core import optimal_f, pack, unpack_int
+    from repro_torch.kernels.fixedpoint_matmul import ops as fops
+    from repro_torch.kernels.fixedpoint_matmul.ref import fixedpoint_matmul_experts_ref
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    E = N_EXPERTS
+    rows, worst = [], 0.0
+    decode = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    for n_bits in (2, 4):
+        for name, K, N in OLMOE_EXPERT_SHAPES:
+            sc = torch.exp2(torch.randint(-2, 3, (E, 1, 1), generator=gen, device=dev).float())
+            w = torch.randn((E, K, N), generator=gen, device=dev) * (sc / math.sqrt(K))
+            f = torch.stack([optimal_f(w[e], n_bits)[0] for e in range(E)]).to(torch.int32)
+            words = pack(w, f, n_bits).data
+            del w
+            wbytes = words.numel()
+            for C in (4, 80):  # decode (dropless, 4 slots) and prefill (ceil(1.25*512*8/64))
+                for dt in (torch.bfloat16, torch.float32):
+                    dname = str(dt).split(".")[-1]
+                    x = (torch.randn((E, C, K), generator=gen, device=dev) / sc).to(dt)
+                    y = fops.fixedpoint_matmul_experts(x, words, f, n_bits=n_bits, n_out=N)
+                    ref = fixedpoint_matmul_experts_ref(x, words, f, n_bits=n_bits,
+                                                        n_out=N).to(dt)
+                    torch.cuda.synchronize()
+                    err = (y.float() - ref.float()).abs().max().item()
+                    tol = TOL[dname]
+                    ok = bool(torch.allclose(y.float(), ref.float(), **tol))
+                    worst = max(worst, err)
+                    io = x.numel() * x.element_size() + wbytes + 4 * E + E * C * N * x.element_size()
+                    b_ms, b_by = bound(io, 2 * E * C * K * N, dname)
+                    row = {"phase": "kernel", "kernel": "fixedpoint_matmul_experts", "proj": name,
+                           "E": E, "C": C, "K": K, "N": N, "n_bits": n_bits, "dtype": dname,
+                           "f_range": [int(f.min()), int(f.max())], "max_abs_err": err,
+                           "tol": tol, "pass": ok, "bound_ms": b_ms, "bound_by": b_by}
+                    if n_bits == 2 or C == 4:  # every 2-bit case and the 4-bit decode cases
+                        n = copies_for(wbytes)
+                        args = [(x.clone(), words.clone()) for _ in range(n)]
+                        wd = (unpack_int(words, n_bits, N).to(dt)
+                              * torch.exp2(-f.to(dt))[:, None, None])
+                        nl = copies_for(wd.numel() * wd.element_size())
+                        largs = [(args[i % n][0], wd.clone()) for i in range(nl)]
+                        row["ms"] = timed(lambda a, b: fops.fixedpoint_matmul_experts(
+                            a, b, f, n_bits=n_bits, n_out=N), args, torch)
+                        row["plain_ms"] = timed(lambda a, b: fixedpoint_matmul_experts_ref(
+                            a, b, f, n_bits=n_bits, n_out=N), args, torch)
+                        row["library_ms"] = timed(lambda a, b: torch.bmm(a, b), largs, torch)
+                        row["achieved_GBps"] = io / (row["ms"] * 1e-3) / 1e9
+                        del args, largs, wd
+                        if n_bits == 2 and C == 4 and dt == torch.bfloat16:
+                            for k in decode:
+                                decode[k] += row[k]
+                    emit(row)
+                    rows.append(row)
+                    if not ok:
+                        raise Failed(f"fixedpoint_matmul_experts {name} C={C} bits={n_bits} "
+                                     f"{dname}: err {err}")
+            del words
+    torch.cuda.empty_cache()
+    return rows, worst, decode
+
+
+def phase_fpmm_head(torch, dev):
+    """Row 1 at olmoe's packed untied head: M = 4 decode rows, fp32 x,
+    K 2048 -> N 50304, 2-bit."""
+    from repro_torch.core import optimal_f, unpack_int
+    from repro_torch.kernels.fixedpoint_matmul import ops as fops
+    from repro_torch.kernels.fixedpoint_matmul.ref import fixedpoint_matmul_ref
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    M, K, N, n_bits = 4, 2048, 50304, 2
+    w = torch.randn((K, N), generator=gen, device=dev) / math.sqrt(K)
+    f = optimal_f(w, n_bits)[0].to(torch.int32)
+    pw = fops.pack_weight(w, f, n_bits)
+    del w
+    x = torch.randn((M, K), generator=gen, device=dev)
+    y = fops.fixedpoint_matmul(x, pw, f, n_bits=n_bits, n_out=N)
+    ref = fixedpoint_matmul_ref(x, pw, f, n_bits=n_bits, n_out=N)
+    torch.cuda.synchronize()
+    err = (y - ref).abs().max().item()
+    tol = TOL["float32"]
+    ok = bool(torch.allclose(y, ref, **tol))
+    io = x.numel() * 4 + pw.numel() + 4 + M * N * 4
+    b_ms, b_by = bound(io, 2 * M * K * N, "float32")
+    n = copies_for(pw.numel())
+    args = [(x.clone(), pw.clone()) for _ in range(n)]
+    wd = unpack_int(pw, n_bits, N).float() * torch.exp2(-f.float())
+    largs = [(x, wd.clone()) for _ in range(copies_for(wd.numel() * 4))]
+    row = {"phase": "kernel", "kernel": "fixedpoint_matmul", "proj": "olmoe lm_head", "M": M,
+           "K": K, "N": N, "n_bits": n_bits, "dtype": "float32", "max_abs_err": err, "tol": tol,
+           "pass": ok, "bound_ms": b_ms, "bound_by": b_by,
+           "ms": timed(lambda a, b: fops.fixedpoint_matmul(a, b, f, n_bits=n_bits, n_out=N),
+                       args, torch),
+           "plain_ms": timed(lambda a, b: fixedpoint_matmul_ref(a, b, f, n_bits=n_bits, n_out=N),
+                             args, torch),
+           "library_ms": timed(lambda a, b: torch.matmul(a, b), largs, torch)}
+    row["achieved_GBps"] = io / (row["ms"] * 1e-3) / 1e9
+    emit(row)
+    del args, largs, wd
+    if not ok:
+        raise Failed(f"fixedpoint_matmul at the olmoe head shape: err {err}")
+    return row
+
+
+# ---------------------------------------------------------------------------
+# phase 3e: paged attention over SYMOG-quantized int8 / int4 pools
+# ---------------------------------------------------------------------------
+def _attn_quant_case(torch, gen, dev, *, B, K, G, hd, block, max_blocks, T, dt, bits, q_mult,
+                     wide):
+    """Quantized pools over ~300 cached tokens a row.  ``wide``: random
+    mantissas under per-(block, head) exponents spread over [-8, 4];
+    otherwise the pools a paged write makes of unit-scale k/v (values
+    N(0,1)·2^s, s in [-3, 1] per (block, head), exponents from each block's
+    first token)."""
+    from repro_torch.models.attention import KV_QMAX, block_scale_exp, pack_int4, quantize_fixed
+
+    n_phys = B * max_blocks + 1
+    perm = torch.randperm(n_phys - 1, generator=gen, device=dev)[: B * max_blocks] + 1
+    bt = perm.reshape(B, max_blocks).to(torch.int32)
+    pos_last = torch.randint(280, 320, (B,), generator=gen, device=dev)
+    pos0 = (pos_last - (T - 1)).to(torch.int32)
+    qmax = KV_QMAX[bits]
+    pools, exps = [], []
+    for _ in range(2):
+        if wide:
+            m = torch.randint(-qmax, qmax + 1, (n_phys, block, K, hd), generator=gen,
+                              device=dev).to(torch.int8)
+            e = torch.randint(-8, 5, (n_phys, K), generator=gen, device=dev).to(torch.int32)
+        else:
+            s = torch.randint(-3, 2, (n_phys, 1, K, 1), generator=gen, device=dev).float()
+            x = torch.randn((n_phys, block, K, hd), generator=gen, device=dev) * torch.exp2(s)
+            e = block_scale_exp(x[:, 0], qmax)
+            m = quantize_fixed(x, e[:, None], qmax)
+        pools.append(pack_int4(m) if bits == 4 else m)
+        exps.append(e)
+    q = (torch.randn((B, T, K, G, hd), generator=gen, device=dev) * q_mult).to(dt)
+    return q, pools[0], pools[1], exps[0], exps[1], bt, pos0
+
+
+def phase_attn_quant(torch, dev):
+    import torch.nn.functional as F
+    from repro_torch.kernels.paged_attention import ops as aops
+    from repro_torch.kernels.paged_attention.ref import dequant_logical, paged_attention_ref
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    hd, block, max_blocks, B = 128, 16, 32, 4
+    # olmoe decode (16 MHA heads, G = 1) and internlm2's GQA (8 KV heads, G = 2), int4 and
+    # int8, bf16 queries (the serving dtype); one window-64 softcap-2 case on which, with the
+    # plain version on the same inputs, a dropped softcap or a window off by one fails the
+    # bf16 tolerance; one fp32 case on unit-scale pools at the fp32 tolerance.
+    cases = [dict(K=16, G=1, bits=4, dt=torch.bfloat16, window=None, cap=0.0, wide=True),
+             dict(K=16, G=1, bits=8, dt=torch.bfloat16, window=None, cap=0.0, wide=True),
+             dict(K=8, G=2, bits=4, dt=torch.bfloat16, window=None, cap=0.0, wide=True),
+             dict(K=8, G=2, bits=8, dt=torch.bfloat16, window=None, cap=0.0, wide=True),
+             dict(K=16, G=1, bits=4, dt=torch.bfloat16, window=64, cap=2.0, wide=True),
+             dict(K=16, G=1, bits=4, dt=torch.float32, window=None, cap=0.0, wide=False)]
+    rows, worst, main = [], 0.0, None
+    for c in cases:
+        K, G, bits, dt, T = c["K"], c["G"], c["bits"], c["dt"], 1
+        dname = str(dt).split(".")[-1]
+        q, kp, vp, ke, ve, bt, pos0 = _attn_quant_case(
+            torch, gen, dev, B=B, K=K, G=G, hd=hd, block=block, max_blocks=max_blocks, T=T,
+            dt=dt, bits=bits, q_mult=1.0, wide=c["wide"])
+        kw = dict(scale=hd**-0.5, cap=c["cap"], window=c["window"], kv_bits=bits)
+        out = aops.paged_attention(q, kp, vp, bt, pos0, k_scale_exp=ke, v_scale_exp=ve, **kw)
+        ref = paged_attention_ref(q, kp, vp, bt, pos0, k_scale_exp=ke, v_scale_exp=ve, **kw)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = ATTN_TOL[dname]
+        ok = bool(torch.allclose(out.float(), ref.float(), **tol))
+        worst = max(worst, err)
+        # bytes this run's data needs: the words and exponents of the blocks each row sees
+        vis_blocks = ((pos0.long() + T - 1) // block + 1).sum().item()
+        if c["window"] is not None:
+            lo = torch.clamp(pos0.long() - c["window"] + 1, min=0) // block
+            vis_blocks -= lo.sum().item()
+        kv_bytes = 2 * vis_blocks * (block * K * kp.shape[-1] + 4 * K)
+        io = 2 * q.numel() * q.element_size() + kv_bytes + bt.numel() * 4 + B * 4
+        s_vis = (pos0.long() + T).sum().item()
+        b_ms, b_by = bound(io, 4 * s_vis * T * K * G * hd, dname)
+        n = copies_for((kp.numel() + ke.numel() * 4) * 2)
+        args = [(q, kp.clone(), vp.clone(), ke.clone(), ve.clone()) for _ in range(n)]
+        row = {"phase": "kernel", "kernel": "paged_attention_quant", "B": B, "K": K, "G": G,
+               "hd": hd, "block": block, "T": T, "kv_bits": bits, "q_dtype": dname,
+               "window": c["window"], "cap": c["cap"], "wide_exponents": c["wide"],
+               "exp_range": [int(min(ke.min(), ve.min())), int(max(ke.max(), ve.max()))],
+               "max_abs_err": err, "tol": tol, "pass": ok}
+        row["ms"] = timed(lambda a, b, cc, d, e: aops.paged_attention(
+            a, b, cc, bt, pos0, k_scale_exp=d, v_scale_exp=e, **kw), args, torch)
+        row["plain_ms"] = timed(lambda a, b, cc, d, e: paged_attention_ref(
+            a, b, cc, bt, pos0, k_scale_exp=d, v_scale_exp=e, **kw), args, torch)
+        # library yardstick: SDPA over the gathered, dequantized cache; timed only
+        kl = dequant_logical(kp, ke, bt, kv_bits=bits).to(dt)
+        vl = dequant_logical(vp, ve, bt, kv_bits=bits).to(dt)
+        S = kl.shape[1]
+        kv_pos = torch.arange(S, device=dev)
+        q_pos = pos0.long()[:, None] + torch.arange(T, device=dev)[None]
+        mask = kv_pos[None, None] <= q_pos[:, :, None]
+        if c["window"] is not None:
+            mask = mask & (q_pos[:, :, None] - kv_pos[None, None] < c["window"])
+        qs = q.reshape(B, T, K * G, hd).transpose(1, 2)
+        ks = kl.transpose(1, 2).repeat_interleave(G, dim=1)
+        vs = vl.transpose(1, 2).repeat_interleave(G, dim=1)
+        nl = copies_for(ks.numel() * ks.element_size() * 2)
+        largs = [(qs, ks.clone(), vs.clone()) for _ in range(nl)]
+        row["library_ms"] = (
+            None if c["cap"] else
+            timed(lambda a, b, cc: F.scaled_dot_product_attention(a, b, cc,
+                                                                  attn_mask=mask[:, None]),
+                  largs, torch)
+        )
+        row["bound_ms"], row["bound_by"] = b_ms, b_by
+        row["achieved_GBps"] = io / (row["ms"] * 1e-3) / 1e9
+        del args, largs
+        emit(row)
+        rows.append(row)
+        if main is None:
+            main = row
+        if not ok:
+            raise Failed(f"paged_attention_quant case {c}: err {err}")
+    return rows, worst, main
+
+
+# ---------------------------------------------------------------------------
 # phase 3c: symog_update
 # ---------------------------------------------------------------------------
 SYMOG_TOL = dict(rtol=1e-6, atol=1e-7)  # tests/test_kernels.py:22-23
@@ -400,15 +657,28 @@ def phase_symog(torch, dev, cfg):
 # ---------------------------------------------------------------------------
 # phase 4: full-width parity, kernels vs plain paths
 # ---------------------------------------------------------------------------
-def phase_parity(torch, dev, layers: int):
+def phase_parity(torch, dev, layers: int, arch: str = "internlm2-1.8b",
+                 kv_cache_dtype: str = "bf16"):
+    """Logits through the kernels against the plain paths.  With a quantized
+    ``kv_cache_dtype`` the pools hold int8 / int4 words and one exponent per
+    (block, KV head): admission quantizes through ``_scatter_blocks_quant``,
+    each decode step writes through ``paged_quant_update``, and the fused
+    route reads with the quantized kernel, the composed one with
+    ``_paged_read``.  Both routes then run the packed matmuls through the
+    kernels (held to the plain version by the float-pool run): rounding a
+    decode token's k/v to the pool's grid is discontinuous, so the ~1e-6
+    between the matmul routes flips int4 words and moves logits well past
+    ``PARITY_ATOL``: the two routes must write the same words for their
+    logits to be comparable."""
     from repro_torch import configs
     from repro_torch.core import SymogConfig, pack_tree, symog_init
     from repro_torch.kernels import dispatch
     from repro_torch.models import decode_lm, init_lm, prefill_lm
     from repro_torch.serve import ServeEngine
-    from repro_torch.serve.engine import _scatter_blocks
+    from repro_torch.serve.engine import _scatter_blocks, _scatter_blocks_quant
 
-    cfg = dataclasses.replace(configs.get_config("internlm2-1.8b"), n_layers=layers)
+    cfg = dataclasses.replace(configs.get_config(arch), n_layers=layers,
+                              kv_cache_dtype=kv_cache_dtype)
     params = init_lm(11, cfg, device=dev)
     scfg = SymogConfig(n_bits=2)
     packed = pack_tree(params, symog_init(params, scfg), scfg)
@@ -419,26 +689,46 @@ def phase_parity(torch, dev, layers: int):
     lens = [37, 70]
     prompts = [torch.randint(0, cfg.vocab_size, (L,), generator=gen) for L in lens]
     forced = torch.randint(0, cfg.vocab_size, (steps, len(lens)), generator=gen)
-    logits = {}
-    for path, (pb, ab) in {"kernels": ("kernel", "fused"), "plain": ("unpack", "composed")}.items():
+    logits, quant_launches, admission_equal, final = {}, {}, {}, {}
+    plain_pb = "unpack" if kv_cache_dtype == "bf16" else "kernel"
+    for path, (pb, ab) in {"kernels": ("kernel", "fused"), "plain": (plain_pb, "composed")}.items():
         dispatch.set_packed_backend(pb)
         dispatch.set_attention_backend(ab)
         eng = ServeEngine(cfg, packed, max_len=max_len, compute_dtype=torch.float32, device=dev)
         dispatch.set_packed_backend("auto")
         dispatch.set_attention_backend("auto")
+        qbits = eng.kv_quant_bits
         nb = max_len // block
         n_phys = len(lens) * nb + 1
-        pool = {n: torch.zeros((layers, n_phys, block, cfg.n_kv_heads, cfg.head_dim),
-                               dtype=torch.float32, device=dev) for n in ("k", "v")}
+        hd = cfg.head_dim // 2 if qbits == 4 else cfg.head_dim
+        pool = {}
+        for n in ("k", "v"):
+            pool[n] = torch.zeros((layers, n_phys, block, cfg.n_kv_heads, hd),
+                                  dtype=torch.int8 if qbits else torch.float32, device=dev)
+            if qbits:
+                pool[n + "_scale"] = torch.zeros((layers, n_phys, cfg.n_kv_heads),
+                                                 dtype=torch.int32, device=dev)
         caches = {"layers0": {"sub0": pool}}
         bt = (torch.arange(len(lens) * nb, device=dev, dtype=torch.int32) + 1).reshape(len(lens), nb)
+        # the admission on the card (quantizing, for a quantized pool), held
+        # array_equal to the same writes made on the CPU from the same caches
+        host = {n: t.new_zeros(t.shape, device="cpu") for n, t in pool.items()}
+        zero_counts()
         outs = []
         for b, pr in enumerate(prompts):
             lg, one = eng._with_backend(prefill_lm, eng.params, {"tokens": pr[None].to(dev)}, cfg,
                                         max_len=max_len, compute_dtype=torch.float32)
             outs.append(lg[0, -1])
             for n in ("k", "v"):
-                _scatter_blocks(pool[n], one["layers0"]["sub0"][n], bt[b], 1, nb)
+                src = one["layers0"]["sub0"][n]
+                if qbits:
+                    _scatter_blocks_quant(pool[n], pool[n + "_scale"], src, bt[b], 1, nb)
+                    _scatter_blocks_quant(host[n], host[n + "_scale"], src.cpu(), bt[b].cpu(), 1,
+                                          nb)
+                else:
+                    _scatter_blocks(pool[n], src, bt[b], 1, nb)
+                    _scatter_blocks(host[n], src.cpu(), bt[b].cpu(), 1, nb)
+        admission_equal[path] = all(torch.equal(t.cpu(), host[n]) for n, t in pool.items())
         pos = torch.tensor(lens, dtype=torch.int32, device=dev)
         active = torch.ones(len(lens), dtype=torch.bool, device=dev)
         for s in range(steps):
@@ -449,50 +739,104 @@ def phase_parity(torch, dev, layers: int):
             outs.extend(lg[:, 0])
             pos = pos + 1
         logits[path] = torch.stack(outs)
+        final[path] = pool
+        quant_launches[path] = read_counts()["paged_attention_quant"]
         del eng, caches, pool
     torch.cuda.synchronize()
+    words_differing = {n: int((t != final["plain"][n]).sum().item())
+                       for n, t in final["kernels"].items()}
+    del final
     a, b = logits["kernels"], logits["plain"]
     err = (a - b).abs().max().item()
     agree = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
     finite = bool(torch.isfinite(a).all().item())
-    row = {"phase": "parity", "arch": "internlm2-1.8b", "layers": layers, "n_bits": 2,
-           "compute": "float32", "prompts": lens, "decode_steps": steps,
-           "logit_rows": int(a.shape[0]), "max_abs_logit_err": err, "atol": PARITY_ATOL,
-           "logit_scale": a.abs().max().item(), "argmax_agreement": agree, "finite": finite,
-           "pass": finite and err <= PARITY_ATOL}
+    # the fused route must have read a quantized pool with the quantized
+    # kernel at every decode step of every layer, the plain route never
+    want_quant = {"kernels": layers * steps if kv_cache_dtype != "bf16" else 0, "plain": 0}
+    row = {"phase": "parity", "arch": arch, "layers": layers, "n_bits": 2,
+           "kv_cache_dtype": kv_cache_dtype, "compute": "float32", "prompts": lens,
+           "decode_steps": steps, "logit_rows": int(a.shape[0]), "max_abs_logit_err": err,
+           "atol": PARITY_ATOL, "logit_scale": a.abs().max().item(), "argmax_agreement": agree,
+           "finite": finite, "paged_attention_quant_launches": quant_launches,
+           "expected_paged_attention_quant_launches": want_quant,
+           "admission_pool_equal_cpu": admission_equal, "plain_packed_backend": plain_pb,
+           "pool_words_differing_after_decode": words_differing,
+           "pass": (finite and err <= PARITY_ATOL and quant_launches == want_quant
+                    and all(admission_equal.values()))}
     emit(row)
     if not row["pass"]:
-        raise Failed(f"parity: max |logit diff| {err} > {PARITY_ATOL}")
+        raise Failed(f"parity {arch} {kv_cache_dtype}: {row}")
     return row
+
+
+# ---------------------------------------------------------------------------
+# launch counts: every wrapper counts its own kernel's launches
+# ---------------------------------------------------------------------------
+def _counters():
+    from repro_torch.kernels.fixedpoint_matmul import ops as fops
+    from repro_torch.kernels.paged_attention import ops as aops
+    from repro_torch.kernels.symog_update import ops as sops
+
+    return {"fixedpoint_matmul": (fops, "launches"),
+            "fixedpoint_matmul_experts": (fops, "experts_launches"),
+            "paged_attention": (aops, "launches"),
+            "paged_attention_quant": (aops, "quant_launches"),
+            "symog_update": (sops, "launches")}
+
+
+def zero_counts() -> None:
+    for mod, attr in _counters().values():
+        setattr(mod, attr, 0)
+
+
+def read_counts():
+    return {name: getattr(mod, attr) for name, (mod, attr) in _counters().items()}
 
 
 # ---------------------------------------------------------------------------
 # phase 5: full-width serve through the scheduler
 # ---------------------------------------------------------------------------
-def phase_serve(torch, dev):
+def phase_serve(torch, dev, arch: str, kv_cache_dtype: str, seed: int, expected):
+    """Serve the seeded traffic (4 slots, block 16, max_len 512, 8 requests
+    of 24..400 prompt tokens, 32 new tokens each) through the
+    continuous-batching scheduler from a 2-bit packed artifact of ``arch``
+    at full width and all its layers, made on the card from random weights
+    (``seed``) by ``symog_init`` + ``pack_tree``.  ``expected(cfg, stats)``
+    gives every kernel's launch count on this path: the counts are zeroed
+    just before the serve and read just after.  Returns the row (emitted by
+    the caller, which may add to it), the engine, the requests, the serve
+    config and the tokens."""
     import numpy as np
     from repro_torch import configs
     from repro_torch.core import SymogConfig, symog_init
-    from repro_torch.kernels.fixedpoint_matmul import ops as fops
-    from repro_torch.kernels.paged_attention import ops as aops
     from repro_torch.models import init_lm
-    from repro_torch.models.layers import embed_logits
+    from repro_torch.nn.tree import tree_leaves
     from repro_torch.serve import Request, ServeConfig, ServeEngine
 
-    cfg = configs.get_config("internlm2-1.8b")  # all 24 layers: no depth cut
-    t0 = time.perf_counter()
-    params = init_lm(7, cfg, device=dev)
+    # all layers: no depth cut
+    cfg = dataclasses.replace(configs.get_config(arch), kv_cache_dtype=kv_cache_dtype)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter()
+    params = init_lm(seed, cfg, device=dev)
+    torch.cuda.synchronize()
+    t_symog = time.perf_counter()
+    n_params = sum(t.numel() for t in tree_leaves(params))
     scfg = SymogConfig(n_bits=2)
     state = symog_init(params, scfg)
+    torch.cuda.synchronize()
+    t_pack = time.perf_counter()
     eng = ServeEngine.from_symog(cfg, params, state, scfg, max_len=512,
                                  compute_dtype=torch.bfloat16, device=dev)
-    del params, state
     torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
+    t_done = time.perf_counter()
+    del params, state
+    torch.cuda.empty_cache()
+
     rng = np.random.default_rng(0)
     lens = rng.integers(24, 401, size=8)
     reqs = [Request(tokens=rng.integers(0, cfg.vocab_size, size=int(L)), max_new_tokens=32)
             for L in lens]
+    sc = ServeConfig(n_slots=4, block_size=16)
     fns = eng.scheduler_fns()
     inner = fns.decode_step
     dec = {"s": 0.0, "rows": 0, "steps": 0}
@@ -508,52 +852,67 @@ def phase_serve(torch, dev):
         return out
 
     fns.decode_step = timed_decode
-    fops.launches = 0
-    aops.launches = 0
+    zero_counts()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    comps, sched = eng.serve(reqs, ServeConfig(n_slots=4, block_size=16), return_scheduler=True)
+    comps, sched = eng.serve(reqs, sc, return_scheduler=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    n_fpmm, n_attn = fops.launches, aops.launches
+    counts = read_counts()
     fns.decode_step = inner
+    peak = torch.cuda.max_memory_allocated(dev)
     st = sched.stats
-    # every packed projection of every layer, once per decode step and once
-    # per admission prefill (the prefill cache reuses attention's k/v)
-    want_fpmm = 7 * cfg.n_layers * (st["decode_steps"] + st["prefills"])
-    want_attn = cfg.n_layers * st["decode_steps"]
+    want = expected(cfg, st)
+    tokens = [list(map(int, c.tokens)) for c in comps]
     reasons = sorted({c.finish_reason for c in comps})
     lengths_ok = all(len(c.tokens) == 32 or c.finish_reason == "eos" for c in comps)
-    tokens_ok = all(0 <= t < cfg.vocab_size for c in comps for t in c.tokens)
-    mid_run = sum(1 for c in comps if c.admitted_step > 0)
-    # the tied head: the packed 92544x2048 table is dequantized on every call
-    h = torch.randn((4, 1, cfg.d_model), device=dev, dtype=torch.bfloat16)
-    head_ms = timed(lambda a: embed_logits(eng.params["embed"], a), [(h,)], torch)
+    tokens_ok = all(0 <= t < cfg.vocab_size for a in tokens for t in a)
     row = {
-        "phase": "serve", "arch": "internlm2-1.8b", "layers": cfg.n_layers, "n_bits": 2,
-        "compute": "bfloat16", "n_slots": 4, "block_size": 16, "max_len": 512,
-        "requests": len(reqs), "prompt_lens": [int(x) for x in lens], "new_tokens": 32,
-        "setup_s": setup_s, "wall_s": wall, "decode_steps": st["decode_steps"],
+        "phase": "serve", "arch": arch, "layers": cfg.n_layers, "params": n_params, "n_bits": 2,
+        "kv_cache_dtype": kv_cache_dtype, "compute": "bfloat16", "n_slots": 4, "block_size": 16,
+        "max_len": 512, "requests": len(reqs), "prompt_lens": [int(x) for x in lens],
+        "new_tokens": 32, "init_s": t_symog - t_init, "symog_init_s": t_pack - t_symog,
+        "pack_s": t_done - t_pack, "wall_s": wall, "decode_steps": st["decode_steps"],
         "prefills": st["prefills"], "preemptions": st["preemptions"],
-        "admitted_mid_run": mid_run, "finish_reasons": reasons,
-        "tokens_emitted": st["tokens_emitted"],
+        "admitted_mid_run": sum(1 for c in comps if c.admitted_step > 0),
+        "finish_reasons": reasons, "tokens_emitted": st["tokens_emitted"],
         "decode_tokens_per_s": dec["rows"] / dec["s"] if dec["s"] else None,
         "decode_step_ms": dec["s"] / max(dec["steps"], 1) * 1e3,
         "end_to_end_tokens_per_s": st["tokens_emitted"] / wall,
-        "head_dequant_matmul_ms": head_ms,
         "kv_pool_bytes": sched.cache_bytes(), "weight_bytes": eng.weight_bytes(),
-        "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
-        "fixedpoint_matmul_launches": n_fpmm, "expected_fixedpoint_matmul_launches": want_fpmm,
-        "paged_attention_launches": n_attn, "expected_paged_attention_launches": want_attn,
+        "peak_device_bytes": peak, "launches": counts, "expected_launches": want,
     }
-    row["pass"] = (
-        set(reasons) <= {"length", "eos"} and lengths_ok and tokens_ok
-        and n_fpmm == want_fpmm and n_attn == want_attn and n_fpmm > 0 and n_attn > 0
-    )
+    # every kernel the path runs must have launched, each exactly as often
+    # as the path implies
+    row["pass"] = (set(reasons) <= {"length", "eos"} and lengths_ok and tokens_ok
+                   and counts == want and all(counts[k] > 0 for k, n in want.items() if n))
+    return row, eng, reqs, sc, tokens
+
+
+def report(row):
     emit(row)
     if not row["pass"]:
-        raise Failed(f"serve phase failed: {row}")
-    return row, eng
+        raise Failed(f"{row['phase']} {row['arch']} failed: {row}")
+    return row
+
+
+def phase_serve_internlm2(torch, dev):
+    from repro_torch.models.layers import embed_logits
+
+    def expected(cfg, st):
+        # every packed projection of every layer, once per decode step and
+        # once per admission prefill (the prefill cache reuses attention's k/v)
+        return {"fixedpoint_matmul": 7 * cfg.n_layers * (st["decode_steps"] + st["prefills"]),
+                "fixedpoint_matmul_experts": 0,
+                "paged_attention": cfg.n_layers * st["decode_steps"],
+                "paged_attention_quant": 0, "symog_update": 0}
+
+    row, eng, *_ = phase_serve(torch, dev, "internlm2-1.8b", "bf16", 7, expected)
+    # the tied head: the packed 92544x2048 table is dequantized on every call
+    h = torch.randn((4, 1, eng.cfg.d_model), device=dev, dtype=torch.bfloat16)
+    row["head_dequant_matmul_ms"] = timed(lambda a: embed_logits(eng.params["embed"], a), [(h,)],
+                                          torch)
+    return report(row), eng
 
 
 def kernel_times(evs):
@@ -593,7 +952,8 @@ def phase_profile(torch, dev, eng, steps: int = 4):
         sched.step()
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / steps * 1e3
-    row = {"phase": "profile", "layers": eng.cfg.n_layers, "live_slots": sched._n_live,
+    row = {"phase": "profile", "arch": eng.cfg.name, "layers": eng.cfg.n_layers,
+           "kv_cache_dtype": eng.cfg.kv_cache_dtype, "live_slots": sched._n_live,
            "decode_step_ms": step_ms}
     prof = cProfile.Profile()
     prof.enable()
@@ -741,7 +1101,7 @@ def phase_train(torch, dev):
     step = make_train_step(cfg, tx, lr_fn, symog_cfg=scfg, compute_dtype=torch.bfloat16)
     losses, step_ms, per_step_launches = [], [], []
     prof = None
-    sops.launches = 0
+    zero_counts()
     for i, batch in enumerate(batches):
         before = sops.launches
         if i == TRAIN_STEPS - 1:
@@ -802,6 +1162,45 @@ def phase_train(torch, dev):
     return row
 
 
+# ---------------------------------------------------------------------------
+# phase 8: olmoe-1b-7b at full width and depth, 2-bit packed with one Δ per
+# expert, served from an int4 SYMOG KV pool
+# ---------------------------------------------------------------------------
+def phase_serve_olmoe(torch, dev):
+    from repro_torch.serve import ServeEngine
+
+    def expected(cfg, st):
+        # every packed projection of every layer per decode step and per prefill
+        passes = st["decode_steps"] + st["prefills"]
+        return {"fixedpoint_matmul": (4 * cfg.n_layers + 1) * passes,  # q, k, v, o + the lm_head
+                "fixedpoint_matmul_experts": 3 * cfg.n_layers * passes,  # gate, up, down
+                "paged_attention": 0,  # the pool is int4: every decode read is quantized
+                "paged_attention_quant": cfg.n_layers * st["decode_steps"],
+                "symog_update": 0}
+
+    row, eng, reqs, sc, tokens = phase_serve(torch, dev, "olmoe-1b-7b", "int4_fp", 17, expected)
+    cfg = eng.cfg
+    f_gate = eng.params["layers0"]["sub0"]["moe"]["experts"]["gate_proj"]["kernel"].f
+    per_expert = tuple(f_gate.shape) == (cfg.n_layers, cfg.n_experts)
+    again = [list(map(int, c.tokens)) for c in eng.serve(reqs, sc)]
+    # the same requests from a bf16 pool of the same artifact: greedy agreement, no gate
+    eng16 = ServeEngine(dataclasses.replace(cfg, kv_cache_dtype="bf16"), eng.params, max_len=512,
+                        compute_dtype=torch.bfloat16, device=dev)
+    comps16, sched16 = eng16.serve(reqs, sc, return_scheduler=True)
+    same = total = 0
+    for a, c in zip(tokens, comps16):
+        same += sum(int(x == y) for x, y in zip(a, c.tokens))
+        total += max(len(a), len(c.tokens))
+    row.update({"per_expert_f": per_expert, "expert_f_range": [int(f_gate.min()), int(f_gate.max())],
+                "kv_pool_bytes_bf16": sched16.cache_bytes(),
+                "repeat_tokens_identical": again == tokens,
+                "greedy_agreement_vs_bf16_pool": same / max(total, 1)})
+    row["pass"] = row["pass"] and per_expert and again == tokens
+    del eng16, sched16
+    torch.cuda.empty_cache()
+    return report(row), eng
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
 
@@ -835,12 +1234,21 @@ def main() -> int:
         fp_rows, fp_err, fp_decode = phase_fpmm(torch, dev)
         attn_rows, at_err, at_main = phase_attn(torch, dev)
         sy_rows, sy_err, sy_full = phase_symog(torch, dev, configs.get_config("internlm2-1.8b"))
+        fe_rows, fe_err, fe_decode = phase_fpmm_experts(torch, dev)
+        head = phase_fpmm_head(torch, dev)
+        aq_rows, aq_err, aq_main = phase_attn_quant(torch, dev)
         phase_parity(torch, dev, PARITY_LAYERS)
-        serve, eng = phase_serve(torch, dev)
+        phase_parity(torch, dev, PARITY_LAYERS, arch="olmoe-1b-7b")
+        phase_parity(torch, dev, PARITY_LAYERS, arch="olmoe-1b-7b", kv_cache_dtype="int4_fp")
+        serve, eng = phase_serve_internlm2(torch, dev)
         phase_profile(torch, dev, eng)
         del eng
         torch.cuda.empty_cache()
         train = phase_train(torch, dev)
+        olmoe, eng = phase_serve_olmoe(torch, dev)
+        phase_profile(torch, dev, eng)
+        del eng
+        torch.cuda.empty_cache()
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -848,7 +1256,7 @@ def main() -> int:
         {"name": "fixedpoint_matmul", "route": "cuda",
          "source": "src/repro_torch/csrc/fixedpoint_matmul.cu",
          "replaces": "src/repro/kernels/fixedpoint_matmul/kernel.py:30",
-         "launches": serve["fixedpoint_matmul_launches"],
+         "launches": serve["launches"]["fixedpoint_matmul"],
          "max_abs_err": fp_err,
          "ms": fp_decode["ms"], "plain_ms": fp_decode["plain_ms"],
          "bound_ms": fp_decode["bound_ms"], "bound_by": "bytes",
@@ -858,7 +1266,7 @@ def main() -> int:
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention/kernel.py:89",
-         "launches": serve["paged_attention_launches"],
+         "launches": serve["launches"]["paged_attention"],
          "max_abs_err": at_err, "ms": at_main["ms"], "plain_ms": at_main["plain_ms"],
          "bound_ms": at_main["bound_ms"], "bound_by": at_main["bound_by"],
          "library_ms": at_main["library_ms"],
@@ -875,7 +1283,31 @@ def main() -> int:
          "work": f"one full-width internlm2-1.8b update: the 8 quantizable leaves, "
                  f"{sy_full['elements']} fp32 elements, 20 B each",
          "pass": all(r["pass"] for r in sy_rows)},
+        {"name": "fixedpoint_matmul_experts", "route": "cuda",
+         "source": "src/repro_torch/csrc/fixedpoint_matmul.cu",
+         "replaces": "src/repro/kernels/fixedpoint_matmul/ops.py:81",
+         "launches": olmoe["launches"]["fixedpoint_matmul_experts"],
+         "max_abs_err": fe_err, "ms": fe_decode["ms"], "plain_ms": fe_decode["plain_ms"],
+         "bound_ms": fe_decode["bound_ms"], "bound_by": "bytes",
+         "library_ms": fe_decode["library_ms"],
+         "work": "one olmoe layer's 3 expert stacks (64 experts, one f each) at C=4, 2-bit, bf16",
+         "pass": all(r["pass"] for r in fe_rows)},
+        {"name": "paged_attention_quant", "route": "cuda",
+         "source": "src/repro_torch/csrc/paged_attention.cu",
+         "replaces": "src/repro/kernels/paged_attention/kernel.py:131",
+         "launches": olmoe["launches"]["paged_attention_quant"],
+         "max_abs_err": aq_err, "ms": aq_main["ms"], "plain_ms": aq_main["plain_ms"],
+         "bound_ms": aq_main["bound_ms"], "bound_by": aq_main["bound_by"],
+         "library_ms": aq_main["library_ms"],
+         "work": "int4 pool, B=4 K=16 G=1 hd=128 block=16 T=1 bf16, ~300 cached tokens a row",
+         "pass": all(r["pass"] for r in aq_rows)},
     ]
+    summary[0]["head_shape"] = {k: head[k] for k in ("M", "K", "N", "dtype", "max_abs_err", "ms",
+                                                      "plain_ms", "bound_ms", "library_ms")}
+    summary[0]["launches_olmoe_serve"] = olmoe["launches"]["fixedpoint_matmul"]
+    if not all(k["pass"] for k in summary):
+        print("chip_smoke: FAILED: a kernel row did not pass", file=sys.stderr)
+        return 1
     emit({"kernels": summary})
     if "jax" in sys.modules or any(m == "repro" or m.startswith("repro.") for m in sys.modules):
         print("chip_smoke: jax or the JAX package was imported", file=sys.stderr)

@@ -1,6 +1,6 @@
 """Architecture registry of the port: ``get_config(arch)`` returns the
 published config and ``get_reduced(arch)`` a same-family smoke-test
-reduction.  This slice ports internlm2-1.8b only."""
+reduction.  The port has internlm2-1.8b (dense GQA) and olmoe-1b-7b (MoE)."""
 from __future__ import annotations
 
 import importlib
@@ -9,6 +9,7 @@ from repro_torch.models.config import ModelConfig
 
 _MODULES = {
     "internlm2-1.8b": "internlm2_1_8b",
+    "olmoe-1b-7b": "olmoe_1b_7b",
 }
 
 ARCHS = tuple(_MODULES)

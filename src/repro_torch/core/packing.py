@@ -52,7 +52,7 @@ def pack_int(m: torch.Tensor, n_bits: int) -> torch.Tensor:
     mask = (1 << n_bits) - 1
     g = m.to(torch.int32).reshape(*lead, last // per, per) & mask
     shifts = torch.arange(per, dtype=torch.int32, device=m.device) * n_bits
-    word = torch.sum(g << shifts, dim=-1)
+    word = torch.sum(g << shifts, dim=-1, dtype=torch.int32)  # < 256: no int64 copy
     return word.to(torch.uint8).view(torch.int8)
 
 
@@ -77,13 +77,26 @@ def unpack_int(packed: torch.Tensor, n_bits: int, last_dim: int) -> torch.Tensor
 
 
 def pack(weight: torch.Tensor, f, n_bits: int) -> Packed:
-    """Quantize a converged SYMOG weight and pack its mantissas."""
+    """Quantize a converged SYMOG weight and pack its mantissas.  A stacked
+    leaf (rank >= 3) is packed one leading slice at a time, so the
+    quantizer's temporaries stay one layer large (an olmoe-1b-7b expert
+    stack holds 2^31 values); the words are the same."""
     f = torch.as_tensor(f, device=weight.device)
+    if weight.ndim < 3:
+        return Packed(data=_pack_words(weight, f, n_bits), n_bits=n_bits, f=f.to(torch.int32))
+    per = values_per_byte(n_bits)
+    data = torch.empty(tuple(weight.shape[:-1]) + (weight.shape[-1] // per,), dtype=torch.int8,
+                       device=weight.device)
+    for i in range(weight.shape[0]):
+        data[i] = _pack_words(weight[i], f[i] if f.ndim else f, n_bits)
+    return Packed(data=data, n_bits=n_bits, f=f.to(torch.int32))
+
+
+def _pack_words(weight: torch.Tensor, f: torch.Tensor, n_bits: int) -> torch.Tensor:
     delta = delta_from_f(f)
     while delta.ndim < weight.ndim:  # per-expert f broadcasts over trailing dims
         delta = delta[..., None]
-    m = quantize_int(weight, delta, n_bits)
-    return Packed(data=pack_int(m, n_bits), n_bits=n_bits, f=f.to(torch.int32))
+    return pack_int(quantize_int(weight, delta, n_bits), n_bits)
 
 
 def unpack(p: Packed, dtype=torch.float32) -> torch.Tensor:

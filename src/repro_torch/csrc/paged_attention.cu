@@ -1,10 +1,15 @@
 // Paged GQA decode / verify / tail-prefill attention for Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernel repro/kernels/paged_attention/kernel.py
+// Replaces the Pallas TPU kernels repro/kernels/paged_attention/kernel.py
 // `_attn_kernel` with `_online_update` and `_finish` (launched by
-// `paged_attention_padded` with k_exp=None).  Same contract:
+// `paged_attention_padded` with k_exp=None) and `_attn_kernel_quant` with
+// `_unpack_int4` (the same launcher with per-block exponents).  Contract:
 //   q    (B, T, K, G, hd) row r < T*G of (b, kh) is q[b, r/G, kh, r%G] at q_pos = pos0[b] + r/G
-//   k/v  (n_blocks, block, K, hd) pools, f32 | bf16 | int8 (x kv_scale, KV_F int8)
+//   k/v  (n_blocks, block, K, hd) pools, f32 | bf16 | int8 (x kv_scale, KV_F int8), or
+//        SYMOG-quantized: int8 words (n_blocks, block, K, hd) or int4 split-halves words
+//        (n_blocks, block, K, hd/2; word i = lane i in the low nibble, lane i + hd/2 in the
+//        high one, both sign-extended), each (block, head) dequantized as word * 2^e with e
+//        from k_exp/v_exp (n_blocks, K) int32 — exact in fp32 (|word| <= 127, e in [-20, 20])
 //   bt   (B, max_blocks) int32 physical block ids (0 = trash)
 //   mask kv_pos <= q_pos && q_pos - kv_pos < window (2^30 = no window)
 //   s = scale * q.k, softcap tanh(s/cap)*cap if cap > 0, masked logits -1e30,
@@ -33,7 +38,9 @@
 //     before any is used, so a tile costs about one memory round trip;
 //   * q.k dot products: one warp per (row, key) pair, lanes over hd, shuffle
 //     reduction; p.v: each thread owns hd columns of the accumulator.
-// q, k and v are converted to fp32 on load; all math is fp32 (expf, tanhf).
+// q, k and v are converted to fp32 on load (int4 words unpacked there, each
+// source scaled by its own 2^e: K and V blocks carry different exponents);
+// all math is fp32 (expf, tanhf).
 #include "common.cuh"
 
 namespace {
@@ -42,21 +49,25 @@ constexpr int kRows = 16;      // query rows per thread block
 constexpr int kThreads = 128;  // 4 warps
 constexpr int kWarps = kThreads / 32;
 constexpr float kNegInf = -1e30f;
+constexpr int kQ8 = 3;  // pool codes beyond common.cuh's: int8 words + exponents
+constexpr int kQ4 = 4;  // int4 split-halves words + exponents
 
 struct Params {
   const int* bt;
   const int* pos0;
+  const int* k_exp;  // (n_blocks, K) exponents of quantized pools, else null
+  const int* v_exp;
   float* ws_m;
   float* ws_l;
   float* ws_acc;
-  int B, T, K, TG, G, hd, block, max_blocks, window, n_split, chunk;
+  int B, T, K, TG, G, hd, hdw, block, max_blocks, window, n_split, chunk;  // hdw: words/row
   int vec;  // 16-byte loads allowed (aligned bases, hd a multiple of the vector)
   float scale, cap, kv_scale;
 };
 
 constexpr int kLoads = 4;  // 16-byte loads in flight per thread and source
 
-// dst_a/b[r*hd + d] = src_a/b[row(r) + d] * scale for r < rows, d < hd, where
+// dst_a/b[r*hd + d] = src_a/b[row(r) + d] * scale_a/b for r < rows, d < hd, where
 // row(r) = ((r0 + r) / G) * stride + ((r0 + r) % G) * hd: consecutive rows
 // within a group of G, groups `stride` apart (G = 1: plain strided rows).
 // Every thread issues up to kLoads 16-byte loads per source before it
@@ -65,7 +76,8 @@ constexpr int kLoads = 4;  // 16-byte loads in flight per thread and source
 template <typename T>
 __device__ __forceinline__ void load_rows(const T* __restrict__ a, const T* __restrict__ b,
                                           int r0, int G, size_t stride, int rows, int hd,
-                                          float* dst_a, float* dst_b, float scale, int vec) {
+                                          float* dst_a, float* dst_b, float scale_a,
+                                          float scale_b, int vec) {
   constexpr int E = 16 / sizeof(T);
   const int tid = threadIdx.x;
   if (vec) {
@@ -90,11 +102,11 @@ __device__ __forceinline__ void load_rows(const T* __restrict__ a, const T* __re
           float f[E];
           repro::unpack16<T>(ra[u], f);
 #pragma unroll
-          for (int e = 0; e < E; ++e) dst_a[o + e] = f[e] * scale;
+          for (int e = 0; e < E; ++e) dst_a[o + e] = f[e] * scale_a;
           if (b) {
             repro::unpack16<T>(rb[u], f);
 #pragma unroll
-            for (int e = 0; e < E; ++e) dst_b[o + e] = f[e] * scale;
+            for (int e = 0; e < E; ++e) dst_b[o + e] = f[e] * scale_b;
           }
         }
       }
@@ -104,12 +116,71 @@ __device__ __forceinline__ void load_rows(const T* __restrict__ a, const T* __re
   for (int i = tid; i < rows * hd; i += kThreads) {
     const int r = i / hd, d = i - r * hd, rr = r0 + r;
     const size_t off = static_cast<size_t>(rr / G) * stride + (rr % G) * hd + d;
-    dst_a[i] = repro::to_f32(a[off]) * scale;
-    if (b) dst_b[i] = repro::to_f32(b[off]) * scale;
+    dst_a[i] = repro::to_f32(a[off]) * scale_a;
+    if (b) dst_b[i] = repro::to_f32(b[off]) * scale_b;
   }
 }
 
-template <typename QT, typename KVT>
+// the two sign-extended nibbles of an int4 split-halves word
+__device__ __forceinline__ float lo_nibble(int8_t w) {
+  return static_cast<float>(static_cast<int>((static_cast<uint8_t>(w) & 15u) ^ 8u) - 8);
+}
+__device__ __forceinline__ float hi_nibble(int8_t w) {
+  return static_cast<float>(static_cast<int>((static_cast<uint8_t>(w) >> 4) ^ 8u) - 8);
+}
+
+// load_rows for int4 split-halves pools (G = 1, r0 = 0): row r holds hd/2
+// words, `stride` words apart; word c of row r gives lanes c and c + hd/2.
+__device__ __forceinline__ void load_rows_int4(const int8_t* __restrict__ a,
+                                               const int8_t* __restrict__ b, size_t stride,
+                                               int rows, int hd, float* dst_a, float* dst_b,
+                                               float scale_a, float scale_b, int vec) {
+  const int hw = hd / 2, tid = threadIdx.x;
+  if (vec) {  // 16 words (32 lanes) per 16-byte load, kLoads loads in flight
+    const int vpr = hw / 16, nv = rows * vpr;
+    for (int base = 0; base < nv; base += kLoads * kThreads) {
+      uint4 ra[kLoads], rb[kLoads];
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u) {
+        const int i = base + u * kThreads + tid;
+        if (i < nv) {
+          const size_t off = static_cast<size_t>(i / vpr) * stride + (i % vpr) * 16;
+          ra[u] = __ldg(reinterpret_cast<const uint4*>(a + off));
+          rb[u] = __ldg(reinterpret_cast<const uint4*>(b + off));
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u) {
+        const int i = base + u * kThreads + tid;
+        if (i < nv) {
+          const int o = (i / vpr) * hd + (i % vpr) * 16;
+          const int8_t* wa = reinterpret_cast<const int8_t*>(&ra[u]);
+          const int8_t* wb = reinterpret_cast<const int8_t*>(&rb[u]);
+#pragma unroll
+          for (int e = 0; e < 16; ++e) {
+            dst_a[o + e] = lo_nibble(wa[e]) * scale_a;
+            dst_a[o + hw + e] = hi_nibble(wa[e]) * scale_a;
+            dst_b[o + e] = lo_nibble(wb[e]) * scale_b;
+            dst_b[o + hw + e] = hi_nibble(wb[e]) * scale_b;
+          }
+        }
+      }
+    }
+    return;
+  }
+  for (int i = tid; i < rows * hw; i += kThreads) {
+    const int r = i / hw, c = i - r * hw;
+    const size_t off = static_cast<size_t>(r) * stride + c;
+    dst_a[r * hd + c] = lo_nibble(a[off]) * scale_a;
+    dst_a[r * hd + hw + c] = hi_nibble(a[off]) * scale_a;
+    dst_b[r * hd + c] = lo_nibble(b[off]) * scale_b;
+    dst_b[r * hd + hw + c] = hi_nibble(b[off]) * scale_b;
+  }
+}
+
+// QMODE: 0 float / KV_F pools (static kv_scale); 8 int8 words and 4 int4
+// words, each (block, head) scaled by 2^k_exp / 2^v_exp
+template <typename QT, typename KVT, int QMODE>
 __global__ void __launch_bounds__(kThreads)
 attn_partial(const QT* __restrict__ q, const KVT* __restrict__ kp, const KVT* __restrict__ vp,
              QT* __restrict__ out, Params p) {
@@ -134,7 +205,8 @@ attn_partial(const QT* __restrict__ q, const KVT* __restrict__ kp, const KVT* __
   // q[b, t, kh, g, :] for rows row0.. (t = r / G, g = r % G); out alike
   const size_t q_base = (static_cast<size_t>(b) * p.T * p.K + kh) * p.G * hd;
   const size_t q_stride = static_cast<size_t>(p.K) * p.G * hd;
-  load_rows<QT>(q + q_base, nullptr, row0, p.G, q_stride, nrows, hd, q_s, nullptr, 1.f, p.vec);
+  load_rows<QT>(q + q_base, nullptr, row0, p.G, q_stride, nrows, hd, q_s, nullptr, 1.f, 1.f,
+                p.vec);
   for (int i = tid; i < nrows * hd; i += kThreads) acc_s[i] = 0.f;
   if (tid < kRows) { m_s[tid] = kNegInf; l_s[tid] = 0.f; }
 
@@ -150,10 +222,21 @@ attn_partial(const QT* __restrict__ q, const KVT* __restrict__ kp, const KVT* __
     if (kv0 > qpos_hi) break;                        // causal: nothing visible from here on
     if (qpos_lo - (kv0 + blk - 1) >= p.window) continue;  // wholly outside every row's window
     const int phys = p.bt[b * p.max_blocks + j];
-    // K/V tile: token t of physical block `phys`, head kh (rows K*hd apart)
-    const size_t tile = (static_cast<size_t>(phys) * blk * p.K + kh) * hd;
-    load_rows<KVT>(kp + tile, vp + tile, 0, 1, static_cast<size_t>(p.K) * hd, blk, hd, k_s,
-                   v_s, p.kv_scale, p.vec);
+    // K/V tile: token t of physical block `phys`, head kh (rows K*hdw words apart)
+    const size_t tile = (static_cast<size_t>(phys) * blk * p.K + kh) * p.hdw;
+    const size_t kv_stride = static_cast<size_t>(p.K) * p.hdw;
+    float sk = p.kv_scale, sv = p.kv_scale;
+    if (QMODE != 0) {  // this (block, head)'s exponents, exact powers of two
+      const size_t ei = static_cast<size_t>(phys) * p.K + kh;
+      sk = ldexpf(1.f, p.k_exp[ei]);
+      sv = ldexpf(1.f, p.v_exp[ei]);
+    }
+    if (QMODE == 4)
+      load_rows_int4(reinterpret_cast<const int8_t*>(kp) + tile,
+                     reinterpret_cast<const int8_t*>(vp) + tile, kv_stride, blk, hd, k_s, v_s,
+                     sk, sv, p.vec);
+    else
+      load_rows<KVT>(kp + tile, vp + tile, 0, 1, kv_stride, blk, hd, k_s, v_s, sk, sv, p.vec);
     __syncthreads();
     // s = scale * q.k (+ softcap), one warp per (row, token) pair
     for (int pr = warp; pr < nrows * blk; pr += kWarps) {
@@ -265,12 +348,12 @@ __global__ void attn_combine(QT* __restrict__ out, Params p) {
   }
 }
 
-template <typename QT, typename KVT>
+template <typename QT, typename KVT, int QMODE>
 int launch(const void* q, const void* k, const void* v, void* out, const Params& p,
            cudaStream_t st) {
   const size_t smem =
       sizeof(float) * (2 * kRows * p.hd + 2 * p.block * p.hd + kRows * p.block + 3 * kRows);
-  auto kern = attn_partial<QT, KVT>;
+  auto kern = attn_partial<QT, KVT, QMODE>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
@@ -289,39 +372,49 @@ int launch(const void* q, const void* k, const void* v, void* out, const Params&
 template <typename QT>
 int launch_kv(int kv_dtype, const void* q, const void* k, const void* v, void* out,
               const Params& p, cudaStream_t st) {
-  if (kv_dtype == repro::kF32) return launch<QT, float>(q, k, v, out, p, st);
-  if (kv_dtype == repro::kBF16) return launch<QT, __nv_bfloat16>(q, k, v, out, p, st);
-  if (kv_dtype == repro::kI8) return launch<QT, int8_t>(q, k, v, out, p, st);
+  if (kv_dtype == repro::kF32) return launch<QT, float, 0>(q, k, v, out, p, st);
+  if (kv_dtype == repro::kBF16) return launch<QT, __nv_bfloat16, 0>(q, k, v, out, p, st);
+  if (kv_dtype == repro::kI8) return launch<QT, int8_t, 0>(q, k, v, out, p, st);
+  if (kv_dtype == kQ8) return launch<QT, int8_t, 8>(q, k, v, out, p, st);
+  if (kv_dtype == kQ4) return launch<QT, int8_t, 4>(q, k, v, out, p, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// q (B,T,K,G,hd) f32|bf16; pools (n_blocks, block, K, hd) f32|bf16|int8; bt (B,max_blocks)
-// i32; pos0 (B,) i32; out like q; ws_m/ws_l (B*K, n_split, TG) f32 and ws_acc
-// (B*K, n_split, TG, hd) f32 scratch (unused when n_split == 1).  Returns cudaGetLastError().
+// q (B,T,K,G,hd) f32|bf16; pools (n_blocks, block, K, hd) f32|bf16|int8 (kv_dtype 0|1|2),
+// int8 words (3) or (n_blocks, block, K, hd/2) int4 words (4) with k_exp/v_exp
+// (n_blocks, K) i32 (null otherwise); bt (B,max_blocks) i32; pos0 (B,) i32; out like q;
+// ws_m/ws_l (B*K, n_split, TG) f32 and ws_acc (B*K, n_split, TG, hd) f32 scratch (unused
+// when n_split == 1).  Returns cudaGetLastError().
 extern "C" int paged_attention_launch(const void* q, const void* k_pool, const void* v_pool,
-                                      const void* bt, const void* pos0, void* out, void* ws_m,
+                                      const void* bt, const void* pos0, const void* k_exp,
+                                      const void* v_exp, void* out, void* ws_m,
                                       void* ws_l, void* ws_acc, int B, int K, int T, int G,
                                       int hd, int block, int max_blocks, int window,
                                       int q_dtype, int kv_dtype, int n_split, float scale,
                                       float cap, float kv_scale, void* stream) {
-  if (B < 1 || K < 1 || T < 1 || G < 1 || hd < 1 || block < 1 || max_blocks < 1 || n_split < 1)
+  const bool quant = kv_dtype == kQ8 || kv_dtype == kQ4;
+  if (B < 1 || K < 1 || T < 1 || G < 1 || hd < 1 || block < 1 || max_blocks < 1 ||
+      n_split < 1 || (quant && (!k_exp || !v_exp)) || (kv_dtype == kQ4 && hd % 2))
     return static_cast<int>(cudaErrorInvalidValue);
   const int TG = T * G;
   Params p;
   p.bt = static_cast<const int*>(bt);
   p.pos0 = static_cast<const int*>(pos0);
+  p.k_exp = static_cast<const int*>(k_exp);
+  p.v_exp = static_cast<const int*>(v_exp);
   p.ws_m = static_cast<float*>(ws_m);
   p.ws_l = static_cast<float*>(ws_l);
   p.ws_acc = static_cast<float*>(ws_acc);
   p.B = B; p.T = T; p.K = K; p.TG = TG; p.G = G; p.hd = hd; p.block = block;
+  p.hdw = kv_dtype == kQ4 ? hd / 2 : hd;
   p.max_blocks = max_blocks; p.window = window; p.n_split = n_split;
   p.chunk = (max_blocks + n_split - 1) / n_split;
   const size_t kv_elt = kv_dtype == repro::kF32 ? 4 : kv_dtype == repro::kBF16 ? 2 : 1;
   const size_t q_elt = q_dtype == repro::kF32 ? 4 : 2;
   auto al16 = [](const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; };
-  p.vec = (hd * kv_elt) % 16 == 0 && (hd * q_elt) % 16 == 0 && al16(q) && al16(k_pool) &&
+  p.vec = (p.hdw * kv_elt) % 16 == 0 && (hd * q_elt) % 16 == 0 && al16(q) && al16(k_pool) &&
           al16(v_pool);
   p.scale = scale; p.cap = cap; p.kv_scale = kv_scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

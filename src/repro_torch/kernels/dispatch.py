@@ -4,15 +4,18 @@ kernel).
 
 Packed matmul backends (``set_packed_backend``):
 
-  'kernel' — the hand-written CUDA ``fixedpoint_matmul``: packed words are
-             read once from device memory and unpacked next to the FMA.
+  'kernel' — the hand-written CUDA ``fixedpoint_matmul`` (its experts form,
+             ``fixedpoint_matmul_experts``, for a per-expert MoE stack):
+             packed words are read once from device memory and unpacked
+             next to the FMA.
   'unpack' — dequantize-then-matmul in plain torch (the reference; exact,
              since mantissa × 2^-f is exact).
 
 Attention backends (``set_attention_backend``):
 
   'fused'    — the CUDA ``paged_attention`` kernel: the block-table walk
-               runs inside the online-softmax loop.
+               runs inside the online-softmax loop (float, KV_F int8 and
+               SYMOG int8 / int4 pools, dequantized on load).
   'composed' — paged_gather → mask → dense softmax attention in torch.
 
 Optimizer-update backends (``set_update_backend``), read by

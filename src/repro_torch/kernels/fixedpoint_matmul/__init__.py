@@ -1,3 +1,7 @@
-from repro_torch.kernels.fixedpoint_matmul.ops import fixedpoint_matmul, pack_weight
+from repro_torch.kernels.fixedpoint_matmul.ops import (
+    fixedpoint_matmul,
+    fixedpoint_matmul_experts,
+    pack_weight,
+)
 
-__all__ = ["fixedpoint_matmul", "pack_weight"]
+__all__ = ["fixedpoint_matmul", "fixedpoint_matmul_experts", "pack_weight"]

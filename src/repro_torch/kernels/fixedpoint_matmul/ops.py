@@ -2,7 +2,9 @@
 
 ``fixedpoint_matmul`` launches the CUDA kernel (``csrc/fixedpoint_matmul.cu``)
 for CUDA tensors and runs its plain version (``ref.py``) for CPU tensors.
-It returns x's dtype (the JAX call sites pass ``out_dtype=x.dtype``).
+``fixedpoint_matmul_experts`` is the MoE-stack form: one launch over all E
+experts of a stack, each with its own exponent f[e] read on the device.
+Both return x's dtype (the JAX call sites pass ``out_dtype=x.dtype``).
 """
 from __future__ import annotations
 
@@ -13,10 +15,15 @@ import torch
 from repro_torch.core.packing import pack_int, values_per_byte
 from repro_torch.core.quantizer import delta_from_f, quantize_int
 from repro_torch.kernels import build
-from repro_torch.kernels.fixedpoint_matmul.ref import fixedpoint_matmul_ref
+from repro_torch.kernels.fixedpoint_matmul.ref import (
+    fixedpoint_matmul_experts_ref,
+    fixedpoint_matmul_ref,
+)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-launches = 0  # kernel launches (plain-version calls on the CPU do not count)
+# kernel launches of each wrapper (plain-version calls on the CPU do not count)
+launches = 0
+experts_launches = 0
 
 
 def pack_weight(w: torch.Tensor, f, n_bits: int = 2) -> torch.Tensor:
@@ -28,15 +35,25 @@ def _as_compute(x: torch.Tensor) -> torch.Tensor:
     return x if x.is_floating_point() else x.to(torch.float32)
 
 
-def _grid_shape(M: int, K: int, nbytes: int, n_sm: int):
+def _grid_shape(M: int, K: int, nbytes: int, n_sm: int, E: int = 1):
     """(m_tile, split): rows of x per block, and K splits so that the grid
-    holds ~4 blocks per SM when the column groups x row tiles are few, with
-    at least 64 weight rows (one step of the block's 8 warps) per split."""
+    holds ~4 blocks per SM when the column groups x row tiles (x experts)
+    are few, with at least 64 weight rows (one step of the block's 8 warps)
+    per split."""
     m_tile = 1 if M == 1 else 2 if M == 2 else 4
-    base = math.ceil(nbytes / 128) * math.ceil(M / m_tile)
+    base = math.ceil(nbytes / 128) * math.ceil(M / m_tile) * E
     split = max(1, min(math.ceil(4 * n_sm / base), math.ceil(K / 64)))
     rows = math.ceil(K / split)
     return m_tile, math.ceil(K / rows)
+
+
+def _check_operands(x, n_bits: int) -> int:
+    code = _DTYPE_CODE.get(x.dtype)
+    if code is None:
+        raise TypeError(f"fixedpoint_matmul kernel takes f32/bf16 x, got {x.dtype}")
+    if n_bits not in (2, 4):
+        raise ValueError(f"fixedpoint_matmul kernel takes n_bits 2 or 4, got {n_bits}")
+    return code
 
 
 def _launch(x2, packed_w, f, bias, n_bits: int, n_out: int) -> torch.Tensor:
@@ -44,11 +61,7 @@ def _launch(x2, packed_w, f, bias, n_bits: int, n_out: int) -> torch.Tensor:
     dev = x2.device
     M, K = x2.shape
     nbytes = n_out * n_bits // 8
-    code = _DTYPE_CODE.get(x2.dtype)
-    if code is None:
-        raise TypeError(f"fixedpoint_matmul kernel takes f32/bf16 x, got {x2.dtype}")
-    if n_bits not in (2, 4):
-        raise ValueError(f"fixedpoint_matmul kernel takes n_bits 2 or 4, got {n_bits}")
+    code = _check_operands(x2, n_bits)
     if packed_w.dtype != torch.int8 or packed_w.shape != (K, nbytes):
         raise ValueError(f"packed_w must be int8 ({K}, {nbytes}), got "
                          f"{packed_w.dtype} {tuple(packed_w.shape)}")
@@ -85,3 +98,42 @@ def fixedpoint_matmul(x, packed_w, f, bias=None, *, n_bits: int = 2, n_out: int)
     else:
         y = fixedpoint_matmul_ref(x2, packed_w, f, bias, n_bits=n_bits, n_out=n_out).to(x.dtype)
     return y.reshape(*lead, n_out)
+
+
+def _launch_experts(x, packed_w, f, n_bits: int, n_out: int) -> torch.Tensor:
+    global experts_launches
+    dev = x.device
+    E, C, K = x.shape
+    nbytes = n_out * n_bits // 8
+    code = _check_operands(x, n_bits)
+    if packed_w.dtype != torch.int8 or packed_w.shape != (E, K, nbytes):
+        raise ValueError(f"packed_w must be int8 ({E}, {K}, {nbytes}), got "
+                         f"{packed_w.dtype} {tuple(packed_w.shape)}")
+    if not isinstance(f, torch.Tensor) or f.dtype != torch.int32 or f.shape != (E,):
+        raise ValueError(f"f must be an int32 ({E},) tensor of per-expert exponents, got "
+                         f"{getattr(f, 'dtype', type(f))} {tuple(getattr(f, 'shape', ()))}")
+    if packed_w.device != dev or f.device != dev:
+        raise ValueError(f"operands must all lie on {dev}")
+    x, packed_w, f = x.contiguous(), packed_w.contiguous(), f.contiguous()
+    m_tile, split = _grid_shape(C, K, nbytes, build.sm_count(dev), E)
+    y = torch.empty((E, C, n_out), dtype=x.dtype, device=dev)
+    ws = torch.empty((split, E, C, n_out), dtype=torch.float32, device=dev)
+    err = build.library().fixedpoint_matmul_experts_launch(
+        x.data_ptr(), packed_w.data_ptr(), f.data_ptr(), y.data_ptr(), ws.data_ptr(),
+        E, C, K, n_out, nbytes, n_bits, code, split, m_tile, build.current_stream(dev),
+    )
+    build.check(err, "fixedpoint_matmul_experts")
+    experts_launches += 1
+    return y
+
+
+def fixedpoint_matmul_experts(x, packed_w, f, *, n_bits: int = 2, n_out: int) -> torch.Tensor:
+    """Per-expert packed matmul in x's dtype: y[e] = x[e] @ (unpack(w[e])·2^{-f[e]}).
+    x (E, C, K) float; packed_w (E, K, n_out·n_bits/8) int8; f (E,) int32."""
+    values_per_byte(n_bits)
+    x = _as_compute(x)
+    if x.ndim != 3:
+        raise ValueError(f"x must be (E, C, K), got {tuple(x.shape)}")
+    if x.is_cuda:
+        return _launch_experts(x, packed_w, f, n_bits, n_out)
+    return fixedpoint_matmul_experts_ref(x, packed_w, f, n_bits=n_bits, n_out=n_out).to(x.dtype)

@@ -15,3 +15,11 @@ def fixedpoint_matmul_ref(x, packed_w, f, bias=None, *, n_bits: int, n_out: int)
     if bias is not None:
         y = y + bias.to(torch.float32)
     return y
+
+
+def fixedpoint_matmul_experts_ref(x, packed_w, f, *, n_bits: int, n_out: int):
+    """x (E, C, K) float; packed_w (E, K, n_out·n_bits/8) int8; f (E,) ints
+    -> (E, C, N) f32: y[e] = x[e] @ m[e] · 2^{-f[e]}."""
+    m = unpack_int(packed_w, n_bits, n_out).to(torch.float32)
+    scale = torch.exp2(-torch.as_tensor(f, device=x.device).to(torch.float32))[:, None, None]
+    return torch.bmm(x.to(torch.float32), m) * scale

@@ -1,6 +1,7 @@
 """GQA/MQA self-attention (mirrors the GQA half of
 ``repro/models/attention.py``): full-sequence prefill attention, dense and
-paged KV caches, and single-token decode.
+paged KV caches (float, or SYMOG-quantized int8/int4 with a per-(block,
+KV head) power-of-two scale), and single-token decode.
 
 Shapes: x (B, T, D); q (B, T, H, hd); k/v (B, S, K, hd) with H = K·G.
 
@@ -18,6 +19,7 @@ import torch
 
 from repro_torch.kernels.dispatch import resolve_attention_backend
 from repro_torch.kernels.paged_attention import paged_attention
+from repro_torch.kernels.paged_attention.ref import dequant_logical
 from repro_torch.models.layers import (
     apply_rope,
     dense_apply,
@@ -28,7 +30,16 @@ from repro_torch.models.layers import (
 )
 
 Q_CHUNK_DEFAULT = 1024  # chunk queries when T exceeds this
+# Fixed-point KV caches, two regimes:
+#   - DENSE caches: one global power-of-two scale Δ = 2^-KV_F (int8_fp);
+#   - PAGED pools: per-block, per-head SYMOG scales.  Each physical block
+#     carries an int32 exponent in a ``<leaf>_scale`` sibling leaf,
+#     calibrated once from the k/v vector at the block's first slot and
+#     never re-rounded.  int4 packs two lanes per int8 word (split halves:
+#     low nibbles = lanes [0, w/2), high = [w/2, w)).
 KV_F = 5  # int8 fixed-point KV cache: Δ = 2^-5
+KV_QMAX = {8: 127, 4: 7}  # symmetric mantissa range per wordlength
+KV_EXP_MIN, KV_EXP_MAX = -20, 20  # exponent clamp (2^±20 stays finite)
 
 
 def cache_write(x: torch.Tensor, like_dtype) -> torch.Tensor:
@@ -44,6 +55,33 @@ def cache_read(c: torch.Tensor, dtype) -> torch.Tensor:
     if c.dtype == torch.int8:
         return c.to(dtype) * (2.0**-KV_F)
     return c.to(dtype)
+
+
+def block_scale_exp(new: torch.Tensor, qmax: int) -> torch.Tensor:
+    """Per-entry SYMOG exponent: smallest e with amax/2^e ≤ qmax/2, as the
+    JAX package computes it in fp32 (``ceil(log2(amax) + 1 - log2(qmax))``).
+    ``new`` (N, ..., width); the amax runs over the feature axis, so the
+    result (N, ...) is per KV head.  The +1 margin bit leaves factor-2
+    headroom for the block's later tokens."""
+    amax = torch.amax(torch.abs(new.to(torch.float32)), dim=-1)
+    e = torch.ceil(torch.log2(torch.clamp(amax, min=2.0**-30)) + 1.0 - math.log2(qmax))
+    return torch.clamp(e, KV_EXP_MIN, KV_EXP_MAX).to(torch.int32)
+
+
+def quantize_fixed(x: torch.Tensor, e: torch.Tensor, qmax: int) -> torch.Tensor:
+    """Round x to int8 mantissas under per-entry exponents ``e`` (broadcast
+    over the trailing feature axis); round half to even."""
+    scale = torch.exp2(-e.to(torch.float32))[..., None]
+    q = torch.round(x.to(torch.float32) * scale)
+    return torch.clamp(q, -qmax, qmax).to(torch.int8)
+
+
+def pack_int4(x: torch.Tensor) -> torch.Tensor:
+    """Pack 2w int4 mantissas into w int8 words, split halves: word i holds
+    lane i in its low nibble and lane i + w in its high (sign) nibble.  The
+    cast to int8 keeps the low byte, the two's-complement word."""
+    w = x.shape[-1] // 2
+    return ((x[..., :w] & 15) | (x[..., w:] << 4)).to(torch.int8)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -212,6 +250,58 @@ def _pool_dequant_scale(pool) -> float:
     return 2.0**-KV_F if pool.dtype == torch.int8 else 1.0
 
 
+def word_bits(pool: torch.Tensor, width: int) -> int:
+    """Wordlength of a SYMOG pool leaf holding entries of ``width`` lanes:
+    4 when its words are half as many (two lanes per int8 word), else 8."""
+    return 4 if pool.shape[-1] * 2 == width else 8
+
+
+def paged_quant_update(pool, exp_leaf, new, idx):
+    """Scatter entries into a SYMOG-quantized pool, in place.
+
+    pool (n_blocks, block, ..., w) int8 mantissa words; exp_leaf (n_blocks,
+    ...) int32 per-block exponents; new (N, ..., width) float entries; idx
+    (N,) flat token indices.  A block's exponent is calibrated ONCE, from
+    the entry at its first slot (idx % block == 0); other entries scatter
+    their candidate exponent into the trash row 0 instead, so a later write
+    never re-rounds KV an earlier one committed."""
+    nb, block = pool.shape[:2]
+    bits = word_bits(pool, new.shape[-1])
+    qmax = KV_QMAX[bits]
+    bid = idx // block
+    tgt = torch.where(idx % block == 0, bid, torch.zeros_like(bid))
+    exp_leaf[tgt] = block_scale_exp(new, qmax)
+    q = quantize_fixed(new, exp_leaf[bid], qmax)
+    if bits == 4:
+        q = pack_int4(q)
+    pool.view((nb * block,) + tuple(pool.shape[2:]))[idx] = q
+    return pool, exp_leaf
+
+
+def _paged_write(cache, names, news, idx) -> None:
+    """Scatter into paged leaves, in place: a leaf with a ``<name>_scale``
+    sibling quantizes at write with its block's scale
+    (``paged_quant_update``); any other leaf takes ``paged_update``.
+    ``news`` are flat (N, ...) entries matching ``idx`` (N,)."""
+    for name, new in zip(names, news):
+        sname = name + "_scale"
+        if sname in cache:
+            paged_quant_update(cache[name], cache[sname], new, idx)
+        else:
+            paged_update(cache[name], new, idx)
+
+
+def _paged_read(cache, name, block_tables, dtype, width):
+    """Composed-path gather + dequantize of one paged leaf: per-block-scale
+    leaves unpack int4 words and scale every row of physical block p by
+    2^exp[p] (per KV head); KV_F/float leaves keep ``cache_read``."""
+    sname = name + "_scale"
+    if sname not in cache:
+        return cache_read(paged_gather(cache[name], block_tables), dtype)
+    bits = word_bits(cache[name], width)
+    return dequant_logical(cache[name], cache[sname], block_tables, kv_bits=bits).to(dtype)
+
+
 def _fused_paged_attn(q, cache, block_tables, positions, *, cfg: AttnConfig, window,
                       compute_dtype):
     """The CUDA paged-attention kernel in place of gather → mask →
@@ -221,7 +311,9 @@ def _fused_paged_attn(q, cache, block_tables, positions, *, cfg: AttnConfig, win
     out = paged_attention(
         q.reshape(B, T, K, H // K, hd), cache["k"], cache["v"], block_tables,
         positions[:, 0].contiguous(), scale=_scale(cfg), cap=cfg.softcap, window=window,
-        kv_scale=_pool_dequant_scale(cache["k"]), out_dtype=compute_dtype,
+        kv_scale=_pool_dequant_scale(cache["k"]), k_scale_exp=cache.get("k_scale"),
+        v_scale_exp=cache.get("v_scale"),
+        kv_bits=word_bits(cache["k"], hd) if "k_scale" in cache else 0, out_dtype=compute_dtype,
     )
     return out.reshape(B, T, H, hd)
 
@@ -245,15 +337,14 @@ def attn_decode(p, x, cache, pos, *, cfg: AttnConfig, window=None, rope_base=100
         idx = cache_index
         if idx is None:
             idx = paged_token_index(block_tables, positions[:, 0], cache["k"].shape[1])
-        paged_update(cache["k"], k_new[:, 0], idx)
-        paged_update(cache["v"], v_new[:, 0], idx)
+        _paged_write(cache, ("k", "v"), (k_new[:, 0], v_new[:, 0]), idx)
         if resolve_attention_backend(x.device) != "composed":
             out = _fused_paged_attn(q, cache, block_tables, positions, cfg=cfg,
                                     window=window, compute_dtype=compute_dtype)
             y = dense_apply(p["o_proj"], out, n_in=2, compute_dtype=compute_dtype)
             return y, cache
-        k = cache_read(paged_gather(cache["k"], block_tables), compute_dtype)
-        v = cache_read(paged_gather(cache["v"], block_tables), compute_dtype)
+        k = _paged_read(cache, "k", block_tables, compute_dtype, hd)
+        v = _paged_read(cache, "v", block_tables, compute_dtype, hd)
     else:
         cache_update_rows(cache["k"], k_new, pos if not per_row else positions[:, 0],
                           per_row=per_row)

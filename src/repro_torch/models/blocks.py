@@ -1,8 +1,11 @@
-"""Per-layer blocks (mirrors ``repro/models/blocks.py``, attention+MLP kind
-'A' only — the decoder family of this slice).  ``window`` and ``rope_base``
-are per-layer values read from the config."""
+"""Per-layer blocks (mirrors ``repro/models/blocks.py``) of the decoder
+family: kind 'A' (attention + MLP) and kind 'E' (attention + MoE, olmoe).
+The other kinds ('D' leading dense layers of an MoE model, 'R', 'M') and
+MLA attention are not ported and raise.  ``window`` and ``rope_base`` are
+per-layer values read from the config."""
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -23,6 +26,7 @@ from repro_torch.models.layers import (
     rmsnorm_init,
 )
 from repro_torch.models.mlp import MLPConfig, mlp_apply, mlp_init
+from repro_torch.models.moe import MoEConfig, moe_apply, moe_init
 
 
 def _attn_cfg(cfg: ModelConfig) -> AttnConfig:
@@ -45,11 +49,24 @@ def _mlp_cfg(cfg: ModelConfig) -> MLPConfig:
     )
 
 
+def _moe_cfg(cfg: ModelConfig) -> MoEConfig:
+    return MoEConfig(
+        d_model=cfg.d_model,
+        n_experts=cfg.n_experts,
+        top_k=cfg.top_k,
+        d_ff_expert=cfg.d_ff_expert,
+        n_shared_experts=cfg.n_shared_experts,
+        router=cfg.router,
+        capacity_factor=cfg.capacity_factor,
+        act=cfg.act,
+    )
+
+
 def _check_kind(cfg: ModelConfig, kind: str) -> None:
-    if kind != "A" or cfg.use_mla:
+    if kind not in ("A", "E") or cfg.use_mla:
         raise NotImplementedError(
             f"block kind {kind!r} (mla={cfg.use_mla}) is not ported yet; the port serves "
-            "attention+MLP decoder blocks (ROADMAP Queue 1 item 12)"
+            "attention+MLP and attention+MoE decoder blocks (ROADMAP Queue 1 item 12)"
         )
 
 
@@ -72,7 +89,10 @@ def block_init(gen, cfg: ModelConfig, kind: str, dtype=torch.float32,
     if cfg.post_norm:
         p["post_attn_norm"] = _norm_init(cfg, dtype, dev, lead)
     p["pre_mlp_norm"] = _norm_init(cfg, dtype, dev, lead)
-    p["mlp"] = mlp_init(gen, _mlp_cfg(cfg), dtype, lead)
+    if kind == "E":
+        p["moe"] = moe_init(gen, _moe_cfg(cfg), dtype, lead)
+    else:
+        p["mlp"] = mlp_init(gen, _mlp_cfg(cfg), dtype, lead)
     if cfg.post_norm:
         p["post_mlp_norm"] = _norm_init(cfg, dtype, dev, lead)
     return p
@@ -89,11 +109,22 @@ def _attn_prefill_cache(k, v, cfg: ModelConfig, cache_len: int):
     return {"k": cache_write(k, dt), "v": cache_write(v, dt)}
 
 
+def _ffn(p, h, cfg: ModelConfig, kind: str, compute_dtype, **moe_kw):
+    if kind == "E":
+        y, _ = moe_apply(p["moe"], h, cfg=_moe_cfg(cfg), compute_dtype=compute_dtype,
+                         with_aux=False, **moe_kw)
+        return y
+    return mlp_apply(p["mlp"], h, cfg=_mlp_cfg(cfg), compute_dtype=compute_dtype)
+
+
 def block_apply(p, x, *, cfg: ModelConfig, kind: str, positions, window=None,
                 rope_base=10000.0, compute_dtype=torch.bfloat16, cache_len: int = 0,
-                rope_table=None):
+                rope_table=None, seq_len: Optional[int] = None):
     """Full-sequence block.  Returns (x, cache); ``cache_len`` > 0 also
-    returns the layer's prefill cache padded to that length."""
+    returns the layer's prefill cache padded to that length.  ``seq_len``
+    (bucketed prefill): positions >= seq_len are padding, which only the
+    MoE capacity dispatch has to know (causal attention isolates them).
+    The MoE aux losses are not computed: serving reads none of them."""
     _check_kind(cfg, kind)
     cache = None
     h = _norm_apply(cfg, p["pre_norm"], x)
@@ -106,7 +137,7 @@ def block_apply(p, x, *, cfg: ModelConfig, kind: str, positions, window=None,
         y = _norm_apply(cfg, p["post_attn_norm"], y)
     x = x + y
     h = _norm_apply(cfg, p["pre_mlp_norm"], x)
-    y = mlp_apply(p["mlp"], h, cfg=_mlp_cfg(cfg), compute_dtype=compute_dtype)
+    y = _ffn(p, h, cfg, kind, compute_dtype, seq_len=seq_len)
     if cfg.post_norm:
         y = _norm_apply(cfg, p["post_mlp_norm"], y)
     return x + y, cache
@@ -121,9 +152,15 @@ def block_cache_init(batch: int, max_len: int, cfg: ModelConfig, kind: str,
 def block_decode(p, x, cache, pos, *, cfg: ModelConfig, kind: str, window=None,
                  rope_base=10000.0, compute_dtype=torch.bfloat16,
                  block_tables: Optional[torch.Tensor] = None, rope_table=None,
-                 cache_index: Optional[torch.Tensor] = None):
+                 cache_index: Optional[torch.Tensor] = None, dropless_moe: bool = False):
     """One decode step of a block; ``block_tables`` selects the paged cache
-    (``rope_table``/``cache_index``: see ``attn_decode``)."""
+    (``rope_table``/``cache_index``: see ``attn_decode``).
+
+    MoE capacity: ``dropless_moe`` (the scheduler's ragged decode) sizes
+    each expert's buffer at the batch: a token's top-k experts are
+    distinct, so an expert sees at most B assignments and none drops — a
+    row's output then never depends on who shares the slot table.  The
+    static loop keeps the bounded max(top_k, ceil(2·B·top_k/E))."""
     _check_kind(cfg, kind)
     h = _norm_apply(cfg, p["pre_norm"], x)
     y, cache = attn_decode(p["attn"], h, cache, pos, cfg=_attn_cfg(cfg), window=window,
@@ -134,7 +171,12 @@ def block_decode(p, x, cache, pos, *, cfg: ModelConfig, kind: str, window=None,
         y = _norm_apply(cfg, p["post_attn_norm"], y)
     x = x + y
     h = _norm_apply(cfg, p["pre_mlp_norm"], x)
-    y = mlp_apply(p["mlp"], h, cfg=_mlp_cfg(cfg), compute_dtype=compute_dtype)
+    cap = 0
+    if kind == "E":
+        B = x.shape[0]
+        cap = B if dropless_moe else max(cfg.top_k,
+                                         math.ceil(2.0 * B * cfg.top_k / cfg.n_experts))
+    y = _ffn(p, h, cfg, kind, compute_dtype, capacity=cap)
     if cfg.post_norm:
         y = _norm_apply(cfg, p["post_mlp_norm"], y)
     return x + y, cache

@@ -1,10 +1,13 @@
 """Unified architecture config (a copy of ``repro/models/config.py``: the
 port imports nothing of the JAX package), cut to the fields the port
-reads.  The port serves the decoder family's attention+MLP kind ('A');
-``n_experts``, ``use_mla`` and ``kv_cache_dtype`` are kept so that it can
-reject what it does not serve yet.  Fields of the other families come back
-with the slice that ports them.  ``layer_kinds`` derives the per-layer block
-kind: 'A' attention+MLP, 'E' attention+MoE, 'R' RG-LRU block.
+reads.  The port serves the decoder family's attention+MLP kind ('A') and
+attention+MoE kind ('E', olmoe: one SYMOG Δ per expert), from a bf16 pool
+or a SYMOG-quantized int8/int4 KV pool (``kv_cache_dtype``, MoE decoders
+only so far).  ``use_mla`` is kept so that it can reject what it does not
+serve yet.  Fields of the other families come back with the slice that
+ports them.  ``layer_kinds`` derives the per-layer block kind: 'A'
+attention+MLP, 'D' an MoE model's leading dense layers (not ported), 'E'
+attention+MoE, 'R' RG-LRU block.
 Attention local/global heterogeneity (gemma2/3) is NOT a separate kind — it
 is per-layer scanned scalars (window, rope base), so the whole stack stays a
 single scan in JAX (a Python loop over the stacked layer axis here).
@@ -46,11 +49,21 @@ class ModelConfig:
     tie_lm_head: bool = True
     norm: str = "rmsnorm"
     post_norm: bool = False  # gemma2/3: post-sublayer norms
-    # moe / mla: read only so that the port rejects those families
+    # moe
     n_experts: int = 0
+    top_k: int = 0
+    d_ff_expert: int = 0
+    n_shared_experts: int = 0
+    n_dense_layers: int = 0  # deepseek: leading dense-FFN layers (kind 'D', not ported)
+    router: str = "softmax"
+    capacity_factor: float = 1.25
+    # mla: read only so that the port rejects that family
     use_mla: bool = False
-    # 'bf16' | 'int8_fp' | 'int4_fp' in the JAX package; the port serves
-    # bf16 pools and rejects the fixed-point ones (ROADMAP).
+    # 'bf16' | 'int8_fp' | 'int4_fp'.  Dense caches use the global Δ=2^-5
+    # int8 grid for int8_fp (int4_fp keeps the compute dtype there); paged
+    # pools store int8/packed-int4 mantissas with a per-(block, KV head)
+    # power-of-two scale.  The port serves the quantized pools for MoE
+    # decoders; all-attention decoders wait for the tail-prefill admission.
     kv_cache_dtype: str = "bf16"
 
     @property
@@ -62,7 +75,12 @@ class ModelConfig:
         kinds = []
         for i in range(self.n_layers):
             c = self.layer_pattern[i % len(self.layer_pattern)]
-            kinds.append("R" if c == "R" else "E" if self.moe else "A")
+            if c == "R":
+                kinds.append("R")
+            elif self.moe:
+                kinds.append("D" if i < self.n_dense_layers else "E")
+            else:
+                kinds.append("A")
         return kinds
 
     def layer_windows(self) -> List[int]:

@@ -1,6 +1,8 @@
 """LM assembly for the decoder family (mirrors ``repro/models/lm.py``):
 embeddings → layer groups → head, plus prefill, decode and the training
-loss.
+loss.  Dense GQA decoders (internlm2) serve and train; MoE decoders
+(olmoe) serve, and their training (aux/z losses, per-expert SYMOG update)
+is not ported yet.
 
 Consecutive layers of one kind form a group whose params carry a stacked
 leading layer axis (``GroupSpec``/``scan_groups``, the JAX scan layout), so
@@ -82,9 +84,9 @@ class ForwardOut(NamedTuple):
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "decoder" or cfg.moe:
+    if cfg.family != "decoder":
         raise NotImplementedError(
-            f"family {cfg.family!r} (moe={cfg.moe}) is not ported yet (ROADMAP Queue 1 item 12)"
+            f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1 item 12)"
         )
 
 
@@ -182,7 +184,7 @@ def forward_lm(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
             x, c = block_apply(p_l["sub0"], x, cfg=cfg, kind=g.unit[0], positions=positions,
                                window=wins[li], rope_base=bases[li],
                                compute_dtype=compute_dtype, cache_len=prefill_len,
-                               rope_table=tables.get(bases[li]))
+                               rope_table=tables.get(bases[li]), seq_len=seq_len)
             per_layer.append(c)
         if prefill_len:
             sub = per_layer[0] if not g.stacked else {
@@ -214,8 +216,9 @@ def decode_lm(params, caches, tokens, pos, cfg: ModelConfig, *, compute_dtype=to
     """One decode step.  tokens (B,1); ``pos`` an int (uniform batch) or a
     (B,) int32 tensor (per-request positions).  ``block_tables`` (B,
     max_blocks) switches k/v to the paged pools; ``active`` (B,) bool then
-    zeroes inactive rows at the embedding, and an evicted row's zeroed table
-    row sends its writes to the trash block.  (The JAX package also reverts
+    zeroes inactive rows at the embedding, an evicted row's zeroed table
+    row sends its writes to the trash block, and MoE layers run dropless
+    (capacity = batch rows), as in the JAX package.  (The JAX package also reverts
     inactive rows' writes into dense caches; the port's scheduler pages every
     cache, so ``active`` is taken with ``block_tables`` only.)  Caches are
     updated in place.  Returns (logits (B,1,V), caches)."""
@@ -242,7 +245,8 @@ def decode_lm(params, caches, tokens, pos, cfg: ModelConfig, *, compute_dtype=to
                                 window=wins[li], rope_base=bases[li],
                                 compute_dtype=compute_dtype,
                                 block_tables=block_tables if paged else None,
-                                rope_table=tables.get(bases[li]), cache_index=index)
+                                rope_table=tables.get(bases[li]), cache_index=index,
+                                dropless_moe=active is not None)
     logits, _ = _head(params, cfg, x)
     return logits, caches
 
@@ -274,7 +278,10 @@ def lm_train_loss(params, batch, cfg: ModelConfig, *, compute_dtype=torch.bfloat
     loss, whose config field the port does not have yet) come with their
     families: an MoE config raises."""
     if cfg.moe:
-        raise NotImplementedError("the MoE aux losses are not ported yet (ROADMAP Queue 1 item 12)")
+        raise NotImplementedError(
+            "training MoE decoders (aux/z losses, per-expert SYMOG update) is not ported yet "
+            "(ROADMAP Queue 1 item 12)"
+        )
     out = forward_lm(params, batch, cfg, compute_dtype=compute_dtype)
     tokens = batch["tokens"]
     mask = batch.get("loss_mask")

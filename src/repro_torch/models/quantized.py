@@ -4,8 +4,9 @@
 A leaf is servable-packed iff it is a ``Packed``; its matmul call site
 dispatches on the pinned packed backend (``kernels.dispatch``):
 
-  'kernel' — ``kernels.fixedpoint_matmul``: the CUDA kernel for CUDA
-             tensors (its plain version for CPU tensors);
+  'kernel' — ``kernels.fixedpoint_matmul`` (``fixedpoint_matmul_experts``
+             for a per-expert MoE stack): the CUDA kernel for CUDA tensors
+             (its plain version for CPU tensors);
   'unpack' — dequantize-then-matmul in torch; exact, so bit-identical to
              serving the ``quantize_tree`` float params.
 
@@ -22,7 +23,7 @@ import torch
 from repro_torch.core.packing import Packed, unpack, unpack_int, values_per_byte
 from repro_torch.core.quantizer import delta_from_f
 from repro_torch.kernels.dispatch import resolve_packed_backend
-from repro_torch.kernels.fixedpoint_matmul.ops import fixedpoint_matmul
+from repro_torch.kernels.fixedpoint_matmul.ops import fixedpoint_matmul, fixedpoint_matmul_experts
 from repro_torch.nn.tree import is_packed, tree_leaves, tree_map
 
 __all__ = [
@@ -33,6 +34,7 @@ __all__ = [
     "scan_ready",
     "unstack_layers",
     "packed_dense_apply",
+    "packed_expert_einsum",
     "packed_take",
 ]
 
@@ -100,7 +102,8 @@ def packed_dense_apply(p, x, *, n_in: int = 1, compute_dtype=None) -> torch.Tens
     if pk.f.ndim != 0:
         raise NotImplementedError(
             "the fixedpoint_matmul kernel takes one exponent per call; slice stacked "
-            "layers first (unstack_layers) — per-expert stacks are ROADMAP Queue 2 row 1b"
+            "layers first (unstack_layers); per-expert MoE stacks go through "
+            "packed_expert_einsum"
         )
     in_dims, out_dims = pk.shape[:n_in], pk.shape[n_in:]
     K, N = math.prod(in_dims), math.prod(out_dims)
@@ -111,6 +114,17 @@ def packed_dense_apply(p, x, *, n_in: int = 1, compute_dtype=None) -> torch.Tens
         None if bias is None else bias.reshape(N), n_bits=pk.n_bits, n_out=N,
     )
     return y.reshape(*lead, *out_dims)
+
+
+def packed_expert_einsum(x, pk: Packed, *, compute_dtype=None) -> torch.Tensor:
+    """einsum('ECK,EKN->ECN') against a per-expert Packed stack (gate/up
+    (E, D, F) and down (E, F, D): the contraction is always over the middle
+    axis, packing over the last).  ``pk.f`` holds one exponent per expert."""
+    if compute_dtype is not None:
+        x = x.to(compute_dtype)
+    if resolve_packed_backend(x.device) == "unpack":
+        return torch.bmm(x, unpack(pk, x.dtype))
+    return fixedpoint_matmul_experts(x, pk.data, pk.f, n_bits=pk.n_bits, n_out=pk.shape[-1])
 
 
 def packed_take(pk: Packed, ids: torch.Tensor, *, dtype=None) -> torch.Tensor:

@@ -2,11 +2,15 @@
 ``repro/serve/engine.py``).
 
 The engine serves float, ``quantize_tree`` and ``pack_tree`` params through
-the same forward code.  Packed leaves stay packed on the device: every
-packed dense layer runs the CUDA ``fixedpoint_matmul`` kernel, and paged
-decode runs the CUDA ``paged_attention`` kernel.  On the CPU both resolve to
-their plain versions (dequantize-then-matmul, gather+softmax), which are
-exact for packed weights, so CPU token streams equal ``quantize_tree``'s.
+the same forward code, for dense GQA decoders (internlm2) and MoE decoders
+(olmoe).  Packed leaves stay packed on the device: every packed dense layer
+runs the CUDA ``fixedpoint_matmul`` kernel, every packed expert stack its
+experts form, and paged decode runs the CUDA ``paged_attention`` kernel
+(float pools, or SYMOG-quantized int8/int4 pools with ``kv_cache_dtype``
+``int8_fp``/``int4_fp``, MoE decoders only so far).  On the CPU these
+resolve to their plain versions (dequantize-then-matmul, gather+softmax),
+which are exact for packed weights, so CPU token streams equal
+``quantize_tree``'s.
 
 Both backends are pinned at construction (``kernels.dispatch``) and the
 globals are restored around every call, as in the JAX package.  Caches and
@@ -22,6 +26,14 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import dispatch
+from repro_torch.models.attention import (
+    KV_QMAX,
+    block_scale_exp,
+    cache_read,
+    pack_int4,
+    quantize_fixed,
+    word_bits,
+)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.lm import (
     PAGED_CACHE_LEAVES,
@@ -35,15 +47,9 @@ from repro_torch.models.quantized import tree_has_packed
 from repro_torch.nn.tree import tree_bytes, tree_to
 
 
-def _scatter_blocks(pool, src, bt_row, axis: int, p_blocks: int):
-    """Write a batch-of-one prefill cache into the paged pool, in place.
-
-    pool (n_blocks, block, feat...) — one more leading layer axis when
-    ``axis`` is 1 (stacked group); src has the batch-of-one axis at
-    ``axis`` and a max_len axis after it.  Only the bucket's first
-    ``p_blocks`` table entries are written; entries past the allocated
-    prefix are 0, so the padded tail lands in the trash block."""
-    block = pool.shape[axis + 1]
+def _as_blocks(src, axis: int, p_blocks: int, block: int):
+    """A batch-of-one prefill leaf (batch axis at ``axis``, a max_len axis
+    after it) cut to the bucket's ``p_blocks`` blocks of ``block`` tokens."""
     src = src.squeeze(axis)
     need = p_blocks * block
     t = src.shape[axis]
@@ -52,13 +58,46 @@ def _scatter_blocks(pool, src, bt_row, axis: int, p_blocks: int):
         src = torch.nn.functional.pad(src, pad)
     elif need < t:
         src = src.narrow(axis, 0, need)
-    src = src.reshape(src.shape[:axis] + (p_blocks, block) + src.shape[axis + 1:])
+    return src.reshape(src.shape[:axis] + (p_blocks, block) + src.shape[axis + 1:])
+
+
+def _scatter_blocks(pool, src, bt_row, axis: int, p_blocks: int):
+    """Write a batch-of-one prefill cache into the paged pool, in place.
+
+    pool (n_blocks, block, feat...) — one more leading layer axis when
+    ``axis`` is 1 (stacked group).  Only the bucket's first ``p_blocks``
+    table entries are written; entries past the allocated prefix are 0, so
+    the padded tail lands in the trash block."""
+    src = _as_blocks(src, axis, p_blocks, pool.shape[axis + 1])
     ids = bt_row[:p_blocks].to(torch.int64)
     if axis == 0:
         pool[ids] = src.to(pool.dtype)
     else:
         pool[:, ids] = src.to(pool.dtype)
     return pool
+
+
+def _scatter_blocks_quant(pool, exp_leaf, src, bt_row, axis: int, p_blocks: int):
+    """Quantizing variant of ``_scatter_blocks`` for per-block SYMOG pools,
+    in place: dequantize the prefill leaf (float, or KV_F int8), calibrate
+    each written block's exponent from its FIRST token, quantize every
+    token under its block's scale, and scatter the int8 / packed-int4
+    mantissas plus the exponent rows."""
+    src = _as_blocks(cache_read(src, torch.float32), axis, p_blocks, pool.shape[axis + 1])
+    bits = word_bits(pool, src.shape[-1])
+    qmax = KV_QMAX[bits]
+    e = block_scale_exp(src.select(axis + 1, 0), qmax)
+    q = quantize_fixed(src, e.unsqueeze(axis + 1), qmax)
+    if bits == 4:
+        q = pack_int4(q)
+    ids = bt_row[:p_blocks].to(torch.int64)
+    if axis == 0:
+        pool[ids] = q
+        exp_leaf[ids] = e
+    else:
+        pool[:, ids] = q
+        exp_leaf[:, ids] = e
+    return pool, exp_leaf
 
 
 def _greedy(logits: torch.Tensor) -> torch.Tensor:
@@ -110,7 +149,12 @@ class SchedulerFns:
                 dst, src = caches[g.name]["sub0"], one[g.name]["sub0"]
                 for name, leaf in src.items():
                     if g.paged[0] and name in PAGED_CACHE_LEAVES:
-                        _scatter_blocks(dst[name], leaf, bt_row, axis, p_blocks)
+                        sname = name + "_scale"
+                        if sname in dst:
+                            _scatter_blocks_quant(dst[name], dst[sname], leaf, bt_row, axis,
+                                                  p_blocks)
+                        else:
+                            _scatter_blocks(dst[name], leaf, bt_row, axis, p_blocks)
                     else:
                         dst[name].narrow(axis, slot, 1).copy_(leaf)
             return _greedy(logits[:, -1, :])[0], caches
@@ -127,10 +171,18 @@ class ServeEngine:
     device: Any = None  # None: the card (raises without one); "cpu" on request
 
     def __post_init__(self):
-        if self.cfg.kv_cache_dtype not in ("bf16",):
+        kv = self.cfg.kv_cache_dtype
+        if kv not in ("bf16", "int8_fp", "int4_fp"):
+            raise ValueError(f"kv_cache_dtype must be bf16, int8_fp or int4_fp, got {kv!r}")
+        if kv != "bf16" and not self.cfg.moe:
+            # the JAX package admits every request to a quantized pool of an
+            # all-attention decoder through the tail-prefill trace, which the
+            # port has not yet; MoE decoders admit through the bucketed
+            # prefill plus a quantizing block scatter, which it has
             raise NotImplementedError(
-                f"kv_cache_dtype {self.cfg.kv_cache_dtype!r}: quantized KV pools are not "
-                "ported yet (ROADMAP Queue 1 item 8)"
+                f"kv_cache_dtype {kv!r} on an all-attention decoder: its admission runs "
+                "the tail-prefill trace, not ported yet (ROADMAP Queue 1 item 9); the port "
+                "serves quantized KV pools for MoE decoders"
             )
         self.device = resolve_device(self.device)
         self.model = DecoderLM(self.cfg, tree_to(self.params, self.device))
@@ -161,6 +213,12 @@ class ServeEngine:
         finally:
             dispatch.set_packed_backend(prev_p)
             dispatch.set_attention_backend(prev_a)
+
+    @property
+    def kv_quant_bits(self) -> int:
+        """Wordlength of the per-block SYMOG paged KV pool: 8 (int8_fp) or
+        4 (int4_fp), 0 for a float pool."""
+        return {"int8_fp": 8, "int4_fp": 4}.get(self.cfg.kv_cache_dtype, 0)
 
     def weight_bytes(self) -> int:
         """Resident param bytes (Packed leaves count their int8 words)."""

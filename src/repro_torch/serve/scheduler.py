@@ -17,8 +17,12 @@ KV-cache block pool (mirrors the core of ``repro/serve/scheduler.py``).
     replay is token-exact;
   * eviction on eos or length returns the blocks and zeroes the table row.
 
-Greedy only: sampled decoding, the prefix cache, chunked prefill, quantized
-KV, telemetry, async and cancellation come in later slices.  Slot state
+With ``kv_cache_dtype`` int8_fp/int4_fp (MoE decoders) the pools hold
+SYMOG-quantized int8 / packed-int4 mantissas with one int32 exponent per
+(physical block, KV head) in a ``<name>_scale`` sibling leaf.
+
+Greedy only: sampled decoding, the prefix cache, chunked prefill,
+telemetry, async and cancellation come in later slices.  Slot state
 (tokens, positions, active flags, block tables) lives on the device; the
 host downloads only the sampled tokens, once per step.
 """
@@ -151,9 +155,16 @@ class Scheduler:
         shared (n_blocks+1, block, ...) pools (+1 for the trash block); any
         other leaf keeps a per-slot row with the batch axis widened to
         n_slots.  Zeros keep the trash block finite: the kernel multiplies
-        masked p = 0 by v, so a NaN there would poison every row."""
+        masked p = 0 by v, so a NaN there would poison every row.
+
+        With ``engine.kv_quant_bits`` the paged data pools hold int8 words
+        (last dim halved at 4 bits: two lanes per word), and each gains a
+        zeroed int32 ``<name>_scale`` sibling of one exponent per
+        (physical block, KV head)."""
         specs = self.eng.prefill_cache_specs()
         S, blk, n_phys = self.n_slots, self.block_size, self.n_blocks + 1
+        qbits = self.eng.kv_quant_bits
+        dev = self.eng.device
         pool = {}
         for g in self._groups:
             axis = 1 if g.stacked else 0
@@ -161,15 +172,24 @@ class Scheduler:
             for name, spec in specs[g.name]["sub0"].items():
                 shape, dt = tuple(spec.shape), spec.dtype
                 if g.paged[0] and name in PAGED_CACHE_LEAVES:
-                    shape = shape[:axis] + (n_phys, blk) + shape[axis + 2:]
+                    feat = shape[axis + 2:]
+                    if qbits:
+                        if qbits == 4:
+                            feat = feat[:-1] + (feat[-1] // 2,)
+                        sub[name] = torch.zeros(shape[:axis] + (n_phys, blk) + feat,
+                                                dtype=torch.int8, device=dev)
+                        sub[name + "_scale"] = torch.zeros(shape[:axis] + (n_phys,) + feat[:-1],
+                                                           dtype=torch.int32, device=dev)
+                        continue
+                    shape = shape[:axis] + (n_phys, blk) + feat
                 else:
                     shape = shape[:axis] + (S,) + shape[axis + 1:]
-                sub[name] = torch.zeros(shape, dtype=dt, device=self.eng.device)
+                sub[name] = torch.zeros(shape, dtype=dt, device=dev)
             pool[g.name] = {"sub0": sub}
         return pool
 
     def cache_bytes(self) -> int:
-        """Resident KV bytes of the pool."""
+        """Resident KV bytes of the pool (exponent leaves included)."""
         return sum(leaf.numel() * leaf.element_size()
                    for g in self.caches.values() for sub in g.values() for leaf in sub.values())
 

@@ -18,8 +18,12 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.fixedpoint_matmul import fixedpoint_matmul, ops as fops  # noqa: E402
+from repro_torch.kernels.fixedpoint_matmul import fixedpoint_matmul_experts  # noqa: E402
 from repro_torch.kernels.fixedpoint_matmul import pack_weight  # noqa: E402
-from repro_torch.kernels.fixedpoint_matmul.ref import fixedpoint_matmul_ref  # noqa: E402
+from repro_torch.kernels.fixedpoint_matmul.ref import (  # noqa: E402
+    fixedpoint_matmul_experts_ref,
+    fixedpoint_matmul_ref,
+)
 from repro_torch.kernels.paged_attention import ops as aops, paged_attention  # noqa: E402
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref  # noqa: E402
 
@@ -95,6 +99,154 @@ def test_paged_attention_matches_plain(dev, layout, T, window, cap, block, dtype
     want = paged_attention_ref(q, kp, vp, bt, pos0, **kw)
     tol = dict(rtol=2e-4, atol=2e-5) if qdt == torch.float32 else dict(rtol=1e-2, atol=1e-2)
     torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+def _experts_case(dev, E, C, K, N, n_bits, dt, seed):
+    """(x, packed words, f) as SYMOG makes a stack: Gaussian weights, expert
+    e scaled by 2^s_e (s_e in [-2, 2]) and packed under its own optimal f;
+    its rows of x scaled by 2^-s_e keep the outputs at unit scale, where the
+    fp32 bar of tests/test_kernels.py applies."""
+    from repro_torch.core import optimal_f, pack
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    sc = torch.exp2(torch.randint(-2, 3, (E, 1, 1), generator=gen, device=dev).float())
+    w = torch.randn((E, K, N), generator=gen, device=dev) * (sc / K**0.5)
+    f = torch.stack([optimal_f(w[e], n_bits)[0] for e in range(E)]).to(torch.int32)
+    pk = pack(w, f, n_bits)
+    x = (torch.randn((E, C, K), generator=gen, device=dev) / sc).to(dt)
+    return x, pk.data, pk.f
+
+
+@pytest.mark.parametrize("n_bits", [2, 4])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("E,C,K,N", [(8, 4, 256, 128), (64, 4, 2048, 1024), (64, 4, 1024, 2048),
+                                     (64, 80, 2048, 1024), (5, 80, 512, 96), (3, 1, 96, 40)])
+def test_fixedpoint_matmul_experts_matches_plain(dev, n_bits, dtype, E, C, K, N):
+    dt = getattr(torch, dtype)
+    x, words, f = _experts_case(dev, E, C, K, N, n_bits, dt, seed=E * 13 + C + n_bits)
+    before = fops.experts_launches
+    got = fixedpoint_matmul_experts(x, words, f, n_bits=n_bits, n_out=N)
+    torch.cuda.synchronize()
+    assert fops.experts_launches == before + 1 and got.dtype == dt
+    want = fixedpoint_matmul_experts_ref(x, words, f, n_bits=n_bits, n_out=N).to(dt)
+    tol = dict(rtol=1e-5, atol=1e-5) if dt == torch.float32 else dict(rtol=1e-2, atol=1e-2)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    # deterministic: no atomics in any sum
+    again = fixedpoint_matmul_experts(x, words, f, n_bits=n_bits, n_out=N)
+    assert torch.equal(got, again)
+
+
+def test_fixedpoint_matmul_experts_rejects_bad_operands(dev):
+    x, words, f = _experts_case(dev, 4, 2, 64, 32, 2, torch.float32, seed=0)
+    with pytest.raises(ValueError):  # f of the wrong shape
+        fixedpoint_matmul_experts(x, words, f[:3], n_bits=2, n_out=32)
+    with pytest.raises(ValueError):  # f not int32
+        fixedpoint_matmul_experts(x, words, f.long(), n_bits=2, n_out=32)
+    with pytest.raises(ValueError):  # word width of another n_bits
+        fixedpoint_matmul_experts(x, words, f, n_bits=4, n_out=32)
+    with pytest.raises(ValueError):  # operands on another device
+        fixedpoint_matmul_experts(x, words.cpu(), f, n_bits=2, n_out=32)
+    with pytest.raises(ValueError):
+        fixedpoint_matmul_experts(x, words, f.cpu(), n_bits=2, n_out=32)
+
+
+def _quant_pools(rng, n_blocks, block, K, hd, bits, wide):
+    """SYMOG-quantized k/v pools: int8 words (int4: split-halves words, hd/2
+    per row) and per-(block, head) exponents.  ``wide``: random mantissas
+    under exponents spread over [-8, 4] (|value| up to 127·2^4).  Otherwise
+    the pools a paged write makes of unit-scale k/v: values N(0,1)·2^s with
+    s in [-3, 1] per (block, head), exponents calibrated from each block's
+    first token (``block_scale_exp``), then ``quantize_fixed``."""
+    from repro_torch.models.attention import KV_QMAX, block_scale_exp, pack_int4, quantize_fixed
+
+    qmax = KV_QMAX[bits]
+    pools, exps = [], []
+    for _ in range(2):
+        if wide:
+            m = torch.from_numpy(rng.integers(-qmax, qmax + 1, size=(n_blocks, block, K, hd))
+                                 .astype(np.int8))
+            e = torch.from_numpy(rng.integers(-8, 5, size=(n_blocks, K)).astype(np.int32))
+        else:
+            s = rng.integers(-3, 2, size=(n_blocks, 1, K, 1)).astype(np.float32)
+            x = torch.from_numpy(rng.standard_normal((n_blocks, block, K, hd)).astype(np.float32)
+                                 * np.exp2(s))
+            e = block_scale_exp(x[:, 0], qmax)
+            m = quantize_fixed(x, e[:, None], qmax)
+        pools.append(pack_int4(m) if bits == 4 else m)
+        exps.append(e)
+    return pools, exps
+
+
+def test_pack_int4_on_card_matches_cpu(dev):
+    """The int4 pool words written on the card (integer shifts and casts of
+    negative values) equal the CPU's, which the JAX parity tests hold."""
+    from repro_torch.models.attention import pack_int4
+
+    vals = torch.arange(-8, 8, dtype=torch.int8)
+    lo, hi = torch.meshgrid(vals, vals, indexing="ij")
+    x = torch.stack([lo.reshape(-1), hi.reshape(-1)], dim=-1)  # every nibble pair
+    assert torch.equal(pack_int4(x.to(dev)).cpu(), pack_int4(x))
+
+
+QUANT_LAYOUTS = dict(LAYOUTS, olmoe=(16, 1), internlm2=(8, 2))  # + the serving decode shapes
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("layout,T,window,cap,block", [
+    ("mha", 1, None, 0.0, 16), ("gqa", 1, None, 0.0, 16), ("gqa", 1, 64, 2.0, 16),
+    ("mqa", 4, 7, 0.0, 8), ("gqa", 40, None, 0.0, 16), ("olmoe", 1, None, 0.0, 16),
+    ("internlm2", 1, None, 0.0, 16),
+])
+@pytest.mark.parametrize("qdtype", ["float32", "bfloat16"])
+def test_paged_attention_quant_matches_plain(dev, bits, layout, T, window, cap, block, qdtype):
+    """fp32 queries on serving-like pools at the fp32 bar; bf16 queries (the
+    serving dtype) on the wide exponent spread at the bf16 bar.  (With
+    |v| up to 2032, two correct fp32 implementations differ by ~1e-3 in
+    sums that cancel: roundoff, where a wrong exponent is a factor of 2.)
+    The olmoe / internlm2 layouts are the serving decode shapes: 4 rows of
+    up to 320 cached tokens."""
+    K, G = QUANT_LAYOUTS[layout]
+    B, hd, mb = (4 if layout in ("olmoe", "internlm2") else 3), 128, 20
+    rng = np.random.default_rng(T * 5 + block + bits)
+    n_blocks = B * mb + 1
+    bt = (rng.permutation(n_blocks - 1)[: B * mb] + 1).reshape(B, mb).astype(np.int32)
+    pos0 = (rng.integers(T - 1, mb * block, size=B) - (T - 1)).astype(np.int32)
+    qdt = getattr(torch, qdtype)
+    q = torch.from_numpy(rng.standard_normal((B, T, K, G, hd)).astype(np.float32)).to(dev, qdt)
+    (kp, vp), (ke, ve) = _quant_pools(rng, n_blocks, block, K, hd, bits,
+                                      wide=qdt == torch.bfloat16)
+    kp, vp, ke, ve = (t.to(dev) for t in (kp, vp, ke, ve))
+    bt, pos0 = torch.from_numpy(bt).to(dev), torch.from_numpy(pos0).to(dev)
+    kw = dict(scale=hd**-0.5, cap=cap, window=window, k_scale_exp=ke, v_scale_exp=ve,
+              kv_bits=bits)
+    before = aops.quant_launches
+    got = paged_attention(q, kp, vp, bt, pos0, **kw)
+    torch.cuda.synchronize()
+    assert aops.quant_launches == before + 1 and got.dtype == qdt
+    want = paged_attention_ref(q, kp, vp, bt, pos0, **kw)
+    tol = dict(rtol=2e-4, atol=2e-5) if qdt == torch.float32 else dict(rtol=1e-2, atol=1e-2)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+def test_paged_attention_quant_rejects_bad_operands(dev):
+    rng = np.random.default_rng(0)
+    (kp, vp), (ke, ve) = _quant_pools(rng, 5, 8, 2, 16, 4, wide=True)
+    kp, vp, ke, ve = (t.to(dev) for t in (kp, vp, ke, ve))
+    q = torch.zeros((1, 1, 2, 1, 16), device=dev)
+    bt = torch.ones((1, 2), dtype=torch.int32, device=dev)
+    pos0 = torch.zeros((1,), dtype=torch.int32, device=dev)
+    kw = dict(scale=0.25, k_scale_exp=ke, v_scale_exp=ve)
+    with pytest.raises(ValueError):  # int4 words read as int8: the word width is wrong
+        paged_attention(q, kp, vp, bt, pos0, kv_bits=8, **kw)
+    with pytest.raises(ValueError):  # exponents of the wrong shape
+        paged_attention(q, kp, vp, bt, pos0, kv_bits=4, scale=0.25, k_scale_exp=ke[:3],
+                        v_scale_exp=ve)
+    with pytest.raises(ValueError):  # exponents on another device
+        paged_attention(q, kp, vp, bt, pos0, kv_bits=4, scale=0.25, k_scale_exp=ke.cpu(),
+                        v_scale_exp=ve)
+    with pytest.raises(ValueError):  # kv_bits without exponents
+        paged_attention(q, kp, vp, bt, pos0, kv_bits=4, scale=0.25)
 
 
 def _symog_case(dev, n, n_bits, case, seed):

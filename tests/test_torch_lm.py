@@ -48,13 +48,15 @@ def _tokens(B=2, T=7, seed=0, vocab=256):
 KINDS = ["float", "quantize_tree", "pack_tree"]
 
 
-def test_configs_match_jax():
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "olmoe-1b-7b"])
+def test_configs_match_jax(arch):
     """The port's config keeps the fields it reads; each equals JAX's."""
     import dataclasses
 
+    assert arch in tconfigs.ARCHS
     for get in ("get_config", "get_reduced"):
-        t = getattr(tconfigs, get)("internlm2-1.8b")
-        j = getattr(jconfigs, get)("internlm2-1.8b")
+        t = getattr(tconfigs, get)(arch)
+        j = getattr(jconfigs, get)(arch)
         for f in dataclasses.fields(t):
             assert getattr(t, f.name) == getattr(j, f.name), f.name
         assert t.layer_kinds() == j.layer_kinds()
