@@ -1,6 +1,7 @@
 """Architecture registry of the port: ``get_config(arch)`` returns the
 published config and ``get_reduced(arch)`` a same-family smoke-test
-reduction.  The port has internlm2-1.8b (dense GQA) and olmoe-1b-7b (MoE)."""
+reduction.  The port has internlm2-1.8b (dense GQA), olmoe-1b-7b (MoE) and
+deepseek-v3-671b (MLA + MoE with leading dense layers)."""
 from __future__ import annotations
 
 import importlib
@@ -10,6 +11,7 @@ from repro_torch.models.config import ModelConfig
 _MODULES = {
     "internlm2-1.8b": "internlm2_1_8b",
     "olmoe-1b-7b": "olmoe_1b_7b",
+    "deepseek-v3-671b": "deepseek_v3_671b",
 }
 
 ARCHS = tuple(_MODULES)

@@ -380,6 +380,367 @@ int launch_kv(int kv_dtype, const void* q, const void* k, const void* v, void* o
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// ---------------------------------------------------------------------------
+// Absorbed multi-head-latent-attention (MLA) decode.
+//
+// Replaces the Pallas TPU kernels repro/kernels/paged_attention/kernel.py
+// `_mla_kernel` (float / KV_F int8 pools) and `_mla_kernel_quant` (SYMOG int8
+// or int4 words), both launched by `paged_attention_mla_padded`.  Contract:
+//   q_eff (B, T, H, r), q_rope (B, T, H, rope): row i < T*H of batch b is
+//        (t = i / H, h = i % H) at q_pos = pos0[b] + i / H
+//   pools c_kv (n_blocks, block, r) and k_rope (n_blocks, block, rope): f32 | bf16 |
+//        int8 (x kv_scale, KV_F), or SYMOG words: int8, or int4 split halves (last dims
+//        r/2 and rope/2; word i = lane i low nibble, lane i + w/2 high nibble), each
+//        physical block p of a pool scaled by 2^c_exp[p] / 2^r_exp[p] (no head axis)
+//   s = scale * (q_eff . c_kv + q_rope . k_rope), masked (kv_pos > q_pos) to -1e30 with
+//   p zeroed, online softmax, value = c_kv itself: out (B, T, H, r) = acc / (l == 0 ? 1 : l)
+//   in rank space (the caller expands it with kv_b_v).
+//
+// What bounds it on the H100: operations.  Every query row needs the full
+// rank-r dot product with every visible token, and the value is the same
+// c_kv tile, so a decode step (B 4, H 128, r 512, rope 64, ~300 tokens a row)
+// is ~334 MFLOP against 1.4 MB of bf16 pool (0.35 MB at int4).  The TPU
+// kernel keeps one batch row's whole (T*H, r) fp32 accumulator in VMEM:
+// 128 x 512 x 4 B = 256 KB, more than the 227 KB a Hopper thread block may
+// have.  Design:
+//   * one thread block per (b, tile of 16 query rows, KV split): the tile's
+//     rows share each c_kv/k_rope tile loaded to shared memory, and the
+//     tile's (16, r) accumulator fits beside it (~106 KB at r = 512, so two
+//     thread blocks share an SM); rows are tiled, not r: every logit needs
+//     the full-rank dot product;
+//   * KV split over grid.y with the GQA kernel's (m, l, acc) combine
+//     (attn_combine with K = 1, G = H, hd = r);
+//   * each physical block is walked in tiles of 16 tokens; tiles wholly past
+//     the row tile's last query position are skipped (p = 0, alpha = 1 there:
+//     exact);
+//   * logits: each warp owns two query rows and all 16 tokens of the tile,
+//     lanes over r and rope with 32 independent partial sums (each q value
+//     loaded once, each c_kv value used by both rows), a butterfly reduction,
+//     and the same warp's online-softmax update of its rows; p . c_kv: each
+//     thread owns columns d of the accumulator and holds the tile's 16 values
+//     of column d in registers across the rows.
+// All math is fp32 (pools dequantized on load, word * 2^e exact); the output
+// is rounded to q's dtype once.  bf16 mma/wgmma on the query tile and TMA
+// loads of the blocks are left for later work.
+constexpr int kMlaRows = 16;      // query rows per thread block (ops.py MLA_ROWS)
+constexpr int kMlaTile = 16;      // KV tokens per shared-memory tile
+constexpr int kMlaThreads = 256;  // 8 warps
+constexpr int kMlaWarps = kMlaThreads / 32;
+static_assert(kMlaRows == 2 * kMlaWarps, "each warp owns two query rows");
+static_assert(kMlaTile % 4 == 0, "p rows are read as float4");
+
+struct MlaParams {
+  const int* bt;
+  const int* pos0;
+  const int* c_exp;  // (n_blocks,) exponents of quantized pools, else null
+  const int* r_exp;
+  float* ws_m;
+  float* ws_l;
+  float* ws_acc;
+  int B, T, H, TH, r, rope, rw, ropew, block, max_blocks, n_split, chunk;  // rw/ropew: words/row
+  int vec_q, vec_c, vec_r;  // 16-byte loads allowed: queries, c_kv pool, k_rope pool
+  float scale, kv_scale;
+};
+
+// dst[i * width + c] = src[i * stride + c] * scale for i < rows, c < width
+template <typename T>
+__device__ __forceinline__ void mla_load(const T* __restrict__ src, size_t stride, int rows,
+                                         int width, float* dst, float scale, int vec) {
+  constexpr int E = 16 / sizeof(T);
+  const int tid = threadIdx.x;
+  if (vec) {
+    const int vpr = width / E, nv = rows * vpr;
+    for (int base = 0; base < nv; base += kLoads * kMlaThreads) {
+      uint4 reg[kLoads];
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u) {
+        const int i = base + u * kMlaThreads + tid;
+        if (i < nv)
+          reg[u] = __ldg(reinterpret_cast<const uint4*>(
+              src + static_cast<size_t>(i / vpr) * stride + (i % vpr) * E));
+      }
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u) {
+        const int i = base + u * kMlaThreads + tid;
+        if (i < nv) {
+          float f[E];
+          repro::unpack16<T>(reg[u], f);
+          float* d = dst + (i / vpr) * width + (i % vpr) * E;
+#pragma unroll
+          for (int e = 0; e < E; ++e) d[e] = f[e] * scale;
+        }
+      }
+    }
+    return;
+  }
+  for (int i = tid; i < rows * width; i += kMlaThreads) {
+    const int row = i / width, c = i - row * width;
+    dst[i] = repro::to_f32(src[static_cast<size_t>(row) * stride + c]) * scale;
+  }
+}
+
+// mla_load for int4 split-halves words: row i holds width/2 words, `stride`
+// words apart; word c gives lanes c (low nibble) and c + width/2 (high)
+__device__ __forceinline__ void mla_load_int4(const int8_t* __restrict__ src, size_t stride,
+                                              int rows, int width, float* dst, float scale,
+                                              int vec) {
+  const int hw = width / 2, tid = threadIdx.x;
+  if (vec) {  // 16 words (32 lanes) per 16-byte load
+    const int vpr = hw / 16, nv = rows * vpr;
+    for (int base = 0; base < nv; base += kLoads * kMlaThreads) {
+      uint4 reg[kLoads];
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u) {
+        const int i = base + u * kMlaThreads + tid;
+        if (i < nv)
+          reg[u] = __ldg(reinterpret_cast<const uint4*>(
+              src + static_cast<size_t>(i / vpr) * stride + (i % vpr) * 16));
+      }
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u) {
+        const int i = base + u * kMlaThreads + tid;
+        if (i < nv) {
+          const int8_t* w = reinterpret_cast<const int8_t*>(&reg[u]);
+          float* d = dst + (i / vpr) * width + (i % vpr) * 16;
+#pragma unroll
+          for (int e = 0; e < 16; ++e) {
+            d[e] = lo_nibble(w[e]) * scale;
+            d[hw + e] = hi_nibble(w[e]) * scale;
+          }
+        }
+      }
+    }
+    return;
+  }
+  for (int i = tid; i < rows * hw; i += kMlaThreads) {
+    const int row = i / hw, c = i - row * hw;
+    const int8_t w = src[static_cast<size_t>(row) * stride + c];
+    dst[row * width + c] = lo_nibble(w) * scale;
+    dst[row * width + hw + c] = hi_nibble(w) * scale;
+  }
+}
+
+// One query row's online-softmax update from its tile logits ``sv`` (the
+// same values in every lane of the calling warp): mask kv_pos > q_pos (and
+// tokens past the block) to -1e30, fold into (m, l), and write p and alpha.
+__device__ __forceinline__ void mla_row_update(float (&sv)[kMlaTile], int rr, int qpos, int kvt,
+                                               int ntok, float scale, int lane, float* m_s,
+                                               float* l_s, float* a_s, float* p_s) {
+  float mx = kNegInf;
+#pragma unroll
+  for (int t = 0; t < kMlaTile; ++t) {
+    sv[t] = t < ntok && kvt + t <= qpos ? sv[t] * scale : kNegInf;
+    mx = fmaxf(mx, sv[t]);
+  }
+  const float m_prev = m_s[rr];
+  const float m_new = fmaxf(m_prev, mx);
+  const float alpha = expf(m_prev - m_new);
+  float sum = 0.f;
+#pragma unroll
+  for (int t = 0; t < kMlaTile; ++t) {
+    sv[t] = t < ntok && kvt + t <= qpos ? expf(sv[t] - m_new) : 0.f;
+    sum += sv[t];
+  }
+  __syncwarp();  // every lane has read m_s[rr] before lane 0 rewrites it
+  if (lane == 0) {
+    m_s[rr] = m_new;
+    l_s[rr] = l_s[rr] * alpha + sum;
+    a_s[rr] = alpha;
+#pragma unroll
+    for (int t = 0; t < kMlaTile; ++t) p_s[rr * kMlaTile + t] = sv[t];
+  }
+}
+
+// QMODE: 0 float / KV_F pools (static kv_scale); 8 int8 words and 4 int4
+// words, each physical block of each pool scaled by its own 2^e
+template <typename QT, typename KVT, int QMODE>
+__global__ void __launch_bounds__(kMlaThreads)
+mla_partial(const QT* __restrict__ q_eff, const QT* __restrict__ q_rope,
+            const KVT* __restrict__ cp, const KVT* __restrict__ kp, QT* __restrict__ out,
+            MlaParams p) {
+  extern __shared__ float smem[];
+  const int r = p.r, rope = p.rope;
+  float* qc_s = smem;                    // [kMlaRows][r]
+  float* qr_s = qc_s + kMlaRows * r;     // [kMlaRows][rope]
+  float* c_s = qr_s + kMlaRows * rope;   // [kMlaTile][r]
+  float* kr_s = c_s + kMlaTile * r;      // [kMlaTile][rope]
+  float* acc_s = kr_s + kMlaTile * rope; // [kMlaRows][r]
+  float* p_s = acc_s + kMlaRows * r;     // [kMlaRows][kMlaTile]
+  float* m_s = p_s + kMlaRows * kMlaTile;
+  float* l_s = m_s + kMlaRows;
+  float* a_s = l_s + kMlaRows;           // alpha
+
+  const int b = blockIdx.x, split = blockIdx.y, row0 = blockIdx.z * kMlaRows;
+  const int nrows = min(kMlaRows, p.TH - row0);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  const size_t q_row = static_cast<size_t>(b) * p.TH + row0;  // first row of (B*T*H)
+  mla_load<QT>(q_eff + q_row * r, r, nrows, r, qc_s, 1.f, p.vec_q);
+  mla_load<QT>(q_rope + q_row * rope, rope, nrows, rope, qr_s, 1.f, p.vec_q);
+  for (int i = tid; i < nrows * r; i += kMlaThreads) acc_s[i] = 0.f;
+  if (tid < kMlaRows) { m_s[tid] = kNegInf; l_s[tid] = 0.f; }
+
+  const int pos0 = p.pos0[b];
+  const int qpos_hi = pos0 + (row0 + nrows - 1) / p.H;
+  const int j_begin = split * p.chunk;
+  const int j_end = min(p.max_blocks, j_begin + p.chunk);
+  __syncthreads();
+
+  for (int j = j_begin; j < j_end; ++j) {
+    const int kv0 = j * p.block;
+    if (kv0 > qpos_hi) break;  // causal: nothing visible from here on
+    const int phys = p.bt[b * p.max_blocks + j];
+    float sc = p.kv_scale, sr = p.kv_scale;
+    if (QMODE != 0) {  // this block's exponents, exact powers of two
+      sc = ldexpf(1.f, p.c_exp[phys]);
+      sr = ldexpf(1.f, p.r_exp[phys]);
+    }
+    for (int t0 = 0; t0 < p.block; t0 += kMlaTile) {
+      const int kvt = kv0 + t0;
+      if (kvt > qpos_hi) break;
+      const int ntok = min(kMlaTile, p.block - t0);
+      const size_t tok = static_cast<size_t>(phys) * p.block + t0;
+      if (QMODE == 4) {
+        mla_load_int4(reinterpret_cast<const int8_t*>(cp) + tok * p.rw, p.rw, ntok, r, c_s, sc,
+                      p.vec_c);
+        mla_load_int4(reinterpret_cast<const int8_t*>(kp) + tok * p.ropew, p.ropew, ntok, rope,
+                      kr_s, sr, p.vec_r);
+      } else {
+        mla_load<KVT>(cp + tok * p.rw, p.rw, ntok, r, c_s, sc, p.vec_c);
+        mla_load<KVT>(kp + tok * p.ropew, p.ropew, ntok, rope, kr_s, sr, p.vec_r);
+      }
+      __syncthreads();
+      // logits and the online-softmax update: warp w owns rows 2w and 2w + 1
+      // and all the tile's tokens; each lane keeps 2 x kMlaTile partial sums
+      // over its lanes of r and rope (independent FMAs: each q value loaded
+      // once, each c_kv value used by both rows), a butterfly reduction leaves
+      // the full sums in every lane, and the same warp folds them into its
+      // rows' (m, l) and writes p
+      if (warp * 2 < nrows) {
+        const int ra = warp * 2, rb = min(ra + 1, nrows - 1);
+        float sa[kMlaTile], sb[kMlaTile];
+#pragma unroll
+        for (int t = 0; t < kMlaTile; ++t) sa[t] = sb[t] = 0.f;
+        for (int d = lane; d < r; d += 32) {
+          const float qa = qc_s[ra * r + d], qb = qc_s[rb * r + d];
+#pragma unroll
+          for (int t = 0; t < kMlaTile; ++t) {
+            const float c = c_s[t * r + d];
+            sa[t] = fmaf(qa, c, sa[t]);
+            sb[t] = fmaf(qb, c, sb[t]);
+          }
+        }
+        for (int d = lane; d < rope; d += 32) {
+          const float qa = qr_s[ra * rope + d], qb = qr_s[rb * rope + d];
+#pragma unroll
+          for (int t = 0; t < kMlaTile; ++t) {
+            const float k = kr_s[t * rope + d];
+            sa[t] = fmaf(qa, k, sa[t]);
+            sb[t] = fmaf(qb, k, sb[t]);
+          }
+        }
+#pragma unroll
+        for (int t = 0; t < kMlaTile; ++t) {
+#pragma unroll
+          for (int o = 16; o > 0; o >>= 1) {
+            sa[t] += __shfl_xor_sync(0xffffffffu, sa[t], o);
+            sb[t] += __shfl_xor_sync(0xffffffffu, sb[t], o);
+          }
+        }
+        mla_row_update(sa, ra, pos0 + (row0 + ra) / p.H, kvt, ntok, p.scale, lane, m_s, l_s,
+                       a_s, p_s);
+        if (rb != ra)
+          mla_row_update(sb, rb, pos0 + (row0 + rb) / p.H, kvt, ntok, p.scale, lane, m_s, l_s,
+                         a_s, p_s);
+      }
+      __syncthreads();
+      // acc = alpha * acc + p @ c_kv: column d of the tile in registers, the
+      // rows' FMA chains independent of each other
+      for (int d = tid; d < r; d += kMlaThreads) {
+        float cv[kMlaTile];
+#pragma unroll
+        for (int t = 0; t < kMlaTile; ++t) cv[t] = t < ntok ? c_s[t * r + d] : 0.f;
+#pragma unroll
+        for (int rr = 0; rr < kMlaRows; ++rr) {
+          if (rr < nrows) {
+            const float4* p4 = reinterpret_cast<const float4*>(p_s + rr * kMlaTile);
+            float a = acc_s[rr * r + d] * a_s[rr];
+#pragma unroll
+            for (int t4 = 0; t4 < kMlaTile / 4; ++t4) {
+              const float4 pv = p4[t4];
+              a = fmaf(pv.x, cv[4 * t4], a);
+              a = fmaf(pv.y, cv[4 * t4 + 1], a);
+              a = fmaf(pv.z, cv[4 * t4 + 2], a);
+              a = fmaf(pv.w, cv[4 * t4 + 3], a);
+            }
+            acc_s[rr * r + d] = a;
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+
+  if (p.n_split == 1) {  // finish in place: out = acc / l
+    for (int i = tid; i < nrows * r; i += kMlaThreads) {
+      const float l = l_s[i / r];
+      out[q_row * r + i] = repro::from_f32<QT>(acc_s[i] / (l == 0.f ? 1.f : l));
+    }
+    return;
+  }
+  // split partials in attn_combine's layout (bk = b, K = 1): (b, split, row)
+  // for m/l and (b, split, row, d) for acc
+  const size_t prow = (static_cast<size_t>(b) * p.n_split + split) * p.TH + row0;
+  for (int i = tid; i < nrows * r; i += kMlaThreads) p.ws_acc[prow * r + i] = acc_s[i];
+  if (tid < nrows) { p.ws_m[prow + tid] = m_s[tid]; p.ws_l[prow + tid] = l_s[tid]; }
+}
+
+size_t mla_smem_bytes(int r, int rope) {
+  return sizeof(float) * (static_cast<size_t>(kMlaRows) * (2 * r + rope) +
+                          static_cast<size_t>(kMlaTile) * (r + rope) + kMlaRows * kMlaTile +
+                          3 * kMlaRows);
+}
+
+template <typename QT, typename KVT, int QMODE>
+int launch_mla(const void* qe, const void* qr, const void* c, const void* k, void* out,
+               const MlaParams& p, cudaStream_t st) {
+  const size_t smem = mla_smem_bytes(p.r, p.rope);
+  auto kern = mla_partial<QT, KVT, QMODE>;
+  static size_t smem_allowed = 48 * 1024;  // per instantiation: raised once, not per launch
+  if (smem > smem_allowed) {
+    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    smem_allowed = smem;
+  }
+  dim3 grid(p.B, p.n_split, (p.TH + kMlaRows - 1) / kMlaRows);
+  kern<<<grid, kMlaThreads, smem, st>>>(static_cast<const QT*>(qe), static_cast<const QT*>(qr),
+                                        static_cast<const KVT*>(c), static_cast<const KVT*>(k),
+                                        static_cast<QT*>(out), p);
+  if (p.n_split > 1) {  // the GQA combine, read as K = 1 KV head of G = H rows, hd = r
+    Params cp{};
+    cp.ws_m = p.ws_m;
+    cp.ws_l = p.ws_l;
+    cp.ws_acc = p.ws_acc;
+    cp.B = p.B; cp.T = p.T; cp.K = 1; cp.TG = p.TH; cp.G = p.H; cp.hd = p.r;
+    cp.n_split = p.n_split;
+    dim3 g2(p.B, p.TH);
+    attn_combine<QT><<<g2, kThreads, sizeof(float) * p.n_split, st>>>(static_cast<QT*>(out), cp);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename QT>
+int launch_mla_kv(int kv_dtype, const void* qe, const void* qr, const void* c, const void* k,
+                  void* out, const MlaParams& p, cudaStream_t st) {
+  if (kv_dtype == repro::kF32) return launch_mla<QT, float, 0>(qe, qr, c, k, out, p, st);
+  if (kv_dtype == repro::kBF16) return launch_mla<QT, __nv_bfloat16, 0>(qe, qr, c, k, out, p, st);
+  if (kv_dtype == repro::kI8) return launch_mla<QT, int8_t, 0>(qe, qr, c, k, out, p, st);
+  if (kv_dtype == kQ8) return launch_mla<QT, int8_t, 8>(qe, qr, c, k, out, p, st);
+  if (kv_dtype == kQ4) return launch_mla<QT, int8_t, 4>(qe, qr, c, k, out, p, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 // q (B,T,K,G,hd) f32|bf16; pools (n_blocks, block, K, hd) f32|bf16|int8 (kv_dtype 0|1|2),
@@ -421,5 +782,55 @@ extern "C" int paged_attention_launch(const void* q, const void* k_pool, const v
   if (q_dtype == repro::kF32) return launch_kv<float>(kv_dtype, q, k_pool, v_pool, out, p, st);
   if (q_dtype == repro::kBF16)
     return launch_kv<__nv_bfloat16>(kv_dtype, q, k_pool, v_pool, out, p, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// q_eff (B,T,H,r) and q_rope (B,T,H,rope) f32|bf16; pools c_kv (n_blocks, block, r) and
+// k_rope (n_blocks, block, rope) f32|bf16|int8 (kv_dtype 0|1|2), int8 words (3) or int4
+// words with last dims r/2, rope/2 (4), with c_exp/r_exp (n_blocks,) i32 (null otherwise);
+// bt (B,max_blocks) i32; pos0 (B,) i32; out like q_eff; ws_m/ws_l (B, n_split, T*H) f32
+// and ws_acc (B, n_split, T*H, r) f32 scratch (unused when n_split == 1).
+// Returns cudaGetLastError().
+extern "C" int paged_attention_mla_launch(const void* q_eff, const void* q_rope,
+                                          const void* ckv_pool, const void* krope_pool,
+                                          const void* bt, const void* pos0, const void* c_exp,
+                                          const void* r_exp, void* out, void* ws_m, void* ws_l,
+                                          void* ws_acc, int B, int T, int H, int r, int rope,
+                                          int block, int max_blocks, int q_dtype, int kv_dtype,
+                                          int n_split, float scale, float kv_scale,
+                                          void* stream) {
+  const bool quant = kv_dtype == kQ8 || kv_dtype == kQ4;
+  if (B < 1 || T < 1 || H < 1 || r < 1 || rope < 1 || block < 1 || max_blocks < 1 ||
+      n_split < 1 || (quant && (!c_exp || !r_exp)) ||
+      (kv_dtype == kQ4 && (r % 2 || rope % 2)) ||
+      (n_split > 1 && (!ws_m || !ws_l || !ws_acc)) || mla_smem_bytes(r, rope) > 232448)
+    return static_cast<int>(cudaErrorInvalidValue);
+  MlaParams p;
+  p.bt = static_cast<const int*>(bt);
+  p.pos0 = static_cast<const int*>(pos0);
+  p.c_exp = static_cast<const int*>(c_exp);
+  p.r_exp = static_cast<const int*>(r_exp);
+  p.ws_m = static_cast<float*>(ws_m);
+  p.ws_l = static_cast<float*>(ws_l);
+  p.ws_acc = static_cast<float*>(ws_acc);
+  p.B = B; p.T = T; p.H = H; p.TH = T * H; p.r = r; p.rope = rope;
+  p.rw = kv_dtype == kQ4 ? r / 2 : r;
+  p.ropew = kv_dtype == kQ4 ? rope / 2 : rope;
+  p.block = block; p.max_blocks = max_blocks; p.n_split = n_split;
+  p.chunk = (max_blocks + n_split - 1) / n_split;
+  const size_t kv_elt = kv_dtype == repro::kF32 ? 4 : kv_dtype == repro::kBF16 ? 2 : 1;
+  const size_t q_elt = q_dtype == repro::kF32 ? 4 : 2;
+  auto al16 = [](const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; };
+  p.vec_q = (r * q_elt) % 16 == 0 && (rope * q_elt) % 16 == 0 && al16(q_eff) && al16(q_rope);
+  // int4 rows: 16 words (32 lanes) a load; other pools: 16 / kv_elt lanes a load
+  p.vec_c = (p.rw * kv_elt) % 16 == 0 && al16(ckv_pool);
+  p.vec_r = (p.ropew * kv_elt) % 16 == 0 && al16(krope_pool);
+  p.scale = scale; p.kv_scale = kv_scale;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (q_dtype == repro::kF32)
+    return launch_mla_kv<float>(kv_dtype, q_eff, q_rope, ckv_pool, krope_pool, out, p, st);
+  if (q_dtype == repro::kBF16)
+    return launch_mla_kv<__nv_bfloat16>(kv_dtype, q_eff, q_rope, ckv_pool, krope_pool, out, p,
+                                        st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -112,6 +112,12 @@ def library() -> ctypes.CDLL:
             F, F, F, P,
         ]
         lib.paged_attention_launch.restype = I
+        lib.paged_attention_mla_launch.argtypes = [
+            P, P, P, P, P, P, P, P, P, P, P, P,
+            I, I, I, I, I, I, I, I, I, I,
+            F, F, P,
+        ]
+        lib.paged_attention_mla_launch.restype = I
         lib.symog_update_launch.argtypes = [P, P, P, P, ctypes.c_longlong, F, F, F, F, I, P]
         lib.symog_update_launch.restype = I
         _lib = lib

@@ -13,9 +13,10 @@ Packed matmul backends (``set_packed_backend``):
 
 Attention backends (``set_attention_backend``):
 
-  'fused'    — the CUDA ``paged_attention`` kernel: the block-table walk
-               runs inside the online-softmax loop (float, KV_F int8 and
-               SYMOG int8 / int4 pools, dequantized on load).
+  'fused'    — the CUDA ``paged_attention`` kernel (``paged_attention_mla``
+               for MLA's absorbed decode): the block-table walk runs inside
+               the online-softmax loop (float, KV_F int8 and SYMOG int8 /
+               int4 pools, dequantized on load).
   'composed' — paged_gather → mask → dense softmax attention in torch.
 
 Optimizer-update backends (``set_update_backend``), read by

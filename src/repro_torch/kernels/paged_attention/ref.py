@@ -62,3 +62,26 @@ def paged_attention_ref(q, k_pool, v_pool, block_tables, pos0, *, scale, cap=0.0
     logits = torch.where(mask[:, None, None], logits, torch.full_like(logits, -1e30))
     probs = torch.softmax(logits, dim=-1)
     return torch.einsum("bkgts,bskh->btkgh", probs, v).to(q.dtype)
+
+
+def paged_attention_mla_ref(q_eff, q_rope, ckv_pool, krope_pool, block_tables, pos0, *, scale,
+                            kv_scale=1.0, ckv_scale_exp=None, kr_scale_exp=None, kv_bits=0):
+    """Composed reference for ``paged_attention_mla`` (same contract), in
+    q_eff's dtype: logits q_eff·c_kv + q_rope·k_rope, value c_kv itself."""
+    B, T, H, r = q_eff.shape
+    if ckv_scale_exp is not None:
+        c_kv = dequant_logical(ckv_pool, ckv_scale_exp, block_tables, kv_bits=kv_bits)
+        k_rope = dequant_logical(krope_pool, kr_scale_exp, block_tables, kv_bits=kv_bits)
+    else:
+        c_kv = gather_logical(ckv_pool, block_tables).to(torch.float32) * kv_scale
+        k_rope = gather_logical(krope_pool, block_tables).to(torch.float32) * kv_scale
+    S = c_kv.shape[1]
+    dev = q_eff.device
+    kv_pos = torch.arange(S, device=dev, dtype=torch.int32)
+    q_pos = pos0.to(torch.int32)[:, None] + torch.arange(T, device=dev, dtype=torch.int32)[None]
+    mask = kv_pos[None, None, None, :] <= q_pos[:, None, :, None]  # (B, 1, T, S)
+    logits = (torch.einsum("bthr,bsr->bhts", q_eff.to(torch.float32), c_kv)
+              + torch.einsum("bthr,bsr->bhts", q_rope.to(torch.float32), k_rope)) * scale
+    logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhts,bsr->bthr", probs, c_kv).to(q_eff.dtype)

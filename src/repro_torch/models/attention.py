@@ -1,9 +1,11 @@
-"""GQA/MQA self-attention (mirrors the GQA half of
-``repro/models/attention.py``): full-sequence prefill attention, dense and
-paged KV caches (float, or SYMOG-quantized int8/int4 with a per-(block,
-KV head) power-of-two scale), and single-token decode.
+"""Self-attention (mirrors ``repro/models/attention.py``): GQA/MQA and
+deepseek-v3's multi-head latent attention (MLA).  Full-sequence prefill
+attention, dense and paged KV caches (float, or SYMOG-quantized int8/int4
+with a power-of-two scale per (block, KV head), per block for MLA's
+head-less c_kv/k_rope), and single-token decode.
 
 Shapes: x (B, T, D); q (B, T, H, hd); k/v (B, S, K, hd) with H = K·G.
+MLA: c_kv (B, S, r) and k_rope (B, S, rope), shared by all H heads.
 
 JAX's arrays are immutable and its serving traces donate the cache; here the
 caches are updated IN PLACE (``index_put_`` on views of the pool), and the
@@ -18,7 +20,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels.dispatch import resolve_attention_backend
-from repro_torch.kernels.paged_attention import paged_attention
+from repro_torch.kernels.paged_attention import paged_attention, paged_attention_mla
 from repro_torch.kernels.paged_attention.ref import dequant_logical
 from repro_torch.models.layers import (
     apply_rope,
@@ -28,6 +30,7 @@ from repro_torch.models.layers import (
     rmsnorm_init,
     softcap as softcap_fn,
 )
+from repro_torch.models.quantized import as_dense
 
 Q_CHUNK_DEFAULT = 1024  # chunk queries when T exceeds this
 # Fixed-point KV caches, two regimes:
@@ -359,3 +362,165 @@ def attn_decode(p, x, cache, pos, *, cfg: AttnConfig, window=None, rope_base=100
                    cap=cfg.softcap)
     y = dense_apply(p["o_proj"], out.reshape(B, 1, H, hd), n_in=2, compute_dtype=compute_dtype)
     return y, cache
+
+
+# ---------------------------------------------------------------------------
+# MLA — multi-head latent attention (deepseek-v3)
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    d_model: int
+    n_heads: int
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
+
+
+def mla_init(gen, cfg: MLAConfig, dtype=torch.float32, lead: Tuple[int, ...] = ()):
+    D, H = cfg.d_model, cfg.n_heads
+    dev = gen.device
+    kw = dict(dtype=dtype, lead=lead)
+
+    def sd(fan):
+        return 1.0 / math.sqrt(fan)
+
+    return {
+        "q_a_proj": dense_init(gen, (D,), (cfg.q_lora_rank,), stddev=sd(D), **kw),
+        "q_a_norm": rmsnorm_init(cfg.q_lora_rank, dtype, dev, lead),
+        "q_b_proj": dense_init(gen, (cfg.q_lora_rank,), (H, cfg.qk_nope_dim + cfg.qk_rope_dim),
+                               stddev=sd(cfg.q_lora_rank), **kw),
+        "kv_a_proj": dense_init(gen, (D,), (cfg.kv_lora_rank,), stddev=sd(D), **kw),
+        "kv_a_norm": rmsnorm_init(cfg.kv_lora_rank, dtype, dev, lead),
+        "k_rope_proj": dense_init(gen, (D,), (cfg.qk_rope_dim,), stddev=sd(D), **kw),
+        "kv_b_k_proj": dense_init(gen, (cfg.kv_lora_rank,), (H, cfg.qk_nope_dim),
+                                  stddev=sd(cfg.kv_lora_rank), **kw),
+        "kv_b_v_proj": dense_init(gen, (cfg.kv_lora_rank,), (H, cfg.v_head_dim),
+                                  stddev=sd(cfg.kv_lora_rank), **kw),
+        "o_proj": dense_init(gen, (H, cfg.v_head_dim), (D,), stddev=sd(H * cfg.v_head_dim), **kw),
+    }
+
+
+def _mla_scale(cfg: MLAConfig) -> float:
+    return (cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5
+
+
+def _mla_project(p, x, positions, cfg: MLAConfig, rope_base, compute_dtype, rope_table):
+    """(q_nope, q_rope, c_kv, k_rope): the low-rank query, the compressed kv
+    and the shared roped key of x (B, T, D)."""
+    cq = rmsnorm_apply(p["q_a_norm"], dense_apply(p["q_a_proj"], x, compute_dtype=compute_dtype))
+    q = dense_apply(p["q_b_proj"], cq, compute_dtype=compute_dtype)  # (B,T,H,nope+rope)
+    q_nope, q_rope = q[..., : cfg.qk_nope_dim], q[..., cfg.qk_nope_dim:]
+    q_rope = apply_rope(q_rope, positions, rope_base, rope_table)
+    c_kv = rmsnorm_apply(p["kv_a_norm"],
+                         dense_apply(p["kv_a_proj"], x, compute_dtype=compute_dtype))  # (B,T,r)
+    k_rope = dense_apply(p["k_rope_proj"], x, compute_dtype=compute_dtype)[..., None, :]
+    k_rope = apply_rope(k_rope, positions, rope_base, rope_table)[..., 0, :]  # (B,T,rope)
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def mla_apply(p, x, *, cfg: MLAConfig, positions, rope_base=10000.0,
+              compute_dtype=torch.bfloat16, q_chunk: int = Q_CHUNK_DEFAULT,
+              return_kv: bool = False, rope_table=None):
+    """Full-sequence MLA (prefill): the expanded-KV form, query-chunked.
+    ``return_kv`` also returns (c_kv, k_rope), the prefill cache entries,
+    which the JAX package recomputes with two more projections.
+    ``rope_table`` is ``rope_table(positions, rope_base, qk_rope_dim)``."""
+    B, T, _ = x.shape
+    H, rope = cfg.n_heads, cfg.qk_rope_dim
+    q_nope, q_rope, c_kv, k_rope = _mla_project(p, x, positions, cfg, rope_base, compute_dtype,
+                                                rope_table)
+    k_nope = dense_apply(p["kv_b_k_proj"], c_kv, compute_dtype=compute_dtype)  # (B,T,H,nope)
+    v = dense_apply(p["kv_b_v_proj"], c_kv, compute_dtype=compute_dtype)  # (B,T,H,v)
+    # every head's key: its own nope part and the shared roped part
+    k_full = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, T, H, rope)], dim=-1)
+    q_full = torch.cat([q_nope, q_rope], dim=-1)[:, :, :, None, :]  # K = H, G = 1
+    out = attend(q_full, k_full, v, positions, positions, scale=_mla_scale(cfg), cap=0.0,
+                 q_chunk=q_chunk)
+    y = dense_apply(p["o_proj"], out.reshape(B, T, H, cfg.v_head_dim), n_in=2,
+                    compute_dtype=compute_dtype)
+    return (y, (c_kv, k_rope)) if return_kv else y
+
+
+def mla_init_cache(batch: int, max_len: int, cfg: MLAConfig, dtype=torch.bfloat16, device=None,
+                   lead: Tuple[int, ...] = ()):
+    return {
+        "c_kv": torch.zeros(lead + (batch, max_len, cfg.kv_lora_rank), dtype=dtype,
+                            device=device),
+        "k_rope": torch.zeros(lead + (batch, max_len, cfg.qk_rope_dim), dtype=dtype,
+                              device=device),
+    }
+
+
+def _fused_paged_mla(q_eff, q_rope, cache, block_tables, positions, *, cfg: MLAConfig,
+                     compute_dtype):
+    """The CUDA MLA kernel over the compressed c_kv/k_rope pools.  Returns
+    the rank-space (B, T, H, r) output; the caller applies kv_b_v."""
+    quant = "c_kv_scale" in cache
+    return paged_attention_mla(
+        q_eff, q_rope, cache["c_kv"], cache["k_rope"], block_tables,
+        positions[:, 0].contiguous(), scale=_mla_scale(cfg),
+        kv_scale=_pool_dequant_scale(cache["c_kv"]), ckv_scale_exp=cache.get("c_kv_scale"),
+        kr_scale_exp=cache.get("k_rope_scale"),
+        kv_bits=word_bits(cache["c_kv"], q_eff.shape[-1]) if quant else 0,
+        out_dtype=compute_dtype,
+    )
+
+
+def mla_decode(p, x, cache, pos, *, cfg: MLAConfig, rope_base=10000.0,
+               compute_dtype=torch.bfloat16, block_tables: Optional[torch.Tensor] = None,
+               rope_table=None, cache_index: Optional[torch.Tensor] = None):
+    """Absorbed decode: attention runs in the compressed rank-r space.
+
+        q_eff = q_nope @ kv_b_k  (per head);  logits = q_eff·c_kv + q_rope·k_rope;
+        out = (probs·c_kv) @ kv_b_v
+
+    The absorbed kv_b_k / kv_b_v contractions dequantize a Packed kernel
+    through ``as_dense`` on every call, as the JAX package does: they run no
+    fixed-point matmul kernel.  ``block_tables`` selects the paged c_kv /
+    k_rope pools (``rope_table``/``cache_index``: see ``attn_decode``)."""
+    B = x.shape[0]
+    r = cfg.kv_lora_rank
+    positions, per_row = decode_positions(pos, B, x.device)
+    q_nope, q_rope, c_new, kr_new = _mla_project(p, x, positions, cfg, rope_base, compute_dtype,
+                                                 rope_table)
+    q_eff = torch.einsum("bthn,rhn->bthr", q_nope,
+                         as_dense(p["kv_b_k_proj"]["kernel"], compute_dtype))
+    if block_tables is not None:
+        if not per_row:
+            raise ValueError("paged decode requires per-row (B,) positions")
+        idx = cache_index
+        if idx is None:
+            idx = paged_token_index(block_tables, positions[:, 0], cache["c_kv"].shape[1])
+        _paged_write(cache, ("c_kv", "k_rope"), (c_new[:, 0], kr_new[:, 0]), idx)
+        if resolve_attention_backend(x.device) != "composed":
+            out_c = _fused_paged_mla(q_eff, q_rope, cache, block_tables, positions, cfg=cfg,
+                                     compute_dtype=compute_dtype)
+        else:
+            c_kv = _paged_read(cache, "c_kv", block_tables, compute_dtype, r)
+            k_rope = _paged_read(cache, "k_rope", block_tables, compute_dtype, cfg.qk_rope_dim)
+            out_c = _mla_attend(q_eff, q_rope, c_kv, k_rope, positions, cfg, compute_dtype)
+    else:
+        p_or_rows = pos if not per_row else positions[:, 0]
+        cache_update_rows(cache["c_kv"], c_new, p_or_rows, per_row=per_row)
+        cache_update_rows(cache["k_rope"], kr_new, p_or_rows, per_row=per_row)
+        out_c = _mla_attend(q_eff, q_rope, cache_read(cache["c_kv"], compute_dtype),
+                            cache_read(cache["k_rope"], compute_dtype), positions, cfg,
+                            compute_dtype)
+    out = torch.einsum("bthr,rhv->bthv", out_c, as_dense(p["kv_b_v_proj"]["kernel"], compute_dtype))
+    y = dense_apply(p["o_proj"], out, n_in=2, compute_dtype=compute_dtype)
+    return y, cache
+
+
+def _mla_attend(q_eff, q_rope, c_kv, k_rope, positions, cfg: MLAConfig, compute_dtype):
+    """The composed absorbed attention over a logical (B, S, ...) view:
+    rank-space output (B, 1, H, r)."""
+    S = c_kv.shape[1]
+    kv_pos = torch.arange(S, dtype=torch.int32, device=c_kv.device)
+    mask = (kv_pos[None, :] <= positions)[:, None, None, :]  # (B, 1, 1, S)
+    logits = (torch.einsum("bthr,bsr->bhts", q_eff, c_kv)
+              + torch.einsum("bthr,bsr->bhts", q_rope, k_rope)).to(torch.float32) * _mla_scale(cfg)
+    logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
+    probs = torch.softmax(logits, dim=-1).to(compute_dtype)
+    return torch.einsum("bhts,bsr->bthr", probs, c_kv)  # compressed values

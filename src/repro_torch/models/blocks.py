@@ -1,8 +1,9 @@
 """Per-layer blocks (mirrors ``repro/models/blocks.py``) of the decoder
-family: kind 'A' (attention + MLP) and kind 'E' (attention + MoE, olmoe).
-The other kinds ('D' leading dense layers of an MoE model, 'R', 'M') and
-MLA attention are not ported and raise.  ``window`` and ``rope_base`` are
-per-layer values read from the config."""
+family: kind 'A' (attention + MLP), kind 'D' (the same, as an MoE model's
+leading dense layers: deepseek-v3) and kind 'E' (attention + MoE: olmoe,
+deepseek-v3), each with GQA attention or, with ``cfg.use_mla``, MLA.  The
+recurrent kinds ('R', 'M') are not ported and raise.  ``window`` and
+``rope_base`` are per-layer values read from the config."""
 from __future__ import annotations
 
 import math
@@ -12,11 +13,16 @@ import torch
 
 from repro_torch.models.attention import (
     AttnConfig,
+    MLAConfig,
     attn_apply,
     attn_decode,
     attn_init,
     attn_init_cache,
     cache_write,
+    mla_apply,
+    mla_decode,
+    mla_init,
+    mla_init_cache,
 )
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
@@ -43,6 +49,18 @@ def _attn_cfg(cfg: ModelConfig) -> AttnConfig:
     )
 
 
+def _mla_cfg(cfg: ModelConfig) -> MLAConfig:
+    return MLAConfig(
+        d_model=cfg.d_model,
+        n_heads=cfg.n_heads,
+        q_lora_rank=cfg.q_lora_rank,
+        kv_lora_rank=cfg.kv_lora_rank,
+        qk_nope_dim=cfg.qk_nope_dim,
+        qk_rope_dim=cfg.qk_rope_dim,
+        v_head_dim=cfg.v_head_dim,
+    )
+
+
 def _mlp_cfg(cfg: ModelConfig) -> MLPConfig:
     return MLPConfig(
         d_model=cfg.d_model, d_ff=cfg.d_ff, gated=cfg.mlp_gated, act=cfg.act, bias=cfg.attn_bias
@@ -63,10 +81,11 @@ def _moe_cfg(cfg: ModelConfig) -> MoEConfig:
 
 
 def _check_kind(cfg: ModelConfig, kind: str) -> None:
-    if kind not in ("A", "E") or cfg.use_mla:
+    if kind not in ("A", "D", "E"):
         raise NotImplementedError(
-            f"block kind {kind!r} (mla={cfg.use_mla}) is not ported yet; the port serves "
-            "attention+MLP and attention+MoE decoder blocks (ROADMAP Queue 1 item 12)"
+            f"block kind {kind!r} is not ported yet; the port serves the attention+MLP "
+            "('A', 'D') and attention+MoE ('E') decoder blocks, with GQA or MLA attention "
+            "(ROADMAP Queue 1 item 12)"
         )
 
 
@@ -85,7 +104,10 @@ def block_init(gen, cfg: ModelConfig, kind: str, dtype=torch.float32,
     _check_kind(cfg, kind)
     dev = gen.device
     p: Dict[str, Any] = {"pre_norm": _norm_init(cfg, dtype, dev, lead)}
-    p["attn"] = attn_init(gen, _attn_cfg(cfg), dtype, lead)
+    if cfg.use_mla:
+        p["attn"] = mla_init(gen, _mla_cfg(cfg), dtype, lead)
+    else:
+        p["attn"] = attn_init(gen, _attn_cfg(cfg), dtype, lead)
     if cfg.post_norm:
         p["post_attn_norm"] = _norm_init(cfg, dtype, dev, lead)
     p["pre_mlp_norm"] = _norm_init(cfg, dtype, dev, lead)
@@ -109,6 +131,17 @@ def _attn_prefill_cache(k, v, cfg: ModelConfig, cache_len: int):
     return {"k": cache_write(k, dt), "v": cache_write(v, dt)}
 
 
+def _mla_prefill_cache(c_kv, k_rope, cfg: ModelConfig, cache_len: int):
+    """Pad the c_kv (B, T, r) and roped k_rope (B, T, rope) that prefill
+    attention used into the layer's (B, cache_len, ...) cache."""
+    compute_dtype = c_kv.dtype
+    pad = cache_len - c_kv.shape[1]
+    c_kv = torch.nn.functional.pad(c_kv, (0, 0, 0, pad))
+    k_rope = torch.nn.functional.pad(k_rope, (0, 0, 0, pad))
+    dt = torch.int8 if cfg.kv_cache_dtype == "int8_fp" else compute_dtype
+    return {"c_kv": cache_write(c_kv, dt), "k_rope": cache_write(k_rope, dt)}
+
+
 def _ffn(p, h, cfg: ModelConfig, kind: str, compute_dtype, **moe_kw):
     if kind == "E":
         y, _ = moe_apply(p["moe"], h, cfg=_moe_cfg(cfg), compute_dtype=compute_dtype,
@@ -128,11 +161,18 @@ def block_apply(p, x, *, cfg: ModelConfig, kind: str, positions, window=None,
     _check_kind(cfg, kind)
     cache = None
     h = _norm_apply(cfg, p["pre_norm"], x)
-    y, (k, v) = attn_apply(p["attn"], h, cfg=_attn_cfg(cfg), positions=positions,
-                           window=window, rope_base=rope_base, compute_dtype=compute_dtype,
-                           return_kv=True, rope_table=rope_table)
-    if cache_len:
-        cache = _attn_prefill_cache(k, v, cfg, cache_len)
+    if cfg.use_mla:
+        y, (c_kv, k_rope) = mla_apply(p["attn"], h, cfg=_mla_cfg(cfg), positions=positions,
+                                      rope_base=rope_base, compute_dtype=compute_dtype,
+                                      return_kv=True, rope_table=rope_table)
+        if cache_len:
+            cache = _mla_prefill_cache(c_kv, k_rope, cfg, cache_len)
+    else:
+        y, (k, v) = attn_apply(p["attn"], h, cfg=_attn_cfg(cfg), positions=positions,
+                               window=window, rope_base=rope_base, compute_dtype=compute_dtype,
+                               return_kv=True, rope_table=rope_table)
+        if cache_len:
+            cache = _attn_prefill_cache(k, v, cfg, cache_len)
     if cfg.post_norm:
         y = _norm_apply(cfg, p["post_attn_norm"], y)
     x = x + y
@@ -146,6 +186,8 @@ def block_apply(p, x, *, cfg: ModelConfig, kind: str, positions, window=None,
 def block_cache_init(batch: int, max_len: int, cfg: ModelConfig, kind: str,
                      dtype=torch.bfloat16, device=None, lead: Tuple[int, ...] = ()):
     _check_kind(cfg, kind)
+    if cfg.use_mla:
+        return mla_init_cache(batch, max_len, _mla_cfg(cfg), dtype, device, lead)
     return attn_init_cache(batch, max_len, _attn_cfg(cfg), dtype, device, lead)
 
 
@@ -163,10 +205,15 @@ def block_decode(p, x, cache, pos, *, cfg: ModelConfig, kind: str, window=None,
     static loop keeps the bounded max(top_k, ceil(2·B·top_k/E))."""
     _check_kind(cfg, kind)
     h = _norm_apply(cfg, p["pre_norm"], x)
-    y, cache = attn_decode(p["attn"], h, cache, pos, cfg=_attn_cfg(cfg), window=window,
-                           rope_base=rope_base, compute_dtype=compute_dtype,
-                           block_tables=block_tables, rope_table=rope_table,
-                           cache_index=cache_index)
+    if cfg.use_mla:
+        y, cache = mla_decode(p["attn"], h, cache, pos, cfg=_mla_cfg(cfg), rope_base=rope_base,
+                              compute_dtype=compute_dtype, block_tables=block_tables,
+                              rope_table=rope_table, cache_index=cache_index)
+    else:
+        y, cache = attn_decode(p["attn"], h, cache, pos, cfg=_attn_cfg(cfg), window=window,
+                               rope_base=rope_base, compute_dtype=compute_dtype,
+                               block_tables=block_tables, rope_table=rope_table,
+                               cache_index=cache_index)
     if cfg.post_norm:
         y = _norm_apply(cfg, p["post_attn_norm"], y)
     x = x + y

@@ -1,13 +1,14 @@
 """Unified architecture config (a copy of ``repro/models/config.py``: the
 port imports nothing of the JAX package), cut to the fields the port
-reads.  The port serves the decoder family's attention+MLP kind ('A') and
-attention+MoE kind ('E', olmoe: one SYMOG Δ per expert), from a bf16 pool
-or a SYMOG-quantized int8/int4 KV pool (``kv_cache_dtype``, MoE decoders
-only so far).  ``use_mla`` is kept so that it can reject what it does not
-serve yet.  Fields of the other families come back with the slice that
-ports them.  ``layer_kinds`` derives the per-layer block kind: 'A'
-attention+MLP, 'D' an MoE model's leading dense layers (not ported), 'E'
-attention+MoE, 'R' RG-LRU block.
+reads.  The port serves the decoder family's attention+MLP kind ('A'), an
+MoE model's leading dense layers ('D', deepseek-v3) and attention+MoE kind
+('E', olmoe and deepseek-v3: one SYMOG Δ per expert), with GQA or MLA
+attention (``use_mla``, deepseek-v3), from a bf16 pool or a SYMOG-quantized
+int8/int4 KV pool (``kv_cache_dtype``, MoE decoders only so far).  Fields
+of the other families come back with the slice that ports them.
+``layer_kinds`` derives the per-layer block kind: 'A' attention+MLP, 'D'
+an MoE model's leading dense layers, 'E' attention+MoE, 'R' RG-LRU block
+(not ported).
 Attention local/global heterogeneity (gemma2/3) is NOT a separate kind — it
 is per-layer scanned scalars (window, rope base), so the whole stack stays a
 single scan in JAX (a Python loop over the stacked layer axis here).
@@ -54,11 +55,21 @@ class ModelConfig:
     top_k: int = 0
     d_ff_expert: int = 0
     n_shared_experts: int = 0
-    n_dense_layers: int = 0  # deepseek: leading dense-FFN layers (kind 'D', not ported)
+    n_dense_layers: int = 0  # deepseek: leading dense-FFN layers (kind 'D')
     router: str = "softmax"
     capacity_factor: float = 1.25
-    # mla: read only so that the port rejects that family
+    # mla (deepseek): low-rank q and compressed kv (rank r = kv_lora_rank);
+    # the paged pools hold c_kv (r) and k_rope (qk_rope_dim) per token
     use_mla: bool = False
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
+    # mtp (deepseek): the multi-token-prediction module is built by
+    # ``init_lm`` so that trees match JAX's; only the training loss reads it
+    use_mtp: bool = False
+    mtp_weight: float = 0.3
     # 'bf16' | 'int8_fp' | 'int4_fp'.  Dense caches use the global Δ=2^-5
     # int8 grid for int8_fp (int4_fp keeps the compute dtype there); paged
     # pools store int8/packed-int4 mantissas with a per-(block, KV head)

@@ -18,7 +18,9 @@ from repro_torch.models.quantized import as_dense, is_packed, packed_dense_apply
 
 
 def _normal(gen: torch.Generator, shape, std: float, dtype) -> torch.Tensor:
-    return (torch.randn(tuple(shape), generator=gen, device=gen.device) * std).to(dtype)
+    # scaled in place: one full-size temporary, not two (a deepseek-v3 expert
+    # stack is 15 GB in fp32)
+    return torch.randn(tuple(shape), generator=gen, device=gen.device).mul_(std).to(dtype)
 
 
 def dense_init(gen, in_dims: Sequence[int], out_dims: Sequence[int], *, bias: bool = False,

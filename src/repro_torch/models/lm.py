@@ -1,7 +1,8 @@
 """LM assembly for the decoder family (mirrors ``repro/models/lm.py``):
 embeddings → layer groups → head, plus prefill, decode and the training
 loss.  Dense GQA decoders (internlm2) serve and train; MoE decoders
-(olmoe) serve, and their training (aux/z losses, per-expert SYMOG update)
+(olmoe; deepseek-v3 with MLA attention and leading dense layers) serve, and
+their training (aux/z losses, per-expert SYMOG update, deepseek's MTP loss)
 is not ported yet.
 
 Consecutive layers of one kind form a group whose params carry a stacked
@@ -37,8 +38,9 @@ from repro_torch.models.attention import decode_positions, paged_token_index
 from repro_torch.models.quantized import scan_ready, unstack_layers
 from repro_torch.nn.tree import tree_map
 
-# cache leaves that live in the paged block pool under the scheduler
-PAGED_CACHE_LEAVES = frozenset({"k", "v"})
+# cache leaves that live in the paged block pool under the scheduler: the
+# per-token attention streams, standard k/v and MLA's compressed c_kv/k_rope
+PAGED_CACHE_LEAVES = frozenset({"k", "v", "c_kv", "k_rope"})
 _PAGED_KINDS = frozenset({"A", "D", "E"})
 
 
@@ -125,6 +127,15 @@ def init_lm(seed, cfg: ModelConfig, dtype=torch.float32, device=None) -> Dict[st
     if not cfg.tie_lm_head:
         params["lm_head"] = dense_init(gen, (cfg.d_model,), (cfg.vocab_size,),
                                        stddev=1.0 / math.sqrt(cfg.d_model), dtype=dtype)
+    if cfg.use_mtp:  # the JAX tree's MTP module; only its training loss reads it
+        params["mtp"] = {
+            "norm_h": _norm_init(cfg, dtype, dev),
+            "norm_e": _norm_init(cfg, dtype, dev),
+            "proj": dense_init(gen, (2 * cfg.d_model,), (cfg.d_model,),
+                               stddev=1.0 / math.sqrt(2 * cfg.d_model), dtype=dtype),
+            "block": block_init(gen, cfg, "E" if cfg.moe else "A", dtype),
+            "final_norm": _norm_init(cfg, dtype, dev),
+        }
     return params
 
 
@@ -150,10 +161,12 @@ def _head(params, cfg: ModelConfig, x):
 
 def _rope_tables(cfg: ModelConfig, positions: torch.Tensor) -> Dict[float, Any]:
     """One ``rope_table`` per distinct layer rope base: the positions are the
-    same for every layer of a forward or decode step."""
+    same for every layer of a forward or decode step.  MLA ropes only the
+    qk_rope_dim part of its queries and its shared key."""
     if not cfg.use_rope:
         return {}
-    return {b: rope_table(positions, b, cfg.head_dim) for b in set(cfg.layer_rope_bases())}
+    width = cfg.qk_rope_dim if cfg.use_mla else cfg.head_dim
+    return {b: rope_table(positions, b, width) for b in set(cfg.layer_rope_bases())}
 
 
 def _embed_tokens(params, cfg: ModelConfig, tokens, compute_dtype):
@@ -237,7 +250,8 @@ def decode_lm(params, caches, tokens, pos, cfg: ModelConfig, *, compute_dtype=to
         paged = block_tables is not None and g.paged[0]
         index = None
         if paged:  # every layer of the group writes the same pool slot
-            block = gc["k"].shape[2 if g.stacked else 1]
+            leaf = next(gc[n] for n in gc if n in PAGED_CACHE_LEAVES)
+            block = leaf.shape[2 if g.stacked else 1]
             index = paged_token_index(block_tables, positions[:, 0], block)
         for li, p_l in _group_layers(params[g.name], g):
             c_l = {n: (leaf[li - g.offset] if g.stacked else leaf) for n, leaf in gc.items()}
@@ -274,13 +288,12 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def lm_train_loss(params, batch, cfg: ModelConfig, *, compute_dtype=torch.bfloat16):
-    """(loss, metrics) of a dense decoder.  The MoE aux losses (and the MTP
-    loss, whose config field the port does not have yet) come with their
-    families: an MoE config raises."""
-    if cfg.moe:
+    """(loss, metrics) of a dense decoder.  The MoE aux losses and the MTP
+    loss come with MoE training: an MoE or MTP config raises."""
+    if cfg.moe or cfg.use_mtp:
         raise NotImplementedError(
-            "training MoE decoders (aux/z losses, per-expert SYMOG update) is not ported yet "
-            "(ROADMAP Queue 1 item 12)"
+            "training MoE decoders (aux/z losses, per-expert SYMOG update, the MTP loss) is "
+            "not ported yet (ROADMAP Queue 1 item 12)"
         )
     out = forward_lm(params, batch, cfg, compute_dtype=compute_dtype)
     tokens = batch["tokens"]

@@ -52,7 +52,7 @@ def moe_init(gen, cfg: MoEConfig, dtype=torch.float32, lead: Tuple[int, ...] = (
     sd_in, sd_out = 1.0 / math.sqrt(D), 1.0 / math.sqrt(F)
 
     def normal(shape, std):
-        return (torch.randn(lead + shape, generator=gen, device=gen.device) * std).to(dtype)
+        return torch.randn(lead + shape, generator=gen, device=gen.device).mul_(std).to(dtype)
 
     p = {
         "router": dense_init(gen, (D,), (E,), stddev=sd_in, dtype=torch.float32, lead=lead),

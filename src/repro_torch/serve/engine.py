@@ -3,10 +3,11 @@
 
 The engine serves float, ``quantize_tree`` and ``pack_tree`` params through
 the same forward code, for dense GQA decoders (internlm2) and MoE decoders
-(olmoe).  Packed leaves stay packed on the device: every packed dense layer
-runs the CUDA ``fixedpoint_matmul`` kernel, every packed expert stack its
-experts form, and paged decode runs the CUDA ``paged_attention`` kernel
-(float pools, or SYMOG-quantized int8/int4 pools with ``kv_cache_dtype``
+(olmoe; deepseek-v3 with MLA attention).  Packed leaves stay packed on the
+device: every packed dense layer runs the CUDA ``fixedpoint_matmul`` kernel,
+every packed expert stack its experts form, and paged decode runs the CUDA
+``paged_attention`` kernel, or ``paged_attention_mla`` for MLA (float pools,
+or SYMOG-quantized int8/int4 pools with ``kv_cache_dtype``
 ``int8_fp``/``int4_fp``, MoE decoders only so far).  On the CPU these
 resolve to their plain versions (dequantize-then-matmul, gather+softmax),
 which are exact for packed weights, so CPU token streams equal

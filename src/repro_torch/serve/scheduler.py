@@ -6,7 +6,8 @@ KV-cache block pool (mirrors the core of ``repro/serve/scheduler.py``).
   * a slot table of ``n_slots`` rows sharing one decode dispatch; each row
     has its own position, so the batch is ragged;
   * a block pool: k/v live in shared ``(n_blocks+1, block, K, hd)`` pools
-    (one more leading layer axis per stacked group); row b resolves
+    (MLA's c_kv / k_rope in ``(n_blocks+1, block, r)`` / ``(..., rope)``
+    pools; one more leading layer axis per stacked group); row b resolves
     position t through a device ``(S, max_blocks)`` block table.  Physical
     row 0 is the trash block: zeroed table rows (free slots) write there;
   * admission: prompts are right-padded to power-of-two buckets and one
@@ -19,7 +20,8 @@ KV-cache block pool (mirrors the core of ``repro/serve/scheduler.py``).
 
 With ``kv_cache_dtype`` int8_fp/int4_fp (MoE decoders) the pools hold
 SYMOG-quantized int8 / packed-int4 mantissas with one int32 exponent per
-(physical block, KV head) in a ``<name>_scale`` sibling leaf.
+(physical block, KV head) in a ``<name>_scale`` sibling leaf (per physical
+block for MLA's head-less c_kv / k_rope).
 
 Greedy only: sampled decoding, the prefix cache, chunked prefill,
 telemetry, async and cancellation come in later slices.  Slot state
@@ -160,7 +162,7 @@ class Scheduler:
         With ``engine.kv_quant_bits`` the paged data pools hold int8 words
         (last dim halved at 4 bits: two lanes per word), and each gains a
         zeroed int32 ``<name>_scale`` sibling of one exponent per
-        (physical block, KV head)."""
+        (physical block, KV head), per physical block for MLA's c_kv / k_rope."""
         specs = self.eng.prefill_cache_specs()
         S, blk, n_phys = self.n_slots, self.block_size, self.n_blocks + 1
         qbits = self.eng.kv_quant_bits

@@ -25,6 +25,8 @@ from repro_torch.kernels.fixedpoint_matmul.ref import (  # noqa: E402
     fixedpoint_matmul_ref,
 )
 from repro_torch.kernels.paged_attention import ops as aops, paged_attention  # noqa: E402
+from repro_torch.kernels.paged_attention import paged_attention_mla  # noqa: E402
+from repro_torch.kernels.paged_attention.ref import paged_attention_mla_ref  # noqa: E402
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -121,7 +123,8 @@ def _experts_case(dev, E, C, K, N, n_bits, dt, seed):
 @pytest.mark.parametrize("n_bits", [2, 4])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("E,C,K,N", [(8, 4, 256, 128), (64, 4, 2048, 1024), (64, 4, 1024, 2048),
-                                     (64, 80, 2048, 1024), (5, 80, 512, 96), (3, 1, 96, 40)])
+                                     (64, 80, 2048, 1024), (5, 80, 512, 96), (3, 1, 96, 40),
+                                     (256, 4, 7168, 2048), (256, 4, 2048, 7168)])  # deepseek-v3
 def test_fixedpoint_matmul_experts_matches_plain(dev, n_bits, dtype, E, C, K, N):
     dt = getattr(torch, dtype)
     x, words, f = _experts_case(dev, E, C, K, N, n_bits, dt, seed=E * 13 + C + n_bits)
@@ -135,6 +138,28 @@ def test_fixedpoint_matmul_experts_matches_plain(dev, n_bits, dtype, E, C, K, N)
     # deterministic: no atomics in any sum
     again = fixedpoint_matmul_experts(x, words, f, n_bits=n_bits, n_out=N)
     assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("K,N", [(7168, 64), (1536, 24576), (16384, 7168), (7168, 129280)])
+def test_fixedpoint_matmul_deepseek_shapes(dev, dtype, K, N):
+    """deepseek-v3's 2-D decode shapes at 2 bits: k_rope (16 words a row),
+    q_b, o, the head; Gaussian weights under their optimal f, unit-scale
+    outputs."""
+    from repro_torch.core import optimal_f
+
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(K + N)
+    w = torch.randn((K, N), generator=gen, device=dev) / K**0.5
+    f = optimal_f(w, 2)[0].to(torch.int32)
+    pw = pack_weight(w, f, 2)
+    del w
+    x = torch.randn((4, K), generator=gen, device=dev).to(dt)
+    got = fixedpoint_matmul(x, pw, f, n_bits=2, n_out=N)
+    want = fixedpoint_matmul_ref(x, pw, f, n_bits=2, n_out=N).to(dt)
+    tol = dict(rtol=1e-5, atol=1e-5) if dt == torch.float32 else dict(rtol=1e-2, atol=1e-2)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
 
 
 def test_fixedpoint_matmul_experts_rejects_bad_operands(dev):
@@ -247,6 +272,106 @@ def test_paged_attention_quant_rejects_bad_operands(dev):
                         v_scale_exp=ve)
     with pytest.raises(ValueError):  # kv_bits without exponents
         paged_attention(q, kp, vp, bt, pos0, kv_bits=4, scale=0.25)
+
+
+def _mla_operands(rng, dev, *, B, T, H, r, rope, block, mb, pool, qdt):
+    """MLA decode operands: bf16 / fp32 queries; pools of the query dtype,
+    KV_F int8, or SYMOG words with one exponent per physical block: the
+    wide spread (random words, exponents over [-8, 4]) with bf16 queries,
+    the words a paged write makes of unit-scale c_kv / k_rope with fp32
+    queries (as the quantized GQA cases above); row 0 at position 0.  On
+    the wide spread the queries are scaled by 1 / the pool's largest value
+    (127 or 7 x 2^4) so that the logits stay O(1) as in serving: with unit
+    queries they reach ~1e3, and in a near-tied row the fp32 summation order
+    alone then moves the output past the bf16 bar (the kernel's and the
+    plain version's errors against fp64 are alike: chip_smoke.py 3f)."""
+    from repro_torch.models.attention import KV_QMAX, block_scale_exp, pack_int4, quantize_fixed
+
+    n_blocks = B * mb + 1
+    bt = (rng.permutation(n_blocks - 1)[: B * mb] + 1).reshape(B, mb).astype(np.int32)
+    pos0 = (rng.integers(T - 1, mb * block, size=B) - (T - 1)).astype(np.int32)
+    pos0[0] = 0
+    wide = pool in ("int8", "int4") and qdt == torch.bfloat16
+    q_mult = 1.0 / ((127 if pool == "int8" else 7) * 2**4) if wide else 1.0
+    q_eff = torch.from_numpy(rng.standard_normal((B, T, H, r)).astype(np.float32) * q_mult)
+    q_rope = torch.from_numpy(rng.standard_normal((B, T, H, rope)).astype(np.float32) * q_mult)
+    q_eff, q_rope = q_eff.to(dev, qdt), q_rope.to(dev, qdt)
+    kw = dict(scale=(128 + 64) ** -0.5)
+    pools, exps = [], []
+    for w in (r, rope):
+        x = torch.from_numpy(rng.standard_normal((n_blocks, block, w)).astype(np.float32))
+        if pool == "float":
+            pools.append(x.to(qdt))
+        elif pool == "kv_f":
+            pools.append(torch.clamp(torch.round(x * 16), -127, 127).to(torch.int8))
+        else:
+            bits = 4 if pool == "int4" else 8
+            qmax = KV_QMAX[bits]
+            if wide:
+                m = torch.from_numpy(rng.integers(-qmax, qmax + 1, size=(n_blocks, block, w))
+                                     .astype(np.int8))
+                e = torch.from_numpy(rng.integers(-8, 5, size=n_blocks).astype(np.int32))
+            else:
+                s = rng.integers(-3, 2, size=(n_blocks, 1, 1)).astype(np.float32)
+                x = x * torch.from_numpy(np.exp2(s))
+                e = block_scale_exp(x[:, 0], qmax)
+                m = quantize_fixed(x, e[:, None], qmax)
+            pools.append(pack_int4(m) if bits == 4 else m)
+            exps.append(e.to(dev))
+    if pool == "kv_f":
+        kw["kv_scale"] = 2.0**-5
+    elif exps:
+        kw.update(ckv_scale_exp=exps[0], kr_scale_exp=exps[1], kv_bits=4 if pool == "int4" else 8)
+    bt, pos0 = torch.from_numpy(bt).to(dev), torch.from_numpy(pos0).to(dev)
+    return (q_eff, q_rope, pools[0].to(dev), pools[1].to(dev), bt, pos0), kw
+
+
+@pytest.mark.parametrize("pool", ["float", "kv_f", "int8", "int4"])
+@pytest.mark.parametrize("shape", [
+    # deepseek-v3's decode (H 128, r 512, rope 64, 4 rows of up to 320 tokens),
+    # T = 3, and small widths that take the kernel's scalar (unvectorized) loads
+    dict(B=4, T=1, H=128, r=512, rope=64, block=16, mb=20),
+    dict(B=3, T=3, H=8, r=64, rope=16, block=8, mb=9),
+    dict(B=2, T=2, H=5, r=36, rope=6, block=4, mb=7),
+])
+@pytest.mark.parametrize("qdtype", ["float32", "bfloat16"])
+def test_paged_attention_mla_matches_plain(dev, pool, shape, qdtype):
+    qdt = getattr(torch, qdtype)
+    rng = np.random.default_rng(shape["H"] + shape["T"])
+    args, kw = _mla_operands(rng, dev, pool=pool, qdt=qdt, **shape)
+    quant = "kv_bits" in kw
+    before = (aops.mla_launches, aops.mla_quant_launches)
+    got = paged_attention_mla(*args, **kw)
+    torch.cuda.synchronize()
+    assert (aops.mla_launches - before[0], aops.mla_quant_launches - before[1]) == (
+        (0, 1) if quant else (1, 0))
+    assert got.dtype == qdt and got.shape == args[0].shape
+    want = paged_attention_mla_ref(*args, **kw)
+    tol = dict(rtol=2e-4, atol=2e-5) if qdt == torch.float32 else dict(rtol=1e-2, atol=1e-2)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    # deterministic: the same call gives the same bits
+    assert torch.equal(paged_attention_mla(*args, **kw), got)
+
+
+def test_paged_attention_mla_rejects_bad_operands(dev):
+    rng = np.random.default_rng(0)
+    args, kw = _mla_operands(rng, dev, B=2, T=1, H=4, r=32, rope=16, block=8, mb=3, pool="int4",
+                             qdt=torch.bfloat16)
+    q_eff, q_rope, cp, kp, bt, pos0 = args
+    ce, re = kw["ckv_scale_exp"], kw["kr_scale_exp"]
+    s = kw["scale"]
+    with pytest.raises(ValueError):  # int4 words read as int8: the word width is wrong
+        paged_attention_mla(*args, scale=s, ckv_scale_exp=ce, kr_scale_exp=re, kv_bits=8)
+    with pytest.raises(ValueError):  # exponents of the wrong shape
+        paged_attention_mla(*args, scale=s, ckv_scale_exp=ce[:3], kr_scale_exp=re, kv_bits=4)
+    with pytest.raises(ValueError):  # exponents on another device
+        paged_attention_mla(*args, scale=s, ckv_scale_exp=ce.cpu(), kr_scale_exp=re, kv_bits=4)
+    with pytest.raises(TypeError):  # q_eff and q_rope of different dtypes
+        paged_attention_mla(q_eff, q_rope.float(), cp, kp, bt, pos0, scale=s, ckv_scale_exp=ce,
+                            kr_scale_exp=re, kv_bits=4)
+    with pytest.raises(ValueError):  # int64 tables
+        paged_attention_mla(q_eff, q_rope, cp, kp, bt.long(), pos0, scale=s, ckv_scale_exp=ce,
+                            kr_scale_exp=re, kv_bits=4)
 
 
 def _symog_case(dev, n, n_bits, case, seed):

@@ -48,7 +48,7 @@ def _tokens(B=2, T=7, seed=0, vocab=256):
 KINDS = ["float", "quantize_tree", "pack_tree"]
 
 
-@pytest.mark.parametrize("arch", ["internlm2-1.8b", "olmoe-1b-7b"])
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "olmoe-1b-7b", "deepseek-v3-671b"])
 def test_configs_match_jax(arch):
     """The port's config keeps the fields it reads; each equals JAX's."""
     import dataclasses
