@@ -10,18 +10,26 @@ Phases, one JSON line each:
                shapes its path gives it, with kernel / plain / library times
                (CUDA events; the serving kernels in CUDA graphs of many
                launches with operands rotated past the 50 MB L2) and the
-               bound from bytes and operations: 3a fixedpoint_matmul, 3b
+               bound from bytes and operations: 3a fixedpoint_matmul at
+               internlm2's 7 projections (M 4 in bf16 and fp32, M 128 in
+               fp32, the prefill buckets M 32..512 in bf16), 3b
                paged_attention, 3c symog_update on every quantizable leaf
                shape of internlm2-1.8b plus an odd n, half-step ties, the
                clip and a misaligned operand, 3d fixedpoint_matmul_experts
                on olmoe-1b-7b's expert stacks (64 experts, one f each, C = 4
-               and 80, 2 and 4 bits, bf16 and fp32) and fixedpoint_matmul
-               at olmoe's packed head (M 4, K 2048, N 50304, fp32); both
-               again at deepseek-v3's shapes, 2-bit: every 2-D projection of
-               its path (the MLA layer's, the dense MLP, the shared expert,
-               the 129,280-row head; M 4 and 128, bf16 and fp32) and one MoE
-               layer's three 256-expert stacks (C 4 in bf16 and fp32, C 20
-               in bf16); 3e
+               and 80 in bf16 and fp32, the prefill capacities C = 5, 20, 80
+               in bf16, 2 and 4 bits) and fixedpoint_matmul at olmoe's
+               packed head (M 4, K 2048, N 50304, fp32); both again at
+               deepseek-v3's shapes, 2-bit: every 2-D projection of its path
+               (the MLA layer's, the dense MLP, the shared expert, the
+               129,280-row head; M 4 and 128 in bf16 and fp32, M 512 in bf16)
+               and one MoE layer's three 256-expert stacks (C 4 in bf16 and
+               fp32, C 2, 10, 20 in bf16); every bf16 case at a prefill size
+               holds the tensor-core kernel (forced) to the plain version,
+               bit-identical over two calls, and times both kernels; 3g the
+               crossover of the two kernels at 2..16 rows (internlm2's
+               gate_proj, olmoe's gate stack), which the route rule's
+               threshold must not undercut; 3e
                paged attention over int8 and int4 SYMOG pools (olmoe's and
                internlm2's decode shapes, exponents over [-8, 4], a window
                + softcap case, an fp32 case), 3f the absorbed MLA decode
@@ -45,8 +53,9 @@ Phases, one JSON line each:
   5. serve   — internlm2-1.8b at full width, all 24 layers, 2-bit
                ``ServeEngine.from_symog``, bf16, 4 slots, 8 requests of
                24..400 prompt tokens and 32 new tokens each through the
-               continuous-batching scheduler; every kernel's launch count
-               must equal the count the path implies;
+               continuous-batching scheduler; each admission (bucketed
+               prefill) and decode step timed; every kernel's launch count,
+               split by matmul route, must equal the count the path implies;
   6. profile — a few decode steps of that engine under cProfile (host
                functions) and torch.profiler (device busy time, top kernels);
   7. train   — SYMOG training of internlm2-1.8b at full width and all 24
@@ -69,8 +78,9 @@ Phases, one JSON line each:
                launches; then its decode profile.
 Each serving and training path zeroes every kernel's launch count just
 before it runs and reads them just after.
-Then each phase's seconds and the total, the ``kernels`` summary line (all
-seven kernels), the nvidia-smi line, and the last line
+Then each phase's seconds and the total, the ``kernels`` summary line (the
+seven kernels and the tensor-core route of both matmul forms), the
+nvidia-smi line, and the last line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before it.
 The script imports no jax and nothing of the JAX package.
 """
@@ -156,13 +166,40 @@ def bound(nbytes: int, flops: int, dtype_name: str):
 # ---------------------------------------------------------------------------
 # phase 3a: fixedpoint_matmul
 # ---------------------------------------------------------------------------
-def _fpmm_case(torch, gen, dev, name, K, N, M, dt, n_bits, *, with_bias, timing):
+def _both_routes(torch, row, call, ref, route, args, slow):
+    """A bf16 case at a prefill size: the tensor-core route forced, held to
+    the plain version at the bf16 bar and bit-identical over two calls;
+    when ``args`` are given, both routes timed (``ms`` is the route the rule
+    picks; a ``slow`` streaming call is timed with CUDA events over single
+    calls).  Returns False if a check failed."""
+    yt = [call("tensor_core", *args[0]) if args else call("tensor_core") for _ in range(2)]
+    torch.cuda.synchronize()
+    row["tc_max_abs_err"] = (yt[0].float() - ref.float()).abs().max().item()
+    row["tc_bit_identical"] = bool(torch.equal(yt[0], yt[1]))
+    ok = bool(torch.allclose(yt[0].float(), ref.float(), **TOL["bfloat16"]))
+    ok = ok and row["tc_bit_identical"]
+    del yt
+    row["route"] = route
+    if args:
+        row["tc_ms"] = timed(lambda *a: call("tensor_core", *a), args, torch)
+        if slow:
+            row["stream_ms"] = events_ms(lambda: call("streaming", *args[0]), 3, torch)
+            row["stream_timing"] = "CUDA events, single calls"
+        else:
+            row["stream_ms"] = timed(lambda *a: call("streaming", *a), args, torch)
+        row["ms"] = row["tc_ms"] if route == "tensor_core" else row["stream_ms"]
+    return ok
+
+
+def _fpmm_case(torch, gen, dev, name, K, N, M, dt, n_bits, *, with_bias, timing, routes=False,
+               plain=True, library=True):
     """One 2-D case: Gaussian weights packed with their optimal f, x (M, K)
-    of ``dt``, the kernel held to its plain version; timed (kernel, plain,
-    ``torch.matmul`` on the dequantized weight) when ``timing``.  A plain
-    version whose fp32 unpacked weight exceeds 1 GB is timed with CUDA
-    events over single calls (a graph of 16 would hold 16 sets of its
-    temporaries)."""
+    of ``dt``, the kernel the route rule picks held to its plain version;
+    timed (kernel, plain, ``torch.matmul`` on the dequantized weight) when
+    ``timing``.  ``routes`` (bf16): both kernels checked and timed
+    (``_both_routes``).  A plain version whose fp32 unpacked weight exceeds
+    1 GB is timed with CUDA events over single calls (a graph of 16 would
+    hold 16 sets of its temporaries)."""
     from repro_torch.core import optimal_f, unpack_int
     from repro_torch.kernels.fixedpoint_matmul import ops as fops
     from repro_torch.kernels.fixedpoint_matmul.ref import fixedpoint_matmul_ref
@@ -181,66 +218,109 @@ def _fpmm_case(torch, gen, dev, name, K, N, M, dt, n_bits, *, with_bias, timing)
     err = (y.float() - ref.float()).abs().max().item()
     tol = TOL[dname]
     ok = bool(torch.allclose(y.float(), ref.float(), **tol))
-    del y, ref
+    del y
     wbytes = pw.numel()
     io = x.numel() * x.element_size() + wbytes + 4 + M * N * x.element_size()
     io += 0 if bias is None else N * 4
     b_ms, b_by = bound(io, 2 * M * K * N, dname)
     row = {"phase": "kernel", "kernel": "fixedpoint_matmul", "proj": name, "M": M, "K": K,
            "N": N, "n_bits": n_bits, "dtype": dname, "bias": bias is not None,
-           "max_abs_err": err, "tol": tol, "pass": ok}
+           "route": fops._pick_route(dt, M, True), "max_abs_err": err, "tol": tol}
+
+    def call(route, a=x, b=pw):
+        return fops.fixedpoint_matmul(a, b, f, bias, n_bits=n_bits, n_out=N, _route=route)
+
+    args = None
     if timing:
         n = copies_for(wbytes)
-        pws = [pw.clone() for _ in range(n)]
-        xs = [x.clone() for _ in range(n)]
-        wd = (unpack_int(pw, n_bits, N).float() * torch.exp2(-f.float())).to(dt)
-        nl = copies_for(wd.numel() * wd.element_size())
-        wds = [wd] + [wd.clone() for _ in range(nl - 1)]
-        del wd
-        row["ms"] = timed(lambda a, b: fops.fixedpoint_matmul(a, b, f, bias, n_bits=n_bits,
-                                                               n_out=N),
-                          list(zip(xs, pws)), torch)
-        if K * N * 4 > 1e9:
+        args = list(zip([x.clone() for _ in range(n)], [pw.clone() for _ in range(n)]))
+    if routes:
+        ok = _both_routes(torch, row, call, ref, row["route"], args, 2 * M * K * N > 1e11) and ok
+    del ref
+    row["pass"] = ok
+    if timing:
+        if not routes:
+            row["ms"] = timed(lambda a, b: call(None, a, b), args, torch)
+        if plain and K * N * 4 > 1e9:
             row["plain_ms"] = events_ms(lambda: fixedpoint_matmul_ref(
-                xs[0], pws[0], f, bias, n_bits=n_bits, n_out=N), 5, torch)
+                args[0][0], args[0][1], f, bias, n_bits=n_bits, n_out=N), 5, torch)
             row["plain_timing"] = "CUDA events, single calls"
-        else:
+        elif plain:
             row["plain_ms"] = timed(lambda a, b: fixedpoint_matmul_ref(a, b, f, bias,
                                                                        n_bits=n_bits, n_out=N),
-                                    list(zip(xs, pws)), torch)
-        row["library_ms"] = timed(lambda a, b: torch.matmul(a, b),
-                                  [(xs[i % n], wds[i]) for i in range(nl)], torch)
+                                    args, torch)
+        if library:
+            wd = (unpack_int(pw, n_bits, N).float() * torch.exp2(-f.float())).to(dt)
+            nl = copies_for(wd.numel() * wd.element_size())
+            wds = [wd] + [wd.clone() for _ in range(nl - 1)]
+            del wd
+            row["library_ms"] = timed(lambda a, b: torch.matmul(a, b),
+                                      [(args[i % len(args)][0], wds[i]) for i in range(nl)],
+                                      torch)
+            del wds
         row["bound_ms"], row["bound_by"] = b_ms, b_by
         row["achieved_GBps"] = io / (row["ms"] * 1e-3) / 1e9
-        del pws, xs, wds
+        row["achieved_TFLOPs"] = 2 * M * K * N / (row["ms"] * 1e-3) / 1e12
+        del args
     return row
 
 
+PREFILL_M = (32, 64, 128, 256, 512)  # the serve's prompt buckets
+
+
+def _err(row):
+    return max(row["max_abs_err"], row.get("tc_max_abs_err", 0.0))
+
+
+def _bound_by(rows) -> str:
+    """What bounds a sum of cases: the bound that bounds the most of its time."""
+    t = {"bytes": 0.0, "operations": 0.0}
+    for r in rows:
+        t[r["bound_by"]] += r["bound_ms"]
+    return max(t, key=t.get)
+
+
+def _route_err(rows, route: str) -> float:
+    """Largest error of one kernel over ``rows``: the calls the rule sent
+    to ``route``, and for the tensor cores also the forced calls."""
+    errs = [r["max_abs_err"] for r in rows if r["route"] == route]
+    if route == "tensor_core":
+        errs += [r["tc_max_abs_err"] for r in rows if "tc_max_abs_err" in r]
+    return max(errs)
+
+
 def phase_fpmm(torch, dev):
+    """Row 1 at internlm2-1.8b's 7 projections: M = 4 (decode) in bf16 and
+    fp32, 2 and 4 bits, M = 128 in fp32, and the prefill buckets M = 32..512
+    in bf16 at 2 bits (plus M = 128 at 4 bits), where both routes are
+    checked and timed.  Returns the rows and the sums over one layer at
+    M = 4 and at M = 512 (bf16, 2-bit)."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    rows, worst = [], 0.0
+    rows = []
     decode = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
-    cases = []
+    prefill = {"ms": 0.0, "stream_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    bf16, fp32 = torch.bfloat16, torch.float32
+    cases = []  # (n_bits, M, dtype, timed)
     for n_bits in (2, 4):
-        for M in (4, 128):
-            for dt in (torch.bfloat16, torch.float32):
-                for name, K, N in FPMM_SHAPES:
-                    cases.append((n_bits, M, dt, name, K, N))
-    for n_bits, M, dt, name, K, N in cases:
-        # time every 2-bit case and the 4-bit decode cases
-        row = _fpmm_case(torch, gen, dev, name, K, N, M, dt, n_bits, with_bias=M == 128,
-                         timing=n_bits == 2 or M == 4)
-        worst = max(worst, row["max_abs_err"])
-        if n_bits == 2 and M == 4 and dt == torch.bfloat16:
-            for k in decode:
-                decode[k] += row[k]
-        emit(row)
-        rows.append(row)
-        if not row["pass"]:
-            raise Failed(f"fixedpoint_matmul {name} M={M} bits={n_bits} {row['dtype']}: "
-                         f"err {row['max_abs_err']}")
-    return rows, worst, decode
+        cases += [(n_bits, 4, bf16, True), (n_bits, 4, fp32, True),
+                  (n_bits, 128, fp32, n_bits == 2)]
+    cases += [(2, M, bf16, True) for M in PREFILL_M] + [(4, 128, bf16, False)]
+    for n_bits, M, dt, timing in cases:
+        for name, K, N in FPMM_SHAPES:
+            row = _fpmm_case(torch, gen, dev, name, K, N, M, dt, n_bits, with_bias=M >= 128,
+                             timing=timing, routes=dt == bf16 and M > 4)
+            if n_bits == 2 and dt == bf16 and M in (4, 512):
+                acc = decode if M == 4 else prefill
+                for k in acc:
+                    acc[k] += row[k]
+            emit(row)
+            rows.append(row)
+            if not row["pass"]:
+                raise Failed(f"fixedpoint_matmul {name} M={M} bits={n_bits} {row['dtype']}: "
+                             f"err {_err(row)}")
+    prefill["bound_by"] = _bound_by(r for r in rows if r["M"] == 512)
+    return rows, decode, prefill
 
 
 # deepseek-v3's 2-D packed projections, K x N: the MLA layer's (kv_b_k /
@@ -260,30 +340,30 @@ DEEPSEEK_DECODE_LAYER = {"q_a_proj": 1, "q_b_proj": 1, "kv_a_proj": 1, "k_rope_p
 
 def phase_fpmm_deepseek(torch, dev):
     """Row 1 at deepseek-v3's 2-D shapes, 2-bit (the serve phase's width),
-    M = 4 (decode) and 128, bf16 (serve) and fp32 (parity), every case
-    timed.  Returns the rows, the largest error and the sums over one MoE
-    layer's decode matmuls at M = 4 bf16."""
+    M = 4 (decode) and 128 in bf16 (serve) and fp32 (parity), and M = 512
+    in bf16; at M = 128 and 512 in bf16 both routes are checked and timed
+    (the plain version at M = 4 and 128).  Returns the rows and the sums
+    over one MoE layer's decode matmuls at M = 4 bf16."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(5)
-    rows, worst = [], 0.0
+    rows = []
     layer = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    bf16, fp32 = torch.bfloat16, torch.float32
     for name, K, N in DEEPSEEK_FPMM_SHAPES:
-        for M in (4, 128):
-            for dt in (torch.bfloat16, torch.float32):
-                row = _fpmm_case(torch, gen, dev, name, K, N, M, dt, 2, with_bias=False,
-                                 timing=True)
-                row["arch"] = DEEPSEEK
-                worst = max(worst, row["max_abs_err"])
-                if M == 4 and dt == torch.bfloat16 and name in DEEPSEEK_DECODE_LAYER:
-                    for k in layer:
-                        layer[k] += DEEPSEEK_DECODE_LAYER[name] * row[k]
-                emit(row)
-                rows.append(row)
-                if not row["pass"]:
-                    raise Failed(f"fixedpoint_matmul deepseek {name} M={M} {row['dtype']}: "
-                                 f"err {row['max_abs_err']}")
+        for M, dt in ((4, bf16), (4, fp32), (128, bf16), (128, fp32), (512, bf16)):
+            row = _fpmm_case(torch, gen, dev, name, K, N, M, dt, 2, with_bias=False,
+                             timing=True, routes=dt == bf16 and M > 4, plain=M < 512)
+            row["arch"] = DEEPSEEK
+            if M == 4 and dt == bf16 and name in DEEPSEEK_DECODE_LAYER:
+                for k in layer:
+                    layer[k] += DEEPSEEK_DECODE_LAYER[name] * row[k]
+            emit(row)
+            rows.append(row)
+            if not row["pass"]:
+                raise Failed(f"fixedpoint_matmul deepseek {name} M={M} {row['dtype']}: "
+                             f"err {_err(row)}")
         torch.cuda.empty_cache()
-    return rows, worst, layer
+    return rows, layer
 
 
 # ---------------------------------------------------------------------------
@@ -417,13 +497,16 @@ def _experts_stack(torch, gen, dev, E, K, N, n_bits):
     return words, f, sc
 
 
-def _experts_case(torch, gen, dev, name, words, f, sc, C, dt, n_bits, N, *, timing):
+def _experts_case(torch, gen, dev, name, words, f, sc, C, dt, n_bits, N, *, timing,
+                  routes=False, plain=True):
     """One experts case: x (E, C, K) of ``dt`` with expert e's rows scaled
-    by 2^-s_e, the kernel held to its plain version; timed (kernel, plain,
-    ``torch.bmm`` on the dequantized stack) when ``timing``.  A stack whose
-    fp32 unpacking exceeds 1 GB is timed with CUDA events over single calls
-    of the plain version and ``torch.bmm`` (a graph of 16 plain calls would
-    hold 16 sets of its temporaries)."""
+    by 2^-s_e, the kernel the route rule picks held to its plain version;
+    timed (kernel, plain, ``torch.bmm`` on the dequantized stack) when
+    ``timing``; ``routes`` (bf16): both kernels checked and timed
+    (``_both_routes``).  A stack whose fp32 unpacking exceeds 1 GB is timed
+    with CUDA events over single calls of the plain version and
+    ``torch.bmm`` (a graph of 16 plain calls would hold 16 sets of its
+    temporaries)."""
     from repro_torch.core import unpack_int
     from repro_torch.kernels.fixedpoint_matmul import ops as fops
     from repro_torch.kernels.fixedpoint_matmul.ref import fixedpoint_matmul_experts_ref
@@ -437,24 +520,32 @@ def _experts_case(torch, gen, dev, name, words, f, sc, C, dt, n_bits, N, *, timi
     err = (y.float() - ref.float()).abs().max().item()
     tol = TOL[dname]
     ok = bool(torch.allclose(y.float(), ref.float(), **tol))
-    del y, ref
+    del y
     wbytes = words.numel()
     io = x.numel() * x.element_size() + wbytes + 4 * E + E * C * N * x.element_size()
     b_ms, b_by = bound(io, 2 * E * C * K * N, dname)
     row = {"phase": "kernel", "kernel": "fixedpoint_matmul_experts", "proj": name,
            "E": E, "C": C, "K": K, "N": N, "n_bits": n_bits, "dtype": dname,
+           "route": fops._pick_route(dt, C, True),
            "f_range": [int(f.min()), int(f.max())], "max_abs_err": err,
-           "tol": tol, "pass": ok, "bound_ms": b_ms, "bound_by": b_by}
+           "tol": tol, "bound_ms": b_ms, "bound_by": b_by}
+
+    def call(route, a=x, b=words):
+        return fops.fixedpoint_matmul_experts(a, b, f, n_bits=n_bits, n_out=N, _route=route)
+
+    args = [(x.clone(), words.clone()) for _ in range(copies_for(wbytes))] if timing else None
+    if routes:
+        ok = _both_routes(torch, row, call, ref, row["route"], args, False) and ok
+    del ref
+    row["pass"] = ok
     if timing:
-        n = copies_for(wbytes)
-        args = [(x.clone(), words.clone()) for _ in range(n)]
-        row["ms"] = timed(lambda a, b: fops.fixedpoint_matmul_experts(
-            a, b, f, n_bits=n_bits, n_out=N), args, torch)
+        if not routes:
+            row["ms"] = timed(lambda a, b: call(None, a, b), args, torch)
         big = wbytes * (8 // n_bits) * 4 > 1e9
-        if big:
+        if plain and big:
             row["plain_ms"] = events_ms(lambda: fixedpoint_matmul_experts_ref(
                 x, words, f, n_bits=n_bits, n_out=N), 3, torch)
-        else:
+        elif plain:
             row["plain_ms"] = timed(lambda a, b: fixedpoint_matmul_experts_ref(
                 a, b, f, n_bits=n_bits, n_out=N), args, torch)
         del args
@@ -476,32 +567,41 @@ def phase_fpmm_experts(torch, dev):
     """Stacks as SYMOG makes them: Gaussian weights, expert e scaled by 2^s_e
     (s_e in [-2, 2]) so that its own optimal f differs, packed with one f
     per expert; the expert's rows of x scaled by 2^-s_e keep every output
-    at unit scale, where the fp32 bar of the 2-D phase applies."""
+    at unit scale, where the fp32 bar of the 2-D phase applies.  C = 4
+    (decode) in bf16 and fp32 and C = 80 in fp32, 2 and 4 bits; the olmoe
+    prefill capacities C = 5, 20, 80 (buckets 32, 128, 512) in bf16 at 2
+    bits (and C = 80 at 4 bits), where both routes are checked and timed.
+    Returns the rows and the sums over one layer's 3 stacks at C = 4 and
+    at C = 80 (bf16, 2-bit)."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
     E = N_EXPERTS
-    rows, worst = [], 0.0
+    rows = []
     decode = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    prefill = {"ms": 0.0, "stream_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    bf16, fp32 = torch.bfloat16, torch.float32
     for n_bits in (2, 4):
+        cases = [(4, bf16, True), (4, fp32, True), (80, fp32, n_bits == 2)]
+        cases += [(C, bf16, True) for C in (5, 20, 80)] if n_bits == 2 else [(80, bf16, False)]
         for name, K, N in OLMOE_EXPERT_SHAPES:
             words, f, sc = _experts_stack(torch, gen, dev, E, K, N, n_bits)
-            for C in (4, 80):  # decode (dropless, 4 slots) and prefill (ceil(1.25*512*8/64))
-                for dt in (torch.bfloat16, torch.float32):
-                    # every 2-bit case and the 4-bit decode cases
-                    row = _experts_case(torch, gen, dev, name, words, f, sc, C, dt, n_bits, N,
-                                        timing=n_bits == 2 or C == 4)
-                    worst = max(worst, row["max_abs_err"])
-                    if n_bits == 2 and C == 4 and dt == torch.bfloat16:
-                        for k in decode:
-                            decode[k] += row[k]
-                    emit(row)
-                    rows.append(row)
-                    if not row["pass"]:
-                        raise Failed(f"fixedpoint_matmul_experts {name} C={C} bits={n_bits} "
-                                     f"{row['dtype']}: err {row['max_abs_err']}")
+            for C, dt, timing in cases:
+                row = _experts_case(torch, gen, dev, name, words, f, sc, C, dt, n_bits, N,
+                                    timing=timing, routes=dt == bf16 and C > 4)
+                if n_bits == 2 and dt == bf16 and C in (4, 80):
+                    acc = decode if C == 4 else prefill
+                    for k in acc:
+                        acc[k] += row[k]
+                emit(row)
+                rows.append(row)
+                if not row["pass"]:
+                    raise Failed(f"fixedpoint_matmul_experts {name} C={C} bits={n_bits} "
+                                 f"{row['dtype']}: err {_err(row)}")
             del words
     torch.cuda.empty_cache()
-    return rows, worst, decode
+    prefill["bound_by"] = _bound_by(r for r in rows if r["C"] == 80 and r["dtype"] == "bfloat16"
+                                    and r["n_bits"] == 2)
+    return rows, decode, prefill
 
 
 DEEPSEEK_EXPERT_SHAPES = [  # deepseek-v3 per-MoE-layer expert stacks, E x K x N
@@ -513,29 +613,94 @@ DEEPSEEK_EXPERTS = 256
 def phase_fpmm_experts_deepseek(torch, dev):
     """Row 1b at one deepseek-v3 MoE layer's three 2-bit stacks (256
     experts, one f each, 940 MB of words a stack): C = 4 (decode, 4 slots)
-    in bf16 (serve) and fp32 (parity), and C = 20 (a 512-token prefill
-    bucket, ceil(1.25*512*8/256)) in bf16, every case timed."""
+    in bf16 (serve) and fp32 (parity), and the prefill capacities C = 2,
+    10, 20 (buckets 32, 256, 512: ceil(1.25*bucket*8/256)) in bf16 with
+    both routes checked and timed, every case timed.  Returns the rows and
+    the sums over the layer's 3 stacks at C = 4 and at C = 20."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(6)
-    rows, worst = [], 0.0
+    rows = []
     decode = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    prefill = {"ms": 0.0, "stream_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    bf16 = torch.bfloat16
     for name, K, N in DEEPSEEK_EXPERT_SHAPES:
         words, f, sc = _experts_stack(torch, gen, dev, DEEPSEEK_EXPERTS, K, N, 2)
-        for C, dt in ((4, torch.bfloat16), (4, torch.float32), (20, torch.bfloat16)):
-            row = _experts_case(torch, gen, dev, name, words, f, sc, C, dt, 2, N, timing=True)
+        for C, dt in ((4, bf16), (4, torch.float32), (2, bf16), (10, bf16), (20, bf16)):
+            row = _experts_case(torch, gen, dev, name, words, f, sc, C, dt, 2, N, timing=True,
+                                routes=dt == bf16 and C != 4, plain=C in (4, 20))
             row["arch"] = DEEPSEEK
-            worst = max(worst, row["max_abs_err"])
-            if C == 4 and dt == torch.bfloat16:
-                for k in decode:
-                    decode[k] += row[k]
+            if dt == bf16 and C in (4, 20):
+                acc = decode if C == 4 else prefill
+                for k in acc:
+                    acc[k] += row[k]
             emit(row)
             rows.append(row)
             if not row["pass"]:
                 raise Failed(f"fixedpoint_matmul_experts deepseek {name} C={C} "
-                             f"{row['dtype']}: err {row['max_abs_err']}")
+                             f"{row['dtype']}: err {_err(row)}")
         del words, f, sc
         torch.cuda.empty_cache()
-    return rows, worst, decode
+    prefill["bound_by"] = _bound_by(r for r in rows if r["C"] == 20)
+    return rows, decode, prefill
+
+
+CROSSOVER_ROWS = (2, 3, 4, 5, 8, 16)
+
+
+def _crossover(rows):
+    """Fewest rows from which the tensor-core kernel is faster than the
+    streaming one at every larger swept count (None: it never is)."""
+    best = None
+    for r in sorted(rows, key=lambda r: r["rows"], reverse=True):
+        if r["tc_ms"] >= r["stream_ms"]:
+            break
+        best = r["rows"]
+    return best
+
+
+def phase_crossover(torch, dev):
+    """Phase 3g: both kernels at 2..16 rows in bf16, 2-bit, at internlm2's
+    gate_proj (2048 x 8192, M rows) and olmoe's gate stack (64 x 2048 x
+    1024, C rows per expert), each checked (bf16 bar, bit-identical) and
+    timed on both routes.  The route rule's threshold must not lie below
+    the measured crossover of either form."""
+    from repro_torch.kernels.fixedpoint_matmul import ops as fops
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    bf16 = torch.bfloat16
+    out = {"phase": "crossover", "tc_min_rows": fops.TC_MIN_ROWS}
+    rows = []
+    sweep = []
+    for M in CROSSOVER_ROWS:
+        row = _fpmm_case(torch, gen, dev, "gate_proj", 2048, 8192, M, bf16, 2, with_bias=False,
+                         timing=True, routes=True, plain=False, library=False)
+        row["sweep"] = "crossover"
+        emit(row)
+        rows.append(row)
+        sweep.append(dict(rows=M, tc_ms=row["tc_ms"], stream_ms=row["stream_ms"]))
+    out["2d"] = {"shape": "internlm2 gate_proj 2048 x 8192", "cases": sweep,
+                 "crossover_rows": _crossover(sweep)}
+    words, f, sc = _experts_stack(torch, gen, dev, N_EXPERTS, 2048, 1024, 2)
+    sweep = []
+    for C in CROSSOVER_ROWS:
+        row = _experts_case(torch, gen, dev, "gate_proj", words, f, sc, C, bf16, 2, 1024,
+                            timing=True, routes=True, plain=False)
+        row["sweep"] = "crossover"
+        emit(row)
+        rows.append(row)
+        sweep.append(dict(rows=C, tc_ms=row["tc_ms"], stream_ms=row["stream_ms"]))
+    del words
+    torch.cuda.empty_cache()
+    out["experts"] = {"shape": "olmoe gate_proj stack 64 x 2048 x 1024", "cases": sweep,
+                      "crossover_rows": _crossover(sweep)}
+    cross = [out[k]["crossover_rows"] for k in ("2d", "experts")]
+    out["pass"] = (all(r["pass"] for r in rows) and None not in cross
+                   and fops.TC_MIN_ROWS >= max(cross))
+    emit(out)
+    if not out["pass"]:
+        raise Failed(f"route threshold against the crossover: {out}")
+    return rows, out
 
 
 def phase_fpmm_head(torch, dev):
@@ -566,7 +731,7 @@ def phase_fpmm_head(torch, dev):
     wd = unpack_int(pw, n_bits, N).float() * torch.exp2(-f.float())
     largs = [(x, wd.clone()) for _ in range(copies_for(wd.numel() * 4))]
     row = {"phase": "kernel", "kernel": "fixedpoint_matmul", "proj": "olmoe lm_head", "M": M,
-           "K": K, "N": N, "n_bits": n_bits, "dtype": "float32", "max_abs_err": err, "tol": tol,
+           "K": K, "N": N, "n_bits": n_bits, "dtype": "float32", "route": "streaming", "max_abs_err": err, "tol": tol,
            "pass": ok, "bound_ms": b_ms, "bound_by": b_by,
            "ms": timed(lambda a, b: fops.fixedpoint_matmul(a, b, f, n_bits=n_bits, n_out=N),
                        args, torch),
@@ -950,7 +1115,9 @@ def _counters():
     from repro_torch.kernels.symog_update import ops as sops
 
     return {"fixedpoint_matmul": (fops, "launches"),
+            "fixedpoint_matmul_tc": (fops, "tc_launches"),
             "fixedpoint_matmul_experts": (fops, "experts_launches"),
+            "fixedpoint_matmul_experts_tc": (fops, "tc_experts_launches"),
             "paged_attention": (aops, "launches"),
             "paged_attention_quant": (aops, "quant_launches"),
             "paged_attention_mla": (aops, "mla_launches"),
@@ -967,6 +1134,58 @@ def read_counts():
     return {name: getattr(mod, attr) for name, (mod, attr) in _counters().items()}
 
 
+def _capacity(cfg, bucket: int) -> int:
+    """Rows per expert of a bucketed prefill (``moe_apply``'s C)."""
+    return max(1, int(math.ceil(cfg.capacity_factor * bucket * cfg.top_k / cfg.n_experts)))
+
+
+def _matmul_counts(n_2d: int, n_experts: int, decode_steps: int, buckets, cfg=None, *,
+                   extra_2d: int = 0, decode_2d: int = None):
+    """Launches of the two matmul kernels on a serve path, by route: per
+    decode step ``decode_2d`` (default ``n_2d``) 2-D and ``n_experts``
+    experts launches, streaming (M = C = 4 slots); per admission of
+    ``bucket`` tokens ``n_2d`` 2-D launches at M = bucket and ``n_experts``
+    at C = ``_capacity``, on the tensor cores at or above the threshold,
+    plus ``extra_2d`` streaming launches (the M = 1 head)."""
+    from repro_torch.kernels.fixedpoint_matmul import ops as fops
+
+    thr = fops.TC_MIN_ROWS
+    big = sum(b >= thr for b in buckets)
+    ex_tc = sum(_capacity(cfg, b) >= thr for b in buckets) if n_experts else 0
+    n = len(buckets)
+    d2 = n_2d if decode_2d is None else decode_2d
+    return {"fixedpoint_matmul": d2 * decode_steps + n_2d * (n - big) + extra_2d * n,
+            "fixedpoint_matmul_tc": n_2d * big,
+            "fixedpoint_matmul_experts": n_experts * (decode_steps + n - ex_tc),
+            "fixedpoint_matmul_experts_tc": n_experts * ex_tc}
+
+
+def _record_admissions(torch, fns):
+    """Wrap the scheduler's admission step (bucketed prefill, block scatter,
+    first token) as ``timed_decode`` wraps decode: host clock between
+    synchronizations, each admission's bucket and ms.  Returns (record,
+    restore)."""
+    inner = fns.admit_step
+    rec = {"buckets": [], "ms": []}
+
+    def admit_step(bucket, block_size):
+        fn = inner(bucket, block_size)
+
+        def run(*args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            rec["ms"].append((time.perf_counter() - t) * 1e3)
+            rec["buckets"].append(int(bucket))
+            return out
+
+        return run
+
+    fns.admit_step = admit_step
+    return rec, lambda: setattr(fns, "admit_step", inner)
+
+
 # ---------------------------------------------------------------------------
 # phase 5: full-width serve through the scheduler
 # ---------------------------------------------------------------------------
@@ -979,13 +1198,16 @@ def phase_serve(torch, dev, arch: str, kv_cache_dtype: str, seed: int, expected,
     on the card from random weights (``seed``) by ``symog_init`` +
     ``pack_tree`` (``build(cfg, seed)`` -> (artifact, n_params, seconds by
     step) instead, for a model too large to hold in fp32).
-    ``expected(cfg, stats)`` gives every kernel's launch count on this path:
-    the counts are zeroed just before the serve and read just after.
+    ``expected(cfg, stats, buckets)`` gives every kernel's launch count on
+    this path (``buckets``: each admission's prompt bucket, in order): the
+    counts are zeroed just before the serve and read just after.  Each
+    admission is timed as each decode step is.
     Returns the row (emitted by the caller, which may add to it), the
     engine, the requests, the serve config and the tokens."""
     import numpy as np
     from repro_torch import configs
     from repro_torch.core import SymogConfig, symog_init
+    from repro_torch.kernels.fixedpoint_matmul import ops as fops
     from repro_torch.models import init_lm
     from repro_torch.nn.tree import tree_leaves
     from repro_torch.serve import Request, ServeConfig, ServeEngine
@@ -1039,6 +1261,7 @@ def phase_serve(torch, dev, arch: str, kv_cache_dtype: str, seed: int, expected,
         return out
 
     fns.decode_step = timed_decode
+    adm, restore = _record_admissions(torch, fns)
     zero_counts()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
@@ -1047,9 +1270,11 @@ def phase_serve(torch, dev, arch: str, kv_cache_dtype: str, seed: int, expected,
     wall = time.perf_counter() - t0
     counts = read_counts()
     fns.decode_step = inner
+    restore()
     peak = torch.cuda.max_memory_allocated(dev)
     st = sched.stats
-    want = expected(cfg, st)
+    want = expected(cfg, st, adm["buckets"])
+    prefill_s = sum(adm["ms"]) / 1e3
     tokens = [list(map(int, c.tokens)) for c in comps]
     reasons = sorted({c.finish_reason for c in comps})
     lengths_ok = all(len(c.tokens) == 32 or c.finish_reason == "eos" for c in comps)
@@ -1066,12 +1291,18 @@ def phase_serve(torch, dev, arch: str, kv_cache_dtype: str, seed: int, expected,
         "decode_tokens_per_s": dec["rows"] / dec["s"] if dec["s"] else None,
         "decode_step_ms": dec["s"] / max(dec["steps"], 1) * 1e3,
         "end_to_end_tokens_per_s": st["tokens_emitted"] / wall,
+        "prefill_s": prefill_s, "prefill_share_of_wall": prefill_s / wall,
+        "prefill_ms": [[b, ms] for b, ms in zip(adm["buckets"], adm["ms"])],
+        "tc_min_rows": fops.TC_MIN_ROWS,
         "kv_pool_bytes": sched.cache_bytes(), "weight_bytes": eng.weight_bytes(),
         "peak_device_bytes": peak, "launches": counts, "expected_launches": want,
     }
     # every kernel the path runs must have launched, each exactly as often
-    # as the path implies
+    # as the path implies (so every admission at or above the threshold ran
+    # its matmuls on the tensor cores, decode and the head on the streaming
+    # kernel)
     row["pass"] = (set(reasons) <= {"length", "eos"} and lengths_ok and tokens_ok
+                   and len(adm["buckets"]) == st["prefills"]
                    and counts == want and all(counts[k] > 0 for k, n in want.items() if n))
     return row, eng, reqs, sc, tokens
 
@@ -1086,11 +1317,10 @@ def report(row):
 def phase_serve_internlm2(torch, dev):
     from repro_torch.models.layers import embed_logits
 
-    def expected(cfg, st):
+    def expected(cfg, st, buckets):
         # every packed projection of every layer, once per decode step and
         # once per admission prefill (the prefill cache reuses attention's k/v)
-        return {"fixedpoint_matmul": 7 * cfg.n_layers * (st["decode_steps"] + st["prefills"]),
-                "fixedpoint_matmul_experts": 0,
+        return {**_matmul_counts(7 * cfg.n_layers, 0, st["decode_steps"], buckets),
                 "paged_attention": cfg.n_layers * st["decode_steps"],
                 "paged_attention_quant": 0, "paged_attention_mla": 0,
                 "paged_attention_mla_quant": 0, "symog_update": 0}
@@ -1357,11 +1587,13 @@ def phase_train(torch, dev):
 def phase_serve_olmoe(torch, dev):
     from repro_torch.serve import ServeEngine
 
-    def expected(cfg, st):
-        # every packed projection of every layer per decode step and per prefill
-        passes = st["decode_steps"] + st["prefills"]
-        return {"fixedpoint_matmul": (4 * cfg.n_layers + 1) * passes,  # q, k, v, o + the lm_head
-                "fixedpoint_matmul_experts": 3 * cfg.n_layers * passes,  # gate, up, down
+    def expected(cfg, st, buckets):
+        # every packed projection of every layer per decode step and per
+        # prefill: q, k, v, o (+ the lm_head: M = 4 slots at decode, M = 1 at
+        # prefill), the experts' gate, up, down
+        L = cfg.n_layers
+        return {**_matmul_counts(4 * L, 3 * L, st["decode_steps"], buckets, cfg, extra_2d=1,
+                                 decode_2d=4 * L + 1),
                 "paged_attention": 0,  # the pool is int4: every decode read is quantized
                 "paged_attention_quant": cfg.n_layers * st["decode_steps"],
                 "paged_attention_mla": 0, "paged_attention_mla_quant": 0, "symog_update": 0}
@@ -1734,14 +1966,14 @@ def _first_step_gap(torch, box4, box16):
 def phase_serve_deepseek(torch, dev):
     from repro_torch.serve import ServeEngine
 
-    def expected(cfg, st):
+    def expected(cfg, st, buckets):
         # per MLA layer: q_a, q_b, kv_a, k_rope, kv_b_k, kv_b_v and o at prefill;
         # at decode kv_b_k / kv_b_v are absorbed through as_dense (no kernel);
         # per layer also the dense MLP's or the shared expert's 3; + the head
+        # (M = 4 slots at decode, M = 1 at prefill)
         L, n_moe = cfg.n_layers, cfg.n_layers - cfg.n_dense_layers
-        return {"fixedpoint_matmul": (10 * L + 1) * st["prefills"]
-                + (8 * L + 1) * st["decode_steps"],
-                "fixedpoint_matmul_experts": 3 * n_moe * (st["prefills"] + st["decode_steps"]),
+        return {**_matmul_counts(10 * L, 3 * n_moe, st["decode_steps"], buckets, cfg,
+                                 extra_2d=1, decode_2d=8 * L + 1),
                 "paged_attention": 0, "paged_attention_quant": 0,
                 "paged_attention_mla": 0,  # the pool is int4: every decode read is quantized
                 "paged_attention_mla_quant": L * st["decode_steps"], "symog_update": 0}
@@ -1763,15 +1995,18 @@ def phase_serve_deepseek(torch, dev):
     eng16 = ServeEngine(dataclasses.replace(cfg, kv_cache_dtype="bf16"), eng.params, max_len=512,
                         compute_dtype=torch.bfloat16, device=dev)
     box16, restore16 = _probe_first_decode(torch, eng16)
+    adm16, restore_adm16 = _record_admissions(torch, eng16.scheduler_fns())
     zero_counts()
     comps16, sched16 = eng16.serve(reqs, sc, return_scheduler=True)
     torch.cuda.synchronize()
     counts16 = read_counts()
     restore16()
+    restore_adm16()
     first_step = _first_step_gap(torch, box4, box16)
     del box4, box16
     steps16 = sched16.stats["decode_steps"]
-    want16 = dict(expected(cfg, sched16.stats), paged_attention_mla=cfg.n_layers * steps16,
+    want16 = dict(expected(cfg, sched16.stats, adm16["buckets"]),
+                  paged_attention_mla=cfg.n_layers * steps16,
                   paged_attention_mla_quant=0)
     same = total = 0
     for a, c in zip(tokens, comps16):
@@ -1832,17 +2067,18 @@ def main() -> int:
         return out
 
     try:
-        fp_rows, fp_err, fp_decode = run("3a fixedpoint_matmul", phase_fpmm, torch, dev)
+        fp_rows, fp_decode, fp_prefill = run("3a fixedpoint_matmul", phase_fpmm, torch, dev)
         attn_rows, at_err, at_main = run("3b paged_attention", phase_attn, torch, dev)
         sy_rows, sy_err, sy_full = run("3c symog_update", phase_symog, torch, dev,
                                        configs.get_config("internlm2-1.8b"))
-        fe_rows, fe_err, fe_decode = run("3d fixedpoint_matmul_experts", phase_fpmm_experts,
-                                         torch, dev)
+        fe_rows, fe_decode, fe_prefill = run("3d fixedpoint_matmul_experts",
+                                             phase_fpmm_experts, torch, dev)
         head = run("3d fixedpoint_matmul_experts", phase_fpmm_head, torch, dev)
-        fpd_rows, fpd_err, fpd_layer = run("3a fixedpoint_matmul deepseek", phase_fpmm_deepseek,
-                                           torch, dev)
-        fed_rows, fed_err, fed_decode = run("3d fixedpoint_matmul_experts deepseek",
-                                            phase_fpmm_experts_deepseek, torch, dev)
+        fpd_rows, fpd_layer = run("3a fixedpoint_matmul deepseek", phase_fpmm_deepseek,
+                                  torch, dev)
+        fed_rows, fed_decode, fed_prefill = run("3d fixedpoint_matmul_experts deepseek",
+                                                phase_fpmm_experts_deepseek, torch, dev)
+        cx_rows, cross = run("3g crossover", phase_crossover, torch, dev)
         aq_rows, aq_err, aq_main = run("3e paged_attention_quant", phase_attn_quant, torch, dev)
         mla_rows, mla_err, mla_main = run("3f paged_attention_mla", phase_attn_mla, torch, dev)
         run("4 parity internlm2", phase_parity, torch, dev, PARITY_LAYERS)
@@ -1881,12 +2117,17 @@ def main() -> int:
         return 1
     emit({"phase": "seconds", "by_phase": seconds,
           "total_s": time.perf_counter() - t_start})
+    mm_rows = fp_rows + fpd_rows + [head] + [r for r in cx_rows if "M" in r]
+    ex_rows = fe_rows + fed_rows + [r for r in cx_rows if "C" in r]
+    # at every case the rule sends to the tensor cores, they must be faster
+    tc_cases = [r for r in mm_rows + ex_rows if r["route"] == "tensor_core" and "stream_ms" in r]
+    tc_faster = all(r["tc_ms"] < r["stream_ms"] for r in tc_cases)
     summary = [
         {"name": "fixedpoint_matmul", "route": "cuda",
          "source": "src/repro_torch/csrc/fixedpoint_matmul.cu",
          "replaces": "src/repro/kernels/fixedpoint_matmul/kernel.py:30",
          "launches": serve["launches"]["fixedpoint_matmul"],
-         "max_abs_err": max(fp_err, fpd_err),
+         "max_abs_err": _route_err(mm_rows, "streaming"),
          "ms": fp_decode["ms"], "plain_ms": fp_decode["plain_ms"],
          "bound_ms": fp_decode["bound_ms"], "bound_by": "bytes",
          "library_ms": fp_decode["library_ms"],
@@ -1916,7 +2157,7 @@ def main() -> int:
          "source": "src/repro_torch/csrc/fixedpoint_matmul.cu",
          "replaces": "src/repro/kernels/fixedpoint_matmul/ops.py:81",
          "launches": olmoe["launches"]["fixedpoint_matmul_experts"],
-         "max_abs_err": max(fe_err, fed_err), "ms": fe_decode["ms"],
+         "max_abs_err": _route_err(ex_rows, "streaming"), "ms": fe_decode["ms"],
          "plain_ms": fe_decode["plain_ms"],
          "bound_ms": fe_decode["bound_ms"], "bound_by": "bytes",
          "library_ms": fe_decode["library_ms"],
@@ -1953,6 +2194,35 @@ def main() -> int:
          "work": "int4 pool, B=4 T=1 H=128 r=512 rope=64 block=16 bf16, ~300 cached tokens a row",
          "pass": all(r["pass"] for r in mla_rows if r["kernel"] == "paged_attention_mla_quant")},
     ]
+    for name, serve_row, rows, pre, work, pre2, work2 in (
+            ("fixedpoint_matmul_tc", serve, mm_rows, fp_prefill,
+             "one internlm2 layer's 7 projections at M=512 (a 512-token prefill), 2-bit, bf16",
+             None, None),
+            ("fixedpoint_matmul_experts_tc", olmoe, ex_rows, fed_prefill,
+             "one deepseek-v3 MoE layer's 3 expert stacks (256 experts) at C=20 (a 512-token "
+             "prefill), 2-bit, bf16", fe_prefill,
+             "one olmoe layer's 3 expert stacks (64 experts) at C=80 (a 512-token prefill)")):
+        base = name[: -len("_tc")]
+        entry = {"name": name, "route": "cuda",
+                 "source": "src/repro_torch/csrc/fixedpoint_matmul.cu",
+                 "replaces": "src/repro/kernels/fixedpoint_matmul/kernel.py:30"
+                 if base == "fixedpoint_matmul"
+                 else "src/repro/kernels/fixedpoint_matmul/ops.py:81",
+                 "launches": serve_row["launches"][name],
+                 "max_abs_err": _route_err(rows, "tensor_core"), "ms": pre["ms"],
+                 "plain_ms": pre["plain_ms"], "bound_ms": pre["bound_ms"],
+                 "bound_by": pre["bound_by"], "library_ms": pre["library_ms"],
+                 "streaming_kernel_ms": pre["stream_ms"], "work": work,
+                 "launches_deepseek_serve": deepseek["launches"][name],
+                 "tc_min_rows": cross["tc_min_rows"],
+                 "crossover_rows": cross["2d" if base == "fixedpoint_matmul"
+                                         else "experts"]["crossover_rows"],
+                 "tc_faster_at_every_routed_case": tc_faster,
+                 "pass": tc_faster and all(r["pass"] for r in rows)}
+        entry["launches_olmoe_serve"] = olmoe["launches"][name]
+        if pre2 is not None:
+            entry["olmoe_prefill_layer"] = dict(pre2, work=work2)
+        summary.append(entry)
     summary[0]["head_shape"] = {k: head[k] for k in ("M", "K", "N", "dtype", "max_abs_err", "ms",
                                                       "plain_ms", "bound_ms", "library_ms")}
     summary[0]["launches_olmoe_serve"] = olmoe["launches"]["fixedpoint_matmul"]

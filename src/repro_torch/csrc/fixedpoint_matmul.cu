@@ -35,10 +35,64 @@
 //     the exact power-of-two scale 2^-f (2^-f[e]) ONCE and the bias, and
 //     casts to x's dtype — the epilogue of the TPU kernel's last K step.
 // f is read from device memory (a runtime scalar or (E,) vector), so no
-// layer recompiles and the host never synchronises on it.  At prefill (M up
-// to 512; C up to 80 per expert) the same kernel re-reads the words once per
-// 4-row tile from L2; it runs on the CUDA cores in fp32, which is exact for
-// |m| <= 7 — tensor cores are later work.
+// layer recompiles and the host never synchronises on it.  This streaming
+// kernel serves decode (M = n_slots; C = 4 per expert), the M = 1 head, fp32
+// activations and every call below the route's row threshold (ops.py
+// `_pick_route`).  It runs on the CUDA cores in fp32 (exact for |m| <= 7) and
+// re-reads the words once per 4-row tile, so at prefill sizes the second
+// kernel below, `fpmm_tc`, takes bf16 calls instead.
+//
+// fpmm_tc: the tensor-core route (bf16 x, M or C at or above the threshold).
+// At prefill the work is compute-bound (2·M·K·N operations against K·N/4
+// bytes of 2-bit words: 256 operations per byte at M = 128), the regime the
+// TPU kernel runs through the MXU (kernel.py:50: bf16 mantissas, fp32
+// accumulator); the expert stacks at C <= 20 stay bound by their words.
+// Design:
+//   * `mma.sync.m16n8k16` bf16 with fp32 accumulators in registers, with
+//     A and B swapped: the kernel computes yᵀ = (m·2^-f)ᵀ · xᵀ, so the
+//     16-row MMA operand is 16 output columns and the 8-wide operand is 8
+//     tokens.  A warp owns 128 columns (2-bit; 64 at 4 bits) and a block's
+//     32 tokens (four n8 tiles; tiles past the call's last token are
+//     skipped), so an experts call at C = 2..80 pays for 8-token granules,
+//     not 64-row tiles.  (`wgmma`, the only way to the card's full
+//     tensor-core rate, is later work.)
+//   * the words are dequantized straight into A fragments, never through
+//     shared memory: lane (g, t) of a warp owns word g of its 8-word group
+//     in each weight row, so it holds 16 (8) columns of rows 2t, 2t+1,
+//     2t+8, 2t+9 of each 16-row step; `prmt` pairs rows 2t / 2t+1 per
+//     16-bit half, and field i of the low / high half becomes A-tile i's
+//     rows g / g+8 (the column permutation is undone in the epilogue).  A
+//     field becomes bf16 by one `lop3` ((f ^ sign) | 0x4300 in the
+//     mantissa: 128 + (f ^ sign)·2^p) and one bf16x2 FMA (·2^-p, minus
+//     128·2^-p + sign), exact, two fields per instruction pair, with a
+//     shift only once per 3 fields (2-bit) or per field (4-bit);
+//   * a pipeline step of weight rows and the x tile (32 tokens, K-major,
+//     rows padded by 16 bytes so that `ldmatrix` hits distinct banks) go
+//     to shared memory by `cp.async` (16-byte chunks; a row of words that
+//     is not 16-byte aligned, N = 200 or 40, is copied by plain loads),
+//     in a ring of 4 stages: the next 3 steps' copies overlap this step's
+//     MMAs, and each 16-row MMA step's operands are read while the one
+//     before it runs.  Rows past K and tokens past M are zero-filled;
+//   * three block shapes, picked by the host (ops.py `_tc_tile`; columns at
+//     2 bits): `lines`, 4 warps side by side over 512 columns, 128 rows a
+//     step, where its grid fills the card (every expert stack, the wide 2-D
+//     projections): each weight row is read as whole 128-byte lines;
+//     `narrow`, one 128-column tile whose 4 warps split each 128-row step;
+//     `deep`, the narrow tile with 8 warps on 256-row steps, for calls of
+//     few tiles.  The warps that split a step sum their accumulators by a
+//     fixed-order tree through shared memory;
+//   * a call of few tiles (a 32-token k_proj has 8) also splits K across a
+//     cluster of up to 4 blocks (grid.z): rank 0 adds the other blocks'
+//     sums from their shared memory (distributed shared memory), in rank
+//     order — no atomics, no global workspace, deterministic;
+//   * the epilogue applies 2^-f[e] (ldexpf) and the bias once and writes y
+//     in bf16: one launch per call, no fp32 workspace, no second kernel;
+//   * the expert and the column tile share grid.x (E x column tiles <
+//     2^31), token tiles grid.y, so 256 experts cannot overflow the grid.
+#include <cooperative_groups.h>
+
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -225,6 +279,398 @@ int launch_checked(const void* x, const void* w, const void* f, const void* bias
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// fpmm_tc: the tensor-core route (see the note at the top)
+// ---------------------------------------------------------------------------
+constexpr int kStages = 4;             // ring depth: 3 steps in flight
+constexpr int kTok = 32;               // tokens per block: four n8 tiles a warp
+
+// WN warps side by side on (128-column at 2 bits, 32-token) tiles, each
+// tile's K steps split over KS warps, KSTEPS 16-row MMA steps a warp per
+// pipeline step
+template <int NBITS, int WN, int KS, int KSTEPS>
+struct TcCfg {
+  static constexpr int kWarps = WN * KS;
+  static constexpr int kThreads = kWarps * 32;
+  static constexpr int kBK = 16 * KS * KSTEPS;     // weight rows per pipeline step
+  static constexpr int kTiles = 16 / NBITS;        // m16 tiles per warp (fields per half word)
+  static constexpr int kBytes = WN * 32;           // word bytes of a weight row per block
+  static constexpr int kWRow = kBytes + 16;        // smem row stride: rows 2t on distinct banks
+  static constexpr int kXRow = kBK * 2 + 16;       // smem row stride of x: ldmatrix rows too
+  static constexpr int kStageBytes = kBK * kWRow + kTok * kXRow;
+  static constexpr int kAcc = kTiles * 4 * 4;      // fp32 accumulators per thread
+  // the K slices' tree, and one block's sums read by its cluster's rank 0
+  static constexpr int kRedBytes = (KS > 1 ? KS / 2 : 1) * WN * kAcc * 32 * 4;
+  static constexpr int kSmem =
+      kStages * kStageBytes > kRedBytes ? kStages * kStageBytes : kRedBytes;
+};
+
+template <int I, int N, typename F>
+__device__ __forceinline__ void static_for(F&& f) {  // f(integral_constant<I>), ..., up to N
+  if constexpr (I < N) {
+    f(std::integral_constant<int, I>());
+    static_for<I + 1, N>(f);
+  }
+}
+
+// bf16 bits of num * 2^-shift (num < 256: exact)
+__host__ __device__ constexpr uint32_t bf16_bits(int num, int shift) {
+  int p = 0;
+  while ((num >> (p + 1)) != 0) ++p;
+  return static_cast<uint32_t>(((127 + p - shift) << 7) | ((num - (1 << p)) << (7 - p)));
+}
+
+// Field I of both 16-bit halves of u (NBITS-bit two's complement) as a
+// bf16 pair, exact: (f ^ sign) placed at bit P of the bf16 mantissa of 128
+// gives 128 + (f ^ sign)·2^P; one FMA by 2^-P minus (128·2^-P + sign)
+// leaves (f ^ sign) - sign.
+template <int NBITS, int I>
+__device__ __forceinline__ uint32_t dequant_pair(uint32_t u) {
+  constexpr int MASK = (1 << NBITS) - 1, SIGN = 1 << (NBITS - 1);
+  constexpr int G = (7 / NBITS) * NBITS;  // field bits that fit the 7-bit mantissa at once
+  constexpr int POS = I * NBITS;
+  constexpr int BASE = (POS / G) * G;     // one shift per G bits
+  constexpr int P = POS - BASE;
+  constexpr uint32_t M2 = static_cast<uint32_t>(MASK << P) * 0x10001u;
+  constexpr uint32_t X2 = static_cast<uint32_t>((SIGN << P) | 0x4300) * 0x10001u;
+  constexpr uint32_t S2 = bf16_bits(1, P) * 0x10001u;
+  constexpr uint32_t O2 = (bf16_bits(128 + (SIGN << P), P) | 0x8000u) * 0x10001u;
+  uint32_t v, r;  // one lop3 (a & M2) ^ X2: X2 from a register, M2 the immediate
+  asm("lop3.b32 %0, %1, %2, %3, 0x6a;\n" : "=r"(v) : "r"(u >> BASE), "n"(M2), "r"(X2));
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(r) : "r"(v), "r"(S2), "r"(O2));
+  return r;
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a)
+               : "memory");
+}
+
+// 16-byte async copy; bytes past src_bytes (0 or 16) are zero-filled
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// a warp's accumulators to / from shared memory, lane-interleaved
+template <int T>
+__device__ __forceinline__ void store_acc(const float (&acc)[T][4][4], float* buf) {
+#pragma unroll
+  for (int i = 0; i < T; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) buf[((i * 4 + j) * 4 + c) * 32] = acc[i][j][c];
+}
+
+template <int T>
+__device__ __forceinline__ void add_acc(float (&acc)[T][4][4], const float* buf) {
+#pragma unroll
+  for (int i = 0; i < T; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][j][c] += buf[((i * 4 + j) * 4 + c) * 32];
+}
+
+template <int NBITS, int WN, int KS, int KSTEPS>
+__global__ void __launch_bounds__(TcCfg<NBITS, WN, KS, KSTEPS>::kThreads)
+fpmm_tc(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ w,
+        const int* __restrict__ f, const float* __restrict__ bias,
+        __nv_bfloat16* __restrict__ y, int M, int K, int N, int nbytes, int col_tiles,
+        int vec16) {
+  using C = TcCfg<NBITS, WN, KS, KSTEPS>;
+  constexpr int kTiles = C::kTiles, kBK = C::kBK, kXRow = C::kXRow;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int ks = warp % KS, wn = warp / KS;
+  const int e = blockIdx.x / col_tiles;
+  const int byte0 = (blockIdx.x - e * col_tiles) * C::kBytes;
+  const int tok0 = blockIdx.y * kTok;
+  x += static_cast<size_t>(e) * M * K;
+  w += static_cast<size_t>(e) * K * nbytes;
+  y += static_cast<size_t>(e) * M * N;
+  const int fe = f[e];
+  // the cluster's blocks (grid.z) split the K steps into contiguous ranges
+  const int split = blockIdx.z, n_split = gridDim.z;
+  const int all_steps = (K + kBK - 1) / kBK;
+  const int per_split = (all_steps + n_split - 1) / n_split;
+  const int first = split * per_split;
+  const int n_steps = max(0, min(all_steps, first + per_split) - first);
+  // n8 tiles of this warp that hold tokens (warp-uniform)
+  const int nt = min(4, (M - tok0 + 7) / 8);
+
+  auto load_stage = [&](int stage, int step) {
+    uint8_t* sw = smem + stage * C::kStageBytes;
+    uint8_t* sx = sw + kBK * C::kWRow;
+    const int k0 = (first + step) * kBK;
+    constexpr int kChunks = C::kBytes / 16;  // 16-byte chunks of a word row
+    for (int c = tid; c < kBK * kChunks; c += C::kThreads) {
+      const int r = c / kChunks, j = c - r * kChunks;
+      const int k = k0 + r, b = byte0 + j * 16;
+      uint8_t* dst = sw + r * C::kWRow + j * 16;
+      if (vec16) {  // nbytes % 16 == 0: a chunk is whole or past the row
+        const bool ok = k < K && b < nbytes;
+        cp_async16(dst, ok ? w + static_cast<size_t>(k) * nbytes + b : w, ok ? 16 : 0);
+      } else {
+        uint32_t v[4] = {0u, 0u, 0u, 0u};
+        if (k < K) {
+          const uint8_t* row = w + static_cast<size_t>(k) * nbytes;
+#pragma unroll
+          for (int i = 0; i < 16; ++i)
+            if (b + i < nbytes) v[i >> 2] |= static_cast<uint32_t>(row[b + i]) << (8 * (i & 3));
+        }
+        *reinterpret_cast<uint4*>(dst) = make_uint4(v[0], v[1], v[2], v[3]);
+      }
+    }
+    constexpr int kXChunks = kBK / 8;  // 16-byte chunks of a token's K step
+    for (int c = tid; c < kTok * kXChunks; c += C::kThreads) {
+      const int r = c / kXChunks, j = c - r * kXChunks;
+      const int tok = tok0 + r, k = k0 + j * 8;
+      const bool ok = tok < M && k < K;  // K % 8 == 0: a chunk is whole or past the row
+      cp_async16(sx + r * kXRow + j * 16, ok ? x + static_cast<size_t>(tok) * K + k : x,
+                 ok ? 16 : 0);
+    }
+  };
+
+  float acc[kTiles][4][4];
+#pragma unroll
+  for (int i = 0; i < kTiles; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_steps) load_stage(s, s);
+    cp_async_commit();
+  }
+  // per-lane offsets in a stage: the words of rows 2t (+1, +8, +9) of this
+  // warp's K slice, word g of the warp's group; the ldmatrix row of x
+  // (lanes 8m..8m+7 address matrix m: tokens 8 (m >> 1) + .., k 8 (m & 1) + ..)
+  const int w_off = (ks * 16 + 2 * t) * C::kWRow + (wn * 8 + g) * 4;
+  const int x_off = (((lane >> 4) * 8 + (lane & 7)) * kXRow + ((lane >> 3) & 1) * 16) + ks * 32;
+  constexpr int kQ = kBK / 16 / KS;  // 16-row MMA steps of a warp per pipeline step
+  struct Frags {
+    uint32_t w[4];     // words of rows 2t, 2t+1, 2t+8, 2t+9
+    uint32_t b[4][2];  // x fragments of the four n8 tiles
+  };
+  // a 16-row step's operands from shared memory
+  auto load_frags = [&](const uint8_t* sw, int q, Frags& fr) {
+    const uint8_t* wp = sw + w_off + q * KS * 16 * C::kWRow;
+    fr.w[0] = *reinterpret_cast<const uint32_t*>(wp);
+    fr.w[1] = *reinterpret_cast<const uint32_t*>(wp + C::kWRow);
+    fr.w[2] = *reinterpret_cast<const uint32_t*>(wp + 8 * C::kWRow);
+    fr.w[3] = *reinterpret_cast<const uint32_t*>(wp + 9 * C::kWRow);
+    const uint8_t* xp = sw + kBK * C::kWRow + x_off + q * KS * 32;
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj) {
+      uint32_t r[4] = {0u, 0u, 0u, 0u};
+      if (2 * jj < nt) ldsm_x4(r, xp + jj * 16 * kXRow);
+      fr.b[2 * jj][0] = r[0];
+      fr.b[2 * jj][1] = r[1];
+      fr.b[2 * jj + 1][0] = r[2];
+      fr.b[2 * jj + 1][1] = r[3];
+    }
+  };
+  int stage = 0;
+  for (int step = 0; step < n_steps; ++step) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // this step's tiles are in; every warp is done with step - 1's
+    const int next = step + kStages - 1;
+    if (next < n_steps) load_stage(next % kStages, next);
+    cp_async_commit();
+    const uint8_t* sw = smem + stage * C::kStageBytes;
+    stage = stage == kStages - 1 ? 0 : stage + 1;
+    if (nt == 0) continue;
+    Frags cur, nxt;
+    load_frags(sw, 0, cur);
+#pragma unroll
+    for (int q = 0; q < kQ; ++q) {
+      if (q + 1 < kQ) load_frags(sw, q + 1, nxt);  // in flight under this step's MMAs
+      // rows (2t, 2t+1) and (2t+8, 2t+9) paired per 16-bit half: low halves
+      // hold fields 0..kTiles-1 (A rows g), high halves the rest (rows g+8)
+      const uint32_t lo01 = __byte_perm(cur.w[0], cur.w[1], 0x5410);
+      const uint32_t hi01 = __byte_perm(cur.w[0], cur.w[1], 0x7632);
+      const uint32_t lo89 = __byte_perm(cur.w[2], cur.w[3], 0x5410);
+      const uint32_t hi89 = __byte_perm(cur.w[2], cur.w[3], 0x7632);
+      static_for<0, kTiles>([&](auto tile) {
+        constexpr int i = decltype(tile)::value;
+        const uint32_t a[4] = {dequant_pair<NBITS, i>(lo01), dequant_pair<NBITS, i>(hi01),
+                               dequant_pair<NBITS, i>(lo89), dequant_pair<NBITS, i>(hi89)};
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (j < nt) mma_bf16(acc[i][j], a, cur.b[j][0], cur.b[j][1]);
+      });
+      if (q + 1 < kQ) cur = nxt;
+    }
+  }
+  cp_async_wait<0>();
+
+  if constexpr (KS > 1) {
+    // the K slices' sums, by a fixed-order tree through shared memory:
+    // slices [h, 2h) hand theirs to slices [0, h) for h = KS/2, ..., 1
+    float* red = reinterpret_cast<float*>(smem);
+#pragma unroll
+    for (int h = KS / 2; h >= 1; h >>= 1) {
+      __syncthreads();  // every warp is done with the ring, or with the last round
+      float* buf = red + static_cast<size_t>((ks % h) * WN + wn) * C::kAcc * 32 + lane;
+      if (ks >= h && ks < 2 * h) store_acc(acc, buf);
+      __syncthreads();
+      if (ks < h) add_acc(acc, buf);
+    }
+  }
+  if (n_split > 1) {
+    // the cluster's K ranges: rank 0 adds the others' sums from their
+    // shared memory, in rank order (deterministic; no global workspace)
+    namespace cg = cooperative_groups;
+    cg::cluster_group cluster = cg::this_cluster();
+    float* part = reinterpret_cast<float*>(smem) + static_cast<size_t>(wn) * C::kAcc * 32 + lane;
+    __syncthreads();  // the tree's last reads are done
+    if (ks == 0) store_acc(acc, part);
+    cluster.sync();
+    if (split == 0 && ks == 0)
+      for (int r = 1; r < n_split; ++r) add_acc(acc, cluster.map_shared_rank(part, r));
+    cluster.sync();  // every block's sums stay until rank 0 has read them
+  }
+  if (split > 0) return;  // the whole block: its sums are in rank 0's
+
+  // epilogue: the scale and bias applied, the block's 32 x kCols bf16 tile
+  // is laid out in shared memory (A-tile i, row g -> field i of the lane's
+  // word, row g+8 -> field kTiles + i; accumulator c -> row g + 8 (c >> 1),
+  // token 2t + (c & 1)) and written to y in coalesced 4-byte pairs
+  constexpr int kColsW = 8 * (32 / NBITS);  // columns of a warp
+  constexpr int kCols = WN * kColsW;        // columns of the block
+  constexpr int kORow = kCols + 8;          // halves per staged token row
+  static_assert(kTok * kORow * 2 <= C::kSmem, "the output tile fits the ring");
+  __nv_bfloat16* out = reinterpret_cast<__nv_bfloat16*>(smem);
+  const float scale = ldexpf(1.f, -fe);  // exact power-of-two scale
+  const int col_blk = (byte0 / 4) * (32 / NBITS);
+  __syncthreads();  // every read of the ring and of the sums' buffers is done
+  if (ks == 0) {
+#pragma unroll
+    for (int i = 0; i < kTiles; ++i) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c = wn * kColsW + g * (32 / NBITS) + h * kTiles + i;
+        const float bv = bias && col_blk + c < N ? bias[col_blk + c] : 0.f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+#pragma unroll
+          for (int p = 0; p < 2; ++p) {
+            float v = acc[i][j][2 * h + p] * scale;
+            if (bias) v += bv;
+            out[(j * 8 + 2 * t + p) * kORow + c] = __float2bfloat16(v);
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();
+  for (int q = tid; q < kTok * kCols / 2; q += C::kThreads) {
+    const int r = q / (kCols / 2), c = (q - r * (kCols / 2)) * 2;
+    const int tok = tok0 + r, col = col_blk + c;
+    if (tok < M && col < N)  // N is even: the pair is whole
+      *reinterpret_cast<uint32_t*>(y + static_cast<size_t>(tok) * N + col) =
+          *reinterpret_cast<const uint32_t*>(out + r * kORow + c);
+  }
+}
+
+template <int NBITS, int WN, int KS, int KSTEPS>
+int launch_tc_cfg(const void* x, const void* w, const void* f, const void* bias, void* y, int E,
+                  int M, int K, int N, int nbytes, int vec16, int split, cudaStream_t st) {
+  using C = TcCfg<NBITS, WN, KS, KSTEPS>;
+  const int col_tiles = (nbytes + C::kBytes - 1) / C::kBytes;
+  const long long gx = static_cast<long long>(E) * col_tiles;
+  const int gy = (M + kTok - 1) / kTok;
+  if (gx > 2147483647LL || gy > 65535 || split > 8 || split > (K + C::kBK - 1) / C::kBK)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kern = fpmm_tc<NBITS, WN, KS, KSTEPS>;
+  if (C::kSmem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           C::kSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid(static_cast<unsigned>(gx), gy, split);
+  const auto* xp = static_cast<const __nv_bfloat16*>(x);
+  const auto* wp = static_cast<const uint8_t*>(w);
+  const auto* fp = static_cast<const int*>(f);
+  const auto* bp = static_cast<const float*>(bias);
+  auto* yp = static_cast<__nv_bfloat16*>(y);
+  if (split == 1) {
+    kern<<<grid, C::kThreads, C::kSmem, st>>>(xp, wp, fp, bp, yp, M, K, N, nbytes, col_tiles,
+                                              vec16);
+    return static_cast<int>(cudaGetLastError());
+  }
+  cudaLaunchConfig_t lc = {};
+  lc.gridDim = grid;
+  lc.blockDim = dim3(C::kThreads, 1, 1);
+  lc.dynamicSmemBytes = C::kSmem;
+  lc.stream = st;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;  // one cluster per tile
+  cluster[0].val.clusterDim.x = 1;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = split;
+  lc.attrs = cluster;
+  lc.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(&lc, kern, xp, wp, fp, bp, yp, M, K, N, nbytes,
+                                       col_tiles, vec16);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// tile 0: lines (4 warps side by side over 512 columns at 2 bits: each
+// weight row read as whole 128-byte lines); 1: narrow (one 128-column tile,
+// 4 warps split each 128-row K step); 2: deep (the narrow tile, 8 warps
+// split each 256-row K step, two per scheduler).  32 tokens a block.
+// split > 1 (narrow and deep): a cluster of that many blocks per tile
+// splits K.
+int launch_tc(const void* x, const void* w, const void* f, const void* bias, void* y, int E,
+              int M, int K, int N, int nbytes, int n_bits, int tile, int split, void* stream) {
+  if ((n_bits != 2 && n_bits != 4) || tile < 0 || tile > 2 || E < 1 || M < 1 || K < 1 ||
+      N < 1 || N % 2 != 0 || K % 8 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0 || split < 1 ||
+      (split > 1 && tile == 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int vec16 = (nbytes % 16 == 0) && (reinterpret_cast<uintptr_t>(w) % 16 == 0);
+#define REPRO_TC_TILE(NB, WN, KS, KSTEPS) \
+  launch_tc_cfg<NB, WN, KS, KSTEPS>(x, w, f, bias, y, E, M, K, N, nbytes, vec16, split, st)
+  if (n_bits == 2) {
+    if (tile == 0) return REPRO_TC_TILE(2, 4, 1, 8);
+    if (tile == 1) return REPRO_TC_TILE(2, 1, 4, 2);
+    return REPRO_TC_TILE(2, 1, 8, 2);
+  }
+  if (tile == 0) return REPRO_TC_TILE(4, 4, 1, 8);
+  if (tile == 1) return REPRO_TC_TILE(4, 1, 4, 2);
+  return REPRO_TC_TILE(4, 1, 8, 2);
+#undef REPRO_TC_TILE
+}
+
 }  // namespace
 
 // x (M,K) f32|bf16 contiguous; w (K, nbytes) int8 contiguous, nbytes = N*n_bits/8;
@@ -246,4 +692,24 @@ extern "C" int fixedpoint_matmul_experts_launch(const void* x, const void* w, co
                                                 int m_tile, void* stream) {
   return launch_checked(x, w, f, nullptr, y, ws, E, C, K, N, nbytes, n_bits, x_dtype, split,
                         m_tile, stream);
+}
+
+// Tensor-core route.  x (M,K) bf16 contiguous, 16-byte aligned, K % 8 == 0;
+// w (K, nbytes) int8; f int32 scalar on the device; bias (N,) f32 or null;
+// y (M,N) bf16.  tile: 0 lines, 1 narrow, 2 deep; split: blocks per cluster
+// splitting K (1..8, narrow and deep only).  Returns cudaGetLastError().
+extern "C" int fixedpoint_matmul_tc_launch(const void* x, const void* w, const void* f,
+                                           const void* bias, void* y, int M, int K, int N,
+                                           int nbytes, int n_bits, int tile, int split,
+                                           void* stream) {
+  return launch_tc(x, w, f, bias, y, 1, M, K, N, nbytes, n_bits, tile, split, stream);
+}
+
+// Tensor-core route, experts form.  x (E,C,K) bf16 as above; w (E, K, nbytes)
+// int8; f (E,) int32 on the device; y (E,C,N) bf16.  Returns cudaGetLastError().
+extern "C" int fixedpoint_matmul_experts_tc_launch(const void* x, const void* w, const void* f,
+                                                   void* y, int E, int C, int K, int N,
+                                                   int nbytes, int n_bits, int tile,
+                                                   int split, void* stream) {
+  return launch_tc(x, w, f, nullptr, y, E, C, K, N, nbytes, n_bits, tile, split, stream);
 }

@@ -106,6 +106,11 @@ def library() -> ctypes.CDLL:
             P, P, P, P, P, I, I, I, I, I, I, I, I, I, P,
         ]
         lib.fixedpoint_matmul_experts_launch.restype = I
+        lib.fixedpoint_matmul_tc_launch.argtypes = [P, P, P, P, P, I, I, I, I, I, I, I, P]
+        lib.fixedpoint_matmul_tc_launch.restype = I
+        lib.fixedpoint_matmul_experts_tc_launch.argtypes = [P, P, P, P, I, I, I, I, I, I, I, I,
+                                                             P]
+        lib.fixedpoint_matmul_experts_tc_launch.restype = I
         lib.paged_attention_launch.argtypes = [
             P, P, P, P, P, P, P, P, P, P, P,
             I, I, I, I, I, I, I, I, I, I, I,

@@ -1,10 +1,17 @@
 """Public wrapper: packed fixed-point matmul for arbitrary (M, K, N).
 
-``fixedpoint_matmul`` launches the CUDA kernel (``csrc/fixedpoint_matmul.cu``)
+``fixedpoint_matmul`` launches a CUDA kernel (``csrc/fixedpoint_matmul.cu``)
 for CUDA tensors and runs its plain version (``ref.py``) for CPU tensors.
 ``fixedpoint_matmul_experts`` is the MoE-stack form: one launch over all E
 experts of a stack, each with its own exponent f[e] read on the device.
 Both return x's dtype (the JAX call sites pass ``out_dtype=x.dtype``).
+
+On the card each call takes one of two kernels by a fixed rule,
+``_pick_route(dtype, rows, aligned)``: bf16 x with at least
+``TC_MIN_ROWS`` rows (M, or C per expert: prefill) and 16-byte aligned rows
+goes to the tensor-core kernel ``fpmm_tc``; decode, the M = 1 head, fp32 x
+and every smaller call go to the streaming kernel ``fpmm_partial`` +
+``fpmm_finish``.  Each kernel has its own launch count.
 """
 from __future__ import annotations
 
@@ -21,9 +28,19 @@ from repro_torch.kernels.fixedpoint_matmul.ref import (
 )
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# kernel launches of each wrapper (plain-version calls on the CPU do not count)
+ROUTES = ("streaming", "tensor_core")
+# Fewest rows (M, or C per expert) that take the tensor-core kernel.  On
+# an NVIDIA H100 80GB HBM3 at 700 W the tensor-core kernel is the faster one
+# from 2-3 rows up (chip_smoke.py phase 3g prints the crossover and holds
+# this rule to it); the threshold sits one row above the decode batch of 4
+# slots, which stays on the streaming kernel.
+TC_MIN_ROWS = 5
+# kernel launches of each wrapper and route (plain-version calls on the CPU
+# do not count): the streaming kernel, then the tensor-core kernel
 launches = 0
 experts_launches = 0
+tc_launches = 0
+tc_experts_launches = 0
 
 
 def pack_weight(w: torch.Tensor, f, n_bits: int = 2) -> torch.Tensor:
@@ -47,6 +64,47 @@ def _grid_shape(M: int, K: int, nbytes: int, n_sm: int, E: int = 1):
     return m_tile, math.ceil(K / rows)
 
 
+def _pick_route(dtype, rows: int, aligned: bool) -> str:
+    """The route rule: 'tensor_core' for bf16 x with at least TC_MIN_ROWS
+    rows and rows of x 16-byte aligned (K % 8 == 0, aligned base), else
+    'streaming'.  fp32 x stays on the streaming kernel: tensor cores would
+    round it to bf16 or TF32, outside the fp32 bar."""
+    if dtype == torch.bfloat16 and rows >= TC_MIN_ROWS and aligned:
+        return "tensor_core"
+    return "streaming"
+
+
+def _tc_tile(rows: int, K: int, nbytes: int, n_sm: int, E: int = 1):
+    """(tile, split): the tensor-core kernel's block shape (``launch_tc``;
+    32 tokens a block) and the blocks of a cluster that split K.  0
+    (lines: 4 warps side by side on 128 word bytes, each weight row read as
+    whole 128-byte lines) when its grid fills half the card or more, as
+    every expert stack's does; else 1 (narrow: 32 word bytes, 4 warps
+    splitting K) when that grid fills the card; else 2 (deep: the narrow
+    tile, 8 warps splitting K), with clusters of up to 4 blocks splitting
+    K (at least 2 steps of 256 rows each) so that the few tiles of a small
+    call reach more SMs."""
+    tok = E * math.ceil(rows / 32)
+    if math.ceil(nbytes / 128) * tok >= n_sm / 2:
+        return 0, 1
+    tiles = math.ceil(nbytes / 32) * tok
+    if tiles >= n_sm:
+        return 1, 1
+    return 2, max(1, min(4, n_sm // tiles, math.ceil(K / 256) // 2))
+
+
+def _route_for(x, rows: int, K: int, route) -> str:
+    aligned = K % 8 == 0 and x.data_ptr() % 16 == 0
+    if route is None:
+        return _pick_route(x.dtype, rows, aligned)
+    if route not in ROUTES:
+        raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
+    if route == "tensor_core" and not (x.dtype == torch.bfloat16 and aligned):
+        raise ValueError(f"the tensor-core kernel takes bf16 x with K % 8 == 0 on a 16-byte "
+                         f"aligned base, got {x.dtype}, K={K}")
+    return route
+
+
 def _check_operands(x, n_bits: int) -> int:
     code = _DTYPE_CODE.get(x.dtype)
     if code is None:
@@ -56,8 +114,8 @@ def _check_operands(x, n_bits: int) -> int:
     return code
 
 
-def _launch(x2, packed_w, f, bias, n_bits: int, n_out: int) -> torch.Tensor:
-    global launches
+def _launch(x2, packed_w, f, bias, n_bits: int, n_out: int, route) -> torch.Tensor:
+    global launches, tc_launches
     dev = x2.device
     M, K = x2.shape
     nbytes = n_out * n_bits // 8
@@ -74,12 +132,22 @@ def _launch(x2, packed_w, f, bias, n_bits: int, n_out: int) -> torch.Tensor:
     if bias is not None and (bias.dtype != torch.float32 or not bias.is_contiguous()):
         bias = bias.to(torch.float32).contiguous()
     x2, packed_w = x2.contiguous(), packed_w.contiguous()
-    m_tile, split = _grid_shape(M, K, nbytes, build.sm_count(dev))
+    route = _route_for(x2, M, K, route)
     y = torch.empty((M, n_out), dtype=x2.dtype, device=dev)
+    bias_ptr = bias.data_ptr() if bias is not None else None
+    if route == "tensor_core":
+        tile, split = _tc_tile(M, K, nbytes, build.sm_count(dev))
+        err = build.library().fixedpoint_matmul_tc_launch(
+            x2.data_ptr(), packed_w.data_ptr(), f.data_ptr(), bias_ptr, y.data_ptr(),
+            M, K, n_out, nbytes, n_bits, tile, split, build.current_stream(dev),
+        )
+        build.check(err, "fixedpoint_matmul (tensor cores)")
+        tc_launches += 1
+        return y
+    m_tile, split = _grid_shape(M, K, nbytes, build.sm_count(dev))
     ws = torch.empty((split, M, n_out), dtype=torch.float32, device=dev)
     err = build.library().fixedpoint_matmul_launch(
-        x2.data_ptr(), packed_w.data_ptr(), f.data_ptr(),
-        bias.data_ptr() if bias is not None else None, y.data_ptr(), ws.data_ptr(),
+        x2.data_ptr(), packed_w.data_ptr(), f.data_ptr(), bias_ptr, y.data_ptr(), ws.data_ptr(),
         M, K, n_out, nbytes, n_bits, code, split, m_tile, build.current_stream(dev),
     )
     build.check(err, "fixedpoint_matmul")
@@ -87,21 +155,24 @@ def _launch(x2, packed_w, f, bias, n_bits: int, n_out: int) -> torch.Tensor:
     return y
 
 
-def fixedpoint_matmul(x, packed_w, f, bias=None, *, n_bits: int = 2, n_out: int) -> torch.Tensor:
-    """y = x @ (unpack(packed_w)·2^{-f}) [+ bias] in x's dtype.  x: (..., K)."""
+def fixedpoint_matmul(x, packed_w, f, bias=None, *, n_bits: int = 2, n_out: int,
+                      _route=None) -> torch.Tensor:
+    """y = x @ (unpack(packed_w)·2^{-f}) [+ bias] in x's dtype.  x: (..., K).
+    ``_route`` ('streaming' | 'tensor_core') overrides the route rule on the
+    card; it exists so that both kernels can be timed at one shape."""
     values_per_byte(n_bits)
     x = _as_compute(x)
     lead, K = x.shape[:-1], x.shape[-1]
     x2 = x.reshape(-1, K)
     if x2.is_cuda:
-        y = _launch(x2, packed_w, f, bias, n_bits, n_out)
+        y = _launch(x2, packed_w, f, bias, n_bits, n_out, _route)
     else:
         y = fixedpoint_matmul_ref(x2, packed_w, f, bias, n_bits=n_bits, n_out=n_out).to(x.dtype)
     return y.reshape(*lead, n_out)
 
 
-def _launch_experts(x, packed_w, f, n_bits: int, n_out: int) -> torch.Tensor:
-    global experts_launches
+def _launch_experts(x, packed_w, f, n_bits: int, n_out: int, route) -> torch.Tensor:
+    global experts_launches, tc_experts_launches
     dev = x.device
     E, C, K = x.shape
     nbytes = n_out * n_bits // 8
@@ -115,8 +186,18 @@ def _launch_experts(x, packed_w, f, n_bits: int, n_out: int) -> torch.Tensor:
     if packed_w.device != dev or f.device != dev:
         raise ValueError(f"operands must all lie on {dev}")
     x, packed_w, f = x.contiguous(), packed_w.contiguous(), f.contiguous()
-    m_tile, split = _grid_shape(C, K, nbytes, build.sm_count(dev), E)
+    route = _route_for(x, C, K, route)
     y = torch.empty((E, C, n_out), dtype=x.dtype, device=dev)
+    if route == "tensor_core":
+        tile, split = _tc_tile(C, K, nbytes, build.sm_count(dev), E)
+        err = build.library().fixedpoint_matmul_experts_tc_launch(
+            x.data_ptr(), packed_w.data_ptr(), f.data_ptr(), y.data_ptr(),
+            E, C, K, n_out, nbytes, n_bits, tile, split, build.current_stream(dev),
+        )
+        build.check(err, "fixedpoint_matmul_experts (tensor cores)")
+        tc_experts_launches += 1
+        return y
+    m_tile, split = _grid_shape(C, K, nbytes, build.sm_count(dev), E)
     ws = torch.empty((split, E, C, n_out), dtype=torch.float32, device=dev)
     err = build.library().fixedpoint_matmul_experts_launch(
         x.data_ptr(), packed_w.data_ptr(), f.data_ptr(), y.data_ptr(), ws.data_ptr(),
@@ -127,13 +208,15 @@ def _launch_experts(x, packed_w, f, n_bits: int, n_out: int) -> torch.Tensor:
     return y
 
 
-def fixedpoint_matmul_experts(x, packed_w, f, *, n_bits: int = 2, n_out: int) -> torch.Tensor:
+def fixedpoint_matmul_experts(x, packed_w, f, *, n_bits: int = 2, n_out: int,
+                              _route=None) -> torch.Tensor:
     """Per-expert packed matmul in x's dtype: y[e] = x[e] @ (unpack(w[e])·2^{-f[e]}).
-    x (E, C, K) float; packed_w (E, K, n_out·n_bits/8) int8; f (E,) int32."""
+    x (E, C, K) float; packed_w (E, K, n_out·n_bits/8) int8; f (E,) int32.
+    ``_route`` as in ``fixedpoint_matmul``."""
     values_per_byte(n_bits)
     x = _as_compute(x)
     if x.ndim != 3:
         raise ValueError(f"x must be (E, C, K), got {tuple(x.shape)}")
     if x.is_cuda:
-        return _launch_experts(x, packed_w, f, n_bits, n_out)
+        return _launch_experts(x, packed_w, f, n_bits, n_out, _route)
     return fixedpoint_matmul_experts_ref(x, packed_w, f, n_bits=n_bits, n_out=n_out).to(x.dtype)

@@ -51,13 +51,84 @@ def test_fixedpoint_matmul_matches_plain(dev, n_bits, dtype, M, K, N):
     b = torch.from_numpy(rng.standard_normal(N).astype(np.float32)).to(dev)
     f = torch.tensor(3, dtype=torch.int32, device=dev)
     pw = pack_weight(w, f, n_bits)
-    before = fops.launches
+    before = _counts()
     got = fixedpoint_matmul(x, pw, f, b, n_bits=n_bits, n_out=N)
     torch.cuda.synchronize()
-    assert fops.launches == before + 1 and got.dtype == dt
+    assert _launched(before, fops._pick_route(dt, M, True)) and got.dtype == dt
     want = fixedpoint_matmul_ref(x, pw, f, b, n_bits=n_bits, n_out=N).to(dt)
     tol = dict(rtol=1e-5, atol=1e-5) if dt == torch.float32 else dict(rtol=1e-2, atol=1e-2)
     torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+def _counts():
+    return (fops.launches, fops.tc_launches, fops.experts_launches, fops.tc_experts_launches)
+
+
+def _launched(before, route, experts=False):
+    """Exactly one launch since ``before``, of ``route``'s kernel."""
+    i = (2 if experts else 0) + (route == "tensor_core")
+    return all(a - b == (k == i) for k, (a, b) in enumerate(zip(_counts(), before)))
+
+
+TC_BF16 = dict(rtol=1e-2, atol=1e-2)  # one bf16 rounding of the fp32 result
+
+
+@pytest.mark.parametrize("n_bits", [2, 4])
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("N", [40, 200, 1024])
+@pytest.mark.parametrize("K", [96, 2048])
+@pytest.mark.parametrize("M", [16, 32, 130, 512])
+def test_fixedpoint_matmul_tc_matches_plain(dev, M, K, N, bias, n_bits):
+    """The tensor-core route (forced) against the plain version in bf16: rows
+    of words that are not 16-byte aligned (N = 40, 200), a K that is not a
+    multiple of the 64-row step (96), token counts past a 32-token tile;
+    two calls give the same bits."""
+    rng = np.random.default_rng(M + K + N + n_bits)
+    w = torch.from_numpy((rng.standard_normal((K, N)) / K**0.5).astype(np.float32)).to(dev)
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)).to(dev, torch.bfloat16)
+    b = torch.from_numpy(rng.standard_normal(N).astype(np.float32)).to(dev) if bias else None
+    f = torch.tensor(n_bits, dtype=torch.int32, device=dev)
+    pw = pack_weight(w, f, n_bits)
+    before = _counts()
+    got = fixedpoint_matmul(x, pw, f, b, n_bits=n_bits, n_out=N, _route="tensor_core")
+    torch.cuda.synchronize()
+    assert _launched(before, "tensor_core") and got.dtype == torch.bfloat16
+    want = fixedpoint_matmul_ref(x, pw, f, b, n_bits=n_bits, n_out=N).to(torch.bfloat16)
+    torch.testing.assert_close(got.float(), want.float(), **TC_BF16)
+    again = fixedpoint_matmul(x, pw, f, b, n_bits=n_bits, n_out=N, _route="tensor_core")
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("M,dtype,route", [
+    (fops.TC_MIN_ROWS, "bfloat16", "tensor_core"), (512, "bfloat16", "tensor_core"),
+    (fops.TC_MIN_ROWS - 1, "bfloat16", "streaming"), (1, "bfloat16", "streaming"),
+    (512, "float32", "streaming"),
+])
+def test_fixedpoint_matmul_route_rule_launches(dev, M, dtype, route):
+    """bf16 at or above the threshold launches the tensor-core kernel; fp32,
+    decode and the M = 1 head launch the streaming one."""
+    rng = np.random.default_rng(M)
+    w = torch.from_numpy((rng.standard_normal((256, 128)) * 0.1).astype(np.float32)).to(dev)
+    f = torch.tensor(3, dtype=torch.int32, device=dev)
+    x = torch.from_numpy(rng.standard_normal((M, 256)).astype(np.float32)).to(dev,
+                                                                               getattr(torch, dtype))
+    before = _counts()
+    fixedpoint_matmul(x, pack_weight(w, f, 2), f, n_bits=2, n_out=128)
+    torch.cuda.synchronize()
+    assert _launched(before, route)
+
+
+def test_fixedpoint_matmul_tc_refuses_what_it_does_not_take(dev):
+    """Forcing the tensor-core route on fp32 x, or on rows of x that are not
+    16-byte aligned, raises instead of computing another function."""
+    pw = torch.zeros((64, 16), dtype=torch.int8, device=dev)
+    f = torch.tensor(1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        fixedpoint_matmul(torch.zeros((8, 64), device=dev), pw, f, n_bits=2, n_out=64,
+                          _route="tensor_core")
+    with pytest.raises(ValueError):  # K = 60: rows not a multiple of 16 bytes
+        fixedpoint_matmul(torch.zeros((8, 60), dtype=torch.bfloat16, device=dev), pw[:60], f,
+                          n_bits=2, n_out=64, _route="tensor_core")
 
 
 def test_fixedpoint_matmul_rejects_bad_operands(dev):
@@ -128,16 +199,47 @@ def _experts_case(dev, E, C, K, N, n_bits, dt, seed):
 def test_fixedpoint_matmul_experts_matches_plain(dev, n_bits, dtype, E, C, K, N):
     dt = getattr(torch, dtype)
     x, words, f = _experts_case(dev, E, C, K, N, n_bits, dt, seed=E * 13 + C + n_bits)
-    before = fops.experts_launches
+    before = _counts()
     got = fixedpoint_matmul_experts(x, words, f, n_bits=n_bits, n_out=N)
     torch.cuda.synchronize()
-    assert fops.experts_launches == before + 1 and got.dtype == dt
+    assert _launched(before, fops._pick_route(dt, C, True), experts=True) and got.dtype == dt
     want = fixedpoint_matmul_experts_ref(x, words, f, n_bits=n_bits, n_out=N).to(dt)
     tol = dict(rtol=1e-5, atol=1e-5) if dt == torch.float32 else dict(rtol=1e-2, atol=1e-2)
     torch.testing.assert_close(got.float(), want.float(), **tol)
     # deterministic: no atomics in any sum
     again = fixedpoint_matmul_experts(x, words, f, n_bits=n_bits, n_out=N)
     assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("n_bits", [2, 4])
+@pytest.mark.parametrize("E", [8, 64])
+@pytest.mark.parametrize("C", [2, 5, 20, 80])
+def test_fixedpoint_matmul_experts_tc_matches_plain(dev, C, E, n_bits):
+    """The experts form on the tensor-core route (forced), bf16, at the
+    prefill capacities of both MoE models; two calls give the same bits."""
+    x, words, f = _experts_case(dev, E, C, 512, 192, n_bits, torch.bfloat16,
+                                seed=E * 7 + C + n_bits)
+    before = _counts()
+    got = fixedpoint_matmul_experts(x, words, f, n_bits=n_bits, n_out=192, _route="tensor_core")
+    torch.cuda.synchronize()
+    assert _launched(before, "tensor_core", experts=True)
+    want = fixedpoint_matmul_experts_ref(x, words, f, n_bits=n_bits, n_out=192).bfloat16()
+    torch.testing.assert_close(got.float(), want.float(), **TC_BF16)
+    again = fixedpoint_matmul_experts(x, words, f, n_bits=n_bits, n_out=192,
+                                      _route="tensor_core")
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("C,dtype,route", [
+    (fops.TC_MIN_ROWS, "bfloat16", "tensor_core"), (80, "bfloat16", "tensor_core"),
+    (4, "bfloat16", "streaming"), (80, "float32", "streaming"),
+])
+def test_fixedpoint_matmul_experts_route_rule_launches(dev, C, dtype, route):
+    x, words, f = _experts_case(dev, 4, C, 256, 64, 2, getattr(torch, dtype), seed=C)
+    before = _counts()
+    fixedpoint_matmul_experts(x, words, f, n_bits=2, n_out=64)
+    torch.cuda.synchronize()
+    assert _launched(before, route, experts=True)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

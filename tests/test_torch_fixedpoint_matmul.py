@@ -5,9 +5,11 @@ On the CPU the port's wrapper runs its plain version (unpack, fp32 matmul);
 it is held to the JAX Pallas kernel in interpret mode and to JAX's ref.py at
 rtol = atol = 1e-5 (the bar of tests/test_kernels.py).  The packed layer
 (``packed_dense_apply``, including o_proj's two contracted input dims) is
-held to the JAX layer the same way.  The CUDA kernel itself is compared to
-the plain version on the card (tests/test_torch_cuda.py; chip_smoke.py at the
-serving path's full-width shapes)."""
+held to the JAX layer the same way.  The route rule that picks one of the
+two CUDA kernels on the card is a pure function, tested here; the kernels
+themselves are compared to the plain version on the card
+(tests/test_torch_cuda.py; chip_smoke.py at the serving path's full-width
+shapes)."""
 import numpy as np
 import pytest
 
@@ -66,6 +68,82 @@ def test_port_matches_pallas_interpret(mkn, n_bits, f):
         **TOL)
 
 
+@pytest.mark.parametrize("mkn", [(32, 64, 96), (128, 64, 96), (128, 96, 40)])
+@pytest.mark.parametrize("n_bits", [2, 4])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_port_matches_pallas_interpret_prefill(mkn, n_bits, dtype):
+    """Prefill-like row counts (a 32- and a 128-token bucket) at a narrow K
+    and N, with bias: the plain version the CPU runs against the Pallas
+    kernel in interpret mode; bf16 x (the tensor-core route's dtype on the
+    card) at the bf16 bar, one rounding of the fp32 result."""
+    M, K, N = mkn
+    w, x, b, pw = _case(M * 3 + K + n_bits, M, K, N, n_bits, 2, bias=True)
+    want = np.asarray(j_fpmm(jnp.asarray(x), jnp.asarray(pw), 2, jnp.asarray(b), n_bits=n_bits,
+                             n_out=N, interpret=True))
+    xt = torch.from_numpy(x).to(getattr(torch, dtype))
+    got = fixedpoint_matmul(xt, torch.from_numpy(pw), torch.tensor(2, dtype=torch.int32),
+                            torch.from_numpy(b), n_bits=n_bits, n_out=N)
+    assert got.dtype == xt.dtype and tuple(got.shape) == (M, N)
+    if dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), want, **TOL)
+    else:  # the reference from the same bf16-rounded x
+        want16 = np.asarray(j_fpmm(jnp.asarray(xt.float().numpy()), jnp.asarray(pw), 2,
+                                   jnp.asarray(b), n_bits=n_bits, n_out=N, interpret=True))
+        np.testing.assert_allclose(got.float().numpy(), want16, rtol=1e-2, atol=1e-2)
+
+
+ROWS = ops.TC_MIN_ROWS
+
+
+@pytest.mark.parametrize("dtype,rows,aligned,route", [
+    (torch.bfloat16, ROWS, True, "tensor_core"),  # the threshold itself
+    (torch.bfloat16, ROWS - 1, True, "streaming"),  # one row below it
+    (torch.bfloat16, 4, True, "streaming"),  # decode: 4 slots, C = 4 per expert
+    (torch.bfloat16, 1, True, "streaming"),  # the head at prefill (last position)
+    (torch.bfloat16, 512, True, "tensor_core"),  # a 512-token bucket
+    (torch.bfloat16, 512, False, "streaming"),  # rows of x not 16-byte aligned
+    (torch.float32, 512, True, "streaming"),  # fp32 stays off the tensor cores
+    (torch.float32, ROWS, True, "streaming"),
+])
+def test_route_rule(dtype, rows, aligned, route):
+    assert ops._pick_route(dtype, rows, aligned) == route
+
+
+def test_route_threshold_is_above_the_decode_batch():
+    """Decode runs M = C = 4 slots; it keeps the streaming kernel."""
+    assert ops.TC_MIN_ROWS > 4 and ops._pick_route(torch.bfloat16, 4, True) == "streaming"
+
+
+@pytest.mark.parametrize("rows,K,nbytes,E,want", [
+    (20, 7168, 512, 256, (0, 1)),  # a deepseek expert stack at a 512-token bucket: lines
+    (5, 2048, 256, 64, (0, 1)),  # an olmoe stack at a 32-token bucket
+    (512, 2048, 2048, 1, (0, 1)),  # gate_proj at a 512-token bucket: 256 line tiles
+    (128, 7168, 32320, 1, (0, 1)),  # the deepseek head at M = 128
+    (512, 2048, 512, 1, (1, 1)),  # q_proj at 512 tokens: 64 line tiles, 256 narrow ones
+    (32, 2048, 2048, 1, (2, 2)),  # gate_proj at 32 tokens: 64 narrow tiles, 2 a cluster
+    (32, 2048, 256, 1, (2, 4)),  # k_proj at 32 tokens: 8 tiles, clusters of 4 split K
+    (128, 7168, 16, 1, (2, 4)),  # k_rope (N = 64) at a 128-token bucket: 4 tiles
+    (256, 2048, 512, 1, (2, 1)),  # 128 narrow tiles: 132 // 128 = 1
+    (32, 256, 16, 1, (2, 1)),  # one 256-row step: no K to split
+])
+def test_tc_tile(rows, K, nbytes, E, want):
+    assert ops._tc_tile(rows, K, nbytes, 132, E) == want
+
+
+def test_route_override_checked():
+    """The private route override names a route and refuses the tensor cores
+    for what the kernel does not take (the check runs before any launch)."""
+    x16 = torch.zeros((8, 64), dtype=torch.bfloat16)
+    assert ops._route_for(x16, 8, 64, None) == "tensor_core"
+    assert ops._route_for(x16, 8, 64, "streaming") == "streaming"
+    with pytest.raises(ValueError):
+        ops._route_for(x16, 8, 64, "tensor-cores")
+    with pytest.raises(ValueError):
+        ops._route_for(torch.zeros((8, 64)), 8, 64, "tensor_core")
+    with pytest.raises(ValueError):
+        ops._route_for(torch.zeros((8, 60), dtype=torch.bfloat16), 8, 60, "tensor_core")
+
+
 def test_bias_batched_input_and_bf16():
     w, x, b, pw = _case(5, 6, 32, 48, 2, 2, bias=True)
     x3 = x.reshape(2, 3, 32)
@@ -84,9 +162,12 @@ def test_bias_batched_input_and_bf16():
 
 def test_cpu_calls_do_not_count_launches():
     _, x, _, pw = _case(1, 2, 32, 64, 2, 1)
-    before = ops.launches
+    before = (ops.launches, ops.tc_launches)
     fixedpoint_matmul(torch.from_numpy(x), torch.from_numpy(pw), 1, n_bits=2, n_out=64)
-    assert ops.launches == before
+    _, x, _, pw = _case(1, 64, 32, 64, 2, 1)  # bf16 at a prefill size: no launch either
+    fixedpoint_matmul(torch.from_numpy(x).bfloat16(), torch.from_numpy(pw), 1, n_bits=2,
+                      n_out=64)
+    assert (ops.launches, ops.tc_launches) == before
 
 
 @pytest.mark.parametrize("backend", ["kernel", "unpack"])

@@ -147,16 +147,18 @@ def _experts_case(seed, E, C, K, N, n_bits):
 
 
 @pytest.mark.parametrize("n_bits", [2, 4])
-@pytest.mark.parametrize("ECKN", [(3, 8, 16, 24), (4, 5, 32, 64), (2, 1, 128, 16)])
+@pytest.mark.parametrize("ECKN", [(3, 8, 16, 24), (4, 5, 32, 64), (2, 1, 128, 16),
+                                  (4, 20, 32, 48)])  # C = 20: a prefill bucket's capacity
 def test_fixedpoint_matmul_experts_matches_pallas(n_bits, ECKN):
     E, C, K, N = ECKN
     x, pk = _experts_case(E + C + n_bits, E, C, K, N, n_bits)
     words, f = pk.data.numpy(), pk.f.numpy()
     want = np.asarray(j_fpmm_e(jnp.asarray(x), jnp.asarray(words), jnp.asarray(f),
                                n_bits=n_bits, n_out=N, interpret=True))
-    before = ops.experts_launches
+    before = (ops.experts_launches, ops.tc_experts_launches)
     got = fixedpoint_matmul_experts(_t(x), pk.data, pk.f, n_bits=n_bits, n_out=N)
-    assert ops.experts_launches == before  # CPU calls never count as kernel launches
+    # CPU calls never count as kernel launches, on either route
+    assert (ops.experts_launches, ops.tc_experts_launches) == before
     assert got.dtype == torch.float32 and tuple(got.shape) == (E, C, N)
     np.testing.assert_allclose(got.numpy(), want, **FPMM_TOL)
     ref = fixedpoint_matmul_experts_ref(_t(x), pk.data, pk.f, n_bits=n_bits, n_out=N)
