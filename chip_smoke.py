@@ -13,7 +13,9 @@ Phases, one JSON line each:
                bound from bytes and operations: 3a fixedpoint_matmul at
                internlm2's 7 projections (M 4 in bf16 and fp32, M 128 in
                fp32, the prefill buckets M 32..512 in bf16), 3b
-               paged_attention, 3c symog_update on every quantizable leaf
+               paged_attention (and, timed only, its internlm2 decode
+               shape at rows of about 64, 300 and 500 cached tokens), 3c
+               symog_update on every quantizable leaf
                shape of internlm2-1.8b plus an odd n, half-step ties, the
                clip and a misaligned operand, 3d fixedpoint_matmul_experts
                on olmoe-1b-7b's expert stacks (64 experts, one f each, C = 4
@@ -32,8 +34,9 @@ Phases, one JSON line each:
                threshold must not undercut; 3e
                paged attention over int8 and int4 SYMOG pools (olmoe's and
                internlm2's decode shapes, exponents over [-8, 4], a window
-               + softcap case, an fp32 case), 3f the absorbed MLA decode
-               (``paged_attention_mla``) at deepseek-v3's shape (128 heads,
+               + softcap case, an fp32 case; timed only, olmoe's int4 decode
+               shape at rows of about 64, 300 and 500 cached tokens), 3f
+               the absorbed MLA decode (``paged_attention_mla``) at deepseek-v3's shape (128 heads,
                rank 512, rope 64) over bf16 / fp32, KV_F int8 and SYMOG
                int8 / int4 pools (one exponent per block over [-8, 4]), T 1
                and 3, a row at position 0, and an fp64 conditioning check;
@@ -44,7 +47,9 @@ Phases, one JSON line each:
                (quantizing admission held array_equal to the same writes on
                the CPU, quantized decode writes, the quantized kernel vs
                ``_paged_read``, packed matmuls through the kernels on both
-               routes so that both write the same words); deepseek-v3 (3
+               routes so that both write the same words; the SYMOG
+               exponents and words written on the card array_equal to the
+               CPU's where the exponent steps); deepseek-v3 (3
                dense + 1 MoE layer, 256 experts, built layer by layer) from a
                bf16 and from an int4 MLA pool, the matmuls through the
                kernels on both routes, argmax agreement 1.0; the two pools'
@@ -369,11 +374,12 @@ def phase_fpmm_deepseek(torch, dev):
 # ---------------------------------------------------------------------------
 # phase 3b: paged attention
 # ---------------------------------------------------------------------------
-def _attn_case(torch, gen, dev, *, B, K, G, hd, block, max_blocks, T, dt, int8, q_mult):
+def _attn_case(torch, gen, dev, *, B, K, G, hd, block, max_blocks, T, dt, int8, q_mult,
+               pos_last=(280, 320)):
     n_phys = B * max_blocks + 1
     perm = torch.randperm(n_phys - 1, generator=gen, device=dev)[: B * max_blocks] + 1
     bt = perm.reshape(B, max_blocks).to(torch.int32)
-    pos_last = torch.randint(280, 320, (B,), generator=gen, device=dev)
+    pos_last = torch.randint(*pos_last, (B,), generator=gen, device=dev)
     pos0 = (pos_last - (T - 1)).to(torch.int32)
     shape = (n_phys, block, K, hd)
     kp = torch.randn(shape, generator=gen, device=dev)
@@ -387,8 +393,90 @@ def _attn_case(torch, gen, dev, *, B, K, G, hd, block, max_blocks, T, dt, int8, 
     return q, kp, vp, bt, pos0
 
 
-def phase_attn(torch, dev):
+def _sdpa_ms(torch, q, kl, vl, pos0, window) -> float:
+    """The library yardstick of a paged-attention case: one
+    ``scaled_dot_product_attention`` over the gathered logical cache (kl, vl
+    (B, S, K, hd), already dequantized, in q's dtype) under the causal /
+    window mask, its K/V copies rotated past the L2.  Timed only."""
     import torch.nn.functional as F
+
+    B, T, K, G, hd = q.shape
+    dev = q.device
+    kv_pos = torch.arange(kl.shape[1], device=dev)
+    q_pos = pos0.long()[:, None] + torch.arange(T, device=dev)[None]
+    mask = kv_pos[None, None] <= q_pos[:, :, None]
+    if window is not None:
+        mask = mask & (q_pos[:, :, None] - kv_pos[None, None] < window)
+    qs = q.reshape(B, T, K * G, hd).transpose(1, 2)
+    ks = kl.transpose(1, 2).repeat_interleave(G, dim=1)
+    vs = vl.transpose(1, 2).repeat_interleave(G, dim=1)
+    n = copies_for(ks.numel() * ks.element_size() * 2)
+    args = [(qs, ks.clone(), vs.clone()) for _ in range(n)]
+    return timed(lambda a, b, c: F.scaled_dot_product_attention(a, b, c, attn_mask=mask[:, None]),
+                 args, torch)
+
+
+SWEEP_TOKENS = (64, 300, 500)  # about this many cached tokens a row
+
+
+def _attn_length_sweep(torch, dev, gen, *, quant: bool):
+    """Timed only: the phase's main decode shape (internlm2: bf16 pool, K 8,
+    G 2; olmoe: int4 pool, K 16, G 1; B 4, T 1, bf16 queries) with rows of
+    about 64, 300 and 500 cached tokens: the kernel, SDPA, the byte bound
+    and the rate the kernel reached."""
+    from repro_torch.kernels.paged_attention import ops as aops
+    from repro_torch.kernels.paged_attention.ref import dequant_logical, gather_logical
+
+    hd, block, max_blocks, B, T, dt = 128, 16, 32, 4, 1, torch.bfloat16
+    K, G = (16, 1) if quant else (8, 2)
+    rows = []
+    for tokens in SWEEP_TOKENS:
+        span = (tokens - 8, min(tokens + 8, max_blocks * block))
+        shape = dict(B=B, K=K, G=G, hd=hd, block=block, max_blocks=max_blocks, T=T, dt=dt,
+                     q_mult=1.0, pos_last=span)
+        if quant:
+            q, kp, vp, ke, ve, bt, pos0 = _attn_quant_case(torch, gen, dev, bits=4, wide=True,
+                                                           **shape)
+            kw = dict(k_scale_exp=ke, v_scale_exp=ve, kv_bits=4)
+            args = [(kp.clone(), vp.clone(), ke.clone(), ve.clone())
+                    for _ in range(copies_for((kp.numel() + ke.numel() * 4) * 2))]
+            kl, vl = (dequant_logical(p, e, bt, kv_bits=4).to(dt) for p, e in ((kp, ke), (vp, ve)))
+            per_block = block * K * kp.shape[-1] + 4 * K
+        else:
+            q, kp, vp, bt, pos0 = _attn_case(torch, gen, dev, int8=False, **shape)
+            kw = {}
+            args = [(kp.clone(), vp.clone(), None, None)
+                    for _ in range(copies_for(kp.numel() * kp.element_size() * 2))]
+            kl, vl = gather_logical(kp, bt), gather_logical(vp, bt)
+            per_block = block * K * hd * kp.element_size()
+        kw = dict(kw, scale=hd**-0.5)
+        vis_blocks = ((pos0.long() + T - 1) // block + 1).sum().item()
+        io = 2 * q.numel() * q.element_size() + 2 * vis_blocks * per_block + bt.numel() * 4 + B * 4
+        b_ms, b_by = bound(io, 4 * (pos0.long() + T).sum().item() * T * K * G * hd, "bfloat16")
+
+        def call(a, b, e, f):
+            ekw = dict(kw, k_scale_exp=e, v_scale_exp=f) if quant else kw
+            return aops.paged_attention(q, a, b, bt, pos0, **ekw)
+
+        ms = timed(call, args, torch)
+        row = {"phase": "kernel_sweep", "kernel": "paged_attention_quant" if quant
+               else "paged_attention", "B": B, "K": K, "G": G, "hd": hd, "block": block, "T": T,
+               "pool": "int4" if quant else "bfloat16", "q_dtype": "bfloat16",
+               "mean_cached_tokens": (pos0.float() + T).mean().item(), "ms": ms,
+               "library_ms": _sdpa_ms(torch, q, kl, vl, pos0, None), "bound_ms": b_ms,
+               "bound_by": b_by, "achieved_GBps": io / (ms * 1e-3) / 1e9}
+        del args, kl, vl
+        emit(row)
+        rows.append(row)
+    return rows
+
+
+def _sweep_entry(row):
+    return {k: row[k] for k in ("mean_cached_tokens", "ms", "library_ms", "bound_ms",
+                                "achieved_GBps")}
+
+
+def phase_attn(torch, dev):
     from repro_torch.kernels.paged_attention import ops as aops
     from repro_torch.kernels.paged_attention.ref import gather_logical, paged_attention_ref
 
@@ -443,34 +531,19 @@ def phase_attn(torch, dev):
         row["plain_ms"] = timed(lambda a, b, cc: paged_attention_ref(a, b, cc, bt, pos0, **kw),
                                 args, torch)
         # library yardstick: SDPA over the gathered (logical) cache; timed only
-        kl = gather_logical(kp, bt).to(dt) * kv_scale
-        vl = gather_logical(vp, bt).to(dt) * kv_scale
-        S = kl.shape[1]
-        kv_pos = torch.arange(S, device=dev)
-        q_pos = pos0.long()[:, None] + torch.arange(T, device=dev)[None]
-        mask = kv_pos[None, None] <= q_pos[:, :, None]
-        if c["window"] is not None:
-            mask = mask & (q_pos[:, :, None] - kv_pos[None, None] < c["window"])
-        qs = q.reshape(B, T, K * G, hd).transpose(1, 2)
-        ks = kl.transpose(1, 2).repeat_interleave(G, dim=1)
-        vs = vl.transpose(1, 2).repeat_interleave(G, dim=1)
-        nl = copies_for(ks.numel() * ks.element_size() * 2)
-        largs = [(qs, ks.clone(), vs.clone()) for _ in range(nl)]
-        row["library_ms"] = (
-            None if c["cap"] else
-            timed(lambda a, b, cc: F.scaled_dot_product_attention(a, b, cc,
-                                                                  attn_mask=mask[:, None]),
-                  largs, torch)
-        )
+        row["library_ms"] = None if c["cap"] else _sdpa_ms(
+            torch, q, gather_logical(kp, bt).to(dt) * kv_scale,
+            gather_logical(vp, bt).to(dt) * kv_scale, pos0, c["window"])
         row["bound_ms"], row["bound_by"] = b_ms, b_by
         row["achieved_GBps"] = io / (row["ms"] * 1e-3) / 1e9
-        del pools, args, largs
+        del pools, args
         emit(row)
         rows.append(row)
         if main is None:
             main = row
         if not ok:
             raise Failed(f"paged_attention case {c}: err {err}")
+    main["length_sweep"] = _attn_length_sweep(torch, dev, gen, quant=False)
     return rows, worst, main
 
 
@@ -750,7 +823,7 @@ def phase_fpmm_head(torch, dev):
 # phase 3e: paged attention over SYMOG-quantized int8 / int4 pools
 # ---------------------------------------------------------------------------
 def _attn_quant_case(torch, gen, dev, *, B, K, G, hd, block, max_blocks, T, dt, bits, q_mult,
-                     wide):
+                     wide, pos_last=(280, 320)):
     """Quantized pools over ~300 cached tokens a row.  ``wide``: random
     mantissas under per-(block, head) exponents spread over [-8, 4];
     otherwise the pools a paged write makes of unit-scale k/v (values
@@ -761,7 +834,7 @@ def _attn_quant_case(torch, gen, dev, *, B, K, G, hd, block, max_blocks, T, dt, 
     n_phys = B * max_blocks + 1
     perm = torch.randperm(n_phys - 1, generator=gen, device=dev)[: B * max_blocks] + 1
     bt = perm.reshape(B, max_blocks).to(torch.int32)
-    pos_last = torch.randint(280, 320, (B,), generator=gen, device=dev)
+    pos_last = torch.randint(*pos_last, (B,), generator=gen, device=dev)
     pos0 = (pos_last - (T - 1)).to(torch.int32)
     qmax = KV_QMAX[bits]
     pools, exps = [], []
@@ -782,7 +855,6 @@ def _attn_quant_case(torch, gen, dev, *, B, K, G, hd, block, max_blocks, T, dt, 
 
 
 def phase_attn_quant(torch, dev):
-    import torch.nn.functional as F
     from repro_torch.kernels.paged_attention import ops as aops
     from repro_torch.kernels.paged_attention.ref import dequant_logical, paged_attention_ref
 
@@ -835,34 +907,19 @@ def phase_attn_quant(torch, dev):
         row["plain_ms"] = timed(lambda a, b, cc, d, e: paged_attention_ref(
             a, b, cc, bt, pos0, k_scale_exp=d, v_scale_exp=e, **kw), args, torch)
         # library yardstick: SDPA over the gathered, dequantized cache; timed only
-        kl = dequant_logical(kp, ke, bt, kv_bits=bits).to(dt)
-        vl = dequant_logical(vp, ve, bt, kv_bits=bits).to(dt)
-        S = kl.shape[1]
-        kv_pos = torch.arange(S, device=dev)
-        q_pos = pos0.long()[:, None] + torch.arange(T, device=dev)[None]
-        mask = kv_pos[None, None] <= q_pos[:, :, None]
-        if c["window"] is not None:
-            mask = mask & (q_pos[:, :, None] - kv_pos[None, None] < c["window"])
-        qs = q.reshape(B, T, K * G, hd).transpose(1, 2)
-        ks = kl.transpose(1, 2).repeat_interleave(G, dim=1)
-        vs = vl.transpose(1, 2).repeat_interleave(G, dim=1)
-        nl = copies_for(ks.numel() * ks.element_size() * 2)
-        largs = [(qs, ks.clone(), vs.clone()) for _ in range(nl)]
-        row["library_ms"] = (
-            None if c["cap"] else
-            timed(lambda a, b, cc: F.scaled_dot_product_attention(a, b, cc,
-                                                                  attn_mask=mask[:, None]),
-                  largs, torch)
-        )
+        row["library_ms"] = None if c["cap"] else _sdpa_ms(
+            torch, q, dequant_logical(kp, ke, bt, kv_bits=bits).to(dt),
+            dequant_logical(vp, ve, bt, kv_bits=bits).to(dt), pos0, c["window"])
         row["bound_ms"], row["bound_by"] = b_ms, b_by
         row["achieved_GBps"] = io / (row["ms"] * 1e-3) / 1e9
-        del args, largs
+        del args
         emit(row)
         rows.append(row)
         if main is None:
             main = row
         if not ok:
             raise Failed(f"paged_attention_quant case {c}: err {err}")
+    main["length_sweep"] = _attn_length_sweep(torch, dev, gen, quant=True)
     return rows, worst, main
 
 
@@ -976,6 +1033,38 @@ def phase_symog(torch, dev, cfg):
 # ---------------------------------------------------------------------------
 # phase 4: full-width parity, kernels vs plain paths
 # ---------------------------------------------------------------------------
+# amaxes at which the port's SYMOG exponent once differed from the JAX
+# package's jitted one (tests/test_torch_kv_exponent.py), by qmax
+KV_EXP_AMAXES = {127: [63.5, 127.0, 254.0, 508.0, 65024.0, 130048.0], 7: [3.5]}
+
+
+def _kv_exponent_card_vs_cpu(torch, dev):
+    """The exponents and words a quantized pool's writes make on the card
+    against the CPU's (which tests/test_torch_kv_exponent.py holds to jitted
+    JAX), array_equal: at the amaxes above, qmax·2^k for k in -12..12, every
+    step point of the exponent, and the fp32 neighbours of each; and the
+    arithmetic behind the step points (``jitted_exponent``) on those amaxes."""
+    from repro_torch.models.attention import block_scale_exp, quantize_fixed
+    from repro_torch.models.kv_exponent import exponent_thresholds, jitted_exponent
+
+    out = {}
+    for qmax in (127, 7):
+        vals = torch.tensor(KV_EXP_AMAXES[qmax] + [qmax * 2.0**k for k in range(-12, 13)])
+        vals = torch.cat([vals, exponent_thresholds(qmax)])
+        a = torch.cat([vals, torch.nextafter(vals, torch.zeros(())),
+                       torch.nextafter(vals, vals * 2)])
+        x = a[:, None] * torch.tensor([1.0, -0.5, 0.25])  # entries whose amax is a
+        e_cpu, e_dev = block_scale_exp(x, qmax), block_scale_exp(x.to(dev), qmax).cpu()
+        w_cpu = quantize_fixed(x, e_cpu, qmax)
+        w_dev = quantize_fixed(x.to(dev), e_dev.to(dev), qmax).cpu()
+        j_cpu, j_dev = jitted_exponent(a, qmax), jitted_exponent(a.to(dev), qmax).cpu()
+        out[qmax] = {"amaxes": int(a.numel()), "exponents_equal": torch.equal(e_dev, e_cpu),
+                     "words_equal": torch.equal(w_dev, w_cpu),
+                     "arithmetic_equal": torch.equal(j_dev, j_cpu),
+                     "arithmetic_equals_steps": torch.equal(j_cpu, e_cpu)}
+    return out
+
+
 def phase_parity(torch, dev, layers: int, arch: str = "internlm2-1.8b",
                  kv_cache_dtype: str = "bf16", build=None, plain_packed: str = "unpack"):
     """Logits through the kernels against the plain paths.  With a quantized
@@ -1087,6 +1176,7 @@ def phase_parity(torch, dev, layers: int, arch: str = "internlm2-1.8b",
     # its pool (quantized or not) at every decode step of every layer, the
     # plain route never
     quant = kv_cache_dtype != "bf16"
+    exponents = _kv_exponent_card_vs_cpu(torch, dev) if quant else None
     want = {"kernels": {names[0]: 0 if quant else layers * steps,
                         names[1]: layers * steps if quant else 0},
             "plain": {names[0]: 0, names[1]: 0}}
@@ -1098,8 +1188,11 @@ def phase_parity(torch, dev, layers: int, arch: str = "internlm2-1.8b",
            "expected_attention_launches": want,
            "admission_pool_equal_cpu": admission_equal, "plain_packed_backend": plain_pb,
            "pool_words_differing_after_decode": words_differing,
+           "kv_exponent_card_equal_cpu": exponents,
            "pass": (finite and err <= PARITY_ATOL and agree == 1.0 and attn_launches == want
-                    and all(admission_equal.values()))}
+                    and all(admission_equal.values())
+                    and (exponents is None or all(v for e in exponents.values()
+                                                  for k, v in e.items() if k != "amaxes")))}
     emit(row)
     if not row["pass"]:
         raise Failed(f"parity {arch} {kv_cache_dtype}: {row}")
@@ -2141,6 +2234,7 @@ def main() -> int:
          "bound_ms": at_main["bound_ms"], "bound_by": at_main["bound_by"],
          "library_ms": at_main["library_ms"],
          "work": "B=4 K=8 G=2 hd=128 block=16 T=1 bf16, ~300 cached tokens a row",
+         "length_sweep": [_sweep_entry(r) for r in at_main["length_sweep"]],
          "pass": all(r["pass"] for r in attn_rows)},
         {"name": "symog_update", "route": "cuda",
          "source": "src/repro_torch/csrc/symog_update.cu",
@@ -2171,6 +2265,7 @@ def main() -> int:
          "bound_ms": aq_main["bound_ms"], "bound_by": aq_main["bound_by"],
          "library_ms": aq_main["library_ms"],
          "work": "int4 pool, B=4 K=16 G=1 hd=128 block=16 T=1 bf16, ~300 cached tokens a row",
+         "length_sweep": [_sweep_entry(r) for r in aq_main["length_sweep"]],
          "pass": all(r["pass"] for r in aq_rows)},
         {"name": "paged_attention_mla", "route": "cuda",
          "source": "src/repro_torch/csrc/paged_attention.cu",

@@ -14,297 +14,516 @@
 //   mask kv_pos <= q_pos && q_pos - kv_pos < window (2^30 = no window)
 //   s = scale * q.k, softcap tanh(s/cap)*cap if cap > 0, masked logits -1e30,
 //   p zeroed under the mask, out = acc / (l == 0 ? 1 : l).
+//   hd a multiple of 8, at most 256.
 //
 // On the TPU the grid walks the row's blocks j in order and carries
-// (m, l, acc) in scratch across grid steps.  CUDA blocks do not carry state,
-// so the walk over `bt[b, j]` is a loop INSIDE each thread block.
+// (m, l, acc) in scratch across grid steps.  Here every warp walks its own
+// tiles (a KV block, or 16 tokens of a longer one) with its own (m, l, acc)
+// in registers, and the partials are merged once at the end.
 //
-// What bounds it on the H100: the bytes of the KV blocks a row can see
-// (decode: 2 x tokens x hd x 2 bytes per (row, KV head) in bf16); the
-// arithmetic is ~1 FMA per loaded element.  Design:
-//   * one thread block per (b, kv_head, row tile of 16 query rows, KV split);
-//     all G query heads of a KV head share each K/V tile loaded to shared
-//     memory, so the pool is read once per KV head, not once per query head;
-//   * decode has few (b, kv_head) pairs (B=4, K=8 -> 32), far fewer than the
-//     132 SMs, so the row's blocks are split over grid.y; each split runs the
-//     online softmax over its range and a second small kernel merges the
-//     (m, l, acc) partials: M = max m_s, L = sum l_s e^(m_s-M),
-//     O = sum acc_s e^(m_s-M) / L — the same recurrence, regrouped;
-//   * blocks past the tile's last query position, and blocks wholly outside
-//     the window, are skipped: their masked logits would contribute p = 0
-//     and alpha = 1 exactly, so skipping changes no bit of the math, and
-//     the work follows the row's real length instead of max_blocks;
-//   * the K/V tile is read with 16-byte loads, several per thread issued
-//     before any is used, so a tile costs about one memory round trip;
-//   * q.k dot products: one warp per (row, key) pair, lanes over hd, shuffle
-//     reduction; p.v: each thread owns hd columns of the accumulator.
-// q, k and v are converted to fp32 on load (int4 words unpacked there, each
-// source scaled by its own 2^e: K and V blocks carry different exponents);
-// all math is fp32 (expf, tanhf).
+// What bounds it on the H100: the bytes of the KV tiles a row can see
+// (decode: 2 x tokens x hd x 2 bytes per (row, KV head) in bf16, a quarter
+// of that in int4), ~1 FMA per loaded element.  At decode that is 0.8-5 MB
+// a call, 0.2-1.5 us at 3.35 TB/s, so what sets the time is the chain of
+// round trips (pos0 -> block table -> KV tile -> compute -> merge) and how
+// many bytes are in flight at once, not the bandwidth.  Design:
+//   * grid (split, b * K + kh, row tile); the splits of one (b, kh, row tile)
+//     form a thread-block cluster of 1, 2, 4 or 8 (the wrapper's `_n_split`,
+//     from B * K and the row tiles, with max_blocks only as an upper bound);
+//   * each thread block reads pos0[b] and derives the row tile's visible tile
+//     range on the device: tiles past the tile's last query position, and
+//     tiles wholly outside every row's window, are skipped (their masked
+//     logits would contribute p = 0 and alpha = 1 exactly, so skipping
+//     changes no bit of the math); the range, not max_blocks, is cut into
+//     split x 4 contiguous pieces, one per warp, and a warp with no tile does
+//     no loads;
+//   * a warp copies its tiles' raw pool words (f32, bf16, int8 or int4 bytes)
+//     into its own 2-stage shared-memory ring with 16-byte `cp.async` (4-byte
+//     copies where a row is not a multiple of 16 bytes), the next tile in
+//     flight while it computes on this one; the block-table entries of up to
+//     32 tiles are read at once, one per lane;
+//   * the 1, 2 or 4 query rows of a row tile stay in registers, lanes over
+//     the head dimension (4 or 8 dims a lane); words are dequantized in
+//     registers (bf16: a shift; int8 / int4: `prmt` / `lop3` into the
+//     mantissa of 2^23 and one subtract) and the tile's 2^e (or kv_scale)
+//     is folded into the logit and into p, both exact powers of two;
+//   * q.k: each lane forms its partial dot products for the tile's 16 tokens,
+//     and a transposing butterfly (8 + 4 + 2 + 1 + 1 shuffles a row) leaves
+//     token lane/2's full logit in lanes 2t and 2t + 1; the online softmax is
+//     warp-parallel (shuffle max and sum over the 16 tokens); p . v takes p
+//     of token t from lane 2t by shuffle;
+//   * the merge: each warp's (m, l, acc) into shared memory, the 4 warps
+//     merged in warp order, then the cluster's thread blocks merged in rank
+//     order through distributed shared memory (each rank finishes a slice of
+//     the outputs), M = max m_s, L = sum l_s e^(m_s-M), O = sum acc_s
+//     e^(m_s-M) / L: one launch, no global workspace, no atomics, the same
+//     bits on every call.
+// All math is fp32 (expf, tanhf); the output is rounded to q's dtype once.
+// Tensor cores are not used: at decode a KV head has 1-2 query rows (up to
+// 8 in verify), far below an mma tile's 16.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
 
 namespace {
 
-constexpr int kRows = 16;      // query rows per thread block
-constexpr int kThreads = 128;  // 4 warps
-constexpr int kWarps = kThreads / 32;
 constexpr float kNegInf = -1e30f;
 constexpr int kQ8 = 3;  // pool codes beyond common.cuh's: int8 words + exponents
 constexpr int kQ4 = 4;  // int4 split-halves words + exponents
+constexpr unsigned kFull = 0xffffffffu;
 
-struct Params {
+constexpr int kTile = 16;          // KV tokens a warp takes at a time
+constexpr int kWarps = 4;          // warps per thread block, each with its own tiles
+constexpr int kThreads = 32 * kWarps;
+constexpr int kMaxSplit = 8;       // thread blocks per cluster (the portable maximum)
+
+struct GqaParams {
   const int* bt;
   const int* pos0;
   const int* k_exp;  // (n_blocks, K) exponents of quantized pools, else null
   const int* v_exp;
-  float* ws_m;
-  float* ws_l;
-  float* ws_acc;
-  int B, T, K, TG, G, hd, hdw, block, max_blocks, window, n_split, chunk;  // hdw: words/row
-  int vec;  // 16-byte loads allowed (aligned bases, hd a multiple of the vector)
+  int B, T, K, G, TG, hd, block, max_blocks, window, n_split;
+  int tpb;        // tiles per block: ceil(block / kTile)
+  int row_bytes;  // bytes of one token's words of one KV head
+  int pitch;      // row_bytes rounded up to 16: a row of the shared-memory ring
+  int chunk;      // bytes per copy into the ring: 16 or 4 (cp.async), 1 (plain loads)
+  int stages;     // ring stages per warp (1 or 2)
   float scale, cap, kv_scale;
 };
 
-constexpr int kLoads = 4;  // 16-byte loads in flight per thread and source
+// The head dimension a lane's slot i stands for.  int4 rows: the lane's
+// DPL/2 words give DPL/2 low-nibble dims and, hd/2 further on, DPL/2
+// high-nibble ones; other pools: DPL consecutive dims.
+template <int MODE, int DPL>
+__device__ __forceinline__ int dim_of(int lane, int i, int hd) {
+  if (MODE == 4) return i < DPL / 2 ? lane * (DPL / 2) + i : hd / 2 + lane * (DPL / 2) + i - DPL / 2;
+  return lane * DPL + i;
+}
 
-// dst_a/b[r*hd + d] = src_a/b[row(r) + d] * scale_a/b for r < rows, d < hd, where
-// row(r) = ((r0 + r) / G) * stride + ((r0 + r) % G) * hd: consecutive rows
-// within a group of G, groups `stride` apart (G = 1: plain strided rows).
-// Every thread issues up to kLoads 16-byte loads per source before it
-// converts and stores any of them (a load followed at once by its use
-// leaves one load in flight per thread and makes the tile latency-bound).
-template <typename T>
-__device__ __forceinline__ void load_rows(const T* __restrict__ a, const T* __restrict__ b,
-                                          int r0, int G, size_t stride, int rows, int hd,
-                                          float* dst_a, float* dst_b, float scale_a,
-                                          float scale_b, int vec) {
-  constexpr int E = 16 / sizeof(T);
-  const int tid = threadIdx.x;
-  if (vec) {
-    const int vpr = hd / E, nv = rows * vpr;
-    for (int base = 0; base < nv; base += kLoads * kThreads) {
-      uint4 ra[kLoads], rb[kLoads];
+// A lane's DPL values of one ring row, in word units (unscaled).
+template <int MODE, int DPL>
+__device__ __forceinline__ void row_values(const uint8_t* row, int lane, float (&v)[DPL]) {
+  if constexpr (MODE == 0) {
+    const float4* p = reinterpret_cast<const float4*>(row) + lane * (DPL / 4);
 #pragma unroll
-      for (int u = 0; u < kLoads; ++u) {
-        const int i = base + u * kThreads + tid;
-        if (i < nv) {
-          const int r = r0 + i / vpr;
-          const size_t off = static_cast<size_t>(r / G) * stride + (r % G) * hd + (i % vpr) * E;
-          ra[u] = __ldg(reinterpret_cast<const uint4*>(a + off));
-          if (b) rb[u] = __ldg(reinterpret_cast<const uint4*>(b + off));
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kLoads; ++u) {
-        const int i = base + u * kThreads + tid;
-        if (i < nv) {
-          const int o = (i / vpr) * hd + (i % vpr) * E;
-          float f[E];
-          repro::unpack16<T>(ra[u], f);
-#pragma unroll
-          for (int e = 0; e < E; ++e) dst_a[o + e] = f[e] * scale_a;
-          if (b) {
-            repro::unpack16<T>(rb[u], f);
-#pragma unroll
-            for (int e = 0; e < E; ++e) dst_b[o + e] = f[e] * scale_b;
-          }
-        }
-      }
+    for (int j = 0; j < DPL / 4; ++j) {
+      const float4 x = p[j];
+      v[4 * j] = x.x; v[4 * j + 1] = x.y; v[4 * j + 2] = x.z; v[4 * j + 3] = x.w;
     }
-    return;
-  }
-  for (int i = tid; i < rows * hd; i += kThreads) {
-    const int r = i / hd, d = i - r * hd, rr = r0 + r;
-    const size_t off = static_cast<size_t>(rr / G) * stride + (rr % G) * hd + d;
-    dst_a[i] = repro::to_f32(a[off]) * scale_a;
-    if (b) dst_b[i] = repro::to_f32(b[off]) * scale_b;
-  }
-}
-
-// the two sign-extended nibbles of an int4 split-halves word
-__device__ __forceinline__ float lo_nibble(int8_t w) {
-  return static_cast<float>(static_cast<int>((static_cast<uint8_t>(w) & 15u) ^ 8u) - 8);
-}
-__device__ __forceinline__ float hi_nibble(int8_t w) {
-  return static_cast<float>(static_cast<int>((static_cast<uint8_t>(w) >> 4) ^ 8u) - 8);
-}
-
-// load_rows for int4 split-halves pools (G = 1, r0 = 0): row r holds hd/2
-// words, `stride` words apart; word c of row r gives lanes c and c + hd/2.
-__device__ __forceinline__ void load_rows_int4(const int8_t* __restrict__ a,
-                                               const int8_t* __restrict__ b, size_t stride,
-                                               int rows, int hd, float* dst_a, float* dst_b,
-                                               float scale_a, float scale_b, int vec) {
-  const int hw = hd / 2, tid = threadIdx.x;
-  if (vec) {  // 16 words (32 lanes) per 16-byte load, kLoads loads in flight
-    const int vpr = hw / 16, nv = rows * vpr;
-    for (int base = 0; base < nv; base += kLoads * kThreads) {
-      uint4 ra[kLoads], rb[kLoads];
-#pragma unroll
-      for (int u = 0; u < kLoads; ++u) {
-        const int i = base + u * kThreads + tid;
-        if (i < nv) {
-          const size_t off = static_cast<size_t>(i / vpr) * stride + (i % vpr) * 16;
-          ra[u] = __ldg(reinterpret_cast<const uint4*>(a + off));
-          rb[u] = __ldg(reinterpret_cast<const uint4*>(b + off));
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kLoads; ++u) {
-        const int i = base + u * kThreads + tid;
-        if (i < nv) {
-          const int o = (i / vpr) * hd + (i % vpr) * 16;
-          const int8_t* wa = reinterpret_cast<const int8_t*>(&ra[u]);
-          const int8_t* wb = reinterpret_cast<const int8_t*>(&rb[u]);
-#pragma unroll
-          for (int e = 0; e < 16; ++e) {
-            dst_a[o + e] = lo_nibble(wa[e]) * scale_a;
-            dst_a[o + hw + e] = hi_nibble(wa[e]) * scale_a;
-            dst_b[o + e] = lo_nibble(wb[e]) * scale_b;
-            dst_b[o + hw + e] = hi_nibble(wb[e]) * scale_b;
-          }
-        }
-      }
+  } else if constexpr (MODE == 1) {
+    uint32_t w[DPL / 2];
+    if constexpr (DPL == 4) {
+      const uint2 x = reinterpret_cast<const uint2*>(row)[lane];
+      w[0] = x.x; w[1] = x.y;
+    } else {
+      const uint4 x = reinterpret_cast<const uint4*>(row)[lane];
+      w[0] = x.x; w[1] = x.y; w[2] = x.z; w[3] = x.w;
     }
-    return;
-  }
-  for (int i = tid; i < rows * hw; i += kThreads) {
-    const int r = i / hw, c = i - r * hw;
-    const size_t off = static_cast<size_t>(r) * stride + c;
-    dst_a[r * hd + c] = lo_nibble(a[off]) * scale_a;
-    dst_a[r * hd + hw + c] = hi_nibble(a[off]) * scale_a;
-    dst_b[r * hd + c] = lo_nibble(b[off]) * scale_b;
-    dst_b[r * hd + hw + c] = hi_nibble(b[off]) * scale_b;
+#pragma unroll
+    for (int j = 0; j < DPL / 2; ++j) {  // bf16 -> f32: the bits in the high half
+      v[2 * j] = __uint_as_float(w[j] << 16);
+      v[2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
+    }
+  } else if constexpr (MODE == 4) {
+    const uint32_t w = DPL == 4 ? reinterpret_cast<const uint16_t*>(row)[lane]
+                                : reinterpret_cast<const uint32_t*>(row)[lane];
+    const uint32_t t = w ^ 0x88888888u;  // each nibble x -> x + 8 in [0, 15]
+#pragma unroll
+    for (int j = 0; j < DPL / 2; ++j) {  // 2^23 + (x + 8), less 2^23 + 8: x exactly
+      v[j] = __uint_as_float(0x4b000000u | ((t >> (8 * j)) & 15u)) - 8388616.f;
+      v[DPL / 2 + j] = __uint_as_float(0x4b000000u | ((t >> (8 * j + 4)) & 15u)) - 8388616.f;
+    }
+  } else {  // int8 words
+    const uint32_t* p = reinterpret_cast<const uint32_t*>(row) + lane * (DPL / 4);
+#pragma unroll
+    for (int j = 0; j < DPL / 4; ++j) {
+      const uint32_t t = p[j] ^ 0x80808080u;  // each byte x -> x + 128
+#pragma unroll
+      for (int i = 0; i < 4; ++i)  // byte i into the low byte of 2^23's bits
+        v[4 * j + i] = __uint_as_float(__byte_perm(t, 0x4b000000u, 0x7440 + i)) - 8388736.f;
+    }
   }
 }
 
-// QMODE: 0 float / KV_F pools (static kv_scale); 8 int8 words and 4 int4
-// words, each (block, head) scaled by 2^k_exp / 2^v_exp
-template <typename QT, typename KVT, int QMODE>
+__device__ __forceinline__ void cp_async(void* dst, const void* src, int bytes) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// v[r][0..15], one value per token in every lane -> lanes 2t and 2t + 1 hold
+// token t's sum over the 32 lanes.  Each step keeps half of the values (the
+// half the lane's bit selects) and adds the partner lane's copy of them.
+template <int RT>
+__device__ __forceinline__ void reduce_tokens(float (&v)[RT][kTile], float (&s)[RT], int lane) {
+#pragma unroll
+  for (int r = 0; r < RT; ++r) {
+    float a[8], b[4], c[2];
+    bool up = lane & 16;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float send = up ? v[r][i] : v[r][8 + i];
+      a[i] = (up ? v[r][8 + i] : v[r][i]) + __shfl_xor_sync(kFull, send, 16);
+    }
+    up = lane & 8;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float send = up ? a[i] : a[4 + i];
+      b[i] = (up ? a[4 + i] : a[i]) + __shfl_xor_sync(kFull, send, 8);
+    }
+    up = lane & 4;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float send = up ? b[i] : b[2 + i];
+      c[i] = (up ? b[2 + i] : b[i]) + __shfl_xor_sync(kFull, send, 4);
+    }
+    up = lane & 2;
+    const float d = (up ? c[1] : c[0]) + __shfl_xor_sync(kFull, up ? c[0] : c[1], 2);
+    s[r] = d + __shfl_xor_sync(kFull, d, 1);
+  }
+}
+
+// max / sum over the 16 tokens (lanes 2t and 2t + 1 hold the same value)
+__device__ __forceinline__ float max16(float x) {
+#pragma unroll
+  for (int o = 16; o > 1; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
+  return x;
+}
+__device__ __forceinline__ float sum16(float x) {
+#pragma unroll
+  for (int o = 16; o > 1; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
+  return x;
+}
+
+// QT: query / output type; MODE: the pool code (0 f32, 1 bf16, 2 int8 KV_F x
+// kv_scale, 3 int8 words and 4 int4 words x 2^e per (block, head)); RT: query
+// rows per thread block (1, 2 or 4); DPL: head dims a lane holds (4: hd <= 128,
+// 8: hd <= 256)
+template <typename QT, int MODE, int RT, int DPL>
 __global__ void __launch_bounds__(kThreads)
-attn_partial(const QT* __restrict__ q, const KVT* __restrict__ kp, const KVT* __restrict__ vp,
-             QT* __restrict__ out, Params p) {
-  extern __shared__ float smem[];
-  const int hd = p.hd, blk = p.block;
-  float* q_s = smem;                    // [kRows][hd]
-  float* k_s = q_s + kRows * hd;        // [blk][hd]
-  float* v_s = k_s + blk * hd;          // [blk][hd]
-  float* acc_s = v_s + blk * hd;        // [kRows][hd]
-  float* p_s = acc_s + kRows * hd;      // [kRows][blk]
-  float* m_s = p_s + kRows * blk;       // [kRows]
-  float* l_s = m_s + kRows;             // [kRows]
-  float* a_s = l_s + kRows;             // [kRows] alpha
+gqa_decode(const QT* __restrict__ q, const uint8_t* __restrict__ kp,
+           const uint8_t* __restrict__ vp, QT* __restrict__ out, GqaParams p) {
+  extern __shared__ __align__(16) uint8_t gqa_smem[];
+  namespace cg = cooperative_groups;
+  const int hd = p.hd, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int bk = blockIdx.y, b = bk / p.K, kh = bk - b * p.K;
+  const int row0 = blockIdx.z * RT, nrows = min(RT, p.TG - row0);
+  const int split = blockIdx.x;  // the cluster spans grid.x: its rank
+  const bool lane_ok = lane * DPL < hd;
 
-  const int bk = blockIdx.x;            // b * K + kh
-  const int b = bk / p.K, kh = bk % p.K;
-  const int split = blockIdx.y;
-  const int row0 = blockIdx.z * kRows;
-  const int nrows = min(kRows, p.TG - row0);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-
-  // q[b, t, kh, g, :] for rows row0.. (t = r / G, g = r % G); out alike
+  // the tile's query rows (row r = t * G + g) in registers, lanes over dims
+  const size_t q_stride = static_cast<size_t>(p.K) * p.G * hd;  // one t further
   const size_t q_base = (static_cast<size_t>(b) * p.T * p.K + kh) * p.G * hd;
-  const size_t q_stride = static_cast<size_t>(p.K) * p.G * hd;
-  load_rows<QT>(q + q_base, nullptr, row0, p.G, q_stride, nrows, hd, q_s, nullptr, 1.f, 1.f,
-                p.vec);
-  for (int i = tid; i < nrows * hd; i += kThreads) acc_s[i] = 0.f;
-  if (tid < kRows) { m_s[tid] = kNegInf; l_s[tid] = 0.f; }
-
-  const int pos0 = p.pos0[b];
-  const int qpos_lo = pos0 + row0 / p.G;
-  const int qpos_hi = pos0 + (row0 + nrows - 1) / p.G;
-  const int j_begin = split * p.chunk;
-  const int j_end = min(p.max_blocks, j_begin + p.chunk);
-  __syncthreads();
-
-  for (int j = j_begin; j < j_end; ++j) {
-    const int kv0 = j * blk;
-    if (kv0 > qpos_hi) break;                        // causal: nothing visible from here on
-    if (qpos_lo - (kv0 + blk - 1) >= p.window) continue;  // wholly outside every row's window
-    const int phys = p.bt[b * p.max_blocks + j];
-    // K/V tile: token t of physical block `phys`, head kh (rows K*hdw words apart)
-    const size_t tile = (static_cast<size_t>(phys) * blk * p.K + kh) * p.hdw;
-    const size_t kv_stride = static_cast<size_t>(p.K) * p.hdw;
-    float sk = p.kv_scale, sv = p.kv_scale;
-    if (QMODE != 0) {  // this (block, head)'s exponents, exact powers of two
-      const size_t ei = static_cast<size_t>(phys) * p.K + kh;
-      sk = ldexpf(1.f, p.k_exp[ei]);
-      sv = ldexpf(1.f, p.v_exp[ei]);
-    }
-    if (QMODE == 4)
-      load_rows_int4(reinterpret_cast<const int8_t*>(kp) + tile,
-                     reinterpret_cast<const int8_t*>(vp) + tile, kv_stride, blk, hd, k_s, v_s,
-                     sk, sv, p.vec);
-    else
-      load_rows<KVT>(kp + tile, vp + tile, 0, 1, kv_stride, blk, hd, k_s, v_s, sk, sv, p.vec);
-    __syncthreads();
-    // s = scale * q.k (+ softcap), one warp per (row, token) pair
-    for (int pr = warp; pr < nrows * blk; pr += kWarps) {
-      const int r = pr / blk, t = pr - r * blk;
-      float s = 0.f;
-      for (int d = lane; d < hd; d += 32) s = fmaf(q_s[r * hd + d], k_s[t * hd + d], s);
+  float qv[RT][DPL];
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-      if (lane == 0) {
-        s *= p.scale;
-        if (p.cap > 0.f) s = tanhf(s / p.cap) * p.cap;
-        p_s[r * blk + t] = s;
-      }
-    }
-    __syncthreads();
-    // online-softmax update, one thread per row
-    if (tid < nrows) {
-      const int r = tid;
-      const int qpos = pos0 + (row0 + r) / p.G;
-      float mx = kNegInf;
-      for (int t = 0; t < blk; ++t) {
-        const int kvp = kv0 + t;
-        const bool ok = kvp <= qpos && qpos - kvp < p.window;
-        const float s = ok ? p_s[r * blk + t] : kNegInf;
-        p_s[r * blk + t] = s;
-        mx = fmaxf(mx, s);
-      }
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, mx);
-      const float alpha = expf(m_prev - m_new);
-      float sum = 0.f;
-      for (int t = 0; t < blk; ++t) {
-        const int kvp = kv0 + t;
-        const bool ok = kvp <= qpos && qpos - kvp < p.window;
-        const float e = ok ? expf(p_s[r * blk + t] - m_new) : 0.f;
-        p_s[r * blk + t] = e;
-        sum += e;
-      }
-      m_s[r] = m_new;
-      l_s[r] = l_s[r] * alpha + sum;
-      a_s[r] = alpha;
-    }
-    __syncthreads();
-    // acc = alpha * acc + p @ v; each thread owns columns d
-    for (int d = tid; d < hd; d += kThreads) {
-      for (int r = 0; r < nrows; ++r) {
-        float a = acc_s[r * hd + d] * a_s[r];
-        for (int t = 0; t < blk; ++t) a = fmaf(p_s[r * blk + t], v_s[t * hd + d], a);
-        acc_s[r * hd + d] = a;
-      }
-    }
-    __syncthreads();
+  for (int r = 0; r < RT; ++r) {
+    const int rr = row0 + min(r, nrows - 1);
+    const QT* qr = q + q_base + (rr / p.G) * q_stride + (rr % p.G) * hd;
+#pragma unroll
+    for (int i = 0; i < DPL; ++i)
+      qv[r][i] = lane_ok && r < nrows ? repro::to_f32(qr[dim_of<MODE, DPL>(lane, i, hd)]) : 0.f;
   }
 
-  if (p.n_split == 1) {  // finish in place: out = acc / l
-    for (int i = tid; i < nrows * hd; i += kThreads) {
-      const int r = i / hd, rr = row0 + r;
-      const float l = l_s[r];
-      out[q_base + (rr / p.G) * q_stride + (rr % p.G) * hd + (i - r * hd)] =
-          repro::from_f32<QT>(acc_s[i] / (l == 0.f ? 1.f : l));
-    }
-    return;
+  // the row tile's visible tiles, from pos0 on the device
+  const int pos0 = p.pos0[b];
+  int qpos[RT];
+#pragma unroll
+  for (int r = 0; r < RT; ++r) qpos[r] = pos0 + (row0 + min(r, nrows - 1)) / p.G;
+  const int n_tok = p.max_blocks * p.block;
+  const int hi_tok = min(qpos[RT - 1], n_tok - 1);  // last key any row may see
+  const int lo_tok = max(0, qpos[0] - p.window + 1);  // first key inside any row's window
+  int u_lo = 0, u_hi = 0;  // [u_lo, u_hi): tile u is block u / tpb, tokens (u % tpb) * 16..
+  if (lo_tok <= hi_tok) {
+    u_lo = (lo_tok / p.block) * p.tpb + (lo_tok % p.block) / kTile;
+    u_hi = (hi_tok / p.block) * p.tpb + (hi_tok % p.block) / kTile + 1;
   }
-  // split partials: (bk, split, row) for m/l and (bk, split, row, d) for acc
-  const size_t prow = (static_cast<size_t>(bk) * p.n_split + split) * p.TG + row0;
-  for (int i = tid; i < nrows * hd; i += kThreads) p.ws_acc[prow * hd + i] = acc_s[i];
-  if (tid < nrows) { p.ws_m[prow + tid] = m_s[tid]; p.ws_l[prow + tid] = l_s[tid]; }
+  const int n_workers = p.n_split * kWarps, w = split * kWarps + warp, n = u_hi - u_lo;
+  const int u0 = u_lo + static_cast<int>(static_cast<long long>(w) * n / n_workers);
+  const int u1 = u_lo + static_cast<int>(static_cast<long long>(w + 1) * n / n_workers);
+
+  // this warp's ring: stages x (K rows, V rows, the two exponents)
+  const int stage_bytes = 2 * kTile * p.pitch + 16;
+  uint8_t* ring = gqa_smem + static_cast<size_t>(warp) * p.stages * stage_bytes;
+  const size_t g_row = static_cast<size_t>(p.K) * p.row_bytes;  // one token further in a pool
+  int bt_base = u0 - 32, bt_lane = 0;  // lane l holds the block id of tile bt_base + l
+  auto issue = [&](int u, int s) {
+    if (u - bt_base >= 32) {
+      bt_base = u;
+      const int uu = u + lane;
+      bt_lane = uu < u1 ? p.bt[static_cast<size_t>(b) * p.max_blocks + uu / p.tpb] : 0;
+    }
+    const int phys = __shfl_sync(kFull, bt_lane, u - bt_base);
+    const int j = u / p.tpb, tok0 = (u - j * p.tpb) * kTile, ntok = min(kTile, p.block - tok0);
+    const size_t off = ((static_cast<size_t>(phys) * p.block + tok0) * p.K + kh) * p.row_bytes;
+    uint8_t* dk = ring + s * stage_bytes;
+    uint8_t* dv = dk + kTile * p.pitch;
+    const int per_row = p.row_bytes / p.chunk, n_chunks = ntok * per_row;
+    for (int c = lane; c < n_chunks; c += 32) {
+      const int t = c / per_row, o = (c - t * per_row) * p.chunk;
+      const size_t src = off + t * g_row + o;
+      if (p.chunk == 1) {
+        dk[t * p.pitch + o] = kp[src];
+        dv[t * p.pitch + o] = vp[src];
+      } else {
+        cp_async(dk + t * p.pitch + o, kp + src, p.chunk);
+        cp_async(dv + t * p.pitch + o, vp + src, p.chunk);
+      }
+    }
+    if (MODE >= kQ8 && lane == 0) {
+      int* de = reinterpret_cast<int*>(dv + kTile * p.pitch);
+      const size_t ei = static_cast<size_t>(phys) * p.K + kh;
+      cp_async(de, p.k_exp + ei, 4);
+      cp_async(de + 1, p.v_exp + ei, 4);
+    }
+  };
+
+  float m[RT], l[RT], acc[RT][DPL];
+#pragma unroll
+  for (int r = 0; r < RT; ++r) {
+    m[r] = kNegInf;
+    l[r] = 0.f;
+#pragma unroll
+    for (int i = 0; i < DPL; ++i) acc[r][i] = 0.f;
+  }
+  for (int k = 0; k + 1 < p.stages; ++k) {
+    if (u0 + k < u1) issue(u0 + k, k);
+    cp_async_commit();
+  }
+  for (int u = u0; u < u1; ++u) {
+    const int i = u - u0, s = i % p.stages;
+    if (u + p.stages - 1 < u1) issue(u + p.stages - 1, (i + p.stages - 1) % p.stages);
+    cp_async_commit();
+    if (p.stages == 2) cp_async_wait<1>(); else cp_async_wait<0>();
+    __syncwarp();
+    const uint8_t* ks = ring + s * stage_bytes;
+    const uint8_t* vs = ks + kTile * p.pitch;
+    const int j = u / p.tpb, tok0 = (u - j * p.tpb) * kTile, ntok = min(kTile, p.block - tok0);
+    const int kv0 = j * p.block + tok0;
+    float sk = p.kv_scale, sv = p.kv_scale;
+    if (MODE >= kQ8) {  // this (block, head)'s exponents, exact powers of two
+      const int* e = reinterpret_cast<const int*>(vs + kTile * p.pitch);
+      sk = ldexpf(1.f, e[0]);
+      sv = ldexpf(1.f, e[1]);
+    }
+    // q.k: partial dot products over the lane's dims, then the butterfly
+    float part[RT][kTile];
+#pragma unroll
+    for (int t = 0; t < kTile; ++t) {
+      float kv[DPL];
+      if (t < ntok && lane_ok) {
+        row_values<MODE, DPL>(ks + t * p.pitch, lane, kv);
+      } else {
+#pragma unroll
+        for (int d = 0; d < DPL; ++d) kv[d] = 0.f;
+      }
+#pragma unroll
+      for (int r = 0; r < RT; ++r) {
+        float a = qv[r][0] * kv[0];
+#pragma unroll
+        for (int d = 1; d < DPL; ++d) a = fmaf(qv[r][d], kv[d], a);
+        part[r][t] = a;
+      }
+    }
+    float sc[RT];
+    reduce_tokens<RT>(part, sc, lane);
+    // online softmax, lanes over tokens (token lane / 2)
+    const int t = lane >> 1, kvp = kv0 + t;
+    float pv[RT];
+#pragma unroll
+    for (int r = 0; r < RT; ++r) {
+      const bool ok = t < ntok && kvp <= qpos[r] && qpos[r] - kvp < p.window;
+      float x = sc[r] * (p.scale * sk);
+      if (p.cap > 0.f) x = tanhf(x / p.cap) * p.cap;
+      x = ok ? x : kNegInf;
+      const float m_new = fmaxf(m[r], max16(x));
+      const float alpha = expf(m[r] - m_new);
+      const float e = ok ? expf(x - m_new) : 0.f;
+      l[r] = l[r] * alpha + sum16(e);
+      m[r] = m_new;
+      pv[r] = e * sv;
+#pragma unroll
+      for (int d = 0; d < DPL; ++d) acc[r][d] *= alpha;
+    }
+    // p . v: token t's p from lane 2t
+#pragma unroll
+    for (int tt = 0; tt < kTile; ++tt) {
+      if (tt < ntok) {
+        float vv[DPL];
+        if (lane_ok) {
+          row_values<MODE, DPL>(vs + tt * p.pitch, lane, vv);
+        } else {
+#pragma unroll
+          for (int d = 0; d < DPL; ++d) vv[d] = 0.f;
+        }
+#pragma unroll
+        for (int r = 0; r < RT; ++r) {
+          const float pt = __shfl_sync(kFull, pv[r], 2 * tt);
+#pragma unroll
+          for (int d = 0; d < DPL; ++d) acc[r][d] = fmaf(pt, vv[d], acc[r][d]);
+        }
+      }
+    }
+    __syncwarp();  // every lane is done with stage s before it is refilled
+  }
+  cp_async_wait<0>();
+
+  // merge: the warps' partials in shared memory, in warp order
+  float* part_acc = reinterpret_cast<float*>(gqa_smem + static_cast<size_t>(kWarps) * p.stages *
+                                                        stage_bytes);  // [kWarps][RT][hd]
+  float* part_m = part_acc + kWarps * RT * hd;                        // [kWarps][RT]
+  float* part_l = part_m + kWarps * RT;
+  float* blk_acc = part_l + kWarps * RT;                              // [RT][hd]
+  float* blk_m = blk_acc + RT * hd;                                   // [RT]
+  float* blk_l = blk_m + RT;
+#pragma unroll
+  for (int r = 0; r < RT; ++r) {
+    if (lane_ok) {
+#pragma unroll
+      for (int d = 0; d < DPL; ++d)
+        part_acc[(warp * RT + r) * hd + dim_of<MODE, DPL>(lane, d, hd)] = acc[r][d];
+    }
+    if (lane == 0) {
+      part_m[warp * RT + r] = m[r];
+      part_l[warp * RT + r] = l[r];
+    }
+  }
+  __syncthreads();
+  const int n_items = nrows * hd;
+  for (int it = threadIdx.x; it < n_items; it += kThreads) {
+    const int r = it / hd, d = it - r * hd;
+    float M = kNegInf;
+#pragma unroll
+    for (int ww = 0; ww < kWarps; ++ww) M = fmaxf(M, part_m[ww * RT + r]);
+    float L = 0.f, O = 0.f;
+#pragma unroll
+    for (int ww = 0; ww < kWarps; ++ww) {
+      const float f = expf(part_m[ww * RT + r] - M);
+      L += part_l[ww * RT + r] * f;
+      O += part_acc[(ww * RT + r) * hd + d] * f;
+    }
+    if (p.n_split == 1) {
+      const int rr = row0 + r;
+      out[q_base + (rr / p.G) * q_stride + (rr % p.G) * hd + d] =
+          repro::from_f32<QT>(O / (L == 0.f ? 1.f : L));
+    } else {
+      blk_acc[it] = O;
+      if (d == 0) { blk_m[r] = M; blk_l[r] = L; }
+    }
+  }
+  if (p.n_split == 1) return;
+  // the cluster's thread blocks, in rank order; rank c writes outputs
+  // [c * n_items / S, (c + 1) * n_items / S)
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int S = p.n_split;
+  const int lo = split * n_items / S, hi = (split + 1) * n_items / S;
+  for (int it = lo + threadIdx.x; it < hi; it += kThreads) {
+    const int r = it / hd, rr = row0 + r;
+    float M = kNegInf;
+    for (int c = 0; c < S; ++c) M = fmaxf(M, cluster.map_shared_rank(blk_m, c)[r]);
+    float L = 0.f, O = 0.f;
+    for (int c = 0; c < S; ++c) {
+      const float f = expf(cluster.map_shared_rank(blk_m, c)[r] - M);
+      L += cluster.map_shared_rank(blk_l, c)[r] * f;
+      O += cluster.map_shared_rank(blk_acc, c)[it] * f;
+    }
+    out[q_base + (rr / p.G) * q_stride + (rr % p.G) * hd + (it - r * hd)] =
+        repro::from_f32<QT>(O / (L == 0.f ? 1.f : L));
+  }
+  cluster.sync();  // every block's partials stay until the others have read them
 }
+
+size_t gqa_smem_bytes(const GqaParams& p, int rt) {
+  return static_cast<size_t>(kWarps) * p.stages * (2 * kTile * p.pitch + 16) +
+         sizeof(float) * (static_cast<size_t>(kWarps + 1) * rt * (p.hd + 2));
+}
+
+template <typename QT, int MODE, int RT, int DPL>
+int launch_gqa(const void* q, const void* k, const void* v, void* out, const GqaParams& p,
+               cudaStream_t st) {
+  auto kern = gqa_decode<QT, MODE, RT, DPL>;
+  const size_t smem = gqa_smem_bytes(p, RT);
+  static size_t smem_allowed = 48 * 1024;  // per instantiation: raised once, not per launch
+  if (smem > smem_allowed) {
+    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    smem_allowed = smem;
+  }
+  const dim3 grid(p.n_split, p.B * p.K, (p.TG + RT - 1) / RT);
+  const auto* qp = static_cast<const QT*>(q);
+  const auto* kp = static_cast<const uint8_t*>(k);
+  const auto* vp = static_cast<const uint8_t*>(v);
+  auto* op = static_cast<QT*>(out);
+  if (p.n_split == 1) {
+    kern<<<grid, kThreads, smem, st>>>(qp, kp, vp, op, p);
+    return static_cast<int>(cudaGetLastError());
+  }
+  cudaLaunchConfig_t lc = {};
+  lc.gridDim = grid;
+  lc.blockDim = dim3(kThreads, 1, 1);
+  lc.dynamicSmemBytes = smem;
+  lc.stream = st;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;  // one cluster per (b, kh, row tile)
+  cluster[0].val.clusterDim.x = p.n_split;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  lc.attrs = cluster;
+  lc.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(&lc, kern, qp, kp, vp, op, p);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename QT, int MODE, int DPL>
+int launch_gqa_rows(const void* q, const void* k, const void* v, void* out, const GqaParams& p,
+                    cudaStream_t st) {
+  if (p.TG == 1) return launch_gqa<QT, MODE, 1, DPL>(q, k, v, out, p, st);
+  if (p.TG == 2) return launch_gqa<QT, MODE, 2, DPL>(q, k, v, out, p, st);
+  return launch_gqa<QT, MODE, 4, DPL>(q, k, v, out, p, st);
+}
+
+template <typename QT, int MODE>
+int launch_gqa_dims(const void* q, const void* k, const void* v, void* out, const GqaParams& p,
+                    cudaStream_t st) {
+  if (p.hd <= 128) return launch_gqa_rows<QT, MODE, 4>(q, k, v, out, p, st);
+  return launch_gqa_rows<QT, MODE, 8>(q, k, v, out, p, st);
+}
+
+template <typename QT>
+int launch_gqa_pool(int kv_dtype, const void* q, const void* k, const void* v, void* out,
+                    const GqaParams& p, cudaStream_t st) {
+  if (kv_dtype == repro::kF32) return launch_gqa_dims<QT, 0>(q, k, v, out, p, st);
+  if (kv_dtype == repro::kBF16) return launch_gqa_dims<QT, 1>(q, k, v, out, p, st);
+  if (kv_dtype == repro::kI8) return launch_gqa_dims<QT, 2>(q, k, v, out, p, st);
+  if (kv_dtype == kQ8) return launch_gqa_dims<QT, kQ8>(q, k, v, out, p, st);
+  if (kv_dtype == kQ4) return launch_gqa_dims<QT, kQ4>(q, k, v, out, p, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// ---------------------------------------------------------------------------
+// The split-KV combine of the MLA kernel: (m, l, acc) partials of n_split
+// thread blocks per (bk, row) in a global workspace, merged by a second
+// launch.  Read with K = 1 KV head of G = H rows and hd = r.
+struct Params {
+  float* ws_m;
+  float* ws_l;
+  float* ws_acc;
+  int T, K, TG, G, hd, n_split;
+};
+constexpr int kCombineThreads = 128;
 
 template <typename QT>
 __global__ void attn_combine(QT* __restrict__ out, Params p) {
@@ -348,36 +567,14 @@ __global__ void attn_combine(QT* __restrict__ out, Params p) {
   }
 }
 
-template <typename QT, typename KVT, int QMODE>
-int launch(const void* q, const void* k, const void* v, void* out, const Params& p,
-           cudaStream_t st) {
-  const size_t smem =
-      sizeof(float) * (2 * kRows * p.hd + 2 * p.block * p.hd + kRows * p.block + 3 * kRows);
-  auto kern = attn_partial<QT, KVT, QMODE>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  dim3 grid(p.B * p.K, p.n_split, (p.TG + kRows - 1) / kRows);
-  kern<<<grid, kThreads, smem, st>>>(static_cast<const QT*>(q), static_cast<const KVT*>(k),
-                                     static_cast<const KVT*>(v), static_cast<QT*>(out), p);
-  if (p.n_split > 1) {
-    dim3 g2(p.B * p.K, p.TG);
-    attn_combine<QT><<<g2, kThreads, sizeof(float) * p.n_split, st>>>(static_cast<QT*>(out), p);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
+constexpr int kLoads = 4;  // 16-byte loads in flight per thread (MLA tile loads)
 
-template <typename QT>
-int launch_kv(int kv_dtype, const void* q, const void* k, const void* v, void* out,
-              const Params& p, cudaStream_t st) {
-  if (kv_dtype == repro::kF32) return launch<QT, float, 0>(q, k, v, out, p, st);
-  if (kv_dtype == repro::kBF16) return launch<QT, __nv_bfloat16, 0>(q, k, v, out, p, st);
-  if (kv_dtype == repro::kI8) return launch<QT, int8_t, 0>(q, k, v, out, p, st);
-  if (kv_dtype == kQ8) return launch<QT, int8_t, 8>(q, k, v, out, p, st);
-  if (kv_dtype == kQ4) return launch<QT, int8_t, 4>(q, k, v, out, p, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+// the two sign-extended nibbles of an int4 split-halves word
+__device__ __forceinline__ float lo_nibble(int8_t w) {
+  return static_cast<float>(static_cast<int>((static_cast<uint8_t>(w) & 15u) ^ 8u) - 8);
+}
+__device__ __forceinline__ float hi_nibble(int8_t w) {
+  return static_cast<float>(static_cast<int>((static_cast<uint8_t>(w) >> 4) ^ 8u) - 8);
 }
 
 // ---------------------------------------------------------------------------
@@ -722,10 +919,10 @@ int launch_mla(const void* qe, const void* qr, const void* c, const void* k, voi
     cp.ws_m = p.ws_m;
     cp.ws_l = p.ws_l;
     cp.ws_acc = p.ws_acc;
-    cp.B = p.B; cp.T = p.T; cp.K = 1; cp.TG = p.TH; cp.G = p.H; cp.hd = p.r;
+    cp.T = p.T; cp.K = 1; cp.TG = p.TH; cp.G = p.H; cp.hd = p.r;
     cp.n_split = p.n_split;
     dim3 g2(p.B, p.TH);
-    attn_combine<QT><<<g2, kThreads, sizeof(float) * p.n_split, st>>>(static_cast<QT*>(out), cp);
+    attn_combine<QT><<<g2, kCombineThreads, sizeof(float) * p.n_split, st>>>(static_cast<QT*>(out), cp);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -746,42 +943,45 @@ int launch_mla_kv(int kv_dtype, const void* qe, const void* qr, const void* c, c
 // q (B,T,K,G,hd) f32|bf16; pools (n_blocks, block, K, hd) f32|bf16|int8 (kv_dtype 0|1|2),
 // int8 words (3) or (n_blocks, block, K, hd/2) int4 words (4) with k_exp/v_exp
 // (n_blocks, K) i32 (null otherwise); bt (B,max_blocks) i32; pos0 (B,) i32; out like q;
-// ws_m/ws_l (B*K, n_split, TG) f32 and ws_acc (B*K, n_split, TG, hd) f32 scratch (unused
-// when n_split == 1).  Returns cudaGetLastError().
+// hd a multiple of 8 up to 256; n_split 1, 2, 4 or 8 thread blocks (one cluster) per
+// (b, kv_head, row tile).  Returns cudaGetLastError().
 extern "C" int paged_attention_launch(const void* q, const void* k_pool, const void* v_pool,
                                       const void* bt, const void* pos0, const void* k_exp,
-                                      const void* v_exp, void* out, void* ws_m,
-                                      void* ws_l, void* ws_acc, int B, int K, int T, int G,
+                                      const void* v_exp, void* out, int B, int K, int T, int G,
                                       int hd, int block, int max_blocks, int window,
                                       int q_dtype, int kv_dtype, int n_split, float scale,
                                       float cap, float kv_scale, void* stream) {
   const bool quant = kv_dtype == kQ8 || kv_dtype == kQ4;
-  if (B < 1 || K < 1 || T < 1 || G < 1 || hd < 1 || block < 1 || max_blocks < 1 ||
-      n_split < 1 || (quant && (!k_exp || !v_exp)) || (kv_dtype == kQ4 && hd % 2))
+  if (B < 1 || K < 1 || T < 1 || G < 1 || hd < 8 || hd > 256 || hd % 8 || block < 1 ||
+      max_blocks < 1 || window < 1 || n_split < 1 || n_split > kMaxSplit ||
+      (n_split & (n_split - 1)) || (quant && (!k_exp || !v_exp)) || kv_dtype < 0 ||
+      kv_dtype > kQ4)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int TG = T * G;
-  Params p;
+  GqaParams p;
   p.bt = static_cast<const int*>(bt);
   p.pos0 = static_cast<const int*>(pos0);
   p.k_exp = static_cast<const int*>(k_exp);
   p.v_exp = static_cast<const int*>(v_exp);
-  p.ws_m = static_cast<float*>(ws_m);
-  p.ws_l = static_cast<float*>(ws_l);
-  p.ws_acc = static_cast<float*>(ws_acc);
-  p.B = B; p.T = T; p.K = K; p.TG = TG; p.G = G; p.hd = hd; p.block = block;
-  p.hdw = kv_dtype == kQ4 ? hd / 2 : hd;
+  p.B = B; p.T = T; p.K = K; p.G = G; p.TG = T * G; p.hd = hd; p.block = block;
   p.max_blocks = max_blocks; p.window = window; p.n_split = n_split;
-  p.chunk = (max_blocks + n_split - 1) / n_split;
-  const size_t kv_elt = kv_dtype == repro::kF32 ? 4 : kv_dtype == repro::kBF16 ? 2 : 1;
-  const size_t q_elt = q_dtype == repro::kF32 ? 4 : 2;
-  auto al16 = [](const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; };
-  p.vec = (p.hdw * kv_elt) % 16 == 0 && (hd * q_elt) % 16 == 0 && al16(q) && al16(k_pool) &&
-          al16(v_pool);
+  p.tpb = (block + kTile - 1) / kTile;
+  const int elem_bits = kv_dtype == repro::kF32 ? 32 : kv_dtype == repro::kBF16 ? 16
+                        : kv_dtype == kQ4 ? 4 : 8;
+  p.row_bytes = hd * elem_bits / 8;
+  p.pitch = (p.row_bytes + 15) / 16 * 16;
+  auto aligned = [](const void* ptr, int n) { return reinterpret_cast<uintptr_t>(ptr) % n == 0; };
+  p.chunk = p.row_bytes % 16 == 0 && aligned(k_pool, 16) && aligned(v_pool, 16) ? 16
+            : p.row_bytes % 4 == 0 && aligned(k_pool, 4) && aligned(v_pool, 4) ? 4 : 1;
+  const int rt = p.TG == 1 ? 1 : p.TG == 2 ? 2 : 4;
+  p.stages = 2;  // one stage where two would leave room for only one thread block an SM
+  if (gqa_smem_bytes(p, rt) > 113 * 1024) p.stages = 1;
+  if (gqa_smem_bytes(p, rt) > 232448) return static_cast<int>(cudaErrorInvalidValue);
   p.scale = scale; p.cap = cap; p.kv_scale = kv_scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (q_dtype == repro::kF32) return launch_kv<float>(kv_dtype, q, k_pool, v_pool, out, p, st);
+  if (q_dtype == repro::kF32)
+    return launch_gqa_pool<float>(kv_dtype, q, k_pool, v_pool, out, p, st);
   if (q_dtype == repro::kBF16)
-    return launch_kv<__nv_bfloat16>(kv_dtype, q, k_pool, v_pool, out, p, st);
+    return launch_gqa_pool<__nv_bfloat16>(kv_dtype, q, k_pool, v_pool, out, p, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

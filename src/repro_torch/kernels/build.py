@@ -22,7 +22,9 @@ from typing import Optional
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]  # -v: registers
+# -v: registers; --split-compile=0: optimize and assemble a source's kernels on every
+# core (paged_attention.cu holds 75 kernel instantiations)
+NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "--split-compile=0"]
 LIB_NAME = "librepro_torch_kernels.so"
 
 _lib: Optional[ctypes.CDLL] = None
@@ -112,7 +114,7 @@ def library() -> ctypes.CDLL:
                                                              P]
         lib.fixedpoint_matmul_experts_tc_launch.restype = I
         lib.paged_attention_launch.argtypes = [
-            P, P, P, P, P, P, P, P, P, P, P,
+            P, P, P, P, P, P, P, P,
             I, I, I, I, I, I, I, I, I, I, I,
             F, F, F, P,
         ]

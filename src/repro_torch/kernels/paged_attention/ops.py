@@ -35,10 +35,55 @@ mla_launches = 0
 mla_quant_launches = 0
 
 
-def _n_split(B: int, K: int, row_tiles: int, max_blocks: int, n_sm: int) -> int:
-    """KV splits per (b, kv_head, row tile): ~4 thread blocks per SM."""
-    base = B * K * row_tiles
-    return max(1, min(max_blocks, math.ceil(4 * n_sm / base)))
+# csrc/paged_attention.cu's GQA kernel: each warp takes tiles of TILE tokens
+# (a block, or TILE tokens of a longer one), WARPS warps a thread block, and
+# the splits of one (b, kv_head, row tile) form one cluster of at most
+# MAX_SPLIT thread blocks
+TILE, WARPS, MAX_SPLIT = 16, 4, 8
+HD_MAX = 256  # head dims a lane can hold: 8 of them, 32 lanes
+
+
+def _row_tile(TG: int) -> int:
+    """Query rows (T·G) a thread block holds in registers: 1, 2 or 4."""
+    return 1 if TG == 1 else 2 if TG == 2 else 4
+
+
+def _n_split(B: int, K: int, row_tiles: int, max_blocks: int, block: int, n_sm: int) -> int:
+    """Thread blocks per (b, kv_head, row tile), one cluster: the largest
+    power of two up to MAX_SPLIT that puts no more than ~4 thread blocks on
+    each SM, gives no warp an empty share of the longest possible row
+    (``max_blocks`` is only that upper bound: the kernel cuts each row's
+    own visible range on the device) and never exceeds ``max_blocks``."""
+    tiles = max_blocks * math.ceil(block / TILE)
+    want = min(MAX_SPLIT, max_blocks, math.ceil(tiles / WARPS),
+               max(1, (4 * n_sm) // (B * K * row_tiles)))
+    s = 1
+    while 2 * s <= want:
+        s *= 2
+    return s
+
+
+def visible_tiles(pos0: int, G: int, row0: int, rows: int, window: int, block: int,
+                  max_blocks: int):
+    """The tiles [u_lo, u_hi) that query rows row0.. row0 + rows - 1 of one
+    (b, kv_head) can see, as the kernel derives them from pos0 on the device:
+    tile u is block u // tpb, tokens (u % tpb)·TILE.. of it (tpb = ceil(block
+    / TILE)); tiles past the last row's position, or wholly outside the
+    first row's window, are skipped.  A Python mirror for the tests."""
+    tpb = math.ceil(block / TILE)
+    hi_tok = min(pos0 + (row0 + rows - 1) // G, max_blocks * block - 1)
+    lo_tok = max(0, pos0 + row0 // G - window + 1)
+    if lo_tok > hi_tok:
+        return 0, 0
+    u_lo = (lo_tok // block) * tpb + (lo_tok % block) // TILE
+    return u_lo, (hi_tok // block) * tpb + (hi_tok % block) // TILE + 1
+
+
+def worker_tiles(u_lo: int, u_hi: int, n_split: int):
+    """The kernel's cut of [u_lo, u_hi) over n_split·WARPS warps, in rank
+    order (split-major): contiguous, balanced to one tile, possibly empty."""
+    n, nw = u_hi - u_lo, n_split * WARPS
+    return [(u_lo + w * n // nw, u_lo + (w + 1) * n // nw) for w in range(nw)]
 
 
 def _check_quant(k_pool, v_pool, k_exp, v_exp, kv_bits: int, nb: int, K: int) -> int:
@@ -68,11 +113,13 @@ def _launch(q, k_pool, v_pool, block_tables, pos0, *, scale, cap, window, kv_sca
     if kv_code is None or v_pool.dtype != k_pool.dtype:
         raise TypeError(f"pools must share a f32/bf16/int8 dtype, got {k_pool.dtype}/{v_pool.dtype}")
     hdw = hd
+    if hd % 8 or not 8 <= hd <= HD_MAX:
+        raise ValueError(f"the kernel takes head_dim a multiple of 8 in [8, {HD_MAX}], got {hd}")
+    if window < 1:
+        raise ValueError(f"window must be at least 1, got {window}")
     if kv_bits:
         kv_code = _check_quant(k_pool, v_pool, k_exp, v_exp, kv_bits, nb, K)
         if kv_bits == 4:
-            if hd % 2:
-                raise ValueError(f"int4 pools need an even head_dim, got {hd}")
             hdw = hd // 2  # two lanes per int8 word
     want = (nb, block, K, hdw)
     if k_pool.shape != want or v_pool.shape != want:
@@ -91,17 +138,13 @@ def _launch(q, k_pool, v_pool, block_tables, pos0, *, scale, cap, window, kv_sca
     q = q.contiguous()
     bt, pos0 = block_tables.contiguous(), pos0.contiguous()
     TG, max_blocks = T * G, bt.shape[1]
-    n_split = _n_split(B, K, math.ceil(TG / 16), max_blocks, build.sm_count(dev))
+    n_split = _n_split(B, K, math.ceil(TG / _row_tile(TG)), max_blocks, block,
+                       build.sm_count(dev))
     out = torch.empty_like(q)
-    ptrs = (None, None, None)
-    if n_split > 1:
-        ws = torch.empty((B * K * n_split * TG * (hd + 2),), dtype=torch.float32, device=dev)
-        n_ml = B * K * n_split * TG
-        ptrs = (ws.data_ptr(), ws.data_ptr() + 4 * n_ml, ws.data_ptr() + 8 * n_ml)
     err = build.library().paged_attention_launch(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), bt.data_ptr(), pos0.data_ptr(),
         None if k_exp is None else k_exp.data_ptr(), None if v_exp is None else v_exp.data_ptr(),
-        out.data_ptr(), *ptrs, B, K, T, G, hd, block, max_blocks, int(window), q_code, kv_code,
+        out.data_ptr(), B, K, T, G, hd, block, max_blocks, int(window), q_code, kv_code,
         n_split, float(scale), float(cap), float(kv_scale), build.current_stream(dev),
     )
     build.check(err, "paged_attention")

@@ -30,6 +30,13 @@ from repro_torch.models.layers import (
     rmsnorm_init,
     softcap as softcap_fn,
 )
+from repro_torch.models.kv_exponent import (  # noqa: F401 (KV_EXP_MAX: the clamp, for callers)
+    KV_EXP_MAX,
+    KV_EXP_MIN,
+    exponent_thresholds,
+    on_device,
+    quant_scales,
+)
 from repro_torch.models.quantized import as_dense
 
 Q_CHUNK_DEFAULT = 1024  # chunk queries when T exceeds this
@@ -42,7 +49,6 @@ Q_CHUNK_DEFAULT = 1024  # chunk queries when T exceeds this
 #     low nibbles = lanes [0, w/2), high = [w/2, w)).
 KV_F = 5  # int8 fixed-point KV cache: Δ = 2^-5
 KV_QMAX = {8: 127, 4: 7}  # symmetric mantissa range per wordlength
-KV_EXP_MIN, KV_EXP_MAX = -20, 20  # exponent clamp (2^±20 stays finite)
 
 
 def cache_write(x: torch.Tensor, like_dtype) -> torch.Tensor:
@@ -61,20 +67,27 @@ def cache_read(c: torch.Tensor, dtype) -> torch.Tensor:
 
 
 def block_scale_exp(new: torch.Tensor, qmax: int) -> torch.Tensor:
-    """Per-entry SYMOG exponent: smallest e with amax/2^e ≤ qmax/2, as the
-    JAX package computes it in fp32 (``ceil(log2(amax) + 1 - log2(qmax))``).
+    """Per-entry SYMOG exponent: smallest e with amax/2^e ≤ qmax/2, with the
+    bits of the JAX package's jitted fp32 ``ceil(log2(amax) + 1 -
+    log2(qmax))`` on every device (``models.kv_exponent``): e is KV_EXP_MIN
+    plus the number of that exponent's step points at or below amax (a NaN
+    amax gives 0, as XLA's clamp and conversion do).
     ``new`` (N, ..., width); the amax runs over the feature axis, so the
     result (N, ...) is per KV head.  The +1 margin bit leaves factor-2
     headroom for the block's later tokens."""
     amax = torch.amax(torch.abs(new.to(torch.float32)), dim=-1)
-    e = torch.ceil(torch.log2(torch.clamp(amax, min=2.0**-30)) + 1.0 - math.log2(qmax))
-    return torch.clamp(e, KV_EXP_MIN, KV_EXP_MAX).to(torch.int32)
+    th = on_device(exponent_thresholds, amax.device, qmax)
+    amax = torch.nan_to_num(amax, nan=exponent_thresholds(qmax)[-KV_EXP_MIN - 1].item())  # e 0
+    return torch.bucketize(amax, th, out_int32=True, right=True) + KV_EXP_MIN
 
 
 def quantize_fixed(x: torch.Tensor, e: torch.Tensor, qmax: int) -> torch.Tensor:
-    """Round x to int8 mantissas under per-entry exponents ``e`` (broadcast
-    over the trailing feature axis); round half to even."""
-    scale = torch.exp2(-e.to(torch.float32))[..., None]
+    """Round x to int8 mantissas under per-entry exponents ``e`` in
+    [KV_EXP_MIN, KV_EXP_MAX] (broadcast over the trailing feature axis);
+    round half to even.  The factor is the JAX package's jitted
+    ``exp2(-e)`` (``kv_exponent.quant_scales``): 2^-e but for |e| >= 13."""
+    scale = torch.index_select(on_device(quant_scales, e.device), 0,
+                               (e - KV_EXP_MIN).reshape(-1)).view(*e.shape, 1)
     q = torch.round(x.to(torch.float32) * scale)
     return torch.clamp(q, -qmax, qmax).to(torch.int8)
 

@@ -376,6 +376,147 @@ def test_paged_attention_quant_rejects_bad_operands(dev):
         paged_attention(q, kp, vp, bt, pos0, kv_bits=4, scale=0.25)
 
 
+GQA_POOLS = ["float32", "bfloat16", "int8", "q8", "q4"]  # the five pool codes
+
+
+@pytest.mark.parametrize("pool", GQA_POOLS)
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+@pytest.mark.parametrize("T", [1, 4])
+@pytest.mark.parametrize("window,cap", [(None, 0.0), (40, 5.0)])
+def test_paged_attention_ragged_rows(dev, pool, G, T, window, cap):
+    """Rows from position 0 to the table's last slot in one batch (one
+    block visible to the first, all 32 to the last), their table entries past
+    each row's length on the trash block 0.  Every block no row can see --
+    the trash block, and blocks wholly before a window -- is filled with NaN
+    in float pools: one read of it would reach the output (0 x NaN).  Held
+    to the plain version on clean pools at the attention bar; a second call
+    gives the same bits."""
+    K, hd, block, mb = 2, 128, 16, 32
+    B = 6
+    rng = np.random.default_rng(G * 10 + T + (window or 0))
+    pos_last = np.linspace(T - 1, mb * block - 1, B).round().astype(np.int64)
+    pos0 = (pos_last - (T - 1)).astype(np.int32)
+    n_blocks = B * mb + 1
+    ids = rng.permutation(n_blocks - 1)[: B * mb].reshape(B, mb) + 1
+    bt = np.zeros((B, mb), np.int32)
+    hidden = [0]  # physical blocks no row sees
+    w = aops._NO_WINDOW if window is None else window
+    for b in range(B):
+        n_own = pos_last[b] // block + 1
+        bt[b, :n_own] = ids[b, :n_own]
+        u_lo, u_hi = aops.visible_tiles(int(pos0[b]), G, 0, T * G, w, block, mb)
+        hidden += [int(ids[b, j]) for j in range(n_own) if not u_lo <= j < u_hi]
+    qdt = torch.bfloat16 if pool in ("bfloat16",) else torch.float32
+    q = torch.from_numpy(rng.standard_normal((B, T, K, G, hd)).astype(np.float32)).to(dev, qdt)
+    kw = dict(scale=hd**-0.5, cap=cap, window=window)
+    if pool in ("q8", "q4"):
+        bits = 8 if pool == "q8" else 4
+        (kp, vp), (ke, ve) = _quant_pools(rng, n_blocks, block, K, hd, bits, wide=False)
+        kw.update(k_scale_exp=ke.to(dev), v_scale_exp=ve.to(dev), kv_bits=bits)
+    else:
+        kp, vp = (torch.from_numpy(rng.standard_normal((n_blocks, block, K, hd))
+                                   .astype(np.float32)) for _ in range(2))
+        if pool == "int8":
+            kp, vp = (torch.clamp(torch.round(x * 16), -127, 127).to(torch.int8) for x in (kp, vp))
+            kw["kv_scale"] = 2.0**-5
+        else:
+            kp, vp = kp.to(getattr(torch, pool)), vp.to(getattr(torch, pool))
+    kp, vp = kp.to(dev), vp.to(dev)
+    bt_d, pos0_d = torch.from_numpy(bt).to(dev), torch.from_numpy(pos0).to(dev)
+    want = paged_attention_ref(q, kp, vp, bt_d, pos0_d, **kw)
+    if pool in ("float32", "bfloat16"):
+        kp[hidden], vp[hidden] = float("nan"), float("nan")
+    counter = "quant_launches" if pool in ("q8", "q4") else "launches"
+    before = getattr(aops, counter)
+    got = paged_attention(q, kp, vp, bt_d, pos0_d, **kw)
+    again = paged_attention(q, kp, vp, bt_d, pos0_d, **kw)
+    torch.cuda.synchronize()
+    assert getattr(aops, counter) == before + 2 and got.dtype == qdt
+    assert bool(torch.isfinite(got).all())
+    tol = dict(rtol=2e-4, atol=2e-5) if qdt == torch.float32 else dict(rtol=1e-2, atol=1e-2)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("pool", GQA_POOLS)
+@pytest.mark.parametrize("hd,block,T,G", [(8, 4, 1, 2), (72, 20, 3, 1), (256, 32, 1, 2),
+                                          (136, 64, 2, 4), (128, 8, 1, 1)])
+@pytest.mark.parametrize("misaligned", [False, True])
+def test_paged_attention_head_dims_and_blocks(dev, pool, hd, block, T, G, misaligned):
+    """Head dims from 8 to 256 (one or two 4-dim slots a lane, idle lanes),
+    blocks shorter than, longer than and not a multiple of the kernel's
+    16-token tile, rows whose copies into shared memory take 16-, 4- or
+    1-byte pieces (``misaligned``: the pools start one element past an
+    aligned address); held to the plain version, two calls bit-identical."""
+    K, B, mb = 2, 3, 6
+    rng = np.random.default_rng(hd + block + T)
+    n_blocks = B * mb + 1
+    bt = (rng.permutation(n_blocks - 1)[: B * mb] + 1).reshape(B, mb).astype(np.int32)
+    pos0 = (rng.integers(T - 1, mb * block, size=B) - (T - 1)).astype(np.int32)
+    qdt = torch.bfloat16 if pool == "bfloat16" else torch.float32
+    q = torch.from_numpy(rng.standard_normal((B, T, K, G, hd)).astype(np.float32)).to(dev, qdt)
+    kw = dict(scale=hd**-0.5, window=9 if T == 3 else None)
+    if pool in ("q8", "q4"):
+        bits = 8 if pool == "q8" else 4
+        (kp, vp), (ke, ve) = _quant_pools(rng, n_blocks, block, K, hd, bits, wide=False)
+        kw.update(k_scale_exp=ke.to(dev), v_scale_exp=ve.to(dev), kv_bits=bits)
+    else:
+        kp, vp = (torch.from_numpy(rng.standard_normal((n_blocks, block, K, hd))
+                                   .astype(np.float32)) for _ in range(2))
+        if pool == "int8":
+            kp, vp = (torch.clamp(torch.round(x * 16), -127, 127).to(torch.int8) for x in (kp, vp))
+            kw["kv_scale"] = 2.0**-5
+        else:
+            kp, vp = kp.to(getattr(torch, pool)), vp.to(getattr(torch, pool))
+    kp, vp = kp.to(dev), vp.to(dev)
+    if misaligned:  # the same pools, one element past an aligned start
+        kp, vp = (torch.cat([x.new_zeros(1), x.reshape(-1)])[1:].view(x.shape) for x in (kp, vp))
+    bt_d, pos0_d = torch.from_numpy(bt).to(dev), torch.from_numpy(pos0).to(dev)
+    got = paged_attention(q, kp, vp, bt_d, pos0_d, **kw)
+    again = paged_attention(q, kp, vp, bt_d, pos0_d, **kw)
+    want = paged_attention_ref(q, kp, vp, bt_d, pos0_d, **kw)
+    torch.cuda.synchronize()
+    tol = dict(rtol=2e-4, atol=2e-5) if qdt == torch.float32 else dict(rtol=1e-2, atol=1e-2)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    assert torch.equal(got, again)
+
+
+def test_paged_attention_rejects_head_dims_it_does_not_take(dev):
+    q = torch.zeros((1, 1, 1, 1, 12), device=dev)
+    pool = torch.zeros((2, 4, 1, 12), device=dev)
+    bt = torch.ones((1, 1), dtype=torch.int32, device=dev)
+    pos0 = torch.zeros((1,), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):  # not a multiple of 8
+        paged_attention(q, pool, pool, bt, pos0, scale=1.0)
+    q, pool = torch.zeros((1, 1, 1, 1, 264), device=dev), torch.zeros((2, 4, 1, 264), device=dev)
+    with pytest.raises(ValueError):  # above 256
+        paged_attention(q, pool, pool, bt, pos0, scale=1.0)
+
+
+def test_kv_exponent_on_card_matches_cpu(dev):
+    """The SYMOG exponent and quantizer write the same bits on the card as on
+    the CPU (whose bits tests/test_torch_kv_exponent.py holds to jitted JAX),
+    at every step point and its neighbours, and the arithmetic behind the
+    step points on 1M random amaxes."""
+    from repro_torch.models import attention as tatt
+    from repro_torch.models import kv_exponent
+
+    for qmax in (127, 7):
+        th = kv_exponent.exponent_thresholds(qmax)
+        a = torch.cat([th, torch.nextafter(th, torch.zeros(())), torch.nextafter(th, th * 2)])
+        x = a[:, None] * torch.tensor([[1.0, -0.5, 0.25]])
+        cpu = tatt.block_scale_exp(x, qmax)
+        assert torch.equal(tatt.block_scale_exp(x.to(dev), qmax).cpu(), cpu)
+        assert torch.equal(tatt.quantize_fixed(x.to(dev), cpu.to(dev), qmax).cpu(),
+                           tatt.quantize_fixed(x, cpu, qmax))
+        r = torch.exp2(torch.from_numpy(np.random.default_rng(qmax).uniform(-34, 34, 1 << 20))
+                       .float())
+        assert torch.equal(kv_exponent.jitted_exponent(r.to(dev), qmax).cpu(),
+                           kv_exponent.jitted_exponent(r, qmax))
+    assert torch.equal(kv_exponent._exp_f32(torch.arange(-20.0, 21.0, device=dev) * -0.6931472)
+                       .cpu(), kv_exponent._exp_f32(torch.arange(-20.0, 21.0) * -0.6931472))
+
+
 def _mla_operands(rng, dev, *, B, T, H, r, rope, block, mb, pool, qdt):
     """MLA decode operands: bf16 / fp32 queries; pools of the query dtype,
     KV_F int8, or SYMOG words with one exponent per physical block: the

@@ -155,3 +155,60 @@ def test_attn_decode_paged_matches_jax(backend):
     np.testing.assert_allclose(ty.numpy(), np.asarray(jy), rtol=2e-4, atol=2e-5)
     for n in ("k", "v"):
         np.testing.assert_allclose(tc[n].numpy(), np.asarray(jc[n]), rtol=1e-6, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel's work split: the host's split count and the Python mirror
+# of the visible-tile range it derives on the device
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("B,K,TG,max_blocks,block", [
+    (4, 8, 2, 32, 16), (4, 16, 1, 32, 16), (1, 1, 1, 1, 16), (3, 2, 40, 20, 8),
+    (64, 8, 1, 32, 16), (2, 1, 8, 3, 64), (1, 2, 4, 5, 128), (8, 4, 32, 200, 16),
+])
+@pytest.mark.parametrize("n_sm", [1, 132])
+def test_n_split_rule(B, K, TG, max_blocks, block, n_sm):
+    """A power of two, at most 8 thread blocks (one cluster), never more
+    splits than blocks, no more than ~4 thread blocks an SM."""
+    rows = ops._row_tile(TG)
+    assert rows == min(TG, 4) or (TG == 3 and rows == 4)
+    row_tiles = -(-TG // rows)
+    s = ops._n_split(B, K, row_tiles, max_blocks, block, n_sm)
+    assert s in (1, 2, 4, 8) and s <= max_blocks
+    assert s == 1 or B * K * row_tiles * s <= 4 * n_sm
+
+
+@pytest.mark.parametrize("block", [8, 16, 48])
+@pytest.mark.parametrize("G,T", [(1, 1), (2, 1), (8, 4), (2, 4)])
+@pytest.mark.parametrize("window", [None, 7, 40])
+def test_split_covers_every_visible_tile_once(block, G, T, window):
+    """Ragged rows (position 0 up to the last table slot): for every row
+    tile, the mirrored tile range holds every tile with a key some row of the
+    tile can see, and only tiles whose first or last keys reach a row's range
+    (so a skipped tile is wholly masked: skipping it is exact); the warps'
+    shares partition the range, in order."""
+    max_blocks, w = 12, ops._NO_WINDOW if window is None else window
+    n_tok = max_blocks * block
+    TG, rows = T * G, ops._row_tile(T * G)
+    tpb = -(-block // ops.TILE)
+    for pos_last in sorted({T - 1, T, block - 1, block, n_tok // 2, n_tok - 1}):
+        pos0 = pos_last - (T - 1)
+        for row0 in range(0, TG, rows):
+            nr = min(rows, TG - row0)
+            u_lo, u_hi = ops.visible_tiles(pos0, G, row0, nr, w, block, max_blocks)
+            qpos = [pos0 + (row0 + r) // G for r in range(nr)]
+            for u in range(max_blocks * tpb):
+                j, t0 = divmod(u, tpb)
+                keys = range(j * block + t0 * ops.TILE, j * block + min(block, (t0 + 1) * ops.TILE))
+                seen = any(k <= qp and qp - k < w for k in keys for qp in qpos)
+                if seen:
+                    assert u_lo <= u < u_hi, (pos0, row0, u)
+                elif u_lo <= u < u_hi:  # inside the range: between the rows' first and last keys
+                    assert keys[-1] >= qpos[0] - w + 1 and keys[0] <= qpos[-1]
+            for n_split in (1, 2, 4, 8):
+                shares = ops.worker_tiles(u_lo, u_hi, n_split)
+                assert len(shares) == n_split * ops.WARPS
+                assert shares[0][0] == u_lo and shares[-1][1] == u_hi
+                for (a0, a1), (b0, b1) in zip(shares, shares[1:]):
+                    assert a1 == b0 and a0 <= a1
+                sizes = [b - a for a, b in shares]
+                assert max(sizes) - min(sizes) <= 1
