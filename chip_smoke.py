@@ -26,12 +26,17 @@ Phases, one JSON line each:
                (the MLA layer's, the dense MLP, the shared expert, the
                129,280-row head; M 4 and 128 in bf16 and fp32, M 512 in bf16)
                and one MoE layer's three 256-expert stacks (C 4 in bf16 and
-               fp32, C 2, 10, 20 in bf16); every bf16 case at a prefill size
-               holds the tensor-core kernel (forced) to the plain version,
-               bit-identical over two calls, and times both kernels; 3g the
-               crossover of the two kernels at 2..16 rows (internlm2's
-               gate_proj, olmoe's gate stack), which the route rule's
-               threshold must not undercut; 3e
+               fp32, C 2, 10, 20 in bf16); every bf16 case holds its rule's
+               kernel (forced: the decode kernel up to 8 rows, the tensor
+               cores above) to the plain version, bit-identical over two
+               calls, and times it beside the streaming kernel; the bf16
+               C = 4 stacks take ``rows`` from a top-8 routing of 4 random
+               tokens (the occupied count, the bound at occupied bytes and
+               at every expert's, and the same kernel reading every expert,
+               which must give the same bits); 3g the three kernels at
+               2..16 rows (internlm2's gate_proj, olmoe's gate stack): the
+               route rule must not sit on the wrong side of a measured
+               crossover; 3e
                paged attention over int8 and int4 SYMOG pools (olmoe's and
                internlm2's decode shapes, exponents over [-8, 4], a window
                + softcap case, an fp32 case; timed only, olmoe's int4 decode
@@ -62,7 +67,8 @@ Phases, one JSON line each:
                prefill) and decode step timed; every kernel's launch count,
                split by matmul route, must equal the count the path implies;
   6. profile — a few decode steps of that engine under cProfile (host
-               functions) and torch.profiler (device busy time, top kernels);
+               functions) and torch.profiler (device busy time, top kernels,
+               the matmul kernels' device time by route and form);
   7. train   — SYMOG training of internlm2-1.8b at full width and all 24
                layers (fp32 master weights, bf16 compute, 4 x 512 tokens):
                the Δ search, step 1's fused update against the composed one
@@ -80,11 +86,13 @@ Phases, one JSON line each:
                one layer at a time (``build_layerwise``: the fp32 tree of
                198.5 GB never exists), served as in phase 8 from an int4 MLA
                pool; the bf16-pool serve gates the float MLA kernel's
-               launches; then its decode profile.
+               launches; then its decode profile under the parent's route
+               rule (decode on the streaming kernel) and under this one, in
+               turns (parent, this, this, parent).
 Each serving and training path zeroes every kernel's launch count just
 before it runs and reads them just after.
 Then each phase's seconds and the total, the ``kernels`` summary line (the
-seven kernels and the tensor-core route of both matmul forms), the
+seven kernels, and the tensor-core and decode routes of both matmul forms), the
 nvidia-smi line, and the last line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before it.
 The script imports no jax and nothing of the JAX package.
@@ -171,40 +179,57 @@ def bound(nbytes: int, flops: int, dtype_name: str):
 # ---------------------------------------------------------------------------
 # phase 3a: fixedpoint_matmul
 # ---------------------------------------------------------------------------
-def _both_routes(torch, row, call, ref, route, args, slow):
-    """A bf16 case at a prefill size: the tensor-core route forced, held to
-    the plain version at the bf16 bar and bit-identical over two calls;
-    when ``args`` are given, both routes timed (``ms`` is the route the rule
-    picks; a ``slow`` streaming call is timed with CUDA events over single
-    calls).  Returns False if a check failed."""
-    yt = [call("tensor_core", *args[0]) if args else call("tensor_core") for _ in range(2)]
-    torch.cuda.synchronize()
-    row["tc_max_abs_err"] = (yt[0].float() - ref.float()).abs().max().item()
-    row["tc_bit_identical"] = bool(torch.equal(yt[0], yt[1]))
-    ok = bool(torch.allclose(yt[0].float(), ref.float(), **TOL["bfloat16"]))
-    ok = ok and row["tc_bit_identical"]
-    del yt
+ROUTE_KEY = {"streaming": "stream", "tensor_core": "tc", "decode": "dec"}  # row key prefixes
+
+
+def _bf16_routes(dt, rows: int):
+    """The routes a bf16 case forces, checks and times beside the streaming
+    kernel: the decode kernel up to its row limit, else the tensor cores
+    (prefill sizes); none for fp32 (streaming only)."""
+    from repro_torch.kernels.fixedpoint_matmul import ops as fops
+
+    if str(dt) != "torch.bfloat16":
+        return ()
+    return ("decode",) if rows <= fops.DECODE_MAX_ROWS else ("tensor_core",)
+
+
+def _routes(torch, row, call, ref, route, args, slow, check):
+    """A bf16 case: each route of ``check`` forced, held to the plain
+    version at the bf16 bar and bit-identical over two calls; when ``args``
+    are given, those routes and the streaming kernel timed (``ms`` is the
+    route the rule picks; a ``slow`` streaming call is timed with CUDA events
+    over single calls).  Returns False if a check failed."""
+    ok = True
+    for r in check:
+        key = ROUTE_KEY[r]
+        yt = [call(r, *args[0]) if args else call(r) for _ in range(2)]
+        torch.cuda.synchronize()
+        row[f"{key}_max_abs_err"] = (yt[0].float() - ref.float()).abs().max().item()
+        row[f"{key}_bit_identical"] = bool(torch.equal(yt[0], yt[1]))
+        ok = (ok and bool(torch.allclose(yt[0].float(), ref.float(), **TOL["bfloat16"]))
+              and row[f"{key}_bit_identical"])
+        del yt
     row["route"] = route
     if args:
-        row["tc_ms"] = timed(lambda *a: call("tensor_core", *a), args, torch)
-        if slow:
-            row["stream_ms"] = events_ms(lambda: call("streaming", *args[0]), 3, torch)
-            row["stream_timing"] = "CUDA events, single calls"
-        else:
-            row["stream_ms"] = timed(lambda *a: call("streaming", *a), args, torch)
-        row["ms"] = row["tc_ms"] if route == "tensor_core" else row["stream_ms"]
+        for r in dict.fromkeys(check + ("streaming",)):
+            if r == "streaming" and slow:
+                row["stream_ms"] = events_ms(lambda: call("streaming", *args[0]), 3, torch)
+                row["stream_timing"] = "CUDA events, single calls"
+            else:
+                row[f"{ROUTE_KEY[r]}_ms"] = timed(lambda *a, r=r: call(r, *a), args, torch)
+        row["ms"] = row[f"{ROUTE_KEY[route]}_ms"]
     return ok
 
 
-def _fpmm_case(torch, gen, dev, name, K, N, M, dt, n_bits, *, with_bias, timing, routes=False,
+def _fpmm_case(torch, gen, dev, name, K, N, M, dt, n_bits, *, with_bias, timing, routes=(),
                plain=True, library=True):
     """One 2-D case: Gaussian weights packed with their optimal f, x (M, K)
     of ``dt``, the kernel the route rule picks held to its plain version;
     timed (kernel, plain, ``torch.matmul`` on the dequantized weight) when
-    ``timing``.  ``routes`` (bf16): both kernels checked and timed
-    (``_both_routes``).  A plain version whose fp32 unpacked weight exceeds
-    1 GB is timed with CUDA events over single calls (a graph of 16 would
-    hold 16 sets of its temporaries)."""
+    ``timing``.  ``routes`` (bf16): those kernels forced, checked and timed
+    beside the streaming one (``_routes``).  A plain version whose fp32
+    unpacked weight exceeds 1 GB is timed with CUDA events over single calls
+    (a graph of 16 would hold 16 sets of its temporaries)."""
     from repro_torch.core import optimal_f, unpack_int
     from repro_torch.kernels.fixedpoint_matmul import ops as fops
     from repro_torch.kernels.fixedpoint_matmul.ref import fixedpoint_matmul_ref
@@ -240,7 +265,8 @@ def _fpmm_case(torch, gen, dev, name, K, N, M, dt, n_bits, *, with_bias, timing,
         n = copies_for(wbytes)
         args = list(zip([x.clone() for _ in range(n)], [pw.clone() for _ in range(n)]))
     if routes:
-        ok = _both_routes(torch, row, call, ref, row["route"], args, 2 * M * K * N > 1e11) and ok
+        ok = _routes(torch, row, call, ref, row["route"], args, 2 * M * K * N > 1e11,
+                     routes) and ok
     del ref
     row["pass"] = ok
     if timing:
@@ -274,7 +300,8 @@ PREFILL_M = (32, 64, 128, 256, 512)  # the serve's prompt buckets
 
 
 def _err(row):
-    return max(row["max_abs_err"], row.get("tc_max_abs_err", 0.0))
+    return max([row["max_abs_err"]] + [row[f"{k}_max_abs_err"] for k in ROUTE_KEY.values()
+                                       if f"{k}_max_abs_err" in row])
 
 
 def _bound_by(rows) -> str:
@@ -287,23 +314,23 @@ def _bound_by(rows) -> str:
 
 def _route_err(rows, route: str) -> float:
     """Largest error of one kernel over ``rows``: the calls the rule sent
-    to ``route``, and for the tensor cores also the forced calls."""
+    to ``route``, and the calls forced onto it."""
+    key = f"{ROUTE_KEY[route]}_max_abs_err"
     errs = [r["max_abs_err"] for r in rows if r["route"] == route]
-    if route == "tensor_core":
-        errs += [r["tc_max_abs_err"] for r in rows if "tc_max_abs_err" in r]
-    return max(errs)
+    return max(errs + [r[key] for r in rows if key in r])
 
 
 def phase_fpmm(torch, dev):
     """Row 1 at internlm2-1.8b's 7 projections: M = 4 (decode) in bf16 and
     fp32, 2 and 4 bits, M = 128 in fp32, and the prefill buckets M = 32..512
-    in bf16 at 2 bits (plus M = 128 at 4 bits), where both routes are
-    checked and timed.  Returns the rows and the sums over one layer at
-    M = 4 and at M = 512 (bf16, 2-bit)."""
+    in bf16 at 2 bits (plus M = 128 at 4 bits); every bf16 case checks and
+    times its rule's kernel (decode at M = 4, the tensor cores at prefill)
+    beside the streaming one.  Returns the rows and the sums over one layer
+    at M = 4 and at M = 512 (bf16, 2-bit)."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     rows = []
-    decode = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    decode = {"ms": 0.0, "stream_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
     prefill = {"ms": 0.0, "stream_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
     bf16, fp32 = torch.bfloat16, torch.float32
     cases = []  # (n_bits, M, dtype, timed)
@@ -314,7 +341,7 @@ def phase_fpmm(torch, dev):
     for n_bits, M, dt, timing in cases:
         for name, K, N in FPMM_SHAPES:
             row = _fpmm_case(torch, gen, dev, name, K, N, M, dt, n_bits, with_bias=M >= 128,
-                             timing=timing, routes=dt == bf16 and M > 4)
+                             timing=timing, routes=_bf16_routes(dt, M))
             if n_bits == 2 and dt == bf16 and M in (4, 512):
                 acc = decode if M == 4 else prefill
                 for k in acc:
@@ -346,18 +373,18 @@ DEEPSEEK_DECODE_LAYER = {"q_a_proj": 1, "q_b_proj": 1, "kv_a_proj": 1, "k_rope_p
 def phase_fpmm_deepseek(torch, dev):
     """Row 1 at deepseek-v3's 2-D shapes, 2-bit (the serve phase's width),
     M = 4 (decode) and 128 in bf16 (serve) and fp32 (parity), and M = 512
-    in bf16; at M = 128 and 512 in bf16 both routes are checked and timed
-    (the plain version at M = 4 and 128).  Returns the rows and the sums
-    over one MoE layer's decode matmuls at M = 4 bf16."""
+    in bf16; every bf16 case checks and times its rule's kernel beside the
+    streaming one (the plain version at M = 4 and 128).  Returns the rows
+    and the sums over one MoE layer's decode matmuls at M = 4 bf16."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(5)
     rows = []
-    layer = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    layer = {"ms": 0.0, "stream_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
     bf16, fp32 = torch.bfloat16, torch.float32
     for name, K, N in DEEPSEEK_FPMM_SHAPES:
         for M, dt in ((4, bf16), (4, fp32), (128, bf16), (128, fp32), (512, bf16)):
             row = _fpmm_case(torch, gen, dev, name, K, N, M, dt, 2, with_bias=False,
-                             timing=True, routes=dt == bf16 and M > 4, plain=M < 512)
+                             timing=True, routes=_bf16_routes(dt, M), plain=M < 512)
             row["arch"] = DEEPSEEK
             if M == 4 and dt == bf16 and name in DEEPSEEK_DECODE_LAYER:
                 for k in layer:
@@ -570,50 +597,95 @@ def _experts_stack(torch, gen, dev, E, K, N, n_bits):
     return words, f, sc
 
 
+TOP_K, DECODE_TOKENS = 8, 4  # both MoE models route top-8; the serves decode 4 slots
+# one layer's 3 stacks at a decode step: the decode kernel reading the
+# occupied experts, the same kernel and the streaming one reading all
+DECODE_SUMS = ("ms", "dec_all_ms", "stream_ms", "plain_ms", "library_ms", "bound_ms",
+               "bound_all_ms", "occupied")
+
+
+def _routing(torch, gen, dev, E):
+    """rows (E,) int32: each expert's assignments under a top-8 routing of 4
+    random tokens, as ``moe_apply`` counts them at a decode step."""
+    idx = torch.randn((DECODE_TOKENS, E), generator=gen, device=dev).topk(TOP_K, dim=-1)[1]
+    idx = idx.reshape(-1)
+    return torch.zeros(E, dtype=torch.int32, device=dev).scatter_add_(
+        0, idx, torch.ones_like(idx, dtype=torch.int32))
+
+
 def _experts_case(torch, gen, dev, name, words, f, sc, C, dt, n_bits, N, *, timing,
-                  routes=False, plain=True):
+                  routes=(), plain=True, routed=False):
     """One experts case: x (E, C, K) of ``dt`` with expert e's rows scaled
     by 2^-s_e, the kernel the route rule picks held to its plain version;
     timed (kernel, plain, ``torch.bmm`` on the dequantized stack) when
-    ``timing``; ``routes`` (bf16): both kernels checked and timed
-    (``_both_routes``).  A stack whose fp32 unpacking exceeds 1 GB is timed
-    with CUDA events over single calls of the plain version and
-    ``torch.bmm`` (a graph of 16 plain calls would hold 16 sets of its
-    temporaries)."""
+    ``timing``; ``routes`` (bf16): those kernels forced, checked and timed
+    beside the streaming one (``_routes``).  ``routed`` (a decode step):
+    the rows of x a top-8 routing of 4 tokens fills (the rest zero) and
+    their count per expert passed as ``rows``; the output must equal, bit
+    for bit, the same kernel computing every expert, and ``bound_ms``
+    counts the occupied experts' bytes (``bound_all_ms`` every expert's).
+    A stack whose fp32 unpacking exceeds 1 GB is timed with CUDA events
+    over single calls of the plain version and ``torch.bmm`` (a graph of 16
+    plain calls would hold 16 sets of its temporaries)."""
     from repro_torch.core import unpack_int
     from repro_torch.kernels.fixedpoint_matmul import ops as fops
     from repro_torch.kernels.fixedpoint_matmul.ref import fixedpoint_matmul_experts_ref
 
     E, K = words.shape[0], words.shape[1]
     dname = str(dt).split(".")[-1]
-    x = (torch.randn((E, C, K), generator=gen, device=dev) / sc).to(dt)
-    y = fops.fixedpoint_matmul_experts(x, words, f, n_bits=n_bits, n_out=N)
-    ref = fixedpoint_matmul_experts_ref(x, words, f, n_bits=n_bits, n_out=N).to(dt)
+    x = torch.randn((E, C, K), generator=gen, device=dev) / sc
+    kw, occ = {}, E
+    if routed:
+        rows = _routing(torch, gen, dev, E)
+        x[torch.arange(C, device=dev)[None, :] >= rows[:, None]] = 0.0
+        kw = dict(rows=rows, max_active=min(E, DECODE_TOKENS * TOP_K))
+        occ = int((rows > 0).sum().item())
+    x = x.to(dt)
+    y = fops.fixedpoint_matmul_experts(x, words, f, n_bits=n_bits, n_out=N, **kw)
+    ref = fixedpoint_matmul_experts_ref(x, words, f, n_bits=n_bits, n_out=N,
+                                        rows=kw.get("rows")).to(dt)
     torch.cuda.synchronize()
     err = (y.float() - ref.float()).abs().max().item()
     tol = TOL[dname]
     ok = bool(torch.allclose(y.float(), ref.float(), **tol))
-    del y
     wbytes = words.numel()
-    io = x.numel() * x.element_size() + wbytes + 4 * E + E * C * N * x.element_size()
+    out_b = E * C * N * x.element_size()
+    io = x.numel() * x.element_size() + wbytes + 4 * E + out_b
     b_ms, b_by = bound(io, 2 * E * C * K * N, dname)
     row = {"phase": "kernel", "kernel": "fixedpoint_matmul_experts", "proj": name,
            "E": E, "C": C, "K": K, "N": N, "n_bits": n_bits, "dtype": dname,
            "route": fops._pick_route(dt, C, True),
            "f_range": [int(f.min()), int(f.max())], "max_abs_err": err,
            "tol": tol, "bound_ms": b_ms, "bound_by": b_by}
+    if routed:
+        # what this run's data needs: the occupied experts' x and words, f
+        # and rows, and every expert's output (+0 for the empty ones)
+        io_occ = (x.numel() * x.element_size() + wbytes) * occ // E + 8 * E + out_b
+        row.update(occupied=occ, max_active=kw["max_active"], bound_all_ms=b_ms,
+                   bound_all_by=b_by)
+        row["bound_ms"], row["bound_by"] = bound(io_occ, 2 * occ * C * K * N, dname)
+        every = fops.fixedpoint_matmul_experts(x, words, f, n_bits=n_bits, n_out=N,
+                                               max_active=kw["max_active"])
+        row["equal_to_every_expert"] = bool(torch.equal(y, every))
+        ok = ok and row["equal_to_every_expert"]
+        del every
+    del y
 
-    def call(route, a=x, b=words):
-        return fops.fixedpoint_matmul_experts(a, b, f, n_bits=n_bits, n_out=N, _route=route)
+    def call(route, a=x, b=words, **extra):
+        return fops.fixedpoint_matmul_experts(a, b, f, n_bits=n_bits, n_out=N, _route=route,
+                                              **{**kw, **extra})
 
-    args = [(x.clone(), words.clone()) for _ in range(copies_for(wbytes))] if timing else None
+    args = [(x.clone(), words.clone()) for _ in range(copies_for(wbytes * occ // E))] \
+        if timing else None
     if routes:
-        ok = _both_routes(torch, row, call, ref, row["route"], args, False) and ok
+        ok = _routes(torch, row, call, ref, row["route"], args, False, routes) and ok
     del ref
     row["pass"] = ok
     if timing:
         if not routes:
             row["ms"] = timed(lambda a, b: call(None, a, b), args, torch)
+        if routed:  # the same kernel reading every expert's words
+            row["dec_all_ms"] = timed(lambda a, b: call("decode", a, b, rows=None), args, torch)
         big = wbytes * (8 // n_bits) * 4 > 1e9
         if plain and big:
             row["plain_ms"] = events_ms(lambda: fixedpoint_matmul_experts_ref(
@@ -633,6 +705,8 @@ def _experts_case(torch, gen, dev, name, words, f, sc, C, dt, n_bits, N, *, timi
             del largs
         del wd
         row["achieved_GBps"] = io / (row["ms"] * 1e-3) / 1e9
+        if routed:
+            row["achieved_GBps_occupied"] = io_occ / (row["ms"] * 1e-3) / 1e9
     return row
 
 
@@ -643,14 +717,15 @@ def phase_fpmm_experts(torch, dev):
     at unit scale, where the fp32 bar of the 2-D phase applies.  C = 4
     (decode) in bf16 and fp32 and C = 80 in fp32, 2 and 4 bits; the olmoe
     prefill capacities C = 5, 20, 80 (buckets 32, 128, 512) in bf16 at 2
-    bits (and C = 80 at 4 bits), where both routes are checked and timed.
-    Returns the rows and the sums over one layer's 3 stacks at C = 4 and
-    at C = 80 (bf16, 2-bit)."""
+    bits (and C = 80 at 4 bits).  Every bf16 case checks and times its
+    rule's kernel beside the streaming one; the bf16 C = 4 cases run a
+    decode step's routing (``routed``).  Returns the rows and the sums over
+    one layer's 3 stacks at C = 4 and at C = 80 (bf16, 2-bit)."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
     E = N_EXPERTS
     rows = []
-    decode = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    decode = dict.fromkeys(DECODE_SUMS, 0.0)
     prefill = {"ms": 0.0, "stream_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
     bf16, fp32 = torch.bfloat16, torch.float32
     for n_bits in (2, 4):
@@ -660,7 +735,8 @@ def phase_fpmm_experts(torch, dev):
             words, f, sc = _experts_stack(torch, gen, dev, E, K, N, n_bits)
             for C, dt, timing in cases:
                 row = _experts_case(torch, gen, dev, name, words, f, sc, C, dt, n_bits, N,
-                                    timing=timing, routes=dt == bf16 and C > 4)
+                                    timing=timing, routes=_bf16_routes(dt, C),
+                                    routed=dt == bf16 and C == 4)
                 if n_bits == 2 and dt == bf16 and C in (4, 80):
                     acc = decode if C == 4 else prefill
                     for k in acc:
@@ -686,21 +762,23 @@ DEEPSEEK_EXPERTS = 256
 def phase_fpmm_experts_deepseek(torch, dev):
     """Row 1b at one deepseek-v3 MoE layer's three 2-bit stacks (256
     experts, one f each, 940 MB of words a stack): C = 4 (decode, 4 slots)
-    in bf16 (serve) and fp32 (parity), and the prefill capacities C = 2,
-    10, 20 (buckets 32, 256, 512: ceil(1.25*bucket*8/256)) in bf16 with
-    both routes checked and timed, every case timed.  Returns the rows and
-    the sums over the layer's 3 stacks at C = 4 and at C = 20."""
+    in bf16 (serve: a decode step's routing, ``routed``) and fp32 (parity),
+    and the prefill capacities C = 2, 10, 20 (buckets 32, 256, 512:
+    ceil(1.25*bucket*8/256)) in bf16, each bf16 case checking and timing
+    its rule's kernel beside the streaming one, every case timed.  Returns
+    the rows and the sums over the layer's 3 stacks at C = 4 and at C = 20."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(6)
     rows = []
-    decode = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    decode = dict.fromkeys(DECODE_SUMS, 0.0)
     prefill = {"ms": 0.0, "stream_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
     bf16 = torch.bfloat16
     for name, K, N in DEEPSEEK_EXPERT_SHAPES:
         words, f, sc = _experts_stack(torch, gen, dev, DEEPSEEK_EXPERTS, K, N, 2)
         for C, dt in ((4, bf16), (4, torch.float32), (2, bf16), (10, bf16), (20, bf16)):
             row = _experts_case(torch, gen, dev, name, words, f, sc, C, dt, 2, N, timing=True,
-                                routes=dt == bf16 and C != 4, plain=C in (4, 20))
+                                routes=_bf16_routes(dt, C), plain=C in (4, 20),
+                                routed=dt == bf16 and C == 4)
             row["arch"] = DEEPSEEK
             if dt == bf16 and C in (4, 20):
                 acc = decode if C == 4 else prefill
@@ -720,59 +798,86 @@ def phase_fpmm_experts_deepseek(torch, dev):
 CROSSOVER_ROWS = (2, 3, 4, 5, 8, 16)
 
 
-def _crossover(rows):
-    """Fewest rows from which the tensor-core kernel is faster than the
-    streaming one at every larger swept count (None: it never is)."""
+def _crossover(rows, fast: str, slow: str, up: bool = True):
+    """Fewest rows from which ``fast``'s kernel is faster than ``slow``'s at
+    every larger swept count (``up``), or most rows up to which it is faster
+    at every smaller swept count (not ``up``); None: it never is."""
     best = None
-    for r in sorted(rows, key=lambda r: r["rows"], reverse=True):
-        if r["tc_ms"] >= r["stream_ms"]:
+    for r in sorted(rows, key=lambda r: r["rows"], reverse=up):
+        if fast not in r or slow not in r:
+            continue
+        if r[fast] >= r[slow]:
             break
         best = r["rows"]
     return best
 
 
 def phase_crossover(torch, dev):
-    """Phase 3g: both kernels at 2..16 rows in bf16, 2-bit, at internlm2's
-    gate_proj (2048 x 8192, M rows) and olmoe's gate stack (64 x 2048 x
-    1024, C rows per expert), each checked (bf16 bar, bit-identical) and
-    timed on both routes.  The route rule's threshold must not lie below
-    the measured crossover of either form."""
+    """Phase 3g: the three kernels at 2..16 rows in bf16, 2-bit, at
+    internlm2's gate_proj (2048 x 8192, M rows) and olmoe's gate stack (64
+    x 2048 x 1024, C rows per expert), each checked (bf16 bar,
+    bit-identical) and timed (the decode kernel up to its 8 rows).  The
+    route rule must not sit on the wrong side of a measured crossover: the
+    decode kernel must beat both others at every swept count up to
+    DECODE_MAX_ROWS, and the tensor cores must beat the streaming kernel
+    at every swept count they take."""
     from repro_torch.kernels.fixedpoint_matmul import ops as fops
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(7)
     bf16 = torch.bfloat16
-    out = {"phase": "crossover", "tc_min_rows": fops.TC_MIN_ROWS}
+    out = {"phase": "crossover", "tc_min_rows": fops.TC_MIN_ROWS,
+           "decode_max_rows": fops.DECODE_MAX_ROWS}
     rows = []
+
+    def sweep_entry(row, n):
+        e = dict(rows=n, tc_ms=row["tc_ms"], stream_ms=row["stream_ms"])
+        if "dec_ms" in row:
+            e["dec_ms"] = row["dec_ms"]
+            e["dec_best"] = row["dec_ms"] < min(row["tc_ms"], row["stream_ms"])
+        return e
+
+    def routes(n):
+        return ("decode", "tensor_core") if n <= fops.DECODE_MAX_ROWS else ("tensor_core",)
+
     sweep = []
     for M in CROSSOVER_ROWS:
         row = _fpmm_case(torch, gen, dev, "gate_proj", 2048, 8192, M, bf16, 2, with_bias=False,
-                         timing=True, routes=True, plain=False, library=False)
+                         timing=True, routes=routes(M), plain=False, library=False)
         row["sweep"] = "crossover"
         emit(row)
         rows.append(row)
-        sweep.append(dict(rows=M, tc_ms=row["tc_ms"], stream_ms=row["stream_ms"]))
-    out["2d"] = {"shape": "internlm2 gate_proj 2048 x 8192", "cases": sweep,
-                 "crossover_rows": _crossover(sweep)}
+        sweep.append(sweep_entry(row, M))
+    out["2d"] = {"shape": "internlm2 gate_proj 2048 x 8192", "cases": sweep}
     words, f, sc = _experts_stack(torch, gen, dev, N_EXPERTS, 2048, 1024, 2)
     sweep = []
     for C in CROSSOVER_ROWS:
         row = _experts_case(torch, gen, dev, "gate_proj", words, f, sc, C, bf16, 2, 1024,
-                            timing=True, routes=True, plain=False)
+                            timing=True, routes=routes(C), plain=False)
         row["sweep"] = "crossover"
         emit(row)
         rows.append(row)
-        sweep.append(dict(rows=C, tc_ms=row["tc_ms"], stream_ms=row["stream_ms"]))
+        sweep.append(sweep_entry(row, C))
     del words
     torch.cuda.empty_cache()
-    out["experts"] = {"shape": "olmoe gate_proj stack 64 x 2048 x 1024", "cases": sweep,
-                      "crossover_rows": _crossover(sweep)}
-    cross = [out[k]["crossover_rows"] for k in ("2d", "experts")]
-    out["pass"] = (all(r["pass"] for r in rows) and None not in cross
-                   and fops.TC_MIN_ROWS >= max(cross))
+    out["experts"] = {"shape": "olmoe gate_proj stack 64 x 2048 x 1024", "cases": sweep}
+    ok = all(r["pass"] for r in rows)
+    for k in ("2d", "experts"):
+        cases = out[k]["cases"]
+        out[k]["crossover_rows"] = _crossover(cases, "tc_ms", "stream_ms")
+        # decode's last row count below both other kernels (swept upwards)
+        dec_vs = [dict(c, best_other=min(c["tc_ms"], c["stream_ms"])) for c in cases
+                  if "dec_ms" in c]
+        out[k]["decode_crossover_rows"] = _crossover(dec_vs, "dec_ms", "best_other", up=False)
+        tc_ok = all(c["tc_ms"] < c["stream_ms"] for c in cases
+                    if c["rows"] >= fops.TC_MIN_ROWS)
+        dec_ok = all(c["dec_best"] for c in cases if c["rows"] <= fops.DECODE_MAX_ROWS)
+        out[k]["rule_ok"] = tc_ok and dec_ok
+        ok = ok and tc_ok and dec_ok
+    out["pass"] = ok
     emit(out)
     if not out["pass"]:
-        raise Failed(f"route threshold against the crossover: {out}")
+        raise Failed(f"route rule against the crossover: {out}")
     return rows, out
 
 
@@ -1109,7 +1214,7 @@ def phase_parity(torch, dev, layers: int, arch: str = "internlm2-1.8b",
     # the attention kernels of this family: float pools, quantized pools
     names = (("paged_attention_mla", "paged_attention_mla_quant") if cfg.use_mla
              else ("paged_attention", "paged_attention_quant"))
-    logits, attn_launches, admission_equal, final = {}, {}, {}, {}
+    logits, attn_launches, admission_equal, final, mm_launches = {}, {}, {}, {}, {}
     plain_pb = plain_packed if kv_cache_dtype == "bf16" else "kernel"
     for path, (pb, ab) in {"kernels": ("kernel", "fused"), "plain": (plain_pb, "composed")}.items():
         dispatch.set_packed_backend(pb)
@@ -1162,6 +1267,7 @@ def phase_parity(torch, dev, layers: int, arch: str = "internlm2-1.8b",
         final[path] = caches
         counts = read_counts()
         attn_launches[path] = {n: counts[n] for n in names}
+        mm_launches[path] = {n: c for n, c in counts.items() if n.startswith("fixedpoint")}
         del eng, caches
     torch.cuda.synchronize()
     words_differing = {f"{g}/{n}": int((t != final["plain"][g]["sub0"][n]).sum().item())
@@ -1184,7 +1290,7 @@ def phase_parity(torch, dev, layers: int, arch: str = "internlm2-1.8b",
            "kv_cache_dtype": kv_cache_dtype, "compute": "float32", "prompts": lens,
            "decode_steps": steps, "logit_rows": int(a.shape[0]), "max_abs_logit_err": err,
            "atol": PARITY_ATOL, "logit_scale": a.abs().max().item(), "argmax_agreement": agree,
-           "finite": finite, "attention_launches": attn_launches,
+           "finite": finite, "attention_launches": attn_launches, "matmul_launches": mm_launches,
            "expected_attention_launches": want,
            "admission_pool_equal_cpu": admission_equal, "plain_packed_backend": plain_pb,
            "pool_words_differing_after_decode": words_differing,
@@ -1209,8 +1315,10 @@ def _counters():
 
     return {"fixedpoint_matmul": (fops, "launches"),
             "fixedpoint_matmul_tc": (fops, "tc_launches"),
+            "fixedpoint_matmul_decode": (fops, "decode_launches"),
             "fixedpoint_matmul_experts": (fops, "experts_launches"),
             "fixedpoint_matmul_experts_tc": (fops, "tc_experts_launches"),
+            "fixedpoint_matmul_experts_decode": (fops, "decode_experts_launches"),
             "paged_attention": (aops, "launches"),
             "paged_attention_quant": (aops, "quant_launches"),
             "paged_attention_mla": (aops, "mla_launches"),
@@ -1232,25 +1340,39 @@ def _capacity(cfg, bucket: int) -> int:
     return max(1, int(math.ceil(cfg.capacity_factor * bucket * cfg.top_k / cfg.n_experts)))
 
 
+MATMUL_KERNEL = {"streaming": "fixedpoint_matmul", "tensor_core": "fixedpoint_matmul_tc",
+                 "decode": "fixedpoint_matmul_decode"}
+
+
 def _matmul_counts(n_2d: int, n_experts: int, decode_steps: int, buckets, cfg=None, *,
-                   extra_2d: int = 0, decode_2d: int = None):
-    """Launches of the two matmul kernels on a serve path, by route: per
-    decode step ``decode_2d`` (default ``n_2d``) 2-D and ``n_experts``
-    experts launches, streaming (M = C = 4 slots); per admission of
-    ``bucket`` tokens ``n_2d`` 2-D launches at M = bucket and ``n_experts``
-    at C = ``_capacity``, on the tensor cores at or above the threshold,
-    plus ``extra_2d`` streaming launches (the M = 1 head)."""
+                   head: bool = False, decode_2d: int = None):
+    """Launches of the matmul kernels on a serve path, each bf16 call on
+    the kernel the route rule picks for its rows: per decode step
+    ``decode_2d`` (default ``n_2d``) 2-D launches at M = 4 slots and
+    ``n_experts`` experts launches at C = 4; per admission of ``bucket``
+    tokens ``n_2d`` 2-D launches at M = bucket and ``n_experts`` at C =
+    ``_capacity``.  ``head``: the fp32 head adds one streaming launch per
+    decode step (M = 4) and per admission (M = 1)."""
+    import torch
     from repro_torch.kernels.fixedpoint_matmul import ops as fops
 
-    thr = fops.TC_MIN_ROWS
-    big = sum(b >= thr for b in buckets)
-    ex_tc = sum(_capacity(cfg, b) >= thr for b in buckets) if n_experts else 0
-    n = len(buckets)
-    d2 = n_2d if decode_2d is None else decode_2d
-    return {"fixedpoint_matmul": d2 * decode_steps + n_2d * (n - big) + extra_2d * n,
-            "fixedpoint_matmul_tc": n_2d * big,
-            "fixedpoint_matmul_experts": n_experts * (decode_steps + n - ex_tc),
-            "fixedpoint_matmul_experts_tc": n_experts * ex_tc}
+    out = dict.fromkeys(list(MATMUL_KERNEL.values()) +
+                        [k.replace("matmul", "matmul_experts") for k in MATMUL_KERNEL.values()], 0)
+
+    def add(n, rows, experts=False):
+        name = MATMUL_KERNEL[fops._pick_route(torch.bfloat16, rows, True)]
+        out[name.replace("matmul", "matmul_experts") if experts else name] += n
+
+    add((n_2d if decode_2d is None else decode_2d) * decode_steps, DECODE_TOKENS)
+    if n_experts:
+        add(n_experts * decode_steps, DECODE_TOKENS, experts=True)
+    for b in buckets:
+        add(n_2d, b)
+        if n_experts:
+            add(n_experts, _capacity(cfg, b), experts=True)
+    if head:
+        out["fixedpoint_matmul"] += decode_steps + len(buckets)
+    return out
 
 
 def _record_admissions(torch, fns):
@@ -1386,14 +1508,15 @@ def phase_serve(torch, dev, arch: str, kv_cache_dtype: str, seed: int, expected,
         "end_to_end_tokens_per_s": st["tokens_emitted"] / wall,
         "prefill_s": prefill_s, "prefill_share_of_wall": prefill_s / wall,
         "prefill_ms": [[b, ms] for b, ms in zip(adm["buckets"], adm["ms"])],
-        "tc_min_rows": fops.TC_MIN_ROWS,
+        "tc_min_rows": fops.TC_MIN_ROWS, "decode_max_rows": fops.DECODE_MAX_ROWS,
         "kv_pool_bytes": sched.cache_bytes(), "weight_bytes": eng.weight_bytes(),
         "peak_device_bytes": peak, "launches": counts, "expected_launches": want,
     }
     # every kernel the path runs must have launched, each exactly as often
-    # as the path implies (so every admission at or above the threshold ran
-    # its matmuls on the tensor cores, decode and the head on the streaming
-    # kernel)
+    # as the path implies (so every bf16 matmul ran on the kernel the rule
+    # picks for its rows: decode steps and small admissions on the decode
+    # kernel, larger admissions on the tensor cores; the fp32 head on the
+    # streaming kernel)
     row["pass"] = (set(reasons) <= {"length", "eos"} and lengths_ok and tokens_ok
                    and len(adm["buckets"]) == st["prefills"]
                    and counts == want and all(counts[k] > 0 for k, n in want.items() if n))
@@ -1443,7 +1566,52 @@ def kernel_times(evs):
 # ---------------------------------------------------------------------------
 # phase 6: where a decode step's time goes (host profile + device busy share)
 # ---------------------------------------------------------------------------
-def phase_profile(torch, dev, eng, steps: int = 4):
+# the matmul kernels by route and form, as the profiler names them
+MATMUL_GROUPS = {"decode_experts": ("fpmm_decode", "true>"),
+                 "decode_2d": ("fpmm_decode", "false>"),
+                 "tensor_core": ("fpmm_tc", ""), "streaming": ("fpmm_", "")}
+
+
+def _matmul_groups(kern, steps: int):
+    """Device ms a step by matmul group (first match wins, in the order of
+    MATMUL_GROUPS; the streaming group is fpmm_partial + fpmm_finish)."""
+    out = dict.fromkeys(MATMUL_GROUPS, 0.0)
+    for name, us, _ in kern:
+        for g, (a, b) in MATMUL_GROUPS.items():
+            if a in name and b in name:
+                out[g] += us / steps / 1e3
+                break
+    return out
+
+
+def _parent_rule(dtype, rows: int, aligned: bool) -> str:
+    """The route rule before the decode kernel: bf16 from 5 rows on the
+    tensor cores, every other call (decode's 4 rows) on the streaming one."""
+    if str(dtype) == "torch.bfloat16" and rows >= 5 and aligned:
+        return "tensor_core"
+    return "streaming"
+
+
+def phase_profile(torch, dev, eng, steps: int = 4, rule=None):
+    """A few decode steps of ``eng``: step ms, host functions (cProfile),
+    device busy time and top kernels (torch.profiler), and the matmul
+    kernels' device ms by route.  ``rule`` replaces the matmul route rule
+    for this phase only (the parent's rule, to measure the step as it was
+    in one run with the change)."""
+    from repro_torch.kernels.fixedpoint_matmul import ops as fops
+
+    if rule is None:
+        return _profile(torch, dev, eng, steps)
+    inner = fops._pick_route
+    fops._pick_route = rule
+    try:
+        row = _profile(torch, dev, eng, steps, rule=rule.__name__)
+    finally:
+        fops._pick_route = inner
+    return row
+
+
+def _profile(torch, dev, eng, steps: int, rule: str = "_pick_route"):
     import cProfile
     import pstats
 
@@ -1465,7 +1633,7 @@ def phase_profile(torch, dev, eng, steps: int = 4):
     step_ms = (time.perf_counter() - t0) / steps * 1e3
     row = {"phase": "profile", "arch": eng.cfg.name, "layers": eng.cfg.n_layers,
            "kv_cache_dtype": eng.cfg.kv_cache_dtype, "live_slots": sched._n_live,
-           "decode_step_ms": step_ms}
+           "route_rule": rule, "decode_step_ms": step_ms}
     prof = cProfile.Profile()
     prof.enable()
     for _ in range(steps):
@@ -1508,6 +1676,7 @@ def phase_profile(torch, dev, eng, steps: int = 4):
             row["device_idle_share"] = 1.0 - busy_us / 1e6 / wall if wall else None
             row["device_top_ms_per_step"] = [[k[:60], us / steps / 1e3, n // steps]
                                              for k, us, n in kern[:10]]
+            row["matmul_device_ms_per_step"] = _matmul_groups(kern, steps)
     emit(row)
     return row
 
@@ -1685,8 +1854,7 @@ def phase_serve_olmoe(torch, dev):
         # prefill: q, k, v, o (+ the lm_head: M = 4 slots at decode, M = 1 at
         # prefill), the experts' gate, up, down
         L = cfg.n_layers
-        return {**_matmul_counts(4 * L, 3 * L, st["decode_steps"], buckets, cfg, extra_2d=1,
-                                 decode_2d=4 * L + 1),
+        return {**_matmul_counts(4 * L, 3 * L, st["decode_steps"], buckets, cfg, head=True),
                 "paged_attention": 0,  # the pool is int4: every decode read is quantized
                 "paged_attention_quant": cfg.n_layers * st["decode_steps"],
                 "paged_attention_mla": 0, "paged_attention_mla_quant": 0, "symog_update": 0}
@@ -2066,7 +2234,7 @@ def phase_serve_deepseek(torch, dev):
         # (M = 4 slots at decode, M = 1 at prefill)
         L, n_moe = cfg.n_layers, cfg.n_layers - cfg.n_dense_layers
         return {**_matmul_counts(10 * L, 3 * n_moe, st["decode_steps"], buckets, cfg,
-                                 extra_2d=1, decode_2d=8 * L + 1),
+                                 head=True, decode_2d=8 * L),
                 "paged_attention": 0, "paged_attention_quant": 0,
                 "paged_attention_mla": 0,  # the pool is int4: every decode read is quantized
                 "paged_attention_mla_quant": L * st["decode_steps"], "symog_update": 0}
@@ -2175,7 +2343,8 @@ def main() -> int:
         aq_rows, aq_err, aq_main = run("3e paged_attention_quant", phase_attn_quant, torch, dev)
         mla_rows, mla_err, mla_main = run("3f paged_attention_mla", phase_attn_mla, torch, dev)
         run("4 parity internlm2", phase_parity, torch, dev, PARITY_LAYERS)
-        run("4 parity olmoe", phase_parity, torch, dev, PARITY_LAYERS, arch="olmoe-1b-7b")
+        par_olmoe = run("4 parity olmoe", phase_parity, torch, dev, PARITY_LAYERS,
+                        arch="olmoe-1b-7b")
         run("4 parity olmoe", phase_parity, torch, dev, PARITY_LAYERS, arch="olmoe-1b-7b",
             kv_cache_dtype="int4_fp")
         # deepseek-v3, 3 dense + 1 MoE layer: one layer-by-layer artifact, served
@@ -2202,7 +2371,10 @@ def main() -> int:
         del eng
         torch.cuda.empty_cache()
         deepseek, eng = run("9 serve deepseek", phase_serve_deepseek, torch, dev)
-        run("9 profile deepseek", phase_profile, torch, dev, eng)
+        # the decode step under the parent's route rule and under this one,
+        # in turns (parent, this, this, parent): host time spreads widely
+        for rule in (_parent_rule, None, None, _parent_rule):
+            run("9 profile deepseek", phase_profile, torch, dev, eng, rule=rule)
         del eng
         torch.cuda.empty_cache()
     except Failed as e:
@@ -2215,16 +2387,27 @@ def main() -> int:
     # at every case the rule sends to the tensor cores, they must be faster
     tc_cases = [r for r in mm_rows + ex_rows if r["route"] == "tensor_core" and "stream_ms" in r]
     tc_faster = all(r["tc_ms"] < r["stream_ms"] for r in tc_cases)
+    # and at every timed case the rule sends to the decode kernel, it must
+    # beat the streaming kernel it replaces there
+    dec_cases = [r for r in mm_rows + ex_rows if r["route"] == "decode" and "stream_ms" in r]
+    dec_faster = all(r["dec_ms"] < r["stream_ms"] for r in dec_cases)
+    # the streaming kernels now serve fp32 calls only: the MoE serves' fp32
+    # head, and (experts form) the fp32 parity phases
+    fe_fp32 = {k: sum(r[k] for r in fe_rows if r["dtype"] == "float32" and r["C"] == 4
+                      and r["n_bits"] == 2) for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    par_ex = par_olmoe["matmul_launches"]["kernels"]["fixedpoint_matmul_experts"]
     summary = [
         {"name": "fixedpoint_matmul", "route": "cuda",
          "source": "src/repro_torch/csrc/fixedpoint_matmul.cu",
          "replaces": "src/repro/kernels/fixedpoint_matmul/kernel.py:30",
-         "launches": serve["launches"]["fixedpoint_matmul"],
+         "launches": olmoe["launches"]["fixedpoint_matmul"],
          "max_abs_err": _route_err(mm_rows, "streaming"),
-         "ms": fp_decode["ms"], "plain_ms": fp_decode["plain_ms"],
-         "bound_ms": fp_decode["bound_ms"], "bound_by": "bytes",
-         "library_ms": fp_decode["library_ms"],
-         "work": "one decoder layer's 7 projections at M=4, 2-bit, bf16",
+         "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+         "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+         "work": "olmoe's packed head (the MoE serves' fp32 head) at M=4, K 2048, N 50304, "
+                 "2-bit, fp32 x",
+         "launches_from": "olmoe-1b-7b serve: the fp32 head, once a decode step and admission",
+         "internlm2_decode_layer_streaming_ms": fp_decode["stream_ms"],
          "pass": all(r["pass"] for r in fp_rows + fpd_rows)},
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/paged_attention.cu",
@@ -2250,13 +2433,14 @@ def main() -> int:
         {"name": "fixedpoint_matmul_experts", "route": "cuda",
          "source": "src/repro_torch/csrc/fixedpoint_matmul.cu",
          "replaces": "src/repro/kernels/fixedpoint_matmul/ops.py:81",
-         "launches": olmoe["launches"]["fixedpoint_matmul_experts"],
-         "max_abs_err": _route_err(ex_rows, "streaming"), "ms": fe_decode["ms"],
-         "plain_ms": fe_decode["plain_ms"],
-         "bound_ms": fe_decode["bound_ms"], "bound_by": "bytes",
-         "library_ms": fe_decode["library_ms"],
-         "work": "one olmoe layer's 3 expert stacks (64 experts, one f each) at C=4, 2-bit, bf16",
-         "pass": all(r["pass"] for r in fe_rows + fed_rows)},
+         "launches": par_ex, "max_abs_err": _route_err(ex_rows, "streaming"),
+         "ms": fe_fp32["ms"], "plain_ms": fe_fp32["plain_ms"], "bound_ms": fe_fp32["bound_ms"],
+         "bound_by": "bytes", "library_ms": fe_fp32["library_ms"],
+         "work": "one olmoe layer's 3 expert stacks (64 experts, one f each) at C=4, 2-bit, "
+                 "fp32 x",
+         "launches_from": "olmoe-1b-7b fp32 parity (phase 4, kernels path): every bf16 call "
+                          "of the serves takes the decode or tensor-core kernel",
+         "pass": par_ex > 0 and all(r["pass"] for r in fe_rows + fed_rows)},
         {"name": "paged_attention_quant", "route": "cuda",
          "source": "src/repro_torch/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention/kernel.py:131",
@@ -2318,17 +2502,53 @@ def main() -> int:
         if pre2 is not None:
             entry["olmoe_prefill_layer"] = dict(pre2, work=work2)
         summary.append(entry)
-    summary[0]["head_shape"] = {k: head[k] for k in ("M", "K", "N", "dtype", "max_abs_err", "ms",
-                                                      "plain_ms", "bound_ms", "library_ms")}
-    summary[0]["launches_olmoe_serve"] = olmoe["launches"]["fixedpoint_matmul"]
     summary[0]["launches_deepseek_serve"] = deepseek["launches"]["fixedpoint_matmul"]
-    summary[0]["deepseek_decode_layer"] = dict(
-        fpd_layer, work="one deepseek-v3 MoE layer's 2-D matmuls at decode (q_a, q_b, kv_a, "
-                        "k_rope, o, the shared expert's 3) at M=4, 2-bit, bf16")
-    summary[3]["launches_deepseek_serve"] = deepseek["launches"]["fixedpoint_matmul_experts"]
-    summary[3]["deepseek_decode_layer"] = dict(
-        fed_decode, work="one deepseek-v3 MoE layer's 3 expert stacks (256 experts, one f "
-                         "each) at C=4, 2-bit, bf16")
+    dec_rows = [r for r in mm_rows if r["route"] == "decode" or "dec_max_abs_err" in r]
+    dex_rows = [r for r in ex_rows if r["route"] == "decode" or "dec_max_abs_err" in r]
+    summary.append(
+        {"name": "fixedpoint_matmul_decode", "route": "cuda",
+         "source": "src/repro_torch/csrc/fixedpoint_matmul.cu",
+         "replaces": "src/repro/kernels/fixedpoint_matmul/kernel.py:30",
+         "launches": serve["launches"]["fixedpoint_matmul_decode"],
+         "max_abs_err": _route_err(mm_rows, "decode"),
+         "ms": fp_decode["ms"], "plain_ms": fp_decode["plain_ms"],
+         "bound_ms": fp_decode["bound_ms"], "bound_by": "bytes",
+         "library_ms": fp_decode["library_ms"], "streaming_kernel_ms": fp_decode["stream_ms"],
+         "work": "one internlm2 layer's 7 projections at M=4, 2-bit, bf16",
+         "deepseek_decode_layer": dict(
+             fpd_layer, work="one deepseek-v3 MoE layer's 2-D matmuls at decode (q_a, q_b, "
+                             "kv_a, k_rope, o, the shared expert's 3) at M=4, 2-bit, bf16"),
+         "launches_olmoe_serve": olmoe["launches"]["fixedpoint_matmul_decode"],
+         "launches_deepseek_serve": deepseek["launches"]["fixedpoint_matmul_decode"],
+         "decode_max_rows": cross["decode_max_rows"],
+         "decode_crossover_rows": cross["2d"]["decode_crossover_rows"],
+         "dec_faster_than_streaming_at_every_routed_case": dec_faster,
+         "pass": dec_faster and all(r["pass"] and r.get("dec_bit_identical", True)
+                                    for r in dec_rows)})
+    summary.append(
+        {"name": "fixedpoint_matmul_experts_decode", "route": "cuda",
+         "source": "src/repro_torch/csrc/fixedpoint_matmul.cu",
+         "replaces": "src/repro/kernels/fixedpoint_matmul/ops.py:81",
+         "launches": deepseek["launches"]["fixedpoint_matmul_experts_decode"],
+         "max_abs_err": _route_err(ex_rows, "decode"),
+         "ms": fed_decode["ms"], "plain_ms": fed_decode["plain_ms"],
+         "bound_ms": fed_decode["bound_ms"], "bound_by": "bytes",
+         "library_ms": fed_decode["library_ms"],
+         "bound_all_experts_ms": fed_decode["bound_all_ms"],
+         "occupied_experts": fed_decode["occupied"],
+         "every_expert_ms": fed_decode["dec_all_ms"],
+         "streaming_kernel_ms": fed_decode["stream_ms"],
+         "work": "one deepseek-v3 MoE layer's 3 expert stacks (256 experts, one f each) at "
+                 "C=4, 2-bit, bf16, rows from a top-8 routing of 4 tokens (occupied_experts "
+                 "summed over the 3 stacks); bound_ms counts the occupied experts' bytes",
+         "olmoe_decode_layer": dict(
+             fe_decode, work="one olmoe layer's 3 stacks (64 experts) at C=4, rows from a "
+                             "top-8 routing of 4 tokens"),
+         "launches_olmoe_serve": olmoe["launches"]["fixedpoint_matmul_experts_decode"],
+         "decode_crossover_rows": cross["experts"]["decode_crossover_rows"],
+         "dec_faster_than_streaming_at_every_routed_case": dec_faster,
+         "pass": dec_faster and all(r["pass"] and r.get("dec_bit_identical", True)
+                     and r.get("equal_to_every_expert", True) for r in dex_rows)})
     if not all(k["pass"] for k in summary):
         print("chip_smoke: FAILED: a kernel row did not pass", file=sys.stderr)
         return 1

@@ -36,11 +36,12 @@
 //     casts to x's dtype — the epilogue of the TPU kernel's last K step.
 // f is read from device memory (a runtime scalar or (E,) vector), so no
 // layer recompiles and the host never synchronises on it.  This streaming
-// kernel serves decode (M = n_slots; C = 4 per expert), the M = 1 head, fp32
-// activations and every call below the route's row threshold (ops.py
-// `_pick_route`).  It runs on the CUDA cores in fp32 (exact for |m| <= 7) and
-// re-reads the words once per 4-row tile, so at prefill sizes the second
-// kernel below, `fpmm_tc`, takes bf16 calls instead.
+// kernel serves fp32 activations (the MoE serves' fp32 head, the fp32
+// parity runs) and bf16 rows that are not 16-byte aligned (ops.py
+// `_pick_route`).  It runs on the CUDA cores in fp32 (exact for |m| <= 7),
+// where at 2 bits and 4 rows a byte of words costs 16 FMAs: the cores, not
+// the bytes, bound it, so bf16 calls take `fpmm_decode` (up to 8 rows) or
+// `fpmm_tc` (prefill) instead.
 //
 // fpmm_tc: the tensor-core route (bf16 x, M or C at or above the threshold).
 // At prefill the work is compute-bound (2·M·K·N operations against K·N/4
@@ -89,6 +90,36 @@
 //     in bf16: one launch per call, no fp32 workspace, no second kernel;
 //   * the expert and the column tile share grid.x (E x column tiles <
 //     2^31), token tiles grid.y, so 256 experts cannot overflow the grid.
+//
+// fpmm_decode: the decode route (bf16 x, 1..8 rows: M = n_slots, C per
+// expert, the smallest prefill capacities).  At 4 rows a 2-bit byte of
+// words is 32 bf16 MMA operations, far below the tensor cores' 295 a byte,
+// so the words bound it (a deepseek-v3 MoE layer's 3 stacks: 2.82 GB,
+// 0.84 ms at 3.35 TB/s); but only if the dequantization keeps pace, which
+// fp32 FMAs on the CUDA cores do not.  Design:
+//   * the tensor cores with A and B swapped as in fpmm_tc, the tokens ONE
+//     n8 tile (no 32-token block tile), the words dequantized by the same
+//     `prmt` / `lop3` / bf16x2 FMA straight into A fragments;
+//   * a ring of 128-row stages in shared memory, filled by `cp.async`
+//     16-byte chunks, 48 KB of words in flight a block (4 stages of 128-byte
+//     rows, 7 of 64, 13 of 32): the card's byte-latency product spread over
+//     132 SMs is ~25 KB an SM, and two blocks share an SM;
+//   * 8 warps a block: wn side by side on 32 word bytes each (wn = 4, 2, 1,
+//     picked by the host from the shape, ops.py `_decode_tile`), the other
+//     8 / wn splitting each stage's rows;
+//   * K split across a thread-block cluster of up to 8 blocks where the
+//     tiles are few: each block folds its warps' sums (K slice order) into
+//     a (token, column) tile, and each rank finishes 1/split of the
+//     columns, adding the ranks' tiles in rank order through distributed
+//     shared memory (deterministic; one launch, no workspace, no atomics);
+//   * the experts form takes `rows` (E,), each expert's kept rows: every
+//     block builds the list of occupied experts on the device (a ballot
+//     and prefix count over E <= 256) and the clusters walk the (occupied
+//     expert, column tile) items in grid stride.  The grid is sized by the
+//     host from a bound (`max_active`) only, so a wrong bound costs time,
+//     never an expert; there is no host sync.  An empty expert's words are
+//     not read: its output is written +0, what its zero rows of x give;
+//   * the epilogue applies 2^-f[e] and the bias once and writes bf16 pairs.
 #include <cooperative_groups.h>
 
 #include <type_traits>
@@ -671,6 +702,362 @@ int launch_tc(const void* x, const void* w, const void* f, const void* bias, voi
 #undef REPRO_TC_TILE
 }
 
+// ---------------------------------------------------------------------------
+// fpmm_decode: the decode route (see the note at the top)
+// ---------------------------------------------------------------------------
+constexpr int kDecTok = 8;                 // every token of the call: one n8 tile
+constexpr int kDecWarps = 8;
+constexpr int kDecThreads = kDecWarps * 32;
+constexpr int kDecBK = 128;                // weight rows per ring stage
+constexpr int kDecXRow = kDecBK * 2 + 16;  // smem row stride of x: b0/b1 loads on distinct banks
+constexpr int kDecMaxE = 256;              // experts a `rows` vector may hold
+constexpr int kDecRedStride = 33;          // floats a sums' slot: 32 lanes + 1 (banks)
+constexpr int kDecMaxSplit = 8;            // blocks a cluster may split K over
+
+// WN warps side by side on 32 word bytes each (128 columns at 2 bits), the
+// other 8 / WN warps splitting each stage's 128 rows
+template <int NBITS, int WN>
+struct DecCfg {
+  static constexpr int kKS = kDecWarps / WN;
+  static constexpr int kQ = kDecBK / 16 / kKS;    // 16-row MMA steps of a warp per stage
+  static constexpr int kTiles = 16 / NBITS;       // m16 tiles per warp
+  static constexpr int kBytes = WN * 32;          // word bytes of a row per block
+  static constexpr int kWRow = kBytes + 16;       // smem row stride: rows 2t on distinct banks
+  static constexpr int kStageBytes = kDecBK * kWRow + kDecTok * kDecXRow;
+  // ring depth (stages - 1 in flight): 48 KB of words a block at every width
+  static constexpr int kStages = WN == 4 ? 4 : WN == 2 ? 7 : 13;
+  static constexpr int kSlots = kTiles * 4;       // fp32 accumulators per lane
+  static constexpr int kRedBytes = kDecWarps * kSlots * kDecRedStride * 4;
+  static constexpr int kColsW = 8 * (32 / NBITS);  // columns of a warp
+  static constexpr int kCols = WN * kColsW;        // columns of the block
+  static constexpr int kTRow = kCols + 4;          // floats a token row of the folded tile
+  static constexpr int kSums = kRedBytes + kDecTok * kTRow * 4;
+  static constexpr int kRing = kStages * kStageBytes;
+  static constexpr int kSmem = kRing > kSums ? kRing : kSums;
+};
+
+template <int NBITS, int WN, bool EXPERTS>
+__global__ void __launch_bounds__(kDecThreads, 2)
+fpmm_decode(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ w,
+            const int* __restrict__ f, const float* __restrict__ bias,
+            const int* __restrict__ rows, __nv_bfloat16* __restrict__ y, int E, int M, int K,
+            int N, int nbytes, int col_tiles, int split, int vec16) {
+  using D = DecCfg<NBITS, WN>;
+  constexpr int kTiles = D::kTiles, kKS = D::kKS, kQ = D::kQ, kWRow = D::kWRow;
+  extern __shared__ __align__(16) uint8_t smem[];
+  __shared__ int s_occ[kDecMaxE];   // experts that hold a row, in expert order
+  __shared__ int s_free[kDecMaxE];  // the others
+  __shared__ int s_count[2];
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wn = warp % WN, ks = warp / WN;
+  const int rank = split > 1 ? static_cast<int>(cluster.block_rank()) : 0;
+  const size_t per_expert = static_cast<size_t>(M) * N;  // output elements of one expert
+
+  int n_work = E;  // experts to compute
+  if (EXPERTS && rows != nullptr) {
+    // the occupied-expert list, built on the device: warp 0 reads rows[]
+    // (all loads in flight at once) and places each expert by a ballot and
+    // a prefix count; every block builds the same list
+    if (warp == 0) {
+      int r[kDecMaxE / 32];
+#pragma unroll
+      for (int j = 0; j < kDecMaxE / 32; ++j) {
+        const int e = j * 32 + lane;
+        r[j] = e < E ? rows[e] : 0;
+      }
+      const unsigned below = (1u << lane) - 1u;
+      int n_occ = 0, n_free = 0;
+#pragma unroll
+      for (int j = 0; j < kDecMaxE / 32; ++j) {
+        const int e = j * 32 + lane;
+        const bool occ = e < E && r[j] > 0, fre = e < E && r[j] <= 0;
+        const unsigned mo = __ballot_sync(0xffffffffu, occ);
+        const unsigned mf = __ballot_sync(0xffffffffu, fre);
+        if (occ) s_occ[n_occ + __popc(mo & below)] = e;
+        if (fre) s_free[n_free + __popc(mf & below)] = e;
+        n_occ += __popc(mo);
+        n_free += __popc(mf);
+      }
+      if (lane == 0) {
+        s_count[0] = n_occ;
+        s_count[1] = n_free;
+      }
+    }
+    __syncthreads();
+    n_work = s_count[0];
+  }
+
+  // the cluster's blocks split the K steps into contiguous ranges
+  const int all_steps = (K + kDecBK - 1) / kDecBK;
+  const int per_split = (all_steps + split - 1) / split;
+  const int first = rank * per_split;
+  const int n_steps = max(0, min(all_steps, first + per_split) - first);
+  const int n_items = n_work * col_tiles;
+  const int n_clusters = gridDim.x / split;
+  float* red = reinterpret_cast<float*>(smem);
+
+  // each cluster walks the (occupied expert, column tile) items in grid
+  // stride: a grid sized for fewer experts than hold rows only loops more
+  for (int item = blockIdx.x / split; item < n_items; item += n_clusters) {
+    const int j = item / col_tiles;
+    const int e = !EXPERTS ? 0 : rows != nullptr ? s_occ[j] : j;
+    const int byte0 = (item - j * col_tiles) * D::kBytes;
+    const __nv_bfloat16* xe = x + static_cast<size_t>(e) * M * K;
+    const uint8_t* we = w + static_cast<size_t>(e) * K * nbytes;
+
+    auto load_stage = [&](int stage, int step) {
+      uint8_t* sw = smem + stage * D::kStageBytes;
+      uint8_t* sx = sw + kDecBK * kWRow;
+      const int k0 = (first + step) * kDecBK;
+      constexpr int kChunks = D::kBytes / 16;  // 16-byte chunks of a word row
+#pragma unroll
+      for (int i = 0; i < kDecBK * kChunks / kDecThreads; ++i) {
+        const int c = tid + i * kDecThreads;
+        const int r = c / kChunks, jj = c - r * kChunks;
+        const int k = k0 + r, b = byte0 + jj * 16;
+        uint8_t* dst = sw + r * kWRow + jj * 16;
+        if (vec16) {  // nbytes % 16 == 0: a chunk is whole or past the row
+          const bool ok = k < K && b < nbytes;
+          cp_async16(dst, ok ? we + static_cast<size_t>(k) * nbytes + b : we, ok ? 16 : 0);
+        } else {
+          uint32_t v[4] = {0u, 0u, 0u, 0u};
+          if (k < K) {
+            const uint8_t* row = we + static_cast<size_t>(k) * nbytes;
+#pragma unroll
+            for (int q = 0; q < 16; ++q)
+              if (b + q < nbytes) v[q >> 2] |= static_cast<uint32_t>(row[b + q]) << (8 * (q & 3));
+          }
+          *reinterpret_cast<uint4*>(dst) = make_uint4(v[0], v[1], v[2], v[3]);
+        }
+      }
+      constexpr int kXChunks = kDecBK / 8;  // 16-byte chunks of a token's stage
+      if (tid < kDecTok * kXChunks) {
+        const int r = tid / kXChunks, jj = tid - r * kXChunks;
+        const int k = k0 + jj * 8;
+        const bool ok = r < M && k < K;  // K % 8 == 0: a chunk is whole or past the row
+        cp_async16(sx + r * kDecXRow + jj * 16, ok ? xe + static_cast<size_t>(r) * K + k : xe,
+                   ok ? 16 : 0);
+      }
+    };
+
+    float acc[kTiles][4];
+#pragma unroll
+    for (int i = 0; i < kTiles; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
+
+#pragma unroll
+    for (int s = 0; s < D::kStages - 1; ++s) {
+      if (s < n_steps) load_stage(s, s);
+      cp_async_commit();
+    }
+    // this lane's words (rows 2t, 2t+1, 2t+8, 2t+9 of each 16-row step of
+    // the warp's share, word g of its 32-byte group) and x pairs (token g,
+    // k 2t and 2t+8 of the step)
+    const int w_lane = (ks * kQ * 16 + 2 * t) * kWRow + (wn * 8 + g) * 4;
+    const int x_lane = kDecBK * kWRow + g * kDecXRow + (ks * kQ * 16 + 2 * t) * 2;
+    int stage = 0;
+    for (int step = 0; step < n_steps; ++step) {
+      cp_async_wait<D::kStages - 2>();
+      __syncthreads();  // this step's stage is in; every warp is done with step - 1's
+      const int next = step + D::kStages - 1;
+      if (next < n_steps) load_stage(next % D::kStages, next);
+      cp_async_commit();
+      const uint8_t* sw = smem + stage * D::kStageBytes;
+      stage = stage == D::kStages - 1 ? 0 : stage + 1;
+#pragma unroll
+      for (int q = 0; q < kQ; ++q) {
+        const uint8_t* wp = sw + w_lane + q * 16 * kWRow;
+        const uint8_t* xp = sw + x_lane + q * 32;
+        const uint32_t w0 = *reinterpret_cast<const uint32_t*>(wp);
+        const uint32_t w1 = *reinterpret_cast<const uint32_t*>(wp + kWRow);
+        const uint32_t w8 = *reinterpret_cast<const uint32_t*>(wp + 8 * kWRow);
+        const uint32_t w9 = *reinterpret_cast<const uint32_t*>(wp + 9 * kWRow);
+        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(xp);
+        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(xp + 16);
+        // rows (2t, 2t+1) and (2t+8, 2t+9) paired per 16-bit half, as in fpmm_tc
+        const uint32_t lo01 = __byte_perm(w0, w1, 0x5410);
+        const uint32_t hi01 = __byte_perm(w0, w1, 0x7632);
+        const uint32_t lo89 = __byte_perm(w8, w9, 0x5410);
+        const uint32_t hi89 = __byte_perm(w8, w9, 0x7632);
+        static_for<0, kTiles>([&](auto tile) {
+          constexpr int i = decltype(tile)::value;
+          const uint32_t a[4] = {dequant_pair<NBITS, i>(lo01), dequant_pair<NBITS, i>(hi01),
+                                 dequant_pair<NBITS, i>(lo89), dequant_pair<NBITS, i>(hi89)};
+          mma_bf16(acc[i], a, b0, b1);
+        });
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // every warp is done with the ring: it holds the sums next
+
+    // every warp's sums, lane-interleaved; the K slices' sums folded in
+    // slice order into the block's (token, column) tile; then the cluster's
+    // blocks each finish their share of the tile's columns, adding the
+    // ranks' tiles in rank order (deterministic; no atomics, no workspace)
+    {
+      float* mine = red + static_cast<size_t>(warp) * D::kSlots * kDecRedStride + lane;
+#pragma unroll
+      for (int i = 0; i < kTiles; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) mine[(i * 4 + c) * kDecRedStride] = acc[i][c];
+    }
+    __syncthreads();
+    float* tile = red + D::kRedBytes / 4;
+#pragma unroll
+    for (int q = tid; q < WN * D::kSlots * 32; q += kDecThreads) {
+      // (warp column wc, slot = 4 A-tile + accumulator, lane): accumulator c
+      // holds column half c >> 1 and token 2t + (c & 1)
+      const int ln = q & 31, slot = (q >> 5) % D::kSlots, wc = (q >> 5) / D::kSlots;
+      float v = 0.f;
+#pragma unroll
+      for (int k2 = 0; k2 < kKS; ++k2)
+        v += red[((k2 * WN + wc) * D::kSlots + slot) * kDecRedStride + ln];
+      const int i = slot >> 2, c = slot & 3;
+      const int tok = 2 * (ln & 3) + (c & 1);
+      const int col = wc * D::kColsW + (ln >> 2) * (32 / NBITS) + (c >> 1) * kTiles + i;
+      tile[tok * D::kTRow + col] = v;
+    }
+    if (split > 1) cluster.sync();
+    else __syncthreads();
+    const float scale = ldexpf(1.f, -f[e]);  // exact power-of-two scale
+    const int col_blk = byte0 * (8 / NBITS);
+    const int cpr = D::kCols / split;  // columns this rank finishes (even)
+    for (int q = tid; q < M * (cpr / 2); q += kDecThreads) {
+      const int tok = q / (cpr / 2);
+      const int col = rank * cpr + 2 * (q - tok * (cpr / 2));  // within the block's tile
+      if (col_blk + col >= N) continue;  // N is even: the pair is whole
+      const int idx = tok * D::kTRow + col;
+      float2 part[kDecMaxSplit];
+#pragma unroll
+      for (int r = 0; r < kDecMaxSplit; ++r)  // every rank's pair in flight at once
+        if (r < split)
+          part[r] = *reinterpret_cast<const float2*>(
+              (split > 1 ? cluster.map_shared_rank(tile, r) : tile) + idx);
+      float v0 = 0.f, v1 = 0.f;
+#pragma unroll
+      for (int r = 0; r < kDecMaxSplit; ++r)
+        if (r < split) {
+          v0 += part[r].x;
+          v1 += part[r].y;
+        }
+      v0 *= scale;
+      v1 *= scale;
+      if (bias) {
+        v0 += bias[col_blk + col];
+        v1 += bias[col_blk + col + 1];
+      }
+      *reinterpret_cast<__nv_bfloat162*>(y + static_cast<size_t>(e) * per_expert +
+                                         static_cast<size_t>(tok) * N + col_blk + col) =
+          __floats2bfloat162_rn(v0, v1);
+    }
+    // every block's sums stay until the cluster has read them, and the
+    // ring is free again for the next item
+    if (split > 1) cluster.sync();
+    else __syncthreads();
+  }
+  if (EXPERTS && rows != nullptr) {
+    // an expert that holds no row gets +0 everywhere, written by every
+    // block in grid stride once its items are done (their loads go first):
+    // its words are never read and 2^-f[e] never applied (what the all-zero
+    // rows of x would give, for any finite f)
+    const size_t all = static_cast<size_t>(s_count[1]);
+    const size_t gtid = static_cast<size_t>(blockIdx.x) * kDecThreads + tid;
+    const size_t gstride = static_cast<size_t>(gridDim.x) * kDecThreads;
+    if (per_expert % 8 == 0 && reinterpret_cast<uintptr_t>(y) % 16 == 0) {
+      const size_t per = per_expert / 8;
+      for (size_t i = gtid; i < all * per; i += gstride) {
+        const size_t j = i / per;
+        reinterpret_cast<uint4*>(y + static_cast<size_t>(s_free[j]) * per_expert)[i - j * per] =
+            make_uint4(0u, 0u, 0u, 0u);
+      }
+    } else {  // N is even: pairs
+      const size_t per = per_expert / 2;
+      for (size_t i = gtid; i < all * per; i += gstride) {
+        const size_t j = i / per;
+        reinterpret_cast<uint32_t*>(y + static_cast<size_t>(s_free[j]) * per_expert)[i - j * per] =
+            0u;
+      }
+    }
+  }
+}
+
+template <int NBITS, int WN, bool EXPERTS>
+int launch_decode_cfg(const void* x, const void* w, const void* f, const void* bias,
+                      const void* rows, void* y, int E, int M, int K, int N, int nbytes,
+                      int vec16, int split, int n_clusters, cudaStream_t st) {
+  using D = DecCfg<NBITS, WN>;
+  const int col_tiles = (nbytes + D::kBytes - 1) / D::kBytes;
+  const long long gx = static_cast<long long>(n_clusters) * split;
+  if (gx > 2147483647LL || static_cast<long long>(E) * col_tiles > 2147483647LL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kern = fpmm_decode<NBITS, WN, EXPERTS>;
+  if (D::kSmem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           D::kSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const auto* xp = static_cast<const __nv_bfloat16*>(x);
+  const auto* wp = static_cast<const uint8_t*>(w);
+  const auto* fp = static_cast<const int*>(f);
+  const auto* bp = static_cast<const float*>(bias);
+  const auto* rp = static_cast<const int*>(rows);
+  auto* yp = static_cast<__nv_bfloat16*>(y);
+  const dim3 grid(static_cast<unsigned>(gx), 1, 1);
+  if (split == 1) {
+    kern<<<grid, kDecThreads, D::kSmem, st>>>(xp, wp, fp, bp, rp, yp, E, M, K, N, nbytes,
+                                              col_tiles, split, vec16);
+    return static_cast<int>(cudaGetLastError());
+  }
+  cudaLaunchConfig_t lc = {};
+  lc.gridDim = grid;
+  lc.blockDim = dim3(kDecThreads, 1, 1);
+  lc.dynamicSmemBytes = D::kSmem;
+  lc.stream = st;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;  // the blocks of one item
+  cluster[0].val.clusterDim.x = split;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  lc.attrs = cluster;
+  lc.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(&lc, kern, xp, wp, fp, bp, rp, yp, E, M, K, N, nbytes,
+                                       col_tiles, split, vec16);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_decode(const void* x, const void* w, const void* f, const void* bias,
+                  const void* rows, void* y, int E, int M, int K, int N, int nbytes, int n_bits,
+                  int wn, int split, int n_clusters, int experts, void* stream) {
+  if ((n_bits != 2 && n_bits != 4) || (wn != 1 && wn != 2 && wn != 4) ||
+      (split != 1 && split != 2 && split != 4 && split != kDecMaxSplit) || E < 1 || M < 1 ||
+      M > kDecTok || K < 1 || K % 8 != 0 || N < 2 || N % 2 != 0 || n_clusters < 1 ||
+      nbytes != N * n_bits / 8 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(y) % 4 != 0 || (rows != nullptr && E > kDecMaxE) ||
+      (!experts && (E != 1 || rows != nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int vec16 = (nbytes % 16 == 0) && (reinterpret_cast<uintptr_t>(w) % 16 == 0);
+#define REPRO_DEC(NB, WN)                                                                 \
+  (experts ? launch_decode_cfg<NB, WN, true>(x, w, f, bias, rows, y, E, M, K, N, nbytes, vec16, \
+                                             split, n_clusters, st)                            \
+           : launch_decode_cfg<NB, WN, false>(x, w, f, bias, rows, y, E, M, K, N, nbytes,      \
+                                              vec16, split, n_clusters, st))
+  if (n_bits == 2) {
+    if (wn == 4) return REPRO_DEC(2, 4);
+    if (wn == 2) return REPRO_DEC(2, 2);
+    return REPRO_DEC(2, 1);
+  }
+  if (wn == 4) return REPRO_DEC(4, 4);
+  if (wn == 2) return REPRO_DEC(4, 2);
+  return REPRO_DEC(4, 1);
+#undef REPRO_DEC
+}
+
 }  // namespace
 
 // x (M,K) f32|bf16 contiguous; w (K, nbytes) int8 contiguous, nbytes = N*n_bits/8;
@@ -712,4 +1099,24 @@ extern "C" int fixedpoint_matmul_experts_tc_launch(const void* x, const void* w,
                                                    int nbytes, int n_bits, int tile,
                                                    int split, void* stream) {
   return launch_tc(x, w, f, nullptr, y, E, C, K, N, nbytes, n_bits, tile, split, stream);
+}
+
+// Decode route (bf16 x, 1..8 rows; one template for both forms).  x (E,M,K)
+// bf16 contiguous, 16-byte aligned, K % 8 == 0; w (E, K, nbytes) int8; f (E,)
+// int32 on the device; bias (N,) f32 or null; rows (E,) int32 on the device
+// or null (experts form only): the rows of x[e] that hold a token (E <= 256);
+// an expert with none is written +0 and its words are not read; y (E,M,N)
+// bf16.  wn: warps side by side (1, 2, 4: 32, 64, 128 word bytes a block);
+// split: blocks per cluster splitting K (1, 2, 4, 8); n_clusters: clusters of
+// the grid, which walk the (occupied expert, column tile) items in grid
+// stride; experts: 0 for the 2-D form (E = 1, no rows), 1 for the experts
+// form (its own kernel symbol, so that a profile tells the two apart).
+// Returns cudaGetLastError().
+extern "C" int fixedpoint_matmul_decode_launch(const void* x, const void* w, const void* f,
+                                               const void* bias, const void* rows, void* y,
+                                               int E, int M, int K, int N, int nbytes,
+                                               int n_bits, int wn, int split, int n_clusters,
+                                               int experts, void* stream) {
+  return launch_decode(x, w, f, bias, rows, y, E, M, K, N, nbytes, n_bits, wn, split,
+                       n_clusters, experts, stream);
 }

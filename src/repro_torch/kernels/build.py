@@ -113,6 +113,9 @@ def library() -> ctypes.CDLL:
         lib.fixedpoint_matmul_experts_tc_launch.argtypes = [P, P, P, P, I, I, I, I, I, I, I, I,
                                                              P]
         lib.fixedpoint_matmul_experts_tc_launch.restype = I
+        lib.fixedpoint_matmul_decode_launch.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, I, I,
+                                                         I, I, P]
+        lib.fixedpoint_matmul_decode_launch.restype = I
         lib.paged_attention_launch.argtypes = [
             P, P, P, P, P, P, P, P,
             I, I, I, I, I, I, I, I, I, I, I,

@@ -6,12 +6,17 @@ for CUDA tensors and runs its plain version (``ref.py``) for CPU tensors.
 experts of a stack, each with its own exponent f[e] read on the device.
 Both return x's dtype (the JAX call sites pass ``out_dtype=x.dtype``).
 
-On the card each call takes one of two kernels by a fixed rule,
-``_pick_route(dtype, rows, aligned)``: bf16 x with at least
-``TC_MIN_ROWS`` rows (M, or C per expert: prefill) and 16-byte aligned rows
-goes to the tensor-core kernel ``fpmm_tc``; decode, the M = 1 head, fp32 x
-and every smaller call go to the streaming kernel ``fpmm_partial`` +
-``fpmm_finish``.  Each kernel has its own launch count.
+On the card each call takes one of three kernels by a fixed rule,
+``_pick_route(dtype, rows, aligned)``: bf16 x with 16-byte aligned rows
+and at most ``DECODE_MAX_ROWS`` rows (M, or C per expert: decode) goes to
+the decode kernel ``fpmm_decode``, with more rows (prefill) to the
+tensor-core kernel ``fpmm_tc``; fp32 x and unaligned rows go to the
+streaming kernel ``fpmm_partial`` + ``fpmm_finish``.  Each kernel has its
+own launch count.  The experts form takes an optional device vector
+``rows`` (E,) int32, the rows of x[e] that hold a token: the decode kernel
+reads only the words of experts with rows[e] > 0 and writes +0 for the
+others (what their all-zero rows of x give); the other routes and the
+plain version compute every expert.
 """
 from __future__ import annotations
 
@@ -28,19 +33,26 @@ from repro_torch.kernels.fixedpoint_matmul.ref import (
 )
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-ROUTES = ("streaming", "tensor_core")
-# Fewest rows (M, or C per expert) that take the tensor-core kernel.  On
-# an NVIDIA H100 80GB HBM3 at 700 W the tensor-core kernel is the faster one
-# from 2-3 rows up (chip_smoke.py phase 3g prints the crossover and holds
-# this rule to it); the threshold sits one row above the decode batch of 4
-# slots, which stays on the streaming kernel.
-TC_MIN_ROWS = 5
+ROUTES = ("streaming", "tensor_core", "decode")
+# Most rows (M, or C per expert) that take the decode kernel (one n8 MMA
+# tile of tokens); every aligned bf16 call past it takes the tensor cores.
+# chip_smoke.py phase 3g times the three kernels at 2..16 rows and fails
+# if the rule sits on the wrong side of a measured crossover.
+DECODE_MAX_ROWS = 8
+TC_MIN_ROWS = DECODE_MAX_ROWS + 1
+# the decode kernel's shape (csrc/fixedpoint_matmul.cu fpmm_decode): weight
+# rows per ring stage, blocks a cluster may split K over, experts a `rows`
+# vector may name; and the word bytes its grid gives each block
+DECODE_BK, DECODE_MAX_SPLIT, DECODE_MAX_EXPERTS = 128, 8, 256
+DECODE_BLOCK_BYTES = 64 * 1024
 # kernel launches of each wrapper and route (plain-version calls on the CPU
-# do not count): the streaming kernel, then the tensor-core kernel
+# do not count): the streaming kernel, the tensor-core kernel, the decode kernel
 launches = 0
 experts_launches = 0
 tc_launches = 0
 tc_experts_launches = 0
+decode_launches = 0
+decode_experts_launches = 0
 
 
 def pack_weight(w: torch.Tensor, f, n_bits: int = 2) -> torch.Tensor:
@@ -65,13 +77,55 @@ def _grid_shape(M: int, K: int, nbytes: int, n_sm: int, E: int = 1):
 
 
 def _pick_route(dtype, rows: int, aligned: bool) -> str:
-    """The route rule: 'tensor_core' for bf16 x with at least TC_MIN_ROWS
-    rows and rows of x 16-byte aligned (K % 8 == 0, aligned base), else
-    'streaming'.  fp32 x stays on the streaming kernel: tensor cores would
-    round it to bf16 or TF32, outside the fp32 bar."""
-    if dtype == torch.bfloat16 and rows >= TC_MIN_ROWS and aligned:
-        return "tensor_core"
+    """The route rule, for bf16 x whose rows are 16-byte aligned (K % 8 ==
+    0, aligned base): 'decode' up to DECODE_MAX_ROWS rows, 'tensor_core'
+    above; everything else 'streaming'.  fp32 x stays on the streaming
+    kernel: tensor cores would round it to bf16 or TF32, outside the fp32
+    bar."""
+    if dtype == torch.bfloat16 and aligned:
+        return "decode" if rows <= DECODE_MAX_ROWS else "tensor_core"
     return "streaming"
+
+
+def _decode_tile(experts: int, K: int, nbytes: int, n_sm: int):
+    """(wn, split): the decode kernel's block width (wn warps side by side,
+    32·wn word bytes of each row) and the blocks of a cluster that split K.
+    The grid aims at one block per DECODE_BLOCK_BYTES of the words of
+    ``experts`` experts, between half a block and two blocks an SM: below
+    that the call is a few round trips long whatever its grid, and a block's
+    fixed cost (its cluster's two barriers and sums) is paid more often.
+    The widest block whose tiles, split up to 8 ways, reach that count (or
+    one block an SM); then the largest power of two up to 8 (and up to the
+    K steps) that stays within it.  ``experts`` is the bound the caller
+    gives, never the device's count, so one shape always sums in one
+    order."""
+    want = min(2 * n_sm, max(n_sm // 2, math.ceil(experts * K * nbytes / DECODE_BLOCK_BYTES)))
+    for wn in (4, 2, 1):
+        tiles = experts * math.ceil(nbytes / (32 * wn))
+        if tiles * DECODE_MAX_SPLIT >= min(want, n_sm):
+            break
+    cap = min(DECODE_MAX_SPLIT, math.ceil(K / DECODE_BK), math.ceil(want / tiles))
+    split = 1
+    while 2 * split <= cap:
+        split *= 2
+    return wn, split
+
+
+def active_experts(rows, max_active: int, col_tiles: int = 1):
+    """The decode kernel's walk, mirrored for the tests: the grid holds
+    min(max_active, E)·col_tiles clusters (at least one); the items are
+    (expert, column tile) for each expert with rows[e] > 0, expert-major;
+    cluster c computes items c, c + n_clusters, ... in that order."""
+    rows = [int(r) for r in rows]
+    items = [(e, c) for e, r in enumerate(rows) if r > 0 for c in range(col_tiles)]
+    n = _decode_clusters(len(rows), max_active, col_tiles)
+    return [items[i::n] for i in range(n)]
+
+
+def _decode_clusters(E: int, max_active: int, col_tiles: int) -> int:
+    """Clusters of the decode kernel's grid: one per column tile of each of
+    the min(max_active, E) experts it expects to compute."""
+    return max(1, min(max_active, E)) * col_tiles
 
 
 def _tc_tile(rows: int, K: int, nbytes: int, n_sm: int, E: int = 1):
@@ -99,9 +153,11 @@ def _route_for(x, rows: int, K: int, route) -> str:
         return _pick_route(x.dtype, rows, aligned)
     if route not in ROUTES:
         raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
-    if route == "tensor_core" and not (x.dtype == torch.bfloat16 and aligned):
-        raise ValueError(f"the tensor-core kernel takes bf16 x with K % 8 == 0 on a 16-byte "
+    if route != "streaming" and not (x.dtype == torch.bfloat16 and aligned):
+        raise ValueError(f"the {route} kernel takes bf16 x with K % 8 == 0 on a 16-byte "
                          f"aligned base, got {x.dtype}, K={K}")
+    if route == "decode" and not 1 <= rows <= DECODE_MAX_ROWS:
+        raise ValueError(f"the decode kernel takes 1..{DECODE_MAX_ROWS} rows, got {rows}")
     return route
 
 
@@ -114,8 +170,25 @@ def _check_operands(x, n_bits: int) -> int:
     return code
 
 
+def _launch_decode(x, packed_w, f, bias, rows, y, E: int, M: int, K: int, n_out: int,
+                   nbytes: int, n_bits: int, experts: int, experts_form: bool) -> None:
+    """One decode-kernel launch over E experts (the 2-D form: E = 1), its
+    grid sized for ``experts`` of them (the block shape too: see
+    _decode_tile)."""
+    dev = x.device
+    wn, split = _decode_tile(experts, K, nbytes, build.sm_count(dev))
+    n_clusters = _decode_clusters(E, experts, math.ceil(nbytes / (32 * wn)))
+    err = build.library().fixedpoint_matmul_decode_launch(
+        x.data_ptr(), packed_w.data_ptr(), f.data_ptr(),
+        None if bias is None else bias.data_ptr(), None if rows is None else rows.data_ptr(),
+        y.data_ptr(), E, M, K, n_out, nbytes, n_bits, wn, split, n_clusters, int(experts_form),
+        build.current_stream(dev),
+    )
+    build.check(err, "fixedpoint_matmul (decode)")
+
+
 def _launch(x2, packed_w, f, bias, n_bits: int, n_out: int, route) -> torch.Tensor:
-    global launches, tc_launches
+    global launches, tc_launches, decode_launches
     dev = x2.device
     M, K = x2.shape
     nbytes = n_out * n_bits // 8
@@ -135,6 +208,10 @@ def _launch(x2, packed_w, f, bias, n_bits: int, n_out: int, route) -> torch.Tens
     route = _route_for(x2, M, K, route)
     y = torch.empty((M, n_out), dtype=x2.dtype, device=dev)
     bias_ptr = bias.data_ptr() if bias is not None else None
+    if route == "decode":
+        _launch_decode(x2, packed_w, f, bias, None, y, 1, M, K, n_out, nbytes, n_bits, 1, False)
+        decode_launches += 1
+        return y
     if route == "tensor_core":
         tile, split = _tc_tile(M, K, nbytes, build.sm_count(dev))
         err = build.library().fixedpoint_matmul_tc_launch(
@@ -158,8 +235,9 @@ def _launch(x2, packed_w, f, bias, n_bits: int, n_out: int, route) -> torch.Tens
 def fixedpoint_matmul(x, packed_w, f, bias=None, *, n_bits: int = 2, n_out: int,
                       _route=None) -> torch.Tensor:
     """y = x @ (unpack(packed_w)·2^{-f}) [+ bias] in x's dtype.  x: (..., K).
-    ``_route`` ('streaming' | 'tensor_core') overrides the route rule on the
-    card; it exists so that both kernels can be timed at one shape."""
+    ``_route`` ('streaming' | 'tensor_core' | 'decode') overrides the route
+    rule on the card; it exists so that the kernels can be timed at one
+    shape."""
     values_per_byte(n_bits)
     x = _as_compute(x)
     lead, K = x.shape[:-1], x.shape[-1]
@@ -171,8 +249,9 @@ def fixedpoint_matmul(x, packed_w, f, bias=None, *, n_bits: int = 2, n_out: int,
     return y.reshape(*lead, n_out)
 
 
-def _launch_experts(x, packed_w, f, n_bits: int, n_out: int, route) -> torch.Tensor:
-    global experts_launches, tc_experts_launches
+def _launch_experts(x, packed_w, f, rows, max_active, n_bits: int, n_out: int,
+                    route) -> torch.Tensor:
+    global experts_launches, tc_experts_launches, decode_experts_launches
     dev = x.device
     E, C, K = x.shape
     nbytes = n_out * n_bits // 8
@@ -188,6 +267,14 @@ def _launch_experts(x, packed_w, f, n_bits: int, n_out: int, route) -> torch.Ten
     x, packed_w, f = x.contiguous(), packed_w.contiguous(), f.contiguous()
     route = _route_for(x, C, K, route)
     y = torch.empty((E, C, n_out), dtype=x.dtype, device=dev)
+    if route == "decode":
+        if rows is not None and E > DECODE_MAX_EXPERTS:
+            raise ValueError(f"the decode kernel takes rows for at most {DECODE_MAX_EXPERTS} "
+                             f"experts, got {E}")
+        _launch_decode(x, packed_w, f, None, rows, y, E, C, K, n_out, nbytes, n_bits,
+                       max(1, min(E if max_active is None else max_active, E)), True)
+        decode_experts_launches += 1
+        return y
     if route == "tensor_core":
         tile, split = _tc_tile(C, K, nbytes, build.sm_count(dev), E)
         err = build.library().fixedpoint_matmul_experts_tc_launch(
@@ -208,15 +295,34 @@ def _launch_experts(x, packed_w, f, n_bits: int, n_out: int, route) -> torch.Ten
     return y
 
 
-def fixedpoint_matmul_experts(x, packed_w, f, *, n_bits: int = 2, n_out: int,
-                              _route=None) -> torch.Tensor:
+def _check_rows(rows, E: int, dev):
+    if rows is None:
+        return None
+    if not isinstance(rows, torch.Tensor) or rows.dtype != torch.int32 or rows.shape != (E,):
+        got = f"{getattr(rows, 'dtype', type(rows))} {tuple(getattr(rows, 'shape', ()))}"
+        raise ValueError(f"rows must be an int32 ({E},) tensor, got {got}")
+    if rows.device != dev:
+        raise ValueError(f"rows on {rows.device}, x on {dev}")
+    return rows.contiguous()
+
+
+def fixedpoint_matmul_experts(x, packed_w, f, *, n_bits: int = 2, n_out: int, rows=None,
+                              max_active: int = None, _route=None) -> torch.Tensor:
     """Per-expert packed matmul in x's dtype: y[e] = x[e] @ (unpack(w[e])·2^{-f[e]}).
     x (E, C, K) float; packed_w (E, K, n_out·n_bits/8) int8; f (E,) int32.
-    ``_route`` as in ``fixedpoint_matmul``."""
+    ``rows`` (E,) int32 on x's device, optional: the rows of x[e] that hold
+    a token (the rest of x[e] is zero); y[e] is +0 where rows[e] == 0 (the
+    decode kernel and the plain version write it without x[e]'s words;
+    the other kernels compute it from the zero rows).
+    ``max_active``: a host bound on the experts with rows[e] > 0 (default
+    E); it sizes the decode kernel's grid only, so a wrong bound costs
+    time, never a result.  ``_route`` as in ``fixedpoint_matmul``."""
     values_per_byte(n_bits)
     x = _as_compute(x)
     if x.ndim != 3:
         raise ValueError(f"x must be (E, C, K), got {tuple(x.shape)}")
+    rows = _check_rows(rows, x.shape[0], x.device)
     if x.is_cuda:
-        return _launch_experts(x, packed_w, f, n_bits, n_out, _route)
-    return fixedpoint_matmul_experts_ref(x, packed_w, f, n_bits=n_bits, n_out=n_out).to(x.dtype)
+        return _launch_experts(x, packed_w, f, rows, max_active, n_bits, n_out, _route)
+    return fixedpoint_matmul_experts_ref(x, packed_w, f, n_bits=n_bits, n_out=n_out,
+                                         rows=rows).to(x.dtype)

@@ -110,6 +110,12 @@ def moe_apply(p, x, *, cfg: MoEConfig, compute_dtype=torch.bfloat16, capacity: i
     """x (B,T,D) -> ((B,T,D), aux).  ``capacity`` overrides the computed
     per-expert buffer (decode passes a fixed small capacity).
 
+    The packed expert matmuls get each expert's count of kept assignments
+    (counted on the device) and the bound min(E, N·k) on the experts that
+    hold one, so that the decode kernel reads only those experts' words.
+    An empty expert's rows are zero and its output +0 either way, so the
+    value does not change.
+
     ``seq_len``: bucketed-prefill contract — only the first ``seq_len``
     positions of each row are real.  Padded tokens take no capacity and the
     drop test uses the real token count, while the buffer stays
@@ -151,11 +157,17 @@ def moe_apply(p, x, *, cfg: MoEConfig, compute_dtype=torch.bfloat16, capacity: i
     # the experts form of the fixed-point matmul; float stacks take bmm.
     we = p["experts"]
     f = act_fn(cfg.act)
+    # no boolean indexing, no host sync
+    rows = torch.zeros(E, dtype=torch.int32, device=dev).scatter_add_(
+        0, e_ids, keep.to(torch.int32))
+    max_active = min(E, N * k)
 
     def expert_mm(proj, z):
+        # down_proj takes the same rows: f(0)·0 = 0 for an empty expert
         kern = proj["kernel"]
         if is_packed(kern):
-            return packed_expert_einsum(z, kern, compute_dtype=compute_dtype)
+            return packed_expert_einsum(z, kern, compute_dtype=compute_dtype, rows=rows,
+                                        max_active=max_active)
         return torch.bmm(z, kern.to(compute_dtype))
 
     h = expert_mm(we["gate_proj"], buf)

@@ -116,15 +116,19 @@ def packed_dense_apply(p, x, *, n_in: int = 1, compute_dtype=None) -> torch.Tens
     return y.reshape(*lead, *out_dims)
 
 
-def packed_expert_einsum(x, pk: Packed, *, compute_dtype=None) -> torch.Tensor:
+def packed_expert_einsum(x, pk: Packed, *, compute_dtype=None, rows=None,
+                         max_active=None) -> torch.Tensor:
     """einsum('ECK,EKN->ECN') against a per-expert Packed stack (gate/up
     (E, D, F) and down (E, F, D): the contraction is always over the middle
-    axis, packing over the last).  ``pk.f`` holds one exponent per expert."""
+    axis, packing over the last).  ``pk.f`` holds one exponent per expert.
+    ``rows`` / ``max_active``: see ``fixedpoint_matmul_experts`` (the
+    'unpack' backend computes every expert and ignores them)."""
     if compute_dtype is not None:
         x = x.to(compute_dtype)
     if resolve_packed_backend(x.device) == "unpack":
         return torch.bmm(x, unpack(pk, x.dtype))
-    return fixedpoint_matmul_experts(x, pk.data, pk.f, n_bits=pk.n_bits, n_out=pk.shape[-1])
+    return fixedpoint_matmul_experts(x, pk.data, pk.f, n_bits=pk.n_bits, n_out=pk.shape[-1],
+                                     rows=rows, max_active=max_active)
 
 
 def packed_take(pk: Packed, ids: torch.Tensor, *, dtype=None) -> torch.Tensor:

@@ -17,6 +17,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.core import pack  # noqa: E402
 from repro_torch.kernels.fixedpoint_matmul import fixedpoint_matmul, ops as fops  # noqa: E402
 from repro_torch.kernels.fixedpoint_matmul import fixedpoint_matmul_experts  # noqa: E402
 from repro_torch.kernels.fixedpoint_matmul import pack_weight  # noqa: E402
@@ -61,12 +62,13 @@ def test_fixedpoint_matmul_matches_plain(dev, n_bits, dtype, M, K, N):
 
 
 def _counts():
-    return (fops.launches, fops.tc_launches, fops.experts_launches, fops.tc_experts_launches)
+    return (fops.launches, fops.tc_launches, fops.decode_launches, fops.experts_launches,
+            fops.tc_experts_launches, fops.decode_experts_launches)
 
 
 def _launched(before, route, experts=False):
     """Exactly one launch since ``before``, of ``route``'s kernel."""
-    i = (2 if experts else 0) + (route == "tensor_core")
+    i = (3 if experts else 0) + fops.ROUTES.index(route)
     return all(a - b == (k == i) for k, (a, b) in enumerate(zip(_counts(), before)))
 
 
@@ -100,13 +102,14 @@ def test_fixedpoint_matmul_tc_matches_plain(dev, M, K, N, bias, n_bits):
 
 
 @pytest.mark.parametrize("M,dtype,route", [
-    (fops.TC_MIN_ROWS, "bfloat16", "tensor_core"), (512, "bfloat16", "tensor_core"),
-    (fops.TC_MIN_ROWS - 1, "bfloat16", "streaming"), (1, "bfloat16", "streaming"),
-    (512, "float32", "streaming"),
+    (fops.DECODE_MAX_ROWS + 1, "bfloat16", "tensor_core"), (512, "bfloat16", "tensor_core"),
+    (fops.DECODE_MAX_ROWS, "bfloat16", "decode"), (4, "bfloat16", "decode"),
+    (1, "bfloat16", "decode"), (512, "float32", "streaming"), (4, "float32", "streaming"),
 ])
 def test_fixedpoint_matmul_route_rule_launches(dev, M, dtype, route):
-    """bf16 at or above the threshold launches the tensor-core kernel; fp32,
-    decode and the M = 1 head launch the streaming one."""
+    """bf16 up to DECODE_MAX_ROWS rows launches the decode kernel, above it
+    the tensor-core kernel; fp32 (the parity phases, the fp32 head) the
+    streaming one."""
     rng = np.random.default_rng(M)
     w = torch.from_numpy((rng.standard_normal((256, 128)) * 0.1).astype(np.float32)).to(dev)
     f = torch.tensor(3, dtype=torch.int32, device=dev)
@@ -231,8 +234,8 @@ def test_fixedpoint_matmul_experts_tc_matches_plain(dev, C, E, n_bits):
 
 
 @pytest.mark.parametrize("C,dtype,route", [
-    (fops.TC_MIN_ROWS, "bfloat16", "tensor_core"), (80, "bfloat16", "tensor_core"),
-    (4, "bfloat16", "streaming"), (80, "float32", "streaming"),
+    (fops.DECODE_MAX_ROWS + 1, "bfloat16", "tensor_core"), (80, "bfloat16", "tensor_core"),
+    (4, "bfloat16", "decode"), (80, "float32", "streaming"), (4, "float32", "streaming"),
 ])
 def test_fixedpoint_matmul_experts_route_rule_launches(dev, C, dtype, route):
     x, words, f = _experts_case(dev, 4, C, 256, 64, 2, getattr(torch, dtype), seed=C)
@@ -240,6 +243,129 @@ def test_fixedpoint_matmul_experts_route_rule_launches(dev, C, dtype, route):
     fixedpoint_matmul_experts(x, words, f, n_bits=2, n_out=64)
     torch.cuda.synchronize()
     assert _launched(before, route, experts=True)
+
+
+@pytest.mark.parametrize("n_bits", [2, 4])
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("K,N", [(96, 40), (2048, 200), (2048, 1024), (8192, 512)])
+@pytest.mark.parametrize("M", list(range(1, 9)))
+def test_fixedpoint_matmul_decode_matches_plain(dev, M, K, N, bias, n_bits):
+    """The decode kernel (forced) against the plain version in bf16 at 1..8
+    rows: rows of words that are not 16-byte aligned (N = 40, 200), a K of
+    one short ring stage (96), a tall K split over a cluster (8192); two
+    calls give the same bits."""
+    rng = np.random.default_rng(M * 31 + K + N + n_bits)
+    w = torch.from_numpy((rng.standard_normal((K, N)) / K**0.5).astype(np.float32)).to(dev)
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)).to(dev, torch.bfloat16)
+    b = torch.from_numpy(rng.standard_normal(N).astype(np.float32)).to(dev) if bias else None
+    f = torch.tensor(n_bits, dtype=torch.int32, device=dev)
+    pw = pack_weight(w, f, n_bits)
+    before = _counts()
+    got = fixedpoint_matmul(x, pw, f, b, n_bits=n_bits, n_out=N, _route="decode")
+    torch.cuda.synchronize()
+    assert _launched(before, "decode") and got.dtype == torch.bfloat16
+    want = fixedpoint_matmul_ref(x, pw, f, b, n_bits=n_bits, n_out=N).to(torch.bfloat16)
+    torch.testing.assert_close(got.float(), want.float(), **TC_BF16)
+    again = fixedpoint_matmul(x, pw, f, b, n_bits=n_bits, n_out=N, _route="decode")
+    assert torch.equal(got, again)
+
+
+def _routed(dev, E, C, K, rng, fill):
+    """x (E, C, K) bf16 whose expert e holds rows[e] leading rows (the rest
+    zero, as the MoE dispatch leaves them) and rows (E,) int32: random in
+    0..C, all 0, or all C."""
+    if fill == "random":
+        rows = rng.integers(0, C + 1, size=E)
+        rows[rng.random(E) < 0.5] = 0  # about half the experts empty
+    else:
+        rows = np.full(E, 0 if fill == "empty" else C)
+    x = rng.standard_normal((E, C, K)).astype(np.float32)
+    x[np.arange(C)[None, :] >= rows[:, None]] = 0.0
+    return (torch.from_numpy(x).to(dev, torch.bfloat16),
+            torch.from_numpy(rows.astype(np.int32)).to(dev))
+
+
+@pytest.mark.parametrize("n_bits", [2, 4])
+@pytest.mark.parametrize("fill", ["random", "empty", "full"])
+@pytest.mark.parametrize("E,C,K,N", [(1, 1, 96, 40), (1, 8, 256, 200), (8, 2, 256, 64),
+                                     (8, 5, 512, 192), (8, 6, 128, 96), (8, 7, 512, 40),
+                                     (64, 4, 2048, 1024), (64, 3, 1024, 2048),
+                                     (256, 4, 512, 192), (256, 8, 1024, 64),
+                                     (256, 1, 256, 7168)])
+def test_fixedpoint_matmul_experts_decode_matches_plain(dev, E, C, K, N, fill, n_bits):
+    """The experts form on the decode kernel (forced) with occupied-expert
+    ``rows``: held to the plain version with the same rows; equal, bit for
+    bit, to the same kernel computing every expert; every empty expert is
+    given f = -200 (2^-f = inf in fp32), so a kernel that computed it would
+    write NaN (0·inf) where the rows-given call must write +0; two calls
+    give the same bits."""
+    rng = np.random.default_rng(E * 17 + C * 5 + K + N + n_bits)
+    x, rows = _routed(dev, E, C, K, rng, fill)
+    sc = 2.0 ** rng.integers(-2, 3, size=(E, 1, 1))
+    w = torch.from_numpy((rng.standard_normal((E, K, N)) * sc / K**0.5).astype(np.float32))
+    f = torch.from_numpy(rng.integers(0, 4, size=E).astype(np.int32))
+    words = pack(w, f, n_bits).data.to(dev)
+    f = f.to(dev)
+    ma = min(E, 32)
+    call = dict(n_bits=n_bits, n_out=N, max_active=ma, _route="decode")
+    before = _counts()
+    got = fixedpoint_matmul_experts(x, words, f, rows=rows, **call)
+    torch.cuda.synchronize()
+    assert _launched(before, "decode", experts=True) and got.dtype == torch.bfloat16
+    want = fixedpoint_matmul_experts_ref(x, words, f, n_bits=n_bits, n_out=N, rows=rows)
+    torch.testing.assert_close(got.float(), want.bfloat16().float(), **TC_BF16)
+    every = fixedpoint_matmul_experts(x, words, f, **call)  # rows=None: every expert
+    assert torch.equal(got, every)
+    f_inf = torch.where(rows > 0, f, torch.full_like(f, -200))
+    skipped = fixedpoint_matmul_experts(x, words, f_inf, rows=rows, **call)
+    assert torch.equal(skipped, got)
+    empty = rows == 0
+    assert not torch.signbit(skipped[empty].float()).any()
+    if empty.any():  # the same kernel computing the empty experts writes NaN there
+        assert torch.isnan(fixedpoint_matmul_experts(x, words, f_inf, **call)[empty]).all()
+    again = fixedpoint_matmul_experts(x, words, f, rows=rows, **call)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("max_active", [1, 3, 64, 1000])
+def test_fixedpoint_matmul_experts_decode_any_max_active(dev, max_active):
+    """``max_active`` sizes the grid only: a bound far below the experts
+    that hold rows (the clusters then walk several) or above E gives the
+    same result as the plain version."""
+    rng = np.random.default_rng(max_active)
+    E, C, K, N = 64, 4, 512, 256
+    x, rows = _routed(dev, E, C, K, rng, "random")
+    w = torch.from_numpy((rng.standard_normal((E, K, N)) / K**0.5).astype(np.float32))
+    f = torch.from_numpy(rng.integers(0, 4, size=E).astype(np.int32))
+    words, f = pack(w, f, 2).data.to(dev), f.to(dev)
+    got = fixedpoint_matmul_experts(x, words, f, n_bits=2, n_out=N, rows=rows,
+                                    max_active=max_active)
+    want = fixedpoint_matmul_experts_ref(x, words, f, n_bits=2, n_out=N, rows=rows)
+    torch.testing.assert_close(got.float(), want.bfloat16().float(), **TC_BF16)
+
+
+def test_fixedpoint_matmul_decode_refuses_what_it_does_not_take(dev):
+    """Forcing the decode kernel on fp32 x, more than DECODE_MAX_ROWS rows,
+    or rows of x that are not 16-byte aligned raises; ``rows`` of the wrong
+    type, shape or device raises."""
+    pw = torch.zeros((64, 16), dtype=torch.int8, device=dev)
+    f = torch.tensor(1, dtype=torch.int32, device=dev)
+    x16 = torch.zeros((4, 64), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError):
+        fixedpoint_matmul(x16.float(), pw, f, n_bits=2, n_out=64, _route="decode")
+    with pytest.raises(ValueError):
+        fixedpoint_matmul(torch.zeros((9, 64), dtype=torch.bfloat16, device=dev), pw, f,
+                          n_bits=2, n_out=64, _route="decode")
+    with pytest.raises(ValueError):
+        fixedpoint_matmul(torch.zeros((4, 60), dtype=torch.bfloat16, device=dev), pw[:60], f,
+                          n_bits=2, n_out=64, _route="decode")
+    xe = torch.zeros((4, 2, 64), dtype=torch.bfloat16, device=dev)
+    we = torch.zeros((4, 64, 16), dtype=torch.int8, device=dev)
+    fe = torch.ones(4, dtype=torch.int32, device=dev)
+    for bad in (torch.ones(4, dtype=torch.int64, device=dev),
+                torch.ones(3, dtype=torch.int32, device=dev), torch.ones(4, dtype=torch.int32)):
+        with pytest.raises(ValueError):
+            fixedpoint_matmul_experts(xe, we, fe, n_bits=2, n_out=64, rows=bad)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -6,7 +6,8 @@ it is held to the JAX Pallas kernel in interpret mode and to JAX's ref.py at
 rtol = atol = 1e-5 (the bar of tests/test_kernels.py).  The packed layer
 (``packed_dense_apply``, including o_proj's two contracted input dims) is
 held to the JAX layer the same way.  The route rule that picks one of the
-two CUDA kernels on the card is a pure function, tested here; the kernels
+three CUDA kernels on the card, the decode kernel's block shape and the
+mirror of its occupied-expert walk are pure functions, tested here; the kernels
 themselves are compared to the plain version on the card
 (tests/test_torch_cuda.py; chip_smoke.py at the serving path's full-width
 shapes)."""
@@ -92,26 +93,70 @@ def test_port_matches_pallas_interpret_prefill(mkn, n_bits, dtype):
         np.testing.assert_allclose(got.float().numpy(), want16, rtol=1e-2, atol=1e-2)
 
 
-ROWS = ops.TC_MIN_ROWS
+ROWS = ops.DECODE_MAX_ROWS
 
 
 @pytest.mark.parametrize("dtype,rows,aligned,route", [
-    (torch.bfloat16, ROWS, True, "tensor_core"),  # the threshold itself
-    (torch.bfloat16, ROWS - 1, True, "streaming"),  # one row below it
-    (torch.bfloat16, 4, True, "streaming"),  # decode: 4 slots, C = 4 per expert
-    (torch.bfloat16, 1, True, "streaming"),  # the head at prefill (last position)
+    (torch.bfloat16, ROWS + 1, True, "tensor_core"),  # one row past the decode kernel
+    (torch.bfloat16, ROWS, True, "decode"),  # the decode kernel's last row count
+    (torch.bfloat16, 4, True, "decode"),  # decode: 4 slots, C = 4 per expert
+    (torch.bfloat16, 1, True, "decode"),  # one row
     (torch.bfloat16, 512, True, "tensor_core"),  # a 512-token bucket
     (torch.bfloat16, 512, False, "streaming"),  # rows of x not 16-byte aligned
+    (torch.bfloat16, 4, False, "streaming"),
     (torch.float32, 512, True, "streaming"),  # fp32 stays off the tensor cores
-    (torch.float32, ROWS, True, "streaming"),
+    (torch.float32, 4, True, "streaming"),  # the fp32 head at decode, the parity phases
+    (torch.float32, 1, True, "streaming"),  # the fp32 head at prefill (last position)
 ])
 def test_route_rule(dtype, rows, aligned, route):
     assert ops._pick_route(dtype, rows, aligned) == route
 
 
-def test_route_threshold_is_above_the_decode_batch():
-    """Decode runs M = C = 4 slots; it keeps the streaming kernel."""
-    assert ops.TC_MIN_ROWS > 4 and ops._pick_route(torch.bfloat16, 4, True) == "streaming"
+@pytest.mark.parametrize("rows", list(range(1, 9)))
+def test_decode_rows_take_the_decode_kernel(rows):
+    """Every bf16 decode call (M = n_slots, C per expert) up to the decode
+    kernel's n8 tile takes it, and the tensor cores take every aligned bf16
+    call past it."""
+    assert 4 <= ops.DECODE_MAX_ROWS <= 8 and ops.TC_MIN_ROWS == ops.DECODE_MAX_ROWS + 1
+    want = "decode" if rows <= ops.DECODE_MAX_ROWS else "tensor_core"
+    assert ops._pick_route(torch.bfloat16, rows, True) == want
+
+
+@pytest.mark.parametrize("experts,K,nbytes,want", [
+    (1, 2048, 512, (1, 4)),  # internlm2 q_proj at decode: 1 MB, 16 narrow tiles split 4 ways
+    (1, 2048, 2048, (4, 4)),  # gate_proj: 16 line tiles split 4 ways, 64 blocks
+    (1, 8192, 512, (1, 4)),  # down_proj
+    (1, 7168, 16, (1, 8)),  # deepseek k_rope (N = 64): one tile, clusters of 8
+    (1, 1536, 6144, (4, 2)),  # deepseek q_b_proj: 48 line tiles
+    (1, 16384, 1792, (2, 8)),  # deepseek o_proj: 29 MB, 28 tiles of 64 word bytes
+    (1, 7168, 32320, (4, 2)),  # the deepseek head
+    (32, 7168, 512, (4, 2)),  # a deepseek gate stack, 32 experts bound: 128 line tiles
+    (32, 2048, 1792, (4, 1)),  # a deepseek down stack: 448 tiles
+    (32, 2048, 256, (4, 4)),  # an olmoe gate stack
+    (1, 96, 10, (1, 1)),  # one K step: no K to split
+])
+def test_decode_tile(experts, K, nbytes, want):
+    assert ops._decode_tile(experts, K, nbytes, 132) == want
+
+
+@pytest.mark.parametrize("E", [1, 8, 64, 256])
+@pytest.mark.parametrize("col_tiles", [1, 3])
+def test_active_experts_cover_each_occupied_expert_once(E, col_tiles):
+    """The mirror of the decode kernel's walk: whatever max_active (below
+    the true count too) and tile count, every (occupied expert, tile) item
+    is computed by exactly one cluster, no empty expert by any, and each
+    cluster's items come in expert order."""
+    rng = np.random.default_rng(E + col_tiles)
+    for fill in ("random", "empty", "full"):
+        rows = {"random": rng.integers(0, 3, size=E) * (rng.random(E) < 0.4),
+                "empty": np.zeros(E, np.int64), "full": np.full(E, 4)}[fill]
+        occ = [e for e in range(E) if rows[e] > 0]
+        want = sorted((e, c) for e in occ for c in range(col_tiles))
+        for max_active in sorted({1, 2, max(1, len(occ) // 2), max(1, len(occ)), E, E + 5}):
+            walk = ops.active_experts(rows, max_active, col_tiles)
+            assert len(walk) == max(1, min(max_active, E)) * col_tiles
+            assert sorted(item for items in walk for item in items) == want
+            assert all(items == sorted(items) for items in walk)
 
 
 @pytest.mark.parametrize("rows,K,nbytes,E,want", [
@@ -133,15 +178,23 @@ def test_tc_tile(rows, K, nbytes, E, want):
 def test_route_override_checked():
     """The private route override names a route and refuses the tensor cores
     for what the kernel does not take (the check runs before any launch)."""
-    x16 = torch.zeros((8, 64), dtype=torch.bfloat16)
-    assert ops._route_for(x16, 8, 64, None) == "tensor_core"
-    assert ops._route_for(x16, 8, 64, "streaming") == "streaming"
+    x16 = torch.zeros((16, 64), dtype=torch.bfloat16)
+    assert ops._route_for(x16, 16, 64, None) == "tensor_core"
+    assert ops._route_for(x16, 16, 64, "streaming") == "streaming"
+    assert ops._route_for(x16[:8], 8, 64, None) == "decode"
+    assert ops._route_for(x16[:8], 8, 64, "tensor_core") == "tensor_core"
     with pytest.raises(ValueError):
-        ops._route_for(x16, 8, 64, "tensor-cores")
+        ops._route_for(x16, 16, 64, "tensor-cores")
     with pytest.raises(ValueError):
         ops._route_for(torch.zeros((8, 64)), 8, 64, "tensor_core")
     with pytest.raises(ValueError):
         ops._route_for(torch.zeros((8, 60), dtype=torch.bfloat16), 8, 60, "tensor_core")
+    with pytest.raises(ValueError):  # the decode kernel: bf16, aligned, 1..8 rows
+        ops._route_for(x16, 16, 64, "decode")
+    with pytest.raises(ValueError):
+        ops._route_for(torch.zeros((4, 64)), 4, 64, "decode")
+    with pytest.raises(ValueError):
+        ops._route_for(torch.zeros((4, 60), dtype=torch.bfloat16), 4, 60, "decode")
 
 
 def test_bias_batched_input_and_bf16():
@@ -162,12 +215,15 @@ def test_bias_batched_input_and_bf16():
 
 def test_cpu_calls_do_not_count_launches():
     _, x, _, pw = _case(1, 2, 32, 64, 2, 1)
-    before = (ops.launches, ops.tc_launches)
+    before = (ops.launches, ops.tc_launches, ops.decode_launches)
     fixedpoint_matmul(torch.from_numpy(x), torch.from_numpy(pw), 1, n_bits=2, n_out=64)
+    # bf16 at a decode size: no launch either
+    fixedpoint_matmul(torch.from_numpy(x).bfloat16(), torch.from_numpy(pw), 1, n_bits=2,
+                      n_out=64)
     _, x, _, pw = _case(1, 64, 32, 64, 2, 1)  # bf16 at a prefill size: no launch either
     fixedpoint_matmul(torch.from_numpy(x).bfloat16(), torch.from_numpy(pw), 1, n_bits=2,
                       n_out=64)
-    assert (ops.launches, ops.tc_launches) == before
+    assert (ops.launches, ops.tc_launches, ops.decode_launches) == before
 
 
 @pytest.mark.parametrize("backend", ["kernel", "unpack"])

@@ -169,6 +169,97 @@ def test_fixedpoint_matmul_experts_matches_pallas(n_bits, ECKN):
     assert got16.dtype == torch.bfloat16
 
 
+def _rows_for(rng, E, C, fill):
+    """rows (E,) of kept assignments: random in 0..C (about half the experts
+    empty), all 0, or all C."""
+    if fill == "random":
+        return rng.integers(1, C + 1, size=E) * (rng.random(E) < 0.5)
+    return np.full(E, 0 if fill == "empty" else C)
+
+
+@pytest.mark.parametrize("n_bits", [2, 4])
+@pytest.mark.parametrize("fill", ["random", "empty", "full"])
+@pytest.mark.parametrize("E,C", [(1, 1), (1, 4), (8, 1), (8, 4), (64, 1), (64, 4)])
+def test_fixedpoint_matmul_experts_rows_matches_pallas(E, C, fill, n_bits):
+    """The plain version with occupied-expert ``rows`` (the rows of x past
+    rows[e] zero, as the MoE dispatch leaves them): ``array_equal`` to the
+    all-experts call, +0 for every empty expert even under a scale 2^-f =
+    inf, and equal to JAX's Pallas kernel (interpret) on the occupied
+    experts; the wrapper's CPU path takes the same rows."""
+    K, N = 32, 48
+    rng = np.random.default_rng(E * 11 + C + n_bits)
+    x, pk = _experts_case(E * 3 + C + n_bits, E, C, K, N, n_bits)
+    rows = _rows_for(rng, E, C, fill)
+    x[np.arange(C)[None, :] >= rows[:, None]] = 0.0
+    rt = _t(rows.astype(np.int32))
+    every = fixedpoint_matmul_experts_ref(_t(x), pk.data, pk.f, n_bits=n_bits, n_out=N)
+    got = fixedpoint_matmul_experts_ref(_t(x), pk.data, pk.f, n_bits=n_bits, n_out=N, rows=rt)
+    assert torch.equal(got, every)
+    empty = rows == 0
+    assert not got[_t(empty)].signbit().any()
+    f_inf = torch.where(rt > 0, pk.f, torch.full_like(pk.f, -200))
+    skipped = fixedpoint_matmul_experts_ref(_t(x), pk.data, f_inf, n_bits=n_bits, n_out=N,
+                                            rows=rt)
+    assert torch.equal(skipped, got) and not skipped[_t(empty)].signbit().any()
+    wrapped = fixedpoint_matmul_experts(_t(x), pk.data, pk.f, n_bits=n_bits, n_out=N, rows=rt,
+                                        max_active=1)
+    assert torch.equal(wrapped, got)
+    occ = np.flatnonzero(~empty)
+    if occ.size:
+        want = np.asarray(j_fpmm_e(jnp.asarray(x[occ]), jnp.asarray(pk.data.numpy()[occ]),
+                                   jnp.asarray(pk.f.numpy()[occ]), n_bits=n_bits, n_out=N,
+                                   interpret=True))
+        np.testing.assert_allclose(got.numpy()[occ], want, **FPMM_TOL)
+
+
+def _packed_moe(seed, **kw):
+    """``_moe`` with the expert stacks packed (2-bit, one f per expert) in
+    both packages, from the same words."""
+    jcfg, tcfg, jp, tp = _moe(seed, **kw)
+    rng = np.random.default_rng(seed)
+    for name in ("gate_proj", "up_proj", "down_proj"):
+        w = tp["experts"][name]["kernel"]
+        f = _t(rng.integers(1, 4, size=w.shape[0]).astype(np.int32))
+        pk = pack(w, f, 2)
+        tp["experts"][name]["kernel"] = pk
+        jp["experts"][name]["kernel"] = jcore.Packed(data=jnp.asarray(pk.data.numpy()), n_bits=2,
+                                                     f=jnp.asarray(f.numpy()))
+    return jcfg, tcfg, jp, tp
+
+
+@pytest.mark.parametrize("router", ["softmax", "sigmoid"])
+@pytest.mark.parametrize("case", ["ample", "drops", "seq_len", "decode"])
+def test_moe_apply_expert_rows_bit_identical(router, case):
+    """``moe_apply`` over packed expert stacks, which hands the experts
+    matmul each expert's row count, is bit-identical to the same call with
+    the counts withheld, and keeps its parity with JAX: both
+    routers, with drops, with a bucketed ``seq_len``, and at a decode
+    step's fixed capacity (4 tokens, top-2 of 8 experts)."""
+    jcfg, tcfg, jp, tp = _packed_moe(21, router=router,
+                                     capacity_factor=1.0 if case == "drops" else 8.0)
+    shape = (4, 1, 16) if case == "decode" else (2, 12, 16)
+    x = (np.random.default_rng(22).standard_normal(shape) * 0.5).astype(np.float32)
+    kw, jkw = {}, {}
+    if case == "seq_len":
+        kw["seq_len"] = 9
+        jkw["seq_len"] = jnp.asarray(9, jnp.int32)
+    if case == "decode":
+        kw["capacity"] = jkw["capacity"] = 4
+    a, _ = tmoe.moe_apply(tp, _t(x), cfg=tcfg, compute_dtype=torch.float32, **kw)
+    with pytest.MonkeyPatch.context() as mp:  # the experts matmul without the rows
+        mp.setattr(tmoe, "packed_expert_einsum",
+                   lambda z, pk, compute_dtype=None, rows=None, max_active=None:
+                   packed_expert_einsum(z, pk, compute_dtype=compute_dtype))
+        b, _ = tmoe.moe_apply(tp, _t(x), cfg=tcfg, compute_dtype=torch.float32, **kw)
+    assert torch.equal(a, b)
+    jy, _ = jmoe.moe_apply(jp, jnp.asarray(x), cfg=jcfg, compute_dtype=jnp.float32, **jkw)
+    n = kw.get("seq_len", shape[1])
+    np.testing.assert_allclose(a.numpy()[:, :n], np.asarray(jy)[:, :n], **MOE_TOL)
+    if case == "decode":  # 8 assignments over 8 experts: some expert holds none
+        e_ids = tmoe._route(tp, _t(x).reshape(4, 16), tcfg, False)[1]
+        assert len(set(e_ids.reshape(-1).tolist())) < tcfg.n_experts
+
+
 @pytest.mark.parametrize("n_bits", [2, 4])
 @pytest.mark.parametrize("backend", ["kernel", "unpack"])
 def test_packed_expert_einsum_matches_unpack_path(n_bits, backend):
