@@ -41,10 +41,15 @@ Phases, one JSON line each:
                internlm2's decode shapes, exponents over [-8, 4], a window
                + softcap case, an fp32 case; timed only, olmoe's int4 decode
                shape at rows of about 64, 300 and 500 cached tokens), 3f
-               the absorbed MLA decode (``paged_attention_mla``) at deepseek-v3's shape (128 heads,
-               rank 512, rope 64) over bf16 / fp32, KV_F int8 and SYMOG
-               int8 / int4 pools (one exponent per block over [-8, 4]), T 1
-               and 3, a row at position 0, and an fp64 conditioning check;
+               the absorbed MLA decode (``paged_attention_mla``) at
+               deepseek-v3's shape (128 heads, rank 512, rope 64) over bf16
+               / fp32, KV_F int8 and SYMOG int8 / int4 pools (one exponent
+               per block over [-8, 4]), T 1 and 3, a row at position 0:
+               every bf16 case through both kernels (the tensor-core
+               ``mla_decode_tc``, which the rule picks and which must be the
+               faster, and ``mla_partial``), the tensor-core kernel also at
+               4 and 8 ranks beside the rule's; fp32 cases on
+               ``mla_partial``; and an fp64 conditioning check;
   4. parity  — internlm2-1.8b and olmoe-1b-7b at full width, 4 layers, fp32
                compute, 2-bit packed: prefill + 4 teacher-forced paged decode
                steps through the kernels vs through the plain paths; logits
@@ -57,7 +62,8 @@ Phases, one JSON line each:
                CPU's where the exponent steps); deepseek-v3 (3
                dense + 1 MoE layer, 256 experts, built layer by layer) from a
                bf16 and from an int4 MLA pool, the matmuls through the
-               kernels on both routes, argmax agreement 1.0; the two pools'
+               kernels on both routes (MLA's fp32 queries on
+               ``mla_partial``), argmax agreement 1.0; the two pools'
                logits compared row by row (top-1 - top-2 margin beside the
                largest logit gap, the int4 pool's c_kv / k_rope error);
   5. serve   — internlm2-1.8b at full width, all 24 layers, 2-bit
@@ -86,13 +92,16 @@ Phases, one JSON line each:
                one layer at a time (``build_layerwise``: the fp32 tree of
                198.5 GB never exists), served as in phase 8 from an int4 MLA
                pool; the bf16-pool serve gates the float MLA kernel's
-               launches; then its decode profile under the parent's route
-               rule (decode on the streaming kernel) and under this one, in
-               turns (parent, this, this, parent).
+               launches (both serves: every MLA launch on the tensor-core
+               kernel, one a call); then its decode profile (MLA device
+               ms a step by kernel) under the parent's MLA route rule
+               (every call on ``mla_partial`` + ``attn_combine``) and under
+               this one, in turns (parent, this, this, parent).
 Each serving and training path zeroes every kernel's launch count just
 before it runs and reads them just after.
 Then each phase's seconds and the total, the ``kernels`` summary line (the
-seven kernels, and the tensor-core and decode routes of both matmul forms), the
+seven kernels, the tensor-core and decode routes of both matmul forms, and
+MLA's tensor-core route for float and quantized pools), the
 nvidia-smi line, and the last line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before it.
 The script imports no jax and nothing of the JAX package.
@@ -123,6 +132,10 @@ TOL = {  # kernel vs plain version
 # (kernel and plain version both reduce in fp32 and round to bf16 once)
 ATTN_TOL = {"float32": dict(rtol=2e-4, atol=2e-5), "bfloat16": dict(rtol=1e-2, atol=1e-2)}
 PARITY_ATOL = 1e-3  # fp32 logits, 4 layers: same math, other summation orders
+# the MLA launch counts: every launch of rows 4 / 5 (float / quantized pools),
+# then the tensor-core route's alone
+MLA_COUNTS = ("paged_attention_mla", "paged_attention_mla_quant", "paged_attention_mla_tc",
+              "paged_attention_mla_tc_quant")
 PARITY_LAYERS = 4
 
 
@@ -1212,8 +1225,7 @@ def phase_parity(torch, dev, layers: int, arch: str = "internlm2-1.8b",
     prompts = [torch.randint(0, cfg.vocab_size, (L,), generator=gen) for L in lens]
     forced = torch.randint(0, cfg.vocab_size, (steps, len(lens)), generator=gen)
     # the attention kernels of this family: float pools, quantized pools
-    names = (("paged_attention_mla", "paged_attention_mla_quant") if cfg.use_mla
-             else ("paged_attention", "paged_attention_quant"))
+    names = (MLA_COUNTS if cfg.use_mla else ("paged_attention", "paged_attention_quant"))
     logits, attn_launches, admission_equal, final, mm_launches = {}, {}, {}, {}, {}
     plain_pb = plain_packed if kv_cache_dtype == "bf16" else "kernel"
     for path, (pb, ab) in {"kernels": ("kernel", "fused"), "plain": (plain_pb, "composed")}.items():
@@ -1283,9 +1295,11 @@ def phase_parity(torch, dev, layers: int, arch: str = "internlm2-1.8b",
     # plain route never
     quant = kv_cache_dtype != "bf16"
     exponents = _kv_exponent_card_vs_cpu(torch, dev) if quant else None
+    # (fp32 queries: MLA on mla_partial, its tensor-core counts 0)
     want = {"kernels": {names[0]: 0 if quant else layers * steps,
                         names[1]: layers * steps if quant else 0},
-            "plain": {names[0]: 0, names[1]: 0}}
+            "plain": dict.fromkeys(names, 0)}
+    want["kernels"].update(dict.fromkeys(names[2:], 0))
     row = {"phase": "parity", "arch": arch, "layers": layers, "n_bits": 2,
            "kv_cache_dtype": kv_cache_dtype, "compute": "float32", "prompts": lens,
            "decode_steps": steps, "logit_rows": int(a.shape[0]), "max_abs_logit_err": err,
@@ -1323,6 +1337,8 @@ def _counters():
             "paged_attention_quant": (aops, "quant_launches"),
             "paged_attention_mla": (aops, "mla_launches"),
             "paged_attention_mla_quant": (aops, "mla_quant_launches"),
+            "paged_attention_mla_tc": (aops, "mla_tc_launches"),
+            "paged_attention_mla_tc_quant": (aops, "mla_tc_quant_launches"),
             "symog_update": (sops, "launches")}
 
 
@@ -1538,8 +1554,7 @@ def phase_serve_internlm2(torch, dev):
         # once per admission prefill (the prefill cache reuses attention's k/v)
         return {**_matmul_counts(7 * cfg.n_layers, 0, st["decode_steps"], buckets),
                 "paged_attention": cfg.n_layers * st["decode_steps"],
-                "paged_attention_quant": 0, "paged_attention_mla": 0,
-                "paged_attention_mla_quant": 0, "symog_update": 0}
+                "paged_attention_quant": 0, **dict.fromkeys(MLA_COUNTS, 0), "symog_update": 0}
 
     row, eng, *_ = phase_serve(torch, dev, "internlm2-1.8b", "bf16", 7, expected)
     # the tied head: the packed 92544x2048 table is dequantized on every call
@@ -1572,6 +1587,18 @@ MATMUL_GROUPS = {"decode_experts": ("fpmm_decode", "true>"),
                  "tensor_core": ("fpmm_tc", ""), "streaming": ("fpmm_", "")}
 
 
+# the MLA kernels, as the profiler names them
+MLA_GROUPS = {"tensor_core": "mla_decode_tc", "partial": "mla_partial",
+              "combine": "attn_combine"}
+
+
+def _mla_groups(kern, steps: int):
+    """Device ms a step of the MLA kernels by route (``attn_combine`` is
+    mla_partial's second launch)."""
+    return {g: sum(us for name, us, _ in kern if k in name) / steps / 1e3
+            for g, k in MLA_GROUPS.items()}
+
+
 def _matmul_groups(kern, steps: int):
     """Device ms a step by matmul group (first match wins, in the order of
     MATMUL_GROUPS; the streaming group is fpmm_partial + fpmm_finish)."""
@@ -1584,34 +1611,33 @@ def _matmul_groups(kern, steps: int):
     return out
 
 
-def _parent_rule(dtype, rows: int, aligned: bool) -> str:
-    """The route rule before the decode kernel: bf16 from 5 rows on the
-    tensor cores, every other call (decode's 4 rows) on the streaming one."""
-    if str(dtype) == "torch.bfloat16" and rows >= 5 and aligned:
-        return "tensor_core"
-    return "streaming"
+def _parent_mla_route(*args) -> str:
+    """The MLA route rule before the tensor-core kernel: every call on
+    ``mla_partial`` + ``attn_combine``."""
+    return "partial"
 
 
-def phase_profile(torch, dev, eng, steps: int = 4, rule=None):
+def phase_profile(torch, dev, eng, steps: int = 4, mla_rule=None):
     """A few decode steps of ``eng``: step ms, host functions (cProfile),
-    device busy time and top kernels (torch.profiler), and the matmul
-    kernels' device ms by route.  ``rule`` replaces the matmul route rule
-    for this phase only (the parent's rule, to measure the step as it was
-    in one run with the change)."""
-    from repro_torch.kernels.fixedpoint_matmul import ops as fops
+    device busy time and top kernels (torch.profiler), the matmul kernels'
+    device ms by route and form, and (MLA models) the MLA kernels' device
+    ms.  ``mla_rule`` replaces the MLA route rule for this phase only (the
+    parent's rule, to measure the step as it was in one run with the
+    change)."""
+    from repro_torch.kernels.paged_attention import ops as aops
 
-    if rule is None:
+    if mla_rule is None:
         return _profile(torch, dev, eng, steps)
-    inner = fops._pick_route
-    fops._pick_route = rule
+    inner = aops._mla_route
+    aops._mla_route = mla_rule
     try:
-        row = _profile(torch, dev, eng, steps, rule=rule.__name__)
+        row = _profile(torch, dev, eng, steps, rule=mla_rule.__name__)
     finally:
-        fops._pick_route = inner
+        aops._mla_route = inner
     return row
 
 
-def _profile(torch, dev, eng, steps: int, rule: str = "_pick_route"):
+def _profile(torch, dev, eng, steps: int, rule: str = "_mla_route"):
     import cProfile
     import pstats
 
@@ -1677,6 +1703,8 @@ def _profile(torch, dev, eng, steps: int, rule: str = "_pick_route"):
             row["device_top_ms_per_step"] = [[k[:60], us / steps / 1e3, n // steps]
                                              for k, us, n in kern[:10]]
             row["matmul_device_ms_per_step"] = _matmul_groups(kern, steps)
+            if eng.cfg.use_mla:
+                row["mla_device_ms_per_step"] = _mla_groups(kern, steps)
     emit(row)
     return row
 
@@ -1857,7 +1885,7 @@ def phase_serve_olmoe(torch, dev):
         return {**_matmul_counts(4 * L, 3 * L, st["decode_steps"], buckets, cfg, head=True),
                 "paged_attention": 0,  # the pool is int4: every decode read is quantized
                 "paged_attention_quant": cfg.n_layers * st["decode_steps"],
-                "paged_attention_mla": 0, "paged_attention_mla_quant": 0, "symog_update": 0}
+                **dict.fromkeys(MLA_COUNTS, 0), "symog_update": 0}
 
     row, eng, reqs, sc, tokens = phase_serve(torch, dev, "olmoe-1b-7b", "int4_fp", 17, expected)
     cfg = eng.cfg
@@ -1965,11 +1993,16 @@ def phase_attn_mla(torch, dev):
     """Rows 4 and 5 at deepseek-v3's decode shape (B 4, T 1, 128 heads, r
     512, rope 64, block 16, ~300 tokens a row), also T = 3 with a row at
     position 0: bf16 queries on every pool code, the SYMOG ones with the
-    wide exponent spread (queries scaled to O(1) logits), at the bf16 bar;
-    fp32 queries on float / KV_F pools and on the words a paged write makes
-    at the fp32 bar (as phase 3e); then the conditioning check of the wide
-    int8 spread at unit queries against fp64."""
+    wide exponent spread (queries scaled to O(1) logits), at the bf16 bar,
+    through both kernels (forced: the tensor-core ``mla_decode_tc`` and
+    ``mla_partial``), each bit-identical over two calls; the rule sends
+    every bf16 case to the tensor cores, which must be faster there.  fp32
+    queries on float / KV_F pools and on the words a paged write makes at
+    the fp32 bar (as phase 3e), on ``mla_partial`` (the rule's choice).
+    Then the conditioning check of the wide int8 spread at unit queries
+    against fp64."""
     import torch.nn.functional as F
+    from repro_torch.kernels import build
     from repro_torch.kernels.paged_attention import ops as aops
     from repro_torch.kernels.paged_attention.ref import (dequant_logical, gather_logical,
                                                          paged_attention_mla_ref)
@@ -1981,25 +2014,21 @@ def phase_attn_mla(torch, dev):
     bf, f32 = torch.bfloat16, torch.float32
     cases = [(1, bf, "float", False), (1, bf, "q4", False), (1, bf, "q8", False),
              (1, bf, "kv_f", False), (3, bf, "q4", True), (3, bf, "float", True),
+             (3, bf, "q8", True), (3, bf, "kv_f", True),
              (1, f32, "float", False), (1, f32, "kv_f", False), (1, f32, "q8w", False),
              (1, f32, "q4w", False), (3, f32, "q4w", True), (3, f32, "float", True)]
-    rows, worst, main = [], {"float": 0.0, "quant": 0.0}, {}
+    rows, main = [], {}
+    worst = dict.fromkeys(("partial_float", "partial_quant", "tc_float", "tc_quant"), 0.0)
     for T, dt, pool, pos_zero in cases:
         dname = str(dt).split(".")[-1]
         qe, qr, cp, kp, bt, pos0, kw, q_mult = _mla_case(torch, gen, dev, T=T, dt=dt, pool=pool,
                                                          pos_zero=pos_zero, **sh)
         quant = "kv_bits" in kw
         kind = "quant" if quant else "float"
-        before = (aops.mla_launches, aops.mla_quant_launches)
-        out = aops.paged_attention_mla(qe, qr, cp, kp, bt, pos0, **kw)
+        rule = aops._mla_route(dt, cp.dtype, kw.get("kv_bits", 0), kw.get("kv_scale", 1.0), r,
+                               rope)
         ref = paged_attention_mla_ref(qe, qr, cp, kp, bt, pos0, **kw)
-        torch.cuda.synchronize()
-        launched = (aops.mla_launches - before[0], aops.mla_quant_launches - before[1])
-        err = (out.float() - ref.float()).abs().max().item()
         tol = ATTN_TOL[dname]
-        ok = (bool(torch.allclose(out.float(), ref.float(), **tol))
-              and launched == ((0, 1) if quant else (1, 0)) and out.dtype == dt)
-        worst[kind] = max(worst[kind], err)
         # bytes this run's data needs: q in, out, and each visible block's
         # c_kv and k_rope words (and exponents) once; operations: every query
         # row against every visible key, logits over r + rope and p . c_kv over r
@@ -2016,19 +2045,53 @@ def phase_attn_mla(torch, dev):
                 for _ in range(n)]
         rest = {k: v for k, v in kw.items() if k not in qk}
 
-        def call(fn):
-            return lambda c, k, *e: fn(qe, qr, c, k, bt, pos0, **rest,
-                                       **dict(zip(qk, e)))
+        def call(fn, **extra):
+            return lambda c, k, *e: fn(qe, qr, c, k, bt, pos0, **rest, **dict(zip(qk, e)),
+                                       **extra)
 
         row = {"phase": "kernel", "kernel": "paged_attention_mla" + ("_quant" if quant else ""),
                "B": B, "T": T, "H": H, "r": r, "rope": rope, "block": block, "pool": pool,
                "pool_dtype": str(cp.dtype).split(".")[-1], "q_dtype": dname,
-               "row_at_position_0": pos_zero, "q_mult": q_mult, "max_abs_err": err, "tol": tol,
-               "pass": ok}
+               "row_at_position_0": pos_zero, "q_mult": q_mult, "route": rule, "tol": tol}
         if quant:
             e_all = torch.cat([kw["ckv_scale_exp"], kw["kr_scale_exp"]])
             row["exp_range"] = [int(e_all.min()), int(e_all.max())]
-        row["ms"] = timed(call(aops.paged_attention_mla), args, torch)
+        # each route that takes the call: launched once, counted under its
+        # route, within the bar, the same bits on a second call
+        ok = True
+        for route in (["tc", "partial"] if rule == "tc" else ["partial"]):
+            zero_counts()
+            out = aops.paged_attention_mla(qe, qr, cp, kp, bt, pos0, **kw, _route=route)
+            again = aops.paged_attention_mla(qe, qr, cp, kp, bt, pos0, **kw, _route=route)
+            torch.cuda.synchronize()
+            got = {k: v for k, v in read_counts().items() if k in MLA_COUNTS and v}
+            fam = "paged_attention_mla" + ("_quant" if quant else "")
+            want = {fam: 2}
+            if route == "tc":
+                want["paged_attention_mla_tc" + ("_quant" if quant else "")] = 2
+            err = (out.float() - ref.float()).abs().max().item()
+            same = bool(torch.equal(out, again))
+            r_ok = (bool(torch.allclose(out.float(), ref.float(), **tol)) and got == want
+                    and same and out.dtype == dt)
+            ok = ok and r_ok
+            row[f"{route}_max_abs_err"] = err
+            row[f"{route}_bit_identical"] = same
+            row[f"{route}_ms"] = timed(call(aops.paged_attention_mla, _route=route), args, torch)
+            worst[f"{route}_{kind}"] = max(worst[f"{route}_{kind}"], err)
+            if not r_ok:
+                row["launches"] = got
+        row["max_abs_err"] = row[f"{rule}_max_abs_err"]
+        row["ms"] = row[f"{rule}_ms"]
+        if rule == "tc":  # the rule's ranks beside 4 and 8 (one cluster each)
+            auto = aops._mla_tc_split(B, -(-T * H // aops.MLA_TC_ROWS), bt.shape[1], block,
+                                      build.sm_count(dev))
+            row["tc_split"] = auto
+            row["tc_ms_by_split"] = {s: timed(call(aops.paged_attention_mla, _route="tc",
+                                                   _split=s), args, torch)
+                                     for s in sorted({4, 8} - {auto})}
+            row["tc_faster_than_partial"] = row["tc_ms"] < row["partial_ms"]
+            ok = ok and row["tc_faster_than_partial"]
+        row["pass"] = ok
         row["plain_ms"] = timed(call(paged_attention_mla_ref), args, torch)
         # library yardstick: SDPA over the gathered (dequantized) cache, one
         # shared key / value head against the H query heads; timed only
@@ -2054,11 +2117,10 @@ def phase_attn_mla(torch, dev):
         del args, largs
         emit(row)
         rows.append(row)
-        if T == 1 and dt == bf and kind not in main:
+        if T == 1 and dt == bf and pool in ("float", "q4") and kind not in main:
             main[kind] = row
         if not ok:
-            raise Failed(f"{row['kernel']} case T={T} {dname} {pool}: err {err}, "
-                         f"launches {launched}")
+            raise Failed(f"{row['kernel']} case T={T} {dname} {pool}: {row}")
     # conditioning: the wide int8 spread with unit queries (logits ~1e3): the
     # kernel and the fp32 plain version each against fp64; the kernel's error
     # may not exceed twice the plain version's
@@ -2236,8 +2298,11 @@ def phase_serve_deepseek(torch, dev):
         return {**_matmul_counts(10 * L, 3 * n_moe, st["decode_steps"], buckets, cfg,
                                  head=True, decode_2d=8 * L),
                 "paged_attention": 0, "paged_attention_quant": 0,
-                "paged_attention_mla": 0,  # the pool is int4: every decode read is quantized
-                "paged_attention_mla_quant": L * st["decode_steps"], "symog_update": 0}
+                # the pool is int4: every decode read is quantized, each on the
+                # tensor-core kernel (bf16 queries), one launch a call
+                "paged_attention_mla": 0, "paged_attention_mla_tc": 0,
+                "paged_attention_mla_quant": L * st["decode_steps"],
+                "paged_attention_mla_tc_quant": L * st["decode_steps"], "symog_update": 0}
 
     row, eng, reqs, sc, tokens = phase_serve(
         torch, dev, DEEPSEEK, "int4_fp", 23, expected, layers=DEEPSEEK_LAYERS,
@@ -2268,7 +2333,8 @@ def phase_serve_deepseek(torch, dev):
     steps16 = sched16.stats["decode_steps"]
     want16 = dict(expected(cfg, sched16.stats, adm16["buckets"]),
                   paged_attention_mla=cfg.n_layers * steps16,
-                  paged_attention_mla_quant=0)
+                  paged_attention_mla_tc=cfg.n_layers * steps16,
+                  paged_attention_mla_quant=0, paged_attention_mla_tc_quant=0)
     same = total = 0
     for a, c in zip(tokens, comps16):
         same += sum(int(x == y) for x, y in zip(a, c.tokens))
@@ -2356,9 +2422,9 @@ def main() -> int:
                 art["tree"] = build_layerwise(torch, dev, cfg, 11)[0]
             return art["tree"]
 
-        for kv in ("bf16", "int4_fp"):
-            run("4 parity deepseek", phase_parity, torch, dev, PARITY_LAYERS, arch=DEEPSEEK,
-                kv_cache_dtype=kv, build=ds_build, plain_packed="kernel")
+        par_ds = {kv: run("4 parity deepseek", phase_parity, torch, dev, PARITY_LAYERS,
+                          arch=DEEPSEEK, kv_cache_dtype=kv, build=ds_build, plain_packed="kernel")
+                  for kv in ("bf16", "int4_fp")}
         del art
         torch.cuda.empty_cache()
         serve, eng = run("5 serve internlm2", phase_serve_internlm2, torch, dev)
@@ -2371,10 +2437,10 @@ def main() -> int:
         del eng
         torch.cuda.empty_cache()
         deepseek, eng = run("9 serve deepseek", phase_serve_deepseek, torch, dev)
-        # the decode step under the parent's route rule and under this one,
-        # in turns (parent, this, this, parent): host time spreads widely
-        for rule in (_parent_rule, None, None, _parent_rule):
-            run("9 profile deepseek", phase_profile, torch, dev, eng, rule=rule)
+        # the decode step under the parent's MLA route rule and under this
+        # one, in turns (parent, this, this, parent): host time spreads widely
+        for rule in (_parent_mla_route, None, None, _parent_mla_route):
+            run("9 profile deepseek", phase_profile, torch, dev, eng, mla_rule=rule)
         del eng
         torch.cuda.empty_cache()
     except Failed as e:
@@ -2451,28 +2517,47 @@ def main() -> int:
          "work": "int4 pool, B=4 K=16 G=1 hd=128 block=16 T=1 bf16, ~300 cached tokens a row",
          "length_sweep": [_sweep_entry(r) for r in aq_main["length_sweep"]],
          "pass": all(r["pass"] for r in aq_rows)},
-        {"name": "paged_attention_mla", "route": "cuda",
-         "source": "src/repro_torch/csrc/paged_attention.cu",
-         "replaces": "src/repro/kernels/paged_attention/kernel.py:234",
-         "launches": deepseek["bf16_pool_launches"]["paged_attention_mla"],
-         "max_abs_err": mla_err["float"], "ms": mla_main["float"]["ms"],
-         "plain_ms": mla_main["float"]["plain_ms"], "bound_ms": mla_main["float"]["bound_ms"],
-         "bound_by": mla_main["float"]["bound_by"],
-         "library_ms": mla_main["float"]["library_ms"],
-         "work": "bf16 pool, B=4 T=1 H=128 r=512 rope=64 block=16 bf16, ~300 cached tokens a row",
-         "launches_from": "deepseek-v3 serve from a bf16 MLA pool (7 x decode steps)",
-         "pass": all(r["pass"] for r in mla_rows if r["kernel"] == "paged_attention_mla")},
-        {"name": "paged_attention_mla_quant", "route": "cuda",
-         "source": "src/repro_torch/csrc/paged_attention.cu",
-         "replaces": "src/repro/kernels/paged_attention/kernel.py:273",
-         "launches": deepseek["launches"]["paged_attention_mla_quant"],
-         "max_abs_err": mla_err["quant"], "ms": mla_main["quant"]["ms"],
-         "plain_ms": mla_main["quant"]["plain_ms"], "bound_ms": mla_main["quant"]["bound_ms"],
-         "bound_by": mla_main["quant"]["bound_by"],
-         "library_ms": mla_main["quant"]["library_ms"],
-         "work": "int4 pool, B=4 T=1 H=128 r=512 rope=64 block=16 bf16, ~300 cached tokens a row",
-         "pass": all(r["pass"] for r in mla_rows if r["kernel"] == "paged_attention_mla_quant")},
     ]
+    # rows 4 and 5: the tensor-core kernel takes every bf16 call of the
+    # serves; mla_partial the fp32 ones (the 4-layer parities)
+    for quant in (False, True):
+        sfx = "_quant" if quant else ""
+        m = mla_main["quant" if quant else "float"]
+        kind = "quant" if quant else "float"
+        par = par_ds["int4_fp" if quant else "bf16"]["attention_launches"]["kernels"]
+        serve16 = deepseek["bf16_pool_launches"] if not quant else deepseek["launches"]
+        work = (f"{'int4' if quant else 'bf16'} pool, B=4 T=1 H=128 r=512 rope=64 block=16 "
+                "bf16 q, ~300 cached tokens a row")
+        mla_rows_k = [r for r in mla_rows if r["kernel"] == "paged_attention_mla" + sfx]
+        summary.append(
+            {"name": "paged_attention_mla_tc" + sfx, "route": "cuda",
+             "source": "src/repro_torch/csrc/paged_attention.cu",
+             "replaces": "src/repro/kernels/paged_attention/kernel.py:" + ("273" if quant
+                                                                          else "234"),
+             "launches": serve16["paged_attention_mla_tc" + sfx],
+             "max_abs_err": mla_err["tc_" + kind], "ms": m["tc_ms"], "plain_ms": m["plain_ms"],
+             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+             "library_ms": m["library_ms"], "partial_kernel_ms": m["partial_ms"],
+             "split": m["tc_split"], "ms_by_split": m["tc_ms_by_split"], "work": work,
+             "launches_from": f"deepseek-v3 serve from a{' bf16' if not quant else 'n int4'} MLA "
+                              "pool (7 layers x decode steps): every MLA launch",
+             "pass": all(r["pass"] for r in mla_rows_k)})
+        summary.append(
+            {"name": "paged_attention_mla" + sfx, "route": "cuda",
+             "source": "src/repro_torch/csrc/paged_attention.cu",
+             "replaces": "src/repro/kernels/paged_attention/kernel.py:" + ("273" if quant
+                                                                          else "234"),
+             "launches": par["paged_attention_mla" + sfx],
+             "max_abs_err": mla_err["partial_" + kind], "ms": m["partial_ms"],
+             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+             "library_ms": m["library_ms"],
+             "serve_launches": serve16["paged_attention_mla" + sfx]
+             - serve16["paged_attention_mla_tc" + sfx],
+             "work": work + " (mla_partial + attn_combine, forced)",
+             "launches_from": f"deepseek-v3 4-layer fp32 parity from a "
+                              f"{'int4' if quant else 'bf16'} MLA pool (phase 4, kernels path): "
+                              "fp32 queries; no bf16 call of the serves takes it",
+             "pass": par["paged_attention_mla" + sfx] > 0 and all(r["pass"] for r in mla_rows_k)})
     for name, serve_row, rows, pre, work, pre2, work2 in (
             ("fixedpoint_matmul_tc", serve, mm_rows, fp_prefill,
              "one internlm2 layer's 7 projections at M=512 (a 512-token prefill), 2-bit, bf16",

@@ -128,6 +128,9 @@
 
 namespace {
 
+using repro::ldsm_x4;
+using repro::mma_bf16;
+
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kGroupBytes = 32 * 4;  // one 32-bit word per lane
@@ -370,22 +373,6 @@ __device__ __forceinline__ uint32_t dequant_pair(uint32_t u) {
   asm("lop3.b32 %0, %1, %2, %3, 0x6a;\n" : "=r"(v) : "r"(u >> BASE), "n"(M2), "r"(X2));
   asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(r) : "r"(v), "r"(S2), "r"(O2));
   return r;
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a)
-               : "memory");
 }
 
 // 16-byte async copy; bytes past src_bytes (0 or 16) are zero-filled

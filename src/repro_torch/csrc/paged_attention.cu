@@ -67,6 +67,9 @@
 
 namespace {
 
+using repro::ldsm_x4;
+using repro::mma_bf16;
+
 constexpr float kNegInf = -1e30f;
 constexpr int kQ8 = 3;  // pool codes beyond common.cuh's: int8 words + exponents
 constexpr int kQ4 = 4;  // int4 split-halves words + exponents
@@ -617,8 +620,10 @@ __device__ __forceinline__ float hi_nibble(int8_t w) {
 //     thread owns columns d of the accumulator and holds the tile's 16 values
 //     of column d in registers across the rows.
 // All math is fp32 (pools dequantized on load, word * 2^e exact); the output
-// is rounded to q's dtype once.  bf16 mma/wgmma on the query tile and TMA
-// loads of the blocks are left for later work.
+// is rounded to q's dtype once.  Since the tensor-core kernel below
+// (mla_decode_tc) takes bf16 queries over pools exact in bf16, this kernel
+// serves fp32 queries (the parity runs), fp32 pools and widths the
+// tensor-core tiles do not take (ops.py `_mla_route`).
 constexpr int kMlaRows = 16;      // query rows per thread block (ops.py MLA_ROWS)
 constexpr int kMlaTile = 16;      // KV tokens per shared-memory tile
 constexpr int kMlaThreads = 256;  // 8 warps
@@ -938,6 +943,515 @@ int launch_mla_kv(int kv_dtype, const void* qe, const void* qr, const void* c, c
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// ---------------------------------------------------------------------------
+// mla_decode_tc: the absorbed MLA decode on the tensor cores, for bf16
+// queries over pools whose values are exact in bf16.
+//
+// Replaces the same TPU kernels as mla_partial (`_mla_kernel`,
+// `_mla_kernel_quant`) on the serving path; the contract is
+// paged_attention_mla's, with bf16 q_eff / q_rope / out.
+//
+// What bounds it on the H100: latency.  At deepseek-v3's decode shape (B 4,
+// H 128, r 512, rope 64, ~300 tokens a row) a call moves 2.5 MB and does
+// 0.33 GFLOP, under 1 us of either bound; what costs is the chain pos0 ->
+// block table -> KV tile -> products -> merge, and how many of those chains
+// run at once.  The 128 heads of a batch row share one latent KV stream, so
+// the work is a (heads x (r + rope)) . ((r + rope) x tokens) product, a
+// softmax, and a (heads x tokens) . (tokens x r) product: tensor-core shapes.
+// Design:
+//   * one thread block per (KV split, tile of 32 query rows, batch row);
+//     the splits of one (row tile, b) form a thread-block cluster of up to 8
+//     (the wrapper's `_mla_tc_split`: blocks for at most 3/4 of the SMs, so
+//     that every cluster is resident at once, one block an SM; deepseek's
+//     B 4 takes 6).  32 rows, not 64: the (rows, r) fp32 accumulator is 64
+//     registers a thread over 8 warps, <= 128 in all, so two blocks may
+//     share an SM where the grid is larger; each KV byte is read from L2
+//     by 4 row tiles of a 128-head row instead of 8;
+//   * pos0, the row's block table and the row tile's queries are read at
+//     once (the table and queries by `cp.async` into shared memory); the
+//     block cuts the tile's visible tiles (a KV block, or 16 tokens of a
+//     longer one; tiles past the tile's last query position are skipped,
+//     which is exact: p = 0, alpha = 1) into contiguous shares, one per
+//     rank, balanced to one tile;
+//   * the share's tiles are copied by 16-byte `cp.async` (16 threads a
+//     token row, no divisions) into a ring of 3 stages; a bf16 pool's rows
+//     land as the bf16 tile itself, pool words (KV_F int8 x kv_scale, SYMOG
+//     int8 / int4 x 2^e) are converted once per tile into a bf16 tile
+//     [tokens][r + rope] -- exact: a word needs at most 8 significant bits
+//     and every scale is a power of two (int4: one `lop3` and one bf16x2
+//     FMA a pair of words);
+//   * `mma.sync.m16n8k16` bf16, fp32 accumulators: warp (row group rg,
+//     column group cg) forms its 16 rows' logits over every 4th k-step of
+//     r + rope (queries and keys by `ldmatrix`); the 4 warps of a row group
+//     add their partial logits through shared memory in a fixed order, and
+//     each runs the same online softmax (base 2) on the sums; p . c_kv
+//     takes every 4th 16-column pair of r, with V = the same bf16 tile read
+//     by `ldmatrix.trans` (the value is c_kv itself);
+//   * p in two bf16 parts, p_hi = bf16(p) and p_lo = bf16(p - p_hi), two
+//     products: rounding p to bf16 alone misses the bf16 bar on wide SYMOG
+//     spreads (|out| up to ~400), the pair keeps p to ~16 bits;
+//   * one launch, no workspace: each rank leaves its (m, l, acc) in shared
+//     memory; after a cluster barrier rank c finishes its share of the
+//     (row, 4-column) items, reading every rank's partial by DSMEM (16-byte
+//     loads, the (m, l) of every rank staged once) and adding them in rank
+//     order: the same bits on every call.  The exchange (the other ranks'
+//     share of a 32 x r fp32 tile, over DSMEM) is the largest fixed cost
+//     left; storing the partials into their owners' memory instead (8-byte
+//     remote stores) was slower.
+constexpr int kTcRows = 32;       // query rows per thread block (ops.py MLA_TC_ROWS)
+constexpr int kTcWarps = 8;       // 2 row groups of 16 rows x 4 column groups
+constexpr int kTcThreads = 32 * kTcWarps;
+constexpr int kTcStages = 3;      // KV tiles in flight a thread block (two blocks an SM)
+constexpr int kTcMaxDepth = 576;  // r + rope: 36 k-steps of 16, 9 a warp
+constexpr int kTcMaxRank = 512;   // r: 32 column pairs of 16, 8 a warp
+constexpr int kTcKs = kTcMaxDepth / 16 / 4;
+constexpr int kTcPairs = kTcMaxRank / 16 / 4;
+constexpr int kTcTable = 256;     // block-table entries read ahead (later ones: one load a tile)
+
+struct MlaTcParams {
+  const int* bt;
+  const int* pos0;
+  const int* c_exp;  // (n_blocks,) exponents of SYMOG pools, else null
+  const int* r_exp;
+  int TH, H, r, rope, block, max_blocks, tpb, n_split;
+  int cbytes, rbytes;  // bytes of one token's c_kv / k_rope words in the pools
+  int cpitch, pitch;   // stage row: c_kv words at 0, k_rope words at cpitch; row stride
+  int tpitch;          // row stride of a bf16 tile: 2 (r + rope) + 16 (ldmatrix banks)
+  int chunk, qchunk;   // bytes per cp.async of pool rows / query rows: 16, 8 or 4
+  int stage_bytes;     // 16 rows + 16 bytes of exponents
+  int region;          // bytes of queries + ring (+ converted tile), or of the merge's tile
+  float scale, kv_scale;
+};
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a)
+               : "memory");
+}
+
+// async copy of `bytes` (16, 8 or 4); bytes past src_bytes (0 or bytes) are zero-filled
+__device__ __forceinline__ void cp_async_z(void* dst, const void* src, int bytes, int src_bytes) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+                 "r"(src_bytes) : "memory");
+  else if (bytes == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d), "l"(src),
+                 "r"(src_bytes) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+                 "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(float a, float b) {  // a in the low half
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// p as bf16 pairs hi = bf16(p), lo = bf16(p - hi)
+__device__ __forceinline__ void split_bf16x2(float a, float b, uint32_t& hi, uint32_t& lo) {
+  hi = bf16x2_bits(a, b);
+  lo = bf16x2_bits(a - __uint_as_float(hi << 16), b - __uint_as_float(hi & 0xffff0000u));
+}
+
+// Two int4 fields f (two's complement, bits 0-3 of each 16-bit half of u)
+// times 2^e as bf16x2, exact: (f ^ 8) in the mantissa of bf16(128) is 136 + f,
+// and one bf16x2 FMA by (2^e, 2^e) less (136 * 2^e) leaves f * 2^e.
+__device__ __forceinline__ uint32_t nibbles_bf16x2(uint32_t u, uint32_t s2, uint32_t c2) {
+  uint32_t v, o;
+  asm("lop3.b32 %0, %1, %2, %3, 0x6a;\n" : "=r"(v) : "r"(u), "n"(0x000f000f), "r"(0x43084308u));
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(o) : "r"(v), "r"(s2), "r"(c2));
+  return o;
+}
+
+// A stage's pool words -> the bf16 tile [16 tokens][r + rope], each value
+// word * scale (exact); token rows past ntok are zeros.
+template <int MODE>
+__device__ __forceinline__ void mla_tc_convert(const uint8_t* st, uint8_t* tile, int ntok,
+                                               const MlaTcParams& p) {
+  float sc = p.kv_scale, sr = p.kv_scale;
+  if (MODE >= kQ8) {  // this block's exponents, exact powers of two
+    const int* e = reinterpret_cast<const int*>(st + kMlaTile * p.pitch);
+    sc = ldexpf(1.f, e[0]);
+    sr = ldexpf(1.f, e[1]);
+  }
+  // int4: the scale pairs (2^e, 2^e) and -136 * (2^e, 2^e) of each part as bf16x2
+  const uint32_t sc2 = bf16x2_bits(sc, sc), sr2 = bf16x2_bits(sr, sr);
+  const uint32_t cc2 = bf16x2_bits(-136.f * sc, -136.f * sc);
+  const uint32_t cr2 = bf16x2_bits(-136.f * sr, -136.f * sr);
+  // 16 threads a token row, chunks of 8 dims (one 16-byte store) ck, ck + 16, ..
+  const int r = p.r, t = threadIdx.x >> 4, nch = (r + p.rope) / 8;
+#pragma unroll
+  for (int k = 0; k < (kTcMaxDepth / 8 + 15) / 16; ++k) {
+    const int ch = (threadIdx.x & 15) + 16 * k, d0 = ch * 8;
+    if (ch >= nch) break;
+    uint4 o = make_uint4(0u, 0u, 0u, 0u);
+    if (t < ntok) {
+      const bool cpart = d0 < r;
+      const int dd = cpart ? d0 : d0 - r;
+      const uint8_t* row = st + t * p.pitch + (cpart ? 0 : p.cpitch);
+      if (MODE == kQ4) {  // dims dd..dd+7: low nibbles of words dd.., or high ones of dd - w/2..
+        const int hw = (cpart ? r : p.rope) / 2;
+        const bool hi = dd >= hw;
+        uint2 x = *reinterpret_cast<const uint2*>(row + (hi ? dd - hw : dd));
+        if (hi) {
+          x.x >>= 4;
+          x.y >>= 4;
+        }
+        const uint32_t s2 = cpart ? sc2 : sr2, c2 = cpart ? cc2 : cr2;
+        // words 2i and 2i + 1 into the two halves, then their fields
+        o.x = nibbles_bf16x2(__byte_perm(x.x, 0u, 0x4140), s2, c2);
+        o.y = nibbles_bf16x2(__byte_perm(x.x, 0u, 0x4342), s2, c2);
+        o.z = nibbles_bf16x2(__byte_perm(x.y, 0u, 0x4140), s2, c2);
+        o.w = nibbles_bf16x2(__byte_perm(x.y, 0u, 0x4342), s2, c2);
+      } else {  // int8 words to exact floats by the mantissa of 2^23 (as gqa_decode's row_values)
+        const float s = cpart ? sc : sr;
+        const uint2 x = *reinterpret_cast<const uint2*>(row + dd);
+        const uint32_t w[2] = {x.x ^ 0x80808080u, x.y ^ 0x80808080u};  // byte f -> f + 128
+        float v[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          v[i] = __uint_as_float(__byte_perm(w[i >> 2], 0x4b000000u, 0x7440 + (i & 3))) -
+                 8388736.f;
+        o.x = bf16x2_bits(v[0] * s, v[1] * s);
+        o.y = bf16x2_bits(v[2] * s, v[3] * s);
+        o.z = bf16x2_bits(v[4] * s, v[5] * s);
+        o.w = bf16x2_bits(v[6] * s, v[7] * s);
+      }
+    }
+    *reinterpret_cast<uint4*>(tile + t * p.tpitch + d0 * 2) = o;
+  }
+}
+
+// MODE: the pool code, 1 bf16 (its rows are the tile), 2 int8 x kv_scale
+// (KV_F), 3 int8 words and 4 int4 words x 2^e per physical block
+template <int MODE>
+__global__ void __launch_bounds__(kTcThreads, 2)
+mla_decode_tc(const __nv_bfloat16* __restrict__ q_eff, const __nv_bfloat16* __restrict__ q_rope,
+              const uint8_t* __restrict__ cp, const uint8_t* __restrict__ kp,
+              __nv_bfloat16* __restrict__ out, MlaTcParams p) {
+  constexpr bool kDirect = MODE == repro::kBF16;
+  extern __shared__ __align__(16) uint8_t tc_smem[];
+  namespace cg = cooperative_groups;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rg = warp >> 2, cgp = warp & 3;  // row group (16 rows), column group
+  const int g = lane >> 2, t4 = lane & 3;    // mma fragment row / column pair
+  const int split = blockIdx.x, row0 = blockIdx.y * kTcRows, b = blockIdx.z;
+  const int S = p.n_split, r = p.r, rope = p.rope;
+  const int nrows = min(kTcRows, p.TH - row0);
+  const int n_ks = (r + rope) / 16, n_pairs = r / 16;
+
+  uint8_t* q_s = tc_smem;  // [kTcRows][r + rope] bf16, rows tpitch apart
+  uint8_t* ring = q_s + kTcRows * p.tpitch;
+  uint8_t* ctile = ring + static_cast<size_t>(kTcStages) * p.stage_bytes;  // word pools
+  float* sred = reinterpret_cast<float*>(tc_smem + p.region);  // [2][4][8][32] partial logits
+  float* part_ml = sred + 2 * 4 * 8 * 32;       // this rank's m, l: [2][kTcRows]
+  float* ml_s = part_ml + 2 * kTcRows;          // every rank's: [kMaxSplit][2][kTcRows]
+  int* bt_s = reinterpret_cast<int*>(ml_s + kMaxSplit * 2 * kTcRows);  // [kTcTable]
+
+  // pos0, the batch row's block table (its first kTcTable entries) and the
+  // tile's query rows [q_eff | q_rope] (rows past T*H zero-filled) are read
+  // at once: the table and the queries in two copy groups
+  const int pos0 = __ldg(p.pos0 + b);
+  const int n_tab = min(p.max_blocks, kTcTable);
+  for (int j = tid; j < n_tab; j += kTcThreads)
+    cp_async(bt_s + j, p.bt + static_cast<size_t>(b) * p.max_blocks + j, 4);
+  cp_async_commit();
+  {  // 8 threads a query row
+    const int row = tid >> 3, qb = row < nrows ? p.qchunk : 0;
+    const size_t qrow = static_cast<size_t>(b) * p.TH + row0 + min(row, nrows - 1);
+    const uint8_t* se = reinterpret_cast<const uint8_t*>(q_eff + qrow * r);
+    const uint8_t* sr = reinterpret_cast<const uint8_t*>(q_rope + qrow * rope);
+    uint8_t* dst = q_s + row * p.tpitch;
+    for (int o = (tid & 7) * p.qchunk; o < 2 * r; o += 8 * p.qchunk)
+      cp_async_z(dst + o, se + o, p.qchunk, qb);
+    for (int o = (tid & 7) * p.qchunk; o < 2 * rope; o += 8 * p.qchunk)
+      cp_async_z(dst + 2 * r + o, sr + o, p.qchunk, qb);
+  }
+  cp_async_commit();
+
+  // the row tile's visible tiles from pos0 on the device, this rank's share
+  const int ra = row0 + rg * 16 + g, rb = ra + 8;  // this lane's two query rows
+  const int qpos[2] = {ra < p.TH ? pos0 + ra / p.H : -1, rb < p.TH ? pos0 + rb / p.H : -1};
+  const int hi_tok = min(pos0 + (row0 + nrows - 1) / p.H, p.max_blocks * p.block - 1);
+  const int n_u = hi_tok < 0 ? 0 : (hi_tok / p.block) * p.tpb + (hi_tok % p.block) / kMlaTile + 1;
+  const int u0 = static_cast<int>(static_cast<long long>(split) * n_u / S);
+  const int u1 = static_cast<int>(static_cast<long long>(split + 1) * n_u / S);
+  const int n = u1 - u0;
+
+  cp_async_wait<1>();  // the table (the queries may still be in flight)
+  __syncthreads();
+  // 16 threads a token row of a tile: thread (ct, ck) copies chunks ck, ck + 16, ..
+  const int ct = tid >> 4, ck = (tid & 15) * p.chunk;
+  auto issue = [&](int u, int s) {
+    const int j = u / p.tpb, tok0 = (u - j * p.tpb) * kMlaTile;
+    const int phys =
+        j < kTcTable ? bt_s[j] : __ldg(p.bt + static_cast<size_t>(b) * p.max_blocks + j);
+    const int ntok = min(kMlaTile, p.block - tok0);
+    uint8_t* st = ring + static_cast<size_t>(s) * p.stage_bytes;
+    uint8_t* dst = st + ct * p.pitch;
+    const size_t tok = static_cast<size_t>(phys) * p.block + tok0 + ct;
+    if (ct < ntok) {
+      const uint8_t* sc = cp + tok * p.cbytes;
+      const uint8_t* sk = kp + tok * p.rbytes;
+      for (int o = ck; o < p.cbytes; o += 16 * p.chunk)
+        cp_async_z(dst + o, sc + o, p.chunk, p.chunk);
+      for (int o = ck; o < p.rbytes; o += 16 * p.chunk)
+        cp_async_z(dst + p.cpitch + o, sk + o, p.chunk, p.chunk);
+    } else if (kDirect) {  // rows past the block: zeros (0 x garbage could be NaN)
+      for (int o = ck; o < p.cbytes; o += 16 * p.chunk) cp_async_z(dst + o, cp, p.chunk, 0);
+      for (int o = ck; o < p.rbytes; o += 16 * p.chunk)
+        cp_async_z(dst + p.cpitch + o, cp, p.chunk, 0);
+    }
+    if (MODE >= kQ8 && tid == 0) {
+      int* e = reinterpret_cast<int*>(st + kMlaTile * p.pitch);
+      cp_async(e, p.c_exp + phys, 4);
+      cp_async(e + 1, p.r_exp + phys, 4);
+    }
+  };
+
+  float acc[kTcPairs][2][4];
+#pragma unroll
+  for (int i = 0; i < kTcPairs; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  // each lane's ldmatrix row addresses: queries (A: rows, then k + 8), the
+  // tile as K (B: tokens, then k + 8) and as V (B, transposed: tokens, then n + 8)
+  const uint8_t* q_lane = q_s + (rg * 16 + (lane & 15)) * p.tpitch + (lane >> 4) * 16;
+  const int k_lane = ((lane & 7) + ((lane >> 4) << 3)) * p.tpitch + ((lane >> 3) & 1) * 16;
+  const int v_lane = (lane & 15) * p.tpitch + (lane >> 4) * 16;
+  for (int k = 0; k < kTcStages - 1; ++k) {
+    if (k < n) issue(u0 + k, k);
+    cp_async_commit();
+  }
+  for (int i = 0; i < n; ++i) {
+    if (i + kTcStages - 1 < n) issue(u0 + i + kTcStages - 1, (i + kTcStages - 1) % kTcStages);
+    cp_async_commit();
+    cp_async_wait<kTcStages - 1>();
+    __syncthreads();  // tile i is in its stage, for every thread
+    const int u = u0 + i, j = u / p.tpb, tok0 = (u - j * p.tpb) * kMlaTile;
+    const int ntok = min(kMlaTile, p.block - tok0), kv0 = j * p.block + tok0;
+    const uint8_t* tile = ring + static_cast<size_t>(i % kTcStages) * p.stage_bytes;
+    if constexpr (!kDirect) {
+      mla_tc_convert<MODE>(tile, ctile, ntok, p);
+      __syncthreads();
+      tile = ctile;
+    }
+    // partial logits over this warp's k-steps: tokens are the n8 tiles
+    float sp[2][4], sq[2][4];  // even / odd k-steps: two mma chains, summed after
+#pragma unroll
+    for (int e = 0; e < 8; ++e) sp[e >> 2][e & 3] = sq[e >> 2][e & 3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kTcKs; ++kk) {
+      const int ks = cgp + 4 * kk;
+      if (ks < n_ks) {
+        uint32_t qa[4], kb[4];
+        ldsm_x4(qa, q_lane + ks * 32);
+        ldsm_x4(kb, tile + k_lane + ks * 32);
+        float (&d)[2][4] = kk & 1 ? sq : sp;
+        mma_bf16(d[0], qa, kb[0], kb[1]);
+        mma_bf16(d[1], qa, kb[2], kb[3]);
+      }
+    }
+    float* red = sred + (rg * 4) * 8 * 32;
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      red[(cgp * 8 + e) * 32 + lane] = sp[e >> 2][e & 3] + sq[e >> 2][e & 3];
+    __syncthreads();
+    // the row group's logits in a fixed order, then the same online softmax
+    // in each of its 4 warps: lane holds rows g (e & 2 == 0) and g + 8 of
+    // tokens 8 * nt + 2 * t4 + (e & 1)
+    float x[2][4], mx[2] = {kNegInf, kNegInf};
+    bool ok[2][4];
+    const float sl = p.scale * 1.4426950408889634f;  // logits in log2 units: exp2, not exp
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int nt = e >> 2, c = e & 3, h = c >> 1;
+      float s = red[e * 32 + lane];
+#pragma unroll
+      for (int w = 1; w < 4; ++w) s += red[(w * 8 + e) * 32 + lane];
+      const int tok = 8 * nt + 2 * t4 + (c & 1);
+      ok[nt][c] = tok < ntok && kv0 + tok <= qpos[h];
+      x[nt][c] = ok[nt][c] ? s * sl : kNegInf;
+      mx[h] = fmaxf(mx[h], x[nt][c]);
+    }
+    float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(kFull, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(kFull, mx[h], 2));
+      const float m_new = fmaxf(m[h], mx[h]);
+      alpha[h] = exp2f(m[h] - m_new);
+      m[h] = m_new;
+    }
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int nt = e >> 2, c = e & 3, h = c >> 1;
+      x[nt][c] = ok[nt][c] ? exp2f(x[nt][c] - m[h]) : 0.f;
+      sum[h] += x[nt][c];
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      sum[h] += __shfl_xor_sync(kFull, sum[h], 1);
+      sum[h] += __shfl_xor_sync(kFull, sum[h], 2);
+      l[h] = l[h] * alpha[h] + sum[h];
+    }
+    // p as A fragments (the logits' accumulator layout is the A layout):
+    // a0 / a1 = rows g / g + 8 of tokens 0..7, a2 / a3 of tokens 8..15
+    uint32_t ph[4], pl[4];
+    split_bf16x2(x[0][0], x[0][1], ph[0], pl[0]);
+    split_bf16x2(x[0][2], x[0][3], ph[1], pl[1]);
+    split_bf16x2(x[1][0], x[1][1], ph[2], pl[2]);
+    split_bf16x2(x[1][2], x[1][3], ph[3], pl[3]);
+    // acc = alpha * acc + p_hi . V + p_lo . V over this warp's column pairs
+#pragma unroll
+    for (int pi = 0; pi < kTcPairs; ++pi) {
+      const int cp2 = cgp + 4 * pi;
+      if (cp2 < n_pairs) {
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          acc[pi][nt][0] *= alpha[0];
+          acc[pi][nt][1] *= alpha[0];
+          acc[pi][nt][2] *= alpha[1];
+          acc[pi][nt][3] *= alpha[1];
+        }
+        uint32_t vb[4];
+        ldsm_x4_trans(vb, tile + v_lane + cp2 * 32);
+        mma_bf16(acc[pi][0], ph, vb[0], vb[1]);
+        mma_bf16(acc[pi][1], ph, vb[2], vb[3]);
+        mma_bf16(acc[pi][0], pl, vb[0], vb[1]);
+        mma_bf16(acc[pi][1], pl, vb[2], vb[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with this tile and the partial logits
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring's space becomes the merge's accumulator tile
+
+  // the merge: each rank leaves its (m, l) and fp32 accumulator tile in its
+  // shared memory (over the ring and queries, now free); after a cluster
+  // barrier rank `split` finishes the items (a row's 4 columns) [split *
+  // n_items / S, (split + 1) * n_items / S), reading every rank's values by
+  // DSMEM (16-byte loads, a warp's 32 lanes on 512 contiguous bytes) and
+  // adding them in rank order
+  float* part_acc = reinterpret_cast<float*>(tc_smem);  // [kTcRows][r + 4]
+  const int apitch = r + 4;
+  const int lr = rg * 16 + g;
+#pragma unroll
+  for (int pi = 0; pi < kTcPairs; ++pi) {
+    const int cp2 = cgp + 4 * pi;
+    if (cp2 < n_pairs) {
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const int col = cp2 * 16 + nt * 8 + 2 * t4;
+        *reinterpret_cast<float2*>(part_acc + lr * apitch + col) =
+            make_float2(acc[pi][nt][0], acc[pi][nt][1]);
+        *reinterpret_cast<float2*>(part_acc + (lr + 8) * apitch + col) =
+            make_float2(acc[pi][nt][2], acc[pi][nt][3]);
+      }
+    }
+  }
+  if (cgp == 0 && t4 == 0) {
+    part_ml[lr] = m[0];
+    part_ml[lr + 8] = m[1];
+    part_ml[kTcRows + lr] = l[0];
+    part_ml[kTcRows + lr + 8] = l[1];
+  }
+  cg::cluster_group cluster = cg::this_cluster();
+  if (S > 1) cluster.sync(); else __syncthreads();
+  auto rank_ptr = [&](float* ptr, int c) -> const float* {
+    return S == 1 ? ptr : cluster.map_shared_rank(ptr, c);
+  };
+  // every rank's (m, l) of every row, one load a thread: ml_s[c][0 / 1][row]
+  for (int i = tid; i < S * 2 * kTcRows; i += kTcThreads)
+    ml_s[i] = rank_ptr(part_ml, i / (2 * kTcRows))[i % (2 * kTcRows)];
+  __syncthreads();
+  const int q4 = r / 4, n_items = nrows * q4;
+  const int lo = split * n_items / S, hi = (split + 1) * n_items / S;
+  for (int it = lo + tid; it < hi; it += kTcThreads) {
+    const int row = it / q4, col = (it - row * q4) * 4;
+    float4 a[kMaxSplit];
+#pragma unroll
+    for (int c = 0; c < kMaxSplit; ++c)
+      if (c < S)
+        a[c] = *reinterpret_cast<const float4*>(rank_ptr(part_acc, c) + row * apitch + col);
+    float M = kNegInf;
+#pragma unroll
+    for (int c = 0; c < kMaxSplit; ++c)
+      if (c < S) M = fmaxf(M, ml_s[c * 2 * kTcRows + row]);
+    float L = 0.f;
+    float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int c = 0; c < kMaxSplit; ++c) {
+      if (c < S) {
+        const float f = exp2f(ml_s[c * 2 * kTcRows + row] - M);
+        L += ml_s[(c * 2 + 1) * kTcRows + row] * f;
+        o.x += a[c].x * f;
+        o.y += a[c].y * f;
+        o.z += a[c].z * f;
+        o.w += a[c].w * f;
+      }
+    }
+    if (L == 0.f) L = 1.f;
+    uint2 v;
+    v.x = bf16x2_bits(o.x / L, o.y / L);
+    v.y = bf16x2_bits(o.z / L, o.w / L);
+    *reinterpret_cast<uint2*>(out + (static_cast<size_t>(b) * p.TH + row0 + row) * r + col) = v;
+  }
+  if (S > 1) cluster.sync();  // every block's partials stay until the others have read them
+}
+
+size_t mla_tc_smem_bytes(const MlaTcParams& p) {  // the region, then partial logits, m, l, table
+  return static_cast<size_t>(p.region) +
+         sizeof(float) * (2 * 4 * 8 * 32 + 2 * (kMaxSplit + 1) * kTcRows) +
+         sizeof(int) * kTcTable;
+}
+
+template <int MODE>
+int launch_mla_tc(const void* qe, const void* qr, const void* c, const void* k, void* out,
+                  const MlaTcParams& p, int B, cudaStream_t st) {
+  auto kern = mla_decode_tc<MODE>;
+  const size_t smem = mla_tc_smem_bytes(p);
+  static size_t smem_allowed = 48 * 1024;  // per instantiation: raised once, not per launch
+  if (smem > smem_allowed) {
+    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    smem_allowed = smem;
+  }
+  const dim3 grid(p.n_split, (p.TH + kTcRows - 1) / kTcRows, B);
+  const auto* qep = static_cast<const __nv_bfloat16*>(qe);
+  const auto* qrp = static_cast<const __nv_bfloat16*>(qr);
+  const auto* cpp = static_cast<const uint8_t*>(c);
+  const auto* kpp = static_cast<const uint8_t*>(k);
+  auto* op = static_cast<__nv_bfloat16*>(out);
+  if (p.n_split == 1) {
+    kern<<<grid, kTcThreads, smem, st>>>(qep, qrp, cpp, kpp, op, p);
+    return static_cast<int>(cudaGetLastError());
+  }
+  cudaLaunchConfig_t lc = {};
+  lc.gridDim = grid;
+  lc.blockDim = dim3(kTcThreads, 1, 1);
+  lc.dynamicSmemBytes = smem;
+  lc.stream = st;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;  // one cluster per (row tile, b)
+  cluster[0].val.clusterDim.x = p.n_split;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  lc.attrs = cluster;
+  lc.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(&lc, kern, qep, qrp, cpp, kpp, op, p);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // q (B,T,K,G,hd) f32|bf16; pools (n_blocks, block, K, hd) f32|bf16|int8 (kv_dtype 0|1|2),
@@ -1033,4 +1547,70 @@ extern "C" int paged_attention_mla_launch(const void* q_eff, const void* q_rope,
     return launch_mla_kv<__nv_bfloat16>(kv_dtype, q_eff, q_rope, ckv_pool, krope_pool, out, p,
                                         st);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// mla_decode_tc: q_eff (B,T,H,r) and q_rope (B,T,H,rope) bf16, 4-byte aligned; pools as
+// paged_attention_mla_launch's but bf16 (kv_dtype 1, kv_scale 1), int8 x a power-of-two
+// kv_scale (2), int8 (3) or int4 (4) words with c_exp/r_exp; r and rope multiples of 16,
+// 16 <= r <= 512, rope >= 16, r + rope <= 576; out (B,T,H,r) bf16; n_split 1..8 thread
+// blocks (one cluster) per (row tile, b).  Returns cudaGetLastError().
+extern "C" int paged_attention_mla_tc_launch(const void* q_eff, const void* q_rope,
+                                             const void* ckv_pool, const void* krope_pool,
+                                             const void* bt, const void* pos0,
+                                             const void* c_exp, const void* r_exp, void* out,
+                                             int B, int T, int H, int r, int rope, int block,
+                                             int max_blocks, int kv_dtype, int n_split,
+                                             float scale, float kv_scale, void* stream) {
+  const bool quant = kv_dtype == kQ8 || kv_dtype == kQ4;
+  auto aligned = [](const void* ptr, int n) { return reinterpret_cast<uintptr_t>(ptr) % n == 0; };
+  if (B < 1 || T < 1 || H < 1 || r < 16 || r > kTcMaxRank || r % 16 || rope < 16 || rope % 16 ||
+      r + rope > kTcMaxDepth || block < 1 || max_blocks < 1 || n_split < 1 ||
+      n_split > kMaxSplit || kv_dtype < repro::kBF16 || kv_dtype > kQ4 ||
+      (quant && (!c_exp || !r_exp)) || !aligned(q_eff, 4) || !aligned(q_rope, 4) ||
+      !aligned(out, 8) || B > 65535 ||
+      (static_cast<long long>(T) * H + kTcRows - 1) / kTcRows > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  MlaTcParams p;
+  p.bt = static_cast<const int*>(bt);
+  p.pos0 = static_cast<const int*>(pos0);
+  p.c_exp = static_cast<const int*>(c_exp);
+  p.r_exp = static_cast<const int*>(r_exp);
+  p.TH = T * H; p.H = H; p.r = r; p.rope = rope; p.block = block; p.max_blocks = max_blocks;
+  p.tpb = (block + kMlaTile - 1) / kMlaTile;
+  p.n_split = n_split;
+  const int elt_bits = kv_dtype == repro::kBF16 ? 16 : kv_dtype == kQ4 ? 4 : 8;
+  p.cbytes = r * elt_bits / 8;
+  p.rbytes = rope * elt_bits / 8;
+  p.tpitch = 2 * (r + rope) + 16;
+  if (kv_dtype == repro::kBF16) {  // the stage is the bf16 tile
+    p.cpitch = 2 * r;
+    p.pitch = p.tpitch;
+  } else {
+    p.cpitch = (p.cbytes + 15) / 16 * 16;
+    p.pitch = p.cpitch + (p.rbytes + 15) / 16 * 16;
+  }
+  p.chunk = p.qchunk = 0;
+  const int chunks[3] = {16, 8, 4};
+  for (int ch : chunks) {
+    if (!p.chunk && p.cbytes % ch == 0 && p.rbytes % ch == 0 && aligned(ckv_pool, ch) &&
+        aligned(krope_pool, ch))
+      p.chunk = ch;
+    if (!p.qchunk && aligned(q_eff, ch) && aligned(q_rope, ch)) p.qchunk = ch;  // rows: 32k B
+  }
+  if (!p.chunk || !p.qchunk) return static_cast<int>(cudaErrorInvalidValue);
+  p.stage_bytes = kMlaTile * p.pitch + 16;
+  const int ring = kTcRows * p.tpitch + kTcStages * p.stage_bytes +
+                   (kv_dtype == repro::kBF16 ? 0 : kMlaTile * p.tpitch);
+  const int merge = kTcRows * (r + 4) * static_cast<int>(sizeof(float));
+  p.region = ((ring > merge ? ring : merge) + 15) / 16 * 16;
+  if (mla_tc_smem_bytes(p) > 232448) return static_cast<int>(cudaErrorInvalidValue);
+  p.scale = scale; p.kv_scale = kv_scale;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (kv_dtype == repro::kBF16)
+    return launch_mla_tc<repro::kBF16>(q_eff, q_rope, ckv_pool, krope_pool, out, p, B, st);
+  if (kv_dtype == repro::kI8)
+    return launch_mla_tc<repro::kI8>(q_eff, q_rope, ckv_pool, krope_pool, out, p, B, st);
+  if (kv_dtype == kQ8)
+    return launch_mla_tc<kQ8>(q_eff, q_rope, ckv_pool, krope_pool, out, p, B, st);
+  return launch_mla_tc<kQ4>(q_eff, q_rope, ckv_pool, krope_pool, out, p, B, st);
 }

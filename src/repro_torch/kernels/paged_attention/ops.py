@@ -3,7 +3,9 @@ tail prefill, and the absorbed multi-head-latent-attention (MLA) decode.
 
 ``paged_attention`` and ``paged_attention_mla`` launch their CUDA kernels
 (``csrc/paged_attention.cu``) for CUDA tensors and run their plain versions
-(``ref.py``) for CPU tensors.
+(``ref.py``) for CPU tensors.  The MLA wrapper has two kernels behind one
+rule (``_mla_route``): the tensor-core ``mla_decode_tc`` for bf16 queries
+over pools exact in bf16, ``mla_partial`` + ``attn_combine`` otherwise.
 Queries must be contiguous per row: q_pos[b, t] = pos0[b] + t.
 ``window=None`` maps onto the 2^30 sentinel; ``kv_scale`` is 2^-KV_F for
 int8 fixed-point (KV_F) pools and 1.0 for float pools.  SYMOG-quantized
@@ -28,11 +30,14 @@ _KV_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _QUANT_CODE = {8: 3, 4: 4}  # int8 words / int4 split-halves words, with exponents
 # kernel launches (plain-version calls on the CPU do not count): float / KV_F
 # pools, and SYMOG-quantized pools (the `_attn_kernel_quant` variant); the
-# same two for the MLA kernel (`_mla_kernel`, `_mla_kernel_quant`)
+# same two for the MLA kernels (`_mla_kernel`, `_mla_kernel_quant`) on either
+# route, and again for the tensor-core route alone (`mla_decode_tc`)
 launches = 0
 quant_launches = 0
 mla_launches = 0
 mla_quant_launches = 0
+mla_tc_launches = 0
+mla_tc_quant_launches = 0
 
 
 # csrc/paged_attention.cu's GQA kernel: each warp takes tiles of TILE tokens
@@ -181,20 +186,80 @@ def paged_attention(q, k_pool, v_pool, block_tables, pos0, *, scale: float, cap:
 
 
 # ---------------------------------------------------------------------------
-# absorbed MLA decode
+# absorbed MLA decode: two kernels behind one rule
 # ---------------------------------------------------------------------------
-MLA_ROWS = 16  # query rows (T·H) per thread block: csrc/paged_attention.cu kMlaRows
+MLA_ROWS = 16  # query rows (T·H) per thread block of mla_partial: csrc kMlaRows
+MLA_TC_ROWS = 32  # of mla_decode_tc: csrc kTcRows
+MLA_TC_MAX_RANK, MLA_TC_MAX_DEPTH = 512, 576  # r, and r + rope, its registers hold
+MLA_ROUTES = ("partial", "tc")  # mla_partial + attn_combine; mla_decode_tc
+
+
+def _pow2(x: float) -> bool:
+    return x > 0 and math.frexp(x)[0] == 0.5
+
+
+def _mla_route(q_dtype, pool_dtype, kv_bits: int, kv_scale: float, r: int, rope: int,
+               aligned: bool = True) -> str:
+    """Which MLA kernel takes a call.  'tc' (``mla_decode_tc``, the tensor
+    cores) for bf16 queries over a pool whose values are exact in bf16 --
+    SYMOG int8 / int4 words (word x 2^e), KV_F int8 under a power-of-two
+    ``kv_scale``, or bf16 under kv_scale 1 -- with r and rope multiples of
+    16 (its k-steps and column pairs; no zero padding), 16 <= r <= 512,
+    rope >= 16 and r + rope <= 576 (the fragments it holds in registers),
+    and 4-byte aligned operands (``aligned``).  'partial' (``mla_partial``
+    + ``attn_combine``, fp32 on the CUDA cores) for everything else: fp32
+    queries, fp32 pools, other scales and widths."""
+    exact = (kv_bits in _QUANT_CODE
+             or (pool_dtype == torch.bfloat16 and kv_scale == 1.0)
+             or (pool_dtype == torch.int8 and not kv_bits and _pow2(kv_scale)))
+    widths = (r % 16 == 0 and rope % 16 == 0 and 16 <= r <= MLA_TC_MAX_RANK and rope >= 16
+              and r + rope <= MLA_TC_MAX_DEPTH)
+    return "tc" if q_dtype == torch.bfloat16 and exact and widths and aligned else "partial"
 
 
 def _mla_n_split(B: int, row_tiles: int, max_blocks: int, n_sm: int) -> int:
-    """KV splits per (b, row tile): ~2 thread blocks per SM (each holds
-    ~100 KB of shared memory at r = 512, so two fit on an SM)."""
+    """mla_partial's KV splits per (b, row tile): ~2 thread blocks per SM
+    (each holds ~100 KB of shared memory at r = 512, so two fit on an SM)."""
     return max(1, min(max_blocks, math.ceil(2 * n_sm / (B * row_tiles))))
 
 
+def _mla_tc_split(B: int, row_tiles: int, max_blocks: int, block: int, n_sm: int) -> int:
+    """mla_decode_tc's ranks per (row tile, b), one cluster: at most
+    MAX_SPLIT and no more than the longest possible row has tiles
+    (``max_blocks`` is only that bound: the kernel cuts each row tile's own
+    visible tiles on the device).  Within that, thread blocks for 3/4 of
+    the SMs, so that every cluster is resident at once, one block an SM
+    (deepseek-v3's decode, B 4 x 4 row tiles: 6 ranks; 8 put two blocks on
+    some SMs and wait on them); but at least 4 ranks where two blocks an SM
+    hold them (T 3: 12 row tiles, 4 ranks, each with a quarter of the
+    tiles).  chip_smoke.py 3f times 4 and 8 ranks beside the rule's."""
+    tiles = max_blocks * math.ceil(block / TILE)
+    pairs = B * row_tiles
+    want = max((3 * n_sm) // (4 * pairs), min(4, (2 * n_sm) // pairs))
+    return max(1, min(MAX_SPLIT, tiles, want))
+
+
+def mla_visible_tiles(pos0: int, H: int, row0: int, rows: int, block: int,
+                      max_blocks: int) -> int:
+    """The tiles [0, n) that query rows row0.. row0 + rows - 1 of a batch row
+    can see, as mla_decode_tc derives them from pos0 on the device: tile u
+    is block u // tpb, tokens (u % tpb)·TILE.. of it (tpb = ceil(block /
+    TILE)); tiles past the last row's position are skipped.  A Python
+    mirror for the tests."""
+    tpb = math.ceil(block / TILE)
+    hi_tok = min(pos0 + (row0 + rows - 1) // H, max_blocks * block - 1)
+    return 0 if hi_tok < 0 else (hi_tok // block) * tpb + (hi_tok % block) // TILE + 1
+
+
+def mla_rank_tiles(n: int, n_split: int):
+    """mla_decode_tc's cut of [0, n) over the cluster's ranks, in rank order:
+    contiguous, balanced to one tile, possibly empty."""
+    return [(c * n // n_split, (c + 1) * n // n_split) for c in range(n_split)]
+
+
 def _launch_mla(q_eff, q_rope, ckv_pool, krope_pool, block_tables, pos0, *, scale, kv_scale,
-                c_exp=None, r_exp=None, kv_bits: int = 0):
-    global mla_launches, mla_quant_launches
+                c_exp=None, r_exp=None, kv_bits: int = 0, route=None, n_split=None):
+    global mla_launches, mla_quant_launches, mla_tc_launches, mla_tc_quant_launches
     dev = q_eff.device
     B, T, H, r = q_eff.shape
     rope = q_rope.shape[-1]
@@ -240,21 +305,48 @@ def _launch_mla(q_eff, q_rope, ckv_pool, krope_pool, block_tables, pos0, *, scal
     q_eff, q_rope = q_eff.contiguous(), q_rope.contiguous()
     bt, pos0 = block_tables.contiguous(), pos0.contiguous()
     TH, max_blocks = T * H, bt.shape[1]
-    n_split = _mla_n_split(B, math.ceil(TH / MLA_ROWS), max_blocks, build.sm_count(dev))
+    aligned = all(t.data_ptr() % 4 == 0 for t in (q_eff, q_rope, ckv_pool, krope_pool))
+    rule = _mla_route(q_eff.dtype, ckv_pool.dtype, kv_bits, kv_scale, r, rope, aligned)
+    if route is None:
+        route = rule
+    elif route not in MLA_ROUTES or (route == "tc" and rule != "tc"):
+        raise ValueError(f"route {route!r} does not take this call (the rule gives {rule!r})")
     out = torch.empty_like(q_eff)
-    ptrs = (None, None, None)
-    if n_split > 1:
-        ws = torch.empty((B * n_split * TH * (r + 2),), dtype=torch.float32, device=dev)
-        n_ml = B * n_split * TH
-        ptrs = (ws.data_ptr(), ws.data_ptr() + 4 * n_ml, ws.data_ptr() + 8 * n_ml)
-    err = build.library().paged_attention_mla_launch(
-        q_eff.data_ptr(), q_rope.data_ptr(), ckv_pool.data_ptr(), krope_pool.data_ptr(),
-        bt.data_ptr(), pos0.data_ptr(), None if c_exp is None else c_exp.data_ptr(),
-        None if r_exp is None else r_exp.data_ptr(), out.data_ptr(), *ptrs,
-        B, T, H, r, rope, block, max_blocks, q_code, kv_code, n_split, float(scale),
-        float(kv_scale), build.current_stream(dev),
-    )
-    build.check(err, "paged_attention_mla")
+    exps = (None if c_exp is None else c_exp.data_ptr(),
+            None if r_exp is None else r_exp.data_ptr())
+    if route == "tc":
+        row_tiles = math.ceil(TH / MLA_TC_ROWS)
+        if n_split is None:
+            n_split = _mla_tc_split(B, row_tiles, max_blocks, block, build.sm_count(dev))
+        elif not 1 <= n_split <= MAX_SPLIT:
+            raise ValueError(f"n_split must be 1..{MAX_SPLIT}, got {n_split}")
+        err = build.library().paged_attention_mla_tc_launch(
+            q_eff.data_ptr(), q_rope.data_ptr(), ckv_pool.data_ptr(), krope_pool.data_ptr(),
+            bt.data_ptr(), pos0.data_ptr(), *exps, out.data_ptr(), B, T, H, r, rope, block,
+            max_blocks, kv_code, n_split, float(scale), float(kv_scale),
+            build.current_stream(dev),
+        )
+        build.check(err, "paged_attention_mla (tensor cores)")
+        if kv_bits:
+            mla_tc_quant_launches += 1
+        else:
+            mla_tc_launches += 1
+    else:
+        if n_split is not None:
+            raise ValueError("n_split is mla_decode_tc's (route 'tc')")
+        n_split = _mla_n_split(B, math.ceil(TH / MLA_ROWS), max_blocks, build.sm_count(dev))
+        ptrs = (None, None, None)
+        if n_split > 1:
+            ws = torch.empty((B * n_split * TH * (r + 2),), dtype=torch.float32, device=dev)
+            n_ml = B * n_split * TH
+            ptrs = (ws.data_ptr(), ws.data_ptr() + 4 * n_ml, ws.data_ptr() + 8 * n_ml)
+        err = build.library().paged_attention_mla_launch(
+            q_eff.data_ptr(), q_rope.data_ptr(), ckv_pool.data_ptr(), krope_pool.data_ptr(),
+            bt.data_ptr(), pos0.data_ptr(), *exps, out.data_ptr(), *ptrs,
+            B, T, H, r, rope, block, max_blocks, q_code, kv_code, n_split, float(scale),
+            float(kv_scale), build.current_stream(dev),
+        )
+        build.check(err, "paged_attention_mla")
     if kv_bits:
         mla_quant_launches += 1
     else:
@@ -264,7 +356,8 @@ def _launch_mla(q_eff, q_rope, ckv_pool, krope_pool, block_tables, pos0, *, scal
 
 def paged_attention_mla(q_eff, q_rope, ckv_pool, krope_pool, block_tables, pos0, *,
                         scale: float, kv_scale: float = 1.0, ckv_scale_exp=None,
-                        kr_scale_exp=None, kv_bits: int = 0, out_dtype=None):
+                        kr_scale_exp=None, kv_bits: int = 0, out_dtype=None, _route=None,
+                        _split=None):
     """Absorbed MLA decode over the paged compressed pools.
 
     q_eff (B, T, H, r) rank-space queries; q_rope (B, T, H, rope); pools
@@ -275,7 +368,9 @@ def paged_attention_mla(q_eff, q_rope, ckv_pool, krope_pool, block_tables, pos0,
     int32, query t of row b at position pos0[b] + t.  Logits are
     (q_eff·c_kv + q_rope·k_rope)·scale under the causal mask, the value is
     c_kv itself: returns the rank-space (B, T, H, r) output, which the
-    caller expands with kv_b_v."""
+    caller expands with kv_b_v.  On the card ``_mla_route`` picks the
+    kernel; ``_route`` ('partial' or 'tc') forces one and ``_split`` the
+    tensor-core kernel's cluster size (card tests and chip_smoke.py)."""
     quant = ckv_scale_exp is not None
     if quant != (kr_scale_exp is not None) or quant != (kv_bits != 0) or kv_bits not in (0, 4, 8):
         raise ValueError("quantized pools take both exponent leaves and kv_bits 8 or 4; got "
@@ -284,7 +379,7 @@ def paged_attention_mla(q_eff, q_rope, ckv_pool, krope_pool, block_tables, pos0,
     if q_eff.is_cuda:
         out = _launch_mla(q_eff, q_rope, ckv_pool, krope_pool, block_tables, pos0, scale=scale,
                           kv_scale=kv_scale, c_exp=ckv_scale_exp, r_exp=kr_scale_exp,
-                          kv_bits=kv_bits)
+                          kv_bits=kv_bits, route=_route, n_split=_split)
     else:
         out = paged_attention_mla_ref(q_eff, q_rope, ckv_pool, krope_pool, block_tables, pos0,
                                       scale=scale, kv_scale=kv_scale,

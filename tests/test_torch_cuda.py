@@ -695,6 +695,33 @@ def _mla_operands(rng, dev, *, B, T, H, r, rope, block, mb, pool, qdt):
     return (q_eff, q_rope, pools[0].to(dev), pools[1].to(dev), bt, pos0), kw
 
 
+MLA_COUNTERS = ("mla_launches", "mla_quant_launches", "mla_tc_launches", "mla_tc_quant_launches")
+
+
+def _mla_counts():
+    return tuple(getattr(aops, c) for c in MLA_COUNTERS)
+
+
+def _mla_launched(before, route: str, quant: bool):
+    """Exactly one MLA launch since ``before``: counted under its pool's
+    family (float / quantized), and under the tensor-core route's own
+    counter when ``route`` is 'tc'."""
+    want = [0, 0, 0, 0]
+    want[1 if quant else 0] = 1
+    if route == "tc":
+        want[3 if quant else 2] = 1
+    return [a - b for a, b in zip(_mla_counts(), before)] == want
+
+
+def _mla_routes(args, kw):
+    """The routes that take a call: 'partial' always, 'tc' where the rule
+    sends it (bf16 queries over a pool exact in bf16, widths of 16)."""
+    q_eff, q_rope, cp = args[:3]
+    rule = aops._mla_route(q_eff.dtype, cp.dtype, kw.get("kv_bits", 0), kw.get("kv_scale", 1.0),
+                           q_eff.shape[-1], q_rope.shape[-1])
+    return rule, ["partial"] + (["tc"] if rule == "tc" else [])
+
+
 @pytest.mark.parametrize("pool", ["float", "kv_f", "int8", "int4"])
 @pytest.mark.parametrize("shape", [
     # deepseek-v3's decode (H 128, r 512, rope 64, 4 rows of up to 320 tokens),
@@ -705,21 +732,154 @@ def _mla_operands(rng, dev, *, B, T, H, r, rope, block, mb, pool, qdt):
 ])
 @pytest.mark.parametrize("qdtype", ["float32", "bfloat16"])
 def test_paged_attention_mla_matches_plain(dev, pool, shape, qdtype):
+    """Every route that takes the call (the rule's choice unforced, then each
+    route forced) against the plain version at the attention bar, counted
+    under its route, the same bits on a second call."""
     qdt = getattr(torch, qdtype)
     rng = np.random.default_rng(shape["H"] + shape["T"])
     args, kw = _mla_operands(rng, dev, pool=pool, qdt=qdt, **shape)
     quant = "kv_bits" in kw
-    before = (aops.mla_launches, aops.mla_quant_launches)
-    got = paged_attention_mla(*args, **kw)
-    torch.cuda.synchronize()
-    assert (aops.mla_launches - before[0], aops.mla_quant_launches - before[1]) == (
-        (0, 1) if quant else (1, 0))
-    assert got.dtype == qdt and got.shape == args[0].shape
+    rule, routes = _mla_routes(args, kw)
+    assert rule == ("tc" if qdt == torch.bfloat16 and shape["r"] % 16 == 0 else "partial")
     want = paged_attention_mla_ref(*args, **kw)
     tol = dict(rtol=2e-4, atol=2e-5) if qdt == torch.float32 else dict(rtol=1e-2, atol=1e-2)
-    torch.testing.assert_close(got.float(), want.float(), **tol)
-    # deterministic: the same call gives the same bits
-    assert torch.equal(paged_attention_mla(*args, **kw), got)
+    for route in [None] + routes:
+        before = _mla_counts()
+        got = paged_attention_mla(*args, **kw, _route=route)
+        torch.cuda.synchronize()
+        assert _mla_launched(before, route or rule, quant), route
+        assert got.dtype == qdt and got.shape == args[0].shape
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+        # deterministic: the same call gives the same bits
+        assert torch.equal(paged_attention_mla(*args, **kw, _route=route), got)
+
+
+MLA_POOLS = ["bfloat16", "float32", "kv_f", "int8", "int4"]
+
+
+@pytest.mark.parametrize("pool", MLA_POOLS)
+@pytest.mark.parametrize("T,H", [(1, 128), (3, 8), (4, 5), (1, 40)])
+def test_paged_attention_mla_ragged_rows(dev, pool, T, H):
+    """Rows from position 0 to the table's last slot in one batch (one block
+    visible to the first, all 32 to the last), their table entries past each
+    row's length on the trash block 0.  Every block no row can see -- the
+    trash block and the blocks past each row's last position -- is poisoned:
+    NaN in float pools, exponent 1000 (2^1000 = inf) in SYMOG pools, so that
+    one read of it reaches the output (0 x NaN, 0 x inf).  The queries are
+    the head of a buffer whose tail is NaN: a padded row of the last row
+    tile (T·H not a multiple of 32 or 16) that read its query would do the
+    same.  Every route that takes the call, held to the plain version on
+    clean pools at the attention bar; a second call gives the same bits."""
+    r, rope, block, mb, B = 64, 16, 16, 32, 6
+    rng = np.random.default_rng(T * 100 + H)
+    pos_last = np.linspace(T - 1, mb * block - 1, B).round().astype(np.int64)
+    pos0 = (pos_last - (T - 1)).astype(np.int32)
+    n_blocks = B * mb + 1
+    ids = rng.permutation(n_blocks - 1)[: B * mb].reshape(B, mb) + 1
+    bt = np.zeros((B, mb), np.int32)
+    hidden = [0]  # physical blocks no row sees
+    for b in range(B):
+        n_own = pos_last[b] // block + 1
+        bt[b, :n_own] = ids[b, :n_own]
+        hidden += [int(x) for x in ids[b, n_own:]]
+    qdt = torch.float32 if pool == "float32" else torch.bfloat16
+    kind = {"bfloat16": "float", "float32": "float"}.get(pool, pool)
+    args, kw = _mla_operands(np.random.default_rng(1), dev, B=B, T=T, H=H, r=r, rope=rope,
+                             block=block, mb=mb, pool=kind, qdt=qdt)
+    q_eff, q_rope, cp, kp, _, _ = args
+    bt_d, pos0_d = torch.from_numpy(bt).to(dev), torch.from_numpy(pos0).to(dev)
+    clean = (q_eff, q_rope, cp, kp, bt_d, pos0_d)
+    want = paged_attention_mla_ref(*clean, **kw)
+
+    def nan_tail(x):  # x's values at the head of a buffer of NaN
+        buf = torch.full((x.numel() + 64 * x.shape[-1],), float("nan"), dtype=x.dtype, device=dev)
+        buf[: x.numel()] = x.reshape(-1)
+        return buf[: x.numel()].view(x.shape)
+
+    cp, kp = cp.clone(), kp.clone()
+    if "kv_bits" in kw:
+        for k in ("ckv_scale_exp", "kr_scale_exp"):
+            kw[k] = kw[k].clone()
+            kw[k][hidden] = 1000
+    elif cp.is_floating_point():
+        cp[hidden], kp[hidden] = float("nan"), float("nan")
+    poisoned = (nan_tail(q_eff), nan_tail(q_rope), cp, kp, bt_d, pos0_d)
+    tol = dict(rtol=2e-4, atol=2e-5) if qdt == torch.float32 else dict(rtol=1e-2, atol=1e-2)
+    _, routes = _mla_routes(clean, kw)
+    assert routes == (["partial"] if pool == "float32" else ["partial", "tc"])
+    for route in routes:
+        got = paged_attention_mla(*poisoned, **kw, _route=route)
+        again = paged_attention_mla(*poisoned, **kw, _route=route)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(got).all()), route
+        torch.testing.assert_close(got.float(), want.float(), **tol, msg=route)
+        assert torch.equal(got, again), route
+
+
+@pytest.mark.parametrize("pool", ["float", "kv_f", "int8", "int4"])
+@pytest.mark.parametrize("T", [1, 3])
+def test_mla_tensor_cores_match_partial(dev, pool, T):
+    """The tensor-core kernel against mla_partial on the same bf16 inputs at
+    deepseek-v3's widths (H 128, r 512, rope 64): both round one fp32
+    result to bf16, so they agree at the bf16 bar."""
+    rng = np.random.default_rng(40 + T)
+    args, kw = _mla_operands(rng, dev, B=4, T=T, H=128, r=512, rope=64, block=16, mb=20,
+                             pool=pool, qdt=torch.bfloat16)
+    tc = paged_attention_mla(*args, **kw, _route="tc")
+    fp = paged_attention_mla(*args, **kw, _route="partial")
+    torch.testing.assert_close(tc.float(), fp.float(), rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("n_split", range(1, 9))
+@pytest.mark.parametrize("pool", ["float", "int4"])
+def test_mla_tensor_cores_cluster_sizes(dev, n_split, pool):
+    """Clusters of 1..8 ranks, forced: some ranks hold no tile (short rows,
+    the row at position 0), the merge reads every rank in rank order; held
+    to the plain version, the same bits on a second call."""
+    rng = np.random.default_rng(n_split)
+    args, kw = _mla_operands(rng, dev, B=3, T=2, H=24, r=128, rope=32, block=16, mb=6,
+                             pool=pool, qdt=torch.bfloat16)
+    before = _mla_counts()
+    got = paged_attention_mla(*args, **kw, _route="tc", _split=n_split)
+    torch.cuda.synchronize()
+    assert _mla_launched(before, "tc", pool == "int4")
+    want = paged_attention_mla_ref(*args, **kw)
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=1e-2)
+    assert torch.equal(paged_attention_mla(*args, **kw, _route="tc", _split=n_split), got)
+
+
+def test_mla_tensor_cores_refuse_what_they_do_not_take(dev):
+    """Forcing the tensor-core route where the rule would not take it
+    raises, and launches nothing: fp32 queries, an fp32 pool, a KV_F scale
+    that is not a power of two, a bf16 pool under a scale, widths not of
+    16, a cluster of 9; and a cluster size is the tensor-core route's."""
+    rng = np.random.default_rng(3)
+    args, kw = _mla_operands(rng, dev, B=2, T=1, H=8, r=64, rope=16, block=8, mb=3,
+                             pool="float", qdt=torch.bfloat16)
+    q_eff, q_rope, cp, kp, bt, pos0 = args
+    kf = _mla_operands(rng, dev, B=2, T=1, H=8, r=64, rope=16, block=8, mb=3, pool="kv_f",
+                       qdt=torch.bfloat16)[0]
+    odd = _mla_operands(rng, dev, B=2, T=1, H=8, r=36, rope=6, block=8, mb=3, pool="float",
+                        qdt=torch.bfloat16)[0]
+    s = kw["scale"]
+    before = _mla_counts()
+    cases = [
+        ((q_eff.float(), q_rope.float(), cp.float(), kp.float(), bt, pos0), {}),  # fp32 q
+        ((q_eff, q_rope, cp.float(), kp.float(), bt, pos0), {}),  # fp32 pool
+        (kf, dict(kv_scale=0.03)),  # KV_F scale not a power of two
+        (args, dict(kv_scale=0.5)),  # a bf16 pool under a scale
+        (odd, {}),  # r 36, rope 6
+    ]
+    for a, extra in cases:
+        with pytest.raises(ValueError):
+            paged_attention_mla(*a, scale=s, **extra, _route="tc")
+    with pytest.raises(ValueError):
+        paged_attention_mla(*args, scale=s, _route="tc", _split=9)
+    with pytest.raises(ValueError):
+        paged_attention_mla(*args, scale=s, _route="partial", _split=2)
+    with pytest.raises(ValueError):
+        paged_attention_mla(*args, scale=s, _route="wgmma")
+    assert _mla_counts() == before
 
 
 def test_paged_attention_mla_rejects_bad_operands(dev):

@@ -50,6 +50,7 @@ from repro_torch.bridge import params_from_numpy  # noqa: E402
 from repro_torch.core import Packed  # noqa: E402
 from repro_torch.kernels import dispatch  # noqa: E402
 from repro_torch.kernels.paged_attention import ops, paged_attention_mla  # noqa: E402
+from repro_torch.kernels.paged_attention.ref import dequant_logical  # noqa: E402
 from repro_torch.models import attention as tatt  # noqa: E402
 from repro_torch.models import decode_lm, forward_lm, init_lm, lm_train_loss, prefill_lm  # noqa: E402
 from repro_torch.serve import Request, ServeConfig, ServeEngine  # noqa: E402
@@ -133,7 +134,8 @@ def test_mla_plain_matches_jax_ref_and_pallas(pool, T, block, dtype):
     assert got.dtype == tdt and tuple(got.shape) == qe.shape
     np.testing.assert_allclose(got.float().numpy(), want, **ATTN_TOL[dtype])
     np.testing.assert_allclose(got.float().numpy(), pallas, **ATTN_TOL[dtype])
-    assert ops.mla_launches == ops.mla_quant_launches == 0  # CPU calls never count
+    assert (ops.mla_launches == ops.mla_quant_launches == ops.mla_tc_launches
+            == ops.mla_tc_quant_launches == 0)  # CPU calls never count
 
 
 def test_mla_wrapper_validates_its_arguments():
@@ -149,6 +151,177 @@ def test_mla_wrapper_validates_its_arguments():
     out = paged_attention_mla(*args, scale=0.1, ckv_scale_exp=ce, kr_scale_exp=re, kv_bits=4,
                               out_dtype=torch.bfloat16)
     assert out.dtype == torch.bfloat16
+
+
+# ---------------------------------------------------------------------------
+# the CUDA route rule, and the tensor-core kernel's device-side work split
+# ---------------------------------------------------------------------------
+BF, F32, I8 = torch.bfloat16, torch.float32, torch.int8
+
+
+@pytest.mark.parametrize("q,pool,bits,kv_scale,r,rope,aligned,want", [
+    (BF, BF, 0, 1.0, 512, 64, True, "tc"),  # deepseek-v3's bf16 pool
+    (BF, I8, 4, 2.0**-5, 512, 64, True, "tc"),  # int4 SYMOG words (kv_scale unused)
+    (BF, I8, 8, 1.0, 512, 64, True, "tc"),  # int8 SYMOG words
+    (BF, I8, 0, 2.0**-5, 512, 64, True, "tc"),  # KV_F int8 x 2^-5
+    (BF, I8, 0, 4.0, 64, 16, True, "tc"),  # KV_F under any power of two
+    (BF, I8, 0, 0.03, 512, 64, True, "partial"),  # not a power of two: not exact
+    (BF, I8, 0, 3 * 2.0**-5, 512, 64, True, "partial"),
+    (BF, BF, 0, 0.5, 512, 64, True, "partial"),  # a bf16 pool is taken as it is
+    (BF, F32, 0, 1.0, 512, 64, True, "partial"),  # fp32 values are not bf16
+    (F32, BF, 0, 1.0, 512, 64, True, "partial"),  # fp32 queries (the parity runs)
+    (F32, I8, 4, 1.0, 512, 64, True, "partial"),
+    (F32, I8, 0, 2.0**-5, 512, 64, True, "partial"),
+    (BF, BF, 0, 1.0, 36, 6, True, "partial"),  # widths not of 16
+    (BF, I8, 4, 1.0, 512, 8, True, "partial"),
+    (BF, BF, 0, 1.0, 520, 48, True, "partial"),
+    (BF, BF, 0, 1.0, 528, 32, True, "partial"),  # r past 512
+    (BF, BF, 0, 1.0, 512, 80, True, "partial"),  # r + rope past 576
+    (BF, BF, 0, 1.0, 16, 16, True, "tc"),  # the smallest widths
+    (BF, I8, 8, 1.0, 64, 16, True, "tc"),
+    (BF, BF, 0, 1.0, 512, 64, False, "partial"),  # operands not 4-byte aligned
+])
+def test_mla_route_rule(q, pool, bits, kv_scale, r, rope, aligned, want):
+    """The tensor cores take bf16 queries over a pool whose values are exact
+    in bf16 (word x a power of two), at widths of 16 that fit their
+    registers; everything else stays on mla_partial."""
+    assert ops._mla_route(q, pool, bits, kv_scale, r, rope, aligned) == want
+
+
+@pytest.mark.parametrize("B,TH,max_blocks,block", [
+    (4, 128, 32, 16), (4, 384, 32, 16), (1, 128, 32, 16), (1, 5, 1, 16), (64, 128, 32, 16),
+    (3, 24, 9, 8), (2, 40, 200, 64), (8, 1024, 64, 16),
+])
+@pytest.mark.parametrize("n_sm", [1, 132])
+def test_mla_tc_split_rule(B, TH, max_blocks, block, n_sm):
+    """1..8 ranks (one cluster), no more than the longest row has tiles;
+    thread blocks for at most 3/4 of the SMs where that gives 4 ranks or
+    more, else up to 4 ranks within two blocks an SM (never more than two
+    an SM unless one rank each already takes more); deepseek-v3's decode
+    (B 4, 128 heads) takes 6 at T 1 and 4 at T 3."""
+    row_tiles = -(-TH // ops.MLA_TC_ROWS)
+    s = ops._mla_tc_split(B, row_tiles, max_blocks, block, n_sm)
+    tiles = max_blocks * -(-block // ops.TILE)
+    assert 1 <= s <= min(ops.MAX_SPLIT, tiles)
+    pairs = B * row_tiles
+    assert s == 1 or pairs * s <= 2 * n_sm
+    assert s <= 4 or 4 * pairs * s <= 3 * n_sm
+    if 4 * pairs * min(4, tiles) <= 3 * n_sm:  # 4 ranks fit one block an SM: no fewer
+        assert s >= min(4, tiles)
+    if (B, max_blocks, n_sm) == (4, 32, 132) and TH in (128, 384):
+        assert s == (6 if TH == 128 else 4)
+
+
+@pytest.mark.parametrize("block", [4, 8, 16, 20, 64])
+@pytest.mark.parametrize("T,H", [(1, 5), (1, 8), (1, 128), (3, 8), (4, 5), (3, 128)])
+def test_mla_split_covers_every_visible_tile_once(block, T, H):
+    """Ragged rows (from one block up to the 32 a table holds, a row at
+    position 0): for every row tile of every row, the mirrored range holds
+    every tile with a key some row of the tile can see and nothing past the
+    tile's last position (so a skipped tile is wholly masked: skipping it is
+    exact); the ranks' shares cover it once, in order, and no rank is idle
+    while another holds two or more tiles."""
+    max_blocks = 32
+    tpb = -(-block // ops.TILE)
+    TH = T * H
+    for n_blocks in sorted({1, 2, 3, 7, 19, 32}):
+        for pos_last in sorted({(n_blocks - 1) * block, n_blocks * block - 1}):
+            pos0 = max(pos_last - (T - 1), 0)
+            for row0 in range(0, TH, ops.MLA_TC_ROWS):
+                nr = min(ops.MLA_TC_ROWS, TH - row0)
+                n = ops.mla_visible_tiles(pos0, H, row0, nr, block, max_blocks)
+                last = pos0 + (row0 + nr - 1) // H
+                for u in range(max_blocks * tpb):
+                    j, t0 = divmod(u, tpb)
+                    first_key = j * block + t0 * ops.TILE
+                    assert (u < n) == (first_key <= last), (pos0, row0, u)
+                assert n <= n_blocks * tpb
+                for n_split in range(1, ops.MAX_SPLIT + 1):
+                    shares = ops.mla_rank_tiles(n, n_split)
+                    assert len(shares) == n_split
+                    assert shares[0][0] == 0 and shares[-1][1] == n
+                    for (a0, a1), (b0, b1) in zip(shares, shares[1:]):
+                        assert a1 == b0 and a0 <= a1
+                    sizes = [b - a for a, b in shares]
+                    assert min(sizes) > 0 or max(sizes) <= 1
+
+
+def _tc_model(qe, qr, c, k, bt, pos0, *, scale, block, n_split):
+    """The tensor-core kernel's arithmetic in torch: each (b, 32-row tile)
+    cut by the mirror into rank shares, each rank's online softmax over its
+    tiles with fp32 logits of bf16 values and p·V as two bf16 products
+    (p_hi = bf16(p), p_lo = bf16(p - p_hi)), the ranks merged in rank order.
+    ``c``/``k`` are the pools dequantized (exact in bf16), (n, block, w)."""
+    B, T, H, r = qe.shape
+    TH, R = T * H, ops.MLA_TC_ROWS
+    q = torch.cat([qe, qr], -1).reshape(B, TH, -1).float()
+    kv = torch.cat([c, k], -1).float()
+    out = torch.zeros(B, TH, r)
+    tpb = -(-block // ops.TILE)
+    bf = lambda x: x.to(torch.bfloat16).float()  # noqa: E731
+    for b in range(B):
+        p0 = int(pos0[b])
+        for row0 in range(0, TH, R):
+            nr = min(R, TH - row0)
+            qpos = p0 + torch.arange(row0, row0 + nr) // H
+            n = ops.mla_visible_tiles(p0, H, row0, nr, block, bt.shape[1])
+            parts = []
+            for u0, u1 in ops.mla_rank_tiles(n, n_split):
+                m, l = torch.full((nr,), -1e30), torch.zeros(nr)
+                acc = torch.zeros(nr, r)
+                for u in range(u0, u1):
+                    j, t0 = divmod(u, tpb)
+                    tok0 = t0 * ops.TILE
+                    tile = kv[int(bt[b, j]), tok0:min(block, tok0 + ops.TILE)]
+                    keys = j * block + tok0 + torch.arange(tile.shape[0])
+                    ok = keys[None] <= qpos[:, None]
+                    x = torch.where(ok, (q[b, row0:row0 + nr] @ tile.T) * scale,
+                                    torch.tensor(-1e30))
+                    m_new = torch.maximum(m, x.max(-1).values)
+                    alpha = torch.exp(m - m_new)
+                    p = torch.where(ok, torch.exp(x - m_new[:, None]), torch.tensor(0.0))
+                    l, m = l * alpha + p.sum(-1), m_new
+                    hi = bf(p)
+                    acc = acc * alpha[:, None] + hi @ tile[:, :r] + bf(p - hi) @ tile[:, :r]
+                parts.append((m, l, acc))
+            M = torch.stack([m for m, _, _ in parts]).max(0).values
+            L, O = torch.zeros(nr), torch.zeros(nr, r)
+            for m, l, acc in parts:
+                f = torch.exp(m - M)
+                L, O = L + l * f, O + acc * f[:, None]
+            out[b, row0:row0 + nr] = O / torch.where(L == 0, torch.ones(()), L)[:, None]
+    return out.reshape(B, T, H, r).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("pool", ["float", "kv_f", "int8", "int4"])
+@pytest.mark.parametrize("T", [1, 3])
+def test_mla_tensor_core_model_matches_jax(pool, T):
+    """The tensor-core kernel's arithmetic (``_tc_model``, with the
+    mirrored tile cut and rank merge) against JAX's ``paged_attention_mla_ref``
+    at deepseek-v3's widths (128 heads, r 512, rope 64, block 16, rows of up
+    to ~300 tokens and one at position 0) at the bf16 bar.  SYMOG pools
+    carry the wide spread (words over the full range, exponents over
+    [-8, 4], queries scaled by 1 / (qmax x 2^4) for O(1) logits): there
+    rounding p to bf16 alone misses the bar, and the hi / lo split holds."""
+    (qe, qr, cp, kp, bt, pos0), kw = _mla_case(7 + T, pool=pool, T=T, block=16, B=2, H=128,
+                                               r=512, rope=64, max_blocks=20)
+    if pool in ("int8", "int4"):
+        qmul = 1.0 / (tatt.KV_QMAX[4 if pool == "int4" else 8] * 2**4)
+        qe, qr = qe * qmul, qr * qmul
+    qe, qr = (_t(x, torch.bfloat16).float().numpy() for x in (qe, qr))  # bf16 queries
+    if pool == "float":
+        cp, kp = (_t(x, torch.bfloat16).float().numpy() for x in (cp, kp))  # a bf16 pool
+    tkw = {k: _t(v) if isinstance(v, np.ndarray) else v for k, v in kw.items()}
+    every = _t(np.arange(cp.shape[0], dtype=np.int32)[None])  # each physical block once
+    c, k = (dequant_logical(_t(x), tkw[e], every, kv_bits=kw["kv_bits"]).reshape(x.shape[0], 16, -1)
+            if "kv_bits" in kw else _t(x).float() * kw.get("kv_scale", 1.0)
+            for x, e in ((cp, "ckv_scale_exp"), (kp, "kr_scale_exp")))
+    want = np.asarray(j_mla_ref(*(jnp.asarray(x) for x in (qe, qr, cp, kp, bt, pos0)),
+                                **kw).astype(jnp.float32))
+    for n_split in (1, 3, 8):
+        got = _tc_model(_t(qe), _t(qr), c, k, _t(bt), _t(pos0), scale=kw["scale"], block=16,
+                        n_split=n_split)
+        np.testing.assert_allclose(got.float().numpy(), want, **ATTN_TOL["bfloat16"])
 
 
 # ---------------------------------------------------------------------------
