@@ -1,7 +1,10 @@
 """Architecture registry of the port: ``get_config(arch)`` returns the
 published config and ``get_reduced(arch)`` a same-family smoke-test
-reduction.  The port has internlm2-1.8b (dense GQA), olmoe-1b-7b (MoE) and
-deepseek-v3-671b (MLA + MoE with leading dense layers)."""
+reduction.  The port has the dense decoders internlm2-1.8b (GQA),
+gemma2-27b (alternating local / global layers, softcaps, post-norms),
+gemma3-4b (5:1 local / global, two rope bases, qk-norm, head_dim 256) and
+granite-34b (MQA, a non-gated MLP, an untied head); the MoE decoder
+olmoe-1b-7b; and deepseek-v3-671b (MLA + MoE with leading dense layers)."""
 from __future__ import annotations
 
 import importlib
@@ -10,6 +13,9 @@ from repro_torch.models.config import ModelConfig
 
 _MODULES = {
     "internlm2-1.8b": "internlm2_1_8b",
+    "gemma2-27b": "gemma2_27b",
+    "gemma3-4b": "gemma3_4b",
+    "granite-34b": "granite_34b",
     "olmoe-1b-7b": "olmoe_1b_7b",
     "deepseek-v3-671b": "deepseek_v3_671b",
 }

@@ -2,7 +2,8 @@
 deepseek-v3's multi-head latent attention (MLA).  Full-sequence prefill
 attention, dense and paged KV caches (float, or SYMOG-quantized int8/int4
 with a power-of-two scale per (block, KV head), per block for MLA's
-head-less c_kv/k_rope), and single-token decode.
+head-less c_kv/k_rope), single-token decode, and the tail prefill that
+writes a prompt's k/v into the paged pool and attends the pool itself.
 
 Shapes: x (B, T, D); q (B, T, H, hd); k/v (B, S, K, hd) with H = K·G.
 MLA: c_kv (B, S, r) and k_rope (B, S, rope), shared by all H heads.
@@ -236,10 +237,14 @@ def cache_update_rows(cache_leaf, new, pos, *, per_row: bool):
 # block that evicted slots' zeroed table rows write into.
 # ---------------------------------------------------------------------------
 def paged_token_index(block_tables, pos, block: int):
-    """Flat pool index (B,) of each row's write position ``pos`` (B,)."""
+    """Flat pool index (B,) of each row's write position ``pos`` (B,).  The
+    block index is clamped to the table, as JAX's gather clamps it: a row
+    that finished at max_len keeps pos = max_len while inactive, and its
+    zeroed table row sends the write to the trash block."""
     b = torch.arange(pos.shape[0], device=pos.device)
     pos = pos.to(torch.int64)
-    return block_tables[b, pos // block].to(torch.int64) * block + pos % block
+    bi = torch.clamp(pos // block, max=block_tables.shape[1] - 1)
+    return block_tables[b, bi].to(torch.int64) * block + pos % block
 
 
 def paged_update(pool, new, idx):
@@ -334,6 +339,28 @@ def _fused_paged_attn(q, cache, block_tables, positions, *, cfg: AttnConfig, win
     return out.reshape(B, T, H, hd)
 
 
+def _paged_attend(p, q, cache, block_tables, positions, *, cfg: AttnConfig, window,
+                  compute_dtype):
+    """q (B, T, H, hd) at ``positions`` (B, T) attends the paged pool its
+    rows were just written into, then the output projection: the fused
+    ``paged_attention`` kernel unless the backend is 'composed', else the
+    plain gather -> mask -> softmax."""
+    B, T = q.shape[:2]
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    if resolve_attention_backend(q.device) != "composed":
+        out = _fused_paged_attn(q, cache, block_tables, positions, cfg=cfg, window=window,
+                                compute_dtype=compute_dtype)
+    else:
+        k = _paged_read(cache, "k", block_tables, compute_dtype, hd)
+        v = _paged_read(cache, "v", block_tables, compute_dtype, hd)
+        kv_pos = torch.arange(k.shape[1], dtype=torch.int32, device=q.device)
+        mask = make_mask(positions, kv_pos[None, :], window=window)
+        out = _qk_attn(q.reshape(B, T, K, H // K, hd), k.to(compute_dtype),
+                       v.to(compute_dtype), mask, scale=_scale(cfg),
+                       cap=cfg.softcap).reshape(B, T, H, hd)
+    return dense_apply(p["o_proj"], out, n_in=2, compute_dtype=compute_dtype)
+
+
 def attn_decode(p, x, cache, pos, *, cfg: AttnConfig, window=None, rope_base=10000.0,
                 compute_dtype=torch.bfloat16, block_tables: Optional[torch.Tensor] = None,
                 rope_table=None, cache_index: Optional[torch.Tensor] = None):
@@ -354,19 +381,14 @@ def attn_decode(p, x, cache, pos, *, cfg: AttnConfig, window=None, rope_base=100
         if idx is None:
             idx = paged_token_index(block_tables, positions[:, 0], cache["k"].shape[1])
         _paged_write(cache, ("k", "v"), (k_new[:, 0], v_new[:, 0]), idx)
-        if resolve_attention_backend(x.device) != "composed":
-            out = _fused_paged_attn(q, cache, block_tables, positions, cfg=cfg,
-                                    window=window, compute_dtype=compute_dtype)
-            y = dense_apply(p["o_proj"], out, n_in=2, compute_dtype=compute_dtype)
-            return y, cache
-        k = _paged_read(cache, "k", block_tables, compute_dtype, hd)
-        v = _paged_read(cache, "v", block_tables, compute_dtype, hd)
-    else:
-        cache_update_rows(cache["k"], k_new, pos if not per_row else positions[:, 0],
-                          per_row=per_row)
-        cache_update_rows(cache["v"], v_new, pos if not per_row else positions[:, 0],
-                          per_row=per_row)
-        k, v = cache_read(cache["k"], compute_dtype), cache_read(cache["v"], compute_dtype)
+        y = _paged_attend(p, q, cache, block_tables, positions, cfg=cfg, window=window,
+                          compute_dtype=compute_dtype)
+        return y, cache
+    cache_update_rows(cache["k"], k_new, pos if not per_row else positions[:, 0],
+                      per_row=per_row)
+    cache_update_rows(cache["v"], v_new, pos if not per_row else positions[:, 0],
+                      per_row=per_row)
+    k, v = cache_read(cache["k"], compute_dtype), cache_read(cache["v"], compute_dtype)
     S = k.shape[1]
     kv_pos = torch.arange(S, dtype=torch.int32, device=x.device)
     mask = make_mask(positions, kv_pos[None, :], window=window)
@@ -374,6 +396,35 @@ def attn_decode(p, x, cache, pos, *, cfg: AttnConfig, window=None, rope_base=100
     out = _qk_attn(q, k.to(compute_dtype), v.to(compute_dtype), mask, scale=_scale(cfg),
                    cap=cfg.softcap)
     y = dense_apply(p["o_proj"], out.reshape(B, 1, H, hd), n_in=2, compute_dtype=compute_dtype)
+    return y, cache
+
+
+def attn_prefill_paged(p, x, cache, bt_row, positions, *, cfg: AttnConfig, seq_len: int,
+                       window=None, rope_base=10000.0, compute_dtype=torch.bfloat16,
+                       rope_table=None):
+    """Tail prefill of one request against the paged pool.
+
+    x (1, T, D) is the right-padded tail of a prompt whose first
+    ``positions[0, 0]`` tokens already sit in the pool blocks named by
+    ``bt_row`` (max_blocks,); ``seq_len`` is the real tail length.  Each
+    real tail token writes its k/v into the pool at its global position
+    first (a quantized pool quantizes at write under its block's exponent,
+    set once, at the block's first slot); pad rows write into the trash
+    block.  Then the tail attends the whole table row: on the card the
+    ``paged_attention`` kernel with T = the bucket and pos0 = the start, on
+    the CPU the plain gather → mask → softmax."""
+    T = x.shape[1]
+    q, k_new, v_new = _project_qkv(p, x, positions, cfg, rope_base, compute_dtype, rope_table)
+    block = cache["k"].shape[1]
+    pos_t = positions[0].to(torch.int64)
+    # a pad row's position may run past the table: clamp before the lookup
+    bi = torch.clamp(pos_t // block, max=bt_row.shape[0] - 1)
+    idx = bt_row.to(torch.int64)[bi] * block + pos_t % block
+    real = torch.arange(T, device=x.device) < seq_len
+    idx = torch.where(real, idx, torch.zeros_like(idx))  # pads -> trash
+    _paged_write(cache, ("k", "v"), (k_new[0], v_new[0]), idx)
+    y = _paged_attend(p, q, cache, bt_row[None], positions, cfg=cfg, window=window,
+                      compute_dtype=compute_dtype)
     return y, cache
 
 

@@ -18,6 +18,7 @@ from repro_torch.models.attention import (
     attn_decode,
     attn_init,
     attn_init_cache,
+    attn_prefill_paged,
     cache_write,
     mla_apply,
     mla_decode,
@@ -150,6 +151,19 @@ def _ffn(p, h, cfg: ModelConfig, kind: str, compute_dtype, **moe_kw):
     return mlp_apply(p["mlp"], h, cfg=_mlp_cfg(cfg), compute_dtype=compute_dtype)
 
 
+def _finish_block(p, x, y, cfg: ModelConfig, kind: str, compute_dtype, **moe_kw):
+    """The block after attention: y (the attention output) through the
+    post-attention norm into the residual, then the FFN the same way."""
+    if cfg.post_norm:
+        y = _norm_apply(cfg, p["post_attn_norm"], y)
+    x = x + y
+    h = _norm_apply(cfg, p["pre_mlp_norm"], x)
+    y = _ffn(p, h, cfg, kind, compute_dtype, **moe_kw)
+    if cfg.post_norm:
+        y = _norm_apply(cfg, p["post_mlp_norm"], y)
+    return x + y
+
+
 def block_apply(p, x, *, cfg: ModelConfig, kind: str, positions, window=None,
                 rope_base=10000.0, compute_dtype=torch.bfloat16, cache_len: int = 0,
                 rope_table=None, seq_len: Optional[int] = None):
@@ -173,14 +187,22 @@ def block_apply(p, x, *, cfg: ModelConfig, kind: str, positions, window=None,
                                return_kv=True, rope_table=rope_table)
         if cache_len:
             cache = _attn_prefill_cache(k, v, cfg, cache_len)
-    if cfg.post_norm:
-        y = _norm_apply(cfg, p["post_attn_norm"], y)
-    x = x + y
-    h = _norm_apply(cfg, p["pre_mlp_norm"], x)
-    y = _ffn(p, h, cfg, kind, compute_dtype, seq_len=seq_len)
-    if cfg.post_norm:
-        y = _norm_apply(cfg, p["post_mlp_norm"], y)
-    return x + y, cache
+    return _finish_block(p, x, y, cfg, kind, compute_dtype, seq_len=seq_len), cache
+
+
+def block_prefill_paged(p, x, cache, bt_row, positions, *, cfg: ModelConfig, seq_len: int,
+                        window=None, rope_base=10000.0, compute_dtype=torch.bfloat16,
+                        rope_table=None):
+    """Tail prefill of an attention + MLP ('A') block: ``block_apply``'s
+    per-token math, with attention run against the paged pool by
+    ``attn_prefill_paged`` (the tail's k/v written into the pool, no
+    prefill cache returned).  Only the fully-paged tier takes this path,
+    so the FFN is always the dense MLP."""
+    h = _norm_apply(cfg, p["pre_norm"], x)
+    y, cache = attn_prefill_paged(p["attn"], h, cache, bt_row, positions, cfg=_attn_cfg(cfg),
+                                  seq_len=seq_len, window=window, rope_base=rope_base,
+                                  compute_dtype=compute_dtype, rope_table=rope_table)
+    return _finish_block(p, x, y, cfg, "A", compute_dtype), cache
 
 
 def block_cache_init(batch: int, max_len: int, cfg: ModelConfig, kind: str,
@@ -214,16 +236,9 @@ def block_decode(p, x, cache, pos, *, cfg: ModelConfig, kind: str, window=None,
                                rope_base=rope_base, compute_dtype=compute_dtype,
                                block_tables=block_tables, rope_table=rope_table,
                                cache_index=cache_index)
-    if cfg.post_norm:
-        y = _norm_apply(cfg, p["post_attn_norm"], y)
-    x = x + y
-    h = _norm_apply(cfg, p["pre_mlp_norm"], x)
     cap = 0
     if kind == "E":
         B = x.shape[0]
         cap = B if dropless_moe else max(cfg.top_k,
                                          math.ceil(2.0 * B * cfg.top_k / cfg.n_experts))
-    y = _ffn(p, h, cfg, kind, compute_dtype, capacity=cap)
-    if cfg.post_norm:
-        y = _norm_apply(cfg, p["post_mlp_norm"], y)
-    return x + y, cache
+    return _finish_block(p, x, y, cfg, kind, compute_dtype, capacity=cap), cache

@@ -4,7 +4,7 @@ reads.  The port serves the decoder family's attention+MLP kind ('A'), an
 MoE model's leading dense layers ('D', deepseek-v3) and attention+MoE kind
 ('E', olmoe and deepseek-v3: one SYMOG Δ per expert), with GQA or MLA
 attention (``use_mla``, deepseek-v3), from a bf16 pool or a SYMOG-quantized
-int8/int4 KV pool (``kv_cache_dtype``, MoE decoders only so far).  Fields
+int8/int4 KV pool (``kv_cache_dtype``).  Fields
 of the other families come back with the slice that ports them.
 ``layer_kinds`` derives the per-layer block kind: 'A' attention+MLP, 'D'
 an MoE model's leading dense layers, 'E' attention+MoE, 'R' RG-LRU block
@@ -73,8 +73,9 @@ class ModelConfig:
     # 'bf16' | 'int8_fp' | 'int4_fp'.  Dense caches use the global Δ=2^-5
     # int8 grid for int8_fp (int4_fp keeps the compute dtype there); paged
     # pools store int8/packed-int4 mantissas with a per-(block, KV head)
-    # power-of-two scale.  The port serves the quantized pools for MoE
-    # decoders; all-attention decoders wait for the tail-prefill admission.
+    # power-of-two scale.  All-attention decoders admit to a quantized pool
+    # through the tail prefill, MoE decoders through the bucketed prefill
+    # plus a quantizing block scatter.
     kv_cache_dtype: str = "bf16"
 
     @property

@@ -1,6 +1,7 @@
 """LM assembly for the decoder family (mirrors ``repro/models/lm.py``):
 embeddings → layer groups → head, plus prefill, decode and the training
-loss.  Dense GQA decoders (internlm2) serve and train; MoE decoders
+loss, and the tail prefill over the paged pool (``prefill_prefix_lm``).
+Dense decoders (internlm2, gemma2, gemma3, granite) serve and train; MoE decoders
 (olmoe; deepseek-v3 with MLA attention and leading dense layers) serve, and
 their training (aux/z losses, per-expert SYMOG update, deepseek's MTP loss)
 is not ported yet.
@@ -19,7 +20,13 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models.blocks import block_apply, block_cache_init, block_decode, block_init
+from repro_torch.models.blocks import (
+    block_apply,
+    block_cache_init,
+    block_decode,
+    block_init,
+    block_prefill_paged,
+)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     dense_apply,
@@ -271,6 +278,47 @@ def prefill_lm(params, batch, cfg: ModelConfig, *, max_len: int, compute_dtype=t
     out = forward_lm(params, batch, cfg, compute_dtype=compute_dtype, prefill_len=max_len,
                      last_only=last_only, seq_len=seq_len)
     return out.logits, out.caches
+
+
+def prefill_prefix_lm(params, batch, caches, bt_row, start: int, cfg: ModelConfig, *,
+                      seq_len: int, compute_dtype=torch.bfloat16):
+    """Tail prefill of one request over the paged pool: only the uncached
+    suffix of a prompt whose first ``start`` tokens already sit in the pool
+    blocks named by ``bt_row`` (max_blocks,) int32.
+
+    ``batch['tokens']`` is the (1, bucket) right-padded tail and ``seq_len``
+    its real length.  Every layer writes the tail's k/v into the pool at
+    global positions ``start + i`` before it attends, so each query reads
+    real KV across its causal horizon.  The JAX package unrolls the layers
+    over a flattened pool with a ``+ i·n_phys`` row shift; here layer i
+    addresses its slice of the stacked pool directly, which writes the same
+    bits.  Returns the logits (1, 1, V) at the last REAL tail position
+    (never the (1, T, V) logits) and the pool, updated in place.
+
+    Only the fully-paged tier: all-attention decoders.  MoE capacity
+    competition couples a token's output to the whole prompt, and MLA's
+    compressed cache has no tail form here, so both raise, as in JAX."""
+    if cfg.family != "decoder" or cfg.moe or cfg.use_mla:
+        raise NotImplementedError(
+            "tail prefill supports only fully-paged all-attention decoders "
+            f"(got family={cfg.family!r}, moe={cfg.moe}, mla={cfg.use_mla})"
+        )
+    tokens = batch["tokens"]
+    T = tokens.shape[1]
+    x = _embed_tokens(params, cfg, tokens, compute_dtype)
+    positions = (int(start) + torch.arange(T, dtype=torch.int32, device=x.device))[None]
+    wins, bases = cfg.layer_windows(), cfg.layer_rope_bases()
+    tables = _rope_tables(cfg, positions)
+    for g in scan_groups(cfg):
+        gc = caches[g.name]["sub0"]
+        for li, p_l in _group_layers(params[g.name], g):
+            c_l = {n: (leaf[li - g.offset] if g.stacked else leaf) for n, leaf in gc.items()}
+            x, _ = block_prefill_paged(p_l["sub0"], x, c_l, bt_row, positions, cfg=cfg,
+                                       seq_len=seq_len, window=wins[li], rope_base=bases[li],
+                                       compute_dtype=compute_dtype,
+                                       rope_table=tables.get(bases[li]))
+    logits, _ = _head(params, cfg, x[:, seq_len - 1: seq_len])
+    return logits, caches
 
 
 # ---------------------------------------------------------------------------

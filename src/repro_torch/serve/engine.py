@@ -2,16 +2,23 @@
 ``repro/serve/engine.py``).
 
 The engine serves float, ``quantize_tree`` and ``pack_tree`` params through
-the same forward code, for dense GQA decoders (internlm2) and MoE decoders
-(olmoe; deepseek-v3 with MLA attention).  Packed leaves stay packed on the
-device: every packed dense layer runs the CUDA ``fixedpoint_matmul`` kernel,
-every packed expert stack its experts form, and paged decode runs the CUDA
-``paged_attention`` kernel, or ``paged_attention_mla`` for MLA (float pools,
-or SYMOG-quantized int8/int4 pools with ``kv_cache_dtype``
-``int8_fp``/``int4_fp``, MoE decoders only so far).  On the CPU these
-resolve to their plain versions (dequantize-then-matmul, gather+softmax),
-which are exact for packed weights, so CPU token streams equal
-``quantize_tree``'s.
+the same forward code, for dense decoders (internlm2, gemma2, gemma3,
+granite) and MoE decoders (olmoe; deepseek-v3 with MLA attention).  Packed
+leaves stay packed on the device: every packed dense layer runs the CUDA
+``fixedpoint_matmul`` kernel, every packed expert stack its experts form,
+and paged attention runs the CUDA ``paged_attention`` kernel (decode, and
+the tail-prefill admission of all-attention decoders), or
+``paged_attention_mla`` for MLA, over float pools or SYMOG-quantized
+int8/int4 pools (``kv_cache_dtype`` ``int8_fp``/``int4_fp``).  On the CPU
+these resolve to their plain versions (dequantize-then-matmul,
+gather+softmax), which are exact for packed weights, so CPU token streams
+equal ``quantize_tree``'s.
+
+Decoding is greedy (``temperature <= 0``: argmax) or sampled: temperature
+and top-k through ``filter_logits``, then a Gumbel-max draw whose uniforms
+are a counter-based hash of (base seed, stream id, vocab index)
+(``sample_uniform``), so a draw depends on no generator state, batch order
+or slot count.
 
 Both backends are pinned at construction (``kernels.dispatch``) and the
 globals are restored around every call, as in the JAX package.  Caches and
@@ -20,7 +27,8 @@ the KV pool are updated in place (the JAX package donates them).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional, Sequence
+import math
+from typing import Any, Callable, Dict, Sequence
 
 import numpy as np
 import torch
@@ -42,6 +50,7 @@ from repro_torch.models.lm import (
     decode_lm,
     init_caches,
     prefill_lm,
+    prefill_prefix_lm,
     scan_groups,
 )
 from repro_torch.models.quantized import tree_has_packed
@@ -105,28 +114,107 @@ def _greedy(logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(logits.to(torch.float32), dim=-1).to(torch.int32)
 
 
+def filter_logits(logits: torch.Tensor, temperature, top_k: int) -> torch.Tensor:
+    """The sampling distribution's logit transform: temperature scaling plus
+    top-k masking to -inf.  ONE definition for every sampler (speculative
+    rejection sampling must target exactly the distribution vanilla serve()
+    draws from), as in the JAX package."""
+    scaled = logits / temperature
+    if top_k > 0:
+        kth = torch.topk(scaled, top_k, dim=-1).values[..., -1:]
+        scaled = torch.where(scaled < kth, torch.full_like(scaled, -math.inf), scaled)
+    return scaled
+
+
+# splitmix64 (Steele, Lea, Flood 2014): its increment and multipliers as
+# signed int64, the type torch's integer ops wrap in
+_GOLDEN = 0x9E3779B97F4A7C15 - (1 << 64)
+_MIX1 = 0xBF58476D1CE4E5B9 - (1 << 64)
+_MIX2 = 0x94D049BB133111EB - (1 << 64)
+
+
+def _srl(x: torch.Tensor, s: int) -> torch.Tensor:
+    """Logical right shift of int64 words (torch's ``>>`` is arithmetic)."""
+    return (x >> s) & ((1 << (64 - s)) - 1)
+
+
+def _mix64(x: torch.Tensor) -> torch.Tensor:
+    """splitmix64's finalizer on int64 words (products wrap mod 2^64)."""
+    x = (x ^ _srl(x, 30)) * _MIX1
+    x = (x ^ _srl(x, 27)) * _MIX2
+    return x ^ _srl(x, 31)
+
+
+def sample_uniform(seed: int, streams: torch.Tensor, n: int) -> torch.Tensor:
+    """(B, n) fp32 uniforms in (0, 1): entry (b, v) is a pure function of
+    (``seed``, ``streams[b]``, v), a splitmix64 stream keyed by the row's
+    stream id under the base seed.  Integer ops only up to the last
+    conversion, so it is one function on every device, runs where
+    ``streams`` lies and keeps no state: a row's draw cannot depend on the
+    batch it rides in."""
+    seed_key = int(_mix64(torch.tensor(seed, dtype=torch.int64)))  # on the host: no sync
+    key = _mix64(streams.to(torch.int64) * _GOLDEN ^ seed_key)
+    v = torch.arange(1, n + 1, dtype=torch.int64, device=streams.device)
+    h = _mix64(key[:, None] + v[None, :] * _GOLDEN)
+    # the top 23 bits k as (2k + 1)·2^-24: exact in fp32, never 0 or 1
+    return (_srl(h, 41) * 2 + 1).to(torch.float32) * 2.0**-24
+
+
+def sample_tokens(logits: torch.Tensor, streams: torch.Tensor, seed: int, temperature,
+                  top_k: int) -> torch.Tensor:
+    """One token per row of ``logits`` (B, V) from softmax(filter_logits):
+    the Gumbel-max draw argmax(filtered + g), g = -log(-log(u)) with u from
+    ``sample_uniform(seed, streams, V)``; masked entries stay -inf."""
+    scaled = filter_logits(logits.to(torch.float32), temperature, top_k)
+    u = sample_uniform(seed, streams, scaled.shape[-1])
+    return torch.argmax(scaled - torch.log(-torch.log(u)), dim=-1).to(torch.int32)
+
+
 class SchedulerFns:
-    """The continuous-batching steps of one engine (greedy decoding).
+    """The continuous-batching steps of one engine for one (greedy, top_k)
+    sampling config (owned by the engine's ``scheduler_fns`` memo).
 
     ``decode_step`` is the shared ragged decode dispatch over the slot
     table; ``admit_step(bucket, block_size)`` returns the fused bucketed
     prefill + block scatter + first-token step for one power-of-two prompt
-    bucket (memoized; ``admit_compiles`` counts distinct buckets built)."""
+    bucket, ``admit_prefix_step(bucket, block_size)`` the tail-prefill
+    admission (``prefill_prefix_lm``: the tail's k/v written into the pool
+    layer by layer, attention over the pool itself) for one tail bucket.
+    Both are memoized; ``admit_compiles`` counts the distinct steps built.
 
-    def __init__(self, engine: "ServeEngine"):
+    Every step samples through ``_sample``: argmax when greedy, else
+    ``sample_tokens`` on stream ids keyed by (request, step), so slot
+    placement, arrival order and preemption replay cannot change a draw."""
+
+    def __init__(self, engine: "ServeEngine", *, greedy: bool, top_k: int):
         self._eng = engine
         self._groups = scan_groups(engine.cfg)
+        self._greedy = bool(greedy)
+        self._top_k = int(top_k)
         self._admits: Dict[Any, Callable] = {}
+        self._admits_prefix: Dict[Any, Callable] = {}
         self.admit_compiles = 0
 
-    def decode_step(self, params, caches, tokens, pos, active, block_tables):
+    def _sample(self, logits, streams, seed: int, temperature):
+        """logits (B, V); ``streams()`` gives the (B,) stream ids, made only
+        for a sampled draw (greedy steps launch nothing for them)."""
+        if self._greedy:
+            return _greedy(logits)
+        return sample_tokens(logits, streams(), seed, temperature, self._top_k)
+
+    def decode_step(self, params, caches, tokens, pos, active, seed0, block_tables, seed,
+                    temperature):
         """tokens (S,) — the previous step's output fed back on the device;
-        pos advances on the device for active rows only."""
+        pos advances on the device for active rows only, and each row's
+        stream id is ``seed0 + pos`` (seed0 written at activation), so the
+        host uploads nothing per step."""
         eng = self._eng
         logits, caches = decode_lm(params, caches, tokens[:, None], pos, eng.cfg,
                                    compute_dtype=eng.compute_dtype, active=active,
                                    block_tables=block_tables)
-        return _greedy(logits[:, -1, :]), pos + active.to(torch.int32), caches
+        nxt = self._sample(logits[:, -1, :], lambda: seed0.to(torch.int64) + pos.to(torch.int64),
+                           seed, temperature)
+        return nxt, pos + active.to(torch.int32), caches
 
     def admit_step(self, bucket: int, block_size: int):
         key = (int(bucket), int(block_size))
@@ -135,11 +223,38 @@ class SchedulerFns:
             self.admit_compiles += 1
         return self._admits[key]
 
+    def admit_prefix_step(self, bucket: int, block_size: int):
+        """The tail-prefill admission for one (tail bucket, block size)."""
+        key = (int(bucket), int(block_size))
+        if key not in self._admits_prefix:
+            self._admits_prefix[key] = self._build_admit_prefix(*key)
+            self.admit_compiles += 1
+        return self._admits_prefix[key]
+
+    def _first_token(self, logits, stream: int, seed: int, temperature):
+        return self._sample(logits[:, -1, :], lambda: torch.full(
+            (1,), stream, dtype=torch.int64, device=logits.device), seed, temperature)[0]
+
+    def _build_admit_prefix(self, bucket: int, block_size: int):
+        eng = self._eng
+
+        def _admit(params, batch, length: int, start: int, caches, bt_row, stream: int,
+                   seed: int, temperature):
+            # tokens (1, bucket): the right-padded uncached tail, ``length``
+            # real tokens after ``start`` cached ones; the tail's KV lands
+            # in the pool inside the prefill, so no block scatter follows
+            logits, caches = prefill_prefix_lm(params, batch, caches, bt_row, start, eng.cfg,
+                                               seq_len=length, compute_dtype=eng.compute_dtype)
+            return self._first_token(logits, stream, seed, temperature), caches
+
+        return _admit
+
     def _build_admit(self, bucket: int, block_size: int):
         eng, groups = self._eng, self._groups
         p_blocks = -(-bucket // block_size)
 
-        def _admit(params, batch, length: int, caches, bt_row, slot: int):
+        def _admit(params, batch, length: int, caches, bt_row, slot: int, stream: int,
+                   seed: int, temperature):
             # bucketed prefill: tokens (1, bucket) right-padded, ``length``
             # the real prompt length; sample at the last REAL position and
             # write only the bucket's blocks (padded tail -> trash block)
@@ -158,7 +273,7 @@ class SchedulerFns:
                             _scatter_blocks(dst[name], leaf, bt_row, axis, p_blocks)
                     else:
                         dst[name].narrow(axis, slot, 1).copy_(leaf)
-            return _greedy(logits[:, -1, :])[0], caches
+            return self._first_token(logits, stream, seed, temperature), caches
 
         return _admit
 
@@ -175,16 +290,6 @@ class ServeEngine:
         kv = self.cfg.kv_cache_dtype
         if kv not in ("bf16", "int8_fp", "int4_fp"):
             raise ValueError(f"kv_cache_dtype must be bf16, int8_fp or int4_fp, got {kv!r}")
-        if kv != "bf16" and not self.cfg.moe:
-            # the JAX package admits every request to a quantized pool of an
-            # all-attention decoder through the tail-prefill trace, which the
-            # port has not yet; MoE decoders admit through the bucketed
-            # prefill plus a quantizing block scatter, which it has
-            raise NotImplementedError(
-                f"kv_cache_dtype {kv!r} on an all-attention decoder: its admission runs "
-                "the tail-prefill trace, not ported yet (ROADMAP Queue 1 item 9); the port "
-                "serves quantized KV pools for MoE decoders"
-            )
         self.device = resolve_device(self.device)
         self.model = DecoderLM(self.cfg, tree_to(self.params, self.device))
         self.params = self.model.params
@@ -192,7 +297,7 @@ class ServeEngine:
         # pin both backends now; construct a new engine to switch
         self.backend = dispatch.resolve_packed_backend(self.device)
         self.attn_backend = dispatch.resolve_attention_backend(self.device)
-        self._fns: Optional[SchedulerFns] = None
+        self._sched_fns: Dict[Any, SchedulerFns] = {}
 
     @classmethod
     def from_symog(cls, cfg: ModelConfig, params, symog_state, symog_cfg, *, max_len: int,
@@ -230,10 +335,22 @@ class ServeEngine:
         scheduler derives the paged pool layout from them."""
         return init_caches(self.cfg, 1, self.max_len, self.compute_dtype, device="meta")
 
-    def scheduler_fns(self) -> SchedulerFns:
-        if self._fns is None:
-            self._fns = SchedulerFns(self)
-        return self._fns
+    def scheduler_fns(self, *, greedy: bool, top_k: int) -> SchedulerFns:
+        """Memoized SchedulerFns per (greedy, top_k), the sampling knobs
+        that change a step (top_k is moot when greedy); temperature and the
+        base seed are arguments."""
+        top_k = 0 if greedy else int(top_k)
+        key = (bool(greedy), top_k)
+        if key not in self._sched_fns:
+            self._sched_fns[key] = SchedulerFns(self, greedy=greedy, top_k=top_k)
+        return self._sched_fns[key]
+
+    def capabilities(self):
+        """The port's structural serving capabilities, with reasons
+        (``serve.config.capabilities``)."""
+        from repro_torch.serve.config import capabilities
+
+        return capabilities(self)
 
     def _tokens(self, batch):
         return {k: torch.as_tensor(np.asarray(v) if not isinstance(v, torch.Tensor) else v)
@@ -283,3 +400,9 @@ class ServeEngine:
             cur = _greedy(logits[:, -1:])
             out.append(cur)
         return torch.cat(out, dim=1).cpu()
+
+
+def greedy_generate(cfg: ModelConfig, params, batch, steps: int, max_len: int,
+                    compute_dtype=torch.bfloat16, device=None) -> torch.Tensor:
+    """Greedy continuation of a batched prompt (``ServeEngine.generate``)."""
+    return ServeEngine(cfg, params, max_len, compute_dtype, device).generate(batch, steps)

@@ -11,22 +11,27 @@ KV-cache block pool (mirrors the core of ``repro/serve/scheduler.py``).
     position t through a device ``(S, max_blocks)`` block table.  Physical
     row 0 is the trash block: zeroed table rows (free slots) write there;
   * admission: prompts are right-padded to power-of-two buckets and one
-    fused prefill + block scatter + first-token step runs per request;
+    fused prefill + block scatter + first-token step runs per request.
+    On a quantized pool of the fully-paged tier (all-attention decoders)
+    the admission is the tail-prefill step with start 0 instead: each
+    layer writes the prompt's k/v into the pool and attends the pool
+    itself, as the JAX package's scheduler does;
   * growth (``_grow_tables``) allocates a row's next block as its position
     crosses a boundary; pool exhaustion preempts the youngest live request,
-    which restarts from scratch — greedy decoding is deterministic, so the
-    replay is token-exact;
+    which restarts from scratch — greedy decoding is deterministic and
+    sampled streams are keyed by (request index, step), so the replay is
+    token-exact;
   * eviction on eos or length returns the blocks and zeroes the table row.
 
-With ``kv_cache_dtype`` int8_fp/int4_fp (MoE decoders) the pools hold
+With ``kv_cache_dtype`` int8_fp/int4_fp the pools hold
 SYMOG-quantized int8 / packed-int4 mantissas with one int32 exponent per
 (physical block, KV head) in a ``<name>_scale`` sibling leaf (per physical
 block for MLA's head-less c_kv / k_rope).
 
-Greedy only: sampled decoding, the prefix cache, chunked prefill,
-telemetry, async and cancellation come in later slices.  Slot state
-(tokens, positions, active flags, block tables) lives on the device; the
-host downloads only the sampled tokens, once per step.
+The prefix cache, chunked prefill, telemetry, async and cancellation come
+in later slices.  Slot state (tokens, positions, stream offsets, active
+flags, block tables) lives on the device; the host downloads only the
+sampled tokens, once per step.
 """
 from __future__ import annotations
 
@@ -39,7 +44,7 @@ import torch
 
 from repro_torch.models.lm import PAGED_CACHE_LEAVES, scan_groups
 from repro_torch.serve.blockpool import BlockPool
-from repro_torch.serve.config import ServeConfig
+from repro_torch.serve.config import ServeConfig, _tier_reasons
 
 
 @dataclasses.dataclass
@@ -83,6 +88,23 @@ class _Slot:
         return int(self.prompt.shape[0])
 
 
+def fully_paged_tier(engine) -> bool:
+    """True iff EVERY cache leaf of every group pages into the block pool:
+    all-attention decoders (no MoE capacity coupling, no MLA).  The
+    precondition of the tail-prefill admission; ``engine.capabilities()``
+    gives the reasons when it fails."""
+    return not _tier_reasons(engine)
+
+
+def _sample_seed(req_index: int, step: int) -> int:
+    """Stream id of the ``step``-th token of request ``req_index``: keyed by
+    request identity, not slot, so placement and preemption restarts cannot
+    change a draw.  Decode recomputes it on the device as ``seed0 + pos``
+    (seed0 written at activation), so it stays affine in ``step``.  The
+    index wraps at 2048 to stay inside int32, as in the JAX package."""
+    return (req_index % 2048) * 1_000_003 + step
+
+
 def latency_stats(completions: Sequence[Completion]) -> Dict[str, Dict[str, float]]:
     """Per-request latency percentiles in decode-step units: queue_steps
     (admitted - arrival), ttft_steps (first token - arrival + 1) and
@@ -115,8 +137,16 @@ class Scheduler:
         self.eng = engine
         self.cfg = engine.cfg
         self.n_slots = S = int(config.n_slots)
+        self.temperature = float(config.temperature)
+        self.top_k = int(config.top_k)
+        self._seed = int(config.seed)
+        self._temp = max(self.temperature, 1e-6)
         self._groups = scan_groups(self.cfg)
-        self._fns = engine.scheduler_fns()
+        self._fns = engine.scheduler_fns(greedy=self.temperature <= 0.0, top_k=self.top_k)
+        # quantized pools of the fully-paged tier: every admission runs the
+        # tail-prefill step (start 0), so its first token comes from
+        # attention over the quantized pool, as every later step's does
+        self._quant_admit = bool(engine.kv_quant_bits) and fully_paged_tier(engine)
         self._compiles0 = self._fns.admit_compiles
         self.block_size = blk = int(config.block_size)
         self.max_blocks = -(-engine.max_len // blk)
@@ -134,6 +164,7 @@ class Scheduler:
         self._tokens = torch.zeros((S,), dtype=torch.int32, device=dev)
         self._pos = torch.zeros((S,), dtype=torch.int32, device=dev)
         self._active = torch.zeros((S,), dtype=torch.bool, device=dev)
+        self._seed0 = torch.zeros((S,), dtype=torch.int32, device=dev)
         self._slots: List[Optional[_Slot]] = [None] * S
         self._n_live = 0
         self._queue: collections.deque = collections.deque()
@@ -251,11 +282,18 @@ class Scheduler:
         padded = np.zeros(bucket, np.int32)
         padded[:lp] = prompt
         batch = {"tokens": torch.from_numpy(padded[None]).to(self.eng.device)}
-        admit = self._fns.admit_step(bucket, self.block_size)
-        first_t, self.caches = self.eng._with_backend(
-            admit, self.eng.params, batch, lp, self.caches, self._block_tables[slot], slot
-        )
-        self._buckets_used.add((bucket, self.block_size))
+        bt_row = self._block_tables[slot]
+        sample = (_sample_seed(idx, 0), self._seed, self._temp)
+        if self._quant_admit:
+            admit = self._fns.admit_prefix_step(bucket, self.block_size)
+            first_t, self.caches = self.eng._with_backend(
+                admit, self.eng.params, batch, lp, 0, self.caches, bt_row, *sample)
+            self._buckets_used.add(("prefix", bucket, self.block_size))
+        else:
+            admit = self._fns.admit_step(bucket, self.block_size)
+            first_t, self.caches = self.eng._with_backend(
+                admit, self.eng.params, batch, lp, self.caches, bt_row, slot, *sample)
+            self._buckets_used.add((bucket, self.block_size))
         self.stats["prefills"] += 1
         self.stats["admission_traces"] = len(self._buckets_used)
         self.stats["admission_trace_compiles"] = self._fns.admit_compiles - self._compiles0
@@ -271,6 +309,8 @@ class Scheduler:
         self.stats["tokens_emitted"] += 1
         self._tokens[slot] = first_t
         self._pos[slot] = state.pos
+        # seed0 + pos == _sample_seed(idx, len(out)) at every later step
+        self._seed0[slot] = _sample_seed(idx, 1) - state.pos
         self._active[slot] = True
         if first == state.eos_id or len(state.out) >= state.budget:
             self._finish(slot, "eos" if first == state.eos_id else "length")
@@ -347,7 +387,7 @@ class Scheduler:
             return True
         self._tokens, self._pos, self.caches = self.eng._with_backend(
             self._fns.decode_step, self.eng.params, self.caches, self._tokens, self._pos,
-            self._active, self._block_tables,
+            self._active, self._seed0, self._block_tables, self._seed, self._temp,
         )
         nxt = self._tokens.cpu().numpy()  # the loop's one host sync
         self.step_count += 1

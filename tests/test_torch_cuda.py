@@ -997,3 +997,66 @@ def test_fused_train_step_matches_composed(dev):
     st, m = step(st, {"tokens": tok})
     torch.cuda.synchronize()
     assert sops.launches == before + 8 and bool(torch.isfinite(m["loss"]))
+
+
+@pytest.mark.parametrize("bits", [0, 4])
+@pytest.mark.parametrize("T,pos0,window,K,G,hd,q_mult,cap", [
+    (32, 0, 1024, 4, 2, 256, 1.0, 0.0), (160, 0, 64, 4, 2, 256, 1.0, 0.0),
+    (96, 40, None, 4, 2, 256, 1.0, 0.0), (1, 300, None, 1, 48, 128, 1.0, 0.0),
+    (24, 8, 16, 1, 48, 128, 1.0, 0.0),
+    (2048, 0, 64, 4, 2, 256, 4.0, 0.0), (2048, 1000, 64, 4, 2, 256, 4.0, 2.0),
+])
+def test_paged_attention_tail_prefill_shapes(dev, bits, T, pos0, window, K, G, hd, q_mult, cap):
+    """The tail-prefill launches (B 1, T = a bucket of query rows from pos0)
+    and the dense configs' decode shapes: head_dim 256 (gemma3), K 1 and
+    G 48 (granite), windows that bind; bf16 queries over a bf16 pool or an
+    int4 SYMOG pool at the bf16 bar, bit-identical over two calls.
+
+    Over ~1,000 keys unit queries give outputs the bar cannot tell from a
+    dropped tile; the q_mult 4 cases (window 64, binding on every row past
+    64, one under a softcap of 2) are sharp enough that the plain version
+    with its window a block wider or narrower, or its causal horizon one
+    key later, fails the bar the kernel passes."""
+    block = 16
+    mb = max(24, -(-(pos0 + T) // block))
+    rng = np.random.default_rng(T + pos0 + bits)
+    n_blocks = mb + 1
+    bt = torch.from_numpy((rng.permutation(mb) + 1).astype(np.int32)[None]).to(dev)
+    p0 = torch.tensor([pos0], dtype=torch.int32, device=dev)
+    q = torch.from_numpy(rng.standard_normal((1, T, K, G, hd)).astype(np.float32) * q_mult).to(
+        dev, torch.bfloat16)
+    kw = dict(scale=hd**-0.5, window=window, cap=cap)
+    if bits:
+        (kp, vp), (ke, ve) = _quant_pools(rng, n_blocks, block, K, hd, bits, wide=False)
+        kp, vp = kp.to(dev), vp.to(dev)
+        kw.update(k_scale_exp=ke.to(dev), v_scale_exp=ve.to(dev), kv_bits=bits)
+    else:
+        kp, vp = (torch.from_numpy(rng.standard_normal((n_blocks, block, K, hd)).astype(
+            np.float32)).to(dev, torch.bfloat16) for _ in range(2))
+    got = paged_attention(q, kp, vp, bt, p0, **kw)
+    again = paged_attention(q, kp, vp, bt, p0, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    want = paged_attention_ref(q, kp, vp, bt, p0, **kw)
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=1e-2)
+    if q_mult != 1.0:
+        for fp0, fkw in ((p0, dict(kw, window=window + block)),
+                         (p0, dict(kw, window=window - block)), (p0 + 1, kw)):
+            bad = paged_attention_ref(q, kp, vp, bt, fp0, **fkw)
+            assert not torch.allclose(got.float(), bad.float(), rtol=1e-2, atol=1e-2)
+
+
+def test_sampler_on_card_matches_cpu(dev):
+    """The sampler's uniforms are integer hashing up to one exact conversion,
+    so the card's equal the CPU's bit for bit; the draws agree too."""
+    from repro_torch.serve import sample_tokens
+    from repro_torch.serve.engine import sample_uniform
+
+    streams = torch.arange(256, dtype=torch.int64) * 1_000_003 + 7
+    assert torch.equal(sample_uniform(123, streams.to(dev), 4096).cpu(),
+                       sample_uniform(123, streams, 4096))
+    logits = torch.from_numpy(np.random.default_rng(0).standard_normal((256, 512)).astype(
+        np.float32))
+    for top_k in (0, 50):
+        got = sample_tokens(logits.to(dev), streams.to(dev), 123, 0.7, top_k).cpu()
+        assert torch.equal(got, sample_tokens(logits, streams, 123, 0.7, top_k))

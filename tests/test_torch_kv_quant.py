@@ -19,7 +19,9 @@ package, DESIGN.md §11), on the CPU.
     array_equal to JAX's; serving twice gives identical tokens; the bf16
     pool also equals the static dense-cache loop (a quantized pool rounds
     KV that the dense loop keeps, so JAX claims no such equality for it);
-  - an all-attention decoder (internlm2) still refuses a quantized pool.
+  - what stays refused: an unknown kv_cache_dtype, and the tail prefill on
+    MoE and MLA configs (all-attention decoders serve quantized pools
+    through it: tests/test_torch_tail_prefill.py).
 """
 import dataclasses
 
@@ -334,10 +336,16 @@ def test_quantized_pool_bytes():
 
 
 def test_all_attention_decoder_still_refuses_quantized_pools():
-    for kv in ("int8_fp", "int4_fp"):
-        cfg = dataclasses.replace(jconfigs.get_reduced("internlm2-1.8b"), kv_cache_dtype=kv)
-        with pytest.raises(NotImplementedError, match="tail-prefill"):
-            ServeEngine(cfg, {}, max_len=8, device="cpu")
+    """What stays refused: an unknown kv_cache_dtype, and the tail prefill
+    (the admission of all-attention decoders to a quantized pool) on MoE and
+    MLA configs, as in the JAX package."""
+    from repro_torch.models import prefill_prefix_lm
+
     cfg = dataclasses.replace(jconfigs.get_reduced("olmoe-1b-7b"), kv_cache_dtype="fp8")
     with pytest.raises(ValueError):
         ServeEngine(cfg, {}, max_len=8, device="cpu")
+    for arch in ("olmoe-1b-7b", "deepseek-v3-671b"):
+        cfg = dataclasses.replace(jconfigs.get_reduced(arch), kv_cache_dtype="int4_fp")
+        with pytest.raises(NotImplementedError, match="all-attention"):
+            prefill_prefix_lm({}, {"tokens": torch.zeros((1, 4), dtype=torch.int32)}, {},
+                              torch.zeros(2, dtype=torch.int32), 0, cfg, seq_len=3)

@@ -122,6 +122,21 @@ def test_small_blocks_eos_and_preemption_match_jax():
             assert tcomps[0].finish_reason == "eos" and tcomps[0].tokens[-1] == eos
 
 
+def test_request_filling_max_len_leaves_the_batch_running():
+    """A request that ends at max_len (a multiple of the block) keeps pos =
+    max_len in its freed slot;
+    the next decode steps of the others clamp its table lookup into the
+    trash block, as JAX's gather clamps it (an out-of-range index before)."""
+    jeng, teng = _engines("float")
+    reqs = _requests(lens=(20, 4), budgets=(5, 12), seed=8)
+    jc = jeng.serve([JRequest(tokens=p, max_new_tokens=b) for p, b in reqs],
+                    JServeConfig(n_slots=2, block_size=4))
+    tc = teng.serve([Request(tokens=p, max_new_tokens=b) for p, b in reqs],
+                    ServeConfig(n_slots=2, block_size=4))
+    assert len(tc[0].tokens) == MAX_LEN - 20 + 1 and tc[0].finished_step < tc[1].finished_step
+    assert [c.tokens for c in tc] == [list(c.tokens) for c in jc]
+
+
 def test_generate_wrapper_and_latency_stats():
     _, teng = _engines("float")
     batch = {"tokens": np.random.default_rng(6).integers(0, 256, size=(3, 6)).astype(np.int32)}
@@ -136,12 +151,15 @@ def test_generate_wrapper_and_latency_stats():
 
 
 def test_serve_config_rejects_sampling_and_quantized_kv():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServeConfig(temperature=0.8)
-    with pytest.raises(ValueError):
-        ServeConfig(block_size=0)
-    cfg = dataclasses.replace(jconfigs.get_reduced("internlm2-1.8b"), kv_cache_dtype="int8_fp")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """What stays refused now that sampling and quantized pools serve:
+    negative temperature or top_k, a bad block size, and an unknown
+    kv_cache_dtype."""
+    for kw in (dict(temperature=-0.1), dict(top_k=-1), dict(block_size=0), dict(n_slots=-1)):
+        with pytest.raises(ValueError):
+            ServeConfig(**kw)
+    ServeConfig(temperature=0.7, top_k=50, seed=123)  # sampling is accepted
+    cfg = dataclasses.replace(jconfigs.get_reduced("internlm2-1.8b"), kv_cache_dtype="fp8")
+    with pytest.raises(ValueError, match="kv_cache_dtype"):
         ServeEngine(cfg, {}, max_len=8, device="cpu")
 
 
