@@ -41,18 +41,23 @@ Phases, one JSON line each:
                packed (2560, 262144) matrix (M 4); 3b also at the dense
                configs' decode shapes (gemma3's head_dim 256 under its
                1,024 window, granite's K 1 G 48, gemma2's softcap 50 under
-               its 4,096 window), every case bit-identical over two calls;
+               its 4,096 window) and at the speculative verify's (B 4, T 5,
+               ragged rows of ~300 tokens, the last row's queries past its
+               table's end), every case bit-identical over two calls;
                3e
                paged attention over int8 and int4 SYMOG pools (olmoe's and
                internlm2's decode shapes, exponents over [-8, 4], a window
                + softcap case, an fp32 case; timed only, olmoe's int4 decode
                shape at rows of about 64, 300 and 500 cached tokens; the
                tail-prefill launches of gemma3's admission, B 1, T 32, 512
-               and 2048 from position 0 and T 512 from 1000, int4), 3f
+               and 2048 from position 0 and T 512 from 1000, int4; phase
+               11a's chunks, T 256 from 1,024 and from 1,000, and its
+               prefix-hit tail, T 32 from 1,000), 3f
                the absorbed MLA decode (``paged_attention_mla``) at
                deepseek-v3's shape (128 heads, rank 512, rope 64) over bf16
                / fp32, KV_F int8 and SYMOG int8 / int4 pools (one exponent
-               per block over [-8, 4]), T 1 and 3, a row at position 0:
+               per block over [-8, 4]), T 1 and 3, a row at position 0, and
+               the verify's T 5 over bf16 and int4 pools:
                every bf16 case through both kernels (the tensor-core
                ``mla_decode_tc``, which the rule picks and which must be the
                faster, and ``mla_partial``), the tensor-core kernel also at
@@ -116,7 +121,26 @@ Phases, one JSON line each:
                admission), the greedy serve repeated token-identical, the
                sampled serve (temperature 0.7, top-k 50, seed 123) identical
                again, with 3 slots and with staggered arrivals; a bf16
-               pool's greedy agreement; then its decode profile.
+               pool's greedy agreement; then its decode profile;
+ 11. prefix  — (a) that gemma3 engine serving 8 requests of one shared
+     cache,    1,000-token prefix (62 blocks + 8 tokens) plus 24..400-token
+     chunks,   tails four ways: plain, ``prefix_cache``, ``prefill_chunk``
+     specu-    256, both, each twice: hits, copies on write and chunks as
+     lation    the arrival order implies, launches by route, repeats
+               identical; (b) gemma3 at 6 layers, fp32, a float pool: a
+               prefix-hit admission from 1,000 (its copy on write) and a
+               chunked one against the one-shot admission, logits and pool;
+               (c) internlm2-1.8b at full width, bf16 pool, phase 5's
+               traffic, k = 4 adaptive, the 2-bit ``pack_tree`` draft
+               against a ``quantize_tree`` twin target and the float
+               target: repeats identical, launches as the rounds imply
+               (the GQA kernel at T = k + 1 on every verify), acceptance,
+               tokens a round and decode tokens/s beside the vanilla serve;
+               sampled streams on the twin identical over a rerun, 3 slots,
+               staggered arrivals; (d) internlm2 at 4 layers, fp32:
+               ``decode_verify_lm`` through the kernels (an inactive row, a
+               row past max_len) against sequential ``decode_lm`` steps and
+               the plain path.
 Each serving and training path zeroes every kernel's launch count just
 before it runs and reads them just after.
 Then each phase's seconds and the total, the ``kernels`` summary line (the
@@ -157,6 +181,8 @@ PARITY_ATOL = 1e-3  # fp32 logits, 4 layers: same math, other summation orders
 MLA_COUNTS = ("paged_attention_mla", "paged_attention_mla_quant", "paged_attention_mla_tc",
               "paged_attention_mla_tc_quant")
 PARITY_LAYERS = 4
+SPEC_K = 4  # draft tokens a speculative round (phase 11c)
+VERIFY_T = SPEC_K + 1  # the verify's query rows a batch row
 
 
 def emit(obj) -> None:
@@ -446,15 +472,19 @@ def phase_fpmm_gemma3(torch, dev):
     at M = 4; each holds its rule's kernel to the plain version and times it
     beside the streaming kernel, ``torch.matmul`` and the bound.  (The serve
     reads the tied head through ``embed_logits``, which dequantizes the
-    table, as the JAX package does: the phase times that too.)  Returns the
-    rows, the layer's sums at M = 4 and the head's row."""
+    table, as the JAX package does: the phase times that too.)  Also the
+    layer at phase 11a's tail buckets: M = 256 (a chunk) and 32 (a prefix
+    hit's tail).  Returns the rows, the layer's sums at M = 4, the head's
+    row and the layer's sums at M = 32 and 256."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(8)
     rows = []
-    layer = {"ms": 0.0, "stream_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    keys = ("ms", "stream_ms", "plain_ms", "library_ms", "bound_ms")
+    layer = dict.fromkeys(keys, 0.0)
+    tails = {M: dict.fromkeys(keys, 0.0) for M in (32, 256)}
     head = None
     for name, K, N in GEMMA3_FPMM_SHAPES:
-        for M in ((4,) if name == "head" else (4, 512)):
+        for M in ((4,) if name == "head" else (4, 32, 256, 512)):
             row = _fpmm_case(torch, gen, dev, name, K, N, M, torch.bfloat16, 2,
                              with_bias=False, timing=True,
                              routes=_bf16_routes(torch.bfloat16, M))
@@ -464,12 +494,15 @@ def phase_fpmm_gemma3(torch, dev):
             elif M == 4:
                 for k in layer:
                     layer[k] += row[k]
+            elif M in tails:
+                for k in keys:
+                    tails[M][k] += row[k]
             emit(row)
             rows.append(row)
             if not row["pass"]:
                 raise Failed(f"fixedpoint_matmul gemma3 {name} M={M}: err {_err(row)}")
         torch.cuda.empty_cache()
-    return rows, layer, head
+    return rows, layer, head, tails
 
 
 # ---------------------------------------------------------------------------
@@ -585,20 +618,26 @@ def _sweep_entry(row):
                                 "achieved_GBps")}
 
 
-def _visible_blocks(pos0, T: int, window, block: int) -> int:
+def _visible_blocks(pos0, T: int, window, block: int, max_blocks: int = None) -> int:
     """Blocks the query rows of each batch row can see, summed over rows:
-    from the first row's window start to the last row's position."""
+    from the first row's window start to the last row's position, which
+    the kernel clamps to the table's last slot (``max_blocks``)."""
     hi = (pos0.long() + T - 1) // block
+    if max_blocks is not None:
+        hi = hi.clamp(max=max_blocks - 1)
     lo = 0 if window is None else (pos0.long() - window + 1).clamp(min=0) // block
     return int((hi - lo + 1).sum().item())
 
 
-def _visible_keys(pos0, T: int, window) -> int:
+def _visible_keys(pos0, T: int, window, max_keys: int = None) -> int:
     """Keys the T query rows of each batch row attend, summed: query t of
-    row b sees min(pos0[b] + t + 1, window) keys."""
+    row b sees min(pos0[b] + t + 1, window) keys (and no more than the
+    table holds, ``max_keys``)."""
     import torch
 
     t = pos0.long()[:, None] + torch.arange(1, T + 1, device=pos0.device)[None]
+    if max_keys is not None:
+        t = t.clamp(max=max_keys)
     if window is not None:
         t = t.clamp(max=window)
     return int(t.sum().item())
@@ -639,6 +678,11 @@ def phase_attn(torch, dev):
                    shape={k: c[k] for k in ("B", "K", "G", "hd", "max_blocks", "pos_last")},
                    **{k: c[k] for k in ("arch", "window", "cap", "scale")})
               for c in DENSE_ATTN_CASES]
+    # the speculative verify (phase 11c's launch: internlm2, bf16 pool, B 4,
+    # T = k + 1 = 5, ragged pos0 of ~300), with the last row's queries
+    # running past the table's end, where the kernel clamps them
+    cases.append(dict(T=VERIFY_T, dt=torch.bfloat16, int8=False, window=None, cap=0.0,
+                      q_mult=1.0, verify=True))
     rows, worst, main = [], 0.0, None
     for c in cases:
         T, dt, int8 = c["T"], c["dt"], c["int8"]
@@ -647,6 +691,9 @@ def phase_attn(torch, dev):
         dname = str(dt).split(".")[-1]
         q, kp, vp, bt, pos0 = _attn_case(torch, gen, dev, T=T, dt=dt, int8=int8,
                                          q_mult=c["q_mult"], **shape)
+        mb = shape["max_blocks"]
+        if c.get("verify"):
+            pos0[-1] = mb * block - 2  # positions mb·block - 2 .. + 2: past the table
         kv_scale = 2.0**-5 if int8 else 1.0
         kw = dict(scale=c.get("scale", hd**-0.5), cap=c["cap"], window=c["window"],
                   kv_scale=kv_scale)
@@ -660,10 +707,10 @@ def phase_attn(torch, dev):
         ok = bool(torch.allclose(out.float(), ref.float(), **tol)) and same
         worst = max(worst, err)
         # bytes this run's data needs: the blocks each row can see, once
-        kv_bytes = 2 * _visible_blocks(pos0, T, c["window"], block) * block * K * hd * \
+        kv_bytes = 2 * _visible_blocks(pos0, T, c["window"], block, mb) * block * K * hd * \
             kp.element_size()
         io = 2 * q.numel() * q.element_size() + kv_bytes + bt.numel() * 4 + B * 4
-        flops = 4 * _visible_keys(pos0, T, c["window"]) * K * G * hd
+        flops = 4 * _visible_keys(pos0, T, c["window"], mb * block) * K * G * hd
         b_ms, b_by = bound(io, flops, dname)
         n = copies_for(kp.numel() * kp.element_size() * 2)
         pools = [(kp.clone(), vp.clone()) for _ in range(n)]
@@ -672,6 +719,7 @@ def phase_attn(torch, dev):
                "K": K, "G": G, "hd": hd, "block": block, "T": T,
                "kv_dtype": str(kp.dtype).split(".")[-1], "q_dtype": dname,
                "window": c["window"], "cap": c["cap"], "q_mult": c["q_mult"],
+               "verify": c.get("verify", False), "pos0": pos0.tolist(),
                "mean_cached_tokens": (pos0.float() + T).mean().item(), "max_abs_err": err,
                "tol": tol, "bit_identical": same, "pass": ok}
         row["ms"] = timed(lambda a, b, cc: aops.paged_attention(a, b, cc, bt, pos0, **kw),
@@ -1101,7 +1149,13 @@ TAIL_PREFILL_CASES = [dict(T=32, pos0=0, window=1024), dict(T=512, pos0=0, windo
                       dict(T=2048, pos0=0, window=1024), dict(T=2048, pos0=0, window=None),
                       dict(T=512, pos0=1000, window=1024),
                       dict(T=2048, pos0=0, window=64, q_mult=4.0),
-                      dict(T=2048, pos0=1000, window=64, cap=2.0, q_mult=4.0)]
+                      dict(T=2048, pos0=1000, window=64, cap=2.0, q_mult=4.0),
+                      # phase 11a's launches: chunks of 256 from a block boundary
+                      # and from mid-block, and a prefix hit's tail after the
+                      # shared 1,000 tokens
+                      dict(T=256, pos0=1024, window=1024, of="chunk"),
+                      dict(T=256, pos0=1000, window=1024, of="chunk"),
+                      dict(T=32, pos0=1000, window=1024, of="prefix_hit")]
 
 
 def phase_attn_quant(torch, dev):
@@ -1124,7 +1178,7 @@ def phase_attn_quant(torch, dev):
     # the tail-prefill launches, on the pools a paged write makes of unit-scale k/v
     cases += [dict(K=4, G=2, bits=4, dt=torch.bfloat16, window=c["window"],
                    cap=c.get("cap", 0.0), q_mult=c.get("q_mult", 1.0), wide=False, T=c["T"],
-                   tail_prefill=True,
+                   tail_prefill=True, of=c.get("of", "admission"),
                    shape=dict(B=1, hd=256, max_blocks=max(128, -(-(c["pos0"] + c["T"]) // 16)),
                               pos_last=(c["pos0"] + c["T"] - 1, c["pos0"] + c["T"])))
               for c in TAIL_PREFILL_CASES]
@@ -1173,7 +1227,8 @@ def phase_attn_quant(torch, dev):
         row = {"phase": "kernel", "kernel": "paged_attention_quant", "B": B, "K": K, "G": G,
                "hd": hd, "block": block, "T": T, "pos0": int(pos0.min()) if B == 1 else None,
                "kv_bits": bits, "q_dtype": dname, "window": c["window"], "cap": c["cap"],
-               "tail_prefill": c.get("tail_prefill", False), "wide_exponents": c["wide"],
+               "tail_prefill": c.get("tail_prefill", False), "of": c.get("of"),
+               "wide_exponents": c["wide"],
                "exp_range": [int(min(ke.min(), ve.min())), int(max(ke.max(), ve.max()))],
                "q_mult": c.get("q_mult", 1.0), "faults_caught": caught,
                "max_abs_err": err, "tol": tol, "bit_identical": same, "pass": ok}
@@ -1670,7 +1725,7 @@ def _record_admissions(torch, fns):
     ``timed_decode`` wraps decode: host clock between synchronizations, each
     admission's bucket and ms.  Returns (record, restore)."""
     inner = {k: getattr(fns, k) for k in ("admit_step", "admit_prefix_step")}
-    rec = {"buckets": [], "ms": []}
+    rec = {"buckets": [], "ms": [], "params": []}
 
     def wrap(make):
         def admit(bucket, block_size):
@@ -1683,6 +1738,7 @@ def _record_admissions(torch, fns):
                 torch.cuda.synchronize()
                 rec["ms"].append((time.perf_counter() - t) * 1e3)
                 rec["buckets"].append(int(bucket))
+                rec["params"].append(args[0])  # whose weights: a draft mirrors admissions
                 return out
 
             return run
@@ -1842,7 +1898,21 @@ def phase_serve_internlm2(torch, dev):
     h = torch.randn((4, 1, eng.cfg.d_model), device=dev, dtype=torch.bfloat16)
     row["head_dequant_matmul_ms"] = timed(lambda a: embed_logits(eng.params["embed"], a), [(h,)],
                                           torch)
+    row["head_dequant_matmul_ms_rows_unpadded"] = _unpadded(
+        lambda: timed(lambda a: embed_logits(eng.params["embed"], a), [(h,)], torch))
     return report(row), eng
+
+
+def _unpadded(fn):
+    """``fn()`` with the float matmuls at their own row count (``ROW_TILE``
+    1, as before batch-invariant rows): the padding's cost, timed beside."""
+    from repro_torch.models import layers
+
+    tile, layers.ROW_TILE = layers.ROW_TILE, 1
+    try:
+        return fn()
+    finally:
+        layers.ROW_TILE = tile
 
 
 def kernel_times(evs):
@@ -2297,7 +2367,10 @@ def phase_attn_mla(torch, dev):
              (1, bf, "kv_f", False), (3, bf, "q4", True), (3, bf, "float", True),
              (3, bf, "q8", True), (3, bf, "kv_f", True),
              (1, f32, "float", False), (1, f32, "kv_f", False), (1, f32, "q8w", False),
-             (1, f32, "q4w", False), (3, f32, "q4w", True), (3, f32, "float", True)]
+             (1, f32, "q4w", False), (3, f32, "q4w", True), (3, f32, "float", True),
+             # the speculative verify's shape, T = k + 1 = 5 (no eligible serve:
+             # deepseek is MoE; the kernel case alone)
+             (VERIFY_T, bf, "float", False), (VERIFY_T, bf, "q4", False)]
     rows, main = [], {}
     worst = dict.fromkeys(("partial_float", "partial_quant", "tc_float", "tc_quant"), 0.0)
     for T, dt, pool, pos_zero in cases:
@@ -2711,12 +2784,531 @@ def phase_serve_gemma3(torch, dev):
                 # the tied 262,144-row read-out as the serve runs it: the
                 # packed table dequantized to fp32, then torch.matmul
                 "head_dequant_matmul_ms": events_ms(lambda: embed_logits(eng.params["embed"], h),
-                                                    5, torch)})
+                                                    5, torch),
+                "head_dequant_matmul_ms_rows_unpadded": _unpadded(lambda: events_ms(
+                    lambda: embed_logits(eng.params["embed"], h), 5, torch))})
     row["pass"] = (row["pass"] and again == tokens and sampled_same and base != tokens
                    and counts16 == want16)
     del eng16, sched16
     torch.cuda.empty_cache()
     return report(row), eng
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the prefix cache with copy-on-write, chunked prefill and
+# self-speculative decoding on the fully-paged tier
+# ---------------------------------------------------------------------------
+PREFIX_TOKENS = 1000  # = 62 blocks of 16 + 8 tokens: every hit ends inside a block
+PREFIX_CHUNK = 256
+
+
+def _prefix_requests(cfg, seed: int, n: int = 8, new_tokens: int = 32):
+    """``n`` requests of one shared ``PREFIX_TOKENS``-token system prefix
+    plus each its own tail of 24..400 tokens, from ``seed``."""
+    import numpy as np
+    from repro_torch.serve import Request
+
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(0, cfg.vocab_size, size=PREFIX_TOKENS)
+    tails = rng.integers(24, 401, size=n)
+    return [Request(tokens=np.concatenate([prefix, rng.integers(0, cfg.vocab_size, size=int(t))]),
+                    max_new_tokens=new_tokens) for t in tails]
+
+
+def _expected_prefix_admissions(comps, lens, prefix: bool, chunk: int):
+    """What the arrival order implies, per request in admission order: the
+    tokens a prefix hit reuses (``PREFIX_TOKENS`` once an earlier prompt's
+    blocks are indexed: a one-shot admission indexes at its own step, before
+    later admissions of that step; a chunked one after its final chunk, so
+    from the next step) and the chunks its tail takes."""
+    order = sorted(range(len(comps)), key=lambda i: (comps[i].admitted_step, i))
+    indexed_at = []  # the step from which each admitted prompt is indexed
+    hits, chunks = {}, {}
+    for i in order:
+        adm = comps[i].admitted_step
+        hit = PREFIX_TOKENS if prefix and any(s <= adm for s in indexed_at) else 0
+        tail = lens[i] - hit
+        chunked = bool(chunk) and tail > chunk
+        hits[i], chunks[i] = hit, (-(-tail // chunk) if chunked else 0)
+        indexed_at.append(comps[i].first_token_step + 1 if chunked else adm)
+    return hits, chunks
+
+
+def phase_prefix_chunks(torch, dev, eng):
+    """11a: phase 10's full-width 2-bit gemma3-4b over its int4 pool (max_len
+    2048), 4 slots, block 16, 8 requests of a shared 1,000-token prefix plus
+    a 24..400-token tail, 32 new tokens each, served four ways: plain, with
+    the prefix cache, in chunks of 256, and both; each way twice.  Gates:
+    hits, hit tokens, copies on write and chunks as the arrival order
+    implies; every kernel's launches by route (row 3 once a layer per
+    tail-prefill call, chunk and decode step); a repeat token-identical.
+    Reported: greedy agreement with the plain serve, admission seconds, ms a
+    chunk, pool blocks."""
+    import numpy as np
+    from repro_torch.serve import ServeConfig, latency_stats
+
+    cfg = eng.cfg
+    L = cfg.n_layers
+    reqs = _prefix_requests(cfg, 31)
+    lens = [len(r.tokens) for r in reqs]
+    fns = eng.scheduler_fns(greedy=True, top_k=0)
+    ways = {"plain": {}, "prefix_cache": dict(prefix_cache=True),
+            "chunked": dict(prefill_chunk=PREFIX_CHUNK),
+            "prefix_cache_and_chunked": dict(prefix_cache=True, prefill_chunk=PREFIX_CHUNK)}
+    rows, base = {}, None
+    for name, kw in ways.items():
+        sc = ServeConfig(n_slots=4, block_size=16, **kw)
+        runs = []
+        for _ in range(2):
+            adm, restore = _record_admissions(torch, fns)
+            zero_counts()
+            t0 = time.perf_counter()
+            comps, sched = eng.serve(reqs, sc, return_scheduler=True)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_counts()
+            restore()
+            runs.append((comps, sched, adm, counts, wall))
+        comps, sched, adm, counts, wall = runs[0]
+        st = sched.stats
+        tokens = [list(map(int, c.tokens)) for c in comps]
+        if base is None:
+            base = tokens
+        hits, chunks = _expected_prefix_admissions(comps, lens, bool(kw.get("prefix_cache")),
+                                                   kw.get("prefill_chunk", 0))
+        n_hits = sum(1 for h in hits.values() if h)
+        n_chunked = sum(1 for c in chunks.values() if c)
+        want_stats = {"prefix_hits": n_hits, "prefix_hit_tokens": sum(hits.values()),
+                      "prefix_cow_copies": n_hits * int(PREFIX_TOKENS % 16 != 0),
+                      "prefix_misses": len(reqs) - n_hits if kw.get("prefix_cache") else 0,
+                      "chunked_admissions": n_chunked, "prefill_chunks": sum(chunks.values()),
+                      "prefills": len(reqs)}
+        got_stats = {k: st[k] for k in want_stats}
+        # one tail-prefill call per one-shot admission and per chunk, each
+        # launching row 3 once a layer, the matmuls at M = its bucket
+        calls = len(reqs) - n_chunked + st["prefill_chunks"]
+        want = {**_matmul_counts(7 * L, 0, st["decode_steps"], adm["buckets"]),
+                "paged_attention": 0,
+                "paged_attention_quant": L * (st["decode_steps"] + calls),
+                **dict.fromkeys(MLA_COUNTS, 0), "symog_update": 0}
+        same = total = 0
+        for a, b in zip(base, tokens):
+            same += sum(int(x == y) for x, y in zip(a, b))
+            total += max(len(a), len(b))
+        occ = sched.pool.occupancy()
+        row = {"phase": "prefix_chunks", "arch": cfg.name,
+               "way": name, "layers": L, "kv_cache_dtype": cfg.kv_cache_dtype,
+               "prompt_lens": lens, "shared_prefix": PREFIX_TOKENS, "new_tokens": 32,
+               "stats": got_stats, "expected_stats": want_stats,
+               "hit_tokens_by_request": [hits[i] for i in range(len(reqs))],
+               "decode_steps": st["decode_steps"], "prefill_only_steps": st["prefill_only_steps"],
+               "tail_prefill_calls": calls, "wall_s": wall,
+               "prefill_s": sum(adm["ms"]) / 1e3,
+               "prefill_ms": [[b, ms] for b, ms in zip(adm["buckets"], adm["ms"])],
+               "ms_per_tail_call_mean": float(np.mean(adm["ms"])),
+               "ttft_steps": latency_stats(comps)["ttft_steps"],
+               "pool_blocks_allocated": occ["total_allocs"], "pool_peak_live_blocks":
+               occ["peak_live"], "greedy_agreement_vs_plain": same / max(total, 1),
+               "repeat_tokens_identical": all([list(map(int, c.tokens)) for c in r[0]] == tokens
+                                              for r in runs[1:]),
+               "launches": counts, "expected_launches": want}
+        row["pass"] = (got_stats == want_stats and counts == want
+                       and row["repeat_tokens_identical"]
+                       and all(runs[1][1].stats[k] == st[k] for k in want_stats))
+        emit(row)
+        rows[name] = row
+        if not row["pass"]:
+            raise Failed(f"prefix_chunks {name}: {row}")
+        del runs, comps, sched
+    return rows
+
+
+def _capture_admission_logits(torch, eng_mod):
+    """Wrap the serve engine's prefill functions and its block scatter:
+    every admission's last-position logits and the table row it wrote
+    through, in call order.  Returns (record, restore)."""
+    rec = {"logits": [], "rows": []}
+    inner = {k: getattr(eng_mod, k) for k in ("prefill_lm", "prefill_prefix_lm",
+                                               "_scatter_blocks")}
+
+    def prefill(*a, **kw):
+        lg, c = inner["prefill_lm"](*a, **kw)
+        rec["logits"].append(lg[0, -1].detach().clone())
+        return lg, c
+
+    def prefill_prefix(params, batch, caches, bt_row, *a, **kw):
+        rec["rows"].append(bt_row.detach().clone())
+        lg, c = inner["prefill_prefix_lm"](params, batch, caches, bt_row, *a, **kw)
+        rec["logits"].append(lg[0, -1].detach().clone())
+        return lg, c
+
+    def scatter(pool, src, bt_row, *a, **kw):
+        if rec.get("scattered_through") is not bt_row:  # once an admission, not once a leaf
+            rec["scattered_through"] = bt_row
+            rec["rows"].append(bt_row.detach().clone())
+        return inner["_scatter_blocks"](pool, src, bt_row, *a, **kw)
+
+    eng_mod.prefill_lm, eng_mod.prefill_prefix_lm = prefill, prefill_prefix
+    eng_mod._scatter_blocks = scatter
+    return rec, lambda: [setattr(eng_mod, k, f) for k, f in inner.items()]
+
+
+def _logical_pool(torch, caches, groups, row, n: int):
+    """Each paged leaf's first ``n`` positions through table ``row``, per
+    layer: {(group, leaf): (layers, n, ...)}."""
+    from repro_torch.models.attention import paged_gather
+
+    out = {}
+    for g in groups:
+        for name, leaf in caches[g.name]["sub0"].items():
+            layers = leaf if g.stacked else leaf[None]
+            out[g.name, name] = torch.stack([paged_gather(t, row[None])[0, :n] for t in layers])
+    return out
+
+
+def phase_prefix_parity(torch, dev):
+    """11b: gemma3-4b at 6 layers, 2-bit packed (phase 4's build), fp32
+    compute, a float pool (max_len 2048, block 16): one request of the shared
+    1,000-token prefix plus a 200-token tail admitted three ways through the
+    scheduler -- one-shot (bucketed prefill + block scatter), as a prefix hit
+    from start 1,000 after another request of the same prefix (the copy on
+    write of block 62 included), and in chunks of 256 -- with the kernels.
+    The hit's and the chunked admission's logits must agree with the
+    one-shot's within ``PARITY_ATOL`` (argmax equal) and their pools, read
+    through each one's table row over the prompt's 1,200 positions, within
+    the attention bar."""
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.core import SymogConfig, pack_tree, symog_init
+    from repro_torch.models import init_lm
+    from repro_torch.models.lm import scan_groups
+    from repro_torch.serve import Request, ServeConfig, ServeEngine
+    from repro_torch.serve import engine as eng_mod
+
+    cfg = dataclasses.replace(configs.get_config("gemma3-4b"), n_layers=6, kv_cache_dtype="bf16")
+    params = init_lm(11, cfg, device=dev)
+    scfg = SymogConfig(n_bits=2)
+    packed = pack_tree(params, symog_init(params, scfg), scfg)
+    del params
+    eng = ServeEngine(cfg, packed, max_len=GEMMA3_MAX_LEN, compute_dtype=torch.float32,
+                      device=dev)
+    groups = scan_groups(cfg)
+    rng = np.random.default_rng(5)
+    prefix = rng.integers(0, cfg.vocab_size, size=PREFIX_TOKENS)
+    other = Request(tokens=np.concatenate([prefix, rng.integers(0, cfg.vocab_size, size=24)]),
+                    max_new_tokens=1)
+    req = Request(tokens=np.concatenate([prefix, rng.integers(0, cfg.vocab_size, size=200)]),
+                  max_new_tokens=1)
+    n = len(req.tokens)
+    ways = {"one_shot": ([req], {}), "prefix_hit": ([other, req], dict(prefix_cache=True)),
+            "chunked": ([req], dict(prefill_chunk=PREFIX_CHUNK))}
+    out, stats = {}, {}
+    for name, (rs, kw) in ways.items():
+        rec, restore = _capture_admission_logits(torch, eng_mod)
+        try:
+            _, sched = eng.serve(rs, ServeConfig(n_slots=1, block_size=16, **kw),
+                                 return_scheduler=True)
+        finally:
+            restore()
+        torch.cuda.synchronize()
+        stats[name] = {k: sched.stats[k] for k in ("prefix_hits", "prefix_hit_tokens",
+                                                    "prefix_cow_copies", "prefill_chunks")}
+        out[name] = (rec["logits"][-1], _logical_pool(torch, sched.caches, groups,
+                                                      rec["rows"][-1], n))
+        del sched
+    ref_lg, ref_pool = out["one_shot"]
+    tol = ATTN_TOL["float32"]
+    row = {"phase": "prefix_parity", "arch": "gemma3-4b", "layers": 6, "compute": "float32",
+           "kv_cache_dtype": "bf16 (a float pool at the compute dtype)", "prompt_len": n,
+           "shared_prefix": PREFIX_TOKENS, "chunk": PREFIX_CHUNK, "stats": stats,
+           "atol": PARITY_ATOL, "pool_tol": tol, "logit_scale": ref_lg.abs().max().item()}
+    ok = (stats["prefix_hit"]["prefix_hit_tokens"] == PREFIX_TOKENS
+          and stats["prefix_hit"]["prefix_cow_copies"] == 1
+          and stats["chunked"]["prefill_chunks"] == -(-n // PREFIX_CHUNK))
+    for name in ("prefix_hit", "chunked"):
+        lg, pool = out[name]
+        err = (lg - ref_lg).abs().max().item()
+        pool_err = max((pool[k] - ref_pool[k]).abs().max().item() for k in ref_pool)
+        pool_ok = all(torch.allclose(pool[k], ref_pool[k], **tol) for k in ref_pool)
+        argmax = bool(lg.argmax() == ref_lg.argmax())
+        row[name] = {"max_abs_logit_err": err, "argmax_equal": argmax,
+                     "pool_max_abs_err": pool_err, "pool_within_bar": pool_ok}
+        ok = ok and err <= PARITY_ATOL and argmax and pool_ok
+    row["pass"] = ok
+    emit(row)
+    del eng, packed, out
+    torch.cuda.empty_cache()
+    if not ok:
+        raise Failed(f"prefix_parity: {row}")
+    return row
+
+
+def _margin_at(torch, eng, prompt, out, j: int) -> float:
+    """The target's top-1 - top-2 logit margin after ``prompt`` + out[:j]."""
+    toks = torch.as_tensor(list(map(int, prompt)) + list(out[:j]), dtype=torch.int32,
+                           device=eng.device)[None]
+    lg, _ = eng.prefill({"tokens": toks})
+    top = torch.topk(lg[0, -1].float(), 2).values
+    return (top[0] - top[1]).item()
+
+
+def phase_speculative(torch, dev):
+    """11c: internlm2-1.8b at full width and all 24 layers, bf16, a bf16
+    pool, phase 5's traffic (4 slots, block 16, max_len 512, 8 requests of
+    24..400 tokens, 32 new each), k = 4, adaptive; the draft is the 2-bit
+    ``pack_tree`` engine of a SYMOG state, the target in turn the
+    ``quantize_tree`` of that state (an exact twin in values) and the
+    unquantized params (a disagreeing draft).  Gates (greedy): a repeat
+    identical, rounds run, every kernel's launches as the rounds imply (the
+    draft's ``fpmm_decode`` 7 x 24 a draft step, k_r + 1 draft steps a
+    round; the GQA kernel 24 x (k_r + 2) a round; the draft's mirrored
+    admissions' matmuls by bucket; the target's dense layers and bucketed
+    admissions run no kernel).  Reported: acceptance, tokens a round, decode
+    tokens/s beside the target's vanilla serve, agreement with it and the
+    target's top-1 - top-2 margin at the first difference.  Then sampled
+    (0.7, top-k 50, seed 123) on the twin: identical over a rerun, with 3
+    slots and with staggered arrivals."""
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.core import SymogConfig, pack_tree, quantize_tree, symog_init
+    from repro_torch.models import init_lm
+    from repro_torch.serve import Request, ServeConfig, ServeEngine, SpeculativeConfig
+
+    cfg = configs.get_config("internlm2-1.8b")
+    L = cfg.n_layers
+    params = init_lm(7, cfg, device=dev)
+    scfg = SymogConfig(n_bits=2)
+    state = symog_init(params, scfg)
+    draft = ServeEngine(cfg, pack_tree(params, state, scfg), max_len=512,
+                        compute_dtype=torch.bfloat16, device=dev)
+    targets = {"twin": ServeEngine(cfg, quantize_tree(params, state, scfg), max_len=512,
+                                   compute_dtype=torch.bfloat16, device=dev),
+               "float": ServeEngine(cfg, params, max_len=512, compute_dtype=torch.bfloat16,
+                                    device=dev)}
+    del state
+    rng = np.random.default_rng(0)
+    lens = rng.integers(24, 401, size=8)
+    reqs = [Request(tokens=rng.integers(0, cfg.vocab_size, size=int(n)), max_new_tokens=32)
+            for n in lens]
+    spec = SpeculativeConfig(draft=draft, k=SPEC_K)
+    rows = {}
+    for tname, eng in targets.items():
+        fns = eng.scheduler_fns(greedy=True, top_k=0)
+        sfns = eng.speculative_fns(greedy=True, top_k=0)
+
+        def serve(config):
+            adm, restore = _record_admissions(torch, fns)
+            depths, verify = [], sfns.verify_step
+
+            def verify_step(k):
+                depths.append(int(k))
+                return verify(k)
+
+            sfns.verify_step = verify_step
+            zero_counts()
+            t0 = time.perf_counter()
+            try:
+                comps, sched = eng.serve(reqs, config, return_scheduler=True)
+                torch.cuda.synchronize()
+            finally:
+                del sfns.verify_step
+                restore()
+            wall = time.perf_counter() - t0
+            return comps, sched, adm, depths, read_counts(), wall
+
+        comps, sched, adm, depths, counts, wall = serve(ServeConfig(n_slots=4, block_size=16,
+                                                                    speculative=spec))
+        again = serve(ServeConfig(n_slots=4, block_size=16, speculative=spec))[0]
+        v_comps, v_sched, v_adm, _, _, v_wall = serve(ServeConfig(n_slots=4, block_size=16))
+        # the vanilla serve again with the float matmuls at their own row
+        # counts (before batch-invariant rows): what the padding costs
+        u_comps, u_sched, u_adm, _, _, u_wall = _unpadded(
+            lambda: serve(ServeConfig(n_slots=4, block_size=16)))
+        st = sched.stats
+        tokens = [list(map(int, c.tokens)) for c in comps]
+        vanilla = [list(map(int, c.tokens)) for c in v_comps]
+        draft_buckets = [b for b, p in zip(adm["buckets"], adm["params"]) if p is draft.params]
+        draft_steps = sum(k + 1 for k in depths)
+        want = {**_matmul_counts(7 * L, 0, draft_steps, draft_buckets),
+                "paged_attention": L * sum(k + 2 for k in depths), "paged_attention_quant": 0,
+                **dict.fromkeys(MLA_COUNTS, 0), "symog_update": 0}
+        prefill_s, v_prefill_s = sum(adm["ms"]) / 1e3, sum(v_adm["ms"]) / 1e3
+        dec_tok = st["tokens_emitted"] - st["prefills"]
+        v_dec_tok = v_sched.stats["tokens_emitted"] - v_sched.stats["prefills"]
+        same = total = 0
+        first_diff = None
+        for i, (a, b) in enumerate(zip(tokens, vanilla)):
+            same += sum(int(x == y) for x, y in zip(a, b))
+            total += max(len(a), len(b))
+            j = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+            if j is not None and first_diff is None:
+                first_diff = {"request": i, "token": j,
+                              "target_top1_minus_top2": _margin_at(torch, eng, reqs[i].tokens,
+                                                                   a, j)}
+        row = {"phase": "speculative", "arch": "internlm2-1.8b", "layers": L, "target": tname,
+               "target_params": "quantize_tree (2-bit values, bf16 compute)" if tname == "twin"
+               else "unquantized float", "draft": "pack_tree 2-bit", "k": SPEC_K,
+               "adaptive": True, "kv_cache_dtype": "bf16", "prompt_lens": lens.tolist(),
+               "rounds": st["spec_steps"], "depths": depths,
+               "draft_steps": draft_steps, "verify_rows_T": sorted({k + 1 for k in depths}),
+               "acceptance": st["spec_accepted"] / max(st["spec_drafted"], 1),
+               "tokens_per_row_round": st["spec_emitted"] / max(st["spec_row_rounds"], 1),
+               "stats": {k: st[k] for k in ("spec_steps", "spec_row_rounds", "spec_drafted",
+                                            "spec_accepted", "spec_emitted", "preemptions")},
+               "wall_s": wall, "prefill_s": prefill_s,
+               "decode_tokens_per_s": dec_tok / max(wall - prefill_s, 1e-9),
+               "vanilla_wall_s": v_wall, "vanilla_decode_steps": v_sched.stats["decode_steps"],
+               "vanilla_decode_tokens_per_s": v_dec_tok / max(v_wall - v_prefill_s, 1e-9),
+               "vanilla_decode_tokens_per_s_rows_unpadded": (
+                   u_sched.stats["tokens_emitted"] - u_sched.stats["prefills"])
+               / max(u_wall - sum(u_adm["ms"]) / 1e3, 1e-9),
+               "rows_unpadded_tokens_equal_vanilla": [list(map(int, c.tokens))
+                                                      for c in u_comps] == vanilla,
+               "agreement_vs_vanilla": same / max(total, 1), "first_difference": first_diff,
+               "repeat_tokens_identical": [list(map(int, c.tokens)) for c in again] == tokens,
+               "launches": counts, "expected_launches": want}
+        row["pass"] = (row["repeat_tokens_identical"] and st["spec_steps"] > 0
+                       and counts == want and all(len(t) == 32 for t in tokens))
+        if tname == "twin":
+            def sampled(rs, n):
+                return [list(map(int, c.tokens)) for c in eng.serve(rs, ServeConfig(
+                    n_slots=n, block_size=16, speculative=spec, **GEMMA3_SAMPLING))]
+
+            t0 = time.perf_counter()
+            runs = {"4_slots": sampled(reqs, 4), "4_slots_again": sampled(reqs, 4),
+                    "3_slots": sampled(reqs, 3),
+                    "staggered": sampled([dataclasses.replace(r, arrival=4 * i)
+                                          for i, r in enumerate(reqs)], 4)}
+            b0 = runs["4_slots"]
+            row.update({"sampling": GEMMA3_SAMPLING, "sampled_runs_s": time.perf_counter() - t0,
+                        "sampled_streams_identical": {k: v == b0 for k, v in runs.items()},
+                        "sampled_differs_from_greedy": b0 != tokens})
+            row["pass"] = row["pass"] and all(v == b0 for v in runs.values()) and b0 != tokens
+        emit(row)
+        rows[tname] = row
+        if not row["pass"]:
+            raise Failed(f"speculative {tname}: {row}")
+    del targets, draft, params
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_verify_parity(torch, dev):
+    """11d: internlm2-1.8b at 4 layers, 2-bit packed, fp32, a float pool
+    (max_len 512, block 16) of random unit-scale k/v: ``decode_verify_lm``
+    at T = k + 1 for four rows -- ~300 and ~100 tokens, one inactive, one
+    at 509 whose last two positions pass max_len (``valid`` masked) --
+    through the kernels, held to k + 1 sequential ``decode_lm`` steps
+    through the kernels (the masked positions' rows off) and to the verify
+    on the plain path: logits of the live positions within ``PARITY_ATOL``,
+    argmax equal, the pools outside the trash block within the attention
+    bar; the GQA kernel launched once a layer by the verify, T times by the
+    steps."""
+    from repro_torch import configs
+    from repro_torch.core import SymogConfig, pack_tree, symog_init
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import decode_lm, decode_verify_lm, init_lm
+    from repro_torch.models.lm import scan_groups
+    from repro_torch.serve import ServeConfig, ServeEngine
+    from repro_torch.serve.scheduler import Scheduler
+
+    layers, max_len, block, T = 4, 512, 16, VERIFY_T
+    cfg = dataclasses.replace(configs.get_config("internlm2-1.8b"), n_layers=layers)
+    params = init_lm(11, cfg, device=dev)
+    scfg = SymogConfig(n_bits=2)
+    packed = pack_tree(params, symog_init(params, scfg), scfg)
+    del params
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(4)
+    pos0 = torch.tensor([300, 97, 0, max_len - 3], dtype=torch.int32)
+    active = torch.tensor([True, True, False, True])
+    B, mb = len(pos0), max_len // block
+    bt = torch.zeros((B, mb), dtype=torch.int32)
+    ids = torch.randperm(B * mb, generator=gen) + 1
+    for b in range(B):
+        if active[b]:
+            n_own = min(mb, (int(pos0[b]) + T - 1) // block + 1)
+            bt[b, :n_own] = ids[b * mb: b * mb + n_own].to(torch.int32)
+    tokens = torch.randint(0, cfg.vocab_size, (B, T), generator=gen, dtype=torch.int32)
+    positions = pos0[:, None] + torch.arange(T, dtype=torch.int32)[None]
+    valid = positions <= max_len - 1
+    live = (valid & active[:, None]).to(dev)
+    pools, results = None, {}
+    for path, (pb, ab) in {"kernels": ("kernel", "fused"), "plain": ("unpack", "composed")}.items():
+        dispatch.set_packed_backend(pb)
+        dispatch.set_attention_backend(ab)
+        eng = ServeEngine(cfg, packed, max_len=max_len, compute_dtype=torch.float32, device=dev)
+        dispatch.set_packed_backend("auto")
+        dispatch.set_attention_backend("auto")
+        if pools is None:
+            pools = Scheduler(eng, ServeConfig(n_slots=B, block_size=block)).caches
+            for sub in pools.values():
+                for leaf in sub["sub0"].values():
+                    leaf.copy_(torch.randn(leaf.shape, generator=gen).to(dev, leaf.dtype))
+
+        def clone():
+            return {g: {"sub0": {n: t.clone() for n, t in sub["sub0"].items()}}
+                    for g, sub in pools.items()}
+
+        d = dict(compute_dtype=torch.float32)
+        zero_counts()
+        lg_v, c_v = eng._with_backend(decode_verify_lm, eng.params, clone(), tokens.to(dev),
+                                      pos0.to(dev), cfg, block_tables=bt.to(dev),
+                                      active=active.to(dev), valid=valid.to(dev), **d)
+        torch.cuda.synchronize()
+        n_verify = read_counts()["paged_attention"]
+        res = {"verify": (lg_v, c_v), "verify_launches": n_verify}
+        if path == "kernels":
+            c_s, outs = clone(), []
+            for t in range(T):
+                act = active & valid[:, t]
+                lg, c_s = eng._with_backend(decode_lm, eng.params, c_s, tokens[:, t:t + 1].to(dev),
+                                            (pos0 + t).to(dev), cfg, active=act.to(dev),
+                                            block_tables=(bt * act[:, None]).to(dev), **d)
+                outs.append(lg[:, 0])
+            torch.cuda.synchronize()
+            res["steps"] = (torch.stack(outs, 1), c_s)
+            res["step_launches"] = read_counts()["paged_attention"] - n_verify
+        results[path] = res
+        del eng
+    groups = scan_groups(cfg)
+    kv, (ks_lg, ks_pool) = results["kernels"]["verify"], results["kernels"]["steps"]
+    pv = results["plain"]["verify"]
+    tol = ATTN_TOL["float32"]
+
+    def cmp(a, b):
+        la, lb = a[0][live], b[0][live]
+        pool_ok, pool_err = True, 0.0
+        for g in a[1]:
+            for n, t in a[1][g]["sub0"].items():  # the trash block aside
+                x = _past_trash(t, g, groups, True)
+                y = _past_trash(b[1][g]["sub0"][n], g, groups, True)
+                pool_ok = pool_ok and bool(torch.allclose(x, y, **tol))
+                pool_err = max(pool_err, (x - y).abs().max().item())
+        return {"max_abs_logit_err": (la - lb).abs().max().item(),
+                "argmax_agreement": (la.argmax(-1) == lb.argmax(-1)).float().mean().item(),
+                "pool_max_abs_err": pool_err, "pool_within_bar": pool_ok}
+
+    vs_steps, vs_plain = cmp(kv, (ks_lg, ks_pool)), cmp(kv, pv)
+    want = {"kernels_verify": layers, "kernels_steps": layers * T, "plain_verify": 0}
+    got = {"kernels_verify": results["kernels"]["verify_launches"],
+           "kernels_steps": results["kernels"]["step_launches"],
+           "plain_verify": results["plain"]["verify_launches"]}
+    row = {"phase": "verify_parity", "arch": "internlm2-1.8b", "layers": layers,
+           "compute": "float32", "T": T, "pos0": pos0.tolist(), "active": active.tolist(),
+           "valid_positions": int(valid.sum()), "live_positions": int(live.sum()),
+           "atol": PARITY_ATOL, "pool_tol": tol, "vs_sequential_decode": vs_steps,
+           "vs_plain_verify": vs_plain, "logit_scale": kv[0][live].abs().max().item(),
+           "attention_launches": got, "expected_attention_launches": want}
+    row["pass"] = (got == want and all(
+        r["max_abs_logit_err"] <= PARITY_ATOL and r["argmax_agreement"] == 1.0
+        and r["pool_within_bar"] for r in (vs_steps, vs_plain)))
+    emit(row)
+    del results, pools, packed
+    torch.cuda.empty_cache()
+    if not row["pass"]:
+        raise Failed(f"verify_parity: {row}")
+    return row
 
 
 def main() -> int:
@@ -2770,8 +3362,8 @@ def main() -> int:
                                   torch, dev)
         fed_rows, fed_decode, fed_prefill = run("3d fixedpoint_matmul_experts deepseek",
                                                 phase_fpmm_experts_deepseek, torch, dev)
-        fpg_rows, fpg_layer, fpg_head = run("3a fixedpoint_matmul gemma3", phase_fpmm_gemma3,
-                                            torch, dev)
+        fpg_rows, fpg_layer, fpg_head, fpg_tails = run("3a fixedpoint_matmul gemma3",
+                                                       phase_fpmm_gemma3, torch, dev)
         cx_rows, cross = run("3g crossover", phase_crossover, torch, dev)
         aq_rows, aq_err, aq_main = run("3e paged_attention_quant", phase_attn_quant, torch, dev)
         mla_rows, mla_err, mla_main = run("3f paged_attention_mla", phase_attn_mla, torch, dev)
@@ -2822,8 +3414,12 @@ def main() -> int:
         torch.cuda.empty_cache()
         gemma3, eng = run("10 serve gemma3", phase_serve_gemma3, torch, dev)
         run("10 profile gemma3", phase_profile, torch, dev, eng)
+        prefix = run("11a prefix cache and chunks", phase_prefix_chunks, torch, dev, eng)
         del eng
         torch.cuda.empty_cache()
+        run("11b prefix and chunk parity", phase_prefix_parity, torch, dev)
+        spec = run("11c speculative", phase_speculative, torch, dev)
+        verify = run("11d verify parity", phase_verify_parity, torch, dev)
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2867,6 +3463,10 @@ def main() -> int:
          "length_sweep": [_sweep_entry(r) for r in at_main["length_sweep"]],
          "dense_decode_cases": [_case_entry(r) for r in attn_rows if r.get("arch")],
          "launches_gemma3_bf16_pool_serve": gemma3["bf16_pool_launches"]["paged_attention"],
+         "verify_cases": [_case_entry(r) for r in attn_rows if r.get("verify")],
+         "launches_speculative_serves": {t: r["launches"]["paged_attention"]
+                                         for t, r in spec.items()},
+         "launches_verify_parity": verify["attention_launches"],
          "pass": all(r["pass"] for r in attn_rows)},
         {"name": "symog_update", "route": "cuda",
          "source": "src/repro_torch/csrc/symog_update.cu",
@@ -2899,7 +3499,12 @@ def main() -> int:
          "library_ms": aq_main["library_ms"],
          "work": "int4 pool, B=4 K=16 G=1 hd=128 block=16 T=1 bf16, ~300 cached tokens a row",
          "length_sweep": [_sweep_entry(r) for r in aq_main["length_sweep"]],
-         "tail_prefill_cases": [_case_entry(r) for r in aq_rows if r["tail_prefill"]],
+         "tail_prefill_cases": [_case_entry(r) for r in aq_rows
+                                if r["tail_prefill"] and r["of"] == "admission"],
+         "chunk_and_prefix_hit_cases": [dict(_case_entry(r), of=r["of"]) for r in aq_rows
+                                        if r["tail_prefill"] and r["of"] != "admission"],
+         "launches_gemma3_prefix_chunk_serves": {w: r["launches"]["paged_attention_quant"]
+                                                 for w, r in prefix.items()},
          "launches_gemma3_serve": gemma3["launches"]["paged_attention_quant"],
          "tail_prefill_launches_gemma3_serve": gemma3["tail_prefill_launches"],
          "launches_gemma3_parity": par_g3["attention_launches"]["kernels"][
@@ -2927,6 +3532,9 @@ def main() -> int:
              "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
              "library_ms": m["library_ms"], "partial_kernel_ms": m["partial_ms"],
              "split": m["tc_split"], "ms_by_split": m["tc_ms_by_split"], "work": work,
+             "verify_T5_cases": [dict(_case_entry(r), tc_ms=r["tc_ms"], partial_ms=r["partial_ms"],
+                                      split=r["tc_split"])
+                                 for r in mla_rows_k if r.get("T") == VERIFY_T],
              "launches_from": f"deepseek-v3 serve from a{' bf16' if not quant else 'n int4'} MLA "
                               "pool (7 layers x decode steps): every MLA launch",
              "pass": all(r["pass"] for r in mla_rows_k)})
@@ -2973,6 +3581,15 @@ def main() -> int:
                  "pass": tc_faster and all(r["pass"] for r in rows)}
         entry["launches_olmoe_serve"] = olmoe["launches"][name]
         entry["launches_gemma3_serve"] = gemma3["launches"][name]
+        if base == "fixedpoint_matmul":
+            entry["launches_gemma3_prefix_chunk_serves"] = {w: r["launches"][name]
+                                                            for w, r in prefix.items()}
+            entry["gemma3_tail_layers"] = {
+                f"M={M}": dict(v, work=f"one gemma3-4b layer's 7 projections at M={M} (a "
+                                       f"{'chunk' if M == 256 else 'prefix-hit tail'}), bf16")
+                for M, v in fpg_tails.items()}
+            entry["launches_speculative_draft_admissions"] = {t: r["launches"][name]
+                                                              for t, r in spec.items()}
         if pre2 is not None:
             entry["olmoe_prefill_layer"] = dict(pre2, work=work2)
         summary.append(entry)
@@ -2995,6 +3612,10 @@ def main() -> int:
          "launches_olmoe_serve": olmoe["launches"]["fixedpoint_matmul_decode"],
          "launches_deepseek_serve": deepseek["launches"]["fixedpoint_matmul_decode"],
          "launches_gemma3_serve": gemma3["launches"]["fixedpoint_matmul_decode"],
+         "launches_speculative_drafts": {t: r["launches"]["fixedpoint_matmul_decode"]
+                                         for t, r in spec.items()},
+         "launches_gemma3_prefix_chunk_serves": {
+             w: r["launches"]["fixedpoint_matmul_decode"] for w, r in prefix.items()},
          "gemma3_decode_layer": dict(
              fpg_layer, work="one gemma3-4b layer's 7 projections at M=4, 2-bit, bf16"),
          "gemma3_head": dict(_case_entry(fpg_head), stream_ms=fpg_head["stream_ms"],

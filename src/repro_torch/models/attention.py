@@ -428,6 +428,54 @@ def attn_prefill_paged(p, x, cache, bt_row, positions, *, cfg: AttnConfig, seq_l
     return y, cache
 
 
+def verify_token_index(block_tables, positions, block: int, valid):
+    """Flat pool indices (B, T) of a grid of speculative write positions:
+    entry (b, t) addresses ``positions[b, t]`` through row b's table.  The
+    block index is clamped to the table before the lookup, and ``valid``
+    (B, T) sends out-of-range or inactive positions to the trash block, so
+    a row near ``max_len`` rides the fixed-width verify without reading
+    past its table."""
+    B, max_blocks = block_tables.shape
+    pos = positions.to(torch.int64)
+    bi = torch.clamp(pos // block, max=max_blocks - 1)
+    rows = torch.arange(B, device=pos.device)[:, None]
+    idx = block_tables.to(torch.int64)[rows, bi] * block + pos % block
+    return torch.where(valid, idx, torch.zeros_like(idx))
+
+
+def _verify_scatter(cache, names, news, idx) -> None:
+    """Scatter (B, T, ...) entries into each paged leaf at flat ``idx``
+    (B, T), in place.  Rows own disjoint blocks and a row's positions are
+    distinct, so only trash-redirected entries collide."""
+    B, T = idx.shape
+    news = [new.reshape((B * T,) + tuple(new.shape[2:])) for new in news]
+    _paged_write(cache, names, news, idx.reshape(B * T))
+
+
+def attn_verify_paged(p, x, cache, block_tables, positions, *, cfg: AttnConfig, valid,
+                      window=None, rope_base=10000.0, compute_dtype=torch.bfloat16,
+                      rope_table=None, cache_index: Optional[torch.Tensor] = None):
+    """Speculative multi-token verify against the paged pool.
+
+    x (B, T, D) embeds [last committed token, drafts d_1..d_{T-1}] per row;
+    ``positions`` (B, T) are the global positions ``pos[b] + t`` and
+    ``valid`` (B, T) sends inactive rows and positions past ``max_len`` to
+    the trash block.  Every row writes its T k/v entries first, then
+    attends its whole table row, so each query reads real KV across its
+    causal horizon and the output at every valid position is what T
+    sequential decode steps give.  On the card: the ``paged_attention``
+    kernel with B rows of T queries from pos0 = ``positions[:, 0]``.
+    ``cache_index`` (``verify_token_index``) is the same for every layer."""
+    q, k_new, v_new = _project_qkv(p, x, positions, cfg, rope_base, compute_dtype, rope_table)
+    idx = cache_index
+    if idx is None:
+        idx = verify_token_index(block_tables, positions, cache["k"].shape[1], valid)
+    _verify_scatter(cache, ("k", "v"), (k_new, v_new), idx)
+    y = _paged_attend(p, q, cache, block_tables, positions, cfg=cfg, window=window,
+                      compute_dtype=compute_dtype)
+    return y, cache
+
+
 # ---------------------------------------------------------------------------
 # MLA — multi-head latent attention (deepseek-v3)
 # ---------------------------------------------------------------------------
@@ -579,12 +627,42 @@ def mla_decode(p, x, cache, pos, *, cfg: MLAConfig, rope_base=10000.0,
 
 def _mla_attend(q_eff, q_rope, c_kv, k_rope, positions, cfg: MLAConfig, compute_dtype):
     """The composed absorbed attention over a logical (B, S, ...) view:
-    rank-space output (B, 1, H, r)."""
+    rank-space output (B, T, H, r), query t of row b masked to its own
+    causal horizon ``positions[b, t]``."""
     S = c_kv.shape[1]
     kv_pos = torch.arange(S, dtype=torch.int32, device=c_kv.device)
-    mask = (kv_pos[None, :] <= positions)[:, None, None, :]  # (B, 1, 1, S)
+    mask = kv_pos[None, None, None, :] <= positions[:, None, :, None]  # (B, 1, T, S)
     logits = (torch.einsum("bthr,bsr->bhts", q_eff, c_kv)
               + torch.einsum("bthr,bsr->bhts", q_rope, k_rope)).to(torch.float32) * _mla_scale(cfg)
     logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
     probs = torch.softmax(logits, dim=-1).to(compute_dtype)
     return torch.einsum("bhts,bsr->bthr", probs, c_kv)  # compressed values
+
+
+def mla_verify_paged(p, x, cache, block_tables, positions, *, cfg: MLAConfig, valid,
+                     rope_base=10000.0, compute_dtype=torch.bfloat16, rope_table=None,
+                     cache_index: Optional[torch.Tensor] = None):
+    """Speculative multi-token MLA verify against the paged c_kv / k_rope
+    pools: ``mla_decode``'s paged branch at T > 1.  The T compressed entries
+    of each row are written at their global positions first, then each
+    query attends its own causal horizon; on the card the MLA kernels at T
+    query rows from pos0 = ``positions[:, 0]``.  x (B, T, D); ``positions``
+    / ``valid`` (B, T) as in ``attn_verify_paged``."""
+    q_nope, q_rope, c_new, kr_new = _mla_project(p, x, positions, cfg, rope_base, compute_dtype,
+                                                 rope_table)
+    q_eff = torch.einsum("bthn,rhn->bthr", q_nope,
+                         as_dense(p["kv_b_k_proj"]["kernel"], compute_dtype))
+    idx = cache_index
+    if idx is None:
+        idx = verify_token_index(block_tables, positions, cache["c_kv"].shape[1], valid)
+    _verify_scatter(cache, ("c_kv", "k_rope"), (c_new, kr_new), idx)
+    if resolve_attention_backend(x.device) != "composed":
+        out_c = _fused_paged_mla(q_eff, q_rope, cache, block_tables, positions, cfg=cfg,
+                                 compute_dtype=compute_dtype)
+    else:
+        c_kv = _paged_read(cache, "c_kv", block_tables, compute_dtype, cfg.kv_lora_rank)
+        k_rope = _paged_read(cache, "k_rope", block_tables, compute_dtype, cfg.qk_rope_dim)
+        out_c = _mla_attend(q_eff, q_rope, c_kv, k_rope, positions, cfg, compute_dtype)
+    out = torch.einsum("bthr,rhv->bthv", out_c, as_dense(p["kv_b_v_proj"]["kernel"], compute_dtype))
+    y = dense_apply(p["o_proj"], out, n_in=2, compute_dtype=compute_dtype)
+    return y, cache

@@ -19,11 +19,13 @@ from repro_torch.models.attention import (
     attn_init,
     attn_init_cache,
     attn_prefill_paged,
+    attn_verify_paged,
     cache_write,
     mla_apply,
     mla_decode,
     mla_init,
     mla_init_cache,
+    mla_verify_paged,
 )
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
@@ -202,6 +204,29 @@ def block_prefill_paged(p, x, cache, bt_row, positions, *, cfg: ModelConfig, seq
     y, cache = attn_prefill_paged(p["attn"], h, cache, bt_row, positions, cfg=_attn_cfg(cfg),
                                   seq_len=seq_len, window=window, rope_base=rope_base,
                                   compute_dtype=compute_dtype, rope_table=rope_table)
+    return _finish_block(p, x, y, cfg, "A", compute_dtype), cache
+
+
+def block_verify_paged(p, x, cache, block_tables, positions, *, cfg: ModelConfig, valid,
+                       window=None, rope_base=10000.0, compute_dtype=torch.bfloat16,
+                       rope_table=None, cache_index: Optional[torch.Tensor] = None):
+    """Speculative multi-token verify of an attention ('A' / 'D') block:
+    ``block_decode``'s per-token math at T = k + 1 tokens a row, attention
+    against the paged pool by ``attn_verify_paged`` / ``mla_verify_paged``.
+    Only the fully-paged tier verifies, so the FFN is always the dense MLP:
+    MoE capacity competition across the k + 1 tokens would break the
+    one-pass == sequential-decode equivalence."""
+    h = _norm_apply(cfg, p["pre_norm"], x)
+    if cfg.use_mla:
+        y, cache = mla_verify_paged(p["attn"], h, cache, block_tables, positions,
+                                    cfg=_mla_cfg(cfg), valid=valid, rope_base=rope_base,
+                                    compute_dtype=compute_dtype, rope_table=rope_table,
+                                    cache_index=cache_index)
+    else:
+        y, cache = attn_verify_paged(p["attn"], h, cache, block_tables, positions,
+                                     cfg=_attn_cfg(cfg), valid=valid, window=window,
+                                     rope_base=rope_base, compute_dtype=compute_dtype,
+                                     rope_table=rope_table, cache_index=cache_index)
     return _finish_block(p, x, y, cfg, "A", compute_dtype), cache
 
 

@@ -34,6 +34,25 @@ def dense_init(gen, in_dims: Sequence[int], out_dims: Sequence[int], *, bias: bo
     return p
 
 
+# On the card a float matmul runs at a multiple of ROW_TILE rows, zero
+# rows appended: cuBLAS picks its kernel, and with it each row's rounding,
+# from the row count, so without this a decode or verify row's bits would
+# depend on how many slots share the step (and a sampled stream on the slot
+# count).  A row's output then depends on its own row alone.
+ROW_TILE = 64
+
+
+def matmul_rows(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (..., K) @ w (K, N) with rows batch-invariant on the card."""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    M = x2.shape[0]
+    pad = -M % ROW_TILE if x2.is_cuda else 0
+    if pad:
+        x2 = F.pad(x2, (0, 0, 0, pad))
+    return torch.matmul(x2, w)[:M].reshape(*lead, w.shape[-1])
+
+
 def dense_apply(p, x, *, n_in: int = 1, compute_dtype=None):
     """Contract the last ``n_in`` dims of x with the first n_in of the kernel.
     A ``Packed`` kernel dispatches to the fixed-point matmul."""
@@ -42,7 +61,10 @@ def dense_apply(p, x, *, n_in: int = 1, compute_dtype=None):
         return packed_dense_apply(p, x, n_in=n_in, compute_dtype=compute_dtype)
     if compute_dtype is not None:
         x, k = x.to(compute_dtype), k.to(compute_dtype)
-    y = torch.tensordot(x, k, dims=n_in)
+    in_dims, out_dims = k.shape[:n_in], k.shape[n_in:]
+    y = matmul_rows(x.reshape(*x.shape[: x.ndim - n_in], math.prod(in_dims)),
+                    k.reshape(math.prod(in_dims), math.prod(out_dims)))
+    y = y.reshape(*y.shape[:-1], *out_dims)
     if "bias" in p:
         y = y + p["bias"].to(y.dtype)
     return y
@@ -91,7 +113,7 @@ def embed_logits(p, x):
     """Tied read-out x @ E^T in fp32.  A Packed table is dequantized whole on
     every call, as in the JAX package (92544x2048 fp32 at full width)."""
     e = as_dense(p["embedding"], torch.float32)
-    return torch.matmul(x.to(torch.float32), e.t())
+    return matmul_rows(x.to(torch.float32), e.t())
 
 
 @functools.lru_cache(maxsize=64)

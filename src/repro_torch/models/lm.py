@@ -1,6 +1,7 @@
 """LM assembly for the decoder family (mirrors ``repro/models/lm.py``):
 embeddings → layer groups → head, plus prefill, decode and the training
-loss, and the tail prefill over the paged pool (``prefill_prefix_lm``).
+loss, the tail prefill over the paged pool (``prefill_prefix_lm``) and the
+speculative verify (``decode_verify_lm``).
 Dense decoders (internlm2, gemma2, gemma3, granite) serve and train; MoE decoders
 (olmoe; deepseek-v3 with MLA attention and leading dense layers) serve, and
 their training (aux/z losses, per-expert SYMOG update, deepseek's MTP loss)
@@ -26,6 +27,7 @@ from repro_torch.models.blocks import (
     block_decode,
     block_init,
     block_prefill_paged,
+    block_verify_paged,
 )
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
@@ -41,7 +43,7 @@ from repro_torch.models.layers import (
     rope_table,
     softcap as softcap_fn,
 )
-from repro_torch.models.attention import decode_positions, paged_token_index
+from repro_torch.models.attention import decode_positions, paged_token_index, verify_token_index
 from repro_torch.models.quantized import scan_ready, unstack_layers
 from repro_torch.nn.tree import tree_map
 
@@ -318,6 +320,57 @@ def prefill_prefix_lm(params, batch, caches, bt_row, start: int, cfg: ModelConfi
                                        compute_dtype=compute_dtype,
                                        rope_table=tables.get(bases[li]))
     logits, _ = _head(params, cfg, x[:, seq_len - 1: seq_len])
+    return logits, caches
+
+
+def decode_verify_lm(params, caches, tokens, pos, cfg: ModelConfig, *, block_tables,
+                     compute_dtype=torch.bfloat16, active: Optional[torch.Tensor] = None,
+                     valid: Optional[torch.Tensor] = None):
+    """Speculative verify: score T = k + 1 tokens a row in one pass over the
+    paged pool.
+
+    ``tokens`` (B, T) is [last committed token, drafts d_1..d_k] per row and
+    ``pos`` (B,) each row's next write position, so token (b, t) lives at
+    ``pos[b] + t``.  Every layer writes the T entries into the pool before
+    it attends, so the logits (B, T, V) are what T sequential ``decode_lm``
+    steps give: logits[:, t] scores the token after tokens[:, t].  A
+    rejection rolls back by position bookkeeping alone.  ``valid`` (B, T)
+    sends writes past ``max_len`` (and inactive rows') to the trash block;
+    logits there are garbage the caller ignores.  Layer i addresses its
+    slice of the stacked pool, as ``prefill_prefix_lm`` does; the pool is
+    updated in place.
+
+    Only the fully-paged tier: all-attention or MLA decoders.  MoE capacity
+    competition couples the k + 1 tokens, so MoE raises, as in JAX."""
+    if cfg.family != "decoder" or cfg.moe:
+        raise NotImplementedError(
+            "speculative verify supports only fully-paged attention/MLA decoders "
+            f"(got family={cfg.family!r}, moe={cfg.moe})"
+        )
+    B, T = tokens.shape
+    x = _embed_tokens(params, cfg, tokens, compute_dtype)
+    pos = pos.to(torch.int32)
+    positions = pos[:, None] + torch.arange(T, dtype=torch.int32, device=x.device)[None]
+    if valid is None:
+        valid = torch.ones((B, T), dtype=torch.bool, device=x.device)
+    if active is not None:
+        valid = valid & active[:, None]
+        x = x * active.to(x.dtype).reshape(B, 1, 1)
+    wins, bases = cfg.layer_windows(), cfg.layer_rope_bases()
+    tables = _rope_tables(cfg, positions)
+    for g in scan_groups(cfg):
+        gc = caches[g.name]["sub0"]
+        # every layer of the group writes the same pool slots
+        first = next(gc[n] for n in gc if n in PAGED_CACHE_LEAVES)
+        index = verify_token_index(block_tables, positions, first.shape[2 if g.stacked else 1],
+                                   valid)
+        for li, p_l in _group_layers(params[g.name], g):
+            c_l = {n: (leaf[li - g.offset] if g.stacked else leaf) for n, leaf in gc.items()}
+            x, _ = block_verify_paged(p_l["sub0"], x, c_l, block_tables, positions, cfg=cfg,
+                                      valid=valid, window=wins[li], rope_base=bases[li],
+                                      compute_dtype=compute_dtype,
+                                      rope_table=tables.get(bases[li]), cache_index=index)
+    logits, _ = _head(params, cfg, x)
     return logits, caches
 
 

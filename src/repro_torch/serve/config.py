@@ -1,10 +1,16 @@
 """The serving configuration object and the engine's capability report
 (mirrors ``repro/serve/config.py``, reduced to the knobs this port serves:
-greedy or sampled decoding on the paged pool)."""
+greedy or sampled decoding on the paged pool, the prefix cache, chunked
+prefill and self-speculative decoding).
+
+Cross-feature conflicts are refused at construction, as in the JAX
+package: ``prefix_cache`` with ``speculative`` (the draft pool does not
+share blocks under the radix index), and ``speculative`` with
+``prefill_chunk`` (the draft pool mirrors the target's admission one-shot)."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Sequence
+from typing import Any, Dict, Optional, Sequence
 
 from repro_torch.models.lm import PAGED_CACHE_LEAVES, scan_groups
 
@@ -16,7 +22,16 @@ class ServeConfig:
     top_k         — top-k sampling cutoff (0: off);
     seed          — base seed of the (request, step)-keyed sampling streams;
     block_size    — tokens per paged KV block;
-    n_blocks      — pool capacity in blocks (0: n_slots x ceil(max_len/block))."""
+    n_blocks      — pool capacity in blocks (0: n_slots x ceil(max_len/block));
+    prefix_cache  — radix prefix cache over the pool (inert off the
+                    fully-paged tier);
+    speculative   — a ``serve.SpeculativeConfig``: draft-k / verify-k+1
+                    self-speculative decoding (inert off its tier);
+    prefill_chunk — > 0 splits admissions into tail-prefill chunks of at
+                    most this many tokens, one per step beside the live
+                    decode (inert off the fully-paged tier);
+    time_admissions — record each admission's wall time
+                    (``Scheduler.admit_times``)."""
 
     n_slots: int = 0
     temperature: float = 0.0
@@ -24,6 +39,10 @@ class ServeConfig:
     seed: int = 0
     block_size: int = 16
     n_blocks: int = 0
+    prefix_cache: bool = False
+    speculative: Optional[Any] = None  # serve.SpeculativeConfig
+    prefill_chunk: int = 0
+    time_admissions: bool = False
 
     def __post_init__(self):
         if self.n_slots < 0:
@@ -36,6 +55,13 @@ class ServeConfig:
             raise ValueError(f"block_size must be >= 1, got {self.block_size}")
         if self.n_blocks < 0:
             raise ValueError(f"n_blocks must be >= 0 (0 = dense-equivalent), got {self.n_blocks}")
+        if self.prefill_chunk < 0:
+            raise ValueError(f"prefill_chunk must be >= 0 (0 = one-shot), got {self.prefill_chunk}")
+        if self.prefix_cache and self.speculative is not None:
+            raise ValueError("speculative decoding and prefix_cache are mutually exclusive")
+        if self.speculative is not None and self.prefill_chunk:
+            raise ValueError("speculative decoding and prefill_chunk are mutually exclusive "
+                             "(the draft pool mirrors admission prefills one-shot)")
 
     def resolve(self, engine=None, requests: Sequence[Any] = ()) -> "ServeConfig":
         """The explicit copy a Scheduler is built from: ``n_slots=0`` becomes
@@ -58,17 +84,19 @@ class Capability:
         return self.supported
 
 
-def _tier_reasons(engine) -> list:
+def _tier_reasons(engine, *, allow_mla: bool = False) -> list:
     """Why this engine misses the fully-paged tier (empty when it holds):
     every cache leaf of every group must page into the block pool, so MoE
-    capacity coupling and MLA's compressed cache keep a model off it."""
+    capacity coupling keeps a model off it, and MLA's compressed cache too
+    unless ``allow_mla`` (the speculative verify has an MLA form; the tail
+    prefill has none)."""
     cfg = engine.cfg
     r = []
     if cfg.family != "decoder":
         r.append(f"family '{cfg.family}' is not an all-attention decoder")
     if cfg.moe:
         r.append("MoE capacity competition couples tokens across the batch")
-    if cfg.use_mla:
+    if cfg.use_mla and not allow_mla:
         r.append("MLA's compressed cache has no tail-prefill trace")
     if not r:
         specs = engine.prefill_cache_specs()
@@ -80,23 +108,25 @@ def _tier_reasons(engine) -> list:
 
 def capabilities(engine) -> Dict[str, Capability]:
     """Structural serving capabilities of ``engine`` in the port, with
-    reasons.
+    reasons, as the JAX package reports them.
 
     fully_paged     — every cache leaf of every group pages into the block
                       pool (no MoE, no MLA): the tier on which admissions to
                       a quantized pool run the tail-prefill trace;
-    prefix_cache    — not ported yet (the radix cache and copy-on-write);
-    chunked_prefill — not ported yet (chunks of the tail-prefill trace);
-    speculative     — not ported yet (draft / verify rounds);
+    prefix_cache    — radix prefix sharing would share (the fully-paged tier);
+    chunked_prefill — ``prefill_chunk`` would chunk (the same tier);
+    speculative     — draft / verify rounds would run (the tier with MLA
+                      allowed: the verify has an absorbed MLA form);
     ep_moe          — the port has no expert parallelism: MoE layers run
                       on one card."""
     strict = _tier_reasons(engine)
-    later = "not ported yet"
+    with_mla = _tier_reasons(engine, allow_mla=True)
+    full = Capability(not strict, "; ".join(strict))
     return {
-        "fully_paged": Capability(not strict, "; ".join(strict)),
-        "prefix_cache": Capability(False, later),
-        "chunked_prefill": Capability(False, later),
-        "speculative": Capability(False, later),
+        "fully_paged": full,
+        "prefix_cache": full,
+        "chunked_prefill": full,
+        "speculative": Capability(not with_mla, "; ".join(with_mla)),
         "ep_moe": Capability(False, "no MoE layers" if not engine.cfg.moe
                              else "the port has no expert parallelism: MoE layers run on one "
                                   "card"),

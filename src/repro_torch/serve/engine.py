@@ -54,7 +54,7 @@ from repro_torch.models.lm import (
     scan_groups,
 )
 from repro_torch.models.quantized import tree_has_packed
-from repro_torch.nn.tree import tree_bytes, tree_to
+from repro_torch.nn.tree import flatten_with_paths, is_packed, tree_bytes, tree_to
 
 
 def _as_blocks(src, axis: int, p_blocks: int, block: int):
@@ -182,6 +182,9 @@ class SchedulerFns:
     layer by layer, attention over the pool itself) for one tail bucket.
     Both are memoized; ``admit_compiles`` counts the distinct steps built.
 
+    ``cow_copy(caches, src, dst)`` clones one physical pool row for the
+    prefix cache's copy-on-write.
+
     Every step samples through ``_sample``: argmax when greedy, else
     ``sample_tokens`` on stream ids keyed by (request, step), so slot
     placement, arrival order and preemption replay cannot change a draw."""
@@ -230,6 +233,26 @@ class SchedulerFns:
             self._admits_prefix[key] = self._build_admit_prefix(*key)
             self.admit_compiles += 1
         return self._admits_prefix[key]
+
+    def cow_copy(self, caches, src: int, dst: int):
+        """Copy-on-write block clone, in place: physical pool row ``src``
+        copied to ``dst`` in every paged leaf and its ``_scale`` exponent
+        sibling, at every layer (axis 1 of a stacked group).  The prefix
+        cache calls it when a hit ends inside a cached block: the request
+        appends into its private copy while the source keeps serving the
+        cache.  A quantized block keeps the source's exponent, set once at
+        the block's first write.  Row 0 is the trash block and is never a
+        target."""
+        if dst == 0 or src == 0:
+            raise ValueError(f"copy-on-write touches the trash block: src {src}, dst {dst}")
+        for g in self._groups:
+            if not g.paged[0]:
+                continue
+            for name, leaf in caches[g.name]["sub0"].items():
+                if name.removesuffix("_scale") in PAGED_CACHE_LEAVES:
+                    leaf.select(1 if g.stacked else 0, dst).copy_(
+                        leaf.select(1 if g.stacked else 0, src))
+        return caches
 
     def _first_token(self, logits, stream: int, seed: int, temperature):
         return self._sample(logits[:, -1, :], lambda: torch.full(
@@ -297,7 +320,8 @@ class ServeEngine:
         # pin both backends now; construct a new engine to switch
         self.backend = dispatch.resolve_packed_backend(self.device)
         self.attn_backend = dispatch.resolve_attention_backend(self.device)
-        self._sched_fns: Dict[Any, SchedulerFns] = {}
+        self._sched_fns: Dict[Any, Any] = {}
+        self._fingerprint = None
 
     @classmethod
     def from_symog(cls, cfg: ModelConfig, params, symog_state, symog_cfg, *, max_len: int,
@@ -345,6 +369,41 @@ class ServeEngine:
             self._sched_fns[key] = SchedulerFns(self, greedy=greedy, top_k=top_k)
         return self._sched_fns[key]
 
+    def speculative_fns(self, *, greedy: bool, top_k: int):
+        """Memoized draft / verify steps (``serve.speculative.SpeculativeFns``)
+        per (greedy, top_k), as ``scheduler_fns``: they use this TARGET
+        engine's config only, and the draft's params ride in as arguments."""
+        from repro_torch.serve.speculative import SpeculativeFns
+
+        top_k = 0 if greedy else int(top_k)
+        key = ("spec", bool(greedy), top_k)
+        if key not in self._sched_fns:
+            self._sched_fns[key] = SpeculativeFns(self, greedy=greedy, top_k=top_k)
+        return self._sched_fns[key]
+
+    def params_fingerprint(self) -> str:
+        """Within-process identity of the served artifact, namespacing the
+        prefix cache: ``quantize_tree`` and ``pack_tree`` params give other
+        KV bytes from the same tokens, so their blocks must never
+        cross-share.  Hashes the tree structure (paths, which leaves are
+        ``Packed``), each leaf's shape and dtype, and the tree's object
+        identity: conservative, as in the JAX package (two equal trees
+        fingerprint apart; a false split costs hits, a false merge would
+        corrupt streams)."""
+        if self._fingerprint is None:
+            import hashlib
+
+            h = hashlib.sha1()
+            h.update(f"packed={self.packed} id={id(self.params)}".encode())
+            for path, leaf in flatten_with_paths(self.params):
+                if is_packed(leaf):
+                    desc = f"P{leaf.n_bits}{tuple(leaf.data.shape)}/{leaf.data.dtype}"
+                else:
+                    desc = f"{tuple(getattr(leaf, 'shape', ()))}/{getattr(leaf, 'dtype', '')}"
+                h.update(f"{path}:{desc};".encode())
+            self._fingerprint = h.hexdigest()[:16]
+        return self._fingerprint
+
     def capabilities(self):
         """The port's structural serving capabilities, with reasons
         (``serve.config.capabilities``)."""
@@ -366,7 +425,8 @@ class ServeEngine:
 
     def serve(self, requests: Sequence[Any], config=None, *, return_scheduler: bool = False):
         """Continuous-batching serve of ``requests`` (scheduler.Request) under
-        ``config`` (a ServeConfig).  Completions come in submission order."""
+        ``config`` (a ServeConfig; ``config.speculative`` runs the draft /
+        verify scheduler).  Completions come in submission order."""
         from repro_torch.serve.scheduler import serve_requests
 
         comps, sched = serve_requests(self, requests, config)

@@ -729,6 +729,8 @@ def _mla_routes(args, kw):
     dict(B=4, T=1, H=128, r=512, rope=64, block=16, mb=20),
     dict(B=3, T=3, H=8, r=64, rope=16, block=8, mb=9),
     dict(B=2, T=2, H=5, r=36, rope=6, block=4, mb=7),
+    # the speculative verify's shape: T = k + 1 = 5 query rows a batch row
+    dict(B=4, T=5, H=128, r=512, rope=64, block=16, mb=20),
 ])
 @pytest.mark.parametrize("qdtype", ["float32", "bfloat16"])
 def test_paged_attention_mla_matches_plain(dev, pool, shape, qdtype):
@@ -758,7 +760,7 @@ MLA_POOLS = ["bfloat16", "float32", "kv_f", "int8", "int4"]
 
 
 @pytest.mark.parametrize("pool", MLA_POOLS)
-@pytest.mark.parametrize("T,H", [(1, 128), (3, 8), (4, 5), (1, 40)])
+@pytest.mark.parametrize("T,H", [(1, 128), (3, 8), (4, 5), (1, 40), (5, 128)])
 def test_paged_attention_mla_ragged_rows(dev, pool, T, H):
     """Rows from position 0 to the table's last slot in one batch (one block
     visible to the first, all 32 to the last), their table entries past each
@@ -1060,3 +1062,179 @@ def test_sampler_on_card_matches_cpu(dev):
     for top_k in (0, 50):
         got = sample_tokens(logits.to(dev), streams.to(dev), 123, 0.7, top_k).cpu()
         assert torch.equal(got, sample_tokens(logits, streams, 123, 0.7, top_k))
+
+
+@pytest.mark.parametrize("pool", ["bfloat16", "q4"])
+def test_paged_attention_verify_shape(dev, pool):
+    """The speculative verify's launch (internlm2: K 8, G 2, hd 128; B 4,
+    T 5 = k + 1): ragged pos0 of about 300 tokens, and a row whose last
+    query positions run past its table's end (max_blocks·block), which
+    the kernel clamps to the table's last slot.  Every physical block no
+    row's table names is NaN in the bf16 pool (exponent 1000 in the int4
+    one): a read of any column past a table reaches the output.  Held to
+    the plain version on clean pools, the same bits on a second call."""
+    K, G, hd, block, mb, B, T = 8, 2, 128, 16, 32, 4, 5
+    rng = np.random.default_rng(55)
+    pos0 = np.asarray([290, 301, 312, mb * block - 2], np.int32)  # the last: 510..514
+    n_blocks = 2 * B * mb + 1
+    ids = rng.permutation(n_blocks - 1)[: B * mb].reshape(B, mb) + 1
+    bt = np.zeros((B, mb), np.int32)
+    for b in range(B):
+        n_own = min(mb, (int(pos0[b]) + T - 1) // block + 1)
+        bt[b, :n_own] = ids[b, :n_own]
+    hidden = sorted(set(range(n_blocks)) - set(bt[bt > 0].tolist()))
+    q = torch.from_numpy(rng.standard_normal((B, T, K, G, hd)).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    kw = dict(scale=hd**-0.5)
+    if pool == "q4":
+        (kp, vp), (ke, ve) = _quant_pools(rng, n_blocks, block, K, hd, 4, wide=False)
+        kw.update(k_scale_exp=ke.to(dev), v_scale_exp=ve.to(dev), kv_bits=4)
+        kp, vp = kp.to(dev), vp.to(dev)
+    else:
+        kp, vp = (torch.from_numpy(rng.standard_normal((n_blocks, block, K, hd)).astype(
+            np.float32)).to(dev, torch.bfloat16) for _ in range(2))
+    bt_d, pos0_d = torch.from_numpy(bt).to(dev), torch.from_numpy(pos0).to(dev)
+    want = paged_attention_ref(q, kp, vp, bt_d, pos0_d, **kw)
+    if pool == "q4":
+        for k in ("k_scale_exp", "v_scale_exp"):
+            kw[k] = kw[k].clone()
+            kw[k][hidden] = 1000
+    else:
+        kp, vp = kp.clone(), vp.clone()
+        kp[hidden], vp[hidden] = float("nan"), float("nan")
+    got = paged_attention(q, kp, vp, bt_d, pos0_d, **kw)
+    again = paged_attention(q, kp, vp, bt_d, pos0_d, **kw)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all()) and torch.equal(got, again)
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("T,pos0,window", [(256, 1000, 1024), (256, 1024, None),
+                                           (32, 1000, 1024), (3, 9, 8)])
+def test_paged_attention_chunk_and_hit_shapes(dev, T, pos0, window):
+    """gemma3's chunk and prefix-hit tails (B 1, K 4, G 2, hd 256, int4
+    pool): T 256 from a mid-block start (1,000) and from a block boundary
+    (1,024), T 32 from 1,000, and a short chunk under a binding window,
+    held to the plain version; blocks past the tail's last position are
+    poisoned (exponent 1000)."""
+    K, G, hd, block = 4, 2, 256, 16
+    mb = -(-(pos0 + T) // block) + 2
+    rng = np.random.default_rng(T + pos0)
+    n_blocks = mb + 1
+    bt = (rng.permutation(mb) + 1).astype(np.int32)
+    n_own = (pos0 + T - 1) // block + 1
+    hidden = [0] + bt[n_own:].tolist()
+    bt[n_own:] = 0
+    (kp, vp), (ke, ve) = _quant_pools(rng, n_blocks, block, K, hd, 4, wide=False)
+    q = torch.from_numpy(rng.standard_normal((1, T, K, G, hd)).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    bt_d = torch.from_numpy(bt[None]).to(dev)
+    p0 = torch.tensor([pos0], dtype=torch.int32, device=dev)
+    kw = dict(scale=hd**-0.5, window=window, kv_bits=4, k_scale_exp=ke.to(dev),
+              v_scale_exp=ve.to(dev))
+    kp, vp = kp.to(dev), vp.to(dev)
+    want = paged_attention_ref(q, kp, vp, bt_d, p0, **kw)
+    for k in ("k_scale_exp", "v_scale_exp"):
+        kw[k] = kw[k].clone()
+        kw[k][hidden] = 1000
+    got = paged_attention(q, kp, vp, bt_d, p0, **kw)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, paged_attention(q, kp, vp, bt_d, p0, **kw))
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=1e-2)
+
+
+def _reduced_engines(dev, arch="gemma3-4b", kv="bf16"):
+    """(quantize_tree engine, pack_tree tree) of ``arch``'s reduced config
+    on ``dev``, fp32 compute, from the port's seeded init_lm."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.core import SymogConfig, pack_tree, quantize_tree, symog_init
+    from repro_torch.models import init_lm
+    from repro_torch.serve import ServeEngine
+
+    cfg = dataclasses.replace(configs.get_reduced(arch), kv_cache_dtype=kv)
+    params = init_lm(0, cfg, device=dev)
+    scfg = SymogConfig(n_bits=2, total_steps=1)
+    st = symog_init(params, scfg)
+    eng = ServeEngine(cfg, quantize_tree(params, st, scfg), max_len=32,
+                      compute_dtype=torch.float32, device=dev)
+    return eng, pack_tree(params, st, scfg)
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int4_fp"])
+def test_cow_copy_on_card_matches_cpu(dev, kv):
+    from repro_torch.serve import Scheduler, ServeConfig
+
+    eng, _ = _reduced_engines(dev, kv=kv)
+    sched = Scheduler(eng, ServeConfig(n_slots=1, block_size=4))
+    gen = torch.Generator().manual_seed(0)
+    host = {}
+    for g, sub in sched.caches.items():
+        for name, leaf in sub["sub0"].items():
+            host[g, name] = torch.randint(-100, 100, leaf.shape, generator=gen).to(leaf.dtype)
+            leaf.copy_(host[g, name].to(dev))
+    cpu = {g: {"sub0": {name: host[g, name].clone() for name in sub["sub0"]}}
+           for g, sub in sched.caches.items()}
+    fns = eng.scheduler_fns(greedy=True, top_k=0)
+    fns.cow_copy(sched.caches, 3, 6)
+    fns.cow_copy(cpu, 3, 6)
+    torch.cuda.synchronize()
+    for g, sub in sched.caches.items():
+        for name, leaf in sub["sub0"].items():
+            assert torch.equal(leaf.cpu(), cpu[g]["sub0"][name]), (g, name)
+            assert not torch.equal(leaf.cpu(), host[g, name]), (g, name)
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int4_fp"])
+def test_speculative_serve_on_card_matches_generate_static(dev, kv):
+    """Reduced gemma3, fp32: the quantize_tree target with its 2-bit
+    pack_tree twin as the draft (the draft's matmuls and both pools'
+    attention on the kernels; the verify launches the GQA kernel at T = k +
+    1).  From a float pool it serves the greedy stream of the card's static
+    loop (dense caches).  An int4 pool rounds k/v, which the static loop's
+    caches do not, so there the bar is a repeat giving the same tokens."""
+    from repro_torch.serve import Request, ServeConfig, SpeculativeConfig
+
+    eng, draft = _reduced_engines(dev, kv=kv)
+    rng = np.random.default_rng(8)
+    reqs = [Request(tokens=rng.integers(0, eng.cfg.vocab_size, size=L).astype(np.int32),
+                    max_new_tokens=b) for L, b in ((3, 9), (11, 12), (6, 5))]
+    sc = ServeConfig(n_slots=2, block_size=4, speculative=SpeculativeConfig(draft=draft, k=4))
+    before = aops.quant_launches if kv != "bf16" else aops.launches
+    comps, sched = eng.serve(reqs, sc, return_scheduler=True)
+    torch.cuda.synchronize()
+    assert sched.stats["spec_steps"] > 0
+    assert (aops.quant_launches if kv != "bf16" else aops.launches) > before
+    if kv != "bf16":
+        assert [c.tokens for c in eng.serve(reqs, sc)] == [c.tokens for c in comps]
+        return
+    for r, c in zip(reqs, comps):
+        want = eng.generate_static({"tokens": torch.from_numpy(np.asarray(r.tokens)[None])},
+                                   r.max_new_tokens)[0].tolist()
+        assert c.tokens == want
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("K,N", [(32, 48), (2048, 8192), (2048, 92544)])
+def test_plain_matmul_rows_do_not_depend_on_the_batch(dev, dtype, K, N):
+    """``dense_apply`` on a float kernel and ``embed_logits`` give a row the
+    same bits whether it rides with 2, 3, 14 or 19 other rows (a decode at
+    3 or 4 slots, a verify of T 5 at 3 or 4 slots): the row count picks
+    cuBLAS's kernel, so the card pads rows to a multiple of ROW_TILE."""
+    from repro_torch.models.layers import ROW_TILE, dense_apply, embed_logits
+
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(K + N)
+    w = torch.from_numpy((rng.standard_normal((K, N)) * K**-0.5).astype(np.float32)).to(dev, dt)
+    x = torch.from_numpy(rng.standard_normal((ROW_TILE + 5, K)).astype(np.float32)).to(dev, dt)
+    outs = [dense_apply({"kernel": w}, x[:m]) for m in (3, 4, 15, 20, ROW_TILE)]
+    heads = [embed_logits({"embedding": w.t()}, x[:m]) for m in (3, 4, 15, 20)]
+    torch.cuda.synchronize()
+    for y in outs[1:]:
+        assert torch.equal(y[:3], outs[0])
+    for y in heads[1:]:
+        assert torch.equal(y[:3], heads[0])
+    torch.testing.assert_close(outs[-1].float(), (x[:ROW_TILE].float() @ w.float()),
+                               rtol=1e-2, atol=1e-2)

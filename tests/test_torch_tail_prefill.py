@@ -16,8 +16,8 @@ reduced configs, fp32 compute, on the CPU.  Params are the 2-bit
     identical to JAX's jitted serve, with pools and per-block exponents
     array_equal outside the trash block (physical row 0, where a bucket's
     pad rows all scatter, in an order neither package defines);
-  - ``capabilities()`` agrees with JAX's on ``fully_paged`` for every arch
-    the port has, and the port reports what it has not ported yet."""
+  - ``capabilities()`` agrees with JAX's on ``fully_paged`` and the
+    features that ride it for every arch the port has."""
 import dataclasses
 import functools
 
@@ -182,10 +182,12 @@ def test_capabilities_fully_paged_match_jax():
         jeng = JEngine(cfg, jax.tree_util.tree_map(lambda t: jnp.asarray(t.numpy()), own),
                        max_len=16, compute_dtype=jnp.float32)
         teng = ServeEngine(cfg, own, max_len=16, compute_dtype=torch.float32, device="cpu")
-        want, got = jeng.capabilities()["fully_paged"], teng.capabilities()
+        jcaps, got = jeng.capabilities(), teng.capabilities()
+        want = jcaps["fully_paged"]
         assert bool(got["fully_paged"]) == bool(want), arch
         assert bool(got["fully_paged"].reason) == (not want), arch
         for name in ("prefix_cache", "chunked_prefill", "speculative", "ep_moe"):
-            assert not got[name] and got[name].reason, (arch, name)
+            assert bool(got[name]) == bool(jcaps[name]), (arch, name)
+            assert bool(got[name].reason) == (not jcaps[name]), (arch, name)
         sched = Scheduler(teng, ServeConfig(n_slots=1, block_size=BLOCK))
         assert sched._quant_admit == bool(want)
