@@ -17,7 +17,12 @@ Phases, one JSON line each:
                shape at rows of about 64, 300 and 500 cached tokens), 3c
                symog_update on every quantizable leaf
                shape of internlm2-1.8b plus an odd n, half-step ties, the
-               clip and a misaligned operand, 3d fixedpoint_matmul_experts
+               clip and a misaligned operand, and with a Δ per leading
+               group: olmoe's 6-layer expert leaf (6, 64, 2048, 1024), f
+               (6, 64); deepseek-v3's MTP expert stack (256, 7168, 2048), f
+               (256,), 45 GB of operands drawn and checked chunk by chunk;
+               a ragged (3, 5, 7, 9), f (3, 5): each bit-identical to the
+               plain version on two calls, 3d fixedpoint_matmul_experts
                on olmoe-1b-7b's expert stacks (64 experts, one f each, C = 4
                and 80 in bf16 and fp32, the prefill capacities C = 5, 20, 80
                in bf16, 2 and 4 bits) and fixedpoint_matmul at olmoe's
@@ -96,7 +101,19 @@ Phases, one JSON line each:
                the Δ search, step 1's fused update against the composed one
                leaf by leaf, 6 steps through ``make_train_step`` on the fused
                route (8 symog_update launches per step), then the trained
-               weights packed and served;
+               weights packed and served (remat off, so that its step ms and
+               peak stay comparable with earlier runs);
+ 7b. olmoe   — SYMOG training of olmoe-1b-7b at every published width, 6 of
+     train     its 16 layers (2.72 B parameters; one Δ per (layer, expert)):
+               two backward passes of step 1 bit-identical; step 1 fused
+               vs composed leaf by leaf, the fused update repeated
+               identical; 6 fused steps with remat on (JAX's default), 9
+               launches a step, then 3 with remat off, step ms and peak
+               bytes each way, ce / aux / z per step; the trained weights
+               packed and served from an int4 pool (rows 1b and 3);
+ 7c. deepseek — reduced deepseek-v3 with its MTP loss, 3 steps at fp32:
+     reduced   the card's fused route against the CPU's composed one, every
+               loss term and param;
   8. olmoe   — olmoe-1b-7b at full width and all 16 layers, 2-bit packed
                with one Δ per expert (``symog_init`` timed), served as in
                phase 5 (same traffic and checks) from an int4 SYMOG KV pool;
@@ -140,7 +157,15 @@ Phases, one JSON line each:
                staggered arrivals; (d) internlm2 at 4 layers, fp32:
                ``decode_verify_lm`` through the kernels (an inactive row, a
                row past max_len) against sequential ``decode_lm`` steps and
-               the plain path.
+               the plain path;
+ 12. CNNs    — (a) LeNet-5, VGG-7/11/16 and DenseNet-76 at full width, fp32:
+               logits and BN stats on the card against the CPU, train and
+               eval mode; (b) LeNet-5 under tests/test_system.py's recipe
+               (120 float steps, 220 SYMOG steps, batch 64, data seed 1):
+               the relative quantization error, conv2 trimodal, clipping's
+               switch rate, the three accuracies printed; (c) VGG7 at full
+               width, batch 128 of 32x32x3, the same recipe: step ms,
+               launches a step, quantization error, accuracies.
 Each serving and training path zeroes every kernel's launch count just
 before it runs and reads them just after.
 Then each phase's seconds and the total, the ``kernels`` summary line (the
@@ -1360,7 +1385,106 @@ def phase_symog(torch, dev, cfg):
         if not ok:
             raise Failed(f"symog_update {name} {shape} bits={n_bits} {case}: err {err}")
     torch.cuda.empty_cache()
+    grouped = [_grouped_case(torch, dev, name, shape, lead)
+               for name, shape, lead in SYMOG_GROUPED_CASES]
+    rows += grouped
+    worst = max([worst] + [r["max_abs_err"] for r in grouped])
     return rows, worst, full
+
+
+# a Δ per leading group: (name, shape, leading dims that carry f)
+SYMOG_GROUPED_CASES = [
+    ("olmoe_experts_6_layers", (6, 64, 2048, 1024), 2),  # a stacked (L, E, D, F) leaf
+    ("deepseek_mtp_experts", (256, 7168, 2048), 1),  # the MTP block's unstacked (E, D, F)
+    ("ragged", (3, 5, 7, 9), 2),  # groups of 63: the scalar path
+]
+SYMOG_CHUNK = 1 << 28  # elements of one chunk of the plain version's check
+
+
+def _grouped_operands(torch, dev, shape, lead: int, seed: int):
+    """(w, g, v) as (G, group) fp32 on the card, Δ (G,), and ``fill(rows)``,
+    which redraws the three operands' rows ``rows`` from per-chunk seeds:
+    a chunk of the inputs can be made again after the kernel overwrote w
+    and v, so the plain version is checked chunk by chunk in little memory
+    (the deepseek case's operands are 45 GB)."""
+    G = math.prod(shape[:lead])
+    group = math.prod(shape[lead:])
+    f = 2 + torch.arange(G, device=dev) % 4  # Δ 2^-2 .. 2^-5
+    delta = torch.exp2(-f.to(torch.float32)).reshape(shape[:lead])
+    step = max(1, SYMOG_CHUNK // group)
+    chunks = [(r, min(G, r + step)) for r in range(0, G, step)]
+    gen = torch.Generator(device=dev)
+
+    def draw(c):
+        r0, r1 = chunks[c]
+        gen.manual_seed(seed * 100_003 + c)
+        d = delta.reshape(G, 1)[r0:r1]
+        w = torch.empty((r1 - r0, group), device=dev).normal_(generator=gen).mul_(1.3 * d)
+        g = torch.empty_like(w).normal_(generator=gen).mul_(1e-4)
+        v = torch.empty_like(w).normal_(generator=gen).mul_(1e-4)
+        return w, g, v
+
+    w, g, v = (torch.empty((G, group), device=dev) for _ in range(3))
+
+    def fill():
+        for c, (r0, r1) in enumerate(chunks):
+            for dst, src in zip((w, g, v), draw(c)):
+                dst[r0:r1] = src
+
+    fill()
+    return w, g, v, delta, chunks, draw, fill
+
+
+def _grouped_case(torch, dev, name, shape, lead, n_bits=2):
+    """One grouped-Δ case: the kernel twice from the same inputs, each time
+    held bit for bit to the plain version chunk by chunk; timed (5 calls)
+    against its bound (20 B an element + the Δ gather)."""
+    from repro_torch.kernels.symog_update import ops as sops
+    from repro_torch.kernels.symog_update.ref import symog_update_ref
+
+    w, g, v, delta, chunks, draw, fill = _grouped_operands(torch, dev, shape, lead, seed=7)
+    n, G = w.numel(), delta.numel()
+    kw = dict(lam_eff=10.0 * math.exp(9.0) * 2.0 / n, lr=0.01, mu=0.9, n_bits=n_bits)
+    equal, plain_ms, worst = [], 0.0, 0.0
+    for call in range(2):
+        if call:
+            fill()
+        sops.symog_update(w.view(shape), g.view(shape), v.view(shape), delta=delta, **kw)
+        torch.cuda.synchronize()
+        for c, (r0, r1) in enumerate(chunks):
+            w0, g0, v0 = draw(c)
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            rw, rv = symog_update_ref(w0, g0, v0, delta=delta.reshape(-1)[r0:r1].contiguous(),
+                                      **kw)
+            t1.record()
+            t1.synchronize()
+            if call == 0:
+                plain_ms += t0.elapsed_time(t1)
+            equal.append(bool(torch.equal(w[r0:r1], rw) and torch.equal(v[r0:r1], rv)))
+            worst = max(worst, (w[r0:r1] - rw).abs().max().item(),
+                        (v[r0:r1] - rv).abs().max().item())
+            del w0, g0, v0, rw, rv
+    ms = events_ms(lambda: sops.symog_update(w.view(shape), g.view(shape), v.view(shape),
+                                              delta=delta, **kw), 5, torch)
+    b_ms, b_by = bound(20 * n + 4 * G, SYMOG_FLOPS * n, "float32")
+    group = n // G
+    row = {"phase": "kernel", "kernel": "symog_update", "leaf": name, "shape": list(shape),
+           "f_shape": list(delta.shape), "group": group,
+           "path": "vector" if group % 4 == 0 else "scalar", "n": n, "n_bits": n_bits,
+           "case": "grouped_delta", "chunks": len(chunks), "max_abs_err": worst,
+           "bit_identical_both_calls": all(equal), "pass": all(equal), "ms": ms,
+           "plain_ms": plain_ms, "plain_note": f"the plain version over {len(chunks)} "
+                                                f"chunk(s) of whole groups, summed",
+           "bound_ms": b_ms, "bound_by": b_by, "achieved_GBps": 20 * n / (ms * 1e-3) / 1e9}
+    emit(row)
+    del w, g, v
+    torch.cuda.empty_cache()
+    if not row["pass"]:
+        raise Failed(f"symog_update grouped {name} {shape}: not bit-identical to its plain "
+                     f"version (max err {worst})")
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -2095,19 +2219,60 @@ def _profiled_step(torch, step, state, batch):
                            "top": [[k[:60], us / 1e3, n] for k, us, n in kern[:12]]}, wall
 
 
+def _step1_fused_vs_composed(torch, state, grads, scfg, tx, *, lam, lr, arch, repeat=False):
+    """Step 1 from one set of grads, leaf by leaf on copies: the fused update
+    (``symog_update``, a Δ per (layer, expert) on expert stacks) against the
+    composed one at TRAIN_TOL; with ``repeat`` the fused update runs twice
+    and must give the same bits."""
+    from repro_torch import core
+    from repro_torch.nn.tree import flatten_with_paths
+    from repro_torch.train import composed_update, fused_update
+
+    g_by, v_by, f_by = (dict(flatten_with_paths(t)) for t in (grads, state.opt_state,
+                                                                state.symog.f))
+    rows, worst, all_ok, same = [], 0.0, True, True
+    for path, w in flatten_with_paths(state.params):
+        sub = core.SymogState(f={"w": f_by[path]}, mask={"w": state.symog.mask[path]})
+        g = {"w": g_by[path]}
+        fp, fv = fused_update({"w": w.clone()}, g, {"w": v_by[path].clone()}, sub, scfg, tx,
+                              lr=lr, lam=lam)
+        if repeat:
+            fp2, fv2 = fused_update({"w": w.clone()}, g, {"w": v_by[path].clone()}, sub, scfg,
+                                    tx, lr=lr, lam=lam)
+            same = same and bool(torch.equal(fp["w"], fp2["w"]) and torch.equal(fv["w"], fv2["w"]))
+            del fp2, fv2
+        cp, cv = composed_update({"w": w}, g, {"w": v_by[path]}, sub, scfg, tx, lr=lr, lam=lam)
+        errs = [(fp["w"] - cp["w"]).abs().max().item(), (fv["w"] - cv["w"]).abs().max().item()]
+        ok = bool(torch.allclose(fp["w"], cp["w"], **TRAIN_TOL)
+                  and torch.allclose(fv["w"], cv["w"], **TRAIN_TOL))
+        rows.append([path, list(w.shape), list(f_by[path].shape), errs[0], errs[1], ok])
+        worst, all_ok = max(worst, *errs), all_ok and ok
+        del fp, fv, cp, cv
+    row = {"phase": "train_step1_fused_vs_composed", "arch": arch, "tol": TRAIN_TOL,
+           "leaves": rows, "max_abs_err": worst, "pass": all_ok and same}
+    if repeat:
+        row["fused_repeat_bit_identical"] = same
+    emit(row)
+    if not row["pass"]:
+        raise Failed(f"train {arch}: fused and composed step-1 updates disagree, or the fused "
+                     "update does not repeat")
+    return row
+
+
 def phase_train(torch, dev):
     import numpy as np
     from repro_torch import configs, core, optim
     from repro_torch.data import SyntheticLM, SyntheticLMConfig
     from repro_torch.kernels.symog_update import ops as sops
     from repro_torch.models import init_lm, lm_train_loss
-    from repro_torch.nn.tree import flatten_with_paths, tree_leaves
+    from repro_torch.nn.tree import tree_leaves
     from repro_torch.serve import Request, ServeConfig, ServeEngine
-    from repro_torch.train import (composed_update, fused_update, init_train_state,
-                                   make_train_step)
+    from repro_torch.train import init_train_state, make_train_step
     from repro_torch.train.trainer import _accum_grads
 
-    cfg = configs.get_config("internlm2-1.8b")  # full width, all 24 layers
+    # full width, all 24 layers; remat off, as this phase has always run (its step
+    # ms and peak stay comparable with earlier runs)
+    cfg = dataclasses.replace(configs.get_config("internlm2-1.8b"), remat=False)
     torch.cuda.reset_peak_memory_stats(dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(12)
@@ -2133,28 +2298,10 @@ def phase_train(torch, dev):
         return lm_train_loss(p, b, cfg, compute_dtype=torch.bfloat16)
 
     _, _, grads = _accum_grads(loss_fn, state.params, batches[0], 1)
-    lam, lr = core.lambda_at(scfg, 0), lr_fn(0)
-    g_by, v_by, f_by = (dict(flatten_with_paths(t)) for t in (grads, state.opt_state,
-                                                                state.symog.f))
-    cmp_rows, cmp_worst, cmp_ok = [], 0.0, True
-    for path, w in flatten_with_paths(state.params):
-        sub = core.SymogState(f={"w": f_by[path]}, mask={"w": state.symog.mask[path]})
-        g = {"w": g_by[path]}
-        fp, fv = fused_update({"w": w.clone()}, g, {"w": v_by[path].clone()}, sub, scfg, tx,
-                              lr=lr, lam=lam)
-        cp, cv = composed_update({"w": w}, g, {"w": v_by[path]}, sub, scfg, tx, lr=lr, lam=lam)
-        errs = [(fp["w"] - cp["w"]).abs().max().item(), (fv["w"] - cv["w"]).abs().max().item()]
-        ok = bool(torch.allclose(fp["w"], cp["w"], **TRAIN_TOL)
-                  and torch.allclose(fv["w"], cv["w"], **TRAIN_TOL))
-        cmp_rows.append([path, list(w.shape), errs[0], errs[1], ok])
-        cmp_worst, cmp_ok = max(cmp_worst, *errs), cmp_ok and ok
-        del fp, fv, cp, cv
-    del grads, g_by, v_by
+    _step1_fused_vs_composed(torch, state, grads, scfg, tx, lam=core.lambda_at(scfg, 0),
+                             lr=lr_fn(0), arch="internlm2-1.8b")
+    del grads
     torch.cuda.empty_cache()
-    emit({"phase": "train_step1_fused_vs_composed", "tol": TRAIN_TOL, "leaves": cmp_rows,
-          "max_abs_err": cmp_worst, "pass": cmp_ok})
-    if not cmp_ok:
-        raise Failed("train: fused and composed step-1 updates disagree")
 
     # the main path: TRAIN_STEPS fused steps through make_train_step
     step = make_train_step(cfg, tx, lr_fn, symog_cfg=scfg, compute_dtype=torch.bfloat16)
@@ -2218,6 +2365,418 @@ def phase_train(torch, dev):
         raise Failed(f"serving the trained model failed: {srow}")
     del eng
     torch.cuda.empty_cache()
+    return row
+
+
+# ---------------------------------------------------------------------------
+# phase 7b: SYMOG training of olmoe-1b-7b at full width, 6 of its 16 layers
+# (one Δ per (layer, expert)), then the trained weights served packed;
+# 7c: reduced deepseek-v3 with its MTP loss, the card against the CPU
+# ---------------------------------------------------------------------------
+OLMOE_TRAIN_LAYERS = 6  # 2.72 B parameters: ~54 GB of masters, momentum, grads
+REMAT_OFF_STEPS = 3
+
+
+def _timed_step(torch, step, state, batch):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = step(state, batch)
+    torch.cuda.synchronize()
+    return state, m, (time.perf_counter() - t0) * 1e3
+
+
+def phase_train_olmoe(torch, dev, cfg=None, steps: int = TRAIN_STEPS, seq: int = 512,
+                      max_len: int = 128):
+    """``cfg``, ``steps``, ``seq`` and ``max_len`` shrink the phase for a CPU
+    rehearsal only; the card runs the defaults."""
+    import numpy as np
+    from repro_torch import configs, core, optim
+    from repro_torch.data import SyntheticLM, SyntheticLMConfig
+    from repro_torch.kernels.symog_update import ops as sops
+    from repro_torch.models import init_lm, lm_train_loss
+    from repro_torch.nn.tree import flatten_with_paths, tree_leaves
+    from repro_torch.serve import Request, ServeConfig, ServeEngine
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.train.trainer import _accum_grads
+
+    if cfg is None:  # every published width, depth 16 -> 6; JAX's remat default (on)
+        cfg = dataclasses.replace(configs.get_config("olmoe-1b-7b"), n_layers=OLMOE_TRAIN_LAYERS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(21)
+    params = init_lm(gen, cfg, device=dev)  # fp32 master weights
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    tx = optim.sgd(momentum=0.9)
+    scfg = core.SymogConfig(n_bits=2, total_steps=steps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = init_train_state(params, tx, scfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    quant = [p for p, m in state.symog.mask.items() if m]
+    f_shapes = {p: list(f.shape) for p, f in flatten_with_paths(state.symog.f)
+                if state.symog.mask[p] and f.ndim}
+    rqe_before = core.quant_error_metrics(state.params, state.symog, scfg)["rel_quant_error"].item()
+    data = SyntheticLM(SyntheticLMConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=4,
+                                         seed=1))
+    batches = [{k: torch.as_tensor(v, device=dev) for k, v in next(data).items()}
+               for _ in range(steps + REMAT_OFF_STEPS)]
+    lr_fn = core.linear_lr(0.01, 0.001, steps)
+
+    # step 1 twice from one state: grads bit-identical (the MoE gathers'
+    # slot-order backward); then fused vs composed leaf by leaf, expert
+    # stacks included, the fused update itself repeated
+    def loss_fn(p, b):
+        return lm_train_loss(p, b, cfg, compute_dtype=torch.bfloat16)
+
+    l1, m1, g1 = _accum_grads(loss_fn, state.params, batches[0], 1)
+    l2, m2, g2 = _accum_grads(loss_fn, state.params, batches[0], 1)
+    grads_same = bool(torch.equal(l1, l2) and all(torch.equal(m1[k], m2[k]) for k in m1)
+                      and all(torch.equal(a, b) for a, b in zip(tree_leaves(g1),
+                                                                 tree_leaves(g2))))
+    del g2
+    torch.cuda.empty_cache()
+    emit({"phase": "train_step1_repeat", "arch": cfg.name, "loss": l1.item(),
+          "grads_bit_identical": grads_same, "pass": grads_same})
+    if not grads_same:
+        raise Failed("train olmoe: two backward passes from one state differ")
+    cmp = _step1_fused_vs_composed(torch, state, g1, scfg, tx, lam=core.lambda_at(scfg, 0),
+                                   lr=lr_fn(0), arch=cfg.name, repeat=True)
+    del g1
+    torch.cuda.empty_cache()
+
+    # the main path: fused steps through make_train_step, remat on (JAX's
+    # default for this config); then a few more with remat off
+    step = make_train_step(cfg, tx, lr_fn, symog_cfg=scfg, compute_dtype=torch.bfloat16)
+    losses, step_ms, per_step, metrics = [], [], [], []
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    upd_ms = prof = prof_wall = None
+    for i in range(steps):
+        before = sops.launches
+        if i == steps - 1 and steps > 2:  # the last step under torch.profiler
+            state, m, upd_ms, prof, wall = _profiled_step(torch, step, state, batches[i])
+            prof_wall = wall
+        else:
+            state, m, wall = _timed_step(torch, step, state, batches[i])
+            step_ms.append(wall)
+        per_step.append(sops.launches - before)
+        row_m = {k: (v.item() if hasattr(v, "item") else v) for k, v in m.items()}
+        metrics.append(row_m)
+        losses.append(row_m["loss"])
+        emit({"phase": "train_step", "arch": cfg.name, "step": i, **row_m, "ms": wall,
+              "symog_update_launches": per_step[-1]})
+    counts_on = read_counts()
+    peak_on = torch.cuda.max_memory_allocated(dev)
+    off_cfg = dataclasses.replace(cfg, remat=False)
+    step_off = make_train_step(off_cfg, tx, lr_fn, symog_cfg=scfg, compute_dtype=torch.bfloat16)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    off_ms, off_losses = [], []
+    for i in range(REMAT_OFF_STEPS):
+        state, m, wall = _timed_step(torch, step_off, state, batches[steps + i])
+        off_ms.append(wall)
+        off_losses.append(m["loss"].item())
+    peak_off = torch.cuda.max_memory_allocated(dev)
+    rqe_after = core.quant_error_metrics(state.params, state.symog, scfg)["rel_quant_error"].item()
+    finite = all(math.isfinite(x) for r in metrics for x in
+                 (r["loss"], r["ce"], r["moe_aux_loss"], r["moe_z_loss"])) and all(
+        math.isfinite(x) for x in off_losses)
+    row = {"phase": "train", "arch": cfg.name, "layers": cfg.n_layers,
+           "reduced": f"depth {configs.get_config('olmoe-1b-7b').n_layers} -> {cfg.n_layers}",
+           "d_model": cfg.d_model, "experts": [cfg.n_experts, cfg.top_k, cfg.d_ff_expert],
+           "vocab": cfg.vocab_size, "params": n_params, "quantizable_leaves": len(quant),
+           "per_expert_f_shapes": f_shapes, "batch": [4, seq], "compute": "bfloat16",
+           "master": "float32", "n_bits": 2,
+           "optimizer": "sgd nesterov 0.9, linear_lr 0.01->0.001, SYMOG lambda0 10 alpha 9",
+           "symog_init_s": init_s, "losses": losses,
+           "ce": [r["ce"] for r in metrics], "moe_aux_loss": [r["moe_aux_loss"] for r in metrics],
+           "moe_z_loss": [r["moe_z_loss"] for r in metrics],
+           "remat_on": {"step_ms": step_ms, "median_step_ms": float(np.median(step_ms[1:])),
+                        "peak_device_bytes": peak_on, "profiled_step_ms": prof_wall,
+                        "update_device_ms": upd_ms, "profile": prof},
+           "remat_off": {"step_ms": off_ms, "median_step_ms": float(np.median(off_ms[1:])),
+                         "peak_device_bytes": peak_off, "losses": off_losses},
+           "symog_update_launches": counts_on["symog_update"], "launches_per_step": per_step,
+           "step1_max_abs_err": cmp["max_abs_err"], "rel_quant_error_before": rqe_before,
+           "rel_quant_error_after": rqe_after}
+    row["pass"] = (finite and per_step == [len(quant)] * steps
+                   and counts_on["symog_update"] == len(quant) * steps
+                   and all(v == 0 for k, v in counts_on.items() if k != "symog_update")
+                   and len(f_shapes) == 3)
+    emit(row)
+    if not row["pass"]:
+        raise Failed(f"train phase {cfg.name} failed: {row}")
+
+    # serve the trained weights, packed (one Δ per expert), from an int4 pool
+    eng = ServeEngine.from_symog(dataclasses.replace(cfg, kv_cache_dtype="int4_fp"), state.params,
+                                 state.symog, scfg, max_len=max_len,
+                                 compute_dtype=torch.bfloat16, device=dev)
+    del state, params
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(3)
+    reqs = [Request(tokens=rng.integers(0, cfg.vocab_size, size=L), max_new_tokens=8)
+            for L in (40, 100)]
+    zero_counts()
+    comps = eng.serve(reqs, ServeConfig(n_slots=2, block_size=16))
+    counts = read_counts()
+    experts = sum(counts[k] for k in counts if k.startswith("fixedpoint_matmul_experts"))
+    srow = {"phase": "train_serve", "arch": cfg.name, "requests": len(reqs),
+            "tokens": [list(map(int, c.tokens)) for c in comps],
+            "finish_reasons": [c.finish_reason for c in comps], "launches": counts,
+            "expert_matmul_launches": experts}
+    srow["pass"] = (all(len(c.tokens) == 8 and c.finish_reason == "length" for c in comps)
+                    and experts > 0 and counts["paged_attention_quant"] > 0
+                    and counts["paged_attention"] == 0 and counts["symog_update"] == 0)
+    emit(srow)
+    if not srow["pass"]:
+        raise Failed(f"serving the trained {cfg.name} failed: {srow}")
+    del eng
+    torch.cuda.empty_cache()
+    row["serve_launches"] = counts
+    return row
+
+
+def phase_train_deepseek_reduced(torch, dev, steps: int = 3):
+    """Reduced deepseek-v3 (MLA, a dense layer, a shared expert, the MTP
+    module), fp32 compute, SYMOG 2-bit at the default 1,000-step λ
+    schedule: ``steps`` steps on the card (the fused route) and on the CPU
+    (the composed one) from the same init and batches; loss, ce, aux, z,
+    mtp_ce and every param at TRAIN_TOL."""
+    import numpy as np
+    from repro_torch import configs, core, optim
+    from repro_torch.data import SyntheticLM, SyntheticLMConfig
+    from repro_torch.models import init_lm
+    from repro_torch.nn.tree import flatten_with_paths, tree_to
+    from repro_torch.train import init_train_state, make_train_step
+
+    cfg = configs.get_reduced(DEEPSEEK)
+    data = SyntheticLM(SyntheticLMConfig(vocab_size=cfg.vocab_size, seq_len=16, global_batch=4,
+                                         seed=4))
+    batches = [next(data) for _ in range(steps)]
+    out = {}
+    for where in ("cpu", dev):
+        tx = optim.sgd(momentum=0.9)
+        scfg = core.SymogConfig(n_bits=2)
+        st = init_train_state(tree_to(init_lm(0, cfg, device="cpu"), where), tx, scfg)
+        step = make_train_step(cfg, tx, core.linear_lr(0.01, 0.001, steps), symog_cfg=scfg,
+                               compute_dtype=torch.float32)
+        zero_counts()
+        ms = []
+        for b in batches:
+            st, m = step(st, b)
+            ms.append({k: (v.item() if hasattr(v, "item") else v) for k, v in m.items()})
+        out[str(where)] = (st, ms, read_counts()["symog_update"])
+    (cs, cm, c_launch), (gs, gm, g_launch) = out["cpu"], out[str(dev)]
+    keys = ("loss", "ce", "moe_aux_loss", "moe_z_loss", "mtp_ce")
+    metric_ok = all(np.allclose(g[k], c[k], rtol=TRAIN_TOL["rtol"], atol=0) for g, c in zip(gm, cm)
+                    for k in keys)
+    worst, params_ok = 0.0, True
+    for (path, a), (_, b) in zip(flatten_with_paths(gs.params), flatten_with_paths(cs.params)):
+        a = a.cpu()
+        worst = max(worst, (a - b).abs().max().item())
+        params_ok = params_ok and bool(torch.allclose(a, b, **TRAIN_TOL))
+    n_quant = sum(gs.symog.mask.values())
+    row = {"phase": "train_deepseek_reduced", "arch": cfg.name, "steps": steps,
+           "compute": "float32", "tol": TRAIN_TOL, "card": gm, "cpu": cm,
+           "max_abs_param_err": worst, "symog_update_launches": g_launch,
+           "quantizable_leaves": n_quant, "cpu_launches": c_launch}
+    row["pass"] = (metric_ok and params_ok and g_launch == n_quant * steps and c_launch == 0
+                   and all(k in gm[0] for k in keys))
+    emit(row)
+    if not row["pass"]:
+        raise Failed(f"deepseek reduced training, card vs CPU: {row}")
+    return row
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the paper's CNNs — every arch's forward at full width against the
+# CPU; LeNet-5 under tests/test_system.py's recipe and gates; VGG7 at full
+# width on CIFAR-shaped synthetic images
+# ---------------------------------------------------------------------------
+CNN_FWD_TOL = dict(rtol=1e-4, atol=1e-4)  # logits, tests/test_torch_lm.py
+# torch seed of the LeNet init.  The recipe's float stage dies (loss at chance)
+# for about a draw in four, from the JAX package's init as from the port's
+# (scripts/lenet_float_seeds.py, scripts/lenet_float_seeds_jax.py); seed 0's
+# draw is one of them
+LENET_SEED = 1
+
+
+def phase_cnn_parity(torch, dev, batch: int = 8):
+    """Every ``PAPER_CNNS`` arch at full width, fp32, train and eval mode:
+    logits and new BN stats on the card against the CPU."""
+    import numpy as np
+    from repro_torch.data import SyntheticImages, SyntheticImagesConfig
+    from repro_torch.models import PAPER_CNNS, cnn_apply, cnn_init
+    from repro_torch.nn.tree import flatten_with_paths, tree_leaves, tree_to
+
+    rows = []
+    for name, cfg in PAPER_CNNS.items():
+        params, bn = cnn_init(0, cfg, device="cpu")
+        data = SyntheticImages(SyntheticImagesConfig(n_classes=cfg.n_classes, hw=cfg.input_hw,
+                                                     channels=cfg.in_channels,
+                                                     global_batch=batch, seed=2))
+        x = torch.from_numpy(next(data)["images"])
+        gp, gbn = tree_to(params, dev), tree_to(bn, dev)
+        worst, ok = 0.0, True
+        for train in (True, False):
+            with torch.no_grad():
+                cl, cbn = cnn_apply(params, bn, x, cfg, train=train)
+                gl, g_bn = cnn_apply(gp, gbn, x.to(dev), cfg, train=train)
+            pairs = [(gl, cl)] + [(a, b) for (_, a), (_, b) in
+                                  zip(flatten_with_paths(g_bn), flatten_with_paths(cbn))]
+            for a, b in pairs:
+                a = a.cpu()
+                worst = max(worst, (a - b).abs().max().item())
+                ok = ok and bool(torch.allclose(a, b, **CNN_FWD_TOL))
+            bn, gbn = cbn, g_bn  # eval reads the stats the train pass wrote
+        row = {"phase": "cnn_parity", "arch": name, "params": sum(t.numel()
+                                                                  for t in tree_leaves(params)),
+               "input": [batch, cfg.input_hw, cfg.input_hw, cfg.in_channels],
+               "n_classes": cfg.n_classes, "tol": CNN_FWD_TOL, "max_abs_err": worst,
+               "finite": bool(np.isfinite(gl.cpu().numpy()).all()), "pass": ok}
+        row["pass"] = ok and row["finite"]
+        emit(row)
+        rows.append(row)
+        if not row["pass"]:
+            raise Failed(f"cnn forward {name}: card and CPU disagree")
+    return rows
+
+
+def _cnn_recipe(torch, dev, cfg, *, seed: int, batch: int, snr: float, data_seed: int,
+                float_steps: int = 120, symog_steps: int = 220):
+    """tests/test_system.py's two stages: float pretrain (SGD-Nesterov,
+    linear lr 0.02 -> 0.002 over the SYMOG steps), then SYMOG 2-bit finetune
+    from the float weights; per-step launches and host ms of the SYMOG stage;
+    the three accuracies on 10 held-out batches."""
+    import numpy as np
+    from repro_torch import core, optim
+    from repro_torch.data import SyntheticImages, SyntheticImagesConfig
+    from repro_torch.kernels.symog_update import ops as sops
+    from repro_torch.models import cnn_init
+    from repro_torch.nn.tree import tree_leaves, tree_map
+    from repro_torch.train import CNNTrainState, make_cnn_eval, make_cnn_train_step
+
+    data = SyntheticImages(SyntheticImagesConfig(n_classes=cfg.n_classes, hw=cfg.input_hw,
+                                                 channels=cfg.in_channels, global_batch=batch,
+                                                 snr=snr, seed=data_seed))
+    params, bn = cnn_init(seed, cfg, device=dev)
+    tx = optim.sgd(momentum=0.9, nesterov=True)
+    lr = core.linear_lr(0.02, 0.002, symog_steps)
+    step_f = make_cnn_train_step(cfg, tx, lr)
+    st = CNNTrainState(params, bn, tx.init(params), None, 0)
+    float_loss = []
+    for _ in range(float_steps):
+        st, m = step_f(st, next(data))
+        float_loss.append(m["loss"])
+    float_st = st
+    scfg = core.SymogConfig(n_bits=2, total_steps=symog_steps)
+    sst = core.symog_init(float_st.params, scfg)
+    n_quant = sum(sst.mask.values())
+    step_s = make_cnn_train_step(cfg, tx, lr, symog_cfg=scfg)
+    p = tree_map(torch.clone, float_st.params)  # the fused route updates in place
+    st2 = CNNTrainState(p, float_st.bn_state, tx.init(p), sst, 0)
+    per_step, ms, losses = [], [], []
+    zero_counts()
+    for _ in range(symog_steps):
+        before = sops.launches
+        st2, m, wall = _timed_step(torch, step_s, st2, next(data))
+        per_step.append(sops.launches - before)
+        ms.append(wall)
+        losses.append(m["loss"])
+    counts = read_counts()
+    ev = make_cnn_eval(cfg)
+
+    def acc(params, bn_state):
+        return float(np.mean([ev(params, bn_state, data.peek(50_000 + i)).item()
+                              for i in range(10)]))
+
+    naive_sst = core.symog_init(float_st.params, scfg)
+    qm = core.quant_error_metrics(st2.params, sst, scfg)["rel_quant_error"].item()
+    qm0 = core.quant_error_metrics(float_st.params, naive_sst, scfg)["rel_quant_error"].item()
+    res = {"params": sum(t.numel() for t in tree_leaves(params)), "quantizable_leaves": n_quant,
+           "batch": batch, "float_steps": float_steps, "symog_steps": symog_steps,
+           "float_loss_last": float(float_loss[-1]), "symog_loss_last": float(losses[-1]),
+           "losses_finite": bool(all(math.isfinite(float(x)) for x in float_loss + losses)),
+           "launches_per_step": sorted(set(per_step)), "symog_update_launches":
+               counts["symog_update"], "other_launches": {k: v for k, v in counts.items()
+                                                          if k != "symog_update" and v},
+           "step_ms_median": float(np.median(ms[1:])), "step_ms_first": ms[0],
+           "rel_quant_error": qm, "rel_quant_error_float": qm0,
+           "acc_float": acc(float_st.params, float_st.bn_state),
+           "acc_symog_2bit": acc(core.quantize_tree(st2.params, sst, scfg), st2.bn_state),
+           "acc_naive_postquant": acc(core.quantize_tree(float_st.params, naive_sst, scfg),
+                                      float_st.bn_state)}
+    res["launches_ok"] = (per_step == [n_quant] * symog_steps
+                          and counts["symog_update"] == n_quant * symog_steps
+                          and not res["other_launches"])
+    return res, float_st, st2, sst, scfg, data, tx
+
+
+def phase_cnn_lenet(torch, dev):
+    """LeNet-5 under tests/test_system.py's recipe (batch 64, snr 0.6, data
+    seed 1): the gates the JAX suite asserts, the accuracies printed."""
+    from repro_torch import core
+    from repro_torch.models import PAPER_CNNS
+    from repro_torch.nn.tree import flatten_with_paths, tree_map
+    from repro_torch.train import CNNTrainState, make_cnn_train_step
+
+    import numpy as np
+
+    cfg = PAPER_CNNS["lenet5"]
+    res, float_st, st2, sst, scfg, data, tx = _cnn_recipe(torch, dev, cfg, seed=LENET_SEED,
+                                                          batch=64, snr=0.6, data_seed=1)
+    w, f = st2.params["conv2"]["kernel"], sst.f["conv2"]["kernel"]
+    delta = float(core.delta_from_f(f))
+    stats = core.mode_stats(w, delta, 2)
+    counts, stds = stats["count"].cpu().tolist(), stats["std"].cpu().tolist()
+
+    def switch_rate(clip: bool, steps=50):
+        scfg_c = core.SymogConfig(n_bits=2, total_steps=200, clip=clip)
+        s_c = core.symog_init(float_st.params, scfg_c)
+        step = make_cnn_train_step(cfg, tx, core.constant(0.02), symog_cfg=scfg_c)
+        p = tree_map(torch.clone, float_st.params)
+        stc = CNNTrainState(p, float_st.bn_state, tx.init(p), s_c, 0)
+        prev, rates = core.mode_tree(stc.params, s_c, scfg_c), []
+        for _ in range(steps):
+            stc, _ = step(stc, next(data))
+            cur = core.mode_tree(stc.params, s_c, scfg_c)
+            rates.append(np.mean([v.item() for _, v in
+                                  flatten_with_paths(core.tree_switch_rates(prev, cur))]))
+            prev = cur
+        return float(np.mean(rates))
+
+    rate_clip, rate_noclip = switch_rate(True), switch_rate(False)
+    row = {"phase": "cnn_lenet5", "arch": "lenet5", "seed": LENET_SEED, **res,
+           "conv2_delta": delta, "conv2_mode_counts": counts, "conv2_mode_std": stds,
+           "switch_rate_clip": rate_clip, "switch_rate_noclip": rate_noclip,
+           "gates": {"rel_quant_error<0.05": res["rel_quant_error"] < 0.05,
+                     "10x_below_float": res["rel_quant_error_float"] > 10 * res[
+                         "rel_quant_error"],
+                     "trimodal": sum(counts) == w.numel() and all(c > 0 for c in counts),
+                     "std<delta/8": all(x < delta / 8 for x in stds),
+                     "clip_raises_switch_rate": rate_clip > rate_noclip}}
+    row["pass"] = all(row["gates"].values()) and res["launches_ok"] and res["losses_finite"]
+    emit(row)
+    if not row["pass"]:
+        raise Failed(f"LeNet-5 recipe failed: {row}")
+    return row
+
+
+def phase_cnn_vgg7(torch, dev, batch: int = 128):
+    """VGG7 at full width on CIFAR-shaped synthetic images (32x32x3, 10
+    classes, snr 0.6), the same two stages; timed and counted, not gated on
+    accuracy."""
+    from repro_torch.models import PAPER_CNNS
+
+    res, *_ = _cnn_recipe(torch, dev, PAPER_CNNS["vgg7"], seed=0, batch=batch, snr=0.6,
+                          data_seed=1)
+    row = {"phase": "cnn_vgg7", "arch": "vgg7", "input": [batch, 32, 32, 3], **res}
+    row["pass"] = res["launches_ok"] and res["losses_finite"]
+    emit(row)
+    if not row["pass"]:
+        raise Failed(f"VGG7 recipe failed: {row}")
     return row
 
 
@@ -3401,6 +3960,8 @@ def main() -> int:
         del eng
         torch.cuda.empty_cache()
         train = run("7 train internlm2", phase_train, torch, dev)
+        train_moe = run("7b train olmoe", phase_train_olmoe, torch, dev)
+        train_ds = run("7c train deepseek reduced", phase_train_deepseek_reduced, torch, dev)
         olmoe, eng = run("8 serve olmoe", phase_serve_olmoe, torch, dev)
         run("8 profile olmoe", phase_profile, torch, dev, eng)
         del eng
@@ -3420,6 +3981,9 @@ def main() -> int:
         run("11b prefix and chunk parity", phase_prefix_parity, torch, dev)
         spec = run("11c speculative", phase_speculative, torch, dev)
         verify = run("11d verify parity", phase_verify_parity, torch, dev)
+        run("12a cnn parity", phase_cnn_parity, torch, dev)
+        lenet = run("12b cnn lenet5", phase_cnn_lenet, torch, dev)
+        vgg7 = run("12c cnn vgg7", phase_cnn_vgg7, torch, dev)
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3477,8 +4041,18 @@ def main() -> int:
          "library_note": "no single PyTorch call computes the SYMOG step (quantize, "
                          "regularizer gradient, Nesterov momentum and clip)",
          "work": f"one full-width internlm2-1.8b update: the 8 quantizable leaves, "
-                 f"{sy_full['elements']} fp32 elements, 20 B each",
-         "pass": all(r["pass"] for r in sy_rows)},
+                 f"{sy_full['elements']} fp32 elements, 20 B each (one Δ a leaf)",
+         "launches_from": "internlm2-1.8b train (24 layers, 6 steps x 8 leaves)",
+         "grouped_delta_cases": [
+             {k: r[k] for k in ("leaf", "shape", "f_shape", "group", "path", "ms", "plain_ms",
+                                "bound_ms", "bound_by", "max_abs_err",
+                                "bit_identical_both_calls")}
+             for r in sy_rows if r["case"] == "grouped_delta"],
+         "launches_olmoe_train": train_moe["symog_update_launches"],
+         "launches_deepseek_reduced_train": train_ds["symog_update_launches"],
+         "launches_lenet5_symog": lenet["symog_update_launches"],
+         "launches_vgg7_symog": vgg7["symog_update_launches"],
+         "pass": all(r["pass"] for r in sy_rows) and train_moe["symog_update_launches"] > 0},
         {"name": "fixedpoint_matmul_experts", "route": "cuda",
          "source": "src/repro_torch/csrc/fixedpoint_matmul.cu",
          "replaces": "src/repro/kernels/fixedpoint_matmul/ops.py:81",

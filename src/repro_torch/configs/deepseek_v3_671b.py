@@ -59,4 +59,5 @@ REDUCED = ModelConfig(
     use_mtp=True,
     tie_lm_head=False,
     capacity_factor=8.0,  # dropless at smoke-test scale (exactness checks)
+    remat=False,
 )

@@ -43,4 +43,5 @@ REDUCED = ModelConfig(
     final_softcap=30.0,
     post_norm=True,
     embed_scale=True,
+    remat=False,
 )

@@ -45,4 +45,5 @@ REDUCED = ModelConfig(
     qk_norm=True,
     post_norm=True,
     embed_scale=True,
+    remat=False,
 )

@@ -32,4 +32,5 @@ REDUCED = ModelConfig(
     d_ff=64,
     vocab_size=256,
     tie_lm_head=False,
+    remat=False,
 )

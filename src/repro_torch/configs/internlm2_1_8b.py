@@ -29,4 +29,5 @@ REDUCED = ModelConfig(
     d_ff=64,
     vocab_size=256,
     rope_base=1e6,
+    remat=False,
 )

@@ -41,4 +41,5 @@ REDUCED = ModelConfig(
     qk_norm=True,
     tie_lm_head=False,
     capacity_factor=8.0,  # dropless at smoke-test scale (exactness checks)
+    remat=False,
 )

@@ -34,6 +34,16 @@ def quantize(x: torch.Tensor, delta, n_bits: int) -> torch.Tensor:
     return (quantize_int(x, delta, n_bits) * delta).to(x.dtype)
 
 
+def quantize_ste(x: torch.Tensor, delta, n_bits: int) -> torch.Tensor:
+    """Straight-through variant: forward Q_N, gradient identity (JAX's
+    ``x + stop_gradient(Q_N(x) - x)``, the same ops in the same order).
+
+    Not used by SYMOG training itself (the paper's gradient flows through
+    the real-valued weights) but provided for the hard-quantization
+    baselines (BinaryConnect-style)."""
+    return x + (quantize(x, delta, n_bits) - x).detach()
+
+
 def quant_error(x: torch.Tensor, delta, n_bits: int) -> torch.Tensor:
     """w - Q_N(w; Δ)."""
     return x - quantize(x, delta, n_bits)

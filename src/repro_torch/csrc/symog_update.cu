@@ -1,11 +1,15 @@
 // Fused SYMOG optimizer step (paper Alg. 1 lines 15-17: SGD with Nesterov
 // momentum, the Eq. 4 regularizer gradient and the §3.4 weight clip), for
-// Hopper (sm_90a).  Per element, with scalars Δ, λ_eff = λ·2/M_l, η, μ:
+// Hopper (sm_90a).  Per element, with Δ, λ_eff = λ·2/M_l, η, μ:
 //
 //   m     = clip(rint(w/Δ), ±qmax)          (round half to even)
 //   g_tot = g + λ_eff·(w − m·Δ)
 //   v'    = μ·v + g_tot
 //   w'    = clip(w − η·(g_tot + μ·v'), ±Δ·qmax)
+//
+// Δ is one value for the whole tensor, or one per leading group of `group`
+// consecutive elements (element i takes delta[i / group]): an MoE expert
+// stack (L, E, D, F) with one f per (layer, expert) is E·L groups of D·F.
 //
 // Replaces the Pallas TPU kernel repro/kernels/symog_update/kernel.py
 // `_kernel` (launched by `symog_update_2d`).
@@ -21,7 +25,13 @@
 //   * w and v are updated IN PLACE (JAX returns new arrays);
 //   * Δ is read from device memory (the leaf's fp32 2^-f, made once), so the
 //     host never learns f; λ_eff, η, μ and qmax come by value — a new value
-//     recompiles nothing.
+//     recompiles nothing;
+//   * a Δ per group is a template instance of its own, so the single-Δ loop
+//     stays as it was.  Grouped, the vector loop reads one Δ per float4
+//     (the wrapper takes it only when `group` is a multiple of 4, so that no
+//     vector straddles two groups) and the scalar loop one per element; the
+//     clip limit Δ·qmax follows Δ.  The gather is ≤ L·E floats, L1-resident,
+//     against 20 B an element: the byte bound is unchanged.
 // Arithmetic uses the IEEE round-to-nearest intrinsics (__fdiv_rn, __fmul_rn,
 // __fadd_rn, __fsub_rn), which nvcc never contracts into FMAs: the kernel
 // performs the plain version's operations in its order and gives its results
@@ -47,23 +57,29 @@ __device__ __forceinline__ void step(float& w, float g, float& v, const Scalars&
   v = v_new;
 }
 
+__device__ __forceinline__ void set_delta(Scalars& s, float d) {
+  s.delta = d;
+  s.lim = __fmul_rn(d, s.qmax);
+}
+
+template <bool kGrouped>
 __global__ void __launch_bounds__(kThreads)
 symog_update_kernel(float* __restrict__ w, const float* __restrict__ g, float* __restrict__ v,
-                    const float* __restrict__ delta, long long n, long long n_vec, float lam_eff,
-                    float lr, float mu, float qmax) {
+                    const float* __restrict__ delta, long long n, long long n_vec,
+                    long long group, float lam_eff, float lr, float mu, float qmax) {
   Scalars s;
-  s.delta = *delta;
   s.lam_eff = lam_eff;
   s.lr = lr;
   s.mu = mu;
   s.qmax = qmax;
-  s.lim = __fmul_rn(s.delta, qmax);
+  if (!kGrouped) set_delta(s, *delta);
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   const long long tid = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   float4* w4 = reinterpret_cast<float4*>(w);
   const float4* g4 = reinterpret_cast<const float4*>(g);
   float4* v4 = reinterpret_cast<float4*>(v);
   for (long long i = tid; i < n_vec; i += stride) {
+    if (kGrouped) set_delta(s, __ldg(delta + (i * 4) / group));
     float4 a = w4[i];
     const float4 b = g4[i];
     float4 c = v4[i];
@@ -75,6 +91,7 @@ symog_update_kernel(float* __restrict__ w, const float* __restrict__ g, float* _
     v4[i] = c;
   }
   for (long long i = n_vec * 4 + tid; i < n; i += stride) {
+    if (kGrouped) set_delta(s, __ldg(delta + i / group));
     float a = w[i], c = v[i];
     step(a, g[i], c, s);
     w[i] = a;
@@ -84,18 +101,30 @@ symog_update_kernel(float* __restrict__ w, const float* __restrict__ g, float* _
 
 }  // namespace
 
-// w, v (n,) fp32 updated in place; g (n,) fp32; delta one fp32 on the device.
-// blocks: the grid size the wrapper chose (a few per SM).  Returns cudaError_t.
+// w, v (n,) fp32 updated in place; g (n,) fp32; delta n / group fp32 values on the
+// device (group == n: one Δ).  blocks: the grid size the wrapper chose (a few per SM).
+// Returns cudaError_t.
 extern "C" int symog_update_launch(void* w, const void* g, void* v, const void* delta,
-                                   long long n, float lam_eff, float lr, float mu, float qmax,
-                                   int blocks, void* stream) {
-  if (n < 0 || blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
+                                   long long n, long long group, float lam_eff, float lr,
+                                   float mu, float qmax, int blocks, void* stream) {
+  if (n < 0 || blocks < 1 || group < 1 || (n > 0 && n % group != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
+  const bool grouped = group != n;
   const uintptr_t mis = (reinterpret_cast<uintptr_t>(w) | reinterpret_cast<uintptr_t>(g) |
                          reinterpret_cast<uintptr_t>(v)) & 15u;
-  const long long n_vec = mis == 0 ? n / 4 : 0;
-  symog_update_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<float*>(w), static_cast<const float*>(g), static_cast<float*>(v),
-      static_cast<const float*>(delta), n, n_vec, lam_eff, lr, mu, qmax);
+  // a float4 must not straddle two groups
+  const long long n_vec = mis == 0 && (!grouped || group % 4 == 0) ? n / 4 : 0;
+  auto* wp = static_cast<float*>(w);
+  auto* gp = static_cast<const float*>(g);
+  auto* vp = static_cast<float*>(v);
+  auto* dp = static_cast<const float*>(delta);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (grouped)
+    symog_update_kernel<true><<<blocks, kThreads, 0, st>>>(wp, gp, vp, dp, n, n_vec, group,
+                                                           lam_eff, lr, mu, qmax);
+  else
+    symog_update_kernel<false><<<blocks, kThreads, 0, st>>>(wp, gp, vp, dp, n, n_vec, group,
+                                                            lam_eff, lr, mu, qmax);
   return static_cast<int>(cudaGetLastError());
 }

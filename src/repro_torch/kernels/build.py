@@ -134,7 +134,8 @@ def library() -> ctypes.CDLL:
             F, F, P,
         ]
         lib.paged_attention_mla_tc_launch.restype = I
-        lib.symog_update_launch.argtypes = [P, P, P, P, ctypes.c_longlong, F, F, F, F, I, P]
+        lib.symog_update_launch.argtypes = [P, P, P, P, ctypes.c_longlong, ctypes.c_longlong,
+                                             F, F, F, F, I, P]
         lib.symog_update_launch.restype = I
         _lib = lib
     return _lib

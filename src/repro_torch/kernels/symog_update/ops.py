@@ -4,9 +4,12 @@
 tensors and runs its plain version (``ref.py``) for CPU tensors.  Either way
 w and v are overwritten with (w', v') — JAX returns new arrays instead.  Any
 shape; w, g and v must be contiguous fp32 tensors of one shape on one
-device (no quiet cast).  ``delta`` is a Python float or a one-element fp32
-tensor on that device (the trainer passes the leaf's 2^-f, made once, so
-the host never reads f).
+device (no quiet cast).  ``delta`` is a Python float, a one-element fp32
+tensor on that device, or a contiguous fp32 tensor of G values there, G
+dividing ``w.numel()``: element i then takes ``delta[i // (numel / G)]``, the
+JAX package's ``_delta_for`` broadcast of a per-expert f (G = L·E for an
+(L, E, D, F) expert stack).  The trainer passes the leaf's 2^-f, made once,
+so the host never reads f.
 """
 from __future__ import annotations
 
@@ -33,9 +36,12 @@ def _check(w, g, v, delta) -> torch.Tensor:
                              f"w {tuple(w.shape)} on {w.device}")
     if not isinstance(delta, torch.Tensor):
         return torch.tensor(float(delta), dtype=torch.float32, device=w.device)
-    if delta.dtype != torch.float32 or delta.numel() != 1 or delta.device != w.device:
-        raise ValueError(f"delta must be one fp32 value on {w.device}, got "
-                         f"{delta.dtype} {tuple(delta.shape)} on {delta.device}")
+    G, n = delta.numel(), w.numel()
+    if (delta.dtype != torch.float32 or delta.device != w.device or not delta.is_contiguous()
+            or G < 1 or (G > 1 and n % G)):
+        raise ValueError(f"delta must be one fp32 value, or a contiguous fp32 tensor whose count "
+                         f"divides w's {n} elements, on {w.device}; got {delta.dtype} "
+                         f"{tuple(delta.shape)} on {delta.device}")
     return delta
 
 
@@ -47,16 +53,17 @@ def symog_update(w: torch.Tensor, g: torch.Tensor, v: torch.Tensor, *, delta, la
     qmax = float(2 ** (n_bits - 1) - 1)
     lam_eff, lr, mu = float(lam_eff), float(lr), float(mu)
     if not w.is_cuda:
-        w_new, v_new = symog_update_ref(w, g, v, delta=delta.reshape(()), lam_eff=lam_eff,
-                                        lr=lr, mu=mu, n_bits=n_bits)
+        w_new, v_new = symog_update_ref(w, g, v, delta=delta, lam_eff=lam_eff, lr=lr, mu=mu,
+                                        n_bits=n_bits)
         w.copy_(w_new)
         v.copy_(v_new)
         return w, v
     n = w.numel()
+    group = max(1, n // delta.numel())  # elements per Δ (n: one Δ)
     blocks = max(1, min(math.ceil(n / (4 * 256)), BLOCKS_PER_SM * build.sm_count(w.device)))
     err = build.library().symog_update_launch(
-        w.data_ptr(), g.data_ptr(), v.data_ptr(), delta.data_ptr(), n, lam_eff, lr, mu, qmax,
-        blocks, build.current_stream(w.device),
+        w.data_ptr(), g.data_ptr(), v.data_ptr(), delta.data_ptr(), n, group, lam_eff, lr, mu,
+        qmax, blocks, build.current_stream(w.device),
     )
     build.check(err, "symog_update")
     launches += 1

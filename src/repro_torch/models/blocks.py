@@ -86,10 +86,16 @@ def _moe_cfg(cfg: ModelConfig) -> MoEConfig:
 def _check_kind(cfg: ModelConfig, kind: str) -> None:
     if kind not in ("A", "D", "E"):
         raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet; the port serves the attention+MLP "
+            f"block kind {kind!r} is not ported yet; the port runs the attention+MLP "
             "('A', 'D') and attention+MoE ('E') decoder blocks, with GQA or MLA attention "
-            "(ROADMAP Queue 1 item 12)"
+            "(ROADMAP Queue 1 item 4)"
         )
+
+
+def zero_aux(device=None) -> Dict[str, torch.Tensor]:
+    """The MoE losses of a block without an MoE (JAX's ``zero_aux``)."""
+    z = torch.zeros((), dtype=torch.float32, device=device)
+    return {"moe_aux_loss": z, "moe_z_loss": z}
 
 
 def _norm_init(cfg: ModelConfig, dtype, device, lead=()):
@@ -145,35 +151,42 @@ def _mla_prefill_cache(c_kv, k_rope, cfg: ModelConfig, cache_len: int):
     return {"c_kv": cache_write(c_kv, dt), "k_rope": cache_write(k_rope, dt)}
 
 
-def _ffn(p, h, cfg: ModelConfig, kind: str, compute_dtype, **moe_kw):
+def _ffn(p, h, cfg: ModelConfig, kind: str, compute_dtype, with_aux: bool = False, **moe_kw):
+    """(y, aux): aux is None unless asked for, then the MoE losses (zeros
+    for an MLP block)."""
     if kind == "E":
-        y, _ = moe_apply(p["moe"], h, cfg=_moe_cfg(cfg), compute_dtype=compute_dtype,
-                         with_aux=False, **moe_kw)
-        return y
-    return mlp_apply(p["mlp"], h, cfg=_mlp_cfg(cfg), compute_dtype=compute_dtype)
+        y, aux = moe_apply(p["moe"], h, cfg=_moe_cfg(cfg), compute_dtype=compute_dtype,
+                           with_aux=with_aux, **moe_kw)
+        return y, (aux if with_aux else None)
+    y = mlp_apply(p["mlp"], h, cfg=_mlp_cfg(cfg), compute_dtype=compute_dtype)
+    return y, (zero_aux(h.device) if with_aux else None)
 
 
-def _finish_block(p, x, y, cfg: ModelConfig, kind: str, compute_dtype, **moe_kw):
+def _finish_block(p, x, y, cfg: ModelConfig, kind: str, compute_dtype, with_aux: bool = False,
+                  **moe_kw):
     """The block after attention: y (the attention output) through the
-    post-attention norm into the residual, then the FFN the same way."""
+    post-attention norm into the residual, then the FFN the same way.
+    Returns (x, aux) as ``_ffn``."""
     if cfg.post_norm:
         y = _norm_apply(cfg, p["post_attn_norm"], y)
     x = x + y
     h = _norm_apply(cfg, p["pre_mlp_norm"], x)
-    y = _ffn(p, h, cfg, kind, compute_dtype, **moe_kw)
+    y, aux = _ffn(p, h, cfg, kind, compute_dtype, with_aux, **moe_kw)
     if cfg.post_norm:
         y = _norm_apply(cfg, p["post_mlp_norm"], y)
-    return x + y
+    return x + y, aux
 
 
 def block_apply(p, x, *, cfg: ModelConfig, kind: str, positions, window=None,
                 rope_base=10000.0, compute_dtype=torch.bfloat16, cache_len: int = 0,
-                rope_table=None, seq_len: Optional[int] = None):
-    """Full-sequence block.  Returns (x, cache); ``cache_len`` > 0 also
-    returns the layer's prefill cache padded to that length.  ``seq_len``
-    (bucketed prefill): positions >= seq_len are padding, which only the
-    MoE capacity dispatch has to know (causal attention isolates them).
-    The MoE aux losses are not computed: serving reads none of them."""
+                rope_table=None, seq_len: Optional[int] = None, with_aux: bool = False):
+    """Full-sequence block.  Returns (x, aux, cache), as JAX's: ``cache`` is
+    the layer's prefill cache padded to ``cache_len`` (None unless > 0);
+    ``aux`` the MoE load-balancing and z losses when ``with_aux`` (training;
+    zeros for an MLP block), None otherwise: serving reads neither.
+    ``seq_len`` (bucketed prefill): positions >= seq_len are padding, which
+    only the MoE capacity dispatch has to know (causal attention isolates
+    them)."""
     _check_kind(cfg, kind)
     cache = None
     h = _norm_apply(cfg, p["pre_norm"], x)
@@ -189,7 +202,8 @@ def block_apply(p, x, *, cfg: ModelConfig, kind: str, positions, window=None,
                                return_kv=True, rope_table=rope_table)
         if cache_len:
             cache = _attn_prefill_cache(k, v, cfg, cache_len)
-    return _finish_block(p, x, y, cfg, kind, compute_dtype, seq_len=seq_len), cache
+    x, aux = _finish_block(p, x, y, cfg, kind, compute_dtype, with_aux, seq_len=seq_len)
+    return x, aux, cache
 
 
 def block_prefill_paged(p, x, cache, bt_row, positions, *, cfg: ModelConfig, seq_len: int,
@@ -204,7 +218,7 @@ def block_prefill_paged(p, x, cache, bt_row, positions, *, cfg: ModelConfig, seq
     y, cache = attn_prefill_paged(p["attn"], h, cache, bt_row, positions, cfg=_attn_cfg(cfg),
                                   seq_len=seq_len, window=window, rope_base=rope_base,
                                   compute_dtype=compute_dtype, rope_table=rope_table)
-    return _finish_block(p, x, y, cfg, "A", compute_dtype), cache
+    return _finish_block(p, x, y, cfg, "A", compute_dtype)[0], cache
 
 
 def block_verify_paged(p, x, cache, block_tables, positions, *, cfg: ModelConfig, valid,
@@ -227,7 +241,7 @@ def block_verify_paged(p, x, cache, block_tables, positions, *, cfg: ModelConfig
                                      cfg=_attn_cfg(cfg), valid=valid, window=window,
                                      rope_base=rope_base, compute_dtype=compute_dtype,
                                      rope_table=rope_table, cache_index=cache_index)
-    return _finish_block(p, x, y, cfg, "A", compute_dtype), cache
+    return _finish_block(p, x, y, cfg, "A", compute_dtype)[0], cache
 
 
 def block_cache_init(batch: int, max_len: int, cfg: ModelConfig, kind: str,
@@ -266,4 +280,4 @@ def block_decode(p, x, cache, pos, *, cfg: ModelConfig, kind: str, window=None,
         B = x.shape[0]
         cap = B if dropless_moe else max(cfg.top_k,
                                          math.ceil(2.0 * B * cfg.top_k / cfg.n_experts))
-    return _finish_block(p, x, y, cfg, kind, compute_dtype, capacity=cap), cache
+    return _finish_block(p, x, y, cfg, kind, compute_dtype, capacity=cap)[0], cache

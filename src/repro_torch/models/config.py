@@ -77,6 +77,9 @@ class ModelConfig:
     # through the tail prefill, MoE decoders through the bucketed prefill
     # plus a quantizing block scatter.
     kv_cache_dtype: str = "bf16"
+    # training: recompute each layer's forward in the backward
+    # (``torch.utils.checkpoint``)
+    remat: bool = True
 
     @property
     def moe(self) -> bool:

@@ -2,10 +2,12 @@
 embeddings → layer groups → head, plus prefill, decode and the training
 loss, the tail prefill over the paged pool (``prefill_prefix_lm``) and the
 speculative verify (``decode_verify_lm``).
-Dense decoders (internlm2, gemma2, gemma3, granite) serve and train; MoE decoders
-(olmoe; deepseek-v3 with MLA attention and leading dense layers) serve, and
-their training (aux/z losses, per-expert SYMOG update, deepseek's MTP loss)
-is not ported yet.
+Dense decoders (internlm2, gemma2, gemma3, granite) and MoE decoders (olmoe;
+deepseek-v3 with MLA attention and leading dense layers) serve and train;
+MoE training adds the load-balancing and z losses summed over layers and,
+for deepseek-v3, the multi-token-prediction loss (``_mtp_loss``).  The
+training forward recomputes each layer in the backward when ``cfg.remat``
+(``torch.utils.checkpoint``; JAX's ``jax.checkpoint`` over the scan body).
 
 Consecutive layers of one kind form a group whose params carry a stacked
 leading layer axis (``GroupSpec``/``scan_groups``, the JAX scan layout), so
@@ -15,10 +17,12 @@ axis, the port runs a Python loop over layer views.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models.blocks import (
@@ -28,6 +32,7 @@ from repro_torch.models.blocks import (
     block_init,
     block_prefill_paged,
     block_verify_paged,
+    zero_aux,
 )
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
@@ -80,7 +85,8 @@ def scan_groups(cfg: ModelConfig) -> List[GroupSpec]:
         else:
             runs.append((k, 1))
     if len(runs) > 2:
-        raise NotImplementedError("cyclic layer patterns (hybrid family) are not ported yet")
+        raise NotImplementedError("cyclic layer patterns (hybrid family) are not ported yet "
+                                  "(ROADMAP Queue 1 item 4)")
     groups, off = [], 0
     for i, (k, c) in enumerate(runs):
         groups.append(GroupSpec(f"layers{i}", (k,), c, off))
@@ -92,12 +98,13 @@ class ForwardOut(NamedTuple):
     logits: torch.Tensor
     caches: Any  # None unless prefill
     hidden: Optional[torch.Tensor]
+    aux: Optional[Dict[str, torch.Tensor]] = None  # MoE losses summed over layers (training)
 
 
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.family != "decoder":
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1 item 12)"
+            f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1 item 4)"
         )
 
 
@@ -187,11 +194,14 @@ def _embed_tokens(params, cfg: ModelConfig, tokens, compute_dtype):
 
 def forward_lm(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
                compute_dtype=torch.bfloat16, prefill_len: int = 0, last_only: bool = False,
-               seq_len: Optional[int] = None) -> ForwardOut:
+               seq_len: Optional[int] = None, with_aux: bool = False) -> ForwardOut:
     """Full-sequence forward.  ``prefill_len`` > 0 also returns the caches
     padded to that length; ``seq_len`` marks the real length of a
     right-padded (bucketed) prompt, so ``last_only`` reads its last REAL
-    position."""
+    position.  ``with_aux`` (training) fills ``aux`` with the MoE losses
+    summed over layers, as JAX's scan sums them.  With ``cfg.remat`` and
+    autograd on, each layer's activations are recomputed in the backward
+    instead of kept (the values and grads are the same bits)."""
     _check_family(cfg)
     tokens = batch["tokens"]
     B, T = tokens.shape
@@ -199,14 +209,23 @@ def forward_lm(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
     positions = torch.arange(T, dtype=torch.int32, device=x.device)[None].expand(B, T)
     wins, bases = cfg.layer_windows(), cfg.layer_rope_bases()
     tables = _rope_tables(cfg, positions)
+    remat = cfg.remat and torch.is_grad_enabled() and not prefill_len
+    aux = zero_aux(x.device) if with_aux else None
     caches: Dict[str, Any] = {}
     for g in scan_groups(cfg):
         per_layer = []
         for li, p_l in _group_layers(params[g.name], g):
-            x, c = block_apply(p_l["sub0"], x, cfg=cfg, kind=g.unit[0], positions=positions,
-                               window=wins[li], rope_base=bases[li],
-                               compute_dtype=compute_dtype, cache_len=prefill_len,
-                               rope_table=tables.get(bases[li]), seq_len=seq_len)
+            layer = functools.partial(
+                block_apply, p_l["sub0"], cfg=cfg, kind=g.unit[0], positions=positions,
+                window=wins[li], rope_base=bases[li], compute_dtype=compute_dtype,
+                cache_len=prefill_len, rope_table=tables.get(bases[li]), seq_len=seq_len,
+                with_aux=with_aux)
+            if remat:
+                x, a, c = torch.utils.checkpoint.checkpoint(layer, x, use_reentrant=False)
+            else:
+                x, a, c = layer(x)
+            if with_aux:
+                aux = {k: aux[k] + a[k] for k in aux}
             per_layer.append(c)
         if prefill_len:
             sub = per_layer[0] if not g.stacked else {
@@ -216,7 +235,8 @@ def forward_lm(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
     if last_only:
         x = x[:, -1:] if seq_len is None else x[:, seq_len - 1 : seq_len]
     logits, hidden = _head(params, cfg, x)
-    return ForwardOut(logits=logits, caches=caches if prefill_len else None, hidden=hidden)
+    return ForwardOut(logits=logits, caches=caches if prefill_len else None, hidden=hidden,
+                      aux=aux)
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype=None, device=None):
@@ -388,19 +408,53 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     return -torch.sum(ll * mask) / torch.clamp(torch.sum(mask), min=1.0)
 
 
-def lm_train_loss(params, batch, cfg: ModelConfig, *, compute_dtype=torch.bfloat16):
-    """(loss, metrics) of a dense decoder.  The MoE aux losses and the MTP
-    loss come with MoE training: an MoE or MTP config raises."""
-    if cfg.moe or cfg.use_mtp:
-        raise NotImplementedError(
-            "training MoE decoders (aux/z losses, per-expert SYMOG update, the MTP loss) is "
-            "not ported yet (ROADMAP Queue 1 item 12)"
-        )
-    out = forward_lm(params, batch, cfg, compute_dtype=compute_dtype)
+def _mtp_loss(params, cfg: ModelConfig, hidden, tokens, compute_dtype):
+    """DeepSeek-V3 multi-token prediction (JAX ``_mtp_loss``): one extra
+    block, fed the final hidden state at i and the embedding of token i+1,
+    predicts token i+2 through the shared head.  Its MoE losses are not
+    added, as in JAX."""
+    mtp = params["mtp"]
+    B, T = tokens.shape
+    h = _norm_apply(cfg, mtp["norm_h"], hidden[:, : T - 1])
+    e = _embed_tokens(params, cfg, tokens[:, 1:], compute_dtype)
+    e = _norm_apply(cfg, mtp["norm_e"], e)
+    x = torch.cat([h, e], dim=-1).to(compute_dtype)
+    # no compute dtype for the projection: JAX's dot promotes bf16 x fp32 to fp32
+    x = dense_apply(mtp["proj"], x.to(torch.promote_types(x.dtype, mtp["proj"]["kernel"].dtype)))
+    pos = torch.arange(T - 1, dtype=torch.int32, device=x.device)[None].expand(B, T - 1)
+    x, _, _ = block_apply(mtp["block"], x, cfg=cfg, kind="E" if cfg.moe else "A", positions=pos,
+                          window=None, rope_base=cfg.rope_base, compute_dtype=compute_dtype)
+    hN = _norm_apply(cfg, mtp["final_norm"], x)
+    if cfg.tie_lm_head:
+        logits = embed_logits(params["embed"], hN)
+    else:
+        logits = dense_apply(params["lm_head"], hN.to(torch.float32))
+    # logits[:, i] (built from token i+1 and h_i) predicts token i+2
+    return cross_entropy(logits[:, : T - 2], tokens[:, 2:])
+
+
+def lm_train_loss(params, batch, cfg: ModelConfig, *, compute_dtype=torch.bfloat16,
+                  moe_aux_coef: float = 0.01, moe_z_coef: float = 1e-3):
+    """(loss, metrics) of a decoder, JAX's ``lm_train_loss``: next-token
+    cross entropy, plus on an MoE config the layers' summed load-balancing
+    and z losses (``moe_aux_coef``, ``moe_z_coef``), plus ``mtp_weight`` x the
+    MTP cross entropy when ``cfg.use_mtp``.  Metric keys: ``ce``,
+    ``moe_aux_loss`` and ``moe_z_loss`` (MoE), ``mtp_ce`` (MTP), ``loss``."""
+    out = forward_lm(params, batch, cfg, compute_dtype=compute_dtype, with_aux=cfg.moe)
     tokens = batch["tokens"]
     mask = batch.get("loss_mask")
     ce = cross_entropy(out.logits[:, :-1], tokens[:, 1:], None if mask is None else mask[:, 1:])
-    return ce, {"ce": ce, "loss": ce}
+    loss = ce
+    metrics = {"ce": ce}
+    if cfg.moe:
+        loss = loss + moe_aux_coef * out.aux["moe_aux_loss"] + moe_z_coef * out.aux["moe_z_loss"]
+        metrics.update(out.aux)
+    if cfg.use_mtp:
+        mtp = _mtp_loss(params, cfg, out.hidden, tokens, compute_dtype)
+        loss = loss + cfg.mtp_weight * mtp
+        metrics["mtp_ce"] = mtp
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 class DecoderLM(torch.nn.Module):

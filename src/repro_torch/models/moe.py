@@ -20,6 +20,13 @@ what this module does instead:
   * the combine sums each token's k weighted expert outputs in slot order,
     in the compute dtype, one add at a time — the order of JAX's sequential
     scatter-add — so bf16 results are deterministic (no atomics).
+
+The backward is deterministic too.  The dispatch reads ``xb.repeat(k, 1)``,
+whose backward sums a token's k copies (a reduction, no atomics); the
+dispatch write's backward is a gather, and the dump row's grad is cut off
+with it.  The combine gather's backward is a gather as well
+(``_CombineGather``): each kept row gets its one assignment's grad, and a
+dropped read is weighted by 0.
 """
 from __future__ import annotations
 
@@ -98,6 +105,28 @@ def _route(p, x_flat, cfg: MoEConfig, with_aux: bool = True):
     return gates, idx, logits, aux
 
 
+class _CombineGather(torch.autograd.Function):
+    """``buf[read]``, whose backward is the gather through the inverse of
+    ``dest`` (each kept assignment's own buffer row, E·C for a dropped one):
+    buffer row r gets the grad of the one assignment it holds, or 0.  The
+    autograd default, an ``index_put_`` with accumulate, sorts the indices;
+    it made olmoe's train step 3–12% slower on an H100 (PERF.md)."""
+
+    @staticmethod
+    def forward(ctx, buf, read, dest):
+        ctx.save_for_backward(dest)
+        ctx.n_rows = buf.shape[0]
+        return buf[read]
+
+    @staticmethod
+    def backward(ctx, grad):
+        (dest,) = ctx.saved_tensors
+        n = len(dest)
+        src = torch.full((ctx.n_rows + 1,), n, dtype=dest.dtype, device=dest.device)
+        src = src.scatter_(0, dest, torch.arange(n, device=dest.device))[: ctx.n_rows]
+        return torch.cat([grad, grad.new_zeros((1, grad.shape[1]))])[src], None, None
+
+
 def _drop_limit(cfg: MoEConfig, n_real: int) -> int:
     """``ceil(cf · float32(n_real) / E)`` evaluated in fp32, as the JAX
     package evaluates it on its traced real length."""
@@ -145,11 +174,12 @@ def moe_apply(p, x, *, cfg: MoEConfig, compute_dtype=torch.bfloat16, capacity: i
         keep = keep & valid
     pos_c = torch.clamp(pos, 0, C - 1)
     # kept assignments own distinct (expert, slot) rows; dropped ones go to
-    # the dump row E·C, past the buffer
+    # the dump row E·C, past the buffer.  xb.repeat(k, 1) holds the same
+    # rows as xb[token_ids]; its backward is a sum, not a scatter-add
     dest = torch.where(keep, e_ids * C + pos_c, torch.full_like(e_ids, E * C))
     xb = x_flat.to(compute_dtype)
     buf = torch.zeros((E * C + 1, D), dtype=compute_dtype, device=dev)
-    buf[dest] = xb[token_ids]
+    buf[dest] = xb.repeat(k, 1)
     buf = buf[: E * C].view(E, C, D)
 
     # --- expert FFN (gated) ---------------------------------------------------
@@ -176,7 +206,7 @@ def moe_apply(p, x, *, cfg: MoEConfig, compute_dtype=torch.bfloat16, capacity: i
 
     # --- combine: each token's k slots summed in slot order ------------------
     w_assign = g_flat.to(compute_dtype) * keep.to(compute_dtype)
-    y_assign = (out_buf[e_ids * C + pos_c] * w_assign[:, None]).view(k, N, D)
+    y_assign = (_CombineGather.apply(out_buf, e_ids * C + pos_c, dest) * w_assign[:, None]).view(k, N, D)
     y = y_assign[0]
     for j in range(1, k):
         y = y + y_assign[j]

@@ -21,8 +21,11 @@ Two routes compute the update (``kernels.dispatch.set_update_backend``):
 'auto' takes 'fused' on the card when the optimizer allows it, 'composed'
 otherwise; asking for 'fused' with another optimizer raises.  On the fused
 route the state passed to the step is consumed: its tensors are updated.
-Remat, the sharding hooks (``mb_constraint``, ``act_pspec``) and the CNN
-trainer are not ported yet (ROADMAP).
+An MoE expert stack's per-expert f goes to the kernel as a Δ per (layer,
+expert) group.  The CNN half (``make_cnn_train_step``, ``make_cnn_eval``)
+trains the paper's CNNs through the same update; BN's running stats ride
+along in the state.  The sharding hooks (``mb_constraint``, ``act_pspec``)
+are not ported yet (ROADMAP Queue 1 item 5).
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ from repro_torch.core import SymogConfig, SymogState, clip_tree, lambda_at, reg_
 from repro_torch.core.quantizer import delta_from_f
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.symog_update import symog_update
+from repro_torch.models.cnn import CNNConfig, cnn_apply
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.lm import lm_train_loss
 from repro_torch.nn.tree import flatten_with_paths, tree_leaves, tree_map, tree_map_with_path
@@ -121,8 +125,11 @@ def fused_update(params, grads, opt_state, symog: SymogState, symog_cfg: SymogCo
                  deltas: Optional[Dict[str, Tuple[torch.Tensor, torch.Tensor]]] = None):
     """One ``symog_update`` per quantizable leaf, SGD-Nesterov in torch for
     the rest, all in place on the params and their momentum: returns the same
-    (params, opt_state).  ``deltas`` caches each leaf's fp32 Δ by path, keyed on the
-    identity of its f, so Δ is made on the device once per run."""
+    (params, opt_state).  An expert stack's f (one per leading (layer, expert)
+    index) goes to the kernel as its Δ tensor, one Δ per group; λ_eff stays
+    λ·2/M_l over the whole leaf, JAX's ``layer_reg_grad``.  ``deltas`` caches
+    each leaf's fp32 Δ by path, keyed on the identity of its f, so Δ is made on
+    the device once per run."""
     why = _check_fusable(tx, symog_cfg)
     if why:
         raise ValueError(why)
@@ -139,15 +146,46 @@ def fused_update(params, grads, opt_state, symog: SymogState, symog_cfg: SymogCo
                 v.mul_(mu).add_(g)
                 w.sub_(lr * (g + mu * v))
                 continue
-            f = f_by_path[path]
-            if f.ndim != 0:
-                raise NotImplementedError("per-expert Δ form of symog_update (ROADMAP Next (a))")
+            f = f_by_path[path]  # 0-d, or one f per (layer, expert) of an expert stack
             cached = deltas.get(path)
             if cached is None or cached[0] is not f:
                 cached = deltas[path] = (f, delta_from_f(f, device=w.device))
             symog_update(w, g, v, delta=cached[1], lam_eff=lam * 2.0 / w.numel(), lr=lr, mu=mu,
                          n_bits=symog_cfg.n_bits)
     return params, opt_state
+
+
+def _make_update(tx: GradientTransformation, lr_schedule: Callable[[int], float],
+                 symog_cfg: Optional[SymogConfig]):
+    """The step's update with its backend pinned now (``dispatch``):
+    ``update(params, grads, opt_state, symog, step) -> (params, opt_state,
+    lr, λ)``, fused or composed as the module docstring says."""
+    backend = dispatch.get_update_backend()
+    why = _check_fusable(tx, symog_cfg)
+    if backend == "fused" and why:
+        raise ValueError(why)
+    deltas: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+    def update(params, grads, opt_state, symog, step: int):
+        lr = lr_schedule(step)
+        lam = lambda_at(symog_cfg, step) if symog_cfg is not None else None
+        dev = tree_leaves(params)[0].device
+        if dispatch.resolve_update_backend(dev, backend) == "fused" and not why:
+            # ('auto' with another optimizer composes)
+            params, opt_state = fused_update(params, grads, opt_state, symog, symog_cfg, tx,
+                                             lr=lr, lam=lam, deltas=deltas)
+        else:
+            with torch.no_grad():
+                params, opt_state = composed_update(params, grads, opt_state, symog, symog_cfg,
+                                                    tx, lr=lr, lam=lam)
+        return params, opt_state, lr, lam
+
+    return update
+
+
+def _on_device(batch, params):
+    dev = tree_leaves(params)[0].device
+    return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
 
 
 def make_train_step(
@@ -162,13 +200,12 @@ def make_train_step(
     cast_params: bool = False,
 ) -> Callable[[TrainState, Dict[str, Any]], Tuple[TrainState, Dict[str, Any]]]:
     """``train_step(state, batch) -> (state, metrics)``; batch values may be
-    numpy arrays or tensors.  metrics: ``loss``, ``ce``, ``grad_norm`` (0-d
-    tensors on the params' device), ``lr`` and ``symog_lambda`` (floats).
-    The update backend is pinned here (``dispatch.get_update_backend``)."""
-    backend = dispatch.get_update_backend()
-    why = _check_fusable(tx, symog_cfg)
-    if backend == "fused" and why:
-        raise ValueError(why)
+    numpy arrays or tensors.  metrics: ``lm_train_loss``'s (``loss``, ``ce``;
+    ``moe_aux_loss``, ``moe_z_loss`` on an MoE config; ``mtp_ce`` with MTP)
+    and ``grad_norm`` (0-d tensors on the params' device), ``lr`` and
+    ``symog_lambda`` (floats).  The update backend is pinned here
+    (``dispatch.get_update_backend``)."""
+    update = _make_update(tx, lr_schedule, symog_cfg)
     if loss_fn is None:
         def loss_fn(params, batch):  # noqa: F811 — default LM loss
             return lm_train_loss(params, batch, cfg, compute_dtype=compute_dtype)
@@ -183,28 +220,80 @@ def make_train_step(
                                if p.dtype == torch.float32 and p.ndim >= 1 else p, params)
             return base_loss_fn(cparams, batch)
 
-    deltas: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
-
     def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, Any]]:
-        dev = tree_leaves(state.params)[0].device
-        batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        batch = _on_device(batch, state.params)
         _, metrics, grads = _accum_grads(loss_fn, state.params, batch, accum_steps)
-        lr = lr_schedule(state.step)
         metrics = dict(metrics)
         metrics["grad_norm"] = global_norm(grads)
+        params, opt_state, lr, lam = update(state.params, grads, state.opt_state, state.symog,
+                                            state.step)
         metrics["lr"] = lr
-        lam = None
         if symog_cfg is not None:
-            lam = lambda_at(symog_cfg, state.step)
             metrics["symog_lambda"] = lam
-        route = dispatch.resolve_update_backend(dev, backend)
-        if route == "fused" and not why:  # 'auto' with another optimizer composes
-            params, opt_state = fused_update(state.params, grads, state.opt_state, state.symog,
-                                             symog_cfg, tx, lr=lr, lam=lam, deltas=deltas)
-        else:
-            with torch.no_grad():
-                params, opt_state = composed_update(state.params, grads, state.opt_state,
-                                                    state.symog, symog_cfg, tx, lr=lr, lam=lam)
         return TrainState(params, opt_state, state.symog, state.step + 1), metrics
 
     return train_step
+
+
+# ---------------------------------------------------------------------------
+# CNN variant (the paper's models: BN state rides along, images/labels loss)
+# ---------------------------------------------------------------------------
+class CNNTrainState(NamedTuple):
+    params: Any
+    bn_state: Any
+    opt_state: Any
+    symog: Optional[SymogState]
+    step: int
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross entropy of integer labels, in fp32."""
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    return -torch.mean(torch.gather(logp, -1, labels[:, None].to(torch.int64)))
+
+
+def _accuracy(logits, labels) -> torch.Tensor:
+    return torch.mean((torch.argmax(logits, -1) == labels).to(torch.float32))
+
+
+def make_cnn_train_step(cnn_cfg: CNNConfig, tx: GradientTransformation,
+                        lr_schedule: Callable[[int], float], *,
+                        symog_cfg: Optional[SymogConfig] = None):
+    """``train_step(state, batch) -> (state, metrics)`` for a ``CNNTrainState``;
+    batch ``images`` (B, H, W, C) and ``labels`` (B,).  metrics: ``loss``,
+    ``acc`` (0-d tensors) and, with SYMOG, ``symog_lambda``, as JAX's.  The
+    update runs as ``make_train_step``'s: on the card one ``symog_update``
+    per quantizable leaf; BN's new running stats come back in the state."""
+    update = _make_update(tx, lr_schedule, symog_cfg)
+
+    def train_step(state: CNNTrainState, batch) -> Tuple[CNNTrainState, Dict[str, Any]]:
+        batch = _on_device(batch, state.params)
+        box = {}
+
+        def loss_fn(params, batch):
+            logits, box["bn"] = cnn_apply(params, state.bn_state, batch["images"], cnn_cfg,
+                                          train=True)
+            loss = softmax_xent(logits, batch["labels"])
+            return loss, {"loss": loss, "acc": _accuracy(logits, batch["labels"])}
+
+        _, metrics, grads = _loss_and_grads(loss_fn, state.params, batch)
+        params, opt_state, _, lam = update(state.params, grads, state.opt_state, state.symog,
+                                           state.step)
+        if symog_cfg is not None:
+            metrics["symog_lambda"] = lam
+        return CNNTrainState(params, box["bn"], opt_state, state.symog, state.step + 1), metrics
+
+    return train_step
+
+
+def make_cnn_eval(cnn_cfg: CNNConfig):
+    """``eval_step(params, bn_state, batch) -> accuracy`` (a 0-d tensor),
+    BN on its running stats."""
+
+    @torch.no_grad()
+    def eval_step(params, bn_state, batch):
+        batch = _on_device(batch, params)
+        logits, _ = cnn_apply(params, bn_state, batch["images"], cnn_cfg, train=False)
+        return _accuracy(logits, batch["labels"])
+
+    return eval_step

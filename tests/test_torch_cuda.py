@@ -1238,3 +1238,165 @@ def test_plain_matmul_rows_do_not_depend_on_the_batch(dev, dtype, K, N):
         assert torch.equal(y[:3], heads[0])
     torch.testing.assert_close(outs[-1].float(), (x[:ROW_TILE].float() @ w.float()),
                                rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("shape,lead,misaligned", [
+    ((6, 8, 256, 128), (6, 8), False),  # olmoe's stacked experts (L, E, D, F), scaled down
+    ((32, 448, 256), (32,), False),  # deepseek's MTP expert stack (E, D, F), scaled down
+    ((3, 5, 7, 9), (3, 5), False),  # groups of 63: the scalar path
+    ((6, 8, 16, 8), (6, 8), True),  # groups of 128 from a pointer 4 bytes off 16
+])
+@pytest.mark.parametrize("n_bits", [2, 4])
+def test_grouped_symog_update_matches_plain(dev, shape, lead, misaligned, n_bits):
+    """A Δ per leading group (f per (layer, expert)) equals the plain
+    version bit for bit, over two calls from the same inputs."""
+    from repro_torch.kernels.symog_update import ops as sops
+    from repro_torch.kernels.symog_update import symog_update
+    from repro_torch.kernels.symog_update.ref import symog_update_ref
+
+    rng = np.random.default_rng(sum(shape) + n_bits)
+    f = rng.integers(1, 6, size=lead)
+    d = np.exp2(-f.astype(np.float32)).reshape(lead + (1,) * (len(shape) - len(lead)))
+    arrs = [(rng.standard_normal(shape) * s).astype(np.float32)
+            for s in (1.3 * d, 0.05, 0.01)]
+    delta = torch.from_numpy(np.exp2(-f.astype(np.float32))).to(dev)
+    kw = dict(delta=delta, lam_eff=0.9, lr=0.01, mu=0.9, n_bits=n_bits)
+
+    def operands():
+        ts = [torch.from_numpy(a).to(dev) for a in arrs]
+        if misaligned:
+            ts = [torch.cat([torch.zeros(1, device=dev), t.reshape(-1)])[1:].view(shape)
+                  for t in ts]
+        return ts
+
+    want_w, want_v = symog_update_ref(*operands(), **kw)
+    outs = []
+    for _ in range(2):
+        w, g, v = operands()
+        before = sops.launches
+        symog_update(w, g, v, **kw)
+        torch.cuda.synchronize()
+        assert sops.launches == before + 1
+        outs.append((w, v))
+    for w, v in outs:
+        assert torch.equal(w, want_w) and torch.equal(v, want_v)
+
+
+def test_moe_train_step_repeats_bit_identical(dev):
+    """Reduced olmoe at bf16 compute: two backward passes from one state give
+    the same grads bit for bit (the MoE gathers' slot-order backward), and
+    the fused update, run twice, the same params and momentum."""
+    from repro_torch import configs, core, optim
+    from repro_torch.kernels.symog_update import ops as sops
+    from repro_torch.models import init_lm, lm_train_loss
+    from repro_torch.nn.tree import flatten_with_paths, tree_map
+    from repro_torch.train import fused_update, init_train_state
+    from repro_torch.train.trainer import _accum_grads
+
+    cfg = configs.get_reduced("olmoe-1b-7b")
+    tx = optim.sgd(momentum=0.9)
+    scfg = core.SymogConfig(n_bits=2, total_steps=10)
+    st = init_train_state(init_lm(0, cfg, device=dev), tx, scfg)
+    tok = torch.randint(0, cfg.vocab_size, (4, 64), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(1))
+
+    def grads():
+        return _accum_grads(lambda p, b: lm_train_loss(p, b, cfg), st.params, {"tokens": tok}, 1)
+
+    (l1, m1, g1), (l2, m2, g2) = grads(), grads()
+    assert torch.equal(l1, l2) and all(torch.equal(m1[k], m2[k]) for k in m1)
+    for (path, a), (_, b) in zip(flatten_with_paths(g1), flatten_with_paths(g2)):
+        assert torch.equal(a, b), path
+    runs = []
+    for _ in range(2):
+        before = sops.launches
+        runs.append(fused_update(tree_map(torch.clone, st.params), g1,
+                                 tree_map(torch.clone, st.opt_state), st.symog, scfg, tx,
+                                 lr=0.01, lam=core.lambda_at(scfg, 3)))
+        assert sops.launches == before + sum(st.symog.mask.values())
+    for tree_a, tree_b in zip(*runs):
+        for (path, a), (_, b) in zip(flatten_with_paths(tree_a), flatten_with_paths(tree_b)):
+            assert torch.equal(a, b), path
+
+
+def test_cnn_train_step_on_card_matches_cpu(dev):
+    """One SYMOG step on the card (the fused route, one launch per
+    quantizable leaf, fp32 convolutions without TF32) against the same step
+    on the CPU (the composed route).  LeNet-5 (full width, batch 4): loss,
+    params at rtol 1e-5 / atol 1e-6 and momentum (the step's gradient) at
+    tests/test_torch_train.py's grad bar, rtol 1e-4 / atol 1e-6.  Reduced
+    VGG7 (BN): the loss and BN's new running stats at rtol 1e-5 / atol 1e-6;
+    its grads are not held to the CPU's, since with BN a ReLU input within
+    fp32 noise of 0 (one in ~1e6; the step has ~1e5) moves a channel's
+    gradient by O(1e-2) on whichever side takes the other branch.  So for
+    both models the card's own grads also go through the fused and the
+    composed update, both on the card, held leaf by leaf at rtol 1e-5 /
+    atol 1e-7 (chip_smoke.py's step-1 bar): that check takes no branch."""
+    from repro_torch import core, optim
+    from repro_torch.data import SyntheticImages, SyntheticImagesConfig
+    from repro_torch.kernels.symog_update import ops as sops
+    from repro_torch.models import PAPER_CNNS, cnn_apply, cnn_init, reduced_cnn
+    from repro_torch.nn.tree import flatten_with_paths, tree_map, tree_to
+    from repro_torch.train import (CNNTrainState, composed_update, fused_update,
+                                   make_cnn_train_step, softmax_xent)
+    from repro_torch.train.trainer import _loss_and_grads
+
+    STEP, GRAD = dict(rtol=1e-5, atol=1e-6), dict(rtol=1e-4, atol=1e-6)
+    UPDATE = dict(rtol=1e-5, atol=1e-7)
+
+    def fused_vs_composed(cfg, st, batch, tx, scfg):
+        def loss_fn(params, bt):
+            logits, _ = cnn_apply(params, st.bn_state, bt["images"], cfg, train=True)
+            loss = softmax_xent(logits, bt["labels"])
+            return loss, {"loss": loss}
+
+        bt = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        _, _, g = _loss_and_grads(loss_fn, st.params, bt)
+        lam = core.lambda_at(scfg, 0)
+        before = sops.launches
+        fused = fused_update(tree_map(torch.clone, st.params), g,
+                             tree_map(torch.clone, st.opt_state), st.symog, scfg, tx,
+                             lr=0.01, lam=lam)
+        assert sops.launches == before + sum(st.symog.mask.values())
+        composed = composed_update(tree_map(torch.clone, st.params), g,
+                                   tree_map(torch.clone, st.opt_state), st.symog, scfg, tx,
+                                   lr=0.01, lam=lam)
+        for tree_a, tree_b in zip(fused, composed):
+            for (path, a), (_, c) in zip(flatten_with_paths(tree_a), flatten_with_paths(tree_b)):
+                torch.testing.assert_close(a, c, **UPDATE,
+                                           msg=lambda m, p=path: f"{cfg.name} {p}: {m}")
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for cfg, batch in ((PAPER_CNNS["lenet5"], 4), (reduced_cnn("vgg7", 0.125), 8)):
+            data = SyntheticImages(SyntheticImagesConfig(
+                n_classes=cfg.n_classes, hw=cfg.input_hw, channels=cfg.in_channels,
+                global_batch=batch, seed=3))
+            b = next(data)
+            tx = optim.sgd(momentum=0.9)
+            scfg = core.SymogConfig(n_bits=2)
+            out = {}
+            for where in ("cpu", dev):
+                params, bn = cnn_init(1, cfg, device="cpu")
+                params, bn = tree_to(params, where), tree_to(bn, where)
+                st = CNNTrainState(params, bn, tx.init(params), core.symog_init(params, scfg), 0)
+                if where != "cpu":
+                    fused_vs_composed(cfg, st, b, tx, scfg)
+                step = make_cnn_train_step(cfg, tx, core.constant(0.01), symog_cfg=scfg)
+                before = sops.launches
+                out[str(where)] = step(st, b)
+                launched = sops.launches - before
+                assert launched == (0 if where == "cpu" else sum(st.symog.mask.values()))
+            (cs, cm), (gs, gm) = out["cpu"], out[str(dev)]
+            torch.testing.assert_close(gm["loss"].cpu(), cm["loss"], **STEP)
+            trees = [(gs.bn_state, cs.bn_state, STEP)]
+            if not cs.bn_state:
+                # momentum after one step is the gradient: the grads' bar
+                trees += [(gs.params, cs.params, STEP), (gs.opt_state, cs.opt_state, GRAD)]
+            for a_tree, b_tree, tol in trees:
+                for (path, a), (_, c) in zip(flatten_with_paths(a_tree),
+                                             flatten_with_paths(b_tree)):
+                    torch.testing.assert_close(a.cpu(), c, **tol,
+                                               msg=lambda m, p=path: f"{cfg.name} {p}: {m}")
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32

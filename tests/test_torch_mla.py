@@ -662,7 +662,17 @@ def test_serve_matches_jax(kv):
     assert [c.tokens for c in again] == [c.tokens for c in tcomps]
 
 
-def test_deepseek_training_stays_refused():
-    cfg, _, tp = _trees("float")
-    with pytest.raises(NotImplementedError, match="MTP"):
-        lm_train_loss(tp, {"tokens": _t(_tokens())}, cfg)
+def test_deepseek_train_loss_with_mtp_matches_jax():
+    """The reduced deepseek's training loss (ce, the MoE layers' summed aux
+    and z losses, the MTP module's cross entropy on token i+2, their sum)
+    equals JAX's on the same tree."""
+    from repro.models.lm import lm_train_loss as j_loss
+
+    cfg, jp, tp = _trees("float")
+    tok = _tokens(T=9)
+    tl, tm = lm_train_loss(tp, {"tokens": _t(tok)}, cfg, compute_dtype=torch.float32)
+    jl, jm = _jit(j_loss, cfg=cfg, compute_dtype=jnp.float32)(jp, {"tokens": jnp.asarray(tok)})
+    assert set(tm) == set(jm) == {"ce", "moe_aux_loss", "moe_z_loss", "mtp_ce", "loss"}
+    for key in jm:
+        np.testing.assert_allclose(tm[key].numpy(), np.asarray(jm[key]), rtol=1e-5, err_msg=key)
+    assert float(tm["mtp_ce"]) > 0 and float(tm["moe_aux_loss"]) > 0

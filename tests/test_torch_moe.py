@@ -397,14 +397,25 @@ def test_generate_static_tokens_match_jax():
     np.testing.assert_array_equal(teng.generate_static({"tokens": tok}, 6).numpy(), want)
 
 
-def test_moe_training_stays_refused_and_init_serves():
+def test_moe_train_loss_matches_jax_and_init_serves():
+    """The port's own init has JAX's shapes; its MoE training loss (ce, the
+    layers' summed load-balancing and z losses) equals JAX's on that tree;
+    the serving forward computes no aux."""
+    from repro.models.lm import lm_train_loss as j_loss
+
     cfg = jconfigs.get_reduced("olmoe-1b-7b")
     params = init_lm(0, cfg, device="cpu")
     assert tuple(params["layers0"]["sub0"]["moe"]["experts"]["gate_proj"]["kernel"].shape) == (
         cfg.n_layers, cfg.n_experts, cfg.d_model, cfg.d_ff_expert)
     assert params["layers0"]["sub0"]["moe"]["router"]["kernel"].dtype == torch.float32
     tok = _t(_tokens())
-    with pytest.raises(NotImplementedError, match="MoE"):
-        lm_train_loss(params, {"tokens": tok}, cfg)
+    tl, tm = lm_train_loss(params, {"tokens": tok}, cfg, compute_dtype=torch.float32)
+    jp = jax.tree_util.tree_map(lambda t: jnp.asarray(t.numpy()), params)
+    jl, jm = j_loss(jp, {"tokens": jnp.asarray(tok.numpy())}, cfg, compute_dtype=jnp.float32)
+    assert set(tm) == set(jm) == {"ce", "moe_aux_loss", "moe_z_loss", "loss"}
+    for key in jm:
+        np.testing.assert_allclose(tm[key].detach().numpy(), np.asarray(jm[key]), rtol=1e-5,
+                                   err_msg=key)
     out = forward_lm(params, {"tokens": tok}, cfg, compute_dtype=torch.float32)
+    assert out.aux is None
     assert bool(torch.isfinite(out.logits).all())
