@@ -165,7 +165,30 @@ Phases, one JSON line each:
                the relative quantization error, conv2 trimodal, clipping's
                switch rate, the three accuracies printed; (c) VGG7 at full
                width, batch 128 of 32x32x3, the same recipe: step ms,
-               launches a step, quantization error, accuracies.
+               launches a step, quantization error, accuracies;
+ 13. front   — phase 5's internlm2 engine and traffic (after phase 6):
+     end       (a) ``serve_async`` streams (``tokens()``, per-request
+               ``on_token``, each timeline's token events) equal to the
+               sync serve, launches through the decode kernels, and a late
+               submission that joins the live batch; (b) a request
+               cancelled mid-decode: ``cancelled``, its blocks back in the
+               pool (the free count as before its admission, net of the
+               survivors' growth), survivors token-identical, and the
+               queued / unknown / finished cancels JAX's tests expect;
+               (c) a high-priority late arrival admitted before older FIFO
+               peers, and under a 32-block pool the lowest-priority request
+               the only preemption victim (from ``events``); (d) a traced
+               serve: the Chrome trace's admit / decode spans, the
+               registry's counters against the completions and the step
+               count, the snapshot printed, decode step ms with tracing
+               off, on, on, off; (e) the packed params saved by
+               ``CheckpointManager``, restored onto the card and served:
+               tokens identical, bytes and seconds; (f) the launcher
+               ``python -m repro_torch.launch.serve`` at full width (packed,
+               int4 pool, 8 requests, metrics JSON, trace, profiler window
+               of 4 steps) as a subprocess: exit 0, JAX's metric names, the
+               trace parses, the profiler trace names fpmm_decode and
+               gqa_decode.
 Each serving and training path zeroes every kernel's launch count just
 before it runs and reads them just after.
 Then each phase's seconds and the total, the ``kernels`` summary line (the
@@ -207,6 +230,17 @@ MLA_COUNTS = ("paged_attention_mla", "paged_attention_mla_quant", "paged_attenti
               "paged_attention_mla_tc_quant")
 PARITY_LAYERS = 4
 SPEC_K = 4  # draft tokens a speculative round (phase 11c)
+# the JAX package's serve metrics (src/repro/serve/scheduler.py:401-473):
+# phase 13's launcher JSON must hold every one of them
+SERVE_METRICS = tuple("serve_" + k for k in (
+    "decode_steps", "idle_steps", "prefill_only_steps", "prefills", "prefill_chunks",
+    "chunked_admissions", "admissions", "evictions", "preemptions", "cancellations",
+    "tokens_emitted", "admission_traces", "admission_trace_compiles", "chunk_trace_compiles",
+    "decode_trace_compiles", "peak_live_slots", "prefix_hits", "prefix_misses",
+    "prefix_hit_tokens", "prefix_cow_copies", "prefix_evicted_blocks", "queue_wait_steps",
+    "ttft_steps", "itl_seconds", "accepted_per_step", "live_slots", "queue_depth",
+    "pool_live_blocks", "pool_free_blocks", "pool_cached_free_blocks",
+    "step_time_ewma_seconds", "straggler_fraction", "pool_bytes", "pool_bytes_per_device"))
 VERIFY_T = SPEC_K + 1  # the verify's query rows a batch row
 
 
@@ -2017,14 +2051,14 @@ def phase_serve_internlm2(torch, dev):
                 "paged_attention": cfg.n_layers * st["decode_steps"],
                 "paged_attention_quant": 0, **dict.fromkeys(MLA_COUNTS, 0), "symog_update": 0}
 
-    row, eng, *_ = phase_serve(torch, dev, "internlm2-1.8b", "bf16", 7, expected)
+    row, eng, reqs, _, tokens = phase_serve(torch, dev, "internlm2-1.8b", "bf16", 7, expected)
     # the tied head: the packed 92544x2048 table is dequantized on every call
     h = torch.randn((4, 1, eng.cfg.d_model), device=dev, dtype=torch.bfloat16)
     row["head_dequant_matmul_ms"] = timed(lambda a: embed_logits(eng.params["embed"], a), [(h,)],
                                           torch)
     row["head_dequant_matmul_ms_rows_unpadded"] = _unpadded(
         lambda: timed(lambda a: embed_logits(eng.params["embed"], a), [(h,)], torch))
-    return report(row), eng
+    return report(row), eng, reqs, tokens
 
 
 def _unpadded(fn):
@@ -3870,6 +3904,292 @@ def phase_verify_parity(torch, dev):
     return row
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the async front end, cancellation, priority, telemetry,
+# checkpoints and the launcher, on phase 5's engine
+# ---------------------------------------------------------------------------
+def _decode_ms(sched):
+    """Run ``sched`` to the end and return (completions, each decode step's
+    host ms as the scheduler times it: dispatch through the step's sync)."""
+    steps = []
+    observe = sched._observe_step_time
+
+    def record(dt):
+        steps.append(dt * 1e3)
+        observe(dt)
+
+    sched._observe_step_time = record
+    return sched.run(), steps
+
+
+def _front_async(torch, eng, sc, reqs, want, row, gate):
+    """(a): every request submitted at once, then a late submission."""
+    import asyncio
+
+    streamed = {}
+
+    async def collect(agen):
+        return [t async for t in agen]
+
+    async def at_once():
+        async with eng.serve_async(sc) as srv:
+            ids = [srv.submit(r, on_token=lambda i, t: streamed.setdefault(i, []).append(int(t)))
+                   for r in reqs]
+            streams = await asyncio.gather(*[collect(srv.tokens(i)) for i in ids])
+            return ids, streams, await srv.drain()
+
+    async def late():
+        async with eng.serve_async(sc) as srv:
+            ids = [srv.submit(r) for r in reqs[:-1]]
+            first = []
+            async for t in srv.tokens(ids[0]):
+                first.append(t)
+                if len(first) == 2:
+                    break
+            idx = srv.submit(reqs[-1])
+            live = srv.scheduler._n_live
+            return idx, live, await srv.drain()
+
+    zero_counts()
+    ids, streams, comps = asyncio.run(at_once())
+    torch.cuda.synchronize()
+    counts = read_counts()
+    got = [list(map(int, c.tokens)) for c in comps]
+    gate("async_tokens_equal_sync", got == want)
+    gate("async_streams_equal_sync", [list(map(int, s)) for s in streams] == want)
+    gate("async_on_token_equal_sync", [streamed.get(i) for i in ids] == want)
+    gate("async_timeline_tokens", all(
+        [e for e, _ in c.timeline].count("token") == len(c.tokens) for c in comps))
+    gate("async_ran_the_kernels", counts["fixedpoint_matmul_decode"] > 0
+         and counts["paged_attention"] > 0)
+    idx, live, comps = asyncio.run(late())
+    lc = comps[idx]
+    others = [c for c in comps if c.index != idx]
+    gate("late_submission_joins_live_batch", live > 0 and lc.timeline[0][1] > 0
+         and lc.admitted_step < max(c.finished_step for c in others))
+    gate("late_submission_tokens_equal_sync", list(map(int, lc.tokens)) == want[-1])
+    row["async"] = {"launches": {k: v for k, v in counts.items() if v},
+                    "late": {"submitted_step": lc.timeline[0][1], "live_at_submit": live,
+                             "admitted_step": lc.admitted_step,
+                             "finished_step": lc.finished_step}}
+
+
+def _front_cancel(eng, sc, reqs, want, row, gate):
+    """(b): request 3 arrives alone at step 2 and is cancelled after its
+    fourth token; three requests live beside it."""
+    from repro_torch.serve import Request, Scheduler
+
+    sched = Scheduler(eng, sc)
+    ids = [sched.submit(r) for r in reqs[:3]]
+    vr = reqs[3]
+    victim = sched.submit(Request(tokens=vr.tokens, max_new_tokens=vr.max_new_tokens, arrival=2))
+    sched.step()
+    sched.step()
+    free0 = sched.pool.n_free  # the step boundary before the victim's admission
+    held0 = sum(len(s.blocks) for s in sched._slots if s is not None)
+
+    def vstate():
+        return next((s for s in sched._slots if s is not None and s.index == victim), None)
+
+    while vstate() is None or len(vstate().out) < 4:
+        sched.step()
+    vblocks = len(vstate().blocks)
+    ok = sched.cancel(victim)
+    free1 = sched.pool.n_free
+    held = sum(len(s.blocks) for s in sched._slots if s is not None)
+    gate("cancel_returns_true", ok)
+    gate("cancel_frees_blocks", free1 == free0 - (held - held0)
+         and sched.pool.n_live == held)
+    sched.pool.check([s.blocks for s in sched._slots if s is not None])
+    queued = sched.submit(reqs[4])
+    returns = [sched.cancel(queued), sched.cancel(queued), sched.cancel(10_000)]
+    comps = {c.index: c for c in sched.run()}
+    returns.append(sched.cancel(ids[0]))  # finished
+    gate("cancel_queued_unknown_finished", returns == [True, False, False, False])
+    vc = comps[victim]
+    gate("cancelled_reason", vc.finish_reason == "cancelled" and vc.timeline[-1][0] == "cancel"
+         and comps[queued].finish_reason == "cancelled" and comps[queued].slot == -1)
+    gate("cancelled_prefix_equal_sync", list(map(int, vc.tokens)) == want[3][:len(vc.tokens)])
+    gate("survivors_equal_sync", [list(map(int, comps[i].tokens)) for i in ids] == want[:3])
+    sched.pool.check()
+    row["cancel"] = {"victim_tokens": len(vc.tokens), "victim_blocks": vblocks,
+                     "free_before_admission": free0, "free_after_cancel": free1,
+                     "survivor_growth_blocks": held - held0, "returns": returns}
+
+
+def _front_priority(eng, sc, reqs, row, gate):
+    """(c): admission order under priority, and the preemption victim."""
+    import numpy as np
+    from repro_torch.serve import Request, Scheduler, ServeConfig
+
+    sched = Scheduler(eng, sc)
+    ids = [sched.submit(Request(tokens=r.tokens, max_new_tokens=8)) for r in reqs[:6]]
+    hp = sched.submit(Request(tokens=reqs[6].tokens, max_new_tokens=8, arrival=1, priority=1))
+    sched.run()
+    admits = [i for _, kind, i, _ in sched.events if kind == "admit"]
+    gate("priority_admits_first", admits == ids[:4] + [hp] + ids[4:])
+    rng = np.random.default_rng(13)
+    low, high = (Request(tokens=rng.integers(0, eng.cfg.vocab_size, size=200), max_new_tokens=80,
+                         priority=p) for p in (0, 5))
+    sched = Scheduler(eng, ServeConfig(n_slots=2, block_size=16, n_blocks=32))
+    id_low, id_high = sched.submit(low), sched.submit(high)
+    comps = sched.run()
+    preempted = [i for _, kind, i, _ in sched.events if kind == "preempt"]
+    gate("preemption_victim_lowest_priority", preempted and set(preempted) == {id_low}
+         and all(c.finish_reason == "length" for c in comps))
+    row["priority"] = {"admit_order": admits, "high_priority_index": hp,
+                       "preemptions": sched.stats["preemptions"], "preempted": preempted}
+
+
+def _front_telemetry(torch, eng, sc, reqs, want, row, gate, tmp):
+    """(d): a traced serve, then decode step ms with tracing off / on."""
+    from repro_torch.serve import Scheduler, TelemetryConfig
+
+    on = dataclasses.replace(sc, telemetry=TelemetryConfig(trace=True))
+    sched = Scheduler(eng, on)
+    for r in reqs:
+        sched.submit(r)
+    comps = sched.run()
+    path = os.path.join(tmp, "serve_trace.json")
+    sched.tracer.export_chrome(path)
+    with open(path) as f:
+        doc = json.load(f)
+    names = {e["name"] for e in doc["traceEvents"]}
+    n_decode = sum(1 for s in sched.tracer.spans if s[0] == "decode")
+    snap = sched.registry.snapshot()
+    gate("trace_spans", {"admit", "decode"} <= names)
+    gate("registry_tokens", snap["serve_tokens_emitted"] == sum(len(c.tokens) for c in comps))
+    gate("registry_decode_steps", snap["serve_decode_steps"] == n_decode == sched.monitor.count
+         and n_decode > 0)
+    gate("traced_tokens_equal_sync", [list(map(int, c.tokens)) for c in comps] == want)
+    print("\n".join("  " + ln for ln in sched.registry.render_text()), flush=True)
+    row["snapshot"] = snap
+    row["trace_events"] = len(doc["traceEvents"])
+    ms = []
+    for tele in (sc, on, on, sc):  # tracing off, on, on, off
+        s = Scheduler(eng, tele)
+        for r in reqs:
+            s.submit(r)
+        c, steps = _decode_ms(s)
+        torch.cuda.synchronize()
+        gate("timed_tokens_equal_sync", [list(map(int, x.tokens)) for x in c] == want)
+        ms.append({"trace": tele.telemetry.trace, "decode_steps": len(steps),
+                   "decode_step_ms_mean": sum(steps) / len(steps),
+                   "decode_step_ms_median": sorted(steps)[len(steps) // 2]})
+    row["decode_step_ms_trace_off_on_on_off"] = ms
+
+
+def _front_checkpoint(torch, dev, eng, sc, reqs, want, row, gate, tmp):
+    """(e): save the packed params, restore them onto the card, serve."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.nn.tree import flatten_with_paths
+    from repro_torch.serve import ServeEngine
+
+    mgr = CheckpointManager(os.path.join(tmp, "ckpt"))
+    t = time.perf_counter()
+    mgr.save(1, eng.params, metadata={"arch": eng.cfg.name})
+    mgr.wait()
+    save_s = time.perf_counter() - t
+    d = mgr.path(1)
+    nbytes = sum(os.path.getsize(os.path.join(d, n)) for n in os.listdir(d))
+    t = time.perf_counter()
+    tree, meta, step = mgr.restore(eng.params, device=dev)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t
+    same = all(
+        (torch.equal(a.data, b.data) and torch.equal(a.f, b.f) and a.n_bits == b.n_bits)
+        if hasattr(a, "n_bits") else torch.equal(a, b)
+        for (_, a), (_, b) in zip(flatten_with_paths(tree), flatten_with_paths(eng.params)))
+    restored = ServeEngine(eng.cfg, tree, max_len=eng.max_len, compute_dtype=eng.compute_dtype,
+                           device=dev)
+    comps = restored.serve(reqs, sc)
+    gate("checkpoint_leaves_equal", same and step == 1 and meta == {"arch": eng.cfg.name})
+    gate("checkpoint_tokens_equal", [list(map(int, c.tokens)) for c in comps] == want)
+    row["checkpoint"] = {"bytes": nbytes, "files": len(os.listdir(d)), "save_s": save_s,
+                         "restore_s": restore_s, "weight_bytes": eng.weight_bytes()}
+    del restored, tree
+
+
+def _front_launcher(row, gate, tmp):
+    """(f): the serve launcher at full width, as a subprocess."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    mj, tr, pd = (os.path.join(tmp, n) for n in ("metrics.json", "trace.json", "prof"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "internlm2-1.8b",
+           "--packed", "--kv-bits", "4", "--continuous", "--requests", "8", "--slots", "4",
+           "--metrics-json", mj, "--trace-out", tr, "--profile-dir", pd, "--profile-steps", "4"]
+    env = dict(os.environ, PYTHONPATH=os.path.join(here, "src"))
+    t = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=here, env=env, capture_output=True, text=True, timeout=400)
+    row["launcher"] = {"rc": proc.returncode, "seconds": time.perf_counter() - t,
+                       "stdout_tail": proc.stdout.splitlines()[-24:]}
+    gate("launcher_exit_0", proc.returncode == 0)
+    if proc.returncode:
+        print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr, flush=True)
+        return
+    ok_names = ok_trace = True
+    for path in (mj, mj.replace(".json", ".packed.json")):
+        with open(path) as f:
+            metrics = json.load(f)["metrics"]
+        ok_names &= set(SERVE_METRICS) <= set(metrics)
+        row["launcher"][os.path.basename(path)] = {
+            k: metrics[k] for k in ("serve_decode_steps", "serve_tokens_emitted",
+                                    "serve_admissions", "serve_pool_bytes")}
+    for path in (tr, tr.replace(".json", ".packed.json")):
+        with open(path) as f:
+            ok_trace &= {"admit", "decode"} <= {e["name"] for e in json.load(f)["traceEvents"]}
+    found = []  # per profiler trace (float run, packed run): our kernels it names
+    for name in sorted(os.listdir(pd)):
+        with open(os.path.join(pd, name)) as f:
+            names = {e.get("name", "") for e in json.load(f)["traceEvents"]
+                     if e.get("cat") == "kernel"}
+        found.append(sorted(k for k in ("fpmm_decode", "fpmm_tc", "gqa_decode")
+                            if any(k in n for n in names)))
+    gate("launcher_metric_names", ok_names)
+    gate("launcher_trace_parses", ok_trace)
+    gate("launcher_profile_names_kernels", any({"fpmm_decode", "gqa_decode"} <= set(k)
+                                               for k in found))
+    row["launcher"]["profile_kernels"] = found
+
+
+def phase_front_end(torch, dev, eng, reqs, want):
+    """Phase 13 (module docstring): the async front end, cancellation,
+    priority, telemetry, checkpoints and the launcher on phase 5's
+    internlm2 engine (24 layers, 2-bit packed, bf16 pool and compute) and
+    traffic; ``want`` is phase 5's tokens.  Every gate raises."""
+    import shutil
+    import tempfile
+
+    from repro_torch.serve import ServeConfig
+
+    sc = ServeConfig(n_slots=4, block_size=16)
+    row = {"phase": "front_end", "arch": "internlm2-1.8b", "gates": {}, "seconds": {}}
+
+    def gate(name, ok):
+        row["gates"][name] = bool(ok) and row["gates"].get(name, True)
+
+    tmp = tempfile.mkdtemp(prefix="symog_front_end_")
+    try:
+        for name, fn, args in (
+                ("a_async", _front_async, (torch, eng, sc, reqs, want, row, gate)),
+                ("b_cancel", _front_cancel, (eng, sc, reqs, want, row, gate)),
+                ("c_priority", _front_priority, (eng, sc, reqs, row, gate)),
+                ("d_telemetry", _front_telemetry, (torch, eng, sc, reqs, want, row, gate, tmp)),
+                ("e_checkpoint", _front_checkpoint,
+                 (torch, dev, eng, sc, reqs, want, row, gate, tmp)),
+                ("f_launcher", _front_launcher, (row, gate, tmp))):
+            t = time.perf_counter()
+            fn(*args)
+            torch.cuda.synchronize()
+            row["seconds"][name] = time.perf_counter() - t
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    row["pass"] = all(row["gates"].values())
+    emit(row)
+    if not row["pass"]:
+        raise Failed(f"front_end failed: {[k for k, v in row['gates'].items() if not v]}")
+    return row
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
 
@@ -3955,8 +4275,10 @@ def main() -> int:
                   for kv in ("bf16", "int4_fp")}
         del art
         torch.cuda.empty_cache()
-        serve, eng = run("5 serve internlm2", phase_serve_internlm2, torch, dev)
+        serve, eng, fe_reqs, fe_tokens = run("5 serve internlm2", phase_serve_internlm2, torch,
+                                             dev)
         run("6 profile internlm2", phase_profile, torch, dev, eng)
+        run("13 front end", phase_front_end, torch, dev, eng, fe_reqs, fe_tokens)
         del eng
         torch.cuda.empty_cache()
         train = run("7 train internlm2", phase_train, torch, dev)

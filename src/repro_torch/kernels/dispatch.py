@@ -32,10 +32,16 @@ Optimizer-update backends (``set_update_backend``), read by
 All default to 'auto', resolved per device: the kernels for CUDA tensors,
 the plain paths for CPU tensors ('auto' takes 'composed' for an optimizer
 the fused kernel does not compute).  ``ServeEngine`` pins the resolved
-values at construction and restores the globals around each call;
+values at construction and sets them around each call;
 ``make_train_step`` pins the update backend when it is made.
+
+The settings are per thread (``threading.local``), each thread starting
+from 'auto': an engine stepping on a worker thread (the async front end)
+cannot switch the route of another engine stepping on another thread.
 """
 from __future__ import annotations
+
+import threading
 
 import torch
 
@@ -43,9 +49,17 @@ PACKED_BACKENDS = ("auto", "kernel", "unpack")
 ATTN_BACKENDS = ("auto", "fused", "composed")
 UPDATE_BACKENDS = ("auto", "fused", "composed")
 
-_packed_backend = "auto"
-_attn_backend = "auto"
-_update_backend = "auto"
+
+
+class _Backends(threading.local):
+    """This thread's backend names; every thread starts at 'auto'."""
+
+    packed = "auto"
+    attn = "auto"
+    update = "auto"
+
+
+_local = _Backends()
 
 
 def _check(name: str, options) -> str:
@@ -55,49 +69,46 @@ def _check(name: str, options) -> str:
 
 
 def set_packed_backend(name: str) -> None:
-    global _packed_backend
-    _packed_backend = _check(name, PACKED_BACKENDS)
+    _local.packed = _check(name, PACKED_BACKENDS)
 
 
 def get_packed_backend() -> str:
-    return _packed_backend
+    return _local.packed
 
 
 def resolve_packed_backend(device) -> str:
     """'auto' → 'kernel' for a CUDA device, 'unpack' elsewhere."""
-    if _packed_backend != "auto":
-        return _packed_backend
+    if _local.packed != "auto":
+        return _local.packed
     return "kernel" if torch.device(device).type == "cuda" else "unpack"
 
 
 def set_attention_backend(name: str) -> None:
-    global _attn_backend
-    _attn_backend = _check(name, ATTN_BACKENDS)
+    _local.attn = _check(name, ATTN_BACKENDS)
 
 
 def get_attention_backend() -> str:
-    return _attn_backend
+    return _local.attn
 
 
 def resolve_attention_backend(device) -> str:
     """'auto' → 'fused' for a CUDA device, 'composed' elsewhere."""
-    if _attn_backend != "auto":
-        return _attn_backend
+    if _local.attn != "auto":
+        return _local.attn
     return "fused" if torch.device(device).type == "cuda" else "composed"
 
 
 def set_update_backend(name: str) -> None:
-    global _update_backend
-    _update_backend = _check(name, UPDATE_BACKENDS)
+    _local.update = _check(name, UPDATE_BACKENDS)
 
 
 def get_update_backend() -> str:
-    return _update_backend
+    return _local.update
 
 
 def resolve_update_backend(device, backend: str = None) -> str:
     """'auto' → 'fused' for a CUDA device, 'composed' elsewhere."""
-    backend = _update_backend if backend is None else backend
+    backend = _local.update if backend is None else backend
     if backend != "auto":
         return backend
     return "fused" if torch.device(device).type == "cuda" else "composed"

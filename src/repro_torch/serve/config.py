@@ -1,7 +1,7 @@
-"""The serving configuration object and the engine's capability report
-(mirrors ``repro/serve/config.py``, reduced to the knobs this port serves:
-greedy or sampled decoding on the paged pool, the prefix cache, chunked
-prefill and self-speculative decoding).
+"""The serving configuration objects and the engine's capability report
+(mirrors ``repro/serve/config.py``: greedy or sampled decoding on the
+paged pool, the prefix cache, chunked prefill, self-speculative decoding,
+streaming callbacks and telemetry).
 
 Cross-feature conflicts are refused at construction, as in the JAX
 package: ``prefix_cache`` with ``speculative`` (the draft pool does not
@@ -10,9 +10,49 @@ share blocks under the radix index), and ``speculative`` with
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Callable, Dict, Optional, Sequence
 
 from repro_torch.models.lm import PAGED_CACHE_LEAVES, scan_groups
+
+
+@dataclasses.dataclass(frozen=True)
+class TelemetryConfig:
+    """Observability knobs of one scheduler, as in the JAX package.
+
+    Metrics (the registry behind ``Scheduler.stats`` plus gauges and
+    latency histograms) are always on: host-side integer arithmetic beside
+    a device-bound loop, with no device sync of their own.  The knobs gate
+    the optional layers:
+
+    trace           — record step spans and instants into the ring
+                      tracer (off: the scheduler holds ``NULL_TRACER``);
+    trace_capacity  — ring capacity shared by the tracer and the
+                      scheduler's ``events`` / ``admit_times`` logs: all
+                      three keep the most recent ``trace_capacity`` records;
+    profile_dir     — non-empty arms a ``torch.profiler`` capture window
+                      (a Chrome trace in this directory) over the first
+                      ``profile_steps`` serve steps;
+    profile_steps   — capture-window length in serve steps;
+    straggler_warn  — warn once (one line on stderr) when the step-time
+                      monitor's straggler fraction exceeds this after
+                      warmup; 0 disables the warning (the gauges stay).
+    """
+
+    trace: bool = False
+    trace_capacity: int = 4096
+    profile_dir: str = ""
+    profile_steps: int = 8
+    straggler_warn: float = 0.25
+
+    def __post_init__(self):
+        if self.trace_capacity < 1:
+            raise ValueError(f"trace_capacity must be >= 1, got {self.trace_capacity}")
+        if self.profile_steps < 1:
+            raise ValueError(f"profile_steps must be >= 1, got {self.profile_steps}")
+        if not 0.0 <= self.straggler_warn <= 1.0:
+            raise ValueError(
+                f"straggler_warn is a fraction in [0, 1] (0 = off), got {self.straggler_warn}"
+            )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,8 +70,14 @@ class ServeConfig:
     prefill_chunk — > 0 splits admissions into tail-prefill chunks of at
                     most this many tokens, one per step beside the live
                     decode (inert off the fully-paged tier);
+    on_token      — default per-token streaming callback
+                    ``cb(request_index, token)``, fired as each token is
+                    committed (``Scheduler.submit`` overrides it per
+                    request); a preemption replay streams nothing twice;
     time_admissions — record each admission's wall time
-                    (``Scheduler.admit_times``)."""
+                    (``Scheduler.admit_times``);
+    telemetry     — a ``TelemetryConfig``: span tracing, ring capacities,
+                    the profiler window, the straggler warning."""
 
     n_slots: int = 0
     temperature: float = 0.0
@@ -42,9 +88,15 @@ class ServeConfig:
     prefix_cache: bool = False
     speculative: Optional[Any] = None  # serve.SpeculativeConfig
     prefill_chunk: int = 0
+    on_token: Optional[Callable[[int, int], None]] = None
     time_admissions: bool = False
+    telemetry: TelemetryConfig = TelemetryConfig()
 
     def __post_init__(self):
+        if not isinstance(self.telemetry, TelemetryConfig):
+            raise ValueError(
+                f"telemetry must be a TelemetryConfig, got {type(self.telemetry).__name__}"
+            )
         if self.n_slots < 0:
             raise ValueError(f"n_slots must be >= 0 (0 = auto), got {self.n_slots}")
         if self.temperature < 0:
@@ -65,7 +117,8 @@ class ServeConfig:
 
     def resolve(self, engine=None, requests: Sequence[Any] = ()) -> "ServeConfig":
         """The explicit copy a Scheduler is built from: ``n_slots=0`` becomes
-        min(len(requests), 8), or 8 with no requests."""
+        min(len(requests), 8), or 8 with no requests (an open-ended async
+        engine)."""
         n = self.n_slots
         if not n:
             n = max(1, min(len(requests), 8)) if len(requests) else 8

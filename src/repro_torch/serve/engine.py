@@ -20,14 +20,17 @@ are a counter-based hash of (base seed, stream id, vocab index)
 (``sample_uniform``), so a draw depends on no generator state, batch order
 or slot count.
 
-Both backends are pinned at construction (``kernels.dispatch``) and the
-globals are restored around every call, as in the JAX package.  Caches and
+Both backends are pinned at construction (``kernels.dispatch``) and set
+around every call on the calling thread (the dispatch backends are
+thread-local, so engines stepping on other threads never see them), as in
+the JAX package.  Caches and
 the KV pool are updated in place (the JAX package donates them).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import warnings
 from typing import Any, Callable, Dict, Sequence
 
 import numpy as np
@@ -180,7 +183,11 @@ class SchedulerFns:
     bucket, ``admit_prefix_step(bucket, block_size)`` the tail-prefill
     admission (``prefill_prefix_lm``: the tail's k/v written into the pool
     layer by layer, attention over the pool itself) for one tail bucket.
-    Both are memoized; ``admit_compiles`` counts the distinct steps built.
+    Both are memoized; ``admit_compiles`` counts the distinct steps built,
+    ``prefix_compiles`` the tail-prefill ones among them.  The port has no
+    jit cache: ``decode_cache_size()`` counts the distinct argument
+    signatures (slot count, table width, pool shapes) the decode step has
+    run with, the entries JAX's jit cache of the decode step would hold.
 
     ``cow_copy(caches, src, dst)`` clones one physical pool row for the
     prefix cache's copy-on-write.
@@ -197,6 +204,13 @@ class SchedulerFns:
         self._admits: Dict[Any, Callable] = {}
         self._admits_prefix: Dict[Any, Callable] = {}
         self.admit_compiles = 0
+        self.prefix_compiles = 0
+        self._decode_sigs: set = set()
+
+    def decode_cache_size(self) -> int:
+        """Distinct decode-step signatures run so far (the scheduler's
+        ``decode_trace_compiles`` reads the change over a serve)."""
+        return len(self._decode_sigs)
 
     def _sample(self, logits, streams, seed: int, temperature):
         """logits (B, V); ``streams()`` gives the (B,) stream ids, made only
@@ -212,6 +226,9 @@ class SchedulerFns:
         stream id is ``seed0 + pos`` (seed0 written at activation), so the
         host uploads nothing per step."""
         eng = self._eng
+        self._decode_sigs.add((tuple(tokens.shape), tuple(block_tables.shape), tuple(
+            (name, tuple(leaf.shape)) for g in caches.values() for sub in g.values()
+            for name, leaf in sub.items())))
         logits, caches = decode_lm(params, caches, tokens[:, None], pos, eng.cfg,
                                    compute_dtype=eng.compute_dtype, active=active,
                                    block_tables=block_tables)
@@ -232,6 +249,7 @@ class SchedulerFns:
         if key not in self._admits_prefix:
             self._admits_prefix[key] = self._build_admit_prefix(*key)
             self.admit_compiles += 1
+            self.prefix_compiles += 1
         return self._admits_prefix[key]
 
     def cow_copy(self, caches, src: int, dst: int):
@@ -423,14 +441,37 @@ class ServeEngine:
         return self._with_backend(decode_lm, self.params, caches, tokens, pos, self.cfg,
                                   compute_dtype=self.compute_dtype)
 
-    def serve(self, requests: Sequence[Any], config=None, *, return_scheduler: bool = False):
+    def serve(self, requests: Sequence[Any], config=None, *, return_scheduler: bool = False,
+              **legacy):
         """Continuous-batching serve of ``requests`` (scheduler.Request) under
         ``config`` (a ServeConfig; ``config.speculative`` runs the draft /
-        verify scheduler).  Completions come in submission order."""
+        verify scheduler).  Completions come in submission order.
+
+        The keyword form ``serve(reqs, n_slots=..., ...)`` still works but
+        warns with a ``DeprecationWarning``, as in the JAX package."""
+        from repro_torch.serve.config import ServeConfig
         from repro_torch.serve.scheduler import serve_requests
 
+        if legacy:
+            if config is not None:
+                raise TypeError("pass either a ServeConfig or legacy keyword args, not both")
+            warnings.warn(
+                "serve(requests, n_slots=..., ...) is deprecated; pass "
+                "serve(requests, serve.ServeConfig(...))",
+                DeprecationWarning,
+                stacklevel=2,
+            )
+            config = ServeConfig(**legacy)
         comps, sched = serve_requests(self, requests, config)
         return (comps, sched) if return_scheduler else comps
+
+    def serve_async(self, config=None):
+        """An ``AsyncServeEngine`` over this engine: submit, stream and
+        cancel from asyncio coroutines while a drive loop steps the
+        scheduler in a worker thread.  Use as an async context manager."""
+        from repro_torch.serve.async_engine import AsyncServeEngine
+
+        return AsyncServeEngine(self, config)
 
     def generate(self, batch: Dict[str, Any], steps: int) -> torch.Tensor:
         """Greedy continuation of a batched prompt through ``serve`` (one

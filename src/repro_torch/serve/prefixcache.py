@@ -77,15 +77,24 @@ def _common_prefix(a, b) -> int:
 class PrefixCache:
     """Radix index over one scheduler's ``BlockPool`` (module docstring)."""
 
-    def __init__(self, pool: BlockPool, block_size: int, fingerprint: str):
+    def __init__(self, pool: BlockPool, block_size: int, fingerprint: str, registry=None):
         self.pool = pool
         self.block_size = int(block_size)
         self.fingerprint = str(fingerprint)
         self._root = _Node(key=(), bid=-1, parent=None)
         self._nodes: Dict[int, _Node] = {}  # bid -> node
         self._tick = 0
-        self.stats: Dict[str, int] = dict.fromkeys(
-            ("hits", "misses", "hit_tokens", "inserted_blocks", "evicted_blocks"), 0)
+        # with a registry (the scheduler passes its own) the stats dict is a
+        # view over prefix_* counters, so cache health lands in the same
+        # snapshot as the serve metrics; the dict shape is the same either way
+        if registry is not None:
+            from repro_torch.obs import StatsView
+
+            self.stats = StatsView(registry, "prefix_")
+        else:
+            self.stats = {}
+        for key in ("hits", "misses", "hit_tokens", "inserted_blocks", "evicted_blocks"):
+            self.stats[key] = 0
 
     # ------------------------------------------------------------------
     # lookup

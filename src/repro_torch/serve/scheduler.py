@@ -1,8 +1,10 @@
 """Continuous-batching request scheduler over ``ServeEngine`` with a paged
 KV-cache block pool (mirrors the core of ``repro/serve/scheduler.py``).
 
-  * a FIFO request queue with optional arrival times (decode-step units);
-    admission takes the first due request;
+  * a request queue with optional arrival times (decode-step units);
+    admission takes the first due request of the highest
+    ``Request.priority`` (FIFO among equal priorities; a not-yet-due head
+    never blocks due requests behind it);
   * a slot table of ``n_slots`` rows sharing one decode dispatch; each row
     has its own position, so the batch is ragged;
   * a block pool: k/v live in shared ``(n_blocks+1, block, K, hd)`` pools
@@ -17,11 +19,20 @@ KV-cache block pool (mirrors the core of ``repro/serve/scheduler.py``).
     layer writes the prompt's k/v into the pool and attends the pool
     itself, as the JAX package's scheduler does;
   * growth (``_grow_tables``) allocates a row's next block as its position
-    crosses a boundary; pool exhaustion preempts the youngest live request,
-    which restarts from scratch — greedy decoding is deterministic and
-    sampled streams are keyed by (request index, step), so the replay is
-    token-exact;
+    crosses a boundary; pool exhaustion preempts the lowest-priority live
+    request (the youngest among ties), which restarts from scratch — greedy
+    decoding is deterministic and sampled streams are keyed by (request
+    index, step), so the replay is token-exact;
   * eviction on eos or length returns the blocks and zeroes the table row;
+  * cancellation (``cancel(idx)``): a queued request is dropped; a live
+    one is torn down at once — its blocks return to the pool through the
+    same ``_release`` as eviction, its zeroed table row sends any write to
+    the trash block, and its partial output becomes a
+    ``finish_reason='cancelled'`` Completion.  Surviving rows are untouched;
+  * streaming: per-token callbacks (``ServeConfig.on_token``, or per
+    request through ``submit``) fire as tokens are committed, in stream
+    order; a preempted request's replay is deduplicated against what was
+    already streamed (replays are token-exact, so the count suffices);
   * prefix cache (``prefix_cache=True``, fully-paged tier only): admission
     matches the prompt against a radix index of cached prompt blocks
     (``serve/prefixcache.py``), pins the matched blocks into the new table,
@@ -43,22 +54,36 @@ SYMOG-quantized int8 / packed-int4 mantissas with one int32 exponent per
 (physical block, KV head) in a ``<name>_scale`` sibling leaf (per physical
 block for MLA's head-less c_kv / k_rope).
 
-Telemetry, async, priority and cancellation come in later slices.  Slot
-state (tokens, positions, stream offsets, active flags, block tables) lives
-on the device; the host downloads only the sampled tokens, once per step
-(and a chunked admission's first token, at its final chunk).
+Telemetry: every scheduler owns a ``MetricsRegistry`` (``stats`` is a
+view over its ``serve_*`` counters; latency histograms and occupancy
+gauges beside them, with the JAX package's names), a span tracer when
+``telemetry.trace`` is on, a step-time monitor, an ``events`` log and a
+per-request ``Completion.timeline``.  The registry reads host numbers only
+and adds no device sync.  The ``decode`` span closes over the step's one
+host sync; the ``admit`` and ``chunk`` spans close without one (unless
+``time_admissions``), so on the card they measure host dispatch.
+
+Slot state (tokens, positions, stream offsets, active flags, block tables)
+lives on the device; the host downloads only the sampled tokens, once per
+step (and an admission's first token).
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import sys
 import time
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+import warnings
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.distributed.fault import StepTimeMonitor
 from repro_torch.models.lm import PAGED_CACHE_LEAVES, scan_groups
+from repro_torch.obs import (NULL_TRACER, MetricsRegistry, RingLog, StatsView, StepTracer,
+                              log_buckets)
+from repro_torch.obs.profiling import make_profile_window
 from repro_torch.serve.blockpool import BlockPool
 from repro_torch.serve.config import ServeConfig, _tier_reasons
 from repro_torch.serve.prefixcache import PrefixCache
@@ -72,6 +97,7 @@ class Request:
     max_new_tokens: int = 16
     eos_id: int = -1  # -1: never emitted
     arrival: int = 0  # earliest decode step at which admission may happen
+    priority: int = 0  # higher admits first among due requests; preempted last
 
 
 @dataclasses.dataclass
@@ -79,7 +105,7 @@ class Completion:
     index: int  # submission order
     tokens: List[int]  # generated ids (incl. the eos token if emitted)
     prompt_len: int
-    finish_reason: str  # 'eos' | 'length'
+    finish_reason: str  # 'eos' | 'length' | 'cancelled'
     slot: int
     arrival: int
     admitted_step: int  # last admission (preempted requests restart)
@@ -87,6 +113,11 @@ class Completion:
     first_token_step: int = -1  # == admitted_step one-shot; a chunked prompt's final chunk
     spec_steps: int = 0  # speculative draft / verify rounds this request rode
     spec_tokens: int = 0  # tokens those rounds committed (accepted + bonus)
+    # lifecycle timeline: ordered (event, step) records — submit / admit /
+    # chunk / token / preempt / finish / cancel.  'token' entries mark
+    # delivery: a preemption replay delivers nothing again, so their count
+    # is exactly len(tokens)
+    timeline: List[Tuple[str, int]] = dataclasses.field(default_factory=list)
 
 
 @dataclasses.dataclass
@@ -122,6 +153,13 @@ def fully_paged_tier(engine) -> bool:
     return not _tier_reasons(engine)
 
 
+def prefix_cache_eligible(engine) -> bool:
+    """Would ``prefix_cache=True`` share on this engine?  The flag is
+    accepted everywhere but inert off the fully-paged tier
+    (``engine.capabilities()`` says why)."""
+    return bool(engine.capabilities()["prefix_cache"])
+
+
 def _sample_seed(req_index: int, step: int) -> int:
     """Stream id of the ``step``-th token of request ``req_index``: keyed by
     request identity, not slot, so placement and preemption restarts cannot
@@ -132,12 +170,13 @@ def _sample_seed(req_index: int, step: int) -> int:
 
 
 def latency_stats(completions: Sequence[Completion]) -> Dict[str, Dict[str, float]]:
-    """Per-request latency percentiles in decode-step units: queue_steps
-    (admitted - arrival), ttft_steps (first token - arrival + 1: a chunked
-    prompt's first token comes at its final chunk), tokens_per_step
-    (tokens over the steps the slot was occupied) and, for speculative
-    serves, accepted_per_step (tokens committed per draft / verify round;
-    vanilla decode is 1)."""
+    """Per-request latency percentiles in decode-step units, cancelled
+    requests left out: queue_steps (admitted - arrival), ttft_steps (first
+    token - arrival + 1: a chunked prompt's first token comes at its final
+    chunk), tokens_per_step (tokens over the steps the slot was occupied)
+    and, for speculative serves, accepted_per_step (tokens committed per
+    draft / verify round; vanilla decode is 1)."""
+    completions = [c for c in completions if c.finish_reason != "cancelled"]
     if not completions:
         return {}
     queue = np.asarray([c.admitted_step - c.arrival for c in completions], np.float64)
@@ -161,10 +200,26 @@ def latency_stats(completions: Sequence[Completion]) -> Dict[str, Dict[str, floa
 class Scheduler:
     """Continuous-batching loop over a ``ServeEngine`` (see module docstring).
 
-    ``n_blocks`` defaults to n_slots x ceil(max_len/block) (never preempts)
-    and must hold at least one max_len request."""
+    Built from one ``ServeConfig``: ``Scheduler(engine, config)``.  The
+    legacy keyword form ``Scheduler(engine, n_slots, temperature=...)``
+    still works but warns with a ``DeprecationWarning``, as in the JAX
+    package.  ``n_blocks`` defaults to n_slots x ceil(max_len/block) (never
+    preempts) and must hold at least one max_len request."""
 
-    def __init__(self, engine, config: Optional[ServeConfig] = None):
+    def __init__(self, engine, config: Optional[ServeConfig] = None, **legacy):
+        if isinstance(config, int):  # legacy positional n_slots
+            legacy["n_slots"] = config
+            config = None
+        if legacy:
+            if config is not None:
+                raise TypeError("pass either a ServeConfig or legacy keyword args, not both")
+            warnings.warn(
+                "Scheduler(engine, n_slots, **kwargs) is deprecated; pass "
+                "Scheduler(engine, serve.ServeConfig(...))",
+                DeprecationWarning,
+                stacklevel=2,
+            )
+            config = ServeConfig(**legacy)
         config = (config or ServeConfig()).resolve(engine)
         self.config = config
         self.eng = engine
@@ -176,6 +231,16 @@ class Scheduler:
         self._temp = max(self.temperature, 1e-6)
         self._groups = scan_groups(self.cfg)
         self._fns = engine.scheduler_fns(greedy=self.temperature <= 0.0, top_k=self.top_k)
+        # telemetry: the registry is always on; span tracing and the
+        # profiler window are opt-in.  Made first, so every part built
+        # below (prefix cache, pool gauges, stats view) reports into it
+        tele = config.telemetry
+        self.registry = MetricsRegistry()
+        self.tracer = StepTracer(tele.trace_capacity) if tele.trace else NULL_TRACER
+        self._profile = make_profile_window(tele.profile_dir, tele.profile_steps,
+                                            cuda=engine.device.type == "cuda")
+        self.monitor = StepTimeMonitor()
+        self._straggler_warned = False
         caps = engine.capabilities()
         # quantized pools of the fully-paged tier: every admission runs the
         # tail-prefill step (start 0), so its first token comes from
@@ -195,11 +260,15 @@ class Scheduler:
         # fully-paged tier only; elsewhere the knobs are accepted and inert
         self.prefix: Optional[PrefixCache] = None
         if config.prefix_cache and caps["prefix_cache"]:
-            self.prefix = PrefixCache(self.pool, blk, engine.params_fingerprint())
+            self.prefix = PrefixCache(self.pool, blk, engine.params_fingerprint(),
+                                      registry=self.registry)
             self.pool.set_reclaimer(self.prefix.reclaim)
         self.chunk = int(config.prefill_chunk) if caps["chunked_prefill"] else 0
         self._time_admissions = bool(config.time_admissions)
-        self.admit_times: List[Tuple[int, float, int]] = []  # (request, seconds, hit tokens)
+        # events / admit_times / the span tracer share trace_capacity and its
+        # oldest-first drop rule (RingLog)
+        self.admit_times: List[Tuple[int, float, int]] = RingLog(
+            tele.trace_capacity)  # (request, seconds, hit tokens)
         dev = engine.device
         # physical block ids = logical + 1; row 0 is the trash block
         self._block_tables = torch.zeros((S, self.max_blocks), dtype=torch.int32, device=dev)
@@ -213,18 +282,69 @@ class Scheduler:
         self._queue: collections.deque = collections.deque()
         self._n_submitted = 0
         self._completions: Dict[int, Completion] = {}
+        self._on_token: Dict[int, Callable[[int, int], None]] = {}
+        self._on_finish: Dict[int, Callable[[Completion], None]] = {}
+        self._streamed: Dict[int, int] = {}  # request -> tokens already streamed
         self.step_count = 0
         self._buckets_used: set = set()
-        self.stats: Dict[str, int] = {
-            k: 0 for k in (
-                "decode_steps", "idle_steps", "prefill_only_steps", "prefills",
-                "prefill_chunks", "chunked_admissions", "admissions", "evictions",
-                "preemptions", "tokens_emitted", "admission_traces",
-                "admission_trace_compiles", "peak_live_slots", "prefix_hits",
-                "prefix_misses", "prefix_hit_tokens", "prefix_cow_copies",
-                "prefix_evicted_blocks",
-            )
-        }
+        # stats is a thin view over the registry's serve_* counters
+        self.stats = StatsView(self.registry, "serve_")
+        for key in (
+            "decode_steps", "idle_steps", "prefill_only_steps", "prefills",
+            "prefill_chunks", "chunked_admissions", "admissions", "evictions",
+            "preemptions", "cancellations", "tokens_emitted", "admission_traces",
+            "admission_trace_compiles", "chunk_trace_compiles", "decode_trace_compiles",
+            "peak_live_slots", "prefix_hits", "prefix_misses", "prefix_hit_tokens",
+            "prefix_cow_copies", "prefix_evicted_blocks",
+        ):
+            self.stats[key] = 0
+        # the port has no jit caches: the compile counters read the engine's
+        # memo of decode signatures and tail-prefill steps built
+        self._decode_cache0 = self._fns.decode_cache_size()
+        self._prefix_compiles0 = self._fns.prefix_compiles
+        reg = self.registry
+        self._h_queue = reg.histogram(
+            "serve_queue_wait_steps",
+            "steps a finished request waited for a slot (restart wait included)",
+            log_buckets(1, 4096),
+        )
+        self._h_ttft = reg.histogram(
+            "serve_ttft_steps",
+            "arrival to first sampled token, in decode steps",
+            log_buckets(1, 4096),
+        )
+        self._h_itl = reg.histogram(
+            "serve_itl_seconds",
+            "wall time per committed token (per-row view of decode-step time)",
+            log_buckets(1e-5, 32.0, 4.0),
+        )
+        self._h_accept = reg.histogram(
+            "serve_accepted_per_step",
+            "tokens committed per (row, speculative round); vanilla decode is 1",
+            log_buckets(1, 16),
+        )
+        self._g_live = reg.gauge("serve_live_slots", "occupied decode slots")
+        self._g_queue = reg.gauge("serve_queue_depth", "requests waiting for admission")
+        self._g_pool_live = reg.gauge("serve_pool_live_blocks", "pool blocks held by live requests")
+        self._g_pool_free = reg.gauge("serve_pool_free_blocks", "immediately allocatable blocks")
+        self._g_pool_cached = reg.gauge(
+            "serve_pool_cached_free_blocks", "cached-free tier (prefix blocks reclaimable by LRU)"
+        )
+        self._g_ewma = reg.gauge("serve_step_time_ewma_seconds", "EWMA decode-step wall time")
+        self._g_straggler = reg.gauge(
+            "serve_straggler_fraction", "fraction of decode steps flagged slow by the monitor"
+        )
+        self._timelines: Dict[int, List[Tuple[str, int]]] = {}
+        self.events: List[Tuple[int, str, int, int]] = RingLog(
+            tele.trace_capacity)  # (step, kind, request, slot); oldest dropped past capacity
+        # read once here: the pool's size never changes and a gauge must not sync
+        reg.gauge("serve_pool_bytes", "resident KV pool bytes (all devices)").set(
+            self.cache_bytes())
+        reg.gauge(
+            "serve_pool_bytes_per_device",
+            "per-device resident paged-pool bytes (head-sharded data leaves divided; §12)",
+        ).set(self.paged_pool_bytes())
+        self._sync_gauges()
 
     # ------------------------------------------------------------------
     # cache pool
@@ -272,11 +392,26 @@ class Scheduler:
         return sum(leaf.numel() * leaf.element_size()
                    for g in self.caches.values() for sub in g.values() for leaf in sub.values())
 
+    def paged_pool_bytes(self) -> int:
+        """Bytes of the paged leaves and their exponents alone: the whole
+        pool lives on one card, so this is the JAX package's per-device
+        pool size off a mesh."""
+        return sum(leaf.numel() * leaf.element_size()
+                   for g in self._groups if g.paged[0]
+                   for name, leaf in self.caches[g.name]["sub0"].items()
+                   if name.removesuffix("_scale") in PAGED_CACHE_LEAVES)
+
     # ------------------------------------------------------------------
     # queue / admission
     # ------------------------------------------------------------------
-    def submit(self, req: Request) -> int:
-        """Enqueue a request; returns its index (completion order key)."""
+    def submit(self, req: Request, *, on_token: Optional[Callable[[int, int], None]] = None,
+               on_finish: Optional[Callable[[Completion], None]] = None) -> int:
+        """Enqueue a request; returns its index (completion order key).
+
+        ``on_token(index, token)`` streams each committed token (overrides
+        ``ServeConfig.on_token``); ``on_finish(completion)`` fires once,
+        after the last token, for any finish reason, cancellation included.
+        Preemption replays are deduplicated: every token streams once."""
         prompt = np.asarray(req.tokens, np.int32).reshape(-1)
         budget = min(int(req.max_new_tokens), self.eng.max_len - prompt.shape[0] + 1)
         if budget < 1:
@@ -284,8 +419,79 @@ class Scheduler:
                              f"generation under max_len={self.eng.max_len}")
         idx = self._n_submitted
         self._n_submitted += 1
+        cb = on_token if on_token is not None else self.config.on_token
+        if cb is not None:
+            self._on_token[idx] = cb
+        if on_finish is not None:
+            self._on_finish[idx] = on_finish
+        self._timelines[idx] = [("submit", self.step_count)]
         self._queue.append((idx, prompt, budget, req))
         return idx
+
+    def cancel(self, idx: int) -> bool:
+        """Cancel request ``idx``: a queued request is dropped; a live one is
+        torn down now — its blocks return to the pool (the zeroed table row
+        sends any write to the trash block, so surviving rows never notice)
+        and its partial output becomes a ``finish_reason='cancelled'``
+        Completion.  Returns False when the request is unknown or already
+        finished."""
+        for i, item in enumerate(self._queue):
+            if item[0] == idx:
+                del self._queue[i]
+                self._timeline(idx, "cancel")
+                self.tracer.instant("cancel", req=idx)
+                self._seal(Completion(
+                    index=idx, tokens=[], prompt_len=int(item[1].shape[0]),
+                    finish_reason="cancelled", slot=-1, arrival=item[3].arrival,
+                    admitted_step=-1, finished_step=self.step_count))
+                self.events.append((self.step_count, "cancel", idx, -1))
+                self.stats["cancellations"] += 1
+                return True
+        for slot, state in enumerate(self._slots):
+            if state is not None and state.index == idx:
+                self._emit_tokens(state)
+                self._release(slot)
+                self._timeline(idx, "cancel")
+                self.tracer.instant("cancel", req=idx, slot=slot)
+                self._seal(Completion(
+                    index=idx, tokens=list(state.out), prompt_len=state.prompt_len,
+                    finish_reason="cancelled", slot=slot, arrival=state.req.arrival,
+                    admitted_step=state.admitted_step, finished_step=self.step_count,
+                    first_token_step=state.first_token_step))
+                self.events.append((self.step_count, "cancel", idx, slot))
+                self.stats["cancellations"] += 1
+                return True
+        return False
+
+    def _timeline(self, idx: int, event: str) -> None:
+        tl = self._timelines.get(idx)
+        if tl is not None:
+            tl.append((event, self.step_count))
+
+    def _seal(self, comp: Completion) -> None:
+        """Record a completion, attach its timeline, fire its on_finish."""
+        comp.timeline = self._timelines.pop(comp.index, [])
+        self._completions[comp.index] = comp
+        cb = self._on_finish.get(comp.index)
+        if cb is not None:
+            cb(comp)
+
+    def _emit_tokens(self, state: _Slot) -> None:
+        """Stream the request's committed tokens not yet streamed, one
+        'token' timeline entry each.  Dedup is by count against the
+        request's lifetime stream: a preemption replay is token-exact, so a
+        replayed prefix is exactly what was already delivered."""
+        n = self._streamed.get(state.index, 0)
+        if len(state.out) <= n:
+            return
+        cb = self._on_token.get(state.index)
+        tl = self._timelines.get(state.index)
+        for t in state.out[n:]:
+            if cb is not None:
+                cb(state.index, int(t))
+            if tl is not None:
+                tl.append(("token", self.step_count))
+        self._streamed[state.index] = len(state.out)
 
     def _bucket(self, lp: int) -> int:
         """Power-of-two padded prompt length, capped at the cache room."""
@@ -295,12 +501,19 @@ class Scheduler:
         return min(b, self.eng.max_len)
 
     def _pop_due(self):
-        """First due request (a future-dated head does not block due work)."""
+        """Highest-priority due request, FIFO among equal priorities (a
+        future-dated or low-priority head does not block due work behind
+        it); ``priority=0`` everywhere is plain FIFO among due requests."""
+        best = None
         for i, item in enumerate(self._queue):
             if item[3].arrival <= self.step_count:
-                del self._queue[i]
-                return item
-        return None
+                if best is None or item[3].priority > self._queue[best][3].priority:
+                    best = i
+        if best is None:
+            return None
+        item = self._queue[best]
+        del self._queue[best]
+        return item
 
     def _upload(self, a: np.ndarray) -> torch.Tensor:
         """A host array on the engine's device without a sync: pinned and
@@ -356,9 +569,11 @@ class Scheduler:
                                                      fresh[0] + 1)
                 self.pool.free(src)
                 self.stats["prefix_cow_copies"] += 1
+                self.tracer.instant("cow", req=idx, src=src, dst=fresh[0])
             if matched:
                 self.stats["prefix_hits"] += 1
                 self.stats["prefix_hit_tokens"] += matched
+                self.tracer.instant("prefix_hit", req=idx, tokens=matched)
             elif self.prefix is not None:
                 self.stats["prefix_misses"] += 1
             self._admit_one(slot, idx, prompt, budget, req, shared + fresh, start=matched)
@@ -381,6 +596,7 @@ class Scheduler:
         self._slots[slot] = state
         self._n_live += 1
         self.stats["peak_live_slots"] = max(self.stats["peak_live_slots"], self._n_live)
+        self._timeline(idx, "admit")
         return state
 
     def _table_row(self, blocks: List[int]) -> np.ndarray:
@@ -402,8 +618,12 @@ class Scheduler:
         return first_t
 
     def _count_traces(self) -> None:
+        """admission_traces: the distinct bucketed admission steps this run
+        used; the compile counters: the ones built fresh for this run (0 on
+        a warm engine; the chunk counter the tail-prefill subset)."""
         self.stats["admission_traces"] = len(self._buckets_used)
         self.stats["admission_trace_compiles"] = self._fns.admit_compiles - self._compiles0
+        self.stats["chunk_trace_compiles"] = self._fns.prefix_compiles - self._prefix_compiles0
 
     def _index_prompt(self, state: _Slot) -> None:
         """Index every prompt block in the prefix cache (shared levels dedupe
@@ -421,22 +641,24 @@ class Scheduler:
             state.prefilling, state.done, state.hit = True, start, start
             state.row = self._table_row(blocks)
             self.stats["chunked_admissions"] += 1
+            self.events.append((self.step_count, "admit", idx, slot))
             return
         t0 = time.perf_counter() if self._time_admissions else 0.0
-        self._block_tables[slot] = self._upload(self._table_row(blocks))
-        bt_row = self._block_tables[slot]
-        if start or self._quant_admit:
-            # a prefix hit prefills only the uncached tail; a quantized pool
-            # sends misses (start 0) through the same step, so every first
-            # token comes from attention over the quantized pool
-            first_t = self._tail_step(prompt, start, lp - start, bt_row, idx)
-        else:
-            bucket, batch = self._admit_batch(prompt)
-            admit = self._fns.admit_step(bucket, self.block_size)
-            first_t, self.caches = self.eng._with_backend(
-                admit, self.eng.params, batch, lp, self.caches, bt_row, slot,
-                _sample_seed(idx, 0), self._seed, self._temp)
-            self._buckets_used.add((bucket, self.block_size))
+        with self.tracer.span("admit", step=self.step_count, req=idx, slot=slot, prompt=lp):
+            self._block_tables[slot] = self._upload(self._table_row(blocks))
+            bt_row = self._block_tables[slot]
+            if start or self._quant_admit:
+                # a prefix hit prefills only the uncached tail; a quantized
+                # pool sends misses (start 0) through the same step, so every
+                # first token comes from attention over the quantized pool
+                first_t = self._tail_step(prompt, start, lp - start, bt_row, idx)
+            else:
+                bucket, batch = self._admit_batch(prompt)
+                admit = self._fns.admit_step(bucket, self.block_size)
+                first_t, self.caches = self.eng._with_backend(
+                    admit, self.eng.params, batch, lp, self.caches, bt_row, slot,
+                    _sample_seed(idx, 0), self._seed, self._temp)
+                self._buckets_used.add((bucket, self.block_size))
         self.stats["prefills"] += 1
         self._count_traces()
         state = self._new_slot(slot, idx, prompt, budget, req, blocks)
@@ -444,6 +666,7 @@ class Scheduler:
         if self._time_admissions:
             first_t.cpu()
             self.admit_times.append((idx, time.perf_counter() - t0, start))
+        self.events.append((self.step_count, "admit", idx, slot))
         self._activate(slot, first_t)
 
     def _prefill_chunk(self, slot: int) -> None:
@@ -457,9 +680,12 @@ class Scheduler:
         lp = state.prompt_len
         tail = min(self.chunk, lp - state.done)
         t0 = time.perf_counter() if self._time_admissions else 0.0
-        first_t = self._tail_step(state.prompt, state.done, tail, self._upload(state.row),
-                                  state.index)
+        with self.tracer.span("chunk", step=self.step_count, req=state.index, slot=slot,
+                              done=state.done, tail=tail):
+            first_t = self._tail_step(state.prompt, state.done, tail, self._upload(state.row),
+                                      state.index)
         state.done += tail
+        self._timeline(state.index, "chunk")
         self.stats["prefill_chunks"] += 1
         self._count_traces()
         if self._time_admissions:
@@ -486,7 +712,8 @@ class Scheduler:
     def _activate(self, slot: int, first_t) -> None:
         """Flip a slot live once the whole prompt's KV is resident and its
         first token sampled: publish the device slot state the decode step
-        reads, record the token, and apply the instant finish checks."""
+        reads, record and stream the token, and apply the instant finish
+        checks."""
         state = self._slots[slot]
         first = int(first_t)  # the admission's one host sync
         state.prefilling = False
@@ -499,6 +726,7 @@ class Scheduler:
         # seed0 + pos == _sample_seed(idx, len(out)) at every later step
         self._seed0[slot] = _sample_seed(state.index, 1) - state.pos
         self._active[slot] = True
+        self._emit_tokens(state)
         if first == state.eos_id or len(state.out) >= state.budget:
             self._finish(slot, "eos" if first == state.eos_id else "length")
 
@@ -517,28 +745,38 @@ class Scheduler:
 
     def _finish(self, slot: int, reason: str) -> None:
         state = self._release(slot)
-        self._completions[state.index] = Completion(
+        self._h_queue.observe(max(0, state.admitted_step - state.req.arrival))
+        if state.first_token_step >= 0:
+            self._h_ttft.observe(state.first_token_step - state.req.arrival + 1)
+        self.tracer.instant("evict", req=state.index, slot=slot, reason=reason)
+        self._timeline(state.index, "finish")
+        self._seal(Completion(
             index=state.index, tokens=list(state.out), prompt_len=state.prompt_len,
             finish_reason=reason, slot=slot, arrival=state.req.arrival,
             admitted_step=state.admitted_step, finished_step=self.step_count,
-            first_token_step=state.first_token_step,
-        )
+            first_token_step=state.first_token_step))
+        self.events.append((self.step_count, "evict", state.index, slot))
         self.stats["evictions"] += 1
 
     def _preempt(self, slot: int) -> None:
         """Evict a live request under pool pressure and requeue it at the
-        front for a from-scratch (token-exact) restart."""
+        front for a from-scratch (token-exact) restart; what it already
+        streamed is not streamed again (``_emit_tokens`` dedupes)."""
         state = self._release(slot)
         self._queue.appendleft((state.index, state.prompt, state.budget, state.req))
+        self.events.append((self.step_count, "preempt", state.index, slot))
         self.stats["preemptions"] += 1
+        self.tracer.instant("preempt", req=state.index, slot=slot)
+        self._timeline(state.index, "preempt")
 
     def _grow_tables(self, horizon: int = 0) -> None:
         """Allocate blocks for every live row through position ``pos +
         horizon`` (clamped to the cache end), oldest request first;
-        exhaustion preempts the youngest live request (the oldest always
-        progresses, so the loop terminates).  A decode step needs horizon 0;
-        the speculative scheduler reserves its whole draft window, so a
-        verify never writes through a missing table entry."""
+        exhaustion preempts the lowest-priority live request, the youngest
+        among ties (the oldest high-priority request always progresses, so
+        the loop terminates).  A decode step needs horizon 0; the
+        speculative scheduler reserves its whole draft window, so a verify
+        never writes through a missing table entry."""
         order = sorted((s for s in range(self.n_slots) if self._slots[s] is not None),
                        key=lambda s: (self._slots[s].admitted_step, self._slots[s].index))
         for slot in order:
@@ -555,7 +793,8 @@ class Scheduler:
                     continue
                 victim = max(
                     (s for s in range(self.n_slots) if self._slots[s] is not None),
-                    key=lambda s: (self._slots[s].admitted_step, self._slots[s].index),
+                    key=lambda s: (-self._slots[s].req.priority, self._slots[s].admitted_step,
+                                   self._slots[s].index),
                 )
                 self._preempt(victim)
                 if victim == slot:
@@ -568,35 +807,71 @@ class Scheduler:
         """Live slots past their prefill (the decode step's real rows)."""
         return sum(1 for st in self._slots if st is not None and not st.prefilling)
 
+    def _sync_gauges(self) -> None:
+        """Refresh the point-in-time occupancy gauges (host ints, per step)."""
+        self._g_live.set(self._n_live)
+        self._g_queue.set(len(self._queue))
+        self._g_pool_live.set(self.pool.n_live)
+        self._g_pool_free.set(self.pool.n_free)
+        self._g_pool_cached.set(self.pool.n_cached_free)
+
+    def _observe_step_time(self, dt: float) -> None:
+        """Feed one decode step's wall time to the straggler monitor, mirror
+        its EWMA and straggler fraction into gauges, and warn once when the
+        flagged fraction stays above ``telemetry.straggler_warn`` past
+        warmup (the gauges keep tracking either way)."""
+        self.monitor.observe(dt)
+        self._g_ewma.set(self.monitor.ewma or 0.0)
+        frac = self.monitor.straggler_fraction()
+        self._g_straggler.set(frac)
+        warn = self.config.telemetry.straggler_warn
+        if (warn and not self._straggler_warned
+                and self.monitor.count > 2 * self.monitor.warmup and frac > warn):
+            self._straggler_warned = True
+            print(f"[serve] sustained stragglers: {frac:.0%} of {self.monitor.count} decode "
+                  f"steps ran > {self.monitor.threshold:g}x the EWMA step time "
+                  f"({self.monitor.ewma:.4g}s)", file=sys.stderr)
+
     def step(self) -> bool:
         """Grow live tables, admit what fits, run one prefill chunk per
         prefilling slot, then one ragged decode step over the live rows.
         Growth runs first, so live requests reserve their next blocks
         before admission spends them.  Returns False once the queue is
         drained and every slot is idle."""
+        if self._profile is not None:
+            self._profile.on_step()
         self._grow_tables()
         self._admit()
         if self.prefix is not None:
             self.stats["prefix_evicted_blocks"] = self.prefix.stats["evicted_blocks"]
         if self._n_live == 0:
             if not self._queue:
+                self._sync_gauges()
                 return False
             self.step_count += 1  # arrivals still in the future: tick time
             self.stats["idle_steps"] += 1
+            self._sync_gauges()
             return True
         self._advance_prefills()
         if self._n_decoding() == 0:
             # every live slot is mid-prefill: the chunk pass was this step
             self.step_count += 1
             self.stats["prefill_only_steps"] += 1
+            self._sync_gauges()
             return bool(self._n_live or self._queue)
-        self._tokens, self._pos, self.caches = self.eng._with_backend(
-            self._fns.decode_step, self.eng.params, self.caches, self._tokens, self._pos,
-            self._active, self._seed0, self._block_tables, self._seed, self._temp,
-        )
-        nxt = self._tokens.cpu().numpy()  # the loop's one host sync
+        t0 = time.perf_counter()
+        with self.tracer.span("decode", step=self.step_count, n_decode=self._n_decoding(),
+                              n_live=self._n_live):
+            self._tokens, self._pos, self.caches = self.eng._with_backend(
+                self._fns.decode_step, self.eng.params, self.caches, self._tokens, self._pos,
+                self._active, self._seed0, self._block_tables, self._seed, self._temp,
+            )
+            nxt = self._tokens.cpu().numpy()  # the loop's one host sync
+        dt = time.perf_counter() - t0
         self.step_count += 1
         self.stats["decode_steps"] += 1
+        self.stats["decode_trace_compiles"] = self._fns.decode_cache_size() - self._decode_cache0
+        self._observe_step_time(dt)
         for s, state in enumerate(self._slots):
             if state is None or state.prefilling:
                 continue
@@ -604,16 +879,23 @@ class Scheduler:
             tok = int(nxt[s])
             state.out.append(tok)
             self.stats["tokens_emitted"] += 1
+            self._h_itl.observe(dt)
+            self._emit_tokens(state)
             if tok == state.eos_id:
                 self._finish(s, "eos")
             elif len(state.out) >= state.budget:
                 self._finish(s, "length")
+        self._sync_gauges()
         return bool(self._n_live or self._queue)
 
     def run(self) -> List[Completion]:
         """Drain the queue; completions in submission order."""
-        while self.step():
-            pass
+        try:
+            while self.step():
+                pass
+        finally:
+            if self._profile is not None:
+                self._profile.stop()
         return [self._completions[i] for i in sorted(self._completions)]
 
 

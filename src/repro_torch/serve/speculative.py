@@ -48,6 +48,7 @@ inert: every step is a vanilla decode step (``stats['spec_steps']`` 0).
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -208,7 +209,12 @@ class SpeculativeScheduler(Scheduler):
     allocation, growth, eviction, preemption and the trash-block redirect
     are shared.  Off the tier every step is the vanilla ``Scheduler.step``."""
 
-    def __init__(self, engine, config: Optional[ServeConfig] = None):
+    def __init__(self, engine, config: Optional[ServeConfig] = None, **legacy):
+        if isinstance(config, int):  # legacy positional n_slots
+            legacy["n_slots"] = config
+            config = None
+        if legacy:
+            config = ServeConfig(**legacy)  # the base class would warn again; build once
         config = (config or ServeConfig()).resolve(engine)
         if config.speculative is None:
             raise ValueError("SpeculativeScheduler needs config.speculative (a SpeculativeConfig)")
@@ -288,6 +294,8 @@ class SpeculativeScheduler(Scheduler):
     def step(self) -> bool:
         if self.spec_fns is None:
             return super().step()
+        if self._profile is not None:
+            self._profile.on_step()
         # growth twice: live rows reserve their draft windows before
         # admission spends blocks, then the fresh rows' windows
         self._grow_tables(horizon=self._depth())
@@ -296,16 +304,22 @@ class SpeculativeScheduler(Scheduler):
         self._grow_tables(horizon=depth)
         if self._n_live == 0:
             if not self._queue:
+                self._sync_gauges()
                 return False
             self.step_count += 1
             self.stats["idle_steps"] += 1
+            self._sync_gauges()
             return True
         self._spec_round(depth)
+        self._sync_gauges()
         return bool(self._n_live or self._queue)
 
     def _spec_round(self, k: int) -> None:
         fns, eng, deng = self.spec_fns, self.eng, self.draft_eng
         greedy = self.temperature <= 0.0
+        t0 = time.perf_counter()
+        span = self.tracer.span("verify", step=self.step_count, k=k, n_live=self._n_live)
+        span.__enter__()
         # draft phase: k + 1 single-token steps on the draft pool, chained on
         # the device; the last only writes d_k's draft KV
         cur, dpos = self._tokens, self._pos
@@ -328,12 +342,15 @@ class SpeculativeScheduler(Scheduler):
             None if greedy else torch.stack(d_probs, dim=1), self._pos, self._active,
             self._seed0, self._block_tables, self._seed, self._temp)
         both = torch.cat([out_t, m_t[:, None]], dim=1).cpu().numpy()  # the round's one sync
+        span.__exit__(None, None, None)
+        dt = time.perf_counter() - t0
         out_np, m_np = both[:, :-1], both[:, -1]
         self.step_count += 1
         self.stats["decode_steps"] += 1
         self.stats["spec_steps"] += 1
         self.stats["spec_drafted"] += k * self._n_live
         self.stats["verify_trace_compiles"] = fns.verify_compiles - self._verify_compiles0
+        self._observe_step_time(dt)
         for s in range(self.n_slots):
             state = self._slots[s]
             if state is None:
@@ -348,7 +365,12 @@ class SpeculativeScheduler(Scheduler):
                 ncommit = len(toks)
             state.out.extend(toks)
             state.pos += ncommit
+            self._emit_tokens(state)
             self.stats["tokens_emitted"] += ncommit
+            self._h_accept.observe(ncommit)
+            per_tok = dt / max(1, ncommit)  # this row's per-token wall time
+            for _ in range(ncommit):
+                self._h_itl.observe(per_tok)
             self.stats["spec_accepted"] += min(accepted, ncommit)
             self.stats["spec_emitted"] += ncommit
             self.stats["spec_row_rounds"] += 1

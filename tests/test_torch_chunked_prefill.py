@@ -46,6 +46,16 @@ STATS = ("prefill_chunks", "chunked_admissions", "prefill_only_steps", "prefills
          "decode_steps", "prefix_hits", "prefix_hit_tokens", "prefix_cow_copies")
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread per test: the suite runs six worker processes on
+    the CPU, where torch's default of a thread per core oversubscribes it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _trees(arch):
     if arch not in _TREES:
         cfg = jconfigs.get_reduced(arch)

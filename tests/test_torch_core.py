@@ -30,6 +30,16 @@ from repro_torch.nn.tree import flatten_with_paths as t_flatten  # noqa: E402
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread per test: the suite runs six worker processes on
+    the CPU, where torch's default of a thread per core oversubscribes it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np(x):
     return np.asarray(x.detach().cpu()) if isinstance(x, torch.Tensor) else np.asarray(x)
 

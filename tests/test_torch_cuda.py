@@ -1216,6 +1216,89 @@ def test_speculative_serve_on_card_matches_generate_static(dev, kv):
         assert c.tokens == want
 
 
+def _packed_engine(dev, kv="int4_fp"):
+    """Reduced internlm2, 2-bit packed, fp32 compute, on the card."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.core import SymogConfig, symog_init
+    from repro_torch.models import init_lm
+    from repro_torch.serve import ServeEngine
+
+    cfg = dataclasses.replace(configs.get_reduced("internlm2-1.8b"), kv_cache_dtype=kv)
+    params = init_lm(0, cfg, device=dev)
+    scfg = SymogConfig(n_bits=2, total_steps=1)
+    return ServeEngine.from_symog(cfg, params, symog_init(params, scfg), scfg, max_len=32,
+                                  compute_dtype=torch.float32, device=dev)
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int4_fp"])
+def test_async_streams_on_card_match_sync(dev, kv):
+    """The async front end steps the scheduler on worker threads: its
+    streams (``tokens()``, per-request ``on_token``) equal the synchronous
+    serve's tokens, and the worker threads ran the kernels (the packed
+    matmul and the attention kernel of the pool's kind)."""
+    import asyncio
+
+    from repro_torch.serve import Request, ServeConfig
+
+    eng = _packed_engine(dev, kv)
+    rng = np.random.default_rng(4)
+    reqs = [Request(tokens=rng.integers(0, eng.cfg.vocab_size, size=L).astype(np.int32),
+                    max_new_tokens=b) for L, b in ((3, 7), (9, 5), (5, 9), (12, 4))]
+    sc = ServeConfig(n_slots=2, block_size=4)
+    want = [c.tokens for c in eng.serve(reqs, sc)]
+    streamed = {}
+
+    async def main():
+        async with eng.serve_async(sc) as srv:
+            ids = [srv.submit(r, on_token=lambda i, t: streamed.setdefault(i, []).append(t))
+                   for r in reqs]
+            streams = await asyncio.gather(*[_collect(srv.tokens(i)) for i in ids])
+            return ids, streams, await srv.drain()
+
+    async def _collect(agen):
+        return [t async for t in agen]
+
+    before = (fops.decode_launches + fops.launches,
+              aops.quant_launches if kv != "bf16" else aops.launches)
+    ids, streams, comps = asyncio.run(main())
+    torch.cuda.synchronize()
+    after = (fops.decode_launches + fops.launches,
+             aops.quant_launches if kv != "bf16" else aops.launches)
+    assert all(a > b for a, b in zip(after, before))
+    assert [c.tokens for c in comps] == want == streams
+    assert [streamed[i] for i in ids] == want
+
+
+def test_cancel_on_card_frees_blocks(dev):
+    """A request cancelled mid-decode on the card: its blocks return to the
+    pool at once (audit clean), the survivor's tokens equal an undisturbed
+    serve's, and the cancelled prefix is the undisturbed stream's."""
+    from repro_torch.serve import Request, Scheduler, ServeConfig
+
+    eng = _packed_engine(dev)
+    rng = np.random.default_rng(5)
+    reqs = [Request(tokens=rng.integers(0, eng.cfg.vocab_size, size=L).astype(np.int32),
+                    max_new_tokens=10) for L in (4, 6)]
+    sc = ServeConfig(n_slots=2, block_size=4)
+    want = [c.tokens for c in eng.serve(reqs, sc)]
+    sched = Scheduler(eng, sc)
+    ids = [sched.submit(r) for r in reqs]
+    for _ in range(3):
+        sched.step()
+    victim = next(s for s in sched._slots if s is not None and s.index == ids[0])
+    free, n = sched.pool.n_free, len(victim.blocks)
+    assert sched.cancel(ids[0])
+    assert sched.pool.n_free == free + n
+    sched.pool.check([s.blocks for s in sched._slots if s is not None])
+    comps = sched.run()
+    assert comps[0].finish_reason == "cancelled" and comps[0].tokens == want[0][:4]
+    assert comps[1].tokens == want[1]
+    sched.pool.check()
+    assert sched.pool.n_live == 0
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("K,N", [(32, 48), (2048, 8192), (2048, 92544)])
 def test_plain_matmul_rows_do_not_depend_on_the_batch(dev, dtype, K, N):

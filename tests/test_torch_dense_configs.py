@@ -46,6 +46,16 @@ T, MAX_LEN = 12, 24
 _TREES = {}
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread per test: the suite runs six worker processes on
+    the CPU, where torch's default of a thread per core oversubscribes it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _trees(arch):
     """(cfg, jax tree, port tree): the 2-bit pack_tree of a seeded init."""
     if arch not in _TREES:

@@ -34,6 +34,16 @@ from repro_torch.models.quantized import packed_dense_apply  # noqa: E402
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread per test: the suite runs six worker processes on
+    the CPU, where torch's default of a thread per core oversubscribes it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _case(seed, M, K, N, n_bits, f, bias=False):
     rng = np.random.default_rng(seed)
     w = (rng.standard_normal((K, N)) * 0.2).astype(np.float32)

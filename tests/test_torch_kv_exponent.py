@@ -38,6 +38,16 @@ POWERS = range(-12, 13)
 _JIT = {}
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread per test: the suite runs six worker processes on
+    the CPU, where torch's default of a thread per core oversubscribes it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _jit_exp(qmax):
     if qmax not in _JIT:
         _JIT[qmax] = jax.jit(lambda x: jatt.block_scale_exp(x, qmax))

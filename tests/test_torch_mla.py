@@ -62,6 +62,16 @@ MAX_LEN = 24
 _TREES, _ENG = {}, {}
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread per test: the suite runs six worker processes on
+    the CPU, where torch's default of a thread per core oversubscribes it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(a, dtype=None):
     t = torch.from_numpy(np.array(a))
     return t.to(dtype) if dtype is not None else t

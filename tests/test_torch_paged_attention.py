@@ -28,6 +28,16 @@ KV_SCALE = 2.0**-5
 LAYOUTS = {"gqa": (2, 2), "mqa": (1, 4), "mha": (4, 1)}
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread per test: the suite runs six worker processes on
+    the CPU, where torch's default of a thread per core oversubscribes it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _case(seed, *, B=3, T=1, K=2, G=2, hd=16, block=8, max_blocks=3, int8=False,
           dtype=np.float32):
     rng = np.random.default_rng(seed)

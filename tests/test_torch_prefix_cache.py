@@ -48,6 +48,16 @@ STATS = ("prefix_hits", "prefix_misses", "prefix_hit_tokens", "prefix_cow_copies
          "prefix_evicted_blocks", "prefill_only_steps", "prefills", "preemptions")
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread per test: the suite runs six worker processes on
+    the CPU, where torch's default of a thread per core oversubscribes it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _trees(arch):
     """(cfg, {kind: jax tree}, {kind: port tree}) of ``arch``'s reduced
     config; kinds 'packed' and 'quantize_tree' of one SYMOG state."""

@@ -40,6 +40,16 @@ MAX_LEN = 24
 _ENG = {}
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread per test: the suite runs six worker processes on
+    the CPU, where torch's default of a thread per core oversubscribes it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _trees(kind):
     """(cfg, jax tree, port tree) of reduced internlm2 per param kind."""
     if kind not in _ENG:

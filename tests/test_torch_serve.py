@@ -35,6 +35,16 @@ MAX_LEN = 24
 _ENG = {}
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread per test: the suite runs six worker processes on
+    the CPU, where torch's default of a thread per core oversubscribes it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _engines(kind):
     """(jax engine, port engine) per param kind, built once per module."""
     if kind not in _ENG:

@@ -56,6 +56,16 @@ SPEC_STATS = ("spec_steps", "spec_row_rounds", "spec_drafted", "spec_accepted", 
               "decode_steps", "preemptions", "tokens_emitted")
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread per test: the suite runs six worker processes on
+    the CPU, where torch's default of a thread per core oversubscribes it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _trees(arch):
     """(cfg, {kind: jax tree}, {kind: port tree}): 'float', 'quantize_tree'
     and 'packed' of one SYMOG state."""

@@ -23,6 +23,16 @@ TOL = dict(rtol=1e-6, atol=1e-7)  # tests/test_kernels.py:22-23
 KW = dict(delta=0.25, lam_eff=0.7, lr=0.01, mu=0.9)
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread per test: the suite runs six worker processes on
+    the CPU, where torch's default of a thread per core oversubscribes it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(shape, seed=0):
     rng = np.random.default_rng(seed)
     w = (rng.standard_normal(shape) * 0.3).astype(np.float32)

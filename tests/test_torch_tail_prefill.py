@@ -46,6 +46,16 @@ MAX_LEN, BLOCK = 32, 4
 _TREES = {}
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread per test: the suite runs six worker processes on
+    the CPU, where torch's default of a thread per core oversubscribes it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _trees(arch):
     """(cfg, jax tree, port tree) of ``arch``'s reduced config."""
     if arch not in _TREES:

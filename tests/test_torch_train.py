@@ -47,6 +47,16 @@ STEP_TOL = dict(rtol=1e-5, atol=1e-5)
 F32 = dict(rtol=1e-6, atol=1e-7)
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread per test: the suite runs six worker processes on
+    the CPU, where torch's default of a thread per core oversubscribes it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np(x):
     return np.asarray(x.detach().cpu()) if isinstance(x, torch.Tensor) else np.asarray(x)
 
