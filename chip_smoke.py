@@ -188,7 +188,30 @@ Phases, one JSON line each:
                int4 pool, 8 requests, metrics JSON, trace, profiler window
                of 4 steps) as a subprocess: exit 0, JAX's metric names, the
                trace parses, the profiler trace names fpmm_decode and
-               gqa_decode.
+               gqa_decode;
+ 14. recur-  — (a) fixedpoint_matmul at one mamba2-2.7b layer's 6
+     rent      projections (N 5120, 128, 80; K 5120 for out_proj) and one
+               recurrentgemma-2b RG-LRU layer's 6 and local-attention
+               layer's 7, M 4 and 512, bf16, 2-bit (rule's kernel vs plain,
+               streaming, ``torch.matmul``, bound); (b) paged_attention at
+               recurrentgemma's decode shape (B 4, K 1, G 10, hd 256,
+               window 2,048 over ~3,000 tokens) from a bf16 and a KV_F
+               int8 pool, vs plain and SDPA; (c) kernel route vs plain
+               route, full width, fp32: recurrentgemma 5 layers (an RRL
+               unit + the RR tail), mamba2 4 layers, the engine's own
+               admission step, logits within PARITY_ATOL, argmax 1.0,
+               launches as the layers give them; (d) full-width 2-bit
+               bf16 serves of mamba2-2.7b (64 layers) and recurrentgemma-2b
+               (26 layers, bf16 pool and again under int8_fp) on phase 5's
+               traffic: launches by route (6 packed matmuls an SSD or
+               RG-LRU layer, 7 a local-attention layer, a call; gqa_decode
+               8 a decode step for recurrentgemma, none for mamba2),
+               repeats identical, pool bytes paged and resident, one
+               recurrent layer's decode step beside its projections, with
+               and without its state's write-back, the tied head's
+               dequantize, a profiled decode window; (e)
+               reduced mamba2 and recurrentgemma served greedy on the card
+               and on the CPU under a preempting pool: token-identical.
 Each serving and training path zeroes every kernel's launch count just
 before it runs and reads them just after.
 Then each phase's seconds and the total, the ``kernels`` summary line (the
@@ -717,9 +740,6 @@ DENSE_ATTN_CASES = [
 
 
 def phase_attn(torch, dev):
-    from repro_torch.kernels.paged_attention import ops as aops
-    from repro_torch.kernels.paged_attention.ref import gather_logical, paged_attention_ref
-
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     base = dict(B=4, K=8, G=2, hd=128, block=16, max_blocks=32, pos_last=(280, 320))
@@ -742,70 +762,79 @@ def phase_attn(torch, dev):
     # running past the table's end, where the kernel clamps them
     cases.append(dict(T=VERIFY_T, dt=torch.bfloat16, int8=False, window=None, cap=0.0,
                       q_mult=1.0, verify=True))
-    rows, worst, main = [], 0.0, None
+    rows, main = [], None
     for c in cases:
-        T, dt, int8 = c["T"], c["dt"], c["int8"]
-        shape = dict(base, **c.get("shape", {}))
-        B, K, G, hd, block = (shape[k] for k in ("B", "K", "G", "hd", "block"))
-        dname = str(dt).split(".")[-1]
-        q, kp, vp, bt, pos0 = _attn_case(torch, gen, dev, T=T, dt=dt, int8=int8,
-                                         q_mult=c["q_mult"], **shape)
-        mb = shape["max_blocks"]
-        if c.get("verify"):
-            pos0[-1] = mb * block - 2  # positions mb·block - 2 .. + 2: past the table
-        kv_scale = 2.0**-5 if int8 else 1.0
-        kw = dict(scale=c.get("scale", hd**-0.5), cap=c["cap"], window=c["window"],
-                  kv_scale=kv_scale)
-        out = aops.paged_attention(q, kp, vp, bt, pos0, **kw)
-        again = aops.paged_attention(q, kp, vp, bt, pos0, **kw)
-        ref = paged_attention_ref(q, kp, vp, bt, pos0, **kw)
-        torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
-        tol = ATTN_TOL[dname]
-        same = bool(torch.equal(out, again))
-        ok = bool(torch.allclose(out.float(), ref.float(), **tol)) and same
-        worst = max(worst, err)
-        # bytes this run's data needs: the blocks each row can see, once
-        kv_bytes = 2 * _visible_blocks(pos0, T, c["window"], block, mb) * block * K * hd * \
-            kp.element_size()
-        io = 2 * q.numel() * q.element_size() + kv_bytes + bt.numel() * 4 + B * 4
-        flops = 4 * _visible_keys(pos0, T, c["window"], mb * block) * K * G * hd
-        b_ms, b_by = bound(io, flops, dname)
-        n = copies_for(kp.numel() * kp.element_size() * 2)
-        pools = [(kp.clone(), vp.clone()) for _ in range(n)]
-        args = [(q, a, b) for a, b in pools]
-        row = {"phase": "kernel", "kernel": "paged_attention", "arch": c.get("arch"), "B": B,
-               "K": K, "G": G, "hd": hd, "block": block, "T": T,
-               "kv_dtype": str(kp.dtype).split(".")[-1], "q_dtype": dname,
-               "window": c["window"], "cap": c["cap"], "q_mult": c["q_mult"],
-               "verify": c.get("verify", False), "pos0": pos0.tolist(),
-               "mean_cached_tokens": (pos0.float() + T).mean().item(), "max_abs_err": err,
-               "tol": tol, "bit_identical": same, "pass": ok}
-        row["ms"] = timed(lambda a, b, cc: aops.paged_attention(a, b, cc, bt, pos0, **kw),
-                          args, torch)
-        row["plain_ms"] = timed(lambda a, b, cc: paged_attention_ref(a, b, cc, bt, pos0, **kw),
-                                args, torch)
-        # library yardstick: SDPA over the gathered (logical) cache; timed
-        # only, and without the softcap, which SDPA does not compute
-        if c["cap"] and "arch" not in c:
-            row["library_ms"] = None
-        else:
-            row["library_ms"] = _sdpa_ms(
-                torch, q, gather_logical(kp, bt).to(dt) * kv_scale,
-                gather_logical(vp, bt).to(dt) * kv_scale, pos0, c["window"])
-            if c["cap"]:
-                row["library_note"] = "SDPA without the softcap (it has none)"
-        row["bound_ms"], row["bound_by"] = b_ms, b_by
-        row["achieved_GBps"] = io / (row["ms"] * 1e-3) / 1e9
-        del pools, args
-        emit(row)
+        row = _attn_dense_case(torch, gen, dev, dict(base, **c.get("shape", {})), c)
         rows.append(row)
-        if main is None:
-            main = row
-        if not ok:
-            raise Failed(f"paged_attention case {c}: err {err}, bit-identical {same}")
+        main = main or row
     main["length_sweep"] = _attn_length_sweep(torch, dev, gen, quant=False)
-    return rows, worst, main
+    return rows, max(r["max_abs_err"] for r in rows), main
+
+
+def _attn_dense_case(torch, gen, dev, shape, c):
+    """One case of the float / KV_F int8 GQA kernel (phase 3b and 14b): the
+    kernel against its plain version, bit-identical over two calls, timed
+    beside the plain version and SDPA, with its bound.  Emits the row and
+    fails the phase on a miss."""
+    from repro_torch.kernels.paged_attention import ops as aops
+    from repro_torch.kernels.paged_attention.ref import gather_logical, paged_attention_ref
+
+    T, dt, int8 = c["T"], c["dt"], c["int8"]
+    B, K, G, hd, block = (shape[k] for k in ("B", "K", "G", "hd", "block"))
+    dname = str(dt).split(".")[-1]
+    q, kp, vp, bt, pos0 = _attn_case(torch, gen, dev, T=T, dt=dt, int8=int8,
+                                     q_mult=c["q_mult"], **shape)
+    mb = shape["max_blocks"]
+    if c.get("verify"):
+        pos0[-1] = mb * block - 2  # positions mb·block - 2 .. + 2: past the table
+    kv_scale = 2.0**-5 if int8 else 1.0
+    kw = dict(scale=c.get("scale", hd**-0.5), cap=c["cap"], window=c["window"],
+              kv_scale=kv_scale)
+    out = aops.paged_attention(q, kp, vp, bt, pos0, **kw)
+    again = aops.paged_attention(q, kp, vp, bt, pos0, **kw)
+    ref = paged_attention_ref(q, kp, vp, bt, pos0, **kw)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = ATTN_TOL[dname]
+    same = bool(torch.equal(out, again))
+    ok = bool(torch.allclose(out.float(), ref.float(), **tol)) and same
+    # bytes this run's data needs: the blocks each row can see, once
+    kv_bytes = 2 * _visible_blocks(pos0, T, c["window"], block, mb) * block * K * hd * \
+        kp.element_size()
+    io = 2 * q.numel() * q.element_size() + kv_bytes + bt.numel() * 4 + B * 4
+    flops = 4 * _visible_keys(pos0, T, c["window"], mb * block) * K * G * hd
+    b_ms, b_by = bound(io, flops, dname)
+    n = copies_for(kp.numel() * kp.element_size() * 2)
+    pools = [(kp.clone(), vp.clone()) for _ in range(n)]
+    args = [(q, a, b) for a, b in pools]
+    row = {"phase": "kernel", "kernel": "paged_attention", "arch": c.get("arch"), "B": B,
+           "K": K, "G": G, "hd": hd, "block": block, "T": T,
+           "kv_dtype": str(kp.dtype).split(".")[-1], "q_dtype": dname,
+           "window": c["window"], "cap": c["cap"], "q_mult": c["q_mult"],
+           "verify": c.get("verify", False), "pos0": pos0.tolist(),
+           "mean_cached_tokens": (pos0.float() + T).mean().item(), "max_abs_err": err,
+           "tol": tol, "bit_identical": same, "pass": ok}
+    row["ms"] = timed(lambda a, b, cc: aops.paged_attention(a, b, cc, bt, pos0, **kw),
+                      args, torch)
+    row["plain_ms"] = timed(lambda a, b, cc: paged_attention_ref(a, b, cc, bt, pos0, **kw),
+                            args, torch)
+    # library yardstick: SDPA over the gathered (logical) cache; timed
+    # only, and without the softcap, which SDPA does not compute
+    if c["cap"] and "arch" not in c:
+        row["library_ms"] = None
+    else:
+        row["library_ms"] = _sdpa_ms(
+            torch, q, gather_logical(kp, bt).to(dt) * kv_scale,
+            gather_logical(vp, bt).to(dt) * kv_scale, pos0, c["window"])
+        if c["cap"]:
+            row["library_note"] = "SDPA without the softcap (it has none)"
+    row["bound_ms"], row["bound_by"] = b_ms, b_by
+    row["achieved_GBps"] = io / (row["ms"] * 1e-3) / 1e9
+    del pools, args
+    emit(row)
+    if not ok:
+        raise Failed(f"paged_attention case {c}: err {err}, bit-identical {same}")
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -2020,7 +2049,8 @@ def phase_serve(torch, dev, arch: str, kv_cache_dtype: str, seed: int, expected,
         "prefill_s": prefill_s, "prefill_share_of_wall": prefill_s / wall,
         "prefill_ms": [[b, ms] for b, ms in zip(adm["buckets"], adm["ms"])],
         "tc_min_rows": fops.TC_MIN_ROWS, "decode_max_rows": fops.DECODE_MAX_ROWS,
-        "kv_pool_bytes": sched.cache_bytes(), "weight_bytes": eng.weight_bytes(),
+        "kv_pool_bytes": sched.cache_bytes(), "kv_pool_paged_bytes": sched.paged_pool_bytes(),
+        "weight_bytes": eng.weight_bytes(),
         "peak_device_bytes": peak, "launches": counts, "expected_launches": want,
     }
     # every kernel the path runs must have launched, each exactly as often
@@ -4190,6 +4220,322 @@ def phase_front_end(torch, dev, eng, reqs, want):
     return row
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the recurrent families (mamba2's SSD, recurrentgemma's RG-LRU
+# with local attention): rows 1 and 2 at their shapes, kernel vs plain
+# route, full-width serves, card vs CPU
+# ---------------------------------------------------------------------------
+MAMBA2_FPMM_SHAPES = [  # one mamba2-2.7b layer's packed projections, K x N
+    ("in_proj_z", 2560, 5120), ("in_proj_x", 2560, 5120), ("in_proj_B", 2560, 128),
+    ("in_proj_C", 2560, 128), ("in_proj_dt", 2560, 80), ("out_proj", 5120, 2560),
+]
+RGEMMA_MLP_SHAPES = [("gate_proj", 2560, 7680), ("up_proj", 2560, 7680),
+                     ("down_proj", 7680, 2560)]
+RECURRENT_FPMM_LAYERS = {  # recurrentgemma-2b: an RG-LRU layer and a local-attention layer
+    "mamba2-2.7b M": MAMBA2_FPMM_SHAPES,
+    "recurrentgemma-2b R": [("in_proj_x", 2560, 2560), ("in_proj_y", 2560, 2560),
+                            ("out_proj", 2560, 2560)] + RGEMMA_MLP_SHAPES,
+    "recurrentgemma-2b A": [("q_proj", 2560, 2560), ("k_proj", 2560, 256),
+                            ("v_proj", 2560, 256), ("o_proj", 2560, 2560)] + RGEMMA_MLP_SHAPES,
+}
+RECURRENT_FPMM_M = (4, 512)  # a decode step of 4 slots; the serve's largest prompt bucket
+PACKED_PER_KIND = {"M": 6, "R": 6, "A": 7}  # packed matmul launches a layer and call
+# recurrentgemma-2b's local attention at decode: MQA (K 1, G 10), head_dim
+# 256, rows of ~3,000 cached tokens so that its 2,048-token window binds
+RGEMMA_ATTN_SHAPE = dict(B=4, K=1, G=10, hd=256, block=16, max_blocks=200,
+                         pos_last=(2900, 3100))
+RECURRENT_PARITY_LAYERS = {"recurrentgemma-2b": 5, "mamba2-2.7b": 4}  # RRL + RR; 4 x M
+
+
+def phase_fpmm_recurrent(torch, dev):
+    """Row 1 at the recurrent families' shapes, 2-bit, bf16: one mamba2
+    layer's 6 projections (N 80 and 128 among them), one recurrentgemma
+    RG-LRU layer's 6 and one local-attention layer's 7, at M = 4 and 512;
+    each holds its rule's kernel to the plain version and times it beside
+    the streaming kernel, ``torch.matmul`` and the bound.  Returns the rows
+    and each layer's sums by M."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(14)
+    keys = ("ms", "stream_ms", "plain_ms", "library_ms", "bound_ms")
+    rows, sums = [], {}
+    for layer, shapes in RECURRENT_FPMM_LAYERS.items():
+        for M in RECURRENT_FPMM_M:
+            acc = sums[f"{layer} M={M}"] = dict.fromkeys(keys, 0.0)
+            for name, K, N in shapes:
+                row = _fpmm_case(torch, gen, dev, name, K, N, M, torch.bfloat16, 2,
+                                 with_bias=False, timing=True,
+                                 routes=_bf16_routes(torch.bfloat16, M))
+                row["arch"] = layer
+                for k in keys:
+                    acc[k] += row[k]
+                emit(row)
+                rows.append(row)
+                if not row["pass"]:
+                    raise Failed(f"fixedpoint_matmul {layer} {name} M={M}: err {_err(row)}")
+            acc["route"] = rows[-1]["route"]
+            acc["bound_by"] = _bound_by(rows[-len(shapes):])
+        torch.cuda.empty_cache()
+    return rows, sums
+
+
+def phase_attn_recurrent(torch, dev):
+    """Row 2 at recurrentgemma-2b's decode shape (B 4, MQA K 1 G 10, hd 256,
+    window 2,048 over ~3,000 cached tokens), from a bf16 pool and from a
+    KV_F int8 pool (one global Δ = 2^-5: the pool an ``int8_fp`` engine of a
+    non-decoder family serves from), against the plain version and SDPA."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(15)
+    return [_attn_dense_case(torch, gen, dev, dict(RGEMMA_ATTN_SHAPE),
+                             dict(T=1, dt=torch.bfloat16, int8=int8, q_mult=1.0, window=2048,
+                                  cap=0.0, scale=256**-0.5, arch="recurrentgemma-2b"))
+            for int8 in (False, True)]
+
+
+def _recurrent_packed(torch, dev, cfg, seed: int):
+    from repro_torch.core import SymogConfig, pack_tree, symog_init
+    from repro_torch.models import init_lm
+
+    params = init_lm(seed, cfg, device=dev)
+    scfg = SymogConfig(n_bits=2)
+    return pack_tree(params, symog_init(params, scfg), scfg)
+
+
+def _resident(caches, groups):
+    """{path: leaf} of the resident (not paged) leaves of a serving pool."""
+    from repro_torch.models.lm import PAGED_CACHE_LEAVES
+
+    return {f"{g.name}/sub{j}/{n}": t for g in groups for j, paged in enumerate(g.paged)
+            for n, t in caches[g.name][f"sub{j}"].items()
+            if not (paged and n in PAGED_CACHE_LEAVES)}
+
+
+def phase_parity_recurrent(torch, dev, arch: str, layers: int):
+    """Logits through the kernels against the plain paths, at full width and
+    ``layers`` deep, fp32 compute, 2-bit packed, a bf16 pool: two prompts
+    admitted by the engine's own admission step (bucketed prefill, the
+    attention k/v scattered into the pool, the recurrent / SSD states and
+    conv windows copied into the slot rows), then 4 teacher-forced paged
+    decode steps.  The kernel route runs every packed projection on the
+    streaming kernel (fp32 x) and the local attention on the GQA kernel;
+    the plain route neither.  The two routes' resident states after the
+    last step are compared too."""
+    from repro_torch import configs
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import decode_lm
+    from repro_torch.serve import ServeConfig, ServeEngine
+    from repro_torch.serve import engine as eng_mod
+    from repro_torch.serve.scheduler import Scheduler
+
+    cfg = dataclasses.replace(configs.get_config(arch), n_layers=layers)
+    packed = _recurrent_packed(torch, dev, cfg, 11)
+    max_len, block, steps = 128, 16, 4
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(3)
+    lens = [37, 70]
+    prompts = [torch.randint(0, cfg.vocab_size, (L,), generator=gen) for L in lens]
+    forced = torch.randint(0, cfg.vocab_size, (steps, len(lens)), generator=gen)
+    kinds = cfg.layer_kinds()
+    n_mm, n_attn = sum(PACKED_PER_KIND[k] for k in kinds), kinds.count("A")
+    logits, launches, states = {}, {}, {}
+    for path, (pb, ab) in {"kernels": ("kernel", "fused"), "plain": ("unpack", "composed")}.items():
+        dispatch.set_packed_backend(pb)
+        dispatch.set_attention_backend(ab)
+        eng = ServeEngine(cfg, packed, max_len=max_len, compute_dtype=torch.float32, device=dev)
+        dispatch.set_packed_backend("auto")
+        dispatch.set_attention_backend("auto")
+        sched = Scheduler(eng, ServeConfig(n_slots=len(lens), block_size=block))
+        caches, groups = sched.caches, sched._groups
+        del sched
+        nb = max_len // block
+        bt = (torch.arange(len(lens) * nb, device=dev, dtype=torch.int32) + 1).reshape(len(lens),
+                                                                                       nb)
+        fns = eng.scheduler_fns(greedy=True, top_k=0)
+        zero_counts()
+        rec, restore = _capture_admission_logits(torch, eng_mod)
+        try:
+            for b, pr in enumerate(prompts):
+                L = int(pr.shape[0])
+                bucket = 1 << (L - 1).bit_length()
+                tokens = torch.zeros((1, bucket), dtype=torch.int32, device=dev)
+                tokens[0, :L] = pr.to(dev)
+                _, caches = eng._with_backend(fns.admit_step(bucket, block), eng.params,
+                                              {"tokens": tokens}, L, caches, bt[b], b, 0, 0, 1.0)
+        finally:
+            restore()
+        outs = list(rec["logits"])
+        pos = torch.tensor(lens, dtype=torch.int32, device=dev)
+        active = torch.ones(len(lens), dtype=torch.bool, device=dev)
+        for s in range(steps):
+            lg, caches = eng._with_backend(decode_lm, eng.params, caches,
+                                           forced[s].to(dev)[:, None].to(torch.int32), pos, cfg,
+                                           compute_dtype=torch.float32, active=active,
+                                           block_tables=bt)
+            outs.extend(lg[:, 0])
+            pos = pos + 1
+        torch.cuda.synchronize()
+        logits[path] = torch.stack(outs)
+        counts = read_counts()
+        launches[path] = {k: v for k, v in counts.items() if v}
+        states[path] = _resident(caches, groups)
+        del eng, caches
+    a, b = logits["kernels"], logits["plain"]
+    err = (a - b).abs().max().item()
+    agree = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
+    finite = bool(torch.isfinite(a).all().item())
+    want = {"kernels": {k: v for k, v in (("fixedpoint_matmul", n_mm * (len(lens) + steps)),
+                                          ("paged_attention", n_attn * steps)) if v},
+            "plain": {}}
+    state_err = {p: (t.float() - states["plain"][p].float()).abs().max().item()
+                 for p, t in states["kernels"].items()}
+    del packed, states
+    torch.cuda.empty_cache()
+    row = {"phase": "parity", "arch": arch, "layers": layers, "kinds": "".join(kinds),
+           "n_bits": 2, "kv_cache_dtype": "bf16", "compute": "float32", "prompts": lens,
+           "decode_steps": steps, "logit_rows": int(a.shape[0]), "max_abs_logit_err": err,
+           "atol": PARITY_ATOL, "logit_scale": a.abs().max().item(), "argmax_agreement": agree,
+           "finite": finite, "launches": launches, "expected_launches": want,
+           "resident_state_max_abs_err": state_err,
+           "admission": "bucketed prefill + block scatter + slot-row copy",
+           "pass": finite and err <= PARITY_ATOL and agree == 1.0 and launches == want}
+    emit(row)
+    if not row["pass"]:
+        raise Failed(f"parity {arch}: {row}")
+    return row
+
+
+def _recurrent_expected(cfg, st, buckets):
+    """Launches of a recurrent model's bf16 serve: every packed projection
+    once a decode step (4 slots: the decode kernel) and once an admission
+    (by its bucket's rows); the local attention layers' GQA kernel once a
+    layer and decode step, over a bf16 or a KV_F int8 pool alike (bucketed
+    admissions attend in the prefill, not the pool).  The tied head
+    dequantizes its table: no launch."""
+    kinds = cfg.layer_kinds()
+    return {**_matmul_counts(sum(PACKED_PER_KIND[k] for k in kinds), 0, st["decode_steps"],
+                             buckets),
+            "paged_attention": kinds.count("A") * st["decode_steps"], "paged_attention_quant": 0,
+            **dict.fromkeys(MLA_COUNTS, 0), "symog_update": 0}
+
+
+def _layer_decode_ms(torch, dev, eng, kind: str):
+    """One decode step of a ``kind`` layer at the serve's 4 slots, bf16: a
+    CUDA graph over 16 layers of the stack, each with its own state (2-bit
+    words and states rotated past the L2), ms a layer.  Two times: the
+    block alone, which returns its new state and writes nothing, and the
+    block followed by the write-back ``decode_lm`` does in the serve
+    (``torch.where`` of new against old state under an ``active`` mask
+    with one slot idle, then ``copy_`` into the cache)."""
+    from repro_torch.models.blocks import block_cache_init, block_decode
+    from repro_torch.models.lm import _write_back, scan_groups
+    from repro_torch.models.quantized import scan_ready, unstack_layers
+
+    cfg = eng.cfg
+    g = next(g for g in scan_groups(cfg) if g.stacked and kind in g.unit)
+    j = g.unit.index(kind)
+    layers = [u[f"sub{j}"] for u in unstack_layers(scan_ready(eng.params[g.name], g.count),
+                                                   g.count)][:16]
+    args = [(p, block_cache_init(4, 1, cfg, kind, torch.bfloat16, dev)) for p in layers]
+    x = torch.randn((4, 1, cfg.d_model), device=dev, dtype=torch.bfloat16)
+    active = torch.tensor([True, True, True, False], device=dev)
+
+    def alone(p, c):
+        return block_decode(p, x, c, 0, cfg=cfg, kind=kind, compute_dtype=torch.bfloat16)[0]
+
+    def written(p, c):
+        y, new = block_decode(p, x, c, 0, cfg=cfg, kind=kind, compute_dtype=torch.bfloat16)
+        _write_back(c, new, active)
+        return y
+
+    return timed(alone, args, torch), timed(written, args, torch)
+
+
+def phase_serve_recurrent(torch, dev, fp_sums):
+    """Phase 5's traffic (4 slots, block 16, max_len 512, 8 requests of
+    24..400 prompt tokens, 32 new tokens each) through full-width, 2-bit,
+    bf16 mamba2-2.7b (64 SSD layers) and recurrentgemma-2b (26 layers:
+    8 RRL units + an RR tail), the latter from a bf16 pool and again,
+    same artifact, under ``int8_fp`` (KV_F int8 attention pools).  Gates:
+    launches by route as the layer counts give them, each serve repeated
+    token-identical.  Beside each: pool bytes paged and resident, one
+    recurrent layer's decode step against its projections' share (14a),
+    with and without the write-back of its state,
+    the tied head's dequantize + matmul, and a profiled decode window."""
+    from repro_torch.models.layers import embed_logits
+
+    out, eng = {}, None
+    for arch, kv, seed in (("mamba2-2.7b", "bf16", 41), ("recurrentgemma-2b", "bf16", 43),
+                           ("recurrentgemma-2b", "int8_fp", 43)):
+        build = None
+        if eng is not None and eng.cfg.name == arch:  # the same artifact, another pool
+            art = (eng.params, out[f"{arch} bf16"]["params"], {})
+            build = lambda cfg, s, art=art: art  # noqa: E731
+        if eng is not None and build is None:
+            del eng
+            torch.cuda.empty_cache()
+        row, eng, reqs, sc, tokens = phase_serve(torch, dev, arch, kv, seed, _recurrent_expected,
+                                                 build=build)
+        cfg = eng.cfg
+        again = [list(map(int, c.tokens)) for c in eng.serve(reqs, sc)]
+        row.update({"kinds": "".join(cfg.layer_kinds()), "repeat_tokens_identical": again == tokens,
+                    "kv_pool_resident_bytes": row["kv_pool_bytes"] - row["kv_pool_paged_bytes"]})
+        if kv == "bf16":  # the artifact's own numbers, once
+            kind = "M" if cfg.family == "ssm" else "R"
+            layer_ms, written_ms = _layer_decode_ms(torch, dev, eng, kind)
+            proj = fp_sums[f"{arch} {kind} M=4"]["ms"]
+            h = torch.randn((4, 1, cfg.d_model), device=dev, dtype=torch.bfloat16)
+            row.update({
+                f"{kind}_layer_decode_ms": layer_ms, f"{kind}_layer_projections_ms": proj,
+                f"{kind}_layer_decode_ms_outside_projections": layer_ms - proj,
+                f"{kind}_layer_decode_with_write_back_ms": written_ms,
+                f"{kind}_layer_write_back_ms": written_ms - layer_ms,
+                "head_dequant_matmul_ms": events_ms(
+                    lambda: embed_logits(eng.params["embed"], h), 5, torch)})
+        row["pass"] = row["pass"] and again == tokens
+        out[f"{arch} {kv}"] = report(row)
+        if kv == "bf16":
+            row["profile"] = phase_profile(torch, dev, eng)
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_recurrent_card_vs_cpu(torch, dev):
+    """Reduced mamba2 and recurrentgemma, 2-bit packed, fp32: a greedy serve
+    on the card (the streaming matmul kernel, the GQA kernel) against the
+    same serve on the CPU (the plain versions), under a pool that preempts:
+    token-identical, and the kernels launched."""
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.serve import Request, ServeConfig, ServeEngine
+
+    rows = []
+    for arch in RECURRENT_PARITY_LAYERS:
+        cfg = configs.get_reduced(arch)
+        packed = _recurrent_packed(torch, "cpu", cfg, 0)
+        rng = np.random.default_rng(9)
+        reqs = [Request(tokens=rng.integers(0, cfg.vocab_size, size=L), max_new_tokens=b)
+                for L, b in ((14, 10), (13, 12), (11, 7), (5, 9))]
+        sc = ServeConfig(n_slots=2, block_size=4, n_blocks=8)
+        cpu, sched_cpu = ServeEngine(cfg, packed, max_len=32, compute_dtype=torch.float32,
+                                     device="cpu").serve(reqs, sc, return_scheduler=True)
+        zero_counts()
+        card = ServeEngine(cfg, packed, max_len=32, compute_dtype=torch.float32,
+                           device=dev).serve(reqs, sc)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in read_counts().items() if v}
+        same = [c.tokens for c in card] == [c.tokens for c in cpu]
+        row = {"phase": "card_vs_cpu", "arch": cfg.name, "tokens_identical": same,
+               "preemptions": sched_cpu.stats["preemptions"], "launches": counts,
+               "pass": (same and sched_cpu.stats["preemptions"] > 0
+                        and counts.get("fixedpoint_matmul", 0) > 0
+                        and (cfg.family == "ssm") == ("paged_attention" not in counts))}
+        emit(row)
+        if not row["pass"]:
+            raise Failed(f"card vs cpu {arch}: {row}")
+        rows.append(row)
+    return rows
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
 
@@ -4306,12 +4652,20 @@ def main() -> int:
         run("12a cnn parity", phase_cnn_parity, torch, dev)
         lenet = run("12b cnn lenet5", phase_cnn_lenet, torch, dev)
         vgg7 = run("12c cnn vgg7", phase_cnn_vgg7, torch, dev)
+        rec_fp_rows, rec_fp = run("14a fixedpoint_matmul recurrent", phase_fpmm_recurrent,
+                                  torch, dev)
+        rec_attn = run("14b paged_attention recurrentgemma", phase_attn_recurrent, torch, dev)
+        for arch, n in RECURRENT_PARITY_LAYERS.items():
+            run("14c parity " + arch, phase_parity_recurrent, torch, dev, arch, n)
+        rec_serves = run("14d serve recurrent", phase_serve_recurrent, torch, dev, rec_fp)
+        run("14e recurrent card vs cpu", phase_recurrent_card_vs_cpu, torch, dev)
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     emit({"phase": "seconds", "by_phase": seconds,
           "total_s": time.perf_counter() - t_start})
-    mm_rows = fp_rows + fpd_rows + fpg_rows + [head] + [r for r in cx_rows if "M" in r]
+    mm_rows = (fp_rows + fpd_rows + fpg_rows + rec_fp_rows + [head]
+               + [r for r in cx_rows if "M" in r])
     ex_rows = fe_rows + fed_rows + [r for r in cx_rows if "C" in r]
     # at every case the rule sends to the tensor cores, they must be faster
     tc_cases = [r for r in mm_rows + ex_rows if r["route"] == "tensor_core" and "stream_ms" in r]
@@ -4353,7 +4707,11 @@ def main() -> int:
          "launches_speculative_serves": {t: r["launches"]["paged_attention"]
                                          for t, r in spec.items()},
          "launches_verify_parity": verify["attention_launches"],
-         "pass": all(r["pass"] for r in attn_rows)},
+         "recurrentgemma_decode_cases": [dict(_case_entry(r), kv_dtype=r["kv_dtype"])
+                                         for r in rec_attn],
+         "launches_recurrentgemma_serves": {
+             k: r["launches"]["paged_attention"] for k, r in rec_serves.items()},
+         "pass": all(r["pass"] for r in attn_rows + rec_attn)},
         {"name": "symog_update", "route": "cuda",
          "source": "src/repro_torch/csrc/symog_update.cu",
          "replaces": "src/repro/kernels/symog_update/kernel.py:25",
@@ -4486,6 +4844,12 @@ def main() -> int:
                 for M, v in fpg_tails.items()}
             entry["launches_speculative_draft_admissions"] = {t: r["launches"][name]
                                                               for t, r in spec.items()}
+            entry["recurrent_prefill_layers"] = {
+                k: dict(v, work=f"one {k.split(' M=')[0]} layer's packed projections at M=512, "
+                                "2-bit, bf16")
+                for k, v in rec_fp.items() if k.endswith("M=512")}
+            entry["launches_recurrent_serves"] = {k: r["launches"][name]
+                                                  for k, r in rec_serves.items()}
         if pre2 is not None:
             entry["olmoe_prefill_layer"] = dict(pre2, work=work2)
         summary.append(entry)
@@ -4512,6 +4876,12 @@ def main() -> int:
                                          for t, r in spec.items()},
          "launches_gemma3_prefix_chunk_serves": {
              w: r["launches"]["fixedpoint_matmul_decode"] for w, r in prefix.items()},
+         "recurrent_decode_layers": {
+             k: dict(v, work=f"one {k.split(' M=')[0]} layer's packed projections at M=4, "
+                             "2-bit, bf16")
+             for k, v in rec_fp.items() if k.endswith("M=4")},
+         "launches_recurrent_serves": {k: r["launches"]["fixedpoint_matmul_decode"]
+                                       for k, r in rec_serves.items()},
          "gemma3_decode_layer": dict(
              fpg_layer, work="one gemma3-4b layer's 7 projections at M=4, 2-bit, bf16"),
          "gemma3_head": dict(_case_entry(fpg_head), stream_ms=fpg_head["stream_ms"],

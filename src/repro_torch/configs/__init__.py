@@ -4,7 +4,9 @@ reduction.  The port has the dense decoders internlm2-1.8b (GQA),
 gemma2-27b (alternating local / global layers, softcaps, post-norms),
 gemma3-4b (5:1 local / global, two rope bases, qk-norm, head_dim 256) and
 granite-34b (MQA, a non-gated MLP, an untied head); the MoE decoder
-olmoe-1b-7b; and deepseek-v3-671b (MLA + MoE with leading dense layers)."""
+olmoe-1b-7b; deepseek-v3-671b (MLA + MoE with leading dense layers); and
+the recurrent families, mamba2-2.7b (SSD) and recurrentgemma-2b (RG-LRU
+blocks with local MQA attention, in RRL units)."""
 from __future__ import annotations
 
 import importlib
@@ -18,6 +20,8 @@ _MODULES = {
     "granite-34b": "granite_34b",
     "olmoe-1b-7b": "olmoe_1b_7b",
     "deepseek-v3-671b": "deepseek_v3_671b",
+    "mamba2-2.7b": "mamba2_2_7b",
+    "recurrentgemma-2b": "recurrentgemma_2b",
 }
 
 ARCHS = tuple(_MODULES)

@@ -68,9 +68,7 @@ from repro_torch.serve import (
 # the JAX package's architectures whose families the port has not yet
 UNPORTED = {
     "whisper-large-v3": "encdec",
-    "recurrentgemma-2b": "RG-LRU",
     "paligemma-3b": "VLM",
-    "mamba2-2.7b": "SSD",
 }
 
 
@@ -109,17 +107,18 @@ def kv_pool_report(eng: ServeEngine, config: ServeConfig) -> None:
     quant = bf16 = 0
     for g in scan_groups(eng.cfg):
         axis = 1 if g.stacked else 0
-        for name, sd in specs[g.name]["sub0"].items():
-            if not (g.paged[0] and name in PAGED_CACHE_LEAVES):
-                continue
-            stack = sd.shape[0] if g.stacked else 1
-            feat = int(np.prod(sd.shape[axis + 2:]))
-            width = sd.shape[-1]
-            bf16 += stack * n_per_slot * blk * feat * 2
-            if qbits:
-                quant += stack * n_per_slot * (blk * feat * qbits // 8 + (feat // width) * 4)
-            else:
-                quant += stack * n_per_slot * blk * feat * sd.dtype.itemsize
+        for j, paged in enumerate(g.paged):
+            for name, sd in specs[g.name][f"sub{j}"].items():
+                if not (paged and name in PAGED_CACHE_LEAVES):
+                    continue
+                stack = sd.shape[0] if g.stacked else 1
+                feat = int(np.prod(sd.shape[axis + 2:]))
+                width = sd.shape[-1]
+                bf16 += stack * n_per_slot * blk * feat * 2
+                if qbits:
+                    quant += stack * n_per_slot * (blk * feat * qbits // 8 + (feat // width) * 4)
+                else:
+                    quant += stack * n_per_slot * blk * feat * sd.dtype.itemsize
     if not bf16:
         return
     print(f"  kv pool: {quant} bytes/slot (kv_bits={qbits or 16}, "
@@ -300,7 +299,7 @@ def main(argv=None) -> None:
                  "ROADMAP Queue 1 item 5 (distribution)")
     if args.arch in UNPORTED:
         ap.error(f"--arch {args.arch}: the port has no {UNPORTED[args.arch]} family yet; "
-                 "it comes with ROADMAP Queue 1 item 4 (other families)")
+                 "it comes with ROADMAP Queue 1 item 4b (encdec and VLM)")
 
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     if args.kv_bits != 16:

@@ -1,9 +1,13 @@
-"""Per-layer blocks (mirrors ``repro/models/blocks.py``) of the decoder
-family: kind 'A' (attention + MLP), kind 'D' (the same, as an MoE model's
-leading dense layers: deepseek-v3) and kind 'E' (attention + MoE: olmoe,
-deepseek-v3), each with GQA attention or, with ``cfg.use_mla``, MLA.  The
-recurrent kinds ('R', 'M') are not ported and raise.  ``window`` and
-``rope_base`` are per-layer values read from the config."""
+"""Per-layer blocks (mirrors ``repro/models/blocks.py``): kind 'A'
+(attention + MLP), kind 'D' (the same, as an MoE model's leading dense
+layers: deepseek-v3) and kind 'E' (attention + MoE: olmoe, deepseek-v3),
+each with GQA attention or, with ``cfg.use_mla``, MLA; kind 'R' (RG-LRU
+block + MLP: recurrentgemma) and kind 'M' (mamba2's SSD block, no MLP).
+``window`` and ``rope_base`` are per-layer values read from the config.
+
+The recurrent kinds' decode returns new state tensors and writes nothing
+in place; the attention kinds write their caches in place, as the rest of
+the port does."""
 from __future__ import annotations
 
 import math
@@ -20,7 +24,13 @@ from repro_torch.models.attention import (
     attn_init_cache,
     attn_prefill_paged,
     attn_verify_paged,
+    _project_qkv,
+    _qk_attn,
+    _scale,
+    cache_read,
+    cache_update_rows,
     cache_write,
+    decode_positions,
     mla_apply,
     mla_decode,
     mla_init,
@@ -29,6 +39,7 @@ from repro_torch.models.attention import (
 )
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
+    dense_apply,
     layernorm_apply,
     layernorm_init,
     rmsnorm_apply,
@@ -36,6 +47,20 @@ from repro_torch.models.layers import (
 )
 from repro_torch.models.mlp import MLPConfig, mlp_apply, mlp_init
 from repro_torch.models.moe import MoEConfig, moe_apply, moe_init
+from repro_torch.models.rglru import (
+    RGLRUConfig,
+    rglru_block_apply,
+    rglru_block_decode,
+    rglru_init,
+    rglru_init_cache,
+)
+from repro_torch.models.ssd import (
+    SSDConfig,
+    ssd_block_apply,
+    ssd_block_decode,
+    ssd_init,
+    ssd_init_cache,
+)
 
 
 def _attn_cfg(cfg: ModelConfig) -> AttnConfig:
@@ -83,11 +108,29 @@ def _moe_cfg(cfg: ModelConfig) -> MoEConfig:
     )
 
 
+def _rglru_cfg(cfg: ModelConfig) -> RGLRUConfig:
+    return RGLRUConfig(
+        d_model=cfg.d_model, d_rnn=cfg.d_rnn, n_heads=cfg.rnn_heads, conv_width=cfg.conv_width
+    )
+
+
+def _ssd_cfg(cfg: ModelConfig) -> SSDConfig:
+    return SSDConfig(
+        d_model=cfg.d_model,
+        d_inner=cfg.d_inner,
+        n_heads=cfg.ssm_heads,
+        head_dim=cfg.ssm_head_dim,
+        d_state=cfg.ssm_state,
+        conv_width=cfg.conv_width,
+        chunk=cfg.ssd_chunk,
+    )
+
+
 def _check_kind(cfg: ModelConfig, kind: str) -> None:
-    if kind not in ("A", "D", "E"):
+    if kind not in ("A", "D", "E", "M", "R"):
         raise NotImplementedError(
             f"block kind {kind!r} is not ported yet; the port runs the attention+MLP "
-            "('A', 'D') and attention+MoE ('E') decoder blocks, with GQA or MLA attention "
+            "('A', 'D'), attention+MoE ('E'), mamba2 SSD ('M') and RG-LRU ('R') blocks "
             "(ROADMAP Queue 1 item 4)"
         )
 
@@ -113,11 +156,16 @@ def block_init(gen, cfg: ModelConfig, kind: str, dtype=torch.float32,
     _check_kind(cfg, kind)
     dev = gen.device
     p: Dict[str, Any] = {"pre_norm": _norm_init(cfg, dtype, dev, lead)}
-    if cfg.use_mla:
+    if kind == "M":
+        p["ssd"] = ssd_init(gen, _ssd_cfg(cfg), dtype, lead)
+        return p
+    if kind == "R":
+        p["rglru"] = rglru_init(gen, _rglru_cfg(cfg), dtype, lead)
+    elif cfg.use_mla:
         p["attn"] = mla_init(gen, _mla_cfg(cfg), dtype, lead)
     else:
         p["attn"] = attn_init(gen, _attn_cfg(cfg), dtype, lead)
-    if cfg.post_norm:
+    if cfg.post_norm and kind != "R":
         p["post_attn_norm"] = _norm_init(cfg, dtype, dev, lead)
     p["pre_mlp_norm"] = _norm_init(cfg, dtype, dev, lead)
     if kind == "E":
@@ -162,19 +210,25 @@ def _ffn(p, h, cfg: ModelConfig, kind: str, compute_dtype, with_aux: bool = Fals
     return y, (zero_aux(h.device) if with_aux else None)
 
 
-def _finish_block(p, x, y, cfg: ModelConfig, kind: str, compute_dtype, with_aux: bool = False,
+def _ffn_residual(p, x, cfg: ModelConfig, kind: str, compute_dtype, with_aux: bool = False,
                   **moe_kw):
-    """The block after attention: y (the attention output) through the
-    post-attention norm into the residual, then the FFN the same way.
+    """The FFN half of a block: pre-MLP norm, FFN, post-MLP norm, residual.
     Returns (x, aux) as ``_ffn``."""
-    if cfg.post_norm:
-        y = _norm_apply(cfg, p["post_attn_norm"], y)
-    x = x + y
     h = _norm_apply(cfg, p["pre_mlp_norm"], x)
     y, aux = _ffn(p, h, cfg, kind, compute_dtype, with_aux, **moe_kw)
     if cfg.post_norm:
         y = _norm_apply(cfg, p["post_mlp_norm"], y)
     return x + y, aux
+
+
+def _finish_block(p, x, y, cfg: ModelConfig, kind: str, compute_dtype, with_aux: bool = False,
+                  **moe_kw):
+    """The block after attention: y (the attention output) through the
+    post-attention norm into the residual, then the FFN half.  Returns (x,
+    aux) as ``_ffn``."""
+    if cfg.post_norm:
+        y = _norm_apply(cfg, p["post_attn_norm"], y)
+    return _ffn_residual(p, x + y, cfg, kind, compute_dtype, with_aux, **moe_kw)
 
 
 def block_apply(p, x, *, cfg: ModelConfig, kind: str, positions, window=None,
@@ -185,11 +239,22 @@ def block_apply(p, x, *, cfg: ModelConfig, kind: str, positions, window=None,
     ``aux`` the MoE load-balancing and z losses when ``with_aux`` (training;
     zeros for an MLP block), None otherwise: serving reads neither.
     ``seq_len`` (bucketed prefill): positions >= seq_len are padding, which
-    only the MoE capacity dispatch has to know (causal attention isolates
-    them)."""
+    only the couplings that are not per-token causal have to know: the MoE
+    capacity dispatch and the recurrent / SSD state and conv caches (causal
+    attention isolates them).  A recurrent block's cache is its state after
+    the last real token, whatever ``cache_len``."""
     _check_kind(cfg, kind)
     cache = None
     h = _norm_apply(cfg, p["pre_norm"], x)
+    if kind == "M":
+        y, cache = ssd_block_apply(p["ssd"], h, cfg=_ssd_cfg(cfg), compute_dtype=compute_dtype,
+                                   seq_len=seq_len)
+        return x + y, (zero_aux(x.device) if with_aux else None), (cache if cache_len else None)
+    if kind == "R":
+        y, cache = rglru_block_apply(p["rglru"], h, cfg=_rglru_cfg(cfg),
+                                     compute_dtype=compute_dtype, seq_len=seq_len)
+        x, aux = _ffn_residual(p, x + y, cfg, kind, compute_dtype, with_aux)
+        return x, aux, (cache if cache_len else None)
     if cfg.use_mla:
         y, (c_kv, k_rope) = mla_apply(p["attn"], h, cfg=_mla_cfg(cfg), positions=positions,
                                       rope_base=rope_base, compute_dtype=compute_dtype,
@@ -245,11 +310,49 @@ def block_verify_paged(p, x, cache, block_tables, positions, *, cfg: ModelConfig
 
 
 def block_cache_init(batch: int, max_len: int, cfg: ModelConfig, kind: str,
-                     dtype=torch.bfloat16, device=None, lead: Tuple[int, ...] = ()):
+                     dtype=torch.bfloat16, device=None, lead: Tuple[int, ...] = (),
+                     ring: bool = False):
+    """Zero decode caches of one block.  ``dtype`` is the attention caches'
+    dtype and the recurrent blocks' conv window's (their state is fp32).
+    ``ring`` (a local-attention layer whose window is shorter than
+    ``max_len``): a ring buffer of ``window`` entries per row, with a
+    ``kv_pos`` (batch, window) map of the position each entry holds (-1:
+    empty), so that every row keeps its own write offset."""
     _check_kind(cfg, kind)
+    if kind == "M":
+        return ssd_init_cache(batch, _ssd_cfg(cfg), dtype, device, lead)
+    if kind == "R":
+        return rglru_init_cache(batch, _rglru_cfg(cfg), dtype, device, lead)
     if cfg.use_mla:
         return mla_init_cache(batch, max_len, _mla_cfg(cfg), dtype, device, lead)
+    if ring and cfg.window and cfg.window < max_len:
+        c = attn_init_cache(batch, cfg.window, _attn_cfg(cfg), dtype, device, lead)
+        c["kv_pos"] = torch.full(lead + (batch, cfg.window), -1, dtype=torch.int32, device=device)
+        return c
     return attn_init_cache(batch, max_len, _attn_cfg(cfg), dtype, device, lead)
+
+
+def _attn_decode_ring(pa, x, cache, pos, *, cfg: ModelConfig, rope_base, compute_dtype,
+                      rope_table=None):
+    """Ring-buffer local-attention decode, in place: the cache holds the
+    window W; row b writes slot pos[b] % W, and the positions stored in
+    ``kv_pos`` (B, W) give the mask.  ``pos`` an int or (B,) per row."""
+    acfg = _attn_cfg(cfg)
+    B = x.shape[0]
+    H, K, hd = acfg.n_heads, acfg.n_kv_heads, acfg.head_dim
+    W = cache["k"].shape[1]
+    positions, per_row = decode_positions(pos, B, x.device)
+    q, k_new, v_new = _project_qkv(pa, x, positions, acfg, rope_base, compute_dtype, rope_table)
+    slot = torch.remainder(pos, W) if per_row else int(pos) % W
+    for name, new in (("k", k_new), ("v", v_new), ("kv_pos", positions)):
+        cache_update_rows(cache[name], new, slot, per_row=per_row)
+    kv_pos = cache["kv_pos"]  # (B, W)
+    valid = (kv_pos >= 0) & (kv_pos <= positions) & (positions - kv_pos < W)
+    out = _qk_attn(q.reshape(B, 1, K, H // K, hd), cache_read(cache["k"], compute_dtype),
+                   cache_read(cache["v"], compute_dtype), valid[:, None, :],
+                   scale=_scale(acfg), cap=acfg.softcap)
+    y = dense_apply(pa["o_proj"], out.reshape(B, 1, H, hd), n_in=2, compute_dtype=compute_dtype)
+    return y, cache
 
 
 def block_decode(p, x, cache, pos, *, cfg: ModelConfig, kind: str, window=None,
@@ -263,13 +366,27 @@ def block_decode(p, x, cache, pos, *, cfg: ModelConfig, kind: str, window=None,
     each expert's buffer at the batch: a token's top-k experts are
     distinct, so an expert sees at most B assignments and none drops — a
     row's output then never depends on who shares the slot table.  The
-    static loop keeps the bounded max(top_k, ceil(2·B·top_k/E))."""
+    static loop keeps the bounded max(top_k, ceil(2·B·top_k/E)).
+
+    The recurrent kinds ('M', 'R') return their new state as new tensors;
+    a ring cache (``kv_pos``) is written in place like a dense one."""
     _check_kind(cfg, kind)
     h = _norm_apply(cfg, p["pre_norm"], x)
+    if kind == "M":
+        y, cache = ssd_block_decode(p["ssd"], h, cache, cfg=_ssd_cfg(cfg),
+                                    compute_dtype=compute_dtype)
+        return x + y, cache
+    if kind == "R":
+        y, cache = rglru_block_decode(p["rglru"], h, cache, cfg=_rglru_cfg(cfg),
+                                      compute_dtype=compute_dtype)
+        return _ffn_residual(p, x + y, cfg, kind, compute_dtype)[0], cache
     if cfg.use_mla:
         y, cache = mla_decode(p["attn"], h, cache, pos, cfg=_mla_cfg(cfg), rope_base=rope_base,
                               compute_dtype=compute_dtype, block_tables=block_tables,
                               rope_table=rope_table, cache_index=cache_index)
+    elif "kv_pos" in cache:
+        y, cache = _attn_decode_ring(p["attn"], h, cache, pos, cfg=cfg, rope_base=rope_base,
+                                     compute_dtype=compute_dtype, rope_table=rope_table)
     else:
         y, cache = attn_decode(p["attn"], h, cache, pos, cfg=_attn_cfg(cfg), window=window,
                                rope_base=rope_base, compute_dtype=compute_dtype,

@@ -4,11 +4,13 @@ reads.  The port serves the decoder family's attention+MLP kind ('A'), an
 MoE model's leading dense layers ('D', deepseek-v3) and attention+MoE kind
 ('E', olmoe and deepseek-v3: one SYMOG Δ per expert), with GQA or MLA
 attention (``use_mla``, deepseek-v3), from a bf16 pool or a SYMOG-quantized
-int8/int4 KV pool (``kv_cache_dtype``).  Fields
-of the other families come back with the slice that ports them.
+int8/int4 KV pool (``kv_cache_dtype``); and the recurrent families'
+mamba2 SSD block ('M', family ``ssm``) and RG-LRU block + MLP ('R',
+recurrentgemma's ``hybrid`` family beside local attention).  Fields of the
+encdec and vlm families come back with the slice that ports them.
 ``layer_kinds`` derives the per-layer block kind: 'A' attention+MLP, 'D'
-an MoE model's leading dense layers, 'E' attention+MoE, 'R' RG-LRU block
-(not ported).
+an MoE model's leading dense layers, 'E' attention+MoE, 'M' mamba2 SSD,
+'R' RG-LRU block.
 Attention local/global heterogeneity (gemma2/3) is NOT a separate kind — it
 is per-layer scanned scalars (window, rope base), so the whole stack stays a
 single scan in JAX (a Python loop over the stacked layer axis here).
@@ -77,6 +79,16 @@ class ModelConfig:
     # through the tail prefill, MoE decoders through the bucketed prefill
     # plus a quantizing block scatter.
     kv_cache_dtype: str = "bf16"
+    # ssm (mamba2)
+    d_inner: int = 0
+    ssm_state: int = 0
+    ssm_heads: int = 0
+    ssm_head_dim: int = 64
+    conv_width: int = 4
+    ssd_chunk: int = 128
+    # hybrid (recurrentgemma)
+    d_rnn: int = 0
+    rnn_heads: int = 0
     # training: recompute each layer's forward in the backward
     # (``torch.utils.checkpoint``)
     remat: bool = True
@@ -87,6 +99,8 @@ class ModelConfig:
 
     def layer_kinds(self) -> List[str]:
         """Per-layer block kind for the decoder stack."""
+        if self.family == "ssm":
+            return ["M"] * self.n_layers
         kinds = []
         for i in range(self.n_layers):
             c = self.layer_pattern[i % len(self.layer_pattern)]

@@ -1,18 +1,26 @@
-"""LM assembly for the decoder family (mirrors ``repro/models/lm.py``):
-embeddings → layer groups → head, plus prefill, decode and the training
-loss, the tail prefill over the paged pool (``prefill_prefix_lm``) and the
-speculative verify (``decode_verify_lm``).
+"""LM assembly (mirrors ``repro/models/lm.py``): embeddings → layer groups
+→ head, plus prefill, decode and the training loss, the tail prefill over
+the paged pool (``prefill_prefix_lm``) and the speculative verify
+(``decode_verify_lm``).
 Dense decoders (internlm2, gemma2, gemma3, granite) and MoE decoders (olmoe;
 deepseek-v3 with MLA attention and leading dense layers) serve and train;
 MoE training adds the load-balancing and z losses summed over layers and,
 for deepseek-v3, the multi-token-prediction loss (``_mtp_loss``).  The
 training forward recomputes each layer in the backward when ``cfg.remat``
 (``torch.utils.checkpoint``; JAX's ``jax.checkpoint`` over the scan body).
+The recurrent families serve: mamba2 (family ``ssm``, SSD blocks) and
+recurrentgemma (family ``hybrid``, RG-LRU blocks and local attention);
+their training is not ported yet.
 
 Consecutive layers of one kind form a group whose params carry a stacked
 leading layer axis (``GroupSpec``/``scan_groups``, the JAX scan layout), so
-a bridged JAX tree is used as is.  Where JAX runs ``lax.scan`` over that
-axis, the port runs a Python loop over layer views.
+a bridged JAX tree is used as is; a cyclic pattern (recurrentgemma's RRL)
+stacks whole units, one ``sub{j}`` per kind of the unit, and unrolls the
+remainder as a ``tail`` group.  Where JAX runs ``lax.scan`` over that
+axis, the port runs a Python loop over unit views.
+
+Attention caches page into the serving pool; recurrent / SSD states,
+conv windows and ring buffers stay resident per row (``GroupSpec.paged``).
 """
 from __future__ import annotations
 
@@ -75,8 +83,9 @@ class GroupSpec:
 
 
 def scan_groups(cfg: ModelConfig) -> List[GroupSpec]:
-    """Runs of identical layer kinds -> groups (cyclic patterns are not part
-    of this slice's decoder family)."""
+    """Runs of identical layer kinds -> groups; a cyclic pattern (more than
+    two runs) -> a ``units`` group stacking whole pattern units plus an
+    unrolled ``tail`` group of the remainder layers."""
     kinds = cfg.layer_kinds()
     runs: List[Tuple[str, int]] = []
     for k in kinds:
@@ -84,13 +93,17 @@ def scan_groups(cfg: ModelConfig) -> List[GroupSpec]:
             runs[-1] = (k, runs[-1][1] + 1)
         else:
             runs.append((k, 1))
-    if len(runs) > 2:
-        raise NotImplementedError("cyclic layer patterns (hybrid family) are not ported yet "
-                                  "(ROADMAP Queue 1 item 4)")
-    groups, off = [], 0
-    for i, (k, c) in enumerate(runs):
-        groups.append(GroupSpec(f"layers{i}", (k,), c, off))
-        off += c
+    if len(runs) <= 2:
+        groups, off = [], 0
+        for i, (k, c) in enumerate(runs):
+            groups.append(GroupSpec(f"layers{i}", (k,), c, off))
+            off += c
+        return groups
+    u = len(cfg.layer_pattern)
+    full, rem = divmod(cfg.n_layers, u)
+    groups = [GroupSpec("units", tuple(kinds[:u]), full, 0)]
+    if rem:
+        groups.append(GroupSpec("tail", tuple(kinds[full * u:]), 1, full * u))
     return groups
 
 
@@ -102,9 +115,9 @@ class ForwardOut(NamedTuple):
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "decoder":
+    if cfg.family not in ("decoder", "ssm", "hybrid"):
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1 item 4)"
+            f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1 item 4b)"
         )
 
 
@@ -156,12 +169,28 @@ def init_lm(seed, cfg: ModelConfig, dtype=torch.float32, device=None) -> Dict[st
 
 
 def _group_layers(gp, spec: GroupSpec):
-    """(layer index, layer params) over a group: views of the stacked axis."""
+    """(unit index, index of the unit's first layer, unit params) over a
+    group: views of the stacked axis.  Sub j of unit i is layer
+    ``spec.offset + i·len(spec.unit) + j``."""
     if not spec.stacked:
-        yield spec.offset, gp
+        yield 0, spec.offset, gp
         return
-    for i, p_l in enumerate(unstack_layers(scan_ready(gp, spec.count), spec.count)):
-        yield spec.offset + i, p_l
+    u = len(spec.unit)
+    for i, p_u in enumerate(unstack_layers(scan_ready(gp, spec.count), spec.count)):
+        yield i, spec.offset + i * u, p_u
+
+
+def _unit_cache(gc, spec: GroupSpec, i: int):
+    """Unit i's view of one sub's cache leaves (its slice of a stacked
+    group's leading axis)."""
+    return {n: (leaf[i] if spec.stacked else leaf) for n, leaf in gc.items()}
+
+
+def _stack_caches(per_unit, spec: GroupSpec):
+    """One sub's prefill caches, unit by unit -> the group's layout."""
+    if not spec.stacked:
+        return per_unit[0]
+    return {name: torch.stack([c[name] for c in per_unit]) for name in per_unit[0]}
 
 
 def _head(params, cfg: ModelConfig, x):
@@ -179,7 +208,7 @@ def _rope_tables(cfg: ModelConfig, positions: torch.Tensor) -> Dict[float, Any]:
     """One ``rope_table`` per distinct layer rope base: the positions are the
     same for every layer of a forward or decode step.  MLA ropes only the
     qk_rope_dim part of its queries and its shared key."""
-    if not cfg.use_rope:
+    if not cfg.use_rope or not any(k in _PAGED_KINDS for k in cfg.layer_kinds()):
         return {}
     width = cfg.qk_rope_dim if cfg.use_mla else cfg.head_dim
     return {b: rope_table(positions, b, width) for b in set(cfg.layer_rope_bases())}
@@ -213,25 +242,24 @@ def forward_lm(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
     aux = zero_aux(x.device) if with_aux else None
     caches: Dict[str, Any] = {}
     for g in scan_groups(cfg):
-        per_layer = []
-        for li, p_l in _group_layers(params[g.name], g):
-            layer = functools.partial(
-                block_apply, p_l["sub0"], cfg=cfg, kind=g.unit[0], positions=positions,
-                window=wins[li], rope_base=bases[li], compute_dtype=compute_dtype,
-                cache_len=prefill_len, rope_table=tables.get(bases[li]), seq_len=seq_len,
-                with_aux=with_aux)
-            if remat:
-                x, a, c = torch.utils.checkpoint.checkpoint(layer, x, use_reentrant=False)
-            else:
-                x, a, c = layer(x)
-            if with_aux:
-                aux = {k: aux[k] + a[k] for k in aux}
-            per_layer.append(c)
+        per_sub = [[] for _ in g.unit]
+        for _, li0, p_u in _group_layers(params[g.name], g):
+            for j, kind in enumerate(g.unit):
+                li = li0 + j
+                layer = functools.partial(
+                    block_apply, p_u[f"sub{j}"], cfg=cfg, kind=kind, positions=positions,
+                    window=wins[li], rope_base=bases[li], compute_dtype=compute_dtype,
+                    cache_len=prefill_len, rope_table=tables.get(bases[li]), seq_len=seq_len,
+                    with_aux=with_aux)
+                if remat:
+                    x, a, c = torch.utils.checkpoint.checkpoint(layer, x, use_reentrant=False)
+                else:
+                    x, a, c = layer(x)
+                if with_aux:
+                    aux = {k: aux[k] + a[k] for k in aux}
+                per_sub[j].append(c)
         if prefill_len:
-            sub = per_layer[0] if not g.stacked else {
-                name: torch.stack([c[name] for c in per_layer]) for name in per_layer[0]
-            }
-            caches[g.name] = {"sub0": sub}
+            caches[g.name] = {f"sub{j}": _stack_caches(c, g) for j, c in enumerate(per_sub)}
     if last_only:
         x = x[:, -1:] if seq_len is None else x[:, seq_len - 1 : seq_len]
     logits, hidden = _head(params, cfg, x)
@@ -239,17 +267,47 @@ def forward_lm(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
                       aux=aux)
 
 
-def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype=None, device=None):
-    """Zero dense caches for every layer; ``device="meta"`` gives their
-    shapes and dtypes without memory (the port's ``jax.eval_shape``)."""
+def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype=None, device=None, *,
+                prefill: bool = False):
+    """Zero decode caches for every layer, as the JAX package's: attention
+    caches of ``dtype`` (int8 under ``int8_fp``, else bf16 by default), the
+    SSD conv window in bf16 and the RG-LRU's in fp32, recurrent / SSD states
+    in fp32; a hybrid model's local-attention layers get ring buffers of
+    the window when it is shorter than ``max_len``.
+
+    ``prefill``: shaped and typed like ``prefill_lm(..., max_len)``'s caches
+    at compute dtype ``dtype`` instead: attention caches of max_len entries
+    in ``dtype`` (KV_F int8 under ``int8_fp``), conv windows in ``dtype``,
+    no ring buffers.  The serving pools take their layout from these, as
+    JAX's take theirs from ``eval_shape`` of the prefill.  ``device="meta"``
+    gives shapes and dtypes without memory."""
     _check_family(cfg)
-    if dtype is None:
-        dtype = torch.int8 if cfg.kv_cache_dtype == "int8_fp" else torch.bfloat16
+    int8 = cfg.kv_cache_dtype == "int8_fp"
+    if prefill:
+        kv, conv = (torch.int8 if int8 else dtype), {"M": dtype, "R": dtype}
+    else:
+        kv = dtype if dtype is not None else (torch.int8 if int8 else torch.bfloat16)
+        conv = {"M": torch.bfloat16, "R": torch.float32}
+    ring = cfg.family == "hybrid" and not prefill
     return {
-        g.name: {"sub0": block_cache_init(batch, max_len, cfg, g.unit[0], dtype, device,
-                                          (g.count,) if g.stacked else ())}
+        g.name: {f"sub{j}": block_cache_init(batch, max_len, cfg, kind, conv.get(kind, kv),
+                                             device, (g.count,) if g.stacked else (),
+                                             ring=ring)
+                 for j, kind in enumerate(g.unit)}
         for g in scan_groups(cfg)
     }
+
+
+def _write_back(cache, new, active: Optional[torch.Tensor]) -> None:
+    """Copy a block's new resident state into its cache views, keeping an
+    inactive row's old entries (``active`` None: every row)."""
+    for name, old in cache.items():
+        v = new[name]
+        if v is old:
+            continue
+        if active is not None:
+            v = torch.where(active.reshape((-1,) + (1,) * (v.ndim - 1)), v, old)
+        old.copy_(v)
 
 
 def decode_lm(params, caches, tokens, pos, cfg: ModelConfig, *, compute_dtype=torch.bfloat16,
@@ -257,16 +315,20 @@ def decode_lm(params, caches, tokens, pos, cfg: ModelConfig, *, compute_dtype=to
               block_tables: Optional[torch.Tensor] = None):
     """One decode step.  tokens (B,1); ``pos`` an int (uniform batch) or a
     (B,) int32 tensor (per-request positions).  ``block_tables`` (B,
-    max_blocks) switches k/v to the paged pools; ``active`` (B,) bool then
-    zeroes inactive rows at the embedding, an evicted row's zeroed table
-    row sends its writes to the trash block, and MoE layers run dropless
-    (capacity = batch rows), as in the JAX package.  (The JAX package also reverts
-    inactive rows' writes into dense caches; the port's scheduler pages every
-    cache, so ``active`` is taken with ``block_tables`` only.)  Caches are
-    updated in place.  Returns (logits (B,1,V), caches)."""
+    max_blocks) switches the attention caches (``GroupSpec.paged``, not a
+    ring buffer) to the paged pools; an evicted row's zeroed table row sends
+    its writes there to the trash block.  ``active`` (B,) bool zeroes
+    inactive rows at the embedding, keeps every resident cache of an
+    inactive row as it was (recurrent / SSD states, conv windows, dense and
+    ring k/v: an evicted slot stays numerically frozen), and runs MoE
+    layers dropless (capacity = batch rows), as in the JAX package.
+
+    Caches are updated in place: paged and dense attention writes as they
+    happen, resident recurrent states from the block's new tensors through
+    ``torch.where(active, new, old)`` (a resident attention cache under
+    ``active`` is written into a copy first).  Returns (logits (B,1,V),
+    caches)."""
     _check_family(cfg)
-    if active is not None and block_tables is None:
-        raise ValueError("active rows are gated through block_tables (paged caches) only")
     B = tokens.shape[0]
     x = _embed_tokens(params, cfg, tokens, compute_dtype)
     if active is not None:
@@ -275,21 +337,31 @@ def decode_lm(params, caches, tokens, pos, cfg: ModelConfig, *, compute_dtype=to
     positions, _ = decode_positions(pos, B, x.device)
     tables = _rope_tables(cfg, positions)
     for g in scan_groups(cfg):
-        gc = caches[g.name]["sub0"]
-        paged = block_tables is not None and g.paged[0]
+        subs = [caches[g.name][f"sub{j}"] for j in range(len(g.unit))]
+        paged = [block_tables is not None and g.paged[j] and "kv_pos" not in gc
+                 for j, gc in enumerate(subs)]
         index = None
-        if paged:  # every layer of the group writes the same pool slot
+        if any(paged):  # every paged layer of the group writes the same pool slot
+            gc = subs[paged.index(True)]
             leaf = next(gc[n] for n in gc if n in PAGED_CACHE_LEAVES)
-            block = leaf.shape[2 if g.stacked else 1]
-            index = paged_token_index(block_tables, positions[:, 0], block)
-        for li, p_l in _group_layers(params[g.name], g):
-            c_l = {n: (leaf[li - g.offset] if g.stacked else leaf) for n, leaf in gc.items()}
-            x, _ = block_decode(p_l["sub0"], x, c_l, pos, cfg=cfg, kind=g.unit[0],
-                                window=wins[li], rope_base=bases[li],
-                                compute_dtype=compute_dtype,
-                                block_tables=block_tables if paged else None,
-                                rope_table=tables.get(bases[li]), cache_index=index,
-                                dropless_moe=active is not None)
+            index = paged_token_index(block_tables, positions[:, 0],
+                                      leaf.shape[2 if g.stacked else 1])
+        for i, li0, p_u in _group_layers(params[g.name], g):
+            for j, kind in enumerate(g.unit):
+                li = li0 + j
+                c_l = _unit_cache(subs[j], g, i)
+                c_in = c_l
+                if not paged[j] and active is not None and kind in _PAGED_KINDS:
+                    c_in = {n: t.clone() for n, t in c_l.items()}
+                x, new = block_decode(p_u[f"sub{j}"], x, c_in, pos, cfg=cfg, kind=kind,
+                                      window=wins[li], rope_base=bases[li],
+                                      compute_dtype=compute_dtype,
+                                      block_tables=block_tables if paged[j] else None,
+                                      rope_table=tables.get(bases[li]),
+                                      cache_index=index if paged[j] else None,
+                                      dropless_moe=active is not None)
+                if not paged[j]:
+                    _write_back(c_l, new, active)
     logits, _ = _head(params, cfg, x)
     return logits, caches
 
@@ -333,8 +405,8 @@ def prefill_prefix_lm(params, batch, caches, bt_row, start: int, cfg: ModelConfi
     tables = _rope_tables(cfg, positions)
     for g in scan_groups(cfg):
         gc = caches[g.name]["sub0"]
-        for li, p_l in _group_layers(params[g.name], g):
-            c_l = {n: (leaf[li - g.offset] if g.stacked else leaf) for n, leaf in gc.items()}
+        for i, li, p_l in _group_layers(params[g.name], g):
+            c_l = _unit_cache(gc, g, i)
             x, _ = block_prefill_paged(p_l["sub0"], x, c_l, bt_row, positions, cfg=cfg,
                                        seq_len=seq_len, window=wins[li], rope_base=bases[li],
                                        compute_dtype=compute_dtype,
@@ -384,8 +456,8 @@ def decode_verify_lm(params, caches, tokens, pos, cfg: ModelConfig, *, block_tab
         first = next(gc[n] for n in gc if n in PAGED_CACHE_LEAVES)
         index = verify_token_index(block_tables, positions, first.shape[2 if g.stacked else 1],
                                    valid)
-        for li, p_l in _group_layers(params[g.name], g):
-            c_l = {n: (leaf[li - g.offset] if g.stacked else leaf) for n, leaf in gc.items()}
+        for i, li, p_l in _group_layers(params[g.name], g):
+            c_l = _unit_cache(gc, g, i)
             x, _ = block_verify_paged(p_l["sub0"], x, c_l, block_tables, positions, cfg=cfg,
                                       valid=valid, window=wins[li], rope_base=bases[li],
                                       compute_dtype=compute_dtype,
@@ -439,7 +511,13 @@ def lm_train_loss(params, batch, cfg: ModelConfig, *, compute_dtype=torch.bfloat
     cross entropy, plus on an MoE config the layers' summed load-balancing
     and z losses (``moe_aux_coef``, ``moe_z_coef``), plus ``mtp_weight`` x the
     MTP cross entropy when ``cfg.use_mtp``.  Metric keys: ``ce``,
-    ``moe_aux_loss`` and ``moe_z_loss`` (MoE), ``mtp_ce`` (MTP), ``loss``."""
+    ``moe_aux_loss`` and ``moe_z_loss`` (MoE), ``mtp_ce`` (MTP), ``loss``.
+    The recurrent families (``ssm``, ``hybrid``) serve but do not train
+    yet."""
+    if cfg.family in ("ssm", "hybrid"):
+        raise NotImplementedError(
+            f"training of the {cfg.family!r} family is not ported yet (ROADMAP Queue 1 "
+            "item 4c)")
     out = forward_lm(params, batch, cfg, compute_dtype=compute_dtype, with_aux=cfg.moe)
     tokens = batch["tokens"]
     mask = batch.get("loss_mask")

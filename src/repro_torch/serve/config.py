@@ -153,8 +153,9 @@ def _tier_reasons(engine, *, allow_mla: bool = False) -> list:
         r.append("MLA's compressed cache has no tail-prefill trace")
     if not r:
         specs = engine.prefill_cache_specs()
-        if not all(g.paged[0] and name in PAGED_CACHE_LEAVES
-                   for g in scan_groups(cfg) for name in specs[g.name]["sub0"]):
+        if not all(paged and name in PAGED_CACHE_LEAVES
+                   for g in scan_groups(cfg) for j, paged in enumerate(g.paged)
+                   for name in specs[g.name][f"sub{j}"]):
             r.append("non-paged per-row cache state")
     return r
 

@@ -3,7 +3,9 @@
 
 The engine serves float, ``quantize_tree`` and ``pack_tree`` params through
 the same forward code, for dense decoders (internlm2, gemma2, gemma3,
-granite) and MoE decoders (olmoe; deepseek-v3 with MLA attention).  Packed
+granite), MoE decoders (olmoe; deepseek-v3 with MLA attention) and the
+recurrent families (mamba2; recurrentgemma, whose local-attention layers
+page while its RG-LRU states stay resident a slot).  Packed
 leaves stay packed on the device: every packed dense layer runs the CUDA
 ``fixedpoint_matmul`` kernel, every packed expert stack its experts form,
 and paged attention runs the CUDA ``paged_attention`` kernel (decode, and
@@ -264,12 +266,13 @@ class SchedulerFns:
         if dst == 0 or src == 0:
             raise ValueError(f"copy-on-write touches the trash block: src {src}, dst {dst}")
         for g in self._groups:
-            if not g.paged[0]:
-                continue
-            for name, leaf in caches[g.name]["sub0"].items():
-                if name.removesuffix("_scale") in PAGED_CACHE_LEAVES:
-                    leaf.select(1 if g.stacked else 0, dst).copy_(
-                        leaf.select(1 if g.stacked else 0, src))
+            for j, paged in enumerate(g.paged):
+                if not paged:
+                    continue
+                for name, leaf in caches[g.name][f"sub{j}"].items():
+                    if name.removesuffix("_scale") in PAGED_CACHE_LEAVES:
+                        leaf.select(1 if g.stacked else 0, dst).copy_(
+                            leaf.select(1 if g.stacked else 0, src))
         return caches
 
     def _first_token(self, logits, stream: int, seed: int, temperature):
@@ -298,22 +301,25 @@ class SchedulerFns:
                    seed: int, temperature):
             # bucketed prefill: tokens (1, bucket) right-padded, ``length``
             # the real prompt length; sample at the last REAL position and
-            # write only the bucket's blocks (padded tail -> trash block)
+            # write only the bucket's blocks (padded tail -> trash block).
+            # Resident leaves (recurrent / SSD state, conv windows) are
+            # copied whole into the slot's row
             logits, one = prefill_lm(params, batch, eng.cfg, max_len=eng.max_len,
                                      compute_dtype=eng.compute_dtype, seq_len=length)
             for g in groups:
                 axis = 1 if g.stacked else 0
-                dst, src = caches[g.name]["sub0"], one[g.name]["sub0"]
-                for name, leaf in src.items():
-                    if g.paged[0] and name in PAGED_CACHE_LEAVES:
-                        sname = name + "_scale"
-                        if sname in dst:
-                            _scatter_blocks_quant(dst[name], dst[sname], leaf, bt_row, axis,
-                                                  p_blocks)
+                for j, paged in enumerate(g.paged):
+                    dst, src = caches[g.name][f"sub{j}"], one[g.name][f"sub{j}"]
+                    for name, leaf in src.items():
+                        if paged and name in PAGED_CACHE_LEAVES:
+                            sname = name + "_scale"
+                            if sname in dst:
+                                _scatter_blocks_quant(dst[name], dst[sname], leaf, bt_row, axis,
+                                                      p_blocks)
+                            else:
+                                _scatter_blocks(dst[name], leaf, bt_row, axis, p_blocks)
                         else:
-                            _scatter_blocks(dst[name], leaf, bt_row, axis, p_blocks)
-                    else:
-                        dst[name].narrow(axis, slot, 1).copy_(leaf)
+                            dst[name].narrow(axis, slot, 1).copy_(leaf)
             return self._first_token(logits, stream, seed, temperature), caches
 
         return _admit
@@ -365,7 +371,13 @@ class ServeEngine:
     @property
     def kv_quant_bits(self) -> int:
         """Wordlength of the per-block SYMOG paged KV pool: 8 (int8_fp) or
-        4 (int4_fp), 0 for a float pool."""
+        4 (int4_fp) for a decoder-family engine, 0 for a float pool and for
+        every other family.  Those keep the JAX package's rule: their
+        attention caches are KV_F int8 (one global Δ = 2^-5) under int8_fp,
+        scattered into the pool as they are, and in the compute dtype under
+        int4_fp."""
+        if self.cfg.family != "decoder":
+            return 0
         return {"int8_fp": 8, "int4_fp": 4}.get(self.cfg.kv_cache_dtype, 0)
 
     def weight_bytes(self) -> int:
@@ -373,9 +385,11 @@ class ServeEngine:
         return tree_bytes(self.params)
 
     def prefill_cache_specs(self):
-        """Meta tensors shaped like one request's prefill caches — the
-        scheduler derives the paged pool layout from them."""
-        return init_caches(self.cfg, 1, self.max_len, self.compute_dtype, device="meta")
+        """Meta tensors shaped and typed like one request's prefill caches:
+        the scheduler derives the paged pool and resident slot-row layouts
+        from them."""
+        return init_caches(self.cfg, 1, self.max_len, self.compute_dtype, device="meta",
+                           prefill=True)
 
     def scheduler_fns(self, *, greedy: bool, top_k: int) -> SchedulerFns:
         """Memoized SchedulerFns per (greedy, top_k), the sampling knobs

@@ -350,11 +350,12 @@ class Scheduler:
     # cache pool
     # ------------------------------------------------------------------
     def _init_caches(self):
-        """Zero pools with the prefill caches' dtypes: paged leaves become
-        shared (n_blocks+1, block, ...) pools (+1 for the trash block); any
-        other leaf keeps a per-slot row with the batch axis widened to
-        n_slots.  Zeros keep the trash block finite: the kernel multiplies
-        masked p = 0 by v, so a NaN there would poison every row.
+        """Zero pools with the prefill caches' dtypes, one sub at a time:
+        paged leaves become shared (n_blocks+1, block, ...) pools (+1 for the
+        trash block); any other leaf (recurrent / SSD state, conv window)
+        keeps a per-slot row with the batch axis widened to n_slots.  Zeros
+        keep the trash block finite: the kernel multiplies masked p = 0 by v,
+        so a NaN there would poison every row.
 
         With ``engine.kv_quant_bits`` the paged data pools hold int8 words
         (last dim halved at 4 bits: two lanes per word), and each gains a
@@ -367,24 +368,26 @@ class Scheduler:
         pool = {}
         for g in self._groups:
             axis = 1 if g.stacked else 0
-            sub = {}
-            for name, spec in specs[g.name]["sub0"].items():
-                shape, dt = tuple(spec.shape), spec.dtype
-                if g.paged[0] and name in PAGED_CACHE_LEAVES:
-                    feat = shape[axis + 2:]
-                    if qbits:
-                        if qbits == 4:
-                            feat = feat[:-1] + (feat[-1] // 2,)
-                        sub[name] = torch.zeros(shape[:axis] + (n_phys, blk) + feat,
-                                                dtype=torch.int8, device=dev)
-                        sub[name + "_scale"] = torch.zeros(shape[:axis] + (n_phys,) + feat[:-1],
-                                                           dtype=torch.int32, device=dev)
-                        continue
-                    shape = shape[:axis] + (n_phys, blk) + feat
-                else:
-                    shape = shape[:axis] + (S,) + shape[axis + 1:]
-                sub[name] = torch.zeros(shape, dtype=dt, device=dev)
-            pool[g.name] = {"sub0": sub}
+            pool[g.name] = {}
+            for j, paged in enumerate(g.paged):
+                sub = pool[g.name][f"sub{j}"] = {}
+                for name, spec in specs[g.name][f"sub{j}"].items():
+                    shape, dt = tuple(spec.shape), spec.dtype
+                    if paged and name in PAGED_CACHE_LEAVES:
+                        feat = shape[axis + 2:]
+                        if qbits:
+                            if qbits == 4:
+                                feat = feat[:-1] + (feat[-1] // 2,)
+                            sub[name] = torch.zeros(shape[:axis] + (n_phys, blk) + feat,
+                                                    dtype=torch.int8, device=dev)
+                            sub[name + "_scale"] = torch.zeros(
+                                shape[:axis] + (n_phys,) + feat[:-1], dtype=torch.int32,
+                                device=dev)
+                            continue
+                        shape = shape[:axis] + (n_phys, blk) + feat
+                    else:
+                        shape = shape[:axis] + (S,) + shape[axis + 1:]
+                    sub[name] = torch.zeros(shape, dtype=dt, device=dev)
         return pool
 
     def cache_bytes(self) -> int:
@@ -397,8 +400,8 @@ class Scheduler:
         pool lives on one card, so this is the JAX package's per-device
         pool size off a mesh."""
         return sum(leaf.numel() * leaf.element_size()
-                   for g in self._groups if g.paged[0]
-                   for name, leaf in self.caches[g.name]["sub0"].items()
+                   for g in self._groups for j, paged in enumerate(g.paged) if paged
+                   for name, leaf in self.caches[g.name][f"sub{j}"].items()
                    if name.removesuffix("_scale") in PAGED_CACHE_LEAVES)
 
     # ------------------------------------------------------------------

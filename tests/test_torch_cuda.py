@@ -1483,3 +1483,131 @@ def test_cnn_train_step_on_card_matches_cpu(dev):
                                                msg=lambda m, p=path: f"{cfg.name} {p}: {m}")
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
+
+
+# ---------------------------------------------------------------------------
+# the recurrent families (mamba2, recurrentgemma)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("M", [4, 512])
+@pytest.mark.parametrize("K,N", [(2560, 80), (2560, 128), (2560, 5120), (5120, 2560),
+                                 (2560, 256), (7680, 2560)])
+def test_fixedpoint_matmul_recurrent_shapes(dev, M, K, N):
+    """Row 1 at the recurrent families' projections (chip_smoke.py phase
+    14a): mamba2's in_proj_dt (N 80: 20 bytes of 2-bit words a row), B / C
+    (N 128), z / x and out_proj; recurrentgemma's k / v (N 256) and its
+    MLP's down_proj; bf16 x, 2-bit, on the rule's kernel (decode at M 4,
+    tensor cores at M 512), bit-identical over two calls."""
+    rng = np.random.default_rng(K + N + M)
+    w = torch.from_numpy((rng.standard_normal((K, N)) / np.sqrt(K)).astype(np.float32)).to(dev)
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)).to(dev, torch.bfloat16)
+    f = torch.tensor(4, dtype=torch.int32, device=dev)
+    pw = pack_weight(w, f, 2)
+    before = _counts()
+    got = fixedpoint_matmul(x, pw, f, None, n_bits=2, n_out=N)
+    again = fixedpoint_matmul(x, pw, f, None, n_bits=2, n_out=N)
+    torch.cuda.synchronize()
+    assert fops.decode_launches - before[2] + fops.tc_launches - before[1] == 2
+    assert torch.equal(got, again)
+    want = fixedpoint_matmul_ref(x, pw, f, None, n_bits=2, n_out=N).to(torch.bfloat16)
+    torch.testing.assert_close(got.float(), want.float(), **TC_BF16)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_paged_attention_recurrentgemma_decode_shape(dev, int8):
+    """Row 2 at recurrentgemma-2b's local attention (phase 14b): B 4, MQA
+    K 1 G 10, head_dim 256, rows of ~3,000 cached tokens under the 2,048
+    window; a bf16 pool and a KV_F int8 pool (scale 2^-5), bf16 queries,
+    bit-identical over two calls and at the bf16 bar of the plain version;
+    the plain version with the window a block narrower misses it."""
+    rng = np.random.default_rng(14 + int8)
+    B, K, G, hd, block, mb = 4, 1, 10, 256, 16, 200
+    bt = torch.from_numpy((rng.permutation(B * mb) + 1).astype(np.int32).reshape(B, mb)).to(dev)
+    pos0 = torch.from_numpy(rng.integers(2900, 3100, size=B).astype(np.int32)).to(dev)
+    kp, vp = (torch.from_numpy(rng.standard_normal((B * mb + 1, block, K, hd)).astype(
+        np.float32)).to(dev) for _ in range(2))
+    kw = dict(scale=hd**-0.5, window=2048)
+    if int8:
+        kp, vp = (torch.clamp(torch.round(t * 16), -127, 127).to(torch.int8) for t in (kp, vp))
+        kw["kv_scale"] = 2.0**-5
+    else:
+        kp, vp = kp.to(torch.bfloat16), vp.to(torch.bfloat16)
+    q = torch.from_numpy(rng.standard_normal((B, 1, K, G, hd)).astype(np.float32) * 4.0).to(
+        dev, torch.bfloat16)
+    got = paged_attention(q, kp, vp, bt, pos0, **kw)
+    again = paged_attention(q, kp, vp, bt, pos0, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    want = paged_attention_ref(q, kp, vp, bt, pos0, **kw)
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=1e-2)
+    bad = paged_attention_ref(q, kp, vp, bt, pos0, **dict(kw, window=2048 - block))
+    assert not torch.allclose(got.float(), bad.float(), rtol=1e-2, atol=1e-2)
+
+
+def _recurrent_engines(dev, arch):
+    """Reduced ``arch``, 2-bit packed from a seeded init on the CPU, fp32:
+    (card engine, CPU engine) over the same artifact."""
+    from repro_torch import configs
+    from repro_torch.core import SymogConfig, pack_tree, symog_init
+    from repro_torch.models import init_lm
+    from repro_torch.serve import ServeEngine
+
+    cfg = configs.get_reduced(arch)
+    params = init_lm(0, cfg, device="cpu")
+    scfg = SymogConfig(n_bits=2, total_steps=1)
+    packed = pack_tree(params, symog_init(params, scfg), scfg)
+    return tuple(ServeEngine(cfg, packed, max_len=32, compute_dtype=torch.float32, device=d)
+                 for d in (dev, "cpu"))
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "recurrentgemma-2b"])
+def test_recurrent_serve_on_card_matches_cpu(dev, arch):
+    """A greedy serve of reduced mamba2 / recurrentgemma under a pool that
+    preempts: token-identical on the card (matmul kernels; the GQA kernel
+    for recurrentgemma's local attention) and on the CPU."""
+    from repro_torch.serve import Request, ServeConfig
+
+    card, cpu = _recurrent_engines(dev, arch)
+    rng = np.random.default_rng(9)
+    reqs = [Request(tokens=rng.integers(0, card.cfg.vocab_size, size=L), max_new_tokens=b)
+            for L, b in ((14, 10), (13, 12), (11, 7), (5, 9))]
+    sc = ServeConfig(n_slots=2, block_size=4, n_blocks=8)
+    before = (fops.launches, aops.launches)
+    got, sched = card.serve(reqs, sc, return_scheduler=True)
+    torch.cuda.synchronize()
+    assert sched.stats["preemptions"] > 0 and fops.launches > before[0]
+    assert (aops.launches > before[1]) == (arch == "recurrentgemma-2b")
+    assert [c.tokens for c in got] == [c.tokens for c in cpu.serve(reqs, sc)]
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "recurrentgemma-2b"])
+def test_inactive_row_frozen_on_card(dev, arch):
+    """``decode_lm`` on the card with row 1 inactive: every cache leaf of
+    that row (SSD / RG-LRU state, conv window, dense k/v) keeps its bits
+    over three steps, and row 0's logits equal the CPU's."""
+    from repro_torch.models import decode_lm, prefill_lm, scan_groups
+    from repro_torch.nn.tree import flatten_with_paths
+
+    card, cpu = _recurrent_engines(dev, arch)
+    cfg = card.cfg
+    tok = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 9)).astype(
+        np.int32))
+    caches = {}
+    for name, eng in (("card", card), ("cpu", cpu)):
+        _, caches[name] = eng._with_backend(prefill_lm, eng.params, {"tokens": tok.to(eng.device)},
+                                            cfg, max_len=32, compute_dtype=torch.float32)
+    before = {p: t.clone() for p, t in flatten_with_paths(caches["card"])}
+    active = torch.tensor([True, False])
+    for s in range(3):
+        cur = torch.full((2, 1), 5 + s, dtype=torch.int32)
+        out = {}
+        for name, eng in (("card", card), ("cpu", cpu)):
+            out[name], caches[name] = eng._with_backend(
+                decode_lm, eng.params, caches[name], cur.to(eng.device),
+                torch.tensor([9 + s, 9 + s], dtype=torch.int32, device=eng.device), cfg,
+                compute_dtype=torch.float32, active=active.to(eng.device))
+        torch.testing.assert_close(out["card"][0].cpu(), out["cpu"][0], rtol=1e-4, atol=1e-4)
+    groups = scan_groups(cfg)
+    for p, t in flatten_with_paths(caches["card"]):
+        stacked = next(g for g in groups if p.startswith(g.name + "/")).stacked
+        axis = 1 if stacked else 0  # the batch axis after a stacked layer axis
+        assert torch.equal(t.select(axis, 1), before[p].select(axis, 1)), p

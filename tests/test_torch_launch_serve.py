@@ -9,6 +9,7 @@ against ``python -m repro.launch.serve``), reduced internlm2 on the CPU.
     step-unit histograms equal JAX's launcher on the same argv (the
     wall-time metrics by name), with and without a JAX-written
     ``--ckpt-dir``; the trace and the profiler window are written;
+  - the same on reduced mamba2 and recurrentgemma (no checkpoint);
   - ``--mesh``, ``--moe-impl`` and an unported ``--arch`` are refused with
     the ROADMAP item that brings them."""
 import json
@@ -108,10 +109,27 @@ def test_main_metrics_equal_jax(tmp_path, monkeypatch, capsys, ckpt):
     assert len(traces) == 2  # the float and the packed runs' windows
 
 
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "recurrentgemma-2b"])
+def test_main_metrics_equal_jax_recurrent(arch, tmp_path, monkeypatch, capsys):
+    """The recurrent families through both launchers: resident states
+    beside the paged pool (recurrentgemma's local attention; none for
+    mamba2), the int4 flag falling back to a float pool as JAX's rule
+    says; counters, gauges and histograms equal."""
+    argv = ["--arch", arch] + ARGV[2:]
+    _jax_main(argv + ["--metrics-json", str(tmp_path / "jax.json")], monkeypatch)
+    capsys.readouterr()
+    tlaunch.main(argv + ["--device", "cpu", "--metrics-json", str(tmp_path / "port.json")])
+    for suffix in ("", ".packed"):
+        port = _metrics(str(tmp_path / f"port{suffix}.json"))
+        assert port == _metrics(str(tmp_path / f"jax{suffix}.json"))
+        assert port["serve_admissions"] == 4 and port["serve_decode_steps"] > 0
+        assert port["serve_pool_bytes"] > 0
+
+
 @pytest.mark.parametrize("argv,needle", [
     (["--mesh", "1x1"], "Queue 1 item 5"),
     (["--moe-impl", "ep"], "Queue 1 item 5"),
-    (["--arch", "mamba2-2.7b"], "Queue 1 item 4"),
+    (["--arch", "paligemma-3b"], "Queue 1 item 4"),
     (["--arch", "whisper-large-v3"], "Queue 1 item 4"),
 ])
 def test_refused_flags_name_the_roadmap_item(argv, needle, capsys):
