@@ -211,7 +211,33 @@ Phases, one JSON line each:
                and without its state's write-back, the tied head's
                dequantize, a profiled decode window; (e)
                reduced mamba2 and recurrentgemma served greedy on the card
-               and on the CPU under a preempting pool: token-identical.
+               and on the CPU under a preempting pool: token-identical;
+ 15. encdec  — (a) fixedpoint_matmul at one whisper-large-v3 decoder
+     and vlm   layer's 10 biased projections (self and cross q / k / v / o,
+               fc1 1280 -> 5120, fc2) at M 4 and its encoder layer's 6 at
+               M 1,500, and one paligemma-3b layer's 7 (MQA k / v 2048 ->
+               256, gate / up 2048 -> 16384) at M 4 and 256 + 512, bf16,
+               2-bit (rule's kernel vs plain, streaming, ``torch.matmul``,
+               bound); (b) paged_attention at whisper's decode shape (MHA:
+               B 4, K 20, G 1, hd 64, ~300 tokens) and paligemma's (MQA: K
+               1, G 8, hd 256, 256 + ~300 tokens), bf16 and KV_F int8
+               pools, vs plain and SDPA; (c) kernel route vs plain route,
+               full width, fp32: whisper with 4 encoder + 4 decoder layers,
+               paligemma with 4, the engine's own admission (frames /
+               patches in the batch), then teacher-forced paged decode
+               steps: logits within PARITY_ATOL, argmax 1.0, launches as
+               the layers give them; (d) full-width 2-bit bf16 serves of
+               whisper-large-v3 (32 + 32 layers) and paligemma-3b (18
+               layers) on phase 5's traffic (max_len 512, + 256 for
+               paligemma), each request with its own seeded frames /
+               patches, from a bf16 pool and again under int8_fp: launches
+               by route (whisper 512 packed matmuls an admission, 256 and
+               32 gqa_decode a decode step; paligemma 126, 126 and 18),
+               repeats identical, pool bytes paged and resident (whisper's
+               cross-kv), admission seconds with the encoder's share, the
+               tied head's dequantize, a profiled decode window; (e)
+               reduced whisper and paligemma served greedy on the card and
+               on the CPU under a preempting pool: token-identical.
 Each serving and training path zeroes every kernel's launch count just
 before it runs and reads them just after.
 Then each phase's seconds and the total, the ``kernels`` summary line (the
@@ -1940,6 +1966,20 @@ def _record_admissions(torch, fns):
 # ---------------------------------------------------------------------------
 # phase 5: full-width serve through the scheduler
 # ---------------------------------------------------------------------------
+def stub_extras(cfg, rng):
+    """A request's stub frontend output, N(0, 0.01) from ``rng``: whisper's
+    frame embeddings (1, encoder_len, d_model), paligemma's patch
+    embeddings (1, prefix_len, d_model); None for the other families (and
+    ``rng`` untouched)."""
+    import numpy as np
+
+    n = {"encdec": ("frames", cfg.encoder_len), "vlm": ("patches", cfg.prefix_len)}.get(
+        cfg.family)
+    if n is None:
+        return None
+    return {n[0]: (rng.standard_normal((1, n[1], cfg.d_model), dtype=np.float32) * 0.1)}
+
+
 def phase_serve(torch, dev, arch: str, kv_cache_dtype: str, seed: int, expected,
                 layers: int = 0, build=None, max_len: int = 512, lens=None):
     """Serve the seeded traffic (4 slots, block 16, max_len 512, 8 requests
@@ -1995,7 +2035,8 @@ def phase_serve(torch, dev, arch: str, kv_cache_dtype: str, seed: int, expected,
 
     rng = np.random.default_rng(0)
     lens = rng.integers(24, 401, size=8) if lens is None else np.asarray(lens)
-    reqs = [Request(tokens=rng.integers(0, cfg.vocab_size, size=int(L)), max_new_tokens=32)
+    reqs = [Request(tokens=rng.integers(0, cfg.vocab_size, size=int(L)), max_new_tokens=32,
+                    extras=stub_extras(cfg, rng))
             for L in lens]
     sc = ServeConfig(n_slots=4, block_size=16)
     fns = eng.scheduler_fns(greedy=True, top_k=0)
@@ -2187,7 +2228,7 @@ def _profile(torch, dev, eng, steps: int, rule: str = "_mla_route"):
     sched = Scheduler(eng, ServeConfig(n_slots=4, block_size=16))
     for _ in range(4):
         sched.submit(Request(tokens=rng.integers(0, eng.cfg.vocab_size, size=300),
-                             max_new_tokens=64))
+                             max_new_tokens=64, extras=stub_extras(eng.cfg, rng)))
     for _ in range(3):  # admit all four, then two warm decode steps
         sched.step()
     torch.cuda.synchronize()
@@ -4536,6 +4577,319 @@ def phase_recurrent_card_vs_cpu(torch, dev):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the encoder-decoder and VLM families (whisper's encoder and
+# per-slot cross-kv, paligemma's image prefix under a prefix-LM mask): rows
+# 1 and 2 at their shapes, kernel vs plain route, full-width serves, card
+# vs CPU
+# ---------------------------------------------------------------------------
+WHISPER_ATTN = [(n, 1280, 1280) for n in ("q_proj", "k_proj", "v_proj", "o_proj")]
+WHISPER_MLP = [("fc1", 1280, 5120), ("fc2", 5120, 1280)]
+ENCDEC_VLM_FPMM = {  # (layer, M): its packed projections, K x N
+    ("whisper-large-v3 decoder", 4): WHISPER_ATTN + [
+        ("cross_q_proj", 1280, 1280), ("cross_k_proj", 1280, 1280),
+        ("cross_v_proj", 1280, 1280), ("cross_o_proj", 1280, 1280)] + WHISPER_MLP,
+    ("whisper-large-v3 encoder", 1500): WHISPER_ATTN + WHISPER_MLP,
+    ("paligemma-3b", 4): [("q_proj", 2048, 2048), ("k_proj", 2048, 256), ("v_proj", 2048, 256),
+                          ("o_proj", 2048, 2048), ("gate_proj", 2048, 16384),
+                          ("up_proj", 2048, 16384), ("down_proj", 16384, 2048)],
+}
+ENCDEC_VLM_FPMM[("paligemma-3b", 256 + 512)] = ENCDEC_VLM_FPMM[("paligemma-3b", 4)]
+ENCDEC_VLM_ATTN = {  # decode shapes, ~300 text tokens a row (+ paligemma's 256 patches)
+    "whisper-large-v3": dict(B=4, K=20, G=1, hd=64, block=16, max_blocks=32,
+                             pos_last=(280, 320)),
+    "paligemma-3b": dict(B=4, K=1, G=8, hd=256, block=16, max_blocks=48, pos_last=(536, 576)),
+}
+ENCDEC_VLM_PARITY = {"whisper-large-v3": 4, "paligemma-3b": 4}
+# packed matmul launches: whisper's admission runs the encoder's 6 a layer at
+# M 1,500 and the decoder's 10 a layer (self q / k / v / o, cross q / o at the
+# bucket's rows, cross k / v at 1,500, fc1, fc2); a decode step the decoder's
+# 8 (no cross k / v: the cross-kv is resident); paligemma 7 a layer both ways
+PACKED_ENC_LAYER, PACKED_DEC_ADMIT, PACKED_DEC_STEP, PACKED_VLM_LAYER = 6, 10, 8, 7
+
+
+def _encdec_vlm_counts(cfg):
+    """(packed matmuls an admission, a decode step) of ``cfg``."""
+    if cfg.family == "encdec":
+        return (PACKED_ENC_LAYER * cfg.n_encoder_layers + PACKED_DEC_ADMIT * cfg.n_layers,
+                PACKED_DEC_STEP * cfg.n_layers)
+    return PACKED_VLM_LAYER * cfg.n_layers, PACKED_VLM_LAYER * cfg.n_layers
+
+
+def phase_fpmm_encdec_vlm(torch, dev):
+    """Row 1 at the new families' shapes, 2-bit, bf16: whisper's decoder
+    layer (its 10 projections, biased) at M 4 and its encoder layer (6,
+    biased) at M 1,500; paligemma's layer (7) at M 4 and at 256 + 512 (the
+    image prefix and the serve's largest bucket).  Each holds its rule's
+    kernel to the plain version and times it beside the streaming kernel,
+    ``torch.matmul`` and the bound.  Returns the rows and each layer's sums."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(16)
+    keys = ("ms", "stream_ms", "plain_ms", "library_ms", "bound_ms")
+    rows, sums = [], {}
+    for (layer, M), shapes in ENCDEC_VLM_FPMM.items():
+        acc = sums[f"{layer} M={M}"] = dict.fromkeys(keys, 0.0)
+        for name, K, N in shapes:
+            row = _fpmm_case(torch, gen, dev, name, K, N, M, torch.bfloat16, 2,
+                             with_bias=layer.startswith("whisper"), timing=True,
+                             routes=_bf16_routes(torch.bfloat16, M))
+            row["arch"] = layer
+            for k in keys:
+                acc[k] += row[k]
+            emit(row)
+            rows.append(row)
+            if not row["pass"]:
+                raise Failed(f"fixedpoint_matmul {layer} {name} M={M}: err {_err(row)}")
+        acc["route"] = rows[-1]["route"]
+        acc["bound_by"] = _bound_by(rows[-len(shapes):])
+        torch.cuda.empty_cache()
+    return rows, sums
+
+
+def phase_attn_encdec_vlm(torch, dev):
+    """Row 2 at whisper's decode shape (MHA, hd 64) and paligemma's (MQA,
+    G 8, hd 256, over the image prefix and the text), each from a bf16 pool
+    and from a KV_F int8 pool (the pool an ``int8_fp`` engine of a
+    non-decoder family serves from), against the plain version and SDPA."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(17)
+    return [_attn_dense_case(torch, gen, dev, dict(shape),
+                             dict(T=1, dt=torch.bfloat16, int8=int8, q_mult=1.0, window=None,
+                                  cap=0.0, scale=shape["hd"]**-0.5, arch=arch))
+            for arch, shape in ENCDEC_VLM_ATTN.items() for int8 in (False, True)]
+
+
+def phase_parity_encdec_vlm(torch, dev, arch: str, layers: int):
+    """Logits through the kernels against the plain paths, at full width
+    and ``layers`` deep (whisper: as many encoder layers too), fp32, 2-bit
+    packed, a bf16 pool: two prompts, each with its own frames / patches,
+    admitted by the engine's own admission step (bucketed prefill, the
+    self-attention k/v scattered into the pool from the image prefix on,
+    whisper's cross-kv copied into the slot rows), then 4 teacher-forced
+    paged decode steps.  The kernel route runs every packed projection on
+    the streaming kernel (fp32 x) and the decode self-attention on the GQA
+    kernel; the plain route neither.  The two routes' cross-kv rows are
+    compared too."""
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import decode_lm
+    from repro_torch.serve import ServeConfig, ServeEngine
+    from repro_torch.serve import engine as eng_mod
+    from repro_torch.serve.scheduler import Scheduler
+
+    cfg = dataclasses.replace(configs.get_config(arch), n_layers=layers)
+    if cfg.family == "encdec":
+        cfg = dataclasses.replace(cfg, n_encoder_layers=layers)
+    from repro_torch.models.lm import image_prefix_len
+
+    packed = _recurrent_packed(torch, dev, cfg, 12)
+    off = image_prefix_len(cfg)
+    max_len, block, steps = 128 + off, 16, 4
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(4)
+    lens = [37, 70]
+    prompts = [torch.randint(0, cfg.vocab_size, (L,), generator=gen) for L in lens]
+    forced = torch.randint(0, cfg.vocab_size, (steps, len(lens)), generator=gen)
+    rng = np.random.default_rng(4)
+    extras = [stub_extras(cfg, rng) for _ in lens]
+    n_admit, n_step = _encdec_vlm_counts(cfg)
+    logits, launches, cross = {}, {}, {}
+    for path, (pb, ab) in {"kernels": ("kernel", "fused"), "plain": ("unpack", "composed")}.items():
+        dispatch.set_packed_backend(pb)
+        dispatch.set_attention_backend(ab)
+        eng = ServeEngine(cfg, packed, max_len=max_len, compute_dtype=torch.float32, device=dev)
+        dispatch.set_packed_backend("auto")
+        dispatch.set_attention_backend("auto")
+        sched = Scheduler(eng, ServeConfig(n_slots=len(lens), block_size=block))
+        caches, groups = sched.caches, sched._groups
+        del sched
+        nb = -(-max_len // block)
+        bt = (torch.arange(len(lens) * nb, device=dev, dtype=torch.int32) + 1).reshape(len(lens),
+                                                                                       nb)
+        fns = eng.scheduler_fns(greedy=True, top_k=0)
+        zero_counts()
+        rec, restore = _capture_admission_logits(torch, eng_mod)
+        try:
+            for b, pr in enumerate(prompts):
+                L = int(pr.shape[0])
+                bucket = 1 << (L - 1).bit_length()
+                tokens = torch.zeros((1, bucket), dtype=torch.int32, device=dev)
+                tokens[0, :L] = pr.to(dev)
+                batch = {"tokens": tokens, **{k: torch.from_numpy(v).to(dev)
+                                              for k, v in extras[b].items()}}
+                _, caches = eng._with_backend(fns.admit_step(bucket, block), eng.params, batch, L,
+                                              caches, bt[b], b, 0, 0, 1.0)
+        finally:
+            restore()
+        outs = list(rec["logits"])
+        pos = torch.tensor(lens, dtype=torch.int32, device=dev) + off
+        active = torch.ones(len(lens), dtype=torch.bool, device=dev)
+        for s in range(steps):
+            lg, caches = eng._with_backend(decode_lm, eng.params, caches,
+                                           forced[s].to(dev)[:, None].to(torch.int32), pos, cfg,
+                                           compute_dtype=torch.float32, active=active,
+                                           block_tables=bt)
+            outs.extend(lg[:, 0])
+            pos = pos + 1
+        torch.cuda.synchronize()
+        logits[path] = torch.stack(outs)
+        launches[path] = {k: v for k, v in read_counts().items() if v}
+        cross[path] = {p: t for p, t in _resident(caches, groups).items() if "cross" in p}
+        del eng, caches
+    a, b = logits["kernels"], logits["plain"]
+    err = (a - b).abs().max().item()
+    agree = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
+    finite = bool(torch.isfinite(a).all().item())
+    want = {"kernels": {"fixedpoint_matmul": n_admit * len(lens) + n_step * steps,
+                        "paged_attention": cfg.n_layers * steps}, "plain": {}}
+    cross_err = {p: (t.float() - cross["plain"][p].float()).abs().max().item()
+                 for p, t in cross["kernels"].items()}
+    del packed, cross
+    torch.cuda.empty_cache()
+    row = {"phase": "parity", "arch": arch, "layers": layers,
+           "encoder_layers": cfg.n_encoder_layers if cfg.family == "encdec" else 0,
+           "n_bits": 2, "kv_cache_dtype": "bf16", "compute": "float32", "prompts": lens,
+           "decode_steps": steps, "logit_rows": int(a.shape[0]), "max_abs_logit_err": err,
+           "atol": PARITY_ATOL, "logit_scale": a.abs().max().item(), "argmax_agreement": agree,
+           "finite": finite, "launches": launches, "expected_launches": want,
+           "cross_kv_max_abs_err": cross_err,
+           "admission": "bucketed prefill + block scatter + slot-row copy",
+           "pass": finite and err <= PARITY_ATOL and agree == 1.0 and launches == want}
+    emit(row)
+    if not row["pass"]:
+        raise Failed(f"parity {arch}: {row}")
+    return row
+
+
+def _encdec_vlm_expected(cfg, st, buckets):
+    """Launches of a bf16 serve of whisper or paligemma: every packed
+    projection once an admission (all at tensor-core rows: the buckets are
+    >= 32, whisper's encoder and cross k / v at 1,500) and once a decode
+    step (4 slots: the decode kernel; whisper's cross k / v not at all),
+    the GQA kernel once a layer and decode step over a bf16 or a KV_F int8
+    pool alike.  The tied heads dequantize their tables: no launch."""
+    n_admit, n_step = _encdec_vlm_counts(cfg)
+    return {**_matmul_counts(n_admit, 0, st["decode_steps"], buckets, decode_2d=n_step),
+            "paged_attention": cfg.n_layers * st["decode_steps"], "paged_attention_quant": 0,
+            **dict.fromkeys(MLA_COUNTS, 0), "symog_update": 0}
+
+
+def _timed_encoder(torch):
+    """Wrap ``models.lm._run_encoder`` with a synchronised host clock: the
+    encoder's ms in each admission.  Returns (record, restore)."""
+    from repro_torch.models import lm
+
+    inner, rec = lm._run_encoder, []
+
+    def run(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = inner(*a, **kw)
+        torch.cuda.synchronize()
+        rec.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    lm._run_encoder = run
+    return rec, lambda: setattr(lm, "_run_encoder", inner)
+
+
+def phase_serve_encdec_vlm(torch, dev):
+    """Phase 5's traffic (4 slots, block 16, 8 requests of 24..400 prompt
+    tokens, 32 new tokens each; each request its own frames / patches)
+    through full-width, 2-bit, bf16 whisper-large-v3 (32 encoder + 32
+    decoder layers, max_len 512) and paligemma-3b (18 layers, max_len 512
+    + 256), each from a bf16 pool and again, same artifact, under
+    ``int8_fp`` (KV_F int8 pools: the non-decoder rule).  Gates: launches
+    by route as the layer counts give them, each serve repeated
+    token-identical.  Beside each: pool bytes paged and resident (whisper's
+    cross-kv, 32 x 2 x 1,500 x 1,280 x 2 B a slot), admission seconds and
+    the encoder's share of them, the tied head's dequantize + matmul, and
+    a profiled decode window."""
+    from repro_torch.models.layers import embed_logits
+
+    out, eng = {}, None
+    for arch, kv, seed in (("whisper-large-v3", "bf16", 51), ("whisper-large-v3", "int8_fp", 51),
+                           ("paligemma-3b", "bf16", 53), ("paligemma-3b", "int8_fp", 53)):
+        build = None
+        if eng is not None and eng.cfg.name == arch:  # the same artifact, another pool
+            art = (eng.params, out[f"{arch} bf16"]["params"], {})
+            build = lambda cfg, s, art=art: art  # noqa: E731
+        if eng is not None and build is None:
+            del eng
+            torch.cuda.empty_cache()
+        max_len = 512 + (256 if arch == "paligemma-3b" else 0)  # paligemma's prefix
+        enc, restore = _timed_encoder(torch)
+        try:
+            row, eng, reqs, sc, tokens = phase_serve(torch, dev, arch, kv, seed,
+                                                     _encdec_vlm_expected, build=build,
+                                                     max_len=max_len)
+        finally:
+            restore()
+        cfg = eng.cfg
+        again = [list(map(int, c.tokens)) for c in eng.serve(reqs, sc)]
+        row.update({"repeat_tokens_identical": again == tokens,
+                    "kv_pool_resident_bytes": row["kv_pool_bytes"] - row["kv_pool_paged_bytes"]})
+        if cfg.family == "encdec":
+            row["encoder_ms"] = enc[: row["prefills"]]
+            row["encoder_share_of_prefill"] = sum(row["encoder_ms"]) / 1e3 / row["prefill_s"]
+            row["cross_kv_bytes_per_slot"] = row["kv_pool_resident_bytes"] // 4
+        if kv == "bf16":
+            h = torch.randn((4, 1, cfg.d_model), device=dev, dtype=torch.bfloat16)
+            row["head_dequant_matmul_ms"] = events_ms(
+                lambda: embed_logits(eng.params["embed"], h), 5, torch)
+        row["pass"] = row["pass"] and again == tokens
+        out[f"{arch} {kv}"] = report(row)
+        if kv == "bf16":
+            row["profile"] = phase_profile(torch, dev, eng)
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_encdec_vlm_card_vs_cpu(torch, dev):
+    """Reduced whisper and paligemma, 2-bit packed, fp32, each request with
+    its own frames / patches: a greedy serve on the card (the streaming
+    matmul kernel, the GQA kernel) against the same serve on the CPU (the
+    plain versions), under a pool that preempts: token-identical, and the
+    kernels launched."""
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.models.lm import image_prefix_len
+    from repro_torch.serve import Request, ServeConfig, ServeEngine
+
+    rows = []
+    for arch in ENCDEC_VLM_PARITY:
+        cfg = configs.get_reduced(arch)
+        packed = _recurrent_packed(torch, "cpu", cfg, 0)
+        rng = np.random.default_rng(10)
+        off = image_prefix_len(cfg)
+        shape = ((6, 14), (5, 16), (7, 10), (3, 9)) if off else ((14, 10), (13, 12), (11, 7),
+                                                                (5, 9))
+        reqs = [Request(tokens=rng.integers(0, cfg.vocab_size, size=L), max_new_tokens=b,
+                        extras=stub_extras(cfg, rng)) for L, b in shape]
+        max_len = 32 + off
+        sc = ServeConfig(n_slots=2, block_size=4, n_blocks=max_len // 4)
+        cpu, sched_cpu = ServeEngine(cfg, packed, max_len=max_len, compute_dtype=torch.float32,
+                                     device="cpu").serve(reqs, sc, return_scheduler=True)
+        zero_counts()
+        card = ServeEngine(cfg, packed, max_len=max_len, compute_dtype=torch.float32,
+                           device=dev).serve(reqs, sc)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in read_counts().items() if v}
+        same = [c.tokens for c in card] == [c.tokens for c in cpu]
+        row = {"phase": "card_vs_cpu", "arch": cfg.name, "tokens_identical": same,
+               "preemptions": sched_cpu.stats["preemptions"], "launches": counts,
+               "pass": (same and sched_cpu.stats["preemptions"] > 0
+                        and counts.get("fixedpoint_matmul", 0) > 0
+                        and counts.get("paged_attention", 0) > 0)}
+        emit(row)
+        if not row["pass"]:
+            raise Failed(f"card vs cpu {arch}: {row}")
+        rows.append(row)
+    return rows
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
 
@@ -4659,12 +5013,19 @@ def main() -> int:
             run("14c parity " + arch, phase_parity_recurrent, torch, dev, arch, n)
         rec_serves = run("14d serve recurrent", phase_serve_recurrent, torch, dev, rec_fp)
         run("14e recurrent card vs cpu", phase_recurrent_card_vs_cpu, torch, dev)
+        ev_fp_rows, ev_fp = run("15a fixedpoint_matmul encdec vlm", phase_fpmm_encdec_vlm,
+                                torch, dev)
+        ev_attn = run("15b paged_attention encdec vlm", phase_attn_encdec_vlm, torch, dev)
+        for arch, n in ENCDEC_VLM_PARITY.items():
+            run("15c parity " + arch, phase_parity_encdec_vlm, torch, dev, arch, n)
+        ev_serves = run("15d serve encdec vlm", phase_serve_encdec_vlm, torch, dev)
+        run("15e encdec vlm card vs cpu", phase_encdec_vlm_card_vs_cpu, torch, dev)
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     emit({"phase": "seconds", "by_phase": seconds,
           "total_s": time.perf_counter() - t_start})
-    mm_rows = (fp_rows + fpd_rows + fpg_rows + rec_fp_rows + [head]
+    mm_rows = (fp_rows + fpd_rows + fpg_rows + rec_fp_rows + ev_fp_rows + [head]
                + [r for r in cx_rows if "M" in r])
     ex_rows = fe_rows + fed_rows + [r for r in cx_rows if "C" in r]
     # at every case the rule sends to the tensor cores, they must be faster
@@ -4711,7 +5072,11 @@ def main() -> int:
                                          for r in rec_attn],
          "launches_recurrentgemma_serves": {
              k: r["launches"]["paged_attention"] for k, r in rec_serves.items()},
-         "pass": all(r["pass"] for r in attn_rows + rec_attn)},
+         "encdec_vlm_decode_cases": [dict(_case_entry(r), kv_dtype=r["kv_dtype"])
+                                     for r in ev_attn],
+         "launches_encdec_vlm_serves": {
+             k: r["launches"]["paged_attention"] for k, r in ev_serves.items()},
+         "pass": all(r["pass"] for r in attn_rows + rec_attn + ev_attn)},
         {"name": "symog_update", "route": "cuda",
          "source": "src/repro_torch/csrc/symog_update.cu",
          "replaces": "src/repro/kernels/symog_update/kernel.py:25",
@@ -4850,6 +5215,12 @@ def main() -> int:
                 for k, v in rec_fp.items() if k.endswith("M=512")}
             entry["launches_recurrent_serves"] = {k: r["launches"][name]
                                                   for k, r in rec_serves.items()}
+            entry["encdec_vlm_prefill_layers"] = {
+                k: dict(v, work=f"one {k.split(' M=')[0]} layer's packed projections at "
+                                f"M={k.split(' M=')[1]}, 2-bit, bf16")
+                for k, v in ev_fp.items() if not k.endswith("M=4")}
+            entry["launches_encdec_vlm_serves"] = {k: r["launches"][name]
+                                                   for k, r in ev_serves.items()}
         if pre2 is not None:
             entry["olmoe_prefill_layer"] = dict(pre2, work=work2)
         summary.append(entry)
@@ -4882,6 +5253,12 @@ def main() -> int:
              for k, v in rec_fp.items() if k.endswith("M=4")},
          "launches_recurrent_serves": {k: r["launches"]["fixedpoint_matmul_decode"]
                                        for k, r in rec_serves.items()},
+         "encdec_vlm_decode_layers": {
+             k: dict(v, work=f"one {k.split(' M=')[0]} layer's packed projections at M=4, "
+                             "2-bit, bf16")
+             for k, v in ev_fp.items() if k.endswith("M=4")},
+         "launches_encdec_vlm_serves": {k: r["launches"]["fixedpoint_matmul_decode"]
+                                        for k, r in ev_serves.items()},
          "gemma3_decode_layer": dict(
              fpg_layer, work="one gemma3-4b layer's 7 projections at M=4, 2-bit, bf16"),
          "gemma3_head": dict(_case_entry(fpg_head), stream_ms=fpg_head["stream_ms"],

@@ -6,7 +6,8 @@ gemma3-4b (5:1 local / global, two rope bases, qk-norm, head_dim 256) and
 granite-34b (MQA, a non-gated MLP, an untied head); the MoE decoder
 olmoe-1b-7b; deepseek-v3-671b (MLA + MoE with leading dense layers); and
 the recurrent families, mamba2-2.7b (SSD) and recurrentgemma-2b (RG-LRU
-blocks with local MQA attention, in RRL units)."""
+blocks with local MQA attention, in RRL units); the encoder-decoder
+whisper-large-v3 and the image-prefix paligemma-3b."""
 from __future__ import annotations
 
 import importlib
@@ -22,6 +23,8 @@ _MODULES = {
     "deepseek-v3-671b": "deepseek_v3_671b",
     "mamba2-2.7b": "mamba2_2_7b",
     "recurrentgemma-2b": "recurrentgemma_2b",
+    "whisper-large-v3": "whisper_large_v3",
+    "paligemma-3b": "paligemma_3b",
 }
 
 ARCHS = tuple(_MODULES)

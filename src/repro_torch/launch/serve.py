@@ -35,10 +35,14 @@ a ``torch.profiler`` capture (a Chrome trace with the device's kernels).
 ``--ckpt-dir`` restores the params from the newest checkpoint there; the
 format is the JAX package's, so a checkpoint its trainer wrote serves here.
 ``--mesh`` and ``--moe-impl`` belong to the distribution slice and are
-refused; so are the architectures whose families the port lacks.
+refused.
 The weights are the port's own seeded init (``models.init_lm``), not the
 JAX package's: the two launchers agree on the workload and the schedule,
-and on the tokens only when both restore one checkpoint.
+and on the tokens only when both restore one checkpoint.  whisper's frame
+and paligemma's patch embeddings (the stub frontends' outputs, N(0, 0.01))
+come from a ``torch.Generator`` seeded ``--seed`` + 1, not from
+``jax.random.normal``: every continuous request carries the batch's first
+row of them, as in the JAX launcher.
 """
 from __future__ import annotations
 
@@ -56,6 +60,7 @@ from repro_torch.configs import ARCHS, get_config, get_reduced
 from repro_torch.device import resolve_device
 from repro_torch.launch import threefry
 from repro_torch.models import init_lm
+from repro_torch.models.lm import image_prefix_len
 from repro_torch.serve import (
     Request,
     ServeConfig,
@@ -64,13 +69,6 @@ from repro_torch.serve import (
     TelemetryConfig,
     latency_stats,
 )
-
-# the JAX package's architectures whose families the port has not yet
-UNPORTED = {
-    "whisper-large-v3": "encdec",
-    "paligemma-3b": "VLM",
-}
-
 
 def warn_inert_flags(eng: ServeEngine, config: ServeConfig) -> None:
     """One-line warning per requested serving feature that is structurally
@@ -128,15 +126,17 @@ def kv_pool_report(eng: ServeEngine, config: ServeConfig) -> None:
 
 
 def make_ragged_workload(cfg, *, n_requests: int, prompt_len: int, steps: int, seed: int,
-                         system_len: int = 0):
+                         batch_extras=None, system_len: int = 0):
     """Synthetic ragged-arrival workload: uniform prompt length (so the
     static baseline can batch them), ragged generation budgets in
     [2, steps], arrivals spread over time in decode-step units — the JAX
     package's launcher workload for the same seed, request for request.
 
-    ``system_len`` > 0 prepends ONE shared random system prompt to every
-    request (total prompt = system_len + prompt_len): the shape where the
-    --prefix-cache radix index turns refcounts into capacity."""
+    ``batch_extras`` (whisper's frames, paligemma's patches: (B, ...)
+    arrays): every request carries their first row.  ``system_len`` > 0
+    prepends ONE shared random system prompt to every request (total
+    prompt = system_len + prompt_len): the shape where the --prefix-cache
+    radix index turns refcounts into capacity."""
     rng = np.random.default_rng(seed)
     arrivals = np.cumsum(rng.integers(0, 3, size=n_requests))
     key = threefry.prng_key(seed + 2)
@@ -146,8 +146,11 @@ def make_ragged_workload(cfg, *, n_requests: int, prompt_len: int, steps: int, s
         toks = threefry.randint(threefry.fold_in(key, i), (prompt_len,), 0, cfg.vocab_size)
         if system_len:
             toks = np.concatenate([system, toks])
+        extras = None
+        if batch_extras is not None:
+            extras = {k: np.asarray(v[:1]) for k, v in batch_extras.items()}
         reqs.append(Request(tokens=toks, max_new_tokens=int(rng.integers(2, steps + 1)),
-                            arrival=int(arrivals[i])))
+                            arrival=int(arrivals[i]), extras=extras))
     return reqs
 
 
@@ -220,7 +223,7 @@ def _sync(eng: ServeEngine) -> None:
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description="Serve a SYMOG artifact with the port.")
-    ap.add_argument("--arch", choices=ARCHS + tuple(UNPORTED), required=True)
+    ap.add_argument("--arch", choices=ARCHS, required=True)
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--device", default=None,
                     help="torch device to serve on (default: the card; 'cpu' on request)")
@@ -297,9 +300,6 @@ def main(argv=None) -> None:
     if args.moe_impl:
         ap.error("--moe-impl: the port has no expert-parallel dispatch; it comes with "
                  "ROADMAP Queue 1 item 5 (distribution)")
-    if args.arch in UNPORTED:
-        ap.error(f"--arch {args.arch}: the port has no {UNPORTED[args.arch]} family yet; "
-                 "it comes with ROADMAP Queue 1 item 4b (encdec and VLM)")
 
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     if args.kv_bits != 16:
@@ -313,8 +313,13 @@ def main(argv=None) -> None:
 
     key = threefry.prng_key(args.seed + 1)
     batch = {"tokens": threefry.randint(key, (args.batch, args.prompt_len), 0, cfg.vocab_size)}
+    gen = torch.Generator().manual_seed(args.seed + 1)
+    stub = {"encdec": ("frames", cfg.encoder_len), "vlm": ("patches", cfg.prefix_len)}
+    if cfg.family in stub:
+        name, n = stub[cfg.family]
+        batch[name] = (torch.randn((args.batch, n, cfg.d_model), generator=gen) * 0.1).numpy()
 
-    max_len = args.prompt_len + args.steps + args.system_prompt_len
+    max_len = args.prompt_len + args.steps + args.system_prompt_len + image_prefix_len(cfg)
     dtype = torch.float32 if args.reduced else torch.bfloat16
     eng = ServeEngine(cfg, params, max_len=max_len, compute_dtype=dtype, device=dev)
 
@@ -333,8 +338,9 @@ def main(argv=None) -> None:
                                 prefill_chunk=args.prefill_chunk, telemetry=tele)
         warn_inert_flags(eng, serve_cfg)
         kv_pool_report(eng, serve_cfg)
+        extras = {k: v for k, v in batch.items() if k != "tokens"} or None
         reqs = make_ragged_workload(cfg, n_requests=args.requests, prompt_len=args.prompt_len,
-                                    steps=args.steps, seed=args.seed,
+                                    steps=args.steps, seed=args.seed, batch_extras=extras,
                                     system_len=args.system_prompt_len)
         run_continuous(eng, reqs, serve_cfg, label="float",
                        metrics_json=args.metrics_json, trace_out=args.trace_out)

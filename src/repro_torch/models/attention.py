@@ -134,13 +134,25 @@ def attn_init(gen, cfg: AttnConfig, dtype=torch.float32, lead: Tuple[int, ...] =
     return p
 
 
-def make_mask(q_pos: torch.Tensor, kv_pos: torch.Tensor, *, window=None) -> torch.Tensor:
-    """Causal boolean mask (..., T, S) from query/key positions."""
+def make_mask(q_pos: torch.Tensor, kv_pos: torch.Tensor, *, causal: bool = True, window=None,
+              prefix_len: int = 0, kv_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Boolean mask (..., T, S) from query/key positions, the JAX package's
+    clauses in its order: causal (else all keys), the window, then the
+    image prefix OR-ed in (every query sees every key below ``prefix_len``:
+    a prefix-LM), then ``kv_valid`` (..., S) AND-ed last."""
     q = q_pos[..., :, None]
     k = kv_pos[..., None, :]
-    m = k <= q
+    if causal:
+        m = k <= q
+    else:
+        m = torch.ones(torch.broadcast_shapes(q.shape, k.shape), dtype=torch.bool,
+                       device=q.device)
     if window is not None:
         m = m & (q - k < window)
+    if prefix_len:
+        m = m | (k < prefix_len)
+    if kv_valid is not None:
+        m = m & kv_valid[..., None, :]
     return m
 
 
@@ -154,50 +166,69 @@ def _qk_attn(q, k, v, mask, *, scale: float, cap: float) -> torch.Tensor:
     return torch.einsum("bkgts,bskh->btkgh", probs.to(v.dtype), v)
 
 
-def attend(q, k, v, q_pos, kv_pos, *, window=None, scale: float, cap: float,
-           q_chunk: int = Q_CHUNK_DEFAULT):
-    """Exact causal attention, query-chunked when T > q_chunk (and divides)."""
+def attend(q, k, v, q_pos, kv_pos, *, causal: bool = True, window=None, prefix_len: int = 0,
+           scale: float, cap: float, q_chunk: int = Q_CHUNK_DEFAULT):
+    """Exact attention under ``make_mask``, query-chunked when T > q_chunk
+    and q_chunk divides T (whisper's 1,500 frames run unchunked, as in JAX)."""
     B, T = q.shape[:2]
     if kv_pos.ndim == 1:
         kv_pos = kv_pos[None].expand(B, kv_pos.shape[0])
+    kw = dict(causal=causal, window=window, prefix_len=prefix_len)
     if q_chunk <= 0 or T <= q_chunk or T % q_chunk != 0:
-        mask = make_mask(q_pos, kv_pos, window=window)
-        return _qk_attn(q, k, v, mask, scale=scale, cap=cap)
+        return _qk_attn(q, k, v, make_mask(q_pos, kv_pos, **kw), scale=scale, cap=cap)
     outs = []
     for c in range(T // q_chunk):
         sl = slice(c * q_chunk, (c + 1) * q_chunk)
-        mask = make_mask(q_pos[:, sl], kv_pos, window=window)
+        mask = make_mask(q_pos[:, sl], kv_pos, **kw)
         outs.append(_qk_attn(q[:, sl], k, v, mask, scale=scale, cap=cap))
     return torch.cat(outs, dim=1)
 
 
-def _project_qkv(p, x, positions, cfg: AttnConfig, rope_base, compute_dtype, rope_table=None):
+def _project_q(p, x, positions, cfg: AttnConfig, rope_base, compute_dtype, rope_table=None):
     q = dense_apply(p["q_proj"], x, compute_dtype=compute_dtype)
+    if cfg.qk_norm:
+        q = rmsnorm_apply(p["q_norm"], q)
+    if cfg.rope:
+        q = apply_rope(q, positions, rope_base, rope_table)
+    return q
+
+
+def _project_qkv(p, x, positions, cfg: AttnConfig, rope_base, compute_dtype, rope_table=None):
+    q = _project_q(p, x, positions, cfg, rope_base, compute_dtype, rope_table)
     k = dense_apply(p["k_proj"], x, compute_dtype=compute_dtype)
     v = dense_apply(p["v_proj"], x, compute_dtype=compute_dtype)
     if cfg.qk_norm:
-        q = rmsnorm_apply(p["q_norm"], q)
         k = rmsnorm_apply(p["k_norm"], k)
     if cfg.rope:
-        q = apply_rope(q, positions, rope_base, rope_table)
         k = apply_rope(k, positions, rope_base, rope_table)
     return q, k, v
 
 
-def attn_apply(p, x, *, cfg: AttnConfig, positions, window=None,
-               rope_base=10000.0, compute_dtype=torch.bfloat16,
+def attn_apply(p, x, *, cfg: AttnConfig, positions, causal: bool = True,
+               window=None, prefix_len: int = 0, rope_base=10000.0,
+               compute_dtype=torch.bfloat16, kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                q_chunk: int = Q_CHUNK_DEFAULT, return_kv: bool = False, rope_table=None):
-    """Full-sequence (prefill) causal self-attention.  ``return_kv`` also returns
-    the roped (k, v) it attended to — the prefill cache entries, which the
-    JAX package recomputes with two more projections.  ``rope_table`` is the
-    layers' shared ``rope_table(positions, rope_base, hd)``."""
+    """Full-sequence (prefill) attention under ``make_mask(causal, window,
+    prefix_len)``.  ``kv``: precomputed (k, v) (B, S, K, hd) for
+    cross-attention, which attends every key (``causal`` applies to
+    self-attention only, as in JAX).
+    ``return_kv`` also returns the roped (k, v) a self-attention attended to
+    — the prefill cache entries, which the JAX package recomputes with two
+    more projections.  ``rope_table`` is the layers' shared
+    ``rope_table(positions, rope_base, hd)``."""
     B, T, _ = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q, k, v = _project_qkv(p, x, positions, cfg, rope_base, compute_dtype, rope_table)
+    if kv is None:
+        q, k, v = _project_qkv(p, x, positions, cfg, rope_base, compute_dtype, rope_table)
+        kv_pos = positions
+    else:
+        q = _project_q(p, x, positions, cfg, rope_base, compute_dtype, rope_table)
+        k, v = kv
+        kv_pos = torch.arange(k.shape[1], dtype=torch.int32, device=x.device)
     q = q.reshape(B, T, K, H // K, hd)
     k, v = k.to(compute_dtype), v.to(compute_dtype)
-    out = attend(q, k, v, positions, positions, window=window, scale=_scale(cfg),
-                 cap=cfg.softcap, q_chunk=q_chunk)
+    out = attend(q, k, v, positions, kv_pos, causal=causal and kv is None, window=window,
+                 prefix_len=prefix_len, scale=_scale(cfg), cap=cfg.softcap, q_chunk=q_chunk)
     y = dense_apply(p["o_proj"], out.reshape(B, T, H, hd), n_in=2, compute_dtype=compute_dtype)
     return (y, (k, v)) if return_kv else y
 
@@ -362,17 +393,25 @@ def _paged_attend(p, q, cache, block_tables, positions, *, cfg: AttnConfig, wind
 
 
 def attn_decode(p, x, cache, pos, *, cfg: AttnConfig, window=None, rope_base=10000.0,
-                compute_dtype=torch.bfloat16, block_tables: Optional[torch.Tensor] = None,
+                compute_dtype=torch.bfloat16, kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                block_tables: Optional[torch.Tensor] = None,
                 rope_table=None, cache_index: Optional[torch.Tensor] = None):
     """Single-token decode.  x (B,1,D); ``pos`` an int (uniform batch) or a
-    (B,) tensor (per-row).  ``block_tables`` (B, max_blocks) switches the
-    cache to the paged layout: leaves are (n_blocks, block, K, hd) pools and
-    row b resolves pos[b] through its table row (needs a (B,) ``pos``).
+    (B,) tensor (per-row).  Self-attention writes each row's new k/v at its
+    own position and attends its cache; ``kv`` (cross-attention) attends
+    the fixed encoder context instead and leaves ``cache`` alone (None
+    allowed).  ``block_tables`` (B, max_blocks) switches the cache to the
+    paged layout: leaves are (n_blocks, block, K, hd) pools and row b
+    resolves pos[b] through its table row (needs a (B,) ``pos``).
     ``rope_table`` and ``cache_index`` (``paged_token_index``) are the same
     for every layer of a step; the caller may compute them once."""
     B = x.shape[0]
-    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     positions, per_row = decode_positions(pos, B, x.device)
+    if kv is not None:  # plain PyTorch, as JAX's ``_qk_attn``: no Pallas kernel computes it
+        q = _project_q(p, x, positions, cfg, rope_base, compute_dtype, rope_table)
+        k, v = kv
+        mask = torch.ones((B, 1, k.shape[1]), dtype=torch.bool, device=x.device)
+        return _attend_out(p, q, k, v, mask, cfg, compute_dtype), cache
     q, k_new, v_new = _project_qkv(p, x, positions, cfg, rope_base, compute_dtype, rope_table)
     if block_tables is not None:
         if not per_row:
@@ -389,14 +428,19 @@ def attn_decode(p, x, cache, pos, *, cfg: AttnConfig, window=None, rope_base=100
     cache_update_rows(cache["v"], v_new, pos if not per_row else positions[:, 0],
                       per_row=per_row)
     k, v = cache_read(cache["k"], compute_dtype), cache_read(cache["v"], compute_dtype)
-    S = k.shape[1]
-    kv_pos = torch.arange(S, dtype=torch.int32, device=x.device)
+    kv_pos = torch.arange(k.shape[1], dtype=torch.int32, device=x.device)
     mask = make_mask(positions, kv_pos[None, :], window=window)
-    q = q.reshape(B, 1, K, H // K, hd)
-    out = _qk_attn(q, k.to(compute_dtype), v.to(compute_dtype), mask, scale=_scale(cfg),
-                   cap=cfg.softcap)
-    y = dense_apply(p["o_proj"], out.reshape(B, 1, H, hd), n_in=2, compute_dtype=compute_dtype)
-    return y, cache
+    return _attend_out(p, q, k, v, mask, cfg, compute_dtype), cache
+
+
+def _attend_out(p, q, k, v, mask, cfg: AttnConfig, compute_dtype):
+    """One decode query a row (q (B, 1, H, hd)) over k / v (B, S, K, hd)
+    under ``mask`` (B, 1, S), then the output projection."""
+    B = q.shape[0]
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    out = _qk_attn(q.reshape(B, 1, K, H // K, hd), k.to(compute_dtype), v.to(compute_dtype),
+                   mask, scale=_scale(cfg), cap=cfg.softcap)
+    return dense_apply(p["o_proj"], out.reshape(B, 1, H, hd), n_in=2, compute_dtype=compute_dtype)
 
 
 def attn_prefill_paged(p, x, cache, bt_row, positions, *, cfg: AttnConfig, seq_len: int,

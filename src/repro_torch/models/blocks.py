@@ -3,7 +3,10 @@
 layers: deepseek-v3) and kind 'E' (attention + MoE: olmoe, deepseek-v3),
 each with GQA attention or, with ``cfg.use_mla``, MLA; kind 'R' (RG-LRU
 block + MLP: recurrentgemma) and kind 'M' (mamba2's SSD block, no MLP).
-``window`` and ``rope_base`` are per-layer values read from the config.
+An 'A' block built with ``cross=True`` (whisper's decoder) adds a
+cross-attention sublayer over the encoder output between its
+self-attention and its MLP.  ``window`` and ``rope_base`` are per-layer
+values read from the config.
 
 The recurrent kinds' decode returns new state tensors and writes nothing
 in place; the attention kinds write their caches in place, as the rest of
@@ -152,7 +155,7 @@ def _norm_apply(cfg: ModelConfig, p, x):
 
 
 def block_init(gen, cfg: ModelConfig, kind: str, dtype=torch.float32,
-               lead: Tuple[int, ...] = ()) -> Dict[str, Any]:
+               lead: Tuple[int, ...] = (), cross: bool = False) -> Dict[str, Any]:
     _check_kind(cfg, kind)
     dev = gen.device
     p: Dict[str, Any] = {"pre_norm": _norm_init(cfg, dtype, dev, lead)}
@@ -167,6 +170,9 @@ def block_init(gen, cfg: ModelConfig, kind: str, dtype=torch.float32,
         p["attn"] = attn_init(gen, _attn_cfg(cfg), dtype, lead)
     if cfg.post_norm and kind != "R":
         p["post_attn_norm"] = _norm_init(cfg, dtype, dev, lead)
+    if cross:
+        p["cross_norm"] = _norm_init(cfg, dtype, dev, lead)
+        p["cross_attn"] = attn_init(gen, _attn_cfg(cfg), dtype, lead)
     p["pre_mlp_norm"] = _norm_init(cfg, dtype, dev, lead)
     if kind == "E":
         p["moe"] = moe_init(gen, _moe_cfg(cfg), dtype, lead)
@@ -232,8 +238,10 @@ def _finish_block(p, x, y, cfg: ModelConfig, kind: str, compute_dtype, with_aux:
 
 
 def block_apply(p, x, *, cfg: ModelConfig, kind: str, positions, window=None,
-                rope_base=10000.0, compute_dtype=torch.bfloat16, cache_len: int = 0,
-                rope_table=None, seq_len: Optional[int] = None, with_aux: bool = False):
+                rope_base=10000.0, causal: bool = True, prefix_len: int = 0,
+                compute_dtype=torch.bfloat16, enc_out: Optional[torch.Tensor] = None,
+                cache_len: int = 0, rope_table=None, seq_len: Optional[int] = None,
+                with_aux: bool = False):
     """Full-sequence block.  Returns (x, aux, cache), as JAX's: ``cache`` is
     the layer's prefill cache padded to ``cache_len`` (None unless > 0);
     ``aux`` the MoE load-balancing and z losses when ``with_aux`` (training;
@@ -242,7 +250,15 @@ def block_apply(p, x, *, cfg: ModelConfig, kind: str, positions, window=None,
     only the couplings that are not per-token causal have to know: the MoE
     capacity dispatch and the recurrent / SSD state and conv caches (causal
     attention isolates them).  A recurrent block's cache is its state after
-    the last real token, whatever ``cache_len``."""
+    the last real token, whatever ``cache_len``.
+
+    ``causal`` False (whisper's encoder) attends every key; ``prefix_len``
+    (paligemma) lets every query see the image prefix.  ``enc_out`` (whisper's
+    decoder) runs the cross-attention sublayer; its (k, v) are projected
+    once, attended at compute dtype and, at a prefill, cached in bf16 as
+    ``cross_k`` / ``cross_v`` whatever the compute dtype, as JAX's
+    ``prefill_lm`` casts them (it projects them a second time: the same
+    values)."""
     _check_kind(cfg, kind)
     cache = None
     h = _norm_apply(cfg, p["pre_norm"], x)
@@ -263,11 +279,26 @@ def block_apply(p, x, *, cfg: ModelConfig, kind: str, positions, window=None,
             cache = _mla_prefill_cache(c_kv, k_rope, cfg, cache_len)
     else:
         y, (k, v) = attn_apply(p["attn"], h, cfg=_attn_cfg(cfg), positions=positions,
-                               window=window, rope_base=rope_base, compute_dtype=compute_dtype,
+                               causal=causal, window=window, prefix_len=prefix_len,
+                               rope_base=rope_base, compute_dtype=compute_dtype,
                                return_kv=True, rope_table=rope_table)
         if cache_len:
             cache = _attn_prefill_cache(k, v, cfg, cache_len)
-    x, aux = _finish_block(p, x, y, cfg, kind, compute_dtype, with_aux, seq_len=seq_len)
+    if enc_out is None:
+        x, aux = _finish_block(p, x, y, cfg, kind, compute_dtype, with_aux, seq_len=seq_len)
+        return x, aux, cache
+    if cfg.post_norm:
+        y = _norm_apply(cfg, p["post_attn_norm"], y)
+    x = x + y
+    ca = p["cross_attn"]
+    kv = tuple(dense_apply(ca[n], enc_out, compute_dtype=compute_dtype)
+               for n in ("k_proj", "v_proj"))
+    h = _norm_apply(cfg, p["cross_norm"], x)
+    x = x + attn_apply(ca, h, cfg=_attn_cfg(cfg), positions=positions, causal=False,
+                       rope_base=rope_base, compute_dtype=compute_dtype, kv=kv)
+    if cache_len:
+        cache.update(cross_k=kv[0].to(torch.bfloat16), cross_v=kv[1].to(torch.bfloat16))
+    x, aux = _ffn_residual(p, x, cfg, kind, compute_dtype, with_aux)
     return x, aux, cache
 
 
@@ -357,10 +388,12 @@ def _attn_decode_ring(pa, x, cache, pos, *, cfg: ModelConfig, rope_base, compute
 
 def block_decode(p, x, cache, pos, *, cfg: ModelConfig, kind: str, window=None,
                  rope_base=10000.0, compute_dtype=torch.bfloat16,
+                 enc_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                  block_tables: Optional[torch.Tensor] = None, rope_table=None,
                  cache_index: Optional[torch.Tensor] = None, dropless_moe: bool = False):
     """One decode step of a block; ``block_tables`` selects the paged cache
-    (``rope_table``/``cache_index``: see ``attn_decode``).
+    (``rope_table``/``cache_index``: see ``attn_decode``); ``enc_kv`` (the
+    layer's resident cross_k / cross_v) runs the cross-attention sublayer.
 
     MoE capacity: ``dropless_moe`` (the scheduler's ragged decode) sizes
     each expert's buffer at the batch: a token's top-k experts are
@@ -392,6 +425,14 @@ def block_decode(p, x, cache, pos, *, cfg: ModelConfig, kind: str, window=None,
                                rope_base=rope_base, compute_dtype=compute_dtype,
                                block_tables=block_tables, rope_table=rope_table,
                                cache_index=cache_index)
+    if enc_kv is not None:
+        if cfg.post_norm:
+            y = _norm_apply(cfg, p["post_attn_norm"], y)
+        x = x + y
+        h = _norm_apply(cfg, p["cross_norm"], x)
+        y, _ = attn_decode(p["cross_attn"], h, None, pos, cfg=_attn_cfg(cfg), rope_base=rope_base,
+                           compute_dtype=compute_dtype, kv=enc_kv)
+        return _ffn_residual(p, x + y, cfg, kind, compute_dtype)[0], cache
     cap = 0
     if kind == "E":
         B = x.shape[0]

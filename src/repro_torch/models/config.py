@@ -6,8 +6,10 @@ MoE model's leading dense layers ('D', deepseek-v3) and attention+MoE kind
 attention (``use_mla``, deepseek-v3), from a bf16 pool or a SYMOG-quantized
 int8/int4 KV pool (``kv_cache_dtype``); and the recurrent families'
 mamba2 SSD block ('M', family ``ssm``) and RG-LRU block + MLP ('R',
-recurrentgemma's ``hybrid`` family beside local attention).  Fields of the
-encdec and vlm families come back with the slice that ports them.
+recurrentgemma's ``hybrid`` family beside local attention); whisper's
+encoder-decoder (family ``encdec``: an encoder of bidirectional 'A' layers
+and decoder 'A' layers with cross-attention) and paligemma's image-prefix
+decoder (family ``vlm``: 'A' layers under a prefix-LM mask).
 ``layer_kinds`` derives the per-layer block kind: 'A' attention+MLP, 'D'
 an MoE model's leading dense layers, 'E' attention+MoE, 'M' mamba2 SSD,
 'R' RG-LRU block.
@@ -89,6 +91,12 @@ class ModelConfig:
     # hybrid (recurrentgemma)
     d_rnn: int = 0
     rnn_heads: int = 0
+    # encdec (whisper): the encoder's depth and its frame count (the stub
+    # frontend feeds (B, encoder_len, d_model) frame embeddings)
+    n_encoder_layers: int = 0
+    encoder_len: int = 1500
+    # vlm (paligemma): image-prefix length (patch embeddings at d_model)
+    prefix_len: int = 0
     # training: recompute each layer's forward in the backward
     # (``torch.utils.checkpoint``)
     remat: bool = True

@@ -11,6 +11,7 @@ import functools
 import math
 from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -114,6 +115,42 @@ def embed_logits(p, x):
     every call, as in the JAX package (92544x2048 fp32 at full width)."""
     e = as_dense(p["embedding"], torch.float32)
     return matmul_rows(x.to(torch.float32), e.t())
+
+
+@functools.lru_cache(maxsize=32)
+def _sin_divisors(dim: int, device: torch.device, reciprocal: bool = False) -> torch.Tensor:
+    """(dim // 2,) fp32 divisors 10000^(2i/dim) of ``sinusoidal_pos`` (or
+    their fp32 reciprocals), with the bits the JAX package's jitted traces
+    give them: XLA folds ``/ dim`` into a product with f32(1/dim), and its
+    power is the C library's ``powf``, which the fp64 power rounded once to
+    fp32 reproduces at the configs' widths (32, 1280;
+    tests/test_torch_encdec_vlm.py).  Built on the host once per (width,
+    device), as ``_rope_freq`` is."""
+    y = (2 * np.arange(dim // 2, dtype=np.float32)) * np.float32(1.0 / dim)
+    div = np.power(10000.0, y.astype(np.float64)).astype(np.float32)
+    if reciprocal:
+        div = np.float32(1.0) / div
+    return torch.from_numpy(div).to(device)
+
+
+def sinusoidal_angles(positions: torch.Tensor, dim: int, *, reciprocal: bool = False
+                      ) -> torch.Tensor:
+    """(..., dim) fp32 absolute position embedding [sin, cos] of the angles
+    positions / 10000^(2i/dim), i < dim / 2 (``positions`` (...) of any
+    dtype).  ``reciprocal``: the angle as positions · f32(1 / divisor), the
+    form XLA compiles the JAX decode step's embedding to (its divisors are
+    constants there); the quotient and the product may round an ulp apart."""
+    div = _sin_divisors(dim, positions.device, reciprocal)
+    p = positions.to(torch.float32)[..., None]
+    ang = p * div if reciprocal else p / div
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def sinusoidal_pos(seq_len: int, dim: int, dtype=torch.float32, device=None) -> torch.Tensor:
+    """(seq_len, dim) table of ``sinusoidal_angles`` at positions 0..seq_len-1
+    (whisper's encoder, and its decoder over a prompt)."""
+    pos = torch.arange(seq_len, dtype=torch.float32, device=device)
+    return sinusoidal_angles(pos, dim).to(dtype)
 
 
 @functools.lru_cache(maxsize=64)

@@ -9,8 +9,12 @@ for deepseek-v3, the multi-token-prediction loss (``_mtp_loss``).  The
 training forward recomputes each layer in the backward when ``cfg.remat``
 (``torch.utils.checkpoint``; JAX's ``jax.checkpoint`` over the scan body).
 The recurrent families serve: mamba2 (family ``ssm``, SSD blocks) and
-recurrentgemma (family ``hybrid``, RG-LRU blocks and local attention);
-their training is not ported yet.
+recurrentgemma (family ``hybrid``, RG-LRU blocks and local attention); so
+do whisper (family ``encdec``: a bidirectional encoder over the request's
+frames, sinusoidal positions, decoder layers with cross-attention whose
+k/v stay resident a slot) and paligemma (family ``vlm``: the request's
+patch embeddings prefix the text under a prefix-LM mask).  The training of
+these four families is not ported yet.
 
 Consecutive layers of one kind form a group whose params carry a stacked
 leading layer axis (``GroupSpec``/``scan_groups``, the JAX scan layout), so
@@ -20,7 +24,8 @@ remainder as a ``tail`` group.  Where JAX runs ``lax.scan`` over that
 axis, the port runs a Python loop over unit views.
 
 Attention caches page into the serving pool; recurrent / SSD states,
-conv windows and ring buffers stay resident per row (``GroupSpec.paged``).
+conv windows, ring buffers and whisper's cross-kv stay resident per row
+(``GroupSpec.paged``, ``PAGED_CACHE_LEAVES``).
 """
 from __future__ import annotations
 
@@ -54,6 +59,8 @@ from repro_torch.models.layers import (
     rmsnorm_apply,
     rmsnorm_init,
     rope_table,
+    sinusoidal_angles,
+    sinusoidal_pos,
     softcap as softcap_fn,
 )
 from repro_torch.models.attention import decode_positions, paged_token_index, verify_token_index
@@ -63,6 +70,9 @@ from repro_torch.nn.tree import tree_map
 # cache leaves that live in the paged block pool under the scheduler: the
 # per-token attention streams, standard k/v and MLA's compressed c_kv/k_rope
 PAGED_CACHE_LEAVES = frozenset({"k", "v", "c_kv", "k_rope"})
+# whisper's per-layer encoder k/v: written once at admission, read by every
+# decode step, resident a slot (never paged, never gated by ``active``)
+CROSS_CACHE_LEAVES = ("cross_k", "cross_v")
 _PAGED_KINDS = frozenset({"A", "D", "E"})
 
 
@@ -115,10 +125,21 @@ class ForwardOut(NamedTuple):
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("decoder", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1 item 4b)"
-        )
+    if cfg.family not in ("decoder", "ssm", "hybrid", "encdec", "vlm"):
+        raise NotImplementedError(f"unknown family {cfg.family!r}")
+
+
+def _enc_cfg(cfg: ModelConfig) -> ModelConfig:
+    """Whisper's encoder: the decoder's width, ``n_encoder_layers`` global
+    'A' layers, run bidirectionally and without cross-attention."""
+    return dataclasses.replace(cfg, n_layers=cfg.n_encoder_layers, layer_pattern="G")
+
+
+def image_prefix_len(cfg: ModelConfig) -> int:
+    """Positions paligemma's image prefix takes ahead of every row's text
+    (family ``vlm``), else 0: a serve's positions, buckets and blocks
+    start after it."""
+    return cfg.prefix_len if cfg.family == "vlm" else 0
 
 
 def _norm_init(cfg, dtype, device):
@@ -147,11 +168,18 @@ def init_lm(seed, cfg: ModelConfig, dtype=torch.float32, device=None) -> Dict[st
         gen = torch.Generator(device=dev)
         gen.manual_seed(int(seed))
     params: Dict[str, Any] = {"embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dtype=dtype)}
-    for g in scan_groups(cfg):
-        lead = (g.count,) if g.stacked else ()
-        params[g.name] = {
-            f"sub{j}": block_init(gen, cfg, kind, dtype, lead) for j, kind in enumerate(g.unit)
-        }
+    cross = cfg.family == "encdec"
+
+    def groups(gcfg, with_cross):
+        return {g.name: {f"sub{j}": block_init(gen, gcfg, kind, dtype,
+                                                (g.count,) if g.stacked else (), cross=with_cross)
+                         for j, kind in enumerate(g.unit)}
+                for g in scan_groups(gcfg)}
+
+    if cross:
+        params["encoder"] = groups(_enc_cfg(cfg), False)
+        params["enc_final_norm"] = _norm_init(cfg, dtype, dev)
+    params.update(groups(cfg, cross))
     params["final_norm"] = _norm_init(cfg, dtype, dev)
     if not cfg.tie_lm_head:
         params["lm_head"] = dense_init(gen, (cfg.d_model,), (cfg.vocab_size,),
@@ -221,24 +249,14 @@ def _embed_tokens(params, cfg: ModelConfig, tokens, compute_dtype):
     return x
 
 
-def forward_lm(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
-               compute_dtype=torch.bfloat16, prefill_len: int = 0, last_only: bool = False,
-               seq_len: Optional[int] = None, with_aux: bool = False) -> ForwardOut:
-    """Full-sequence forward.  ``prefill_len`` > 0 also returns the caches
-    padded to that length; ``seq_len`` marks the real length of a
-    right-padded (bucketed) prompt, so ``last_only`` reads its last REAL
-    position.  ``with_aux`` (training) fills ``aux`` with the MoE losses
-    summed over layers, as JAX's scan sums them.  With ``cfg.remat`` and
-    autograd on, each layer's activations are recomputed in the backward
-    instead of kept (the values and grads are the same bits)."""
-    _check_family(cfg)
-    tokens = batch["tokens"]
-    B, T = tokens.shape
-    x = _embed_tokens(params, cfg, tokens, compute_dtype)
-    positions = torch.arange(T, dtype=torch.int32, device=x.device)[None].expand(B, T)
+def _run_layers(params, cfg: ModelConfig, x, positions, *, compute_dtype, causal: bool = True,
+                prefix_len: int = 0, enc_out=None, cache_len: int = 0, seq_len=None,
+                with_aux: bool = False, remat: bool = False):
+    """Every group of ``params`` (a stack of ``cfg``'s layers) over x.
+    Returns (x, aux summed over layers or None, {group: caches} when
+    ``cache_len``)."""
     wins, bases = cfg.layer_windows(), cfg.layer_rope_bases()
     tables = _rope_tables(cfg, positions)
-    remat = cfg.remat and torch.is_grad_enabled() and not prefill_len
     aux = zero_aux(x.device) if with_aux else None
     caches: Dict[str, Any] = {}
     for g in scan_groups(cfg):
@@ -248,9 +266,9 @@ def forward_lm(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
                 li = li0 + j
                 layer = functools.partial(
                     block_apply, p_u[f"sub{j}"], cfg=cfg, kind=kind, positions=positions,
-                    window=wins[li], rope_base=bases[li], compute_dtype=compute_dtype,
-                    cache_len=prefill_len, rope_table=tables.get(bases[li]), seq_len=seq_len,
-                    with_aux=with_aux)
+                    window=wins[li], rope_base=bases[li], causal=causal, prefix_len=prefix_len,
+                    compute_dtype=compute_dtype, enc_out=enc_out, cache_len=cache_len,
+                    rope_table=tables.get(bases[li]), seq_len=seq_len, with_aux=with_aux)
                 if remat:
                     x, a, c = torch.utils.checkpoint.checkpoint(layer, x, use_reentrant=False)
                 else:
@@ -258,8 +276,65 @@ def forward_lm(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
                 if with_aux:
                     aux = {k: aux[k] + a[k] for k in aux}
                 per_sub[j].append(c)
-        if prefill_len:
+        if cache_len:
             caches[g.name] = {f"sub{j}": _stack_caches(c, g) for j, c in enumerate(per_sub)}
+    return x, aux, caches
+
+
+def _run_encoder(params, cfg: ModelConfig, frames, compute_dtype):
+    """Whisper's encoder over the frame embeddings (B, S, D): sinusoidal
+    positions added in the compute dtype, bidirectional layers, the final
+    norm.  The serving path runs it once an admission (JAX's prefill runs
+    it twice: the same values)."""
+    B, S, D = frames.shape
+    x = frames.to(compute_dtype) + sinusoidal_pos(S, D, compute_dtype, frames.device)[None]
+    pos = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+    x, _, _ = _run_layers(params["encoder"], _enc_cfg(cfg), x, pos, compute_dtype=compute_dtype,
+                          causal=False)
+    return _norm_apply(cfg, params["enc_final_norm"], x)
+
+
+def forward_lm(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
+               compute_dtype=torch.bfloat16, prefill_len: int = 0, last_only: bool = False,
+               seq_len: Optional[int] = None, with_aux: bool = False) -> ForwardOut:
+    """Full-sequence forward.  ``prefill_len`` > 0 also returns the caches
+    padded to that length; ``seq_len`` marks the real length of a
+    right-padded (bucketed) prompt, so ``last_only`` reads its last REAL
+    position.  ``with_aux`` (training) fills ``aux`` with the MoE losses
+    summed over layers, as JAX's scan sums them.  With ``cfg.remat`` and
+    autograd on, each layer's activations are recomputed in the backward
+    instead of kept (the values and grads are the same bits).
+
+    whisper (``encdec``) reads ``batch['frames']`` (B, encoder_len, D): the
+    encoder runs first, the tokens get sinusoidal positions, and every
+    decoder layer cross-attends the encoder output (a prefill also caches
+    each layer's cross-kv, bf16).  paligemma (``vlm``) reads
+    ``batch['patches']`` (B, prefix_len, D): the unscaled patches come
+    before the scaled token embeddings, positions run over both, attention
+    is prefix-LM, and the prefix is dropped before the head; a prefill's
+    caches hold the prefix's k/v ahead of the text's."""
+    _check_family(cfg)
+    tokens = batch["tokens"]
+    B, T = tokens.shape
+    x = _embed_tokens(params, cfg, tokens, compute_dtype)
+    enc_out, prefix_len = None, 0
+    if cfg.family == "encdec":
+        enc_out = _run_encoder(params, cfg, batch["frames"], compute_dtype)
+        x = x + sinusoidal_pos(T, cfg.d_model, compute_dtype, x.device)[None]
+    elif cfg.family == "vlm":
+        patches = batch["patches"].to(compute_dtype)
+        prefix_len = patches.shape[1]
+        x = torch.cat([patches, x], dim=1)
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)[None].expand(
+        B, x.shape[1])
+    remat = cfg.remat and torch.is_grad_enabled() and not prefill_len
+    # the block-level valid length counts the (always real) image prefix
+    x, aux, caches = _run_layers(
+        params, cfg, x, positions, compute_dtype=compute_dtype, prefix_len=prefix_len,
+        enc_out=enc_out, cache_len=prefill_len,
+        seq_len=None if seq_len is None else seq_len + prefix_len, with_aux=with_aux,
+        remat=remat)
+    x = x[:, prefix_len:]
     if last_only:
         x = x[:, -1:] if seq_len is None else x[:, seq_len - 1 : seq_len]
     logits, hidden = _head(params, cfg, x)
@@ -273,29 +348,38 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype=None, device=N
     caches of ``dtype`` (int8 under ``int8_fp``, else bf16 by default), the
     SSD conv window in bf16 and the RG-LRU's in fp32, recurrent / SSD states
     in fp32; a hybrid model's local-attention layers get ring buffers of
-    the window when it is shorter than ``max_len``.
+    the window when it is shorter than ``max_len``; whisper's decoder
+    layers get ``cross_k`` / ``cross_v`` (batch, encoder_len, K, hd) in the
+    attention caches' dtype.
 
     ``prefill``: shaped and typed like ``prefill_lm(..., max_len)``'s caches
     at compute dtype ``dtype`` instead: attention caches of max_len entries
     in ``dtype`` (KV_F int8 under ``int8_fp``), conv windows in ``dtype``,
-    no ring buffers.  The serving pools take their layout from these, as
-    JAX's take theirs from ``eval_shape`` of the prefill.  ``device="meta"``
-    gives shapes and dtypes without memory."""
+    no ring buffers, cross-kv in bf16 (JAX's prefill casts it so).  The
+    serving pools take their layout from these, as JAX's take theirs from
+    ``eval_shape`` of the prefill.  ``device="meta"`` gives shapes and
+    dtypes without memory."""
     _check_family(cfg)
     int8 = cfg.kv_cache_dtype == "int8_fp"
     if prefill:
-        kv, conv = (torch.int8 if int8 else dtype), {"M": dtype, "R": dtype}
+        kv, conv, cross = (torch.int8 if int8 else dtype), {"M": dtype, "R": dtype}, torch.bfloat16
     else:
         kv = dtype if dtype is not None else (torch.int8 if int8 else torch.bfloat16)
-        conv = {"M": torch.bfloat16, "R": torch.float32}
+        conv, cross = {"M": torch.bfloat16, "R": torch.float32}, kv
     ring = cfg.family == "hybrid" and not prefill
-    return {
-        g.name: {f"sub{j}": block_cache_init(batch, max_len, cfg, kind, conv.get(kind, kv),
-                                             device, (g.count,) if g.stacked else (),
-                                             ring=ring)
-                 for j, kind in enumerate(g.unit)}
-        for g in scan_groups(cfg)
-    }
+    caches = {}
+    for g in scan_groups(cfg):
+        lead = (g.count,) if g.stacked else ()
+        caches[g.name] = {}
+        for j, kind in enumerate(g.unit):
+            c = block_cache_init(batch, max_len, cfg, kind, conv.get(kind, kv), device, lead,
+                                 ring=ring)
+            if cfg.family == "encdec":
+                shape = lead + (batch, cfg.encoder_len, cfg.n_kv_heads, cfg.head_dim)
+                c.update({n: torch.zeros(shape, dtype=cross, device=device)
+                          for n in CROSS_CACHE_LEAVES})
+            caches[g.name][f"sub{j}"] = c
+    return caches
 
 
 def _write_back(cache, new, active: Optional[torch.Tensor]) -> None:
@@ -335,6 +419,8 @@ def decode_lm(params, caches, tokens, pos, cfg: ModelConfig, *, compute_dtype=to
         x = x * active.to(x.dtype).reshape(B, 1, 1)
     wins, bases = cfg.layer_windows(), cfg.layer_rope_bases()
     positions, _ = decode_positions(pos, B, x.device)
+    if cfg.family == "encdec":  # each row's absolute sinusoidal position
+        x = x + sinusoidal_angles(positions, cfg.d_model, reciprocal=True).to(compute_dtype)
     tables = _rope_tables(cfg, positions)
     for g in scan_groups(cfg):
         subs = [caches[g.name][f"sub{j}"] for j in range(len(g.unit))]
@@ -350,12 +436,16 @@ def decode_lm(params, caches, tokens, pos, cfg: ModelConfig, *, compute_dtype=to
             for j, kind in enumerate(g.unit):
                 li = li0 + j
                 c_l = _unit_cache(subs[j], g, i)
+                # the cross-kv is read, never written: kept out of the gating
+                enc_kv = None
+                if "cross_k" in c_l:
+                    enc_kv = tuple(c_l.pop(n) for n in CROSS_CACHE_LEAVES)
                 c_in = c_l
                 if not paged[j] and active is not None and kind in _PAGED_KINDS:
                     c_in = {n: t.clone() for n, t in c_l.items()}
                 x, new = block_decode(p_u[f"sub{j}"], x, c_in, pos, cfg=cfg, kind=kind,
                                       window=wins[li], rope_base=bases[li],
-                                      compute_dtype=compute_dtype,
+                                      compute_dtype=compute_dtype, enc_kv=enc_kv,
                                       block_tables=block_tables if paged[j] else None,
                                       rope_table=tables.get(bases[li]),
                                       cache_index=index if paged[j] else None,
@@ -512,12 +602,13 @@ def lm_train_loss(params, batch, cfg: ModelConfig, *, compute_dtype=torch.bfloat
     and z losses (``moe_aux_coef``, ``moe_z_coef``), plus ``mtp_weight`` x the
     MTP cross entropy when ``cfg.use_mtp``.  Metric keys: ``ce``,
     ``moe_aux_loss`` and ``moe_z_loss`` (MoE), ``mtp_ce`` (MTP), ``loss``.
-    The recurrent families (``ssm``, ``hybrid``) serve but do not train
-    yet."""
-    if cfg.family in ("ssm", "hybrid"):
+    The recurrent families (``ssm``, ``hybrid``), whisper (``encdec``) and
+    paligemma (``vlm``) serve but do not train yet."""
+    if cfg.family in ("ssm", "hybrid", "encdec", "vlm"):
+        item = "4c" if cfg.family in ("ssm", "hybrid") else "4d"
         raise NotImplementedError(
             f"training of the {cfg.family!r} family is not ported yet (ROADMAP Queue 1 "
-            "item 4c)")
+            f"item {item})")
     out = forward_lm(params, batch, cfg, compute_dtype=compute_dtype, with_aux=cfg.moe)
     tokens = batch["tokens"]
     mask = batch.get("loss_mask")

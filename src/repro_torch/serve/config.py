@@ -156,7 +156,7 @@ def _tier_reasons(engine, *, allow_mla: bool = False) -> list:
         if not all(paged and name in PAGED_CACHE_LEAVES
                    for g in scan_groups(cfg) for j, paged in enumerate(g.paged)
                    for name in specs[g.name][f"sub{j}"]):
-            r.append("non-paged per-row cache state")
+            r.append("non-paged per-row cache state (recurrent/SSD/ring/cross-kv)")
     return r
 
 

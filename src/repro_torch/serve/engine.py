@@ -3,9 +3,12 @@
 
 The engine serves float, ``quantize_tree`` and ``pack_tree`` params through
 the same forward code, for dense decoders (internlm2, gemma2, gemma3,
-granite), MoE decoders (olmoe; deepseek-v3 with MLA attention) and the
+granite), MoE decoders (olmoe; deepseek-v3 with MLA attention), the
 recurrent families (mamba2; recurrentgemma, whose local-attention layers
-page while its RG-LRU states stay resident a slot).  Packed
+page while its RG-LRU states stay resident a slot), whisper (its decoder's
+self-attention pages, its cross-kv stays resident a slot) and paligemma
+(the image prefix pages ahead of the text).  A request of the last two
+carries its frames or patches in ``Request.extras``.  Packed
 leaves stay packed on the device: every packed dense layer runs the CUDA
 ``fixedpoint_matmul`` kernel, every packed expert stack its experts form,
 and paged attention runs the CUDA ``paged_attention`` kernel (decode, and
@@ -53,6 +56,7 @@ from repro_torch.models.lm import (
     PAGED_CACHE_LEAVES,
     DecoderLM,
     decode_lm,
+    image_prefix_len,
     init_caches,
     prefill_lm,
     prefill_prefix_lm,
@@ -295,15 +299,15 @@ class SchedulerFns:
 
     def _build_admit(self, bucket: int, block_size: int):
         eng, groups = self._eng, self._groups
-        p_blocks = -(-bucket // block_size)
+        p_blocks = -(-(image_prefix_len(eng.cfg) + bucket) // block_size)
 
         def _admit(params, batch, length: int, caches, bt_row, slot: int, stream: int,
                    seed: int, temperature):
             # bucketed prefill: tokens (1, bucket) right-padded, ``length``
             # the real prompt length; sample at the last REAL position and
-            # write only the bucket's blocks (padded tail -> trash block).
-            # Resident leaves (recurrent / SSD state, conv windows) are
-            # copied whole into the slot's row
+            # write only the blocks of the prefix and the bucket (padded tail
+            # -> trash block).  Resident leaves (recurrent / SSD state, conv
+            # windows, whisper's cross-kv) are copied whole into the slot's row
             logits, one = prefill_lm(params, batch, eng.cfg, max_len=eng.max_len,
                                      compute_dtype=eng.compute_dtype, seq_len=length)
             for g in groups:
@@ -489,13 +493,19 @@ class ServeEngine:
 
     def generate(self, batch: Dict[str, Any], steps: int) -> torch.Tensor:
         """Greedy continuation of a batched prompt through ``serve`` (one
-        request per row on B slots); returns (B, steps)."""
+        request per row on B slots, each with its row of the batch's extras);
+        returns (B, steps)."""
         from repro_torch.serve.config import ServeConfig
         from repro_torch.serve.scheduler import Request
 
-        tokens = np.asarray(batch["tokens"].cpu() if isinstance(batch["tokens"], torch.Tensor)
-                            else batch["tokens"])
-        reqs = [Request(tokens=row, max_new_tokens=steps) for row in tokens]
+        def host(v):
+            return np.asarray(v.cpu() if isinstance(v, torch.Tensor) else v)
+
+        tokens = host(batch["tokens"])
+        extras = {k: host(v) for k, v in batch.items() if k != "tokens"}
+        reqs = [Request(tokens=row, max_new_tokens=steps,
+                        extras={k: v[b: b + 1] for k, v in extras.items()} or None)
+                for b, row in enumerate(tokens)]
         comps = self.serve(reqs, ServeConfig(n_slots=tokens.shape[0]))
         if any(len(c.tokens) != steps for c in comps):
             raise ValueError(f"max_len={self.max_len} too small for {steps} steps")
@@ -507,11 +517,12 @@ class ServeEngine:
         the scheduler's token streams are held to."""
         batch = self._tokens(batch)
         T = batch["tokens"].shape[1]
+        offset = image_prefix_len(self.cfg)
         logits, caches = self.prefill(batch)
         cur = _greedy(logits[:, -1:])
         out = [cur]
         for i in range(steps - 1):
-            logits, caches = self.decode(caches, cur, T + i)
+            logits, caches = self.decode(caches, cur, offset + T + i)
             cur = _greedy(logits[:, -1:])
             out.append(cur)
         return torch.cat(out, dim=1).cpu()

@@ -17,7 +17,11 @@ KV-cache block pool (mirrors the core of ``repro/serve/scheduler.py``).
     On a quantized pool of the fully-paged tier (all-attention decoders)
     the admission is the tail-prefill step with start 0 instead: each
     layer writes the prompt's k/v into the pool and attends the pool
-    itself, as the JAX package's scheduler does;
+    itself, as the JAX package's scheduler does.  A request's ``extras``
+    (whisper's frames, paligemma's patches) ride in its admission batch;
+    paligemma's image prefix takes the first positions of the row (the
+    budget, the bucket cap and the blocks count it), and such requests
+    never take the prefix cache, chunks or the tail prefill;
   * growth (``_grow_tables``) allocates a row's next block as its position
     crosses a boundary; pool exhaustion preempts the lowest-priority live
     request (the youngest among ties), which restarts from scratch — greedy
@@ -80,7 +84,7 @@ import numpy as np
 import torch
 
 from repro_torch.distributed.fault import StepTimeMonitor
-from repro_torch.models.lm import PAGED_CACHE_LEAVES, scan_groups
+from repro_torch.models.lm import PAGED_CACHE_LEAVES, image_prefix_len, scan_groups
 from repro_torch.obs import (NULL_TRACER, MetricsRegistry, RingLog, StatsView, StepTracer,
                               log_buckets)
 from repro_torch.obs.profiling import make_profile_window
@@ -98,6 +102,9 @@ class Request:
     eos_id: int = -1  # -1: never emitted
     arrival: int = 0  # earliest decode step at which admission may happen
     priority: int = 0  # higher admits first among due requests; preempted last
+    # numpy arrays carried into the admission batch: whisper's "frames"
+    # (1, encoder_len, d_model), paligemma's "patches" (1, prefix_len, d_model)
+    extras: Optional[Dict[str, Any]] = None
 
 
 @dataclasses.dataclass
@@ -229,6 +236,7 @@ class Scheduler:
         self.top_k = int(config.top_k)
         self._seed = int(config.seed)
         self._temp = max(self.temperature, 1e-6)
+        self._offset = image_prefix_len(self.cfg)
         self._groups = scan_groups(self.cfg)
         self._fns = engine.scheduler_fns(greedy=self.temperature <= 0.0, top_k=self.top_k)
         # telemetry: the registry is always on; span tracing and the
@@ -259,11 +267,12 @@ class Scheduler:
         # the prefix cache and chunked prefill ride the tail-prefill step:
         # fully-paged tier only; elsewhere the knobs are accepted and inert
         self.prefix: Optional[PrefixCache] = None
-        if config.prefix_cache and caps["prefix_cache"]:
+        if config.prefix_cache and not self._offset and caps["prefix_cache"]:
             self.prefix = PrefixCache(self.pool, blk, engine.params_fingerprint(),
                                       registry=self.registry)
             self.pool.set_reclaimer(self.prefix.reclaim)
-        self.chunk = int(config.prefill_chunk) if caps["chunked_prefill"] else 0
+        self.chunk = (int(config.prefill_chunk)
+                      if not self._offset and caps["chunked_prefill"] else 0)
         self._time_admissions = bool(config.time_admissions)
         # events / admit_times / the span tracer share trace_capacity and its
         # oldest-first drop rule (RingLog)
@@ -416,7 +425,8 @@ class Scheduler:
         after the last token, for any finish reason, cancellation included.
         Preemption replays are deduplicated: every token streams once."""
         prompt = np.asarray(req.tokens, np.int32).reshape(-1)
-        budget = min(int(req.max_new_tokens), self.eng.max_len - prompt.shape[0] + 1)
+        budget = min(int(req.max_new_tokens),
+                     self.eng.max_len - self._offset - prompt.shape[0] + 1)
         if budget < 1:
             raise ValueError(f"prompt of length {prompt.shape[0]} leaves no room for "
                              f"generation under max_len={self.eng.max_len}")
@@ -497,11 +507,12 @@ class Scheduler:
         self._streamed[state.index] = len(state.out)
 
     def _bucket(self, lp: int) -> int:
-        """Power-of-two padded prompt length, capped at the cache room."""
+        """Power-of-two padded prompt length, capped at the cache room left
+        after the image prefix."""
         b = 1
         while b < lp:
             b <<= 1
-        return min(b, self.eng.max_len)
+        return min(b, self.eng.max_len - self._offset)
 
     def _pop_due(self):
         """Highest-priority due request, FIFO among equal priorities (a
@@ -526,12 +537,13 @@ class Scheduler:
             return t.pin_memory().to(self.eng.device, non_blocking=True)
         return t
 
-    def _match_prefix(self, prompt: np.ndarray) -> Tuple[int, List[int]]:
+    def _match_prefix(self, prompt: np.ndarray, req: Request) -> Tuple[int, List[int]]:
         """Cached-prefix match for admission: ``(matched, path_bids)``, the
         bids covering the first ceil(matched / block) prompt blocks.  Capped
         at ``lp - 1`` so a hit leaves at least one tail token to prefill
-        (the admission samples a first token)."""
-        if self.prefix is None:
+        (the admission samples a first token).  A request with extras never
+        matches: its k/v depend on more than its tokens."""
+        if self.prefix is None or req.extras:
             return 0, []
         return self.prefix.match(prompt, self.eng.params_fingerprint(),
                                  max_match=prompt.shape[0] - 1)
@@ -545,9 +557,10 @@ class Scheduler:
                 return
             idx, prompt, budget, req = item
             lp = prompt.shape[0]
-            # +1 covers the first decode write at pos = lp, clamped to the table
-            need = min(lp // self.block_size + 1, self.max_blocks)
-            matched, path = self._match_prefix(prompt)
+            # +1 covers the first decode write at pos = offset + lp, clamped
+            # to the table
+            need = min((self._offset + lp) // self.block_size + 1, self.max_blocks)
+            matched, path = self._match_prefix(prompt, req)
             m_full, m_part = divmod(matched, self.block_size)
             # pin the matched path first: alloc's reclaim (LRU eviction of
             # cached-free blocks) must not recycle the blocks just matched
@@ -577,25 +590,31 @@ class Scheduler:
                 self.stats["prefix_hits"] += 1
                 self.stats["prefix_hit_tokens"] += matched
                 self.tracer.instant("prefix_hit", req=idx, tokens=matched)
-            elif self.prefix is not None:
+            elif self.prefix is not None and not req.extras:
                 self.stats["prefix_misses"] += 1
             self._admit_one(slot, idx, prompt, budget, req, shared + fresh, start=matched)
 
-    def _admit_batch(self, prompt: np.ndarray):
+    def _admit_batch(self, prompt: np.ndarray, req: Request):
         """(bucket, batch) of a one-shot admission: the prompt right-padded
-        to its power-of-two bucket.  Shared with the speculative scheduler's
-        draft-pool mirror, so the two prefills cannot diverge in prep."""
+        to its power-of-two bucket, with the request's extras (whisper's
+        frames, paligemma's patches) beside it.  Shared with the speculative
+        scheduler's draft-pool mirror, so the two prefills cannot diverge in
+        prep."""
         lp = prompt.shape[0]
         bucket = self._bucket(lp)
         padded = np.zeros(bucket, np.int32)
         padded[:lp] = prompt
-        return bucket, {"tokens": self._upload(padded[None])}
+        batch = {"tokens": self._upload(padded[None])}
+        for k, v in (req.extras or {}).items():
+            batch[k] = self._upload(np.asarray(v))
+        return bucket, batch
 
     def _new_slot(self, slot, idx, prompt, budget, req, blocks) -> _Slot:
         """Host-side slot bookkeeping of one-shot and chunked admission;
         the device row stays untouched here."""
         state = _Slot(index=idx, eos_id=int(req.eos_id), budget=budget, prompt=prompt, req=req,
-                      out=[], admitted_step=self.step_count, pos=prompt.shape[0], blocks=blocks)
+                      out=[], admitted_step=self.step_count, pos=self._offset + prompt.shape[0],
+                      blocks=blocks)
         self._slots[slot] = state
         self._n_live += 1
         self.stats["peak_live_slots"] = max(self.stats["peak_live_slots"], self._n_live)
@@ -631,13 +650,13 @@ class Scheduler:
     def _index_prompt(self, state: _Slot) -> None:
         """Index every prompt block in the prefix cache (shared levels dedupe
         onto existing nodes) while the blocks are still pinned by the table."""
-        if self.prefix is not None:
+        if self.prefix is not None and not state.req.extras:
             self.prefix.insert(state.prompt, state.blocks, self.eng.params_fingerprint())
             self.stats["prefix_evicted_blocks"] = self.prefix.stats["evicted_blocks"]
 
     def _admit_one(self, slot, idx, prompt, budget, req, blocks, start: int = 0) -> None:
         lp = prompt.shape[0]
-        if self.chunk and lp - start > self.chunk:
+        if self.chunk and not req.extras and lp - start > self.chunk:
             # chunked admission: hold the blocks, keep the DEVICE row zeroed,
             # and let the step loop run one tail-prefill chunk per step
             state = self._new_slot(slot, idx, prompt, budget, req, blocks)
@@ -650,13 +669,13 @@ class Scheduler:
         with self.tracer.span("admit", step=self.step_count, req=idx, slot=slot, prompt=lp):
             self._block_tables[slot] = self._upload(self._table_row(blocks))
             bt_row = self._block_tables[slot]
-            if start or self._quant_admit:
+            if start or (self._quant_admit and not req.extras):
                 # a prefix hit prefills only the uncached tail; a quantized
                 # pool sends misses (start 0) through the same step, so every
                 # first token comes from attention over the quantized pool
                 first_t = self._tail_step(prompt, start, lp - start, bt_row, idx)
             else:
-                bucket, batch = self._admit_batch(prompt)
+                bucket, batch = self._admit_batch(prompt, req)
                 admit = self._fns.admit_step(bucket, self.block_size)
                 first_t, self.caches = self.eng._with_backend(
                     admit, self.eng.params, batch, lp, self.caches, bt_row, slot,

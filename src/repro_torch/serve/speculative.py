@@ -260,7 +260,7 @@ class SpeculativeScheduler(Scheduler):
         # mirror the admission into the DRAFT pool: the one-shot bucketed
         # prefill with the draft's params and the slot's live table row; its
         # token is dropped (the first committed token is the target's)
-        bucket, batch = self._admit_batch(prompt)
+        bucket, batch = self._admit_batch(prompt, req)
         admit = self._fns.admit_step(bucket, self.block_size)
         _, self.draft_caches = self.draft_eng._with_backend(
             admit, self.draft_eng.params, batch, prompt.shape[0], self.draft_caches,

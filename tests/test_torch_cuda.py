@@ -1611,3 +1611,104 @@ def test_inactive_row_frozen_on_card(dev, arch):
         stacked = next(g for g in groups if p.startswith(g.name + "/")).stacked
         axis = 1 if stacked else 0  # the batch axis after a stacked layer axis
         assert torch.equal(t.select(axis, 1), before[p].select(axis, 1)), p
+
+
+# ---------------------------------------------------------------------------
+# the encoder-decoder and VLM families (whisper, paligemma)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("M", [4, 1500])
+@pytest.mark.parametrize("K,N", [(1280, 1280), (1280, 5120), (5120, 1280)])
+def test_fixedpoint_matmul_whisper_biased_shapes(dev, M, K, N):
+    """Row 1 at whisper-large-v3's biased projections (chip_smoke.py phase
+    15a): q / k / v / o and the cross-attention's (1280 -> 1280), fc1 and
+    fc2, at a decode step's 4 rows and the encoder's 1,500; bf16 x, 2-bit,
+    an fp32 bias, on the rule's kernel, bit-identical over two calls."""
+    rng = np.random.default_rng(K + N + M + 15)
+    w = torch.from_numpy((rng.standard_normal((K, N)) / np.sqrt(K)).astype(np.float32)).to(dev)
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)).to(dev, torch.bfloat16)
+    b = torch.from_numpy((rng.standard_normal(N) * 0.1).astype(np.float32)).to(dev)
+    f = torch.tensor(4, dtype=torch.int32, device=dev)
+    pw = pack_weight(w, f, 2)
+    before = _counts()
+    got = fixedpoint_matmul(x, pw, f, b, n_bits=2, n_out=N)
+    again = fixedpoint_matmul(x, pw, f, b, n_bits=2, n_out=N)
+    torch.cuda.synchronize()
+    route = fops._pick_route(torch.bfloat16, M, True)
+    assert route == ("decode" if M == 4 else "tensor_core")
+    assert fops.decode_launches - before[2] + fops.tc_launches - before[1] == 2
+    assert torch.equal(got, again)
+    want = fixedpoint_matmul_ref(x, pw, f, b, n_bits=2, n_out=N).to(torch.bfloat16)
+    torch.testing.assert_close(got.float(), want.float(), **TC_BF16)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("arch", ["whisper-large-v3", "paligemma-3b"])
+def test_paged_attention_encdec_vlm_decode_shape(dev, arch, int8):
+    """Row 2 at whisper's decode self-attention (phase 15b: MHA, K 20, G 1,
+    head_dim 64, ~300 cached tokens) and paligemma's (MQA, K 1, G 8,
+    head_dim 256, the 256-patch prefix + ~300 tokens); bf16 and KV_F int8
+    pools, bf16 queries, bit-identical over two calls and at the bf16 bar
+    of the plain version.  Each row's newest key points along its first
+    query (3.9 a lane), so it takes most of that query's weight: the plain
+    version one key short misses the bar."""
+    rng = np.random.default_rng(24 + int8)
+    K, G, hd, mb, lo = (20, 1, 64, 32, 280) if arch == "whisper-large-v3" else (1, 8, 256, 48, 536)
+    B, block = 4, 16
+    bt_np = (rng.permutation(B * mb) + 1).astype(np.int32).reshape(B, mb)
+    pos0_np = rng.integers(lo, lo + 40, size=B).astype(np.int32)
+    kp, vp = (rng.standard_normal((B * mb + 1, block, K, hd)).astype(np.float32)
+              for _ in range(2))
+    q_np = rng.standard_normal((B, 1, K, G, hd)).astype(np.float32) * 4.0
+    for b in range(B):
+        kp[bt_np[b, pos0_np[b] // block], pos0_np[b] % block] = np.sign(q_np[b, 0, :, 0]) * 3.9
+    bt, pos0 = torch.from_numpy(bt_np).to(dev), torch.from_numpy(pos0_np).to(dev)
+    kp, vp = torch.from_numpy(kp).to(dev), torch.from_numpy(vp).to(dev)
+    kw = dict(scale=hd**-0.5)
+    if int8:
+        kp, vp = (torch.clamp(torch.round(t * 32), -127, 127).to(torch.int8) for t in (kp, vp))
+        kw["kv_scale"] = 2.0**-5
+    else:
+        kp, vp = kp.to(torch.bfloat16), vp.to(torch.bfloat16)
+    q = torch.from_numpy(q_np).to(dev, torch.bfloat16)
+    before = aops.launches
+    got = paged_attention(q, kp, vp, bt, pos0, **kw)
+    again = paged_attention(q, kp, vp, bt, pos0, **kw)
+    torch.cuda.synchronize()
+    assert aops.launches - before == 2 and torch.equal(got, again)
+    want = paged_attention_ref(q, kp, vp, bt, pos0, **kw)
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=1e-2)
+    bad = paged_attention_ref(q, kp, vp, bt, pos0 - 1, **kw)
+    assert not torch.allclose(got.float(), bad.float(), rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("arch", ["whisper-large-v3", "paligemma-3b"])
+def test_encdec_vlm_serve_on_card_matches_cpu(dev, arch):
+    """A greedy serve of reduced whisper / paligemma, each request with its
+    own frames / patches, under a pool that preempts: token-identical on the
+    card (the streaming matmul kernel, the GQA kernel; the encoder and the
+    cross-attention in plain torch) and on the CPU."""
+    from repro_torch import configs
+    from repro_torch.core import SymogConfig, pack_tree, symog_init
+    from repro_torch.models import init_lm
+    from repro_torch.serve import Request, ServeConfig, ServeEngine
+
+    cfg = configs.get_reduced(arch)
+    params = init_lm(0, cfg, device="cpu")
+    scfg = SymogConfig(n_bits=2, total_steps=1)
+    packed = pack_tree(params, symog_init(params, scfg), scfg)
+    off = cfg.prefix_len if cfg.family == "vlm" else 0
+    card, cpu = (ServeEngine(cfg, packed, max_len=32 + off, compute_dtype=torch.float32,
+                             device=d) for d in (dev, "cpu"))
+    rng = np.random.default_rng(11)
+    name, n = ("patches", cfg.prefix_len) if off else ("frames", cfg.encoder_len)
+    shape = ((6, 14), (5, 16), (7, 10), (3, 9)) if off else ((14, 10), (13, 12), (11, 7), (5, 9))
+    reqs = [Request(tokens=rng.integers(0, cfg.vocab_size, size=L), max_new_tokens=b,
+                    extras={name: (rng.standard_normal((1, n, cfg.d_model)) * 0.1).astype(
+                        np.float32)}) for L, b in shape]
+    sc = ServeConfig(n_slots=2, block_size=4, n_blocks=(32 + off) // 4)
+    before = (fops.launches, aops.launches)
+    got, sched = card.serve(reqs, sc, return_scheduler=True)
+    torch.cuda.synchronize()
+    assert sched.stats["preemptions"] > 0
+    assert fops.launches > before[0] and aops.launches > before[1]
+    assert [c.tokens for c in got] == [c.tokens for c in cpu.serve(reqs, sc)]

@@ -9,9 +9,12 @@ against ``python -m repro.launch.serve``), reduced internlm2 on the CPU.
     step-unit histograms equal JAX's launcher on the same argv (the
     wall-time metrics by name), with and without a JAX-written
     ``--ckpt-dir``; the trace and the profiler window are written;
-  - the same on reduced mamba2 and recurrentgemma (no checkpoint);
-  - ``--mesh``, ``--moe-impl`` and an unported ``--arch`` are refused with
-    the ROADMAP item that brings them."""
+  - the same on reduced mamba2 and recurrentgemma (no checkpoint), and on
+    reduced whisper and paligemma, whose requests carry frames / patches
+    (the port draws them from its own generator: the metrics do not read
+    them);
+  - ``--mesh`` and ``--moe-impl`` are refused with the ROADMAP item that
+    brings them."""
 import json
 import os
 import sys
@@ -126,11 +129,29 @@ def test_main_metrics_equal_jax_recurrent(arch, tmp_path, monkeypatch, capsys):
         assert port["serve_pool_bytes"] > 0
 
 
+@pytest.mark.parametrize("arch", ["whisper-large-v3", "paligemma-3b"])
+def test_main_metrics_equal_jax_encdec_vlm(arch, tmp_path, monkeypatch, capsys):
+    """whisper (cross-kv resident a slot beside the paged self-attention)
+    and paligemma (the image prefix in every row's first blocks, max_len
+    widened by it) through both launchers, the int4 flag falling back to a
+    float pool: counters, gauges and histograms equal; the non-continuous
+    path generates with per-row extras."""
+    argv = ["--arch", arch] + ARGV[2:]
+    _jax_main(argv + ["--metrics-json", str(tmp_path / "jax.json")], monkeypatch)
+    capsys.readouterr()
+    tlaunch.main(argv + ["--device", "cpu", "--metrics-json", str(tmp_path / "port.json")])
+    for suffix in ("", ".packed"):
+        port = _metrics(str(tmp_path / f"port{suffix}.json"))
+        assert port == _metrics(str(tmp_path / f"jax{suffix}.json"))
+        assert port["serve_admissions"] == 4 and port["serve_decode_steps"] > 0
+    tlaunch.main(["--arch", arch, "--reduced", "--device", "cpu", "--packed", "--batch", "2",
+                  "--prompt-len", "5", "--steps", "3"])
+    assert "packed vs quantized token agreement: 100.00%" in capsys.readouterr().out
+
+
 @pytest.mark.parametrize("argv,needle", [
     (["--mesh", "1x1"], "Queue 1 item 5"),
     (["--moe-impl", "ep"], "Queue 1 item 5"),
-    (["--arch", "paligemma-3b"], "Queue 1 item 4"),
-    (["--arch", "whisper-large-v3"], "Queue 1 item 4"),
 ])
 def test_refused_flags_name_the_roadmap_item(argv, needle, capsys):
     base = ["--arch", "internlm2-1.8b", "--reduced", "--device", "cpu"]

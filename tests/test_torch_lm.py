@@ -50,7 +50,7 @@ KINDS = ["float", "quantize_tree", "pack_tree"]
 
 @pytest.mark.parametrize("arch", ["internlm2-1.8b", "olmoe-1b-7b", "deepseek-v3-671b", "gemma2-27b",
                                   "gemma3-4b", "granite-34b", "mamba2-2.7b",
-                                  "recurrentgemma-2b"])
+                                  "recurrentgemma-2b", "whisper-large-v3", "paligemma-3b"])
 def test_configs_match_jax(arch):
     """The port's config keeps the fields it reads; each equals JAX's."""
     import dataclasses

@@ -304,8 +304,8 @@ def test_lm_train_loss_masked_and_refuses_unported_families():
                                       "loss_mask": torch.from_numpy(mask)}, cfg,
                           compute_dtype=torch.float32)
     np.testing.assert_allclose(_np(tl), np.asarray(jl), rtol=1e-5)
-    for family in ("ssm", "hybrid"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
+    for family, item in (("ssm", "4c"), ("hybrid", "4c"), ("encdec", "4d"), ("vlm", "4d")):
+        with pytest.raises(NotImplementedError, match=f"not ported yet .*item {item}"):
             lm_train_loss(tparams(), {"tokens": torch.from_numpy(tok)},
                           dataclasses.replace(cfg, family=family))
 
