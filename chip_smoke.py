@@ -113,7 +113,8 @@ Phases, one JSON line each:
                packed and served from an int4 pool (rows 1b and 3);
  7c. deepseek — reduced deepseek-v3 with its MTP loss, 3 steps at fp32:
      reduced   the card's fused route against the CPU's composed one, every
-               loss term and param;
+               loss term and param (``phase_train_reduced``, which 16b
+               runs on four more archs);
   8. olmoe   — olmoe-1b-7b at full width and all 16 layers, 2-bit packed
                with one Δ per expert (``symog_init`` timed), served as in
                phase 5 (same traffic and checks) from an int4 SYMOG KV pool;
@@ -237,7 +238,30 @@ Phases, one JSON line each:
                cross-kv), admission seconds with the encoder's share, the
                tied head's dequantize, a profiled decode window; (e)
                reduced whisper and paligemma served greedy on the card and
-               on the CPU under a preempting pool: token-identical.
+               on the CPU under a preempting pool: token-identical;
+ 16. train   — (a) SYMOG training of mamba2-2.7b (64 layers), recurrent-
+     other     gemma-2b (26), whisper-large-v3 (32 + 32) and paligemma-3b
+     families  (18) at every published width and depth (a depth is cut
+               only where the printed reckoning of peak bytes passes the
+               card's 80 GB): fp32 masters, bf16 compute through a bf16
+               copy (``cast_params``), 2-bit, remat on, 4 x 512 tokens
+               (whisper 4 x 448 with its frames (4, 1500, 1280), paligemma
+               with its patches (4, 256, 2048)); step 1 from one set of
+               grads, the fused update against the composed one leaf by
+               leaf at TRAIN_TOL, and the kernel against its plain version
+               on the largest leaf, both timed; 3 fused steps, each with
+               its ms, peak bytes, loss / ce, λ and ``symog_update``
+               launches (one a quantizable leaf: 8, 44, 17, 8); gates:
+               grad norm, params and momentum finite; mamba2 first prints
+               the SSD decay's largest exponent above the diagonal (past
+               fp32's exp limit of 88.72 the JAX order's backward gives
+               NaN); each trained tree then ``pack_tree``-d and served, one
+               greedy request of 64 prompt tokens and 16 new from a bf16
+               pool, launches as the route rule gives them, the tokens
+               identical on a repeat; (b) the four reduced configs, 3 fp32
+               steps at the default λ schedule, the card's fused route
+               against the CPU's composed one (as 7c): every loss term and
+               param at TRAIN_TOL.
 Each serving and training path zeroes every kernel's launch count just
 before it runs and reads them just after.
 Then each phase's seconds and the total, the ``kernels`` summary line (the
@@ -1980,11 +2004,33 @@ def stub_extras(cfg, rng):
     return {n[0]: (rng.standard_normal((1, n[1], cfg.d_model), dtype=np.float32) * 0.1)}
 
 
+def train_batches(torch, dev, cfg, seq: int, n: int, seed: int):
+    """``n`` training batches of TRAIN_BATCH rows on ``dev``: SyntheticLM
+    tokens from ``seed`` and, for whisper and paligemma, each row's stub
+    frontend output (``stub_extras``) from a numpy generator of ``seed``,
+    stacked along B."""
+    import numpy as np
+    from repro_torch.data import SyntheticLM, SyntheticLMConfig
+
+    data = SyntheticLM(SyntheticLMConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                         global_batch=TRAIN_BATCH, seed=seed))
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        batch = next(data)
+        rows = [stub_extras(cfg, rng) for _ in range(TRAIN_BATCH)]
+        if rows[0] is not None:
+            batch.update({k: np.concatenate([r[k] for r in rows]) for k in rows[0]})
+        out.append({k: torch.as_tensor(v, device=dev) for k, v in batch.items()})
+    return out
+
+
 def phase_serve(torch, dev, arch: str, kv_cache_dtype: str, seed: int, expected,
-                layers: int = 0, build=None, max_len: int = 512, lens=None):
+                layers: int = 0, build=None, max_len: int = 512, lens=None,
+                new_tokens: int = 32):
     """Serve the seeded traffic (4 slots, block 16, max_len 512, 8 requests
     of 24..400 prompt tokens, or of ``lens`` tokens under ``max_len``, 32
-    new tokens each) through the
+    new tokens each, or ``new_tokens``) through the
     continuous-batching scheduler from a 2-bit packed artifact of ``arch``
     at full width and all its layers (``layers`` > 0 cuts the depth), made
     on the card from random weights (``seed``) by ``symog_init`` +
@@ -2035,8 +2081,8 @@ def phase_serve(torch, dev, arch: str, kv_cache_dtype: str, seed: int, expected,
 
     rng = np.random.default_rng(0)
     lens = rng.integers(24, 401, size=8) if lens is None else np.asarray(lens)
-    reqs = [Request(tokens=rng.integers(0, cfg.vocab_size, size=int(L)), max_new_tokens=32,
-                    extras=stub_extras(cfg, rng))
+    reqs = [Request(tokens=rng.integers(0, cfg.vocab_size, size=int(L)),
+                    max_new_tokens=new_tokens, extras=stub_extras(cfg, rng))
             for L in lens]
     sc = ServeConfig(n_slots=4, block_size=16)
     fns = eng.scheduler_fns(greedy=True, top_k=0)
@@ -2071,13 +2117,13 @@ def phase_serve(torch, dev, arch: str, kv_cache_dtype: str, seed: int, expected,
     prefill_s = sum(adm["ms"]) / 1e3
     tokens = [list(map(int, c.tokens)) for c in comps]
     reasons = sorted({c.finish_reason for c in comps})
-    lengths_ok = all(len(c.tokens) == 32 or c.finish_reason == "eos" for c in comps)
+    lengths_ok = all(len(c.tokens) == new_tokens or c.finish_reason == "eos" for c in comps)
     tokens_ok = all(0 <= t < cfg.vocab_size for a in tokens for t in a)
     row = {
         "phase": "serve", "arch": arch, "layers": cfg.n_layers, "params": n_params, "n_bits": 2,
         "kv_cache_dtype": kv_cache_dtype, "compute": "bfloat16", "n_slots": 4, "block_size": 16,
         "max_len": max_len, "requests": len(reqs), "prompt_lens": [int(x) for x in lens],
-        "new_tokens": 32, **secs, "build_peak_device_bytes": build_peak,
+        "new_tokens": new_tokens, **secs, "build_peak_device_bytes": build_peak,
         "wall_s": wall, "decode_steps": st["decode_steps"],
         "prefills": st["prefills"], "preemptions": st["preemptions"],
         "admitted_mid_run": sum(1 for c in comps if c.admitted_step > 0),
@@ -2643,23 +2689,22 @@ def phase_train_olmoe(torch, dev, cfg=None, steps: int = TRAIN_STEPS, seq: int =
     return row
 
 
-def phase_train_deepseek_reduced(torch, dev, steps: int = 3):
-    """Reduced deepseek-v3 (MLA, a dense layer, a shared expert, the MTP
-    module), fp32 compute, SYMOG 2-bit at the default 1,000-step λ
-    schedule: ``steps`` steps on the card (the fused route) and on the CPU
-    (the composed one) from the same init and batches; loss, ce, aux, z,
-    mtp_ce and every param at TRAIN_TOL."""
+def phase_train_reduced(torch, dev, arch: str = None, steps: int = 3):
+    """A reduced config (by default deepseek-v3: MLA, a dense layer, a
+    shared expert, the MTP module; phase 16b: mamba2, recurrentgemma,
+    whisper with its frames, paligemma with its patches), fp32 compute,
+    SYMOG 2-bit at the default 1,000-step λ schedule: ``steps`` steps on the
+    card (the fused route) and on the CPU (the composed one) from the same
+    init and batches; every loss term (``lm_train_loss``'s metrics) and
+    every param at TRAIN_TOL."""
     import numpy as np
     from repro_torch import configs, core, optim
-    from repro_torch.data import SyntheticLM, SyntheticLMConfig
     from repro_torch.models import init_lm
     from repro_torch.nn.tree import flatten_with_paths, tree_to
     from repro_torch.train import init_train_state, make_train_step
 
-    cfg = configs.get_reduced(DEEPSEEK)
-    data = SyntheticLM(SyntheticLMConfig(vocab_size=cfg.vocab_size, seq_len=16, global_batch=4,
-                                         seed=4))
-    batches = [next(data) for _ in range(steps)]
+    cfg = configs.get_reduced(arch or DEEPSEEK)
+    batches = train_batches(torch, "cpu", cfg, 16, steps, 4)
     out = {}
     for where in ("cpu", dev):
         tx = optim.sgd(momentum=0.9)
@@ -2673,25 +2718,31 @@ def phase_train_deepseek_reduced(torch, dev, steps: int = 3):
             st, m = step(st, b)
             ms.append({k: (v.item() if hasattr(v, "item") else v) for k, v in m.items()})
         out[str(where)] = (st, ms, read_counts()["symog_update"])
-    (cs, cm, c_launch), (gs, gm, g_launch) = out["cpu"], out[str(dev)]
-    keys = ("loss", "ce", "moe_aux_loss", "moe_z_loss", "mtp_ce")
-    metric_ok = all(np.allclose(g[k], c[k], rtol=TRAIN_TOL["rtol"], atol=0) for g, c in zip(gm, cm)
-                    for k in keys)
+    (cs, cm), (gs, gm) = out["cpu"][:2], out[str(dev)][:2]
+    c_launch, g_launch = out["cpu"][2], out[str(dev)][2]
+    # the loss terms the config must report, on both routes
+    keys = (["loss", "ce"] + (["moe_aux_loss", "moe_z_loss"] if cfg.moe else [])
+            + (["mtp_ce"] if cfg.use_mtp else []))
+    terms = {"cpu": set(cm[0]) - {"grad_norm", "lr", "symog_lambda"},
+             "card": set(gm[0]) - {"grad_norm", "lr", "symog_lambda"}}
+    metric_ok = (all(t == set(keys) for t in terms.values())
+                 and all(np.allclose(g[k], c[k], rtol=TRAIN_TOL["rtol"], atol=0)
+                         for g, c in zip(gm, cm) for k in keys))
     worst, params_ok = 0.0, True
     for (path, a), (_, b) in zip(flatten_with_paths(gs.params), flatten_with_paths(cs.params)):
         a = a.cpu()
         worst = max(worst, (a - b).abs().max().item())
         params_ok = params_ok and bool(torch.allclose(a, b, **TRAIN_TOL))
     n_quant = sum(gs.symog.mask.values())
-    row = {"phase": "train_deepseek_reduced", "arch": cfg.name, "steps": steps,
-           "compute": "float32", "tol": TRAIN_TOL, "card": gm, "cpu": cm,
+    row = {"phase": "train_reduced", "arch": cfg.name, "family": cfg.family, "steps": steps,
+           "compute": "float32", "tol": TRAIN_TOL, "loss_keys": keys,
+           "reported_terms": {k: sorted(v) for k, v in terms.items()}, "card": gm, "cpu": cm,
            "max_abs_param_err": worst, "symog_update_launches": g_launch,
            "quantizable_leaves": n_quant, "cpu_launches": c_launch}
-    row["pass"] = (metric_ok and params_ok and g_launch == n_quant * steps and c_launch == 0
-                   and all(k in gm[0] for k in keys))
+    row["pass"] = metric_ok and params_ok and g_launch == n_quant * steps and c_launch == 0
     emit(row)
     if not row["pass"]:
-        raise Failed(f"deepseek reduced training, card vs CPU: {row}")
+        raise Failed(f"{cfg.name} training, card vs CPU: {row}")
     return row
 
 
@@ -4890,6 +4941,280 @@ def phase_encdec_vlm_card_vs_cpu(torch, dev):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 16: SYMOG training of the recurrent, encoder-decoder and VLM
+# families at full width, each trained tree packed and served; the reduced
+# configs card vs CPU
+# ---------------------------------------------------------------------------
+FAMILY_TRAIN_SEQ = {"mamba2-2.7b": 512, "recurrentgemma-2b": 512, "whisper-large-v3": 448,
+                    "paligemma-3b": 512}  # whisper's decoder takes 448 positions
+FAMILY_TRAIN_STEPS = 3
+TRAIN_BATCH = 4
+CARD_BYTES = 80e9
+FP32_EXP_LIMIT = 88.72  # log of fp32's largest value: exp overflows past it
+
+
+def _peak_reckoning(cfg, n_params: int, seq: int) -> int:
+    """Peak device bytes a SYMOG step should need, reckoned before it runs:
+    20 B a parameter (fp32 master, its grad and momentum, the bf16 copy and
+    that copy's grad) and, with each layer recomputed in the backward, the
+    head's fp32 logits three times (logits, log-softmax, their grad) and
+    whisper's encoder scores of one layer three times."""
+    act = 3 * TRAIN_BATCH * seq * cfg.vocab_size * 4
+    if cfg.family == "encdec":
+        act += 3 * TRAIN_BATCH * cfg.n_heads * cfg.encoder_len ** 2 * 4
+    return 20 * n_params + act
+
+
+def _n_params(torch, cfg) -> int:
+    """The parameter count from shapes alone (``FakeTensorMode``: nothing
+    allocated)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.models import init_lm
+    from repro_torch.nn.tree import tree_leaves
+
+    with FakeTensorMode():
+        return sum(t.numel() for t in tree_leaves(init_lm(0, cfg, device="cpu")))
+
+
+def _bf16_copy(torch, params):
+    """The training step's compute copy (``make_train_step``'s
+    ``cast_params``): every fp32 leaf of rank >= 1 in bf16."""
+    from repro_torch.nn.tree import tree_map
+
+    return tree_map(lambda p: p.to(torch.bfloat16)
+                    if p.dtype == torch.float32 and p.ndim >= 1 else p, params)
+
+
+def _family_leaf_timing(torch, state, grads, scfg, *, lam, lr, arch):
+    """The largest quantizable leaf of a trained tree: ``symog_update`` on
+    copies of its weights and momentum against the plain version
+    (``symog_update_ref``) at SYMOG_TOL, then both timed on it (CUDA events),
+    with the leaf's byte bound."""
+    from repro_torch.core.quantizer import delta_from_f
+    from repro_torch.kernels.symog_update import ops as sops
+    from repro_torch.kernels.symog_update.ref import symog_update_ref
+    from repro_torch.nn.tree import flatten_with_paths
+
+    g_by, v_by, f_by = (dict(flatten_with_paths(t)) for t in (grads, state.opt_state,
+                                                                state.symog.f))
+    path, w = max(((p, w) for p, w in flatten_with_paths(state.params) if state.symog.mask[p]),
+                  key=lambda pw: pw[1].numel())
+    n = w.numel()
+    g, v = g_by[path].contiguous(), v_by[path]
+    kw = dict(delta=delta_from_f(f_by[path], device=w.device), lam_eff=lam * 2.0 / n, lr=lr,
+              mu=0.9, n_bits=scfg.n_bits)
+    wk, vk = w.clone(), v.clone()
+    sops.symog_update(wk, g, vk, **kw)
+    w_ref, v_ref = symog_update_ref(w, g, v, **kw)
+    err = max((wk - w_ref).abs().max().item(), (vk - v_ref).abs().max().item())
+    ok = bool(torch.allclose(wk, w_ref, **SYMOG_TOL) and torch.allclose(vk, v_ref, **SYMOG_TOL))
+    del w_ref, v_ref
+    b_ms, b_by = bound(20 * n, SYMOG_FLOPS * n, "float32")
+    row = {"phase": "kernel", "kernel": "symog_update", "case": "family_leaf", "arch": arch,
+           "leaf": path, "shape": list(w.shape), "f_shape": list(f_by[path].shape), "n": n,
+           "n_bits": scfg.n_bits, "max_abs_err": err, "tol": SYMOG_TOL,
+           "ms": events_ms(lambda: sops.symog_update(wk, g, vk, **kw), 5, torch),
+           "plain_ms": events_ms(lambda: symog_update_ref(w, g, v, **kw), 3, torch),
+           "bound_ms": b_ms, "bound_by": b_by, "pass": ok}
+    row["achieved_GBps"] = 20 * n / (row["ms"] * 1e-3) / 1e9
+    emit(row)
+    del wk, vk
+    if not ok:
+        raise Failed(f"symog_update at {arch}'s {path} {list(w.shape)}: err {err}")
+    return row
+
+
+def _ssd_upper_exponents(torch, params, cfg, batch):
+    """The SSD decay's largest exponent above the diagonal, cum_0 - cum_{Q-1}
+    = Σ dt·|A| over a chunk's last Q - 1 steps, in a no-grad forward of
+    ``batch`` under the training step's bf16 copy: (the largest over every
+    layer, chunk and head; the layers whose largest passes fp32's exp
+    limit; the layers)."""
+    from repro_torch.models import lm_train_loss
+    from repro_torch.models import ssd as ssd_mod
+
+    inner, tops = ssd_mod.ssd_scan_ref, []
+
+    def probe(x, dt, A, Bm, Cm, *, chunk):
+        B, T, H = dt.shape
+        cum = torch.cumsum((dt.to(torch.float32) * A).reshape(B, T // chunk, chunk, H), dim=2)
+        tops.append((cum[:, :, 0] - cum[:, :, -1]).max())
+        return inner(x, dt, A, Bm, Cm, chunk=chunk)
+
+    ssd_mod.ssd_scan_ref = probe
+    try:
+        with torch.no_grad():
+            lm_train_loss(_bf16_copy(torch, params), batch, cfg, compute_dtype=torch.bfloat16)
+    finally:
+        ssd_mod.ssd_scan_ref = inner
+    vals = [float(t) for t in tops]
+    return max(vals), sum(v > FP32_EXP_LIMIT for v in vals), len(vals)
+
+
+def _all_finite(torch, tree) -> bool:
+    from repro_torch.nn.tree import tree_leaves
+
+    return bool(torch.stack([torch.isfinite(t).all() for t in tree_leaves(tree)]).all())
+
+
+def phase_train_family(torch, dev, arch: str, seed: int):
+    """SYMOG training of ``arch`` at every published width and all its
+    layers (cut only where ``_peak_reckoning`` passes the card's 80 GB; the
+    cut and the reckoning are printed): fp32 master weights, bf16 compute
+    through a bf16 copy (``cast_params``), 2-bit, remat on, 4 rows of
+    FAMILY_TRAIN_SEQ tokens (whisper with its frames, paligemma with its
+    patches).  Step 1 first from one set of grads: the fused update against
+    the composed one leaf by leaf at TRAIN_TOL (``_step1_fused_vs_composed``),
+    and on the largest quantizable leaf the kernel against its plain version,
+    both timed (``_family_leaf_timing``).  Then FAMILY_TRAIN_STEPS fused
+    steps through ``make_train_step``
+    (the last under torch.profiler: device busy ms, idle share, GEMM ms,
+    ``symog_update``'s ms, top kernels), each with its ms, peak bytes,
+    loss / ce, λ and ``symog_update`` launches (one a quantizable leaf);
+    gate: grad norm, every param and every momentum leaf finite.  mamba2
+    first prints the SSD decay's
+    largest exponent above the diagonal.  Then the trained tree goes
+    through ``pack_tree`` into a bf16-pool engine: one greedy request of 64
+    prompt tokens and 16 new, launches as the route rule gives them, the
+    tokens identical on a repeat."""
+    from repro_torch import configs, core, optim
+    from repro_torch.core import pack_tree
+    from repro_torch.kernels.symog_update import ops as sops
+    from repro_torch.models import init_lm, lm_train_loss
+    from repro_torch.models.lm import image_prefix_len
+    from repro_torch.nn.tree import flatten_with_paths
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.train.trainer import _accum_grads
+
+    full = cfg = configs.get_config(arch)
+    seq = FAMILY_TRAIN_SEQ[arch]
+    while _peak_reckoning(cfg, _n_params(torch, cfg), seq) > CARD_BYTES:
+        cfg = dataclasses.replace(cfg, n_layers=cfg.n_layers - 1)
+    n_params = _n_params(torch, cfg)
+    cut = f"depth {full.n_layers} -> {cfg.n_layers}" if cfg is not full else None
+    emit({"phase": "train_family_plan", "arch": arch, "params": n_params,
+          "reckoned_peak_bytes_full_depth": _peak_reckoning(full, _n_params(torch, full), seq),
+          "reckoned_peak_bytes": _peak_reckoning(cfg, n_params, seq), "card_bytes": CARD_BYTES,
+          "layers": cfg.n_layers, "encoder_layers": cfg.n_encoder_layers or None, "cut": cut})
+
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    params = init_lm(gen, cfg, device=dev)  # fp32 master weights
+    tx = optim.sgd(momentum=0.9)
+    scfg = core.SymogConfig(n_bits=2, total_steps=FAMILY_TRAIN_STEPS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = init_train_state(params, tx, scfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    del params
+    n_quant = sum(state.symog.mask.values())
+    quant_shapes = {p: list(w.shape) for p, w in flatten_with_paths(state.params)
+                    if state.symog.mask[p]}
+    batches = train_batches(torch, dev, cfg, seq, FAMILY_TRAIN_STEPS, seed)
+    probe = None
+    if cfg.family == "ssm":
+        top, over, calls = _ssd_upper_exponents(torch, state.params, cfg, batches[0])
+        probe = {"max_upper_exponent": top, "layers_past_fp32_exp_limit": over,
+                 "layers": calls, "fp32_exp_limit": FP32_EXP_LIMIT}
+        emit({"phase": "ssd_decay_exponent", "arch": arch, **probe})
+        torch.cuda.empty_cache()
+
+    # step 1 from one set of grads (through the step's bf16 copy): the fused
+    # update against the composed one leaf by leaf at these leaf shapes, then
+    # the kernel against its plain version, both timed, on the largest leaf
+    lr_fn = core.linear_lr(0.01, 0.001, FAMILY_TRAIN_STEPS)
+
+    def loss_fn(p, b):
+        return lm_train_loss(_bf16_copy(torch, p), b, cfg, compute_dtype=torch.bfloat16)
+
+    _, _, grads = _accum_grads(loss_fn, state.params, batches[0], 1)
+    cmp = _step1_fused_vs_composed(torch, state, grads, scfg, tx, lam=core.lambda_at(scfg, 0),
+                                   lr=lr_fn(0), arch=arch)
+    torch.cuda.empty_cache()
+    leaf = _family_leaf_timing(torch, state, grads, scfg, lam=core.lambda_at(scfg, 0),
+                               lr=lr_fn(0), arch=arch)
+    del grads
+    torch.cuda.empty_cache()
+
+    step = make_train_step(cfg, tx, lr_fn, symog_cfg=scfg, compute_dtype=torch.bfloat16,
+                           cast_params=True)
+    rows, finite, prof = [], True, None
+    zero_counts()
+    for i, batch in enumerate(batches):
+        before = sops.launches
+        torch.cuda.reset_peak_memory_stats(dev)
+        if i == len(batches) - 1:  # the last step under torch.profiler
+            state, m, upd_ms, prof, wall = _profiled_step(torch, step, state, batch)
+            prof = {"update_device_ms": upd_ms, **(prof or {})}
+        else:
+            state, m, wall = _timed_step(torch, step, state, batch)
+        ok = (math.isfinite(m["grad_norm"].item()) and _all_finite(torch, state.params)
+              and _all_finite(torch, state.opt_state))
+        finite = finite and ok
+        rows.append({"step": i, "ms": wall, "profiled": prof is not None,
+                     "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
+                     "loss": m["loss"].item(), "ce": m["ce"].item(),
+                     "grad_norm": m["grad_norm"].item(), "symog_lambda": m["symog_lambda"],
+                     "lr": m["lr"], "symog_update_launches": sops.launches - before,
+                     "finite": ok})
+        emit({"phase": "train_step", "arch": arch, **rows[-1]})
+    counts = read_counts()
+    row = {"phase": "train_family", "arch": arch, "family": cfg.family, "layers": cfg.n_layers,
+           "encoder_layers": cfg.n_encoder_layers or None, "cut": cut, "d_model": cfg.d_model,
+           "vocab": cfg.vocab_size, "params": n_params, "quantizable_leaves": n_quant,
+           "quantizable_shapes": quant_shapes, "batch": [TRAIN_BATCH, seq],
+           "extras": {k: list(v.shape) for k, v in batches[0].items() if k != "tokens"},
+           "compute": "bfloat16 (cast_params)", "master": "float32", "n_bits": 2,
+           "remat": cfg.remat,
+           "optimizer": "sgd nesterov 0.9, linear_lr 0.01->0.001, SYMOG lambda0 10 alpha 9",
+           "symog_init_s": init_s, "steps": rows,
+           "step_ms": [r["ms"] for r in rows],
+           "peak_device_bytes": max(r["peak_device_bytes"] for r in rows),
+           "reckoned_peak_bytes": _peak_reckoning(cfg, n_params, seq),
+           "symog_update_launches": counts["symog_update"], "ssd_probe": probe,
+           "step1_fused_vs_composed_max_abs_err": cmp["max_abs_err"],
+           "largest_leaf_update": {k: leaf[k] for k in ("leaf", "shape", "f_shape", "ms",
+                                                        "plain_ms", "bound_ms", "bound_by",
+                                                        "achieved_GBps", "max_abs_err")},
+           "profile": prof}
+    row["pass"] = (finite and all(r["symog_update_launches"] == n_quant for r in rows)
+                   and counts["symog_update"] == n_quant * FAMILY_TRAIN_STEPS
+                   and all(v == 0 for k, v in counts.items() if k != "symog_update"))
+    emit(row)
+    if not row["pass"]:
+        raise Failed(f"train {arch} failed: {row}")
+
+    # the trained tree, packed, served from a bf16 pool; the request again
+    packed = pack_tree(state.params, state.symog, scfg)
+    del state, batches, step
+    torch.cuda.empty_cache()
+    expected = _recurrent_expected if cfg.family in ("ssm", "hybrid") else _encdec_vlm_expected
+    srow, eng, reqs, sc, tokens = phase_serve(
+        torch, dev, arch, "bf16", seed, expected,
+        layers=cfg.n_layers if cut else 0,
+        build=lambda c, s: (packed, n_params, {}), max_len=128 + image_prefix_len(cfg),
+        lens=[64], new_tokens=16)
+    del packed
+    again = [list(map(int, c.tokens)) for c in eng.serve(reqs, sc)]
+    serve = {"phase": "train_serve", "arch": arch, "tokens": tokens,
+             "repeat_tokens_identical": again == tokens, "launches": srow["launches"],
+             "expected_launches": srow["expected_launches"],
+             "decode_step_ms": srow["decode_step_ms"], "prefill_ms": srow["prefill_ms"],
+             "weight_bytes": srow["weight_bytes"]}
+    serve["pass"] = srow["pass"] and serve["repeat_tokens_identical"]
+    emit(serve)
+    del eng
+    torch.cuda.empty_cache()
+    if not serve["pass"]:
+        raise Failed(f"serving the trained {arch} failed: {serve}")
+    row["serve_launches"] = srow["launches"]
+    return row
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
 
@@ -4983,7 +5308,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         train = run("7 train internlm2", phase_train, torch, dev)
         train_moe = run("7b train olmoe", phase_train_olmoe, torch, dev)
-        train_ds = run("7c train deepseek reduced", phase_train_deepseek_reduced, torch, dev)
+        train_ds = run("7c train deepseek reduced", phase_train_reduced, torch, dev)
         olmoe, eng = run("8 serve olmoe", phase_serve_olmoe, torch, dev)
         run("8 profile olmoe", phase_profile, torch, dev, eng)
         del eng
@@ -5020,6 +5345,10 @@ def main() -> int:
             run("15c parity " + arch, phase_parity_encdec_vlm, torch, dev, arch, n)
         ev_serves = run("15d serve encdec vlm", phase_serve_encdec_vlm, torch, dev)
         run("15e encdec vlm card vs cpu", phase_encdec_vlm_card_vs_cpu, torch, dev)
+        fam_train = {arch: run("16a train " + arch, phase_train_family, torch, dev, arch,
+                               60 + i) for i, arch in enumerate(FAMILY_TRAIN_SEQ)}
+        fam_reduced = {arch: run("16b train reduced " + arch, phase_train_reduced, torch, dev,
+                                 arch) for arch in FAMILY_TRAIN_SEQ}
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -5097,7 +5426,14 @@ def main() -> int:
          "launches_deepseek_reduced_train": train_ds["symog_update_launches"],
          "launches_lenet5_symog": lenet["symog_update_launches"],
          "launches_vgg7_symog": vgg7["symog_update_launches"],
-         "pass": all(r["pass"] for r in sy_rows) and train_moe["symog_update_launches"] > 0},
+         "launches_family_train": {a: r["symog_update_launches"] for a, r in fam_train.items()},
+         "family_train_leaves": {a: r["quantizable_leaves"] for a, r in fam_train.items()},
+         "family_largest_leaf_cases": {a: r["largest_leaf_update"]
+                                       for a, r in fam_train.items()},
+         "launches_family_reduced_train": {a: r["symog_update_launches"]
+                                           for a, r in fam_reduced.items()},
+         "pass": all(r["pass"] for r in sy_rows) and train_moe["symog_update_launches"] > 0
+         and all(r["symog_update_launches"] > 0 for r in fam_train.values())},
         {"name": "fixedpoint_matmul_experts", "route": "cuda",
          "source": "src/repro_torch/csrc/fixedpoint_matmul.cu",
          "replaces": "src/repro/kernels/fixedpoint_matmul/ops.py:81",

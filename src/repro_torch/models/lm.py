@@ -7,14 +7,14 @@ deepseek-v3 with MLA attention and leading dense layers) serve and train;
 MoE training adds the load-balancing and z losses summed over layers and,
 for deepseek-v3, the multi-token-prediction loss (``_mtp_loss``).  The
 training forward recomputes each layer in the backward when ``cfg.remat``
-(``torch.utils.checkpoint``; JAX's ``jax.checkpoint`` over the scan body).
-The recurrent families serve: mamba2 (family ``ssm``, SSD blocks) and
-recurrentgemma (family ``hybrid``, RG-LRU blocks and local attention); so
-do whisper (family ``encdec``: a bidirectional encoder over the request's
+(``torch.utils.checkpoint``; JAX's ``jax.checkpoint`` over the scan body),
+whisper's encoder layers too.
+The recurrent families serve and train: mamba2 (family ``ssm``, SSD blocks)
+and recurrentgemma (family ``hybrid``, RG-LRU blocks and local attention);
+so do whisper (family ``encdec``: a bidirectional encoder over the batch's
 frames, sinusoidal positions, decoder layers with cross-attention whose
-k/v stay resident a slot) and paligemma (family ``vlm``: the request's
-patch embeddings prefix the text under a prefix-LM mask).  The training of
-these four families is not ported yet.
+k/v stay resident a slot when serving) and paligemma (family ``vlm``: the
+batch's patch embeddings prefix the text under a prefix-LM mask).
 
 Consecutive layers of one kind form a group whose params carry a stacked
 leading layer axis (``GroupSpec``/``scan_groups``, the JAX scan layout), so
@@ -281,16 +281,18 @@ def _run_layers(params, cfg: ModelConfig, x, positions, *, compute_dtype, causal
     return x, aux, caches
 
 
-def _run_encoder(params, cfg: ModelConfig, frames, compute_dtype):
+def _run_encoder(params, cfg: ModelConfig, frames, compute_dtype, remat: bool = False):
     """Whisper's encoder over the frame embeddings (B, S, D): sinusoidal
     positions added in the compute dtype, bidirectional layers, the final
-    norm.  The serving path runs it once an admission (JAX's prefill runs
-    it twice: the same values)."""
+    norm.  ``remat`` recomputes each layer in the backward, as the decoder's
+    (JAX's encoder runs under the same config's ``jax.checkpoint``).  The
+    serving path runs it once an admission (JAX's prefill runs it twice:
+    the same values)."""
     B, S, D = frames.shape
     x = frames.to(compute_dtype) + sinusoidal_pos(S, D, compute_dtype, frames.device)[None]
     pos = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
     x, _, _ = _run_layers(params["encoder"], _enc_cfg(cfg), x, pos, compute_dtype=compute_dtype,
-                          causal=False)
+                          causal=False, remat=remat)
     return _norm_apply(cfg, params["enc_final_norm"], x)
 
 
@@ -318,8 +320,9 @@ def forward_lm(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
     B, T = tokens.shape
     x = _embed_tokens(params, cfg, tokens, compute_dtype)
     enc_out, prefix_len = None, 0
+    remat = cfg.remat and torch.is_grad_enabled() and not prefill_len
     if cfg.family == "encdec":
-        enc_out = _run_encoder(params, cfg, batch["frames"], compute_dtype)
+        enc_out = _run_encoder(params, cfg, batch["frames"], compute_dtype, remat=remat)
         x = x + sinusoidal_pos(T, cfg.d_model, compute_dtype, x.device)[None]
     elif cfg.family == "vlm":
         patches = batch["patches"].to(compute_dtype)
@@ -327,7 +330,6 @@ def forward_lm(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
         x = torch.cat([patches, x], dim=1)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)[None].expand(
         B, x.shape[1])
-    remat = cfg.remat and torch.is_grad_enabled() and not prefill_len
     # the block-level valid length counts the (always real) image prefix
     x, aux, caches = _run_layers(
         params, cfg, x, positions, compute_dtype=compute_dtype, prefix_len=prefix_len,
@@ -597,18 +599,15 @@ def _mtp_loss(params, cfg: ModelConfig, hidden, tokens, compute_dtype):
 
 def lm_train_loss(params, batch, cfg: ModelConfig, *, compute_dtype=torch.bfloat16,
                   moe_aux_coef: float = 0.01, moe_z_coef: float = 1e-3):
-    """(loss, metrics) of a decoder, JAX's ``lm_train_loss``: next-token
+    """(loss, metrics) of any LM, JAX's ``lm_train_loss``: next-token
     cross entropy, plus on an MoE config the layers' summed load-balancing
     and z losses (``moe_aux_coef``, ``moe_z_coef``), plus ``mtp_weight`` x the
     MTP cross entropy when ``cfg.use_mtp``.  Metric keys: ``ce``,
     ``moe_aux_loss`` and ``moe_z_loss`` (MoE), ``mtp_ce`` (MTP), ``loss``.
-    The recurrent families (``ssm``, ``hybrid``), whisper (``encdec``) and
-    paligemma (``vlm``) serve but do not train yet."""
-    if cfg.family in ("ssm", "hybrid", "encdec", "vlm"):
-        item = "4c" if cfg.family in ("ssm", "hybrid") else "4d"
-        raise NotImplementedError(
-            f"training of the {cfg.family!r} family is not ported yet (ROADMAP Queue 1 "
-            f"item {item})")
+    Every family trains: whisper (``encdec``) reads the batch's ``frames``
+    and paligemma (``vlm``) its ``patches``, as ``forward_lm`` does; the
+    cross entropy is over the text positions (the image prefix is dropped
+    before the head)."""
     out = forward_lm(params, batch, cfg, compute_dtype=compute_dtype, with_aux=cfg.moe)
     tokens = batch["tokens"]
     mask = batch.get("loss_mask")

@@ -96,12 +96,14 @@ def ssd_scan_ref(x, dt, A, Bm, Cm, *, chunk: int):
     """Chunked SSD scan in fp32.  x (B,T,H,P); dt (B,T,H); A (H,) negative;
     Bm / Cm (B,T,N).  Returns y (B,T,H,P) and the final state (B,H,P,N).
 
-    The decay is exp(cum_i − cum_j) masked to the lower triangle by a
-    select after the exp, as in the JAX package: the upper entries may
-    overflow to inf before the select, harmless in a forward pass (a
-    backward through it would need the mask first).  The within-chunk term
-    is the scores × decay product, then one batched matmul over j, which
-    never builds the (B, nc, Q, Q, H, P) product."""
+    The decay is exp(cum_i − cum_j) on the lower triangle and 0 above it.
+    The mask comes before the exp (the exponent is −inf above the
+    diagonal), where the JAX package selects after it: above the diagonal
+    the exponent is +Σ|dt·A|, past fp32's exp limit of 88.72 at mamba2's
+    full width, and a backward through the select then gives 0 · inf = NaN.
+    The forward values are the same bits either way (exp(−inf) is +0).  The
+    within-chunk term is the scores × decay product, then one batched matmul
+    over j, which never builds the (B, nc, Q, Q, H, P) product."""
     B, T, H, P = x.shape
     N = Bm.shape[-1]
     Q = chunk
@@ -118,9 +120,9 @@ def ssd_scan_ref(x, dt, A, Bm, Cm, *, chunk: int):
     bx = dtc[..., None] * xf  # dt_j·x_j (B,nc,Q,H,P)
 
     # within-chunk: decay (B,nc,Q,Q,H), lower-triangular
-    decay = torch.exp(cum[:, :, :, None, :] - cum[:, :, None, :, :])
     tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
-    decay = torch.where(tri[None, None, :, :, None], decay, 0.0)
+    decay = torch.exp(torch.where(tri[None, None, :, :, None],
+                                  cum[:, :, :, None, :] - cum[:, :, None, :, :], -math.inf))
     scores = torch.einsum("bciN,bcjN->bcij", Cc, Bc)  # (B,nc,Q,Q)
     w = (scores[..., None] * decay).permute(0, 1, 4, 2, 3)  # (B,nc,H,i,j)
     y_diag = torch.matmul(w, bx.permute(0, 1, 3, 2, 4)).permute(0, 1, 3, 2, 4)  # (B,nc,Q,H,P)

@@ -5,7 +5,11 @@ optional microbatch accumulation) → SYMOG regularizer gradient (Alg. 1 l.15)
 SYMOG integration is exactly the paper's update:
     w ← w − η(∂C/∂w + λ(step)·∂R/∂w) ;  w ← Clip(w, ±Δ(2^{N-1}−1))
 with λ on its exponential schedule.  ``symog_cfg=None`` gives the float
-baseline trainer.
+baseline trainer.  ``make_train_step`` trains every family
+``lm_train_loss`` takes: a batch carries ``tokens`` and, for whisper and
+paligemma, ``frames`` (B, encoder_len, D) / ``patches`` (B, prefix_len, D),
+moved to the params' device and split into microbatches along B with the
+tokens.
 
 Two routes compute the update (``kernels.dispatch.set_update_backend``):
 
@@ -15,8 +19,10 @@ Two routes compute the update (``kernels.dispatch.set_update_backend``):
                weight decay, fp32 momentum, nothing chained) with clipping
                on: ONE ``symog_update`` per quantizable leaf, λ_eff = λ·2/M_l
                with M_l the whole (layer-stacked) leaf's count, updating w
-               and its momentum IN PLACE; the other leaves (norm scales)
-               take the same SGD math in torch.
+               and its momentum IN PLACE; the leaves SYMOG excludes (norm
+               scales, biases, the SSD's ``A_log`` / ``dt_bias`` /
+               ``ssm_D``, the RG-LRU's ``a_param``) take the same SGD math
+               in torch.
 
 'auto' takes 'fused' on the card when the optimizer allows it, 'composed'
 otherwise; asking for 'fused' with another optimizer raises.  On the fused
@@ -75,8 +81,9 @@ def _loss_and_grads(loss_fn, params, batch):
 
 def _accum_grads(loss_fn, params, batch, accum: int):
     """Microbatch gradient accumulation: a sequential loop over ``accum``
-    slices of the batch (activation memory of one microbatch), summed in
-    fp32 and scaled by 1/accum, as the JAX package's ``lax.scan``."""
+    slices of the batch along B (every entry: tokens, frames, patches, a
+    loss mask), activation memory of one microbatch, summed in fp32 and
+    scaled by 1/accum, as the JAX package's ``lax.scan``."""
     if accum <= 1:
         return _loss_and_grads(loss_fn, params, batch)
     B = next(iter(batch.values())).shape[0]
@@ -199,7 +206,8 @@ def make_train_step(
     loss_fn: Optional[Callable] = None,
     cast_params: bool = False,
 ) -> Callable[[TrainState, Dict[str, Any]], Tuple[TrainState, Dict[str, Any]]]:
-    """``train_step(state, batch) -> (state, metrics)``; batch values may be
+    """``train_step(state, batch) -> (state, metrics)``; batch values
+    (``tokens``, and ``frames`` / ``patches`` for whisper / paligemma) may be
     numpy arrays or tensors.  metrics: ``lm_train_loss``'s (``loss``, ``ce``;
     ``moe_aux_loss``, ``moe_z_loss`` on an MoE config; ``mtp_ce`` with MTP)
     and ``grad_norm`` (0-d tensors on the params' device), ``lr`` and

@@ -1712,3 +1712,109 @@ def test_encdec_vlm_serve_on_card_matches_cpu(dev, arch):
     assert sched.stats["preemptions"] > 0
     assert fops.launches > before[0] and aops.launches > before[1]
     assert [c.tokens for c in got] == [c.tokens for c in cpu.serve(reqs, sc)]
+
+
+# ---------------------------------------------------------------------------
+# SYMOG training of the recurrent, encoder-decoder and VLM families
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "whisper-large-v3"])
+def test_recurrent_encdec_train_step_on_card_matches_cpu(dev, arch):
+    """Reduced mamba2 (SSD) and whisper (encoder, cross-attention, frames),
+    fp32: one fused SYMOG step on the card (one launch per quantizable
+    leaf) against the composed step on the CPU, loss and every param and
+    momentum leaf at rtol 1e-5 / atol 1e-7 (chip_smoke.py's TRAIN_TOL)."""
+    from repro_torch import configs, core, optim
+    from repro_torch.kernels.symog_update import ops as sops
+    from repro_torch.models import init_lm
+    from repro_torch.nn.tree import flatten_with_paths, tree_to
+    from repro_torch.train import init_train_state, make_train_step
+
+    tol = dict(rtol=1e-5, atol=1e-7)
+    cfg = configs.get_reduced(arch)
+    rng = np.random.default_rng(4)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (4, 16)).astype(np.int32)}
+    if cfg.family == "encdec":
+        batch["frames"] = (rng.standard_normal((4, cfg.encoder_len, cfg.d_model)) * 0.1).astype(
+            np.float32)
+    out = {}
+    for where in ("cpu", dev):
+        tx = optim.sgd(momentum=0.9)
+        scfg = core.SymogConfig(n_bits=2)
+        st = init_train_state(tree_to(init_lm(0, cfg, device="cpu"), where), tx, scfg)
+        step = make_train_step(cfg, tx, core.constant(0.01), symog_cfg=scfg,
+                               compute_dtype=torch.float32)
+        before = sops.launches
+        out[str(where)] = step(st, batch)
+        torch.cuda.synchronize()
+        assert sops.launches - before == (0 if where == "cpu" else sum(st.symog.mask.values()))
+    (cs, cm), (gs, gm) = out["cpu"], out[str(dev)]
+    torch.testing.assert_close(gm["loss"].cpu(), cm["loss"], rtol=1e-5, atol=0)
+    for a_tree, b_tree in ((gs.params, cs.params), (gs.opt_state, cs.opt_state)):
+        for (path, a), (_, c) in zip(flatten_with_paths(a_tree), flatten_with_paths(b_tree)):
+            assert bool(torch.isfinite(a).all()), path
+            torch.testing.assert_close(a.cpu(), c, **tol, msg=lambda m, p=path: f"{p}: {m}")
+
+
+def _ssd_select_after_exp(x, dt, A, Bm, Cm, *, chunk):
+    """``ssd_scan_ref``'s formula in the JAX package's order: the decay's
+    exp first, then the select to the lower triangle (in fp32 its upper
+    entries overflow to inf and a backward gives NaN)."""
+    B, T, H, P = x.shape
+    N, Q = Bm.shape[-1], chunk
+    nc = T // Q
+    xf, dtc = x.reshape(B, nc, Q, H, P), dt.reshape(B, nc, Q, H)
+    Bc, Cc = Bm.reshape(B, nc, Q, N), Cm.reshape(B, nc, Q, N)
+    cum = torch.cumsum(dtc * A, dim=2)
+    total = cum[:, :, -1, :]
+    bx = dtc[..., None] * xf
+    decay = torch.exp(cum[:, :, :, None, :] - cum[:, :, None, :, :])
+    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
+    decay = torch.where(tri[None, None, :, :, None], decay, 0.0)
+    scores = torch.einsum("bciN,bcjN->bcij", Cc, Bc)
+    w = (scores[..., None] * decay).permute(0, 1, 4, 2, 3)
+    y_diag = torch.matmul(w, bx.permute(0, 1, 3, 2, 4)).permute(0, 1, 3, 2, 4)
+    decay_out = torch.exp(total[:, :, None, :] - cum)
+    wx = (decay_out[..., None] * bx).reshape(B, nc, Q, H * P)
+    S = torch.matmul(Bc.transpose(2, 3), wx).reshape(B, nc, N, H, P).permute(0, 1, 3, 2, 4)
+    Ac = torch.exp(total)
+    h = torch.zeros((B, H, N, P), dtype=x.dtype, device=x.device)
+    h_prev = []
+    for c in range(nc):
+        h_prev.append(h)
+        h = Ac[:, c, :, None, None] * h + S[:, c]
+    h_prev = torch.stack(h_prev, dim=1)
+    ch = torch.matmul(Cc[:, :, None], h_prev).permute(0, 1, 3, 2, 4)
+    y = (y_diag + ch * torch.exp(cum)[..., None]).reshape(B, T, H, P)
+    return y, h.transpose(-1, -2)
+
+
+def test_ssd_scan_overflowing_exponents_on_card(dev):
+    """``ssd_scan_ref`` on the card at inputs whose upper-triangle exponents
+    reach ~600 (mamba2's regime at full width): the forward bit-identical
+    to the select-after-exp formula on the card, whose grads are not
+    finite, while the port's are finite and within rtol 1e-4 of the CPU's."""
+    from repro_torch.models.ssd import ssd_scan_ref
+
+    rng = np.random.default_rng(0)
+    B, T, H, P, N, Q = 2, 32, 2, 4, 3, 16
+    arrays = (rng.standard_normal((B, T, H, P)), rng.uniform(0.6, 1.4, (B, T, H)),
+              np.array([-0.9, -40.0]), rng.standard_normal((B, T, N)),
+              rng.standard_normal((B, T, N)))
+    ct = torch.from_numpy(rng.standard_normal((B, T, H, P)).astype(np.float32))
+    ins = [torch.from_numpy(a.astype(np.float32)) for a in arrays]
+    grads = {}
+    for where in ("cpu", dev):
+        live = [t.to(where).requires_grad_(True) for t in ins]
+        y, h = ssd_scan_ref(*live, chunk=Q)
+        grads[str(where)] = torch.autograd.grad((y * ct.to(where)).sum() + h.sum(), live)
+        if where != "cpu":
+            old = [t.detach().clone().requires_grad_(True) for t in live]
+            y0, h0 = _ssd_select_after_exp(*old, chunk=Q)
+            assert torch.equal(y.detach(), y0.detach()) and torch.equal(h.detach(), h0.detach())
+            g0 = torch.autograd.grad((y0 * ct.to(where)).sum() + h0.sum(), old)
+            assert not all(bool(torch.isfinite(g).all()) for g in g0)
+    for name, g, c in zip(("x", "dt", "A", "Bm", "Cm"), grads[str(dev)], grads["cpu"]):
+        assert bool(torch.isfinite(g).all()), name
+        atol = 1e-5 * max(1.0, float(c.abs().max()))
+        torch.testing.assert_close(g.cpu(), c, rtol=1e-4, atol=atol,
+                                   msg=lambda m, n=name: f"{n}: {m}")

@@ -291,10 +291,13 @@ def test_stacked_leaf_grads_match_jax():
                                    atol=1e-6, err_msg=path)
 
 
-def test_lm_train_loss_masked_and_refuses_unported_families():
-    """The masked loss equals JAX's; MoE and MTP configs train (their losses
-    are held to JAX's in tests/test_torch_moe_train.py), while the families
-    not ported yet (ssm, hybrid, encdec, vlm) still raise."""
+def test_lm_train_loss_masked_and_trains_every_family():
+    """The masked loss equals JAX's; every family trains: the reduced
+    mamba2, recurrentgemma, whisper (with its frames) and paligemma (with
+    its patches) each give a finite loss (their losses and grads are held to
+    JAX's in tests/test_torch_recurrent_train.py and
+    tests/test_torch_encdec_vlm_train.py; MoE and MTP in
+    tests/test_torch_moe_train.py)."""
     cfg, jp, tparams, batches = _setup()
     tok = batches[1]["tokens"]
     mask = (np.arange(tok.shape[1])[None] % 3 != 0).repeat(tok.shape[0], 0)
@@ -304,10 +307,24 @@ def test_lm_train_loss_masked_and_refuses_unported_families():
                                       "loss_mask": torch.from_numpy(mask)}, cfg,
                           compute_dtype=torch.float32)
     np.testing.assert_allclose(_np(tl), np.asarray(jl), rtol=1e-5)
-    for family, item in (("ssm", "4c"), ("hybrid", "4c"), ("encdec", "4d"), ("vlm", "4d")):
-        with pytest.raises(NotImplementedError, match=f"not ported yet .*item {item}"):
-            lm_train_loss(tparams(), {"tokens": torch.from_numpy(tok)},
-                          dataclasses.replace(cfg, family=family))
+    from repro_torch import configs as tconfigs
+    from repro_torch.models import init_lm
+
+    rng = np.random.default_rng(2)
+    for arch, family in (("mamba2-2.7b", "ssm"), ("recurrentgemma-2b", "hybrid"),
+                         ("whisper-large-v3", "encdec"), ("paligemma-3b", "vlm")):
+        tcfg = tconfigs.get_reduced(arch)
+        assert tcfg.family == family
+        batch = {"tokens": torch.from_numpy(rng.integers(0, tcfg.vocab_size, (2, 8)))}
+        if family == "encdec":
+            batch["frames"] = torch.from_numpy(
+                rng.standard_normal((2, tcfg.encoder_len, tcfg.d_model), dtype=np.float32) * 0.1)
+        if family == "vlm":
+            batch["patches"] = torch.from_numpy(
+                rng.standard_normal((2, tcfg.prefix_len, tcfg.d_model), dtype=np.float32) * 0.1)
+        loss, metrics = lm_train_loss(init_lm(0, tcfg, device="cpu"), batch, tcfg,
+                                      compute_dtype=torch.float32)
+        assert bool(torch.isfinite(loss)) and set(metrics) == {"ce", "loss"}, arch
 
 
 # ---------------------------------------------------------------------------
