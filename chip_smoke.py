@@ -87,7 +87,7 @@ Phases, one JSON line each:
                ``mla_partial``), argmax agreement 1.0; the two pools'
                logits compared row by row (top-1 - top-2 margin beside the
                largest logit gap, the int4 pool's c_kv / k_rope error);
-  5. serve   — internlm2-1.8b at full width, all 24 layers, 2-bit
+  5. serve   — internlm2-1.8b at full width, 12 of its 24 layers, 2-bit
                ``ServeEngine.from_symog``, bf16, 4 slots, 8 requests of
                24..400 prompt tokens and 32 new tokens each through the
                continuous-batching scheduler; each admission (bucketed
@@ -131,12 +131,14 @@ Phases, one JSON line each:
                ms a step by kernel) under the parent's MLA route rule
                (every call on ``mla_partial`` + ``attn_combine``) and under
                this one, in turns (parent, this, this, parent);
- 10. gemma3  — gemma3-4b at full width and all 34 layers (vocab 262,144,
-               head_dim 256), 2-bit packed, served from an int4 SYMOG KV
-               pool (max_len 2048, prompts of 24..1,800 tokens: buckets
-               32..2048, the window binding), every admission a tail
-               prefill: launch counts by route (34 tail-prefill launches an
-               admission), the greedy serve repeated token-identical, the
+ 10. gemma3  — gemma3-4b at full width and 12 of its 34 layers (two of
+               its global layers; ``SERVE_LAYERS``: the depth cut keeps the
+               script inside its time limit), vocab 262,144, head_dim 256,
+               2-bit packed,
+               served from an int4 SYMOG KV pool (max_len 2048, prompts of
+               24..1,800 tokens: buckets 32..2048, the window binding),
+               every admission a tail prefill: launch counts by route (12
+               tail-prefill launches an admission), the greedy serve repeated token-identical, the
                sampled serve (temperature 0.7, top-k 50, seed 123) identical
                again, with 3 slots and with staggered arrivals; a bf16
                pool's greedy agreement; then its decode profile;
@@ -148,8 +150,9 @@ Phases, one JSON line each:
                identical; (b) gemma3 at 6 layers, fp32, a float pool: a
                prefix-hit admission from 1,000 (its copy on write) and a
                chunked one against the one-shot admission, logits and pool;
-               (c) internlm2-1.8b at full width, bf16 pool, phase 5's
-               traffic, k = 4 adaptive, the 2-bit ``pack_tree`` draft
+               (c) internlm2-1.8b at full width and 8 of its 24 layers
+               (``SPEC_LAYERS``), bf16 pool, phase 5's traffic, k = 4
+               adaptive, the 2-bit ``pack_tree`` draft
                against a ``quantize_tree`` twin target and the float
                target: repeats identical, launches as the rounds imply
                (the GQA kernel at T = k + 1 on every verify), acceptance,
@@ -202,8 +205,9 @@ Phases, one JSON line each:
                unit + the RR tail), mamba2 4 layers, the engine's own
                admission step, logits within PARITY_ATOL, argmax 1.0,
                launches as the layers give them; (d) full-width 2-bit
-               bf16 serves of mamba2-2.7b (64 layers) and recurrentgemma-2b
-               (26 layers, bf16 pool and again under int8_fp) on phase 5's
+               bf16 serves of mamba2-2.7b (16 of its 64 layers) and
+               recurrentgemma-2b
+               (14 of 26 layers, bf16 pool and again under int8_fp) on phase 5's
                traffic: launches by route (6 packed matmuls an SSD or
                RG-LRU layer, 7 a local-attention layer, a call; gqa_decode
                8 a decode step for recurrentgemma, none for mamba2),
@@ -228,7 +232,8 @@ Phases, one JSON line each:
                patches in the batch), then teacher-forced paged decode
                steps: logits within PARITY_ATOL, argmax 1.0, launches as
                the layers give them; (d) full-width 2-bit bf16 serves of
-               whisper-large-v3 (32 + 32 layers) and paligemma-3b (18
+               whisper-large-v3 (8 + 8 of its 32 + 32 layers) and
+               paligemma-3b (18
                layers) on phase 5's traffic (max_len 512, + 256 for
                paligemma), each request with its own seeded frames /
                patches, from a bf16 pool and again under int8_fp: launches
@@ -239,12 +244,14 @@ Phases, one JSON line each:
                tied head's dequantize, a profiled decode window; (e)
                reduced whisper and paligemma served greedy on the card and
                on the CPU under a preempting pool: token-identical;
- 16. train   — (a) SYMOG training of mamba2-2.7b (64 layers), recurrent-
-     other     gemma-2b (26), whisper-large-v3 (32 + 32) and paligemma-3b
-     families  (18) at every published width and depth (a depth is cut
-               only where the printed reckoning of peak bytes passes the
-               card's 80 GB): fp32 masters, bf16 compute through a bf16
-               copy (``cast_params``), 2-bit, remat on, 4 x 512 tokens
+ 16. train   — (a) SYMOG training of mamba2-2.7b (32 of its 64 layers),
+     other     recurrentgemma-2b (26), whisper-large-v3 (16 + 16 of 32 +
+     families  32) and paligemma-3b (18) at every published width (the
+               two depth cuts, ``FAMILY_TRAIN_LAYERS``, keep the script
+               inside its time limit; a depth is also cut where the
+               printed reckoning of peak bytes passes the card's 80 GB):
+               fp32 masters, bf16 compute through a bf16 copy
+               (``cast_params``), 2-bit, remat on, 4 x 512 tokens
                (whisper 4 x 448 with its frames (4, 1500, 1280), paligemma
                with its patches (4, 256, 2048)); step 1 from one set of
                grads, the fused update against the composed one leaf by
@@ -262,11 +269,40 @@ Phases, one JSON line each:
                steps at the default λ schedule, the card's fused route
                against the CPU's composed one (as 7c): every loss term and
                param at TRAIN_TOL.
+ 17. launcher, — the training launcher (``launch/train.py``'s ``run``, the
+     examples,  JAX launcher's optimizer ``chain(clip_by_global_norm(1.0),
+     experi-    sgd(nesterov=True))``): (a) internlm2-1.8b at full width
+     ments      and depth, 4 SYMOG steps of 8 x 128, bf16 compute, no
+               checkpoint: step 1 from one set of grads, the fused clipped
+               update (a ``symog_sqnorm`` norm pass and a ``symog_update``
+               scaled by the clip on the card) against the composed chain
+               leaf by leaf at TRAIN_TOL, the clip scales compared; then
+               the run, gated on finite losses and the norm pass and the
+               update each launched once a quantizable leaf a step (8),
+               with each step's ms, clip scale and the peak bytes; (b) 2
+               layers at full width through the same function: 4 steps
+               straight against 2 + ``--resume`` 2 from a temporary
+               directory, params and momentum bit for bit; the
+               checkpoint's bytes and its save / restore seconds; (c) the
+               two new forms on internlm2's largest leaf against their plain
+               versions: the norm pass and the clip-scaled update, each
+               bit-identical on two calls, timed beside their byte bounds;
+               (d) the paper's five experiments as written
+               (``repro_torch.experiments``), ``run_symog_protocol`` on
+               VGG7 at full width on CIFAR-shaped data, and
+               ``examples/serve_quantized``'s path on reduced internlm2:
+               every emitted line printed, gated on the claims the JAX
+               package's own CPU run of the same module passes (C1, the
+               collapsed modes of Figure 3, C3), the packed serve
+               token-identical to the hard-quantized one, and
+               ``symog_update`` launched once a quantizable leaf a SYMOG
+               step in every clipped (clip=True) arm.
 Each serving and training path zeroes every kernel's launch count just
 before it runs and reads them just after.
 Then each phase's seconds and the total, the ``kernels`` summary line (the
-seven kernels, the tensor-core and decode routes of both matmul forms, and
-MLA's tensor-core route for float and quantized pools), the
+seven kernels, the tensor-core and decode routes of both matmul forms,
+MLA's tensor-core route for float and quantized pools, and the clipped
+SYMOG update's two forms), the
 nvidia-smi line, and the last line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before it.
 The script imports no jax and nothing of the JAX package.
@@ -280,6 +316,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -303,6 +340,13 @@ MLA_COUNTS = ("paged_attention_mla", "paged_attention_mla_quant", "paged_attenti
               "paged_attention_mla_tc_quant")
 PARITY_LAYERS = 4
 SPEC_K = 4  # draft tokens a speculative round (phase 11c)
+# depth cuts of earlier host-bound paths, so that the script stays inside its
+# time limit: full width, the kernels' shapes unchanged, launches as
+# the layers give them; an encoder-decoder's encoder cut with its decoder
+SERVE_LAYERS = {"internlm2-1.8b": 12, "gemma3-4b": 12, "mamba2-2.7b": 16,
+                "recurrentgemma-2b": 14, "whisper-large-v3": 8}
+SPEC_LAYERS = 8  # internlm2's 24 in phase 11c
+FAMILY_TRAIN_LAYERS = {"mamba2-2.7b": 32, "whisper-large-v3": 16}  # phase 16a
 # the JAX package's serve metrics (src/repro/serve/scheduler.py:401-473):
 # phase 13's launcher JSON must hold every one of them
 SERVE_METRICS = tuple("serve_" + k for k in (
@@ -2032,7 +2076,8 @@ def phase_serve(torch, dev, arch: str, kv_cache_dtype: str, seed: int, expected,
     of 24..400 prompt tokens, or of ``lens`` tokens under ``max_len``, 32
     new tokens each, or ``new_tokens``) through the
     continuous-batching scheduler from a 2-bit packed artifact of ``arch``
-    at full width and all its layers (``layers`` > 0 cuts the depth), made
+    at full width and all its layers (``layers`` > 0 cuts the depth, an
+    encoder-decoder's encoder as well as its decoder), made
     on the card from random weights (``seed``) by ``symog_init`` +
     ``pack_tree`` (``build(cfg, seed)`` -> (artifact, n_params, seconds by
     step) instead, for a model too large to hold in fp32).
@@ -2051,8 +2096,9 @@ def phase_serve(torch, dev, arch: str, kv_cache_dtype: str, seed: int, expected,
     from repro_torch.serve import Request, ServeConfig, ServeEngine
 
     cfg = dataclasses.replace(configs.get_config(arch), kv_cache_dtype=kv_cache_dtype)
-    if layers:
-        cfg = dataclasses.replace(cfg, n_layers=layers)
+    if layers:  # an encoder-decoder's encoder too
+        cfg = dataclasses.replace(cfg, n_layers=layers, **(
+            {"n_encoder_layers": layers} if cfg.n_encoder_layers else {}))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     if build is not None:
@@ -2168,7 +2214,8 @@ def phase_serve_internlm2(torch, dev):
                 "paged_attention": cfg.n_layers * st["decode_steps"],
                 "paged_attention_quant": 0, **dict.fromkeys(MLA_COUNTS, 0), "symog_update": 0}
 
-    row, eng, reqs, _, tokens = phase_serve(torch, dev, "internlm2-1.8b", "bf16", 7, expected)
+    row, eng, reqs, _, tokens = phase_serve(torch, dev, "internlm2-1.8b", "bf16", 7, expected,
+                                            layers=SERVE_LAYERS["internlm2-1.8b"])
     # the tied head: the packed 92544x2048 table is dequantized on every call
     h = torch.randn((4, 1, eng.cfg.d_model), device=dev, dtype=torch.bfloat16)
     row["head_dequant_matmul_ms"] = timed(lambda a: embed_logits(eng.params["embed"], a), [(h,)],
@@ -3450,6 +3497,7 @@ def phase_serve_gemma3(torch, dev):
                 **dict.fromkeys(MLA_COUNTS, 0), "symog_update": 0}
 
     row, eng, reqs, sc, tokens = phase_serve(torch, dev, "gemma3-4b", "int4_fp", 29, expected,
+                                             layers=SERVE_LAYERS["gemma3-4b"],
                                              max_len=GEMMA3_MAX_LEN, lens=GEMMA3_LENS)
     cfg = eng.cfg
     L = cfg.n_layers
@@ -3768,15 +3816,15 @@ def _margin_at(torch, eng, prompt, out, j: int) -> float:
 
 
 def phase_speculative(torch, dev):
-    """11c: internlm2-1.8b at full width and all 24 layers, bf16, a bf16
-    pool, phase 5's traffic (4 slots, block 16, max_len 512, 8 requests of
-    24..400 tokens, 32 new each), k = 4, adaptive; the draft is the 2-bit
+    """11c: internlm2-1.8b at full width and SPEC_LAYERS of its 24 layers,
+    bf16, a bf16 pool, phase 5's traffic (4 slots, block 16, max_len 512, 8
+    requests of 24..400 tokens, 32 new each), k = 4, adaptive; the draft is the 2-bit
     ``pack_tree`` engine of a SYMOG state, the target in turn the
     ``quantize_tree`` of that state (an exact twin in values) and the
     unquantized params (a disagreeing draft).  Gates (greedy): a repeat
     identical, rounds run, every kernel's launches as the rounds imply (the
-    draft's ``fpmm_decode`` 7 x 24 a draft step, k_r + 1 draft steps a
-    round; the GQA kernel 24 x (k_r + 2) a round; the draft's mirrored
+    draft's ``fpmm_decode`` 7 x L a draft step, k_r + 1 draft steps a
+    round; the GQA kernel L x (k_r + 2) a round; the draft's mirrored
     admissions' matmuls by bucket; the target's dense layers and bucketed
     admissions run no kernel).  Reported: acceptance, tokens a round, decode
     tokens/s beside the target's vanilla serve, agreement with it and the
@@ -3789,7 +3837,7 @@ def phase_speculative(torch, dev):
     from repro_torch.models import init_lm
     from repro_torch.serve import Request, ServeConfig, ServeEngine, SpeculativeConfig
 
-    cfg = configs.get_config("internlm2-1.8b")
+    cfg = dataclasses.replace(configs.get_config("internlm2-1.8b"), n_layers=SPEC_LAYERS)
     L = cfg.n_layers
     params = init_lm(7, cfg, device=dev)
     scfg = SymogConfig(n_bits=2)
@@ -4276,7 +4324,7 @@ def _front_launcher(row, gate, tmp):
 def phase_front_end(torch, dev, eng, reqs, want):
     """Phase 13 (module docstring): the async front end, cancellation,
     priority, telemetry, checkpoints and the launcher on phase 5's
-    internlm2 engine (24 layers, 2-bit packed, bf16 pool and compute) and
+    internlm2 engine (12 layers, 2-bit packed, bf16 pool and compute) and
     traffic; ``want`` is phase 5's tokens.  Every gate raises."""
     import shutil
     import tempfile
@@ -4544,8 +4592,9 @@ def _layer_decode_ms(torch, dev, eng, kind: str):
 def phase_serve_recurrent(torch, dev, fp_sums):
     """Phase 5's traffic (4 slots, block 16, max_len 512, 8 requests of
     24..400 prompt tokens, 32 new tokens each) through full-width, 2-bit,
-    bf16 mamba2-2.7b (64 SSD layers) and recurrentgemma-2b (26 layers:
-    8 RRL units + an RR tail), the latter from a bf16 pool and again,
+    bf16 mamba2-2.7b (16 of its 64 SSD layers) and recurrentgemma-2b (14 of
+    its 26 layers: 4 RRL units + an RR tail; ``SERVE_LAYERS``), the latter
+    from a bf16 pool and again,
     same artifact, under ``int8_fp`` (KV_F int8 attention pools).  Gates:
     launches by route as the layer counts give them, each serve repeated
     token-identical.  Beside each: pool bytes paged and resident, one
@@ -4565,7 +4614,7 @@ def phase_serve_recurrent(torch, dev, fp_sums):
             del eng
             torch.cuda.empty_cache()
         row, eng, reqs, sc, tokens = phase_serve(torch, dev, arch, kv, seed, _recurrent_expected,
-                                                 build=build)
+                                                 layers=SERVE_LAYERS.get(arch, 0), build=build)
         cfg = eng.cfg
         again = [list(map(int, c.tokens)) for c in eng.serve(reqs, sc)]
         row.update({"kinds": "".join(cfg.layer_kinds()), "repeat_tokens_identical": again == tokens,
@@ -4848,13 +4897,14 @@ def _timed_encoder(torch):
 def phase_serve_encdec_vlm(torch, dev):
     """Phase 5's traffic (4 slots, block 16, 8 requests of 24..400 prompt
     tokens, 32 new tokens each; each request its own frames / patches)
-    through full-width, 2-bit, bf16 whisper-large-v3 (32 encoder + 32
-    decoder layers, max_len 512) and paligemma-3b (18 layers, max_len 512
+    through full-width, 2-bit, bf16 whisper-large-v3 (``SERVE_LAYERS``: 8
+    of its 32 encoder and 8 of its 32 decoder layers, max_len 512) and
+    paligemma-3b (18 layers, max_len 512
     + 256), each from a bf16 pool and again, same artifact, under
     ``int8_fp`` (KV_F int8 pools: the non-decoder rule).  Gates: launches
     by route as the layer counts give them, each serve repeated
     token-identical.  Beside each: pool bytes paged and resident (whisper's
-    cross-kv, 32 x 2 x 1,500 x 1,280 x 2 B a slot), admission seconds and
+    cross-kv, layers x 2 x 1,500 x 1,280 x 2 B a slot), admission seconds and
     the encoder's share of them, the tied head's dequantize + matmul, and
     a profiled decode window."""
     from repro_torch.models.layers import embed_logits
@@ -4874,6 +4924,7 @@ def phase_serve_encdec_vlm(torch, dev):
         try:
             row, eng, reqs, sc, tokens = phase_serve(torch, dev, arch, kv, seed,
                                                      _encdec_vlm_expected, build=build,
+                                                     layers=SERVE_LAYERS.get(arch, 0),
                                                      max_len=max_len)
         finally:
             restore()
@@ -5061,8 +5112,9 @@ def _all_finite(torch, tree) -> bool:
 
 def phase_train_family(torch, dev, arch: str, seed: int):
     """SYMOG training of ``arch`` at every published width and all its
-    layers (cut only where ``_peak_reckoning`` passes the card's 80 GB; the
-    cut and the reckoning are printed): fp32 master weights, bf16 compute
+    layers but ``FAMILY_TRAIN_LAYERS``' cuts (cut further only where
+    ``_peak_reckoning`` passes the card's 80 GB; the cut and the reckoning
+    are printed): fp32 master weights, bf16 compute
     through a bf16 copy (``cast_params``), 2-bit, remat on, 4 rows of
     FAMILY_TRAIN_SEQ tokens (whisper with its frames, paligemma with its
     patches).  Step 1 first from one set of grads: the fused update against
@@ -5090,6 +5142,10 @@ def phase_train_family(torch, dev, arch: str, seed: int):
 
     full = cfg = configs.get_config(arch)
     seq = FAMILY_TRAIN_SEQ[arch]
+    if arch in FAMILY_TRAIN_LAYERS:  # an encoder-decoder's encoder with its decoder
+        n = FAMILY_TRAIN_LAYERS[arch]
+        cfg = dataclasses.replace(cfg, n_layers=n, **(
+            {"n_encoder_layers": n} if cfg.n_encoder_layers else {}))
     while _peak_reckoning(cfg, _n_params(torch, cfg), seq) > CARD_BYTES:
         cfg = dataclasses.replace(cfg, n_layers=cfg.n_layers - 1)
     n_params = _n_params(torch, cfg)
@@ -5212,6 +5268,351 @@ def phase_train_family(torch, dev, arch: str, seed: int):
     if not serve["pass"]:
         raise Failed(f"serving the trained {arch} failed: {serve}")
     row["serve_launches"] = srow["launches"]
+    return row
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the training launcher with the clipped optimizer, its checkpoints,
+# the clipped update's kernel forms, and the paper's experiments and examples
+# ---------------------------------------------------------------------------
+LAUNCH_ARGS = ["--arch", "internlm2-1.8b", "--steps", "4", "--batch", "8", "--seq", "128",
+               "--symog", "--log-every", "1"]
+SQNORM_FLOPS = 11  # per element: div, rint, 2 min/max, 3 mul, sub, add, the square's mul, add
+# the norm pass against its plain version: both sum 4e8 fp32 terms, in other
+# orders (each within ~1e-7 of the fp64 sum at internlm2's largest leaf)
+SQNORM_RTOL = 1e-5
+CLIPPED_FLOPS = SYMOG_FLOPS + 1  # the update and its ×s
+
+
+def _launch_args(extra=()):
+    from repro_torch.launch import train as tlaunch
+
+    return tlaunch.build_parser().parse_args(LAUNCH_ARGS + list(extra))
+
+
+def _step1_clipped_fused_vs_composed(torch, dev, cfg, args):
+    """The launcher's first step from its own init and first batch: the fused
+    clipped update over the whole tree (on copies) against the composed
+    chain, leaf by leaf: g + λ·r, the clip's scale over every leaf in path
+    order, SGD-Nesterov, ``apply_updates``, ``clip_tree``, as JAX's
+    ``tx.update`` composes them (whole-tree temporaries would not fit)."""
+    from repro_torch import core, optim
+    from repro_torch.data import SyntheticLM, SyntheticLMConfig
+    from repro_torch.models import init_lm, lm_train_loss
+    from repro_torch.nn.tree import flatten_with_paths, tree_map
+    from repro_torch.train import fused_update, init_train_state
+    from repro_torch.train.trainer import _accum_grads, _clip_scale
+
+    tx = optim.chain(optim.clip_by_global_norm(1.0), optim.sgd(momentum=0.9, nesterov=True))
+    sgd = optim.sgd(momentum=0.9, nesterov=True)
+    scfg = core.SymogConfig(n_bits=args.n_bits, total_steps=args.steps)
+    state = init_train_state(init_lm(args.seed, cfg, device=dev), tx, scfg)
+    data = SyntheticLM(SyntheticLMConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
+                                         global_batch=args.batch, seed=args.seed))
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in next(data).items()}
+    _, _, grads = _accum_grads(
+        lambda p, b: lm_train_loss(p, b, cfg, compute_dtype=torch.bfloat16), state.params,
+        batch, 1)
+    lam, lr = core.lambda_at(scfg, 0), core.linear_lr(args.lr, args.lr / 10, args.steps)(0)
+    fp, fv = tree_map(torch.clone, state.params), tree_map(torch.clone, state.opt_state[1])
+    stats = {}
+    fused_update(fp, grads, ((), fv), state.symog, scfg, tx, lr=lr, lam=lam, stats=stats)
+    torch.cuda.synchronize()
+
+    g_by, v_by, fp_by, fv_by = (dict(flatten_with_paths(t)) for t in (
+        grads, state.opt_state[1], fp, fv))
+    f_by = dict(flatten_with_paths(state.symog.f))
+
+    def total(path, w):  # g + λ·∂R/∂w of one leaf, as composed_update forms it
+        sub = core.SymogState(f={"w": f_by[path]}, mask={"w": state.symog.mask[path]})
+        return g_by[path] + lam * core.reg_grad({"w": w}, sub, scfg)["w"], sub
+
+    with torch.no_grad():
+        sq = sum(torch.sum(torch.square(total(p, w)[0])) for p, w in
+                 flatten_with_paths(state.params))
+        scale = _clip_scale(1.0, torch.sqrt(sq))
+        rows, worst, all_ok = [], 0.0, True
+        for path, w in flatten_with_paths(state.params):
+            t, sub = total(path, w)
+            upd, v_new = sgd.update({"w": t * scale}, {"w": v_by[path]}, {"w": w}, lr=lr)
+            w_new = optim.apply_updates({"w": w}, upd)
+            if sub.mask["w"]:
+                w_new = core.clip_tree(w_new, sub, scfg)
+            errs = [(fp_by[path] - w_new["w"]).abs().max().item(),
+                    (fv_by[path] - v_new["w"]).abs().max().item()]
+            ok = bool(torch.allclose(fp_by[path], w_new["w"], **TRAIN_TOL)
+                      and torch.allclose(fv_by[path], v_new["w"], **TRAIN_TOL))
+            rows.append([path, list(w.shape), errs[0], errs[1], ok])
+            worst, all_ok = max(worst, *errs), all_ok and ok
+            del t, upd, v_new, w_new
+    s_fused, s_comp = stats["clip_scale"].item(), scale.item()
+    row = {"phase": "launcher_step1_clipped_fused_vs_composed", "arch": cfg.name,
+           "tol": TRAIN_TOL, "leaves": rows, "max_abs_err": worst, "clip_scale_fused": s_fused,
+           "clip_scale_composed": s_comp,
+           "pass": all_ok and s_fused < 1.0 and math.isclose(s_fused, s_comp, rel_tol=1e-5)}
+    emit(row)
+    del state, grads, fp, fv, g_by, v_by, fp_by, fv_by
+    torch.cuda.empty_cache()
+    if not row["pass"]:
+        raise Failed("launcher: the fused clipped step 1 disagrees with the composed chain, or "
+                     f"the clip was not active: scales {s_fused} / {s_comp}")
+    return row
+
+
+def phase_launcher(torch, dev):
+    """17a: the launcher's main path at internlm2's full width and depth."""
+    from repro_torch import configs
+    from repro_torch.kernels.symog_update import ops as sops
+    from repro_torch.launch import train as tlaunch
+
+    cfg = configs.get_config("internlm2-1.8b")
+    args = _launch_args()
+    step1 = _step1_clipped_fused_vs_composed(torch, dev, cfg, args)
+    per_step = []
+
+    def on_step(i, state, metrics):
+        per_step.append((sops.sqnorm_launches, sops.launches))
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    sops.sqnorm_launches = 0
+    out = tlaunch.run(cfg, args, on_step=on_step)
+    counts = dict(read_counts(), symog_sqnorm=sops.sqnorm_launches)
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_quant = sum(out["state"].symog.mask.values())
+    steps = len(out["losses"])
+    launches = [(a - pa, b - pb) for (a, b), (pa, pb) in zip(per_step, [(0, 0)] + per_step)]
+    row = {"phase": "launcher", "arch": cfg.name, "layers": cfg.n_layers, "argv": LAUNCH_ARGS,
+           "compute": "bfloat16", "optimizer": "chain(clip_by_global_norm(1.0), "
+           "sgd(momentum=0.9, nesterov=True)), linear_lr 0.01->0.001, SYMOG 2-bit",
+           "losses": out["losses"], "clip_scales": out["clip_scales"],
+           "step_ms": [s * 1e3 for s in out["step_s"]],
+           "warm_step_ms": min(out["step_s"][1:]) * 1e3, "peak_device_bytes": peak,
+           "quantizable_leaves": n_quant, "launches_per_step": launches,
+           "launches": {k: v for k, v in counts.items() if v},
+           "step1_max_abs_err": step1["max_abs_err"]}
+    row["pass"] = (steps == 4 and all(math.isfinite(x) for x in out["losses"])
+                   and n_quant == 8 and launches == [(n_quant, n_quant)] * steps
+                   and counts["symog_update"] == counts["symog_sqnorm"] == n_quant * steps
+                   and not [k for k, v in counts.items()
+                            if v and k not in ("symog_update", "symog_sqnorm")])
+    emit(row)
+    del out
+    torch.cuda.empty_cache()
+    if not row["pass"]:
+        raise Failed(f"launcher phase failed: {row}")
+    return row
+
+
+def _tree_equal(torch, a, b) -> bool:
+    from repro_torch.nn.tree import flatten_with_paths
+
+    fa, fb = flatten_with_paths(a), flatten_with_paths(b)
+    return ([p for p, _ in fa] == [p for p, _ in fb]
+            and all(torch.equal(x, y) for (_, x), (_, y) in zip(fa, fb)))
+
+
+def phase_launcher_resume(torch, dev, tmp):
+    """17b: 2 layers at full width through the launcher's function: 4 steps
+    straight against 2 + --resume 2; the checkpoint's bytes and seconds."""
+    import shutil
+
+    from repro_torch import configs
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch import train as tlaunch
+
+    cfg = dataclasses.replace(configs.get_config("internlm2-1.8b"), n_layers=2)
+    ck = os.path.join(tmp, "launcher_ckpt")
+    straight = tlaunch.run(cfg, _launch_args())
+    tlaunch.run(cfg, _launch_args(["--ckpt-dir", ck, "--ckpt-every", "2"]))
+    shutil.rmtree(os.path.join(ck, "ckpt_4"))
+    resumed = tlaunch.run(cfg, _launch_args(["--ckpt-dir", ck, "--resume"]))
+    a, b = straight["state"], resumed["state"]
+    same = (a.step == b.step == 4 and _tree_equal(torch, a.params, b.params)
+            and _tree_equal(torch, a.opt_state[1], b.opt_state[1]))
+    d = os.path.join(ck, "ckpt_2")
+    nbytes = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+    mgr = CheckpointManager(os.path.join(tmp, "launcher_timed"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr.save(4, b, metadata={"data": {"step": 4}}, blocking=True)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back, _, _ = mgr.restore(b, device=dev)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    restored = _tree_equal(torch, back.params, b.params) and back.step == 4
+    row = {"phase": "launcher_resume", "arch": cfg.name, "layers": cfg.n_layers,
+           "losses_straight": straight["losses"], "losses_resumed": resumed["losses"],
+           "resumed_from": resumed["start"], "bit_identical": same,
+           "checkpoint_bytes": nbytes, "save_s": save_s, "restore_s": restore_s,
+           "restore_exact": restored}
+    row["pass"] = (same and restored and resumed["start"] == 2
+                   and resumed["losses"] == straight["losses"][2:])
+    emit(row)
+    shutil.rmtree(ck, ignore_errors=True)
+    shutil.rmtree(os.path.join(tmp, "launcher_timed"), ignore_errors=True)
+    del straight, resumed, a, b, back
+    torch.cuda.empty_cache()
+    if not row["pass"]:
+        raise Failed(f"launcher resume phase failed: {row}")
+    return row
+
+
+def phase_symog_clipped(torch, dev, cfg):
+    """17c: the norm pass and the clip-scaled update on internlm2's largest
+    leaf against their plain versions: bit identity on two calls, the update
+    bit-identical to its plain version, the norm within SQNORM_RTOL of its
+    plain version and of the fp64 sum; times beside the byte bounds (8 and
+    20 B an element)."""
+    from repro_torch.kernels.symog_update import ops as sops
+    from repro_torch.kernels.symog_update.ref import (_total_grad, symog_sqnorm_ref,
+                                                      symog_update_ref)
+
+    name, shape = max(symog_leaf_shapes(cfg), key=lambda e: math.prod(e[1]))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(17)
+    w, g, v, kw = _symog_operands(torch, gen, dev, shape, 2, "random")
+    s = torch.tensor(0.41, dtype=torch.float32, device=dev)
+    nkw = {k: kw[k] for k in ("delta", "lam_eff", "n_bits")}
+    n = w.numel()
+    sq = [sops.symog_sqnorm(w, g, **nkw) for _ in range(2)]
+    sq64 = torch.sum(torch.square(_total_grad(w, g, kw["delta"], kw["lam_eff"], 2)[2]
+                                  .double())).item()
+    sq_plain = symog_sqnorm_ref(w, g, **nkw).item()
+    w_ref, v_ref = symog_update_ref(w, g, v, gscale=s, **kw)
+    outs = []
+    for _ in range(2):
+        w2, v2 = w.clone(), v.clone()
+        sops.symog_update(w2, g, v2, gscale=s, **kw)
+        outs.append((w2, v2))
+    torch.cuda.synchronize()
+    upd_same = all(torch.equal(a, w_ref) and torch.equal(b, v_ref) for a, b in outs)
+    upd_err = max((outs[0][0] - w_ref).abs().max().item(), (outs[0][1] - v_ref).abs().max().item())
+    del outs, w_ref, v_ref
+    sq_ms = events_ms(lambda: sops.symog_sqnorm(w, g, **nkw), 5, torch)
+    sq_plain_ms = events_ms(lambda: symog_sqnorm_ref(w, g, **nkw), 3, torch)
+    up_ms = events_ms(lambda: sops.symog_update(w, g, v, gscale=s, **kw), 5, torch)
+    up_plain_ms = events_ms(lambda: symog_update_ref(w, g, v, gscale=s, **kw), 3, torch)
+    sq_bound, sq_by = bound(8 * n, SQNORM_FLOPS * n, "float32")
+    up_bound, up_by = bound(20 * n, CLIPPED_FLOPS * n, "float32")
+    rel = abs(sq[0].item() - sq64) / sq64
+    rel_plain = abs(sq[0].item() - sq_plain) / sq_plain
+    rows = {
+        "symog_sqnorm": {"phase": "kernel", "kernel": "symog_sqnorm", "leaf": name,
+                         "shape": list(shape), "n": n, "ms": sq_ms, "plain_ms": sq_plain_ms,
+                         "bound_ms": sq_bound, "bound_by": sq_by, "library_ms": None,
+                         "max_abs_err": abs(sq[0].item() - sq_plain), "rel_err": rel_plain,
+                         "rel_err_vs_fp64": rel,
+                         "plain_rel_err_vs_fp64": abs(sq_plain - sq64) / sq64,
+                         "tol": {"rtol_vs_plain": SQNORM_RTOL, "rtol_vs_fp64": SQNORM_RTOL},
+                         "bit_identical_both_calls": bool(torch.equal(sq[0], sq[1])),
+                         "achieved_GBps": 8 * n / (sq_ms * 1e-3) / 1e9},
+        "symog_update_clipped": {"phase": "kernel", "kernel": "symog_update_clipped",
+                                 "leaf": name, "shape": list(shape), "n": n, "gscale": 0.41,
+                                 "ms": up_ms, "plain_ms": up_plain_ms, "bound_ms": up_bound,
+                                 "bound_by": up_by, "library_ms": None, "max_abs_err": upd_err,
+                                 "tol": "bit-identical to the plain version",
+                                 "bit_identical_both_calls": upd_same,
+                                 "achieved_GBps": 20 * n / (up_ms * 1e-3) / 1e9}}
+    rows["symog_sqnorm"]["pass"] = (rows["symog_sqnorm"]["bit_identical_both_calls"]
+                                    and rel_plain < SQNORM_RTOL and rel < SQNORM_RTOL)
+    rows["symog_update_clipped"]["pass"] = upd_same
+    for r in rows.values():
+        emit(r)
+    del w, g, v
+    torch.cuda.empty_cache()
+    if not all(r["pass"] for r in rows.values()):
+        raise Failed(f"clipped symog_update forms disagree with their plain versions: {rows}")
+    return rows
+
+
+def _quant_leaves(cfg) -> int:
+    from repro_torch import core
+    from repro_torch.models import cnn_init
+
+    params, _ = cnn_init(0, cfg, device="cpu")
+    return sum(core.symog_init(params, core.SymogConfig(n_bits=2)).mask.values())
+
+
+def _claims(lines):
+    """The claims the JAX package's own CPU run of the same modules passes."""
+    got = {n: d for n, _, d in lines}
+    return {"table1_mnist_claim_C1": "pass=True" in got.get("table1_mnist_claim_C1", ""),
+            "fig3_modes_collapsed": "pass=True" in got.get("fig3_modes_collapsed", ""),
+            "fig4_claim_C3": "clip_gt_noclip=True" in got.get("fig4_claim_C3", "")}
+
+
+def phase_experiments(torch, dev):
+    """17d: the five experiments as written, the protocol on full-width VGG7
+    and serve_quantized's path, each with its launches."""
+    import importlib
+
+    from repro_torch.data import SyntheticImagesConfig
+    from repro_torch.examples import serve_quantized
+    from repro_torch.experiments import common
+    from repro_torch.kernels.symog_update import ops as sops
+    from repro_torch.models.cnn import PAPER_CNNS, reduced_cnn
+
+    lenet, vgg11 = _quant_leaves(PAPER_CNNS["lenet5"]), _quant_leaves(reduced_cnn("vgg11", 0.125))
+    expected = {  # symog_update launches of the clipped arms: leaves x SYMOG steps
+        "table1_mnist": lenet * 250,
+        "table1_cifar10": (_quant_leaves(reduced_cnn("vgg7", 0.0625)) * 160
+                           + _quant_leaves(reduced_cnn("densenet", 1.0)) * 320),
+        "table1_cifar100": vgg11 * 320,
+        "fig3_distributions": lenet * 300,
+        "fig4_adaptation": vgg11 * 120,  # the clip=False arm composes
+    }
+    rows, lines = {}, []
+    for name, want in expected.items():
+        mod = importlib.import_module(f"repro_torch.experiments.{name}")
+        del common.EMITTED[:]
+        zero_counts()
+        t0 = time.perf_counter()
+        mod.run()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        rows[name] = {"seconds": time.perf_counter() - t0, "lines": list(common.EMITTED),
+                      "symog_update_launches": counts["symog_update"], "expected": want}
+        rows[name]["launches_ok"] = counts["symog_update"] == want
+        lines += common.EMITTED
+    claims = _claims(lines)
+    # the protocol on VGG7 at full width, table1_cifar10's settings
+    cfg = PAPER_CNNS["vgg7"]
+    zero_counts()
+    t0 = time.perf_counter()
+    r = common.run_symog_protocol(cfg, data_cfg=SyntheticImagesConfig(
+        n_classes=10, hw=32, channels=3, global_batch=16, snr=0.8, seed=21),
+        pretrain_steps=100, symog_steps=160, lr0=0.01)
+    vgg = {k: v for k, v in r.items() if not k.startswith("losses")}
+    vgg.update(seconds_wall=time.perf_counter() - t0, loss_last=r["losses_symog"][-1],
+               symog_update_launches=read_counts()["symog_update"],
+               expected=_quant_leaves(cfg) * 160)
+    vgg["launches_ok"] = vgg["symog_update_launches"] == vgg["expected"]
+    # serve_quantized's path: SYMOG QAT with the clipped chain, then float /
+    # quantized / packed serves of reduced internlm2 on the card
+    zero_counts()
+    sops.sqnorm_launches = 0
+    t0 = time.perf_counter()
+    sq = serve_quantized.main([])
+    torch.cuda.synchronize()
+    counts = dict(read_counts(), symog_sqnorm=sops.sqnorm_launches)
+    serve = {"seconds": time.perf_counter() - t0, "loss": sq["loss"],
+             "rel_quant_error": sq["rel_quant_error"], "tf_agree": sq["tf_agree"],
+             "agree": sq["agree"], "packed_exact": sq["packed_exact"],
+             "weight_bytes": list(sq["weight_bytes"]),
+             "launches": {k: v for k, v in counts.items() if v}}
+    serve["pass"] = (sq["packed_exact"] == 1.0 and counts["symog_update"] == 8 * 300
+                     and counts["symog_sqnorm"] == 8 * 300
+                     and counts["fixedpoint_matmul"] + counts["fixedpoint_matmul_decode"] > 0
+                     and counts["paged_attention"] > 0)
+    row = {"phase": "experiments", "modules": rows, "claims": claims, "vgg7_full_width": vgg,
+           "serve_quantized": serve}
+    row["pass"] = (all(claims.values()) and all(r["launches_ok"] for r in rows.values())
+                   and vgg["launches_ok"] and serve["pass"])
+    emit(row)
+    if not row["pass"]:
+        raise Failed(f"experiments phase failed: {row}")
     return row
 
 
@@ -5349,6 +5750,12 @@ def main() -> int:
                                60 + i) for i, arch in enumerate(FAMILY_TRAIN_SEQ)}
         fam_reduced = {arch: run("16b train reduced " + arch, phase_train_reduced, torch, dev,
                                  arch) for arch in FAMILY_TRAIN_SEQ}
+        launcher = run("17a launcher", phase_launcher, torch, dev)
+        with tempfile.TemporaryDirectory() as tmp:
+            run("17b launcher resume", phase_launcher_resume, torch, dev, tmp)
+        clipped = run("17c symog_update clipped", phase_symog_clipped, torch, dev,
+                      configs.get_config("internlm2-1.8b"))
+        run("17d experiments", phase_experiments, torch, dev)
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -5631,6 +6038,25 @@ def main() -> int:
          "dec_faster_than_streaming_at_every_routed_case": dec_faster,
          "pass": dec_faster and all(r["pass"] and r.get("dec_bit_identical", True)
                      and r.get("equal_to_every_expert", True) for r in dex_rows)})
+    for name, form, work in (
+            ("symog_update_clipped", "symog_update", "the clip form: the total gradient "
+             "scaled by the clip's s read from the device (gscale)"),
+            ("symog_sqnorm", "symog_sqnorm", "the clip's norm pass: sum of (g + lambda_eff "
+             "(w - q))^2 over a leaf, partials summed in a fixed order")):
+        r = clipped[name]
+        summary.append(
+            {"name": name, "route": "cuda", "source": "src/repro_torch/csrc/symog_update.cu",
+             "replaces": "src/repro/kernels/symog_update/kernel.py:25",
+             "replaces_note": "a form of row 6 for chain(clip_by_global_norm, sgd); JAX takes "
+                              "the clip's norm in XLA (src/repro/optim/transform.py:54-56)",
+             "launches": launcher["launches"][form], "max_abs_err": r["max_abs_err"],
+             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+             "bound_by": r["bound_by"], "library_ms": None,
+             "library_note": "no single PyTorch call computes it (the SYMOG quantize is inside)",
+             "work": f"internlm2-1.8b's largest leaf {r['leaf']} {r['shape']}: {work}",
+             "launches_from": "the training launcher at internlm2-1.8b's full width and depth "
+                              "(4 steps x 8 quantizable leaves)",
+             "pass": r["pass"] and launcher["launches"][form] > 0})
     if not all(k["pass"] for k in summary):
         print("chip_smoke: FAILED: a kernel row did not pass", file=sys.stderr)
         return 1

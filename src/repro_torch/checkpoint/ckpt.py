@@ -17,9 +17,14 @@ path to its file, shape and dtype.  Paths are the JAX package's:
 ``/``-joined dict keys in sorted order, list indices, and a ``Packed`` leaf
 as its two pytree children ``<path>/0`` (the int8 words) and ``<path>/1``
 (the exponent f); ``n_bits`` comes from the restore template, as JAX's
-pytree aux data does.  bfloat16 leaves are written as numpy writes
-ml_dtypes' bfloat16 (2-byte void words, dtype ``bfloat16`` in the
-manifest).  So each package restores the other's checkpoints.
+pytree aux data does.  A NamedTuple (a ``TrainState``) names its children
+by field, as ``jax.tree_util`` does, and a ``SymogState`` is its one child
+``<path>/0``, the tree of f (its mask is static, not written).  A Python
+int leaf (a state's ``step``) is written as an int32 0-d array, a float as
+a float32 one, JAX's default dtypes, and comes back as an int or float.
+bfloat16 leaves are written as numpy writes ml_dtypes' bfloat16 (2-byte
+void words, dtype ``bfloat16`` in the manifest).  So each package restores
+the other's checkpoints.
 """
 from __future__ import annotations
 
@@ -34,6 +39,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.packing import Packed
+from repro_torch.core.symog import SymogState
 
 _MANIFEST = "manifest.json"
 
@@ -46,12 +52,20 @@ def _join(prefix: str, key) -> str:
     return f"{prefix}/{key}" if prefix else str(key)
 
 
+def _is_namedtuple(tree: Any) -> bool:
+    return isinstance(tree, tuple) and hasattr(type(tree), "_fields")
+
+
 def _leaves(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
     """[(path, leaf)] in the JAX package's flatten order and path names."""
     if tree is None:
         return []
     if isinstance(tree, dict):
         return [kv for k in sorted(tree) for kv in _leaves(tree[k], _join(prefix, k))]
+    if isinstance(tree, SymogState):
+        return _leaves(tree.f, _join(prefix, 0))
+    if _is_namedtuple(tree):
+        return [kv for k, v in zip(tree._fields, tree) for kv in _leaves(v, _join(prefix, k))]
     if isinstance(tree, (list, tuple)):
         return [kv for i, v in enumerate(tree) for kv in _leaves(v, _join(prefix, i))]
     if isinstance(tree, Packed):
@@ -69,6 +83,8 @@ def _to_numpy(leaf, copy: bool = False) -> np.ndarray:
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view("V2")
         return t.numpy()
+    if isinstance(leaf, (int, float)):
+        return np.asarray(leaf, dtype=np.int32 if isinstance(leaf, int) else np.float32)
     return np.array(leaf) if copy else np.asarray(leaf)
 
 
@@ -123,17 +139,19 @@ def load_manifest(directory: str) -> Dict:
 
 def load_pytree(directory: str, like: Any, *, device=None) -> Any:
     """Restore into the structure of ``like`` (a template tree: tensors,
-    meta tensors or ``Packed`` leaves; only shapes and ``n_bits`` are
-    read).  Leaves keep their saved dtype and land on ``device`` (default
-    the CPU)."""
+    meta tensors, ``Packed`` leaves, ints and floats; only shapes, ``n_bits``,
+    a ``SymogState``'s mask and the Python types are read).  Leaves keep
+    their saved dtype and land on ``device`` (default the CPU)."""
     manifest = load_manifest(directory)
     leaves = manifest["leaves"]
     dev = torch.device(device) if device is not None else torch.device("cpu")
 
-    def restore(path: str, template) -> torch.Tensor:
+    def restore(path: str, template):
         if path not in leaves:
             raise KeyError(f"checkpoint {directory} missing leaf {path!r}")
         arr = np.load(os.path.join(directory, leaves[path]["file"]))
+        if isinstance(template, (int, float)):
+            return type(template)(arr)
         expect = tuple(template.shape) if hasattr(template, "shape") else None
         if expect is not None and tuple(arr.shape) != expect:
             raise ValueError(f"{path}: checkpoint shape {arr.shape} != expected {expect}")
@@ -146,6 +164,10 @@ def load_pytree(directory: str, like: Any, *, device=None) -> Any:
             return None
         if isinstance(tree, dict):
             return {k: walk(v, _join(prefix, k)) for k, v in tree.items()}
+        if isinstance(tree, SymogState):
+            return SymogState(f=walk(tree.f, _join(prefix, 0)), mask=tree.mask)
+        if _is_namedtuple(tree):
+            return type(tree)(*(walk(v, _join(prefix, k)) for k, v in zip(tree._fields, tree)))
         if isinstance(tree, (list, tuple)):
             return type(tree)(walk(v, _join(prefix, i)) for i, v in enumerate(tree))
         if isinstance(tree, Packed):

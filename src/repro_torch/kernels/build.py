@@ -134,9 +134,11 @@ def library() -> ctypes.CDLL:
             F, F, P,
         ]
         lib.paged_attention_mla_tc_launch.restype = I
-        lib.symog_update_launch.argtypes = [P, P, P, P, ctypes.c_longlong, ctypes.c_longlong,
-                                             F, F, F, F, I, P]
+        L = ctypes.c_longlong
+        lib.symog_update_launch.argtypes = [P, P, P, P, P, L, L, F, F, F, F, F, I, P]
         lib.symog_update_launch.restype = I
+        lib.symog_sqnorm_launch.argtypes = [P, P, P, L, L, F, F, P, P, P, I, P]
+        lib.symog_sqnorm_launch.restype = I
         _lib = lib
     return _lib
 

@@ -20,10 +20,13 @@ layouts would change a number, this module does what JAX does:
     transitions max-pool, as JAX's do.
 
 BatchNorm keeps its running stats in a separate ``bn_state`` tree (params
-stay a pure weight tree for SYMOG and the optimizers).
+stay a pure weight tree for SYMOG and the optimizers).  The convolutions
+run in full fp32 on the card (``fp32_convs``), as JAX's reference computes
+them.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Dict, Tuple
@@ -55,6 +58,21 @@ def _normal(gen, shape, std, dtype):
 
 def _conv_init(gen, kh, kw, cin, cout, dtype=torch.float32):
     return {"kernel": _normal(gen, (kh, kw, cin, cout), math.sqrt(2.0 / (kh * kw * cin)), dtype)}
+
+
+@contextlib.contextmanager
+def fp32_convs():
+    """cuDNN's fp32 convolutions in full fp32 while the block runs.  PyTorch
+    lets cuDNN run them in TF32 by default (about 3 significant digits),
+    which moves the paper's LeNet-5 SYMOG result on the card; JAX's
+    reference computes them in fp32.  Forward and backward each read the
+    flag when they run, so a train step holds it over both."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
 
 
 def _conv(p, x, padding="SAME"):
@@ -185,7 +203,13 @@ def cnn_init(seed, cfg: CNNConfig, dtype=torch.float32, device=None) -> Tuple[Di
 
 
 def cnn_apply(params, bn_state, x, cfg: CNNConfig, *, train: bool) -> Tuple[torch.Tensor, Dict]:
-    """x (B, H, W, C) NHWC images -> (logits (B, n_classes), new bn_state)."""
+    """x (B, H, W, C) NHWC images -> (logits (B, n_classes), new bn_state);
+    the convolutions in full fp32 (``fp32_convs``)."""
+    with fp32_convs():
+        return _cnn_apply(params, bn_state, x, cfg, train)
+
+
+def _cnn_apply(params, bn_state, x, cfg: CNNConfig, train: bool) -> Tuple[torch.Tensor, Dict]:
     new_bn = dict(bn_state)
 
     def bnorm(name, h):

@@ -9,10 +9,16 @@ trees of tensors:
     new_params       = apply_updates(params, updates)
 
 ``update`` receives the current learning rate (a Python float) so schedules
-live in the trainer.  ``paper_sgd`` is set by ``sgd`` alone, to its momentum,
-when it is the paper's optimizer (Nesterov, no weight decay, fp32 momentum):
-``train.make_train_step`` may then run the fused ``symog_update`` kernel in
-its place.  Every other transformation, a chain included, leaves it None.
+live in the trainer.  Two fields tell ``train.make_train_step`` that it may
+run the fused ``symog_update`` kernel in place of ``update``:
+
+  ``paper_sgd``  the momentum μ, when the transformation is the paper's
+                 optimizer: ``sgd`` with Nesterov, no weight decay and fp32
+                 momentum, alone (its state is the momentum tree) or as
+                 ``chain(clip_by_global_norm(c), sgd(...))`` (state[1] is);
+  ``clip_norm``  c, set by ``clip_by_global_norm`` and by that chain.
+
+Every other transformation, and every other chain, leaves both None.
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ class GradientTransformation(NamedTuple):
     init: Callable[[Any], Any]
     update: Callable[..., Tuple[Any, Any]]  # (grads, state, params, *, lr) -> (updates, state)
     paper_sgd: Optional[float] = None
+    clip_norm: Optional[float] = None
 
 
 def apply_updates(params: Any, updates: Any) -> Any:
@@ -44,6 +51,11 @@ def chain(*txs: GradientTransformation) -> GradientTransformation:
             new_state.append(s)
         return grads, tuple(new_state)
 
+    clipped_sgd = (len(txs) == 2 and txs[0].clip_norm is not None and txs[0].paper_sgd is None
+                   and txs[1].paper_sgd is not None and txs[1].clip_norm is None)
+    if clipped_sgd:
+        return GradientTransformation(init, update, paper_sgd=txs[1].paper_sgd,
+                                      clip_norm=txs[0].clip_norm)
     return GradientTransformation(init, update)
 
 
@@ -64,4 +76,4 @@ def clip_by_global_norm(max_norm: float) -> GradientTransformation:
         scale = torch.clamp(max_norm / (global_norm(grads) + 1e-9), max=1.0)
         return tree_map(lambda g: g * scale.to(g.dtype), grads), state
 
-    return GradientTransformation(init, update)
+    return GradientTransformation(init, update, clip_norm=float(max_norm))

@@ -16,13 +16,20 @@ Two routes compute the update (``kernels.dispatch.set_update_backend``):
   'composed' — the JAX trainer's order on whole trees: g + λ·reg_grad,
                ``tx.update``, ``apply_updates``, ``clip_tree``; new tensors.
   'fused'    — for the paper's optimizer only (``optim.sgd`` Nesterov, no
-               weight decay, fp32 momentum, nothing chained) with clipping
+               weight decay, fp32 momentum, alone or as
+               ``chain(clip_by_global_norm(c), sgd(...))``) with clipping
                on: ONE ``symog_update`` per quantizable leaf, λ_eff = λ·2/M_l
                with M_l the whole (layer-stacked) leaf's count, updating w
                and its momentum IN PLACE; the leaves SYMOG excludes (norm
                scales, biases, the SSD's ``A_log`` / ``dt_bias`` /
                ``ssm_D``, the RG-LRU's ``a_param``) take the same SGD math
-               in torch.
+               in torch.  With the clip, a norm pass comes first: ONE
+               ``symog_sqnorm`` per quantizable leaf sums (g + λ_eff·(w − q))²
+               (the regularizer at the pre-update w, as JAX adds it before
+               ``tx.update``), torch sums g² of the other leaves, and the clip
+               scale s = min(1, c/(√Σ + 1e-9)) stays on the device: the
+               kernel scales its total gradient by s, the other leaves take
+               s·g.
 
 'auto' takes 'fused' on the card when the optimizer allows it, 'composed'
 otherwise; asking for 'fused' with another optimizer raises.  On the fused
@@ -42,8 +49,8 @@ import torch
 from repro_torch.core import SymogConfig, SymogState, clip_tree, lambda_at, reg_grad, symog_init
 from repro_torch.core.quantizer import delta_from_f
 from repro_torch.kernels import dispatch
-from repro_torch.kernels.symog_update import symog_update
-from repro_torch.models.cnn import CNNConfig, cnn_apply
+from repro_torch.kernels.symog_update import symog_sqnorm, symog_update
+from repro_torch.models.cnn import CNNConfig, cnn_apply, fp32_convs
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.lm import lm_train_loss
 from repro_torch.nn.tree import flatten_with_paths, tree_leaves, tree_map, tree_map_with_path
@@ -109,17 +116,27 @@ def _check_fusable(tx: GradientTransformation, symog_cfg: Optional[SymogConfig])
         return "the fused update needs a SymogConfig with clip=True"
     if tx.paper_sgd is None:
         return ("the fused update computes the paper's optimizer only: optim.sgd with "
-                "nesterov=True, weight_decay=0, fp32 momentum and nothing chained")
+                "nesterov=True, weight_decay=0 and fp32 momentum, alone or as "
+                "chain(clip_by_global_norm(c), sgd(...))")
     return None
+
+
+def _clip_scale(c: float, norm: torch.Tensor) -> torch.Tensor:
+    """min(1, c/(norm + 1e-9)), ``optim.clip_by_global_norm``'s scale."""
+    return torch.clamp(c / (norm + 1e-9), max=1.0)
 
 
 def composed_update(params, grads, opt_state, symog: Optional[SymogState],
                     symog_cfg: Optional[SymogConfig], tx: GradientTransformation, *,
-                    lr: float, lam: Optional[float]):
-    """The JAX trainer's update on whole trees: returns (params, opt_state)."""
+                    lr: float, lam: Optional[float], stats: Optional[Dict[str, Any]] = None):
+    """The JAX trainer's update on whole trees: returns (params, opt_state).
+    ``stats``, if given, receives the clip scale as ``clip_scale`` when ``tx``
+    clips (one more norm of the total grads)."""
     if symog_cfg is not None:
         rg = reg_grad(params, symog, symog_cfg)
         grads = tree_map(lambda g, r: g + lam * r.to(g.dtype), grads, rg)
+    if stats is not None and tx.clip_norm is not None:
+        stats["clip_scale"] = _clip_scale(tx.clip_norm, global_norm(grads))
     updates, opt_state = tx.update(grads, opt_state, params, lr=lr)
     params = apply_updates(params, updates)
     if symog_cfg is not None and symog_cfg.clip:
@@ -129,36 +146,56 @@ def composed_update(params, grads, opt_state, symog: Optional[SymogState],
 
 def fused_update(params, grads, opt_state, symog: SymogState, symog_cfg: SymogConfig,
                  tx: GradientTransformation, *, lr: float, lam: float,
-                 deltas: Optional[Dict[str, Tuple[torch.Tensor, torch.Tensor]]] = None):
+                 deltas: Optional[Dict[str, Tuple[torch.Tensor, torch.Tensor]]] = None,
+                 stats: Optional[Dict[str, Any]] = None):
     """One ``symog_update`` per quantizable leaf, SGD-Nesterov in torch for
     the rest, all in place on the params and their momentum: returns the same
-    (params, opt_state).  An expert stack's f (one per leading (layer, expert)
-    index) goes to the kernel as its Δ tensor, one Δ per group; λ_eff stays
-    λ·2/M_l over the whole leaf, JAX's ``layer_reg_grad``.  ``deltas`` caches
-    each leaf's fp32 Δ by path, keyed on the identity of its f, so Δ is made on
-    the device once per run."""
+    (params, opt_state).  With ``clip_by_global_norm`` chained before the SGD,
+    a ``symog_sqnorm`` per quantizable leaf first (the module docstring).  An
+    expert stack's f (one per leading (layer, expert) index) goes to the
+    kernels as its Δ tensor, one Δ per group; λ_eff stays λ·2/M_l over the
+    whole leaf, JAX's ``layer_reg_grad``.  ``deltas`` caches each leaf's fp32
+    Δ by path, keyed on the identity of its f, so Δ is made on the device
+    once per run; ``stats`` receives ``clip_scale``, as ``composed_update``."""
     why = _check_fusable(tx, symog_cfg)
     if why:
         raise ValueError(why)
     mu = tx.paper_sgd
     deltas = {} if deltas is None else deltas
     f_by_path = dict(flatten_with_paths(symog.f))
-    v_by_path = dict(flatten_with_paths(opt_state))
+    momentum = opt_state[1] if tx.clip_norm is not None else opt_state
+    v_by_path = dict(flatten_with_paths(momentum))
     g_by_path = dict(flatten_with_paths(grads))
 
-    with torch.no_grad():
-        for path, w in flatten_with_paths(params):
-            g, v = g_by_path[path].contiguous(), v_by_path[path]
-            if not symog.mask[path]:  # norm scales: the same SGD-Nesterov math
-                v.mul_(mu).add_(g)
-                w.sub_(lr * (g + mu * v))
-                continue
+    leaves = []  # (w, g, v, Δ or None for the leaves SYMOG excludes, λ_eff)
+    for path, w in flatten_with_paths(params):
+        delta = None
+        if symog.mask[path]:
             f = f_by_path[path]  # 0-d, or one f per (layer, expert) of an expert stack
             cached = deltas.get(path)
             if cached is None or cached[0] is not f:
                 cached = deltas[path] = (f, delta_from_f(f, device=w.device))
-            symog_update(w, g, v, delta=cached[1], lam_eff=lam * 2.0 / w.numel(), lr=lr, mu=mu,
-                         n_bits=symog_cfg.n_bits)
+            delta = cached[1]
+        leaves.append((w, g_by_path[path].contiguous(), v_by_path[path], delta,
+                       lam * 2.0 / w.numel()))
+
+    with torch.no_grad():
+        scale = 1.0
+        if tx.clip_norm is not None:  # the sorted-path order of JAX's global norm
+            sq = sum(torch.sum(torch.square(g)) if d is None else
+                     symog_sqnorm(w, g, delta=d, lam_eff=lam_eff, n_bits=symog_cfg.n_bits)
+                     for w, g, _, d, lam_eff in leaves)
+            scale = _clip_scale(tx.clip_norm, torch.sqrt(sq))
+            if stats is not None:
+                stats["clip_scale"] = scale
+        for w, g, v, delta, lam_eff in leaves:
+            if delta is None:  # norm scales: the same SGD-Nesterov math
+                g = g * scale if tx.clip_norm is not None else g
+                v.mul_(mu).add_(g)
+                w.sub_(lr * (g + mu * v))
+                continue
+            symog_update(w, g, v, delta=delta, lam_eff=lam_eff, lr=lr, mu=mu,
+                         n_bits=symog_cfg.n_bits, gscale=scale)
     return params, opt_state
 
 
@@ -166,7 +203,8 @@ def _make_update(tx: GradientTransformation, lr_schedule: Callable[[int], float]
                  symog_cfg: Optional[SymogConfig]):
     """The step's update with its backend pinned now (``dispatch``):
     ``update(params, grads, opt_state, symog, step) -> (params, opt_state,
-    lr, λ)``, fused or composed as the module docstring says."""
+    lr, λ, stats)``, fused or composed as the module docstring says; stats
+    holds ``clip_scale`` when ``tx`` clips."""
     backend = dispatch.get_update_backend()
     why = _check_fusable(tx, symog_cfg)
     if backend == "fused" and why:
@@ -177,15 +215,16 @@ def _make_update(tx: GradientTransformation, lr_schedule: Callable[[int], float]
         lr = lr_schedule(step)
         lam = lambda_at(symog_cfg, step) if symog_cfg is not None else None
         dev = tree_leaves(params)[0].device
+        stats: Dict[str, Any] = {}
         if dispatch.resolve_update_backend(dev, backend) == "fused" and not why:
             # ('auto' with another optimizer composes)
             params, opt_state = fused_update(params, grads, opt_state, symog, symog_cfg, tx,
-                                             lr=lr, lam=lam, deltas=deltas)
+                                             lr=lr, lam=lam, deltas=deltas, stats=stats)
         else:
             with torch.no_grad():
                 params, opt_state = composed_update(params, grads, opt_state, symog, symog_cfg,
-                                                    tx, lr=lr, lam=lam)
-        return params, opt_state, lr, lam
+                                                    tx, lr=lr, lam=lam, stats=stats)
+        return params, opt_state, lr, lam, stats
 
     return update
 
@@ -211,7 +250,9 @@ def make_train_step(
     numpy arrays or tensors.  metrics: ``lm_train_loss``'s (``loss``, ``ce``;
     ``moe_aux_loss``, ``moe_z_loss`` on an MoE config; ``mtp_ce`` with MTP)
     and ``grad_norm`` (0-d tensors on the params' device), ``lr`` and
-    ``symog_lambda`` (floats).  The update backend is pinned here
+    ``symog_lambda`` (floats); with ``chain(clip_by_global_norm(c), ...)``
+    also ``clip_scale`` (0-d, the port's own: the scale the clip applied to
+    g + λ·∂R/∂w).  The update backend is pinned here
     (``dispatch.get_update_backend``)."""
     update = _make_update(tx, lr_schedule, symog_cfg)
     if loss_fn is None:
@@ -233,8 +274,9 @@ def make_train_step(
         _, metrics, grads = _accum_grads(loss_fn, state.params, batch, accum_steps)
         metrics = dict(metrics)
         metrics["grad_norm"] = global_norm(grads)
-        params, opt_state, lr, lam = update(state.params, grads, state.opt_state, state.symog,
-                                            state.step)
+        params, opt_state, lr, lam, stats = update(state.params, grads, state.opt_state,
+                                                   state.symog, state.step)
+        metrics.update(stats)
         metrics["lr"] = lr
         if symog_cfg is not None:
             metrics["symog_lambda"] = lam
@@ -284,9 +326,11 @@ def make_cnn_train_step(cnn_cfg: CNNConfig, tx: GradientTransformation,
             loss = softmax_xent(logits, batch["labels"])
             return loss, {"loss": loss, "acc": _accuracy(logits, batch["labels"])}
 
-        _, metrics, grads = _loss_and_grads(loss_fn, state.params, batch)
-        params, opt_state, _, lam = update(state.params, grads, state.opt_state, state.symog,
-                                           state.step)
+        with fp32_convs():  # the backward's convolutions too
+            _, metrics, grads = _loss_and_grads(loss_fn, state.params, batch)
+        params, opt_state, _, lam, stats = update(state.params, grads, state.opt_state,
+                                                  state.symog, state.step)
+        metrics.update(stats)
         if symog_cfg is not None:
             metrics["symog_lambda"] = lam
         return CNNTrainState(params, box["bn"], opt_state, state.symog, state.step + 1), metrics

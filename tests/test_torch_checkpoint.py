@@ -72,17 +72,17 @@ def _assert_trees_equal(a, b):
             np.testing.assert_array_equal(x, y, err_msg=path)
 
 
-def _reduced_trees():
+def _reduced_trees(arch="internlm2-1.8b"):
     """(float jax tree, packed jax tree, float port tree, packed port tree)."""
-    if not _TREES:
-        own = init_lm(0, tconfigs.get_reduced("internlm2-1.8b"), device="cpu")
+    if arch not in _TREES:
+        own = init_lm(0, tconfigs.get_reduced(arch), device="cpu")
         scfg = jcore.SymogConfig(n_bits=2, total_steps=1)
         jf = jax.tree_util.tree_map(lambda t: jnp.asarray(t.numpy()), own)
         st = jax.jit(lambda p: jcore.symog_init(p, scfg))(jf)
         jp = jax.jit(lambda p, s: jcore.pack_tree(p, s, scfg))(jf, st)
         tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp))
-        _TREES.update(jf=jf, jp=jp, tf=own, tp=tp)
-    return _TREES
+        _TREES[arch] = dict(jf=jf, jp=jp, tf=own, tp=tp)
+    return _TREES[arch]
 
 
 def test_roundtrip(tmp_path, tree):
@@ -159,6 +159,19 @@ def test_interchange_with_jax(tmp_path, kind):
     Packed leaf as JAX's pytree children ``<path>/0`` and ``<path>/1``)."""
     t = _reduced_trees()
     jtree, ttree = (t["jf"], t["tf"]) if kind == "float" else (t["jp"], t["tp"])
+    _check_interchange(tmp_path, jtree, ttree, packed=kind == "packed")
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "recurrentgemma-2b"])
+def test_packed_interchange_recurrent(tmp_path, arch):
+    """The same interchange for the recurrent families' packed trees (their
+    SSD / RG-LRU projections packed, the leaves SYMOG excludes in float)."""
+    t = _reduced_trees(arch)
+    assert any(isinstance(leaf, Packed) for _, leaf in flatten_with_paths(t["tp"]))
+    _check_interchange(tmp_path, t["jp"], t["tp"], packed=False)
+
+
+def _check_interchange(tmp_path, jtree, ttree, packed):
     jm, tm = JManager(str(tmp_path / "jax")), CheckpointManager(str(tmp_path / "port"))
     jm.save(3, jtree, metadata={"step": 3}, blocking=True)
     tm.save(3, ttree, metadata={"step": 3}, blocking=True)
@@ -166,7 +179,7 @@ def test_interchange_with_jax(tmp_path, kind):
     assert sorted(os.listdir(jd)) == sorted(os.listdir(td))
     for name in os.listdir(jd):
         assert filecmp.cmp(os.path.join(jd, name), os.path.join(td, name), shallow=False), name
-    if kind == "packed":
+    if packed:
         names = os.listdir(td)
         assert {"layers0__sub0__attn__q_proj__kernel__0.npy",
                 "layers0__sub0__attn__q_proj__kernel__1.npy"} <= set(names)

@@ -215,6 +215,35 @@ def test_cnn_train_steps_match_jax(name, route):
         _close(st.opt_state, nxt.opt_state, STEP_TOL, f"step {i} momentum", scaled=True)
 
 
+def test_convolutions_run_in_fp32_forward_and_backward(monkeypatch):
+    """cuDNN's TF32 is off at every convolution of a train step, forward and
+    backward, and of an eval; the flag is back as it was afterwards (on the
+    card TF32 moved table1_mnist's SYMOG result off the paper's)."""
+    seen = []
+    conv2d = torch.nn.functional.conv2d
+
+    def recording(*a, **k):
+        seen.append(("fwd", torch.backends.cudnn.allow_tf32))
+        out = conv2d(*a, **k)
+        if out.requires_grad:
+            out.register_hook(lambda g: seen.append(("bwd", torch.backends.cudnn.allow_tf32)))
+        return out
+
+    monkeypatch.setattr(torch.nn.functional, "conv2d", recording)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    cfg = tcnn.PAPER_CNNS["lenet5"]
+    params, bn = tcnn.cnn_init(0, cfg, device="cpu")
+    batch = next(SyntheticImages(SyntheticImagesConfig(n_classes=10, hw=28, channels=1,
+                                                       global_batch=2, seed=1)))
+    tx = toptim.sgd(momentum=0.9)
+    step = make_cnn_train_step(cfg, tx, tcore.constant(0.01))
+    step(CNNTrainState(params, bn, tx.init(params), None, 0), batch)
+    make_cnn_eval(cfg)(params, bn, batch)
+    assert {k for k, _ in seen} == {"fwd", "bwd"} and len(seen) == 2 * 2 + 2
+    assert not any(flag for _, flag in seen)
+    assert torch.backends.cudnn.allow_tf32 is True
+
+
 def test_cnn_eval_and_softmax_xent_match_jax():
     jcfg, tcfg, (npp, nbn), batches = _setup("vgg7")
     b = batches[1]

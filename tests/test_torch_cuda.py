@@ -1365,6 +1365,56 @@ def test_grouped_symog_update_matches_plain(dev, shape, lead, misaligned, n_bits
         assert torch.equal(w, want_w) and torch.equal(v, want_v)
 
 
+@pytest.mark.parametrize("shape,lead,misaligned", [
+    ((1 << 20,), (), False),  # one Δ
+    ((6, 8, 256, 128), (6, 8), False),  # a Δ per (layer, expert)
+    ((3, 5, 7, 9), (3, 5), False),  # groups of 63: the scalar path
+    ((6, 8, 16, 8), (6, 8), True),  # groups of 128 from a pointer 4 bytes off 16
+])
+@pytest.mark.parametrize("n_bits", [2, 4])
+def test_clipped_symog_update_and_norm_pass_match_plain(dev, shape, lead, misaligned, n_bits):
+    """The clip form: ``gscale`` (a device scalar != 1) equals the plain
+    version bit for bit, and the norm pass Σ (g + λ_eff·(w − q))² equals the
+    fp64 sum of the plain version's terms at rtol 1e-5; both give the same
+    bits over two calls."""
+    from repro_torch.kernels.symog_update import ops as sops
+    from repro_torch.kernels.symog_update import symog_sqnorm, symog_update
+    from repro_torch.kernels.symog_update.ref import _total_grad, symog_update_ref
+
+    rng = np.random.default_rng(sum(shape) + n_bits + 1)
+    f = rng.integers(1, 6, size=lead) if lead else np.array(3)
+    d = np.exp2(-f.astype(np.float32)).reshape(lead + (1,) * (len(shape) - len(lead)))
+    arrs = [(rng.standard_normal(shape) * s).astype(np.float32) for s in (1.3 * d, 0.05, 0.01)]
+    delta = torch.from_numpy(np.exp2(-f.astype(np.float32)).reshape(-1)).to(dev)
+    gscale = torch.tensor(0.37, dtype=torch.float32, device=dev)
+    kw = dict(delta=delta, lam_eff=0.9, n_bits=n_bits)
+
+    def operands():
+        ts = [torch.from_numpy(a).to(dev) for a in arrs]
+        if misaligned:
+            ts = [torch.cat([torch.zeros(1, device=dev), t.reshape(-1)])[1:].view(shape)
+                  for t in ts]
+        return ts
+
+    w0, g0, v0 = operands()
+    want_w, want_v = symog_update_ref(w0, g0, v0, lr=0.01, mu=0.9, gscale=gscale, **kw)
+    want_sq = np.sum(np.square(_total_grad(w0, g0, delta, 0.9, n_bits)[2].cpu().numpy()
+                               .astype(np.float64)))
+    outs, sqs = [], []
+    for _ in range(2):
+        w, g, v = operands()
+        before = (sops.launches, sops.sqnorm_launches)
+        sqs.append(symog_sqnorm(w, g, **kw))
+        symog_update(w, g, v, lr=0.01, mu=0.9, gscale=gscale, **kw)
+        torch.cuda.synchronize()
+        assert (sops.launches, sops.sqnorm_launches) == (before[0] + 1, before[1] + 1)
+        outs.append((w, v))
+    for w, v in outs:
+        assert torch.equal(w, want_w) and torch.equal(v, want_v)
+    assert sqs[0].shape == () and torch.equal(sqs[0], sqs[1])
+    np.testing.assert_allclose(float(sqs[0]), want_sq, rtol=1e-5)
+
+
 def test_moe_train_step_repeats_bit_identical(dev):
     """Reduced olmoe at bf16 compute: two backward passes from one state give
     the same grads bit for bit (the MoE gathers' slot-order backward), and

@@ -277,8 +277,7 @@ def test_whisper_checkpoint_round_trip(tmp_path):
     for (p, a), (_, b) in zip(fa, fb):
         if isinstance(b, Packed):
             assert isinstance(a, Packed) and a.n_bits == b.n_bits, p
-            a, b = torch.stack([a.data.float().flatten(), b.data.float().flatten()]), None
-            assert torch.equal(a[0], a[1]), p
+            assert torch.equal(a.data, b.data) and torch.equal(a.f, b.f), p
         else:
             assert torch.equal(a, b), p
     jback, _, _ = JManager(str(tmp_path / "port")).restore(jax.eval_shape(lambda: jtree))

@@ -214,7 +214,8 @@ def test_optimizers_match_jax_over_3_steps(name):
             np.testing.assert_allclose(_np(t), np.asarray(j), rtol=1e-6, atol=1e-7, err_msg=path)
     np.testing.assert_allclose(_np(toptim.global_norm(tps)), np.asarray(joptim.global_norm(jps)),
                                **F32)
-    assert (ttx.paper_sgd == 0.9) == (name == "sgd_nesterov")
+    assert (ttx.paper_sgd == 0.9) == (name in ("sgd_nesterov", "chain_clip_sgd"))
+    assert (ttx.clip_norm == 0.5) == (name == "chain_clip_sgd")
 
 
 # ---------------------------------------------------------------------------
@@ -401,12 +402,16 @@ def test_train_step_bf16_compute_matches_jax():
 
 def test_fused_route_launch_count_and_refusals():
     """On the CPU the fused route runs the kernel's plain version (no launch
-    counted); a chained optimizer, or no clipping, cannot take it."""
+    counted); a chained optimizer other than clip + the paper's SGD, or no
+    clipping, cannot take it."""
     cfg, _, tparams, batches = _setup()
     scfg = tcore.SymogConfig(n_bits=2, total_steps=3)
-    chained = toptim.chain(toptim.clip_by_global_norm(1.0), toptim.sgd(momentum=0.9))
+    chained = toptim.chain(toptim.clip_by_global_norm(1.0),
+                           toptim.sgd(momentum=0.9, nesterov=False))
     dispatch.set_update_backend("fused")
     try:
+        make_train_step(cfg, toptim.chain(toptim.clip_by_global_norm(1.0), toptim.sgd()),
+                        tcore.constant(0.01), symog_cfg=scfg)
         with pytest.raises(ValueError, match="paper's optimizer"):
             make_train_step(cfg, chained, tcore.constant(0.01), symog_cfg=scfg)
         with pytest.raises(ValueError, match="clip=True"):
