@@ -87,7 +87,7 @@ Phases, one JSON line each:
                ``mla_partial``), argmax agreement 1.0; the two pools'
                logits compared row by row (top-1 - top-2 margin beside the
                largest logit gap, the int4 pool's c_kv / k_rope error);
-  5. serve   — internlm2-1.8b at full width, 12 of its 24 layers, 2-bit
+  5. serve   — internlm2-1.8b at full width, 8 of its 24 layers, 2-bit
                ``ServeEngine.from_symog``, bf16, 4 slots, 8 requests of
                24..400 prompt tokens and 32 new tokens each through the
                continuous-batching scheduler; each admission (bucketed
@@ -244,8 +244,8 @@ Phases, one JSON line each:
                tied head's dequantize, a profiled decode window; (e)
                reduced whisper and paligemma served greedy on the card and
                on the CPU under a preempting pool: token-identical;
- 16. train   — (a) SYMOG training of mamba2-2.7b (32 of its 64 layers),
-     other     recurrentgemma-2b (26), whisper-large-v3 (16 + 16 of 32 +
+ 16. train   — (a) SYMOG training of mamba2-2.7b (16 of its 64 layers),
+     other     recurrentgemma-2b (26), whisper-large-v3 (8 + 8 of 32 +
      families  32) and paligemma-3b (18) at every published width (the
                two depth cuts, ``FAMILY_TRAIN_LAYERS``, keep the script
                inside its time limit; a depth is also cut where the
@@ -297,6 +297,35 @@ Phases, one JSON line each:
                token-identical to the hard-quantized one, and
                ``symog_update`` launched once a quantizable leaf a SYMOG
                step in every clipped (clip=True) arm.
+ 18. distri- — on the one card, ranks over gloo (two ranks cannot share a
+     bution    card under NCCL): (a) the serve launcher under
+               ``torch.distributed.run`` on 2 ranks with phase 13's flags
+               and ``--mesh 1x2`` (full depth, bf16): exit 0, the ranks'
+               streams equal, the capacity line at 2 model shards, packed
+               vs quantized agreement printed; (b) 2 spawned ranks, mesh
+               (1, 2): internlm2-1.8b at full width and ``TP_LAYERS`` of
+               24, 2-bit, fp32, from a bf16 and an int4 pool, greedy
+               streams and every launch count equal to the 1-rank serve,
+               4 of 8 KV heads a rank, pool bytes against
+               ``pool_bytes_per_device(model_shards=2)`` (the exponents
+               co-sharded with their heads), a bf16-compute serve's
+               first-step logits within BF16_LOGIT_FACTOR of bf16's own
+               distance from fp32 and its identical-token share; (c) that
+               engine on a 1-rank NCCL group: streams and launch counts
+               equal to the unsharded serve; (d) olmoe-1b-7b at full width
+               and ``EP_LAYERS``, ``moe_impl='ep'``, 32 local experts a
+               rank: fp32 streams equal to the 1-rank dispatch serve, and
+               one full-width layer's ``moe_apply_ep`` (dropless) within
+               EP_TOL of ``moe_apply``, grads finite and nonzero; (e) the
+               training launcher under ``torch.distributed.run`` at
+               ``--mesh 2x1`` (full depth, a step of 8 x 128, the clipped
+               fused chain): equal losses on both ranks; in the spawned
+               ranks, ``DP_LAYERS`` at full width, fp32: step 1's params
+               within DP_RTOL of the 1-rank step on the whole batch, and
+               ``compressed_psum_int8`` on one full-width leaf's local
+               gradients within JAX's bounds.  The ranks load the kernels
+               this process built; each group of ranks is joined within
+               DIST_TIMEOUT and killed past it.
 Each serving and training path zeroes every kernel's launch count just
 before it runs and reads them just after.
 Then each phase's seconds and the total, the ``kernels`` summary line (the
@@ -343,10 +372,13 @@ SPEC_K = 4  # draft tokens a speculative round (phase 11c)
 # depth cuts of earlier host-bound paths, so that the script stays inside its
 # time limit: full width, the kernels' shapes unchanged, launches as
 # the layers give them; an encoder-decoder's encoder cut with its decoder
-SERVE_LAYERS = {"internlm2-1.8b": 12, "gemma3-4b": 12, "mamba2-2.7b": 16,
-                "recurrentgemma-2b": 14, "whisper-large-v3": 8}
+SERVE_LAYERS = {"internlm2-1.8b": 8, "gemma3-4b": 12, "mamba2-2.7b": 8,
+                "recurrentgemma-2b": 8, "whisper-large-v3": 4}
+# not below 12 / 8: shallower random-weight gemma3 / internlm2 sample their
+# greedy streams at temperature 0.7, top-k 50 (phases 10 and 11c gate on a
+# difference)
 SPEC_LAYERS = 8  # internlm2's 24 in phase 11c
-FAMILY_TRAIN_LAYERS = {"mamba2-2.7b": 32, "whisper-large-v3": 16}  # phase 16a
+FAMILY_TRAIN_LAYERS = {"mamba2-2.7b": 16, "whisper-large-v3": 8}  # phase 16a
 # the JAX package's serve metrics (src/repro/serve/scheduler.py:401-473):
 # phase 13's launcher JSON must hold every one of them
 SERVE_METRICS = tuple("serve_" + k for k in (
@@ -4324,7 +4356,7 @@ def _front_launcher(row, gate, tmp):
 def phase_front_end(torch, dev, eng, reqs, want):
     """Phase 13 (module docstring): the async front end, cancellation,
     priority, telemetry, checkpoints and the launcher on phase 5's
-    internlm2 engine (12 layers, 2-bit packed, bf16 pool and compute) and
+    internlm2 engine (8 layers, 2-bit packed, bf16 pool and compute) and
     traffic; ``want`` is phase 5's tokens.  Every gate raises."""
     import shutil
     import tempfile
@@ -4592,8 +4624,8 @@ def _layer_decode_ms(torch, dev, eng, kind: str):
 def phase_serve_recurrent(torch, dev, fp_sums):
     """Phase 5's traffic (4 slots, block 16, max_len 512, 8 requests of
     24..400 prompt tokens, 32 new tokens each) through full-width, 2-bit,
-    bf16 mamba2-2.7b (16 of its 64 SSD layers) and recurrentgemma-2b (14 of
-    its 26 layers: 4 RRL units + an RR tail; ``SERVE_LAYERS``), the latter
+    bf16 mamba2-2.7b (8 of its 64 SSD layers) and recurrentgemma-2b (8 of
+    its 26 layers: 2 RRL units + an RR tail; ``SERVE_LAYERS``), the latter
     from a bf16 pool and again,
     same artifact, under ``int8_fp`` (KV_F int8 attention pools).  Gates:
     launches by route as the layer counts give them, each serve repeated
@@ -4897,8 +4929,8 @@ def _timed_encoder(torch):
 def phase_serve_encdec_vlm(torch, dev):
     """Phase 5's traffic (4 slots, block 16, 8 requests of 24..400 prompt
     tokens, 32 new tokens each; each request its own frames / patches)
-    through full-width, 2-bit, bf16 whisper-large-v3 (``SERVE_LAYERS``: 8
-    of its 32 encoder and 8 of its 32 decoder layers, max_len 512) and
+    through full-width, 2-bit, bf16 whisper-large-v3 (``SERVE_LAYERS``: 4
+    of its 32 encoder and 4 of its 32 decoder layers, max_len 512) and
     paligemma-3b (18 layers, max_len 512
     + 256), each from a bf16 pool and again, same artifact, under
     ``int8_fp`` (KV_F int8 pools: the non-decoder rule).  Gates: launches
@@ -5616,6 +5648,518 @@ def phase_experiments(torch, dev):
     return row
 
 
+# ---------------------------------------------------------------------------
+# phase 18: distribution on torch.distributed, on the one card
+# ---------------------------------------------------------------------------
+# depth cuts of phase 18's spawned paths (full width; the launcher runs,
+# 18a and 18e, are full depth: the launchers have no depth flag)
+TP_LAYERS, EP_LAYERS, DP_LAYERS = 8, 2, 2
+TP_SEED, EP_SEED, DP_SEED = 181, 184, 185
+# 18b: a bf16-compute serve's first-step logits, 2 model shards vs 1 rank:
+# relative L2 distance at most this many times the 1-rank bf16 logits'
+# own distance from the 1-rank fp32 ones (the sharded sums round in other
+# places: noise of bf16's own size)
+BF16_LOGIT_FACTOR = 2.0
+EP_TOL = 1e-5  # 18d: moe_apply_ep vs moe_apply, fp32, no drops
+DP_RTOL = 1e-6  # 18e: a 2-rank step vs the 1-rank step on the whole batch (the tree's max)
+COMPRESS_ROUNDS = 20
+DIST_TIMEOUT = 600  # each spawned or torchrun group of ranks
+
+
+def _dist_traffic(cfg):
+    """Phase 5's traffic: 8 requests of 24..400 prompt tokens, 32 new each."""
+    import numpy as np
+    from repro_torch.serve import Request
+
+    rng = np.random.default_rng(0)
+    lens = rng.integers(24, 401, size=8)
+    return [Request(tokens=rng.integers(0, cfg.vocab_size, size=int(L)), max_new_tokens=32)
+            for L in lens]
+
+
+def _dist_artifact(torch, dev, cfg, seed):
+    """The 2-bit ``pack_tree`` artifact of ``cfg`` from the seeded fp32 init
+    (the same bits on every process of the card)."""
+    from repro_torch.core import SymogConfig, pack_tree, symog_init
+    from repro_torch.models import init_lm
+
+    params = init_lm(seed, cfg, device=dev)
+    scfg = SymogConfig(n_bits=2)
+    tree = pack_tree(params, symog_init(params, scfg), scfg)
+    del params
+    torch.cuda.empty_cache()
+    return tree
+
+
+def _dist_serve(torch, eng, reqs):
+    """(tokens, launches, scheduler, wall s) of a greedy serve, the counts
+    zeroed just before and read just after."""
+    from repro_torch.serve import ServeConfig
+
+    torch.cuda.synchronize()
+    zero_counts()
+    t = time.perf_counter()
+    comps, sched = eng.serve(reqs, ServeConfig(n_slots=4, block_size=16), return_scheduler=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    return [list(map(int, c.tokens)) for c in comps], read_counts(), sched, wall
+
+
+def _tp_cfg(kv: str = "bf16"):
+    from repro_torch import configs
+
+    return dataclasses.replace(configs.get_config("internlm2-1.8b"), n_layers=TP_LAYERS,
+                               kv_cache_dtype=kv)
+
+
+def _ep_cfg():
+    """olmoe at EP_LAYERS, ``moe_impl='ep'``, capacity factor 8: neither the
+    capacity dispatch nor the EP buffers drop an assignment at phase 5's
+    prompts (as the reduced configs, whose factor is 8 for the same
+    reason), so the two routes' streams are comparable token for token."""
+    from repro_torch import configs
+
+    return dataclasses.replace(configs.get_config("olmoe-1b-7b"), n_layers=EP_LAYERS,
+                               moe_impl="ep", capacity_factor=8.0)
+
+
+def _prompt_logits(torch, eng, reqs):
+    """The first request's first-step (prefill) logits, fp32 on the host."""
+    logits, _ = eng.prefill({"tokens": torch.as_tensor(reqs[0].tokens[None])})
+    return logits[0, -1].float().cpu()
+
+
+def _rank_tp(torch, dev, mesh, ref):
+    """18b on one rank of the (1, 2) mesh."""
+    from repro_torch.models.lm import PAGED_CACHE_LEAVES
+    from repro_torch.serve import ServeEngine
+    from repro_torch.serve.sharding import pool_bytes_per_device
+
+    cfg = _tp_cfg()
+    tree = _dist_artifact(torch, dev, cfg, TP_SEED)
+    reqs = _dist_traffic(cfg)
+    out = {}
+    for kv in ("bf16", "int4_fp"):
+        eng = ServeEngine(_tp_cfg(kv), tree, max_len=512, compute_dtype=torch.float32,
+                          device=dev, mesh=mesh)
+        tokens, counts, sched, wall = _dist_serve(torch, eng, reqs)
+        heads, scale = set(), 0
+        for gname, g in sched.caches.items():
+            for sub in g.values():
+                for name, leaf in sub.items():
+                    if name in PAGED_CACHE_LEAVES:
+                        heads.add(int(leaf.shape[-2]))
+                    elif name.removesuffix("_scale") in PAGED_CACHE_LEAVES:
+                        scale += leaf.numel() * leaf.element_size()
+        total, per_dev = pool_bytes_per_device(eng, 16, sched.n_blocks, model_shards=2)
+        out[kv] = {"tokens_equal_1_rank": tokens == ref[kv], "launches": counts,
+                   "plan": {k: getattr(eng.tp, k) for k in ("attn", "mlp", "embed", "head")},
+                   "kv_heads_local": sorted(heads), "paged_pool_bytes": sched.paged_pool_bytes(),
+                   "pool_bytes_per_device": per_dev, "pool_bytes_total": total,
+                   "scale_bytes_local": scale, "wall_s": wall,
+                   "decode_steps": sched.stats["decode_steps"],
+                   "weight_bytes_local": eng.weight_bytes()}
+        del eng, sched
+    eng = ServeEngine(_tp_cfg(), tree, max_len=512, compute_dtype=torch.bfloat16, device=dev,
+                      mesh=mesh)
+    lg = _prompt_logits(torch, eng, reqs)
+    want = torch.load(ref["bf16_logits"])
+    tokens, _, _, _ = _dist_serve(torch, eng, reqs)
+    pairs = [(a, b) for x, y in zip(tokens, ref["bf16_tokens"]) for a, b in zip(x, y)]
+    out["bf16_compute"] = {
+        "first_step_logits_rel_l2": float(torch.linalg.vector_norm(lg - want)
+                                          / torch.linalg.vector_norm(want)),
+        "first_step_argmax_equal": int(lg.argmax()) == int(want.argmax()),
+        "identical_token_share": sum(a == b for a, b in pairs) / max(1, len(pairs))}
+    del eng, tree
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rank_ep(torch, dev, mesh, ref):
+    """18d on one rank of the (1, 2) mesh: the olmoe serve, then one
+    full-width MoE layer, moe_apply_ep vs moe_apply in fp32, no drops."""
+    from repro_torch.models.blocks import _moe_cfg
+    from repro_torch.models.moe import moe_apply, moe_init
+    from repro_torch.models.moe_ep import moe_apply_ep
+    from repro_torch.serve import ServeEngine
+
+    cfg = _ep_cfg()
+    tree = _dist_artifact(torch, dev, cfg, EP_SEED)
+    eng = ServeEngine(cfg, tree, max_len=512, compute_dtype=torch.float32, device=dev, mesh=mesh)
+    del tree
+    tokens, counts, sched, wall = _dist_serve(torch, eng, _dist_traffic(cfg))
+    local = eng.params["layers0"]["sub0"]["moe"]["experts"]["gate_proj"]["kernel"].data.shape[1]
+    out = {"tokens_equal_1_rank": tokens == ref["tokens"], "launches": counts,
+           "local_experts": int(local), "ep_moe": bool(eng.capabilities()["ep_moe"]),
+           "plan": {k: getattr(eng.tp, k) for k in ("attn", "mlp", "embed", "head", "ep")},
+           "wall_s": wall, "decode_steps": sched.stats["decode_steps"]}
+    del eng, sched
+    torch.cuda.empty_cache()
+    mcfg = _moe_cfg(cfg)
+    gen = torch.Generator(device=dev).manual_seed(EP_SEED + 1)
+    p = moe_init(gen, mcfg, torch.float32)
+    x = (torch.randn((4, 8, cfg.d_model), generator=gen, device=dev) * 0.5).requires_grad_(True)
+    leaves = [p["experts"][k]["kernel"] for k in ("gate_proj", "up_proj", "down_proj")]
+    for t in leaves:
+        t.requires_grad_(True)
+    y, _ = moe_apply_ep(p, x, cfg=mcfg, compute_dtype=torch.float32, ep_axes=("model",),
+                        dp_axes=(), dropless=True, mesh=mesh)
+    with torch.no_grad():  # capacity N·k: no expert can drop
+        want, _ = moe_apply(p, x, cfg=dataclasses.replace(mcfg, capacity_factor=float(
+            mcfg.n_experts)), compute_dtype=torch.float32)
+    torch.sum(y ** 2).backward()
+    grads = [x.grad] + [t.grad for t in leaves]
+    out["layer"] = {"max_abs_err": float((y.detach() - want).abs().max()),
+                    "grads_finite": all(bool(torch.isfinite(g).all()) for g in grads),
+                    "grads_nonzero": all(float(g.abs().sum()) > 0 for g in grads),
+                    "shape": list(x.shape), "experts": mcfg.n_experts}
+    del p, x, y, want, grads, leaves
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rank_dp(torch, dev, mesh, rank):
+    """18e's parity on one rank of the (2, 1) mesh: the launcher's optimizer
+    (the clipped fused chain, SYMOG 2-bit) at full width and DP_LAYERS,
+    fp32, step 1 on this rank's half of 8 x 128 tokens with the gradients
+    mean-reduced vs the 1-rank step on all of them; then rounds of
+    compressed_psum_int8 on one full-width leaf's local gradients."""
+    from repro_torch import configs, core, optim
+    from repro_torch.data import SyntheticLM, SyntheticLMConfig
+    from repro_torch.distributed.collectives import all_reduce
+    from repro_torch.distributed import CompressionState, compressed_psum_int8
+    from repro_torch.kernels.symog_update import ops as sops
+    from repro_torch.models import init_lm
+    from repro_torch.models.lm import lm_train_loss
+    from repro_torch.nn.tree import flatten_with_paths
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.train.trainer import _loss_and_grads, _my_rows
+
+    cfg = dataclasses.replace(configs.get_config("internlm2-1.8b"), n_layers=DP_LAYERS)
+    tx = optim.chain(optim.clip_by_global_norm(1.0), optim.sgd(momentum=0.9, nesterov=True))
+    scfg = core.SymogConfig(n_bits=2, total_steps=200)
+    lr = core.linear_lr(0.01, 0.001, 200)
+    data = SyntheticLM(SyntheticLMConfig(vocab_size=cfg.vocab_size, seq_len=128, global_batch=8,
+                                         seed=DP_SEED))
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in next(data).items()}
+    out = {}
+    runs = {}
+    for name, m in (("2_ranks", mesh), ("1_rank", None)):
+        state = init_train_state(init_lm(DP_SEED, cfg, device=dev), tx, scfg)
+        step = make_train_step(cfg, tx, lr, symog_cfg=scfg, compute_dtype=torch.float32, mesh=m)
+        zero_counts()
+        sops.sqnorm_launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        runs[name] = (state, float(metrics["loss"]))
+        out[name] = {"step_s": time.perf_counter() - t, "loss": float(metrics["loss"]),
+                     "symog_update": sops.launches, "symog_sqnorm": sops.sqnorm_launches}
+    (a, la), (b, lb) = runs["2_ranks"], runs["1_rank"]
+    # the tree's largest difference over its largest value; per leaf too: a
+    # leaf initialized to zero (the norm scales) is one update, whose
+    # relative error is the gradient's (fp32 sums over 512 vs 1,024 rows)
+    pairs = list(zip(flatten_with_paths(a.params), flatten_with_paths(b.params)))
+    out["params_rel_by_leaf"] = {
+        path: float((u - v).abs().max() / v.abs().max().clamp_min(1e-30))
+        for (path, u), (_, v) in pairs}
+    out["params_max_rel"] = (max(float((u - v).abs().max()) for (_, u), (_, v) in pairs)
+                             / max(float(v.abs().max()) for _, (_, v) in pairs))
+    out["quantizable_leaves"] = int(sum(a.symog.mask.values()))
+    del runs, a, b
+    torch.cuda.empty_cache()
+    # one full-width leaf's local gradients (this rank's rows), compressed
+    params = init_lm(DP_SEED, cfg, device=dev)
+    _, _, grads = _loss_and_grads(lambda p, bt: lm_train_loss(p, bt, cfg,
+                                                              compute_dtype=torch.float32),
+                                  params, _my_rows(batch, 2, rank))
+    g = grads["layers0"]["sub0"]["attn"]["k_proj"]["kernel"]
+    del params, grads
+    group = mesh.group("data")
+    exact = all_reduce(g, group) / 2
+    st = CompressionState(err={"w": torch.zeros_like(g)})
+    acc_c, acc_x, one = torch.zeros_like(g), torch.zeros_like(g), 0.0
+    for _ in range(COMPRESS_ROUNDS):
+        mean, st = compressed_psum_int8({"w": g}, st, group)
+        acc_c += mean["w"]
+        acc_x += exact
+        one = max(one, float((mean["w"] - exact).abs().max() / exact.abs().max()))
+    out["compressed"] = {"leaf": "layers0/sub0/attn/k_proj/kernel", "shape": list(g.shape),
+                         "rounds": COMPRESS_ROUNDS, "one_round_rel": one,
+                         "accum_rel": float((acc_c - acc_x).abs().max() / acc_x.abs().max())}
+    return out
+
+
+def _dist_rank(rank, world, port, ref, out_path):
+    """One spawned rank of 18b, 18d and 18e's parity (gloo: both ranks share
+    the card).  Writes its results as JSON; a failure writes the traceback."""
+    import datetime
+    import traceback
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
+    import torch
+    import torch.distributed as dist
+
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.cuda.set_device(0)
+        dev = torch.device("cuda", 0)
+        from repro_torch.nn.sharding import Mesh, choose_backend
+
+        backend = choose_backend(dev, world)
+        dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                                world_size=world, timeout=datetime.timedelta(seconds=300))
+        out = {"backend": dist.get_backend(), "seconds": {}}
+        t = time.perf_counter()
+        tp_mesh = Mesh((1, 2), ("data", "model"))
+        out["tp"] = _rank_tp(torch, dev, tp_mesh, ref["tp"])
+        out["seconds"]["18b"] = time.perf_counter() - t
+        t = time.perf_counter()
+        out["ep"] = _rank_ep(torch, dev, tp_mesh, ref["ep"])
+        out["seconds"]["18d"] = time.perf_counter() - t
+        t = time.perf_counter()
+        out["dp"] = _rank_dp(torch, dev, Mesh((2, 1), ("data", "model")), rank)
+        out["seconds"]["18e"] = time.perf_counter() - t
+        with open(out_path, "w") as f:
+            json.dump(out, f)
+        dist.barrier()
+        dist.destroy_process_group()
+    except BaseException:
+        with open(out_path + ".err", "w") as f:
+            f.write(traceback.format_exc())
+        os._exit(1)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _spawn_ranks(world: int, ref, tmp):
+    """Run ``_dist_rank`` on ``world`` spawned processes; every one is
+    joined within DIST_TIMEOUT and killed past it."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    port = _free_port()
+    paths = [os.path.join(tmp, f"rank{r}.json") for r in range(world)]
+    procs = [ctx.Process(target=_dist_rank, args=(r, world, port, ref, paths[r]))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + DIST_TIMEOUT
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    alive = [p for p in procs if p.is_alive()]
+    for p in alive:
+        p.kill()
+        p.join(10)
+    errs = []
+    for r, (p, path) in enumerate(zip(procs, paths)):
+        if os.path.exists(path + ".err"):
+            errs.append(f"rank {r}:\n" + open(path + ".err").read())
+        elif p.exitcode != 0 or not os.path.exists(path):
+            errs.append(f"rank {r}: exit code {p.exitcode}")
+    if alive or errs:
+        raise Failed(f"phase 18 ranks failed ({len(alive)} killed at {DIST_TIMEOUT} s):\n"
+                     + "\n".join(errs))
+    return [json.load(open(path)) for path in paths]
+
+
+def _torchrun(args, timeout: int):
+    """``python -m torch.distributed.run --standalone --nproc-per-node 2``
+    with ``args``; its whole process group is killed past ``timeout``."""
+    import signal
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+           "2", *args]
+    env = dict(os.environ, PYTHONPATH=os.path.join(here, "src"), OMP_NUM_THREADS="1")
+    t = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=here, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        return 124, out, err, time.perf_counter() - t
+    return proc.returncode, out, err, time.perf_counter() - t
+
+
+def phase_dist(torch, dev):
+    """Phase 18 (module docstring).  Every gate raises."""
+    import torch.distributed as dist
+    from repro_torch.nn.sharding import Mesh
+    from repro_torch.serve import ServeEngine
+
+    row = {"phase": "dist", "gates": {}, "seconds": {}}
+
+    def gate(name, ok):
+        row["gates"][name] = bool(ok)
+
+    # 18a: the serve launcher on 2 ranks
+    t = time.perf_counter()
+    rc, out, err, secs = _torchrun(
+        ["-m", "repro_torch.launch.serve", "--arch", "internlm2-1.8b", "--packed", "--kv-bits",
+         "4", "--continuous", "--requests", "8", "--slots", "4", "--mesh", "1x2"], DIST_TIMEOUT)
+    lines = out.splitlines()
+    row["18a"] = {"rc": rc, "seconds": secs, "stdout_tail": lines[-30:],
+                  "capacity": [ln for ln in lines if "sharded pool" in ln],
+                  "agreement": [ln for ln in lines if "token agreement" in ln]}
+    gate("18a_exit_0", rc == 0)
+    gate("18a_streams_equal", "ranks' token streams equal: True" in out)
+    gate("18a_capacity_2_shards", any("at 2 model shards" in ln for ln in lines))
+    gate("18a_agreement_printed", any("packed vs quantized token agreement" in ln
+                                      for ln in lines))
+    gate("18a_gloo", "backend gloo, 2 ranks" in out)
+    if rc:
+        print(out[-4000:], err[-6000:], file=sys.stderr, flush=True)
+    row["seconds"]["18a"] = time.perf_counter() - t
+
+    # references on one rank (this process), then 18b / 18d / 18e's parity
+    t = time.perf_counter()
+    tree = _dist_artifact(torch, dev, _tp_cfg(), TP_SEED)
+    reqs = _dist_traffic(_tp_cfg())
+    ref = {"tp": {}, "ep": {}}
+    counts1 = {}
+    for kv in ("bf16", "int4_fp"):
+        eng = ServeEngine(_tp_cfg(kv), tree, max_len=512, compute_dtype=torch.float32,
+                          device=dev)
+        ref["tp"][kv], counts1[kv], _, _ = _dist_serve(torch, eng, reqs)
+        if kv == "bf16":
+            l32 = _prompt_logits(torch, eng, reqs)
+        del eng
+    eng16 = ServeEngine(_tp_cfg(), tree, max_len=512, compute_dtype=torch.bfloat16, device=dev)
+    logits = _prompt_logits(torch, eng16, reqs)
+    ref["tp"]["bf16_own_rel_l2"] = float(torch.linalg.vector_norm(logits - l32)
+                                         / torch.linalg.vector_norm(l32))
+    ref["tp"]["bf16_tokens"] = _dist_serve(torch, eng16, reqs)[0]
+    del eng16
+    tmp = tempfile.mkdtemp(prefix="phase18_")
+    ref["tp"]["bf16_logits"] = os.path.join(tmp, "logits.pt")
+    torch.save(logits, ref["tp"]["bf16_logits"])
+    ep_tree = _dist_artifact(torch, dev, _ep_cfg(), EP_SEED)
+    eng = ServeEngine(_ep_cfg(), ep_tree, max_len=512, compute_dtype=torch.float32, device=dev)
+    del ep_tree
+    ref["ep"]["tokens"], ep_counts1, _, _ = _dist_serve(torch, eng, _dist_traffic(_ep_cfg()))
+    ep_cap_off = eng.capabilities()["ep_moe"].reason
+    del eng
+    torch.cuda.empty_cache()
+    row["seconds"]["references"] = time.perf_counter() - t
+    t = time.perf_counter()
+    ranks = _spawn_ranks(2, ref, tmp)
+    row["seconds"]["spawned_ranks"] = time.perf_counter() - t
+    r0 = ranks[0]
+    row["rank_seconds"] = [r["seconds"] for r in ranks]
+    row["backend_spawned"] = [r["backend"] for r in ranks]
+    gate("18_spawned_gloo", all(r["backend"] == "gloo" for r in ranks))
+
+    # 18b
+    tp = {kv: r0["tp"][kv] for kv in ("bf16", "int4_fp")}
+    row["18b"] = {"layers": TP_LAYERS, "ranks": [r["tp"] for r in ranks],
+                  "launches_1_rank": counts1}
+    for kv in ("bf16", "int4_fp"):
+        for r in ranks:
+            x = r["tp"][kv]
+            gate(f"18b_{kv}_tokens_equal_1_rank", x["tokens_equal_1_rank"])
+            gate(f"18b_{kv}_4_of_8_kv_heads", x["kv_heads_local"] == [4])
+            gate(f"18b_{kv}_plan_sharded", all(x["plan"].values()))
+            data_bytes = x["paged_pool_bytes"] - x["scale_bytes_local"]
+            # data leaves: half of each; the exponents co-sharded with them
+            # (counted replicated by pool_bytes_per_device)
+            gate(f"18b_{kv}_pool_bytes", data_bytes + 2 * x["scale_bytes_local"]
+                 == x["pool_bytes_per_device"])
+            attn = "paged_attention" if kv == "bf16" else "paged_attention_quant"
+            # every kernel launches on the local shards as often as on 1 rank
+            gate(f"18b_{kv}_launches_equal_1_rank", x["launches"] == counts1[kv]
+                 and x["launches"][attn] > 0 and x["launches"]["fixedpoint_matmul"] > 0)
+    bc = [r["tp"]["bf16_compute"] for r in ranks]
+    row["18b"]["bf16_compute"] = bc
+    row["18b"]["bf16_vs_fp32_rel_l2_1_rank"] = ref["tp"]["bf16_own_rel_l2"]
+    gate("18b_bf16_logits", all(x["first_step_logits_rel_l2"]
+                                <= BF16_LOGIT_FACTOR * ref["tp"]["bf16_own_rel_l2"] for x in bc))
+
+    # 18c: the 18b engine on an NCCL group of one rank
+    t = time.perf_counter()
+    port = _free_port()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0,
+                            world_size=1, device_id=dev)
+    try:
+        mesh = Mesh((1, 1), ("data", "model"))
+        eng = ServeEngine(_tp_cfg(), tree, max_len=512, compute_dtype=torch.float32, device=dev,
+                          mesh=mesh)
+        toks, counts, _, _ = _dist_serve(torch, eng, reqs)
+        probe = torch.arange(4, dtype=torch.float32, device=dev)
+        dist.all_reduce(probe)
+        torch.cuda.synchronize()
+        row["18c"] = {"backend": mesh.backend, "tokens_equal_unsharded": toks == ref["tp"]["bf16"],
+                      "launches_equal_unsharded": counts == counts1["bf16"],
+                      "all_reduce_on_card": probe.tolist()}
+        print(f"18c: backend {mesh.backend}, 1 rank", flush=True)
+        gate("18c_nccl", mesh.backend == "nccl")
+        gate("18c_tokens", toks == ref["tp"]["bf16"])
+        gate("18c_launches", counts == counts1["bf16"])
+        del eng
+    finally:
+        dist.destroy_process_group()
+    del tree
+    torch.cuda.empty_cache()
+    row["seconds"]["18c"] = time.perf_counter() - t
+
+    # 18d
+    row["18d"] = {"layers": EP_LAYERS, "ranks": [r["ep"] for r in ranks],
+                  "launches_1_rank": ep_counts1, "ep_moe_off_mesh": ep_cap_off}
+    for r in ranks:
+        x = r["ep"]
+        gate("18d_tokens_equal_1_rank", x["tokens_equal_1_rank"])
+        gate("18d_32_local_experts", x["local_experts"] == 32)
+        gate("18d_ep_moe_on", x["ep_moe"] and x["plan"]["ep"])
+        gate("18d_experts_launched", x["launches"]["fixedpoint_matmul_experts"] > 0)
+        gate("18d_layer_err", x["layer"]["max_abs_err"] < EP_TOL)
+        gate("18d_layer_grads", x["layer"]["grads_finite"] and x["layer"]["grads_nonzero"])
+    gate("18d_off_mesh_reason", "no mesh" in ep_cap_off)
+
+    # 18e: the training launcher on 2 ranks, then the spawned parity
+    t = time.perf_counter()
+    rc, out, err, secs = _torchrun(["-m", "repro_torch.launch.train"] + LAUNCH_ARGS[:2]
+                                   + ["--steps", "1", "--batch", "8", "--seq", "128", "--symog",
+                                      "--log-every", "1", "--mesh", "2x1"], DIST_TIMEOUT)
+    lines = out.splitlines()
+    losses = [float(ln.split()[3]) for ln in lines if ln.startswith("step ")]
+    row["18e"] = {"launcher": {"rc": rc, "seconds": secs, "stdout_tail": lines[-12:],
+                               "losses": losses},
+                  "ranks": [r["dp"] for r in ranks]}
+    gate("18e_launcher_exit_0", rc == 0)
+    gate("18e_launcher_losses_equal", "ranks' losses equal: True" in out and len(losses) == 1
+         and all(math.isfinite(v) for v in losses))
+    if rc:
+        print(out[-4000:], err[-6000:], file=sys.stderr, flush=True)
+    for r in ranks:
+        x = r["dp"]
+        gate("18e_params_within_1e-6", x["params_max_rel"] < DP_RTOL)
+        gate("18e_loss_equal", abs(x["2_ranks"]["loss"] - x["1_rank"]["loss"])
+             <= 1e-6 * abs(x["1_rank"]["loss"]))
+        gate("18e_update_launches", x["2_ranks"]["symog_update"] == x["quantizable_leaves"]
+             == x["2_ranks"]["symog_sqnorm"])
+        gate("18e_compressed_one_round", x["compressed"]["one_round_rel"] < 0.05)
+        gate("18e_compressed_accum", x["compressed"]["accum_rel"] < 0.02)
+    gate("18e_ranks_same_loss", ranks[0]["dp"]["2_ranks"]["loss"]
+         == ranks[1]["dp"]["2_ranks"]["loss"])
+    row["seconds"]["18e_launcher"] = time.perf_counter() - t
+    row["pass"] = all(row["gates"].values())
+    emit(row)
+    if not row["pass"]:
+        raise Failed(f"phase 18 failed: {[k for k, v in row['gates'].items() if not v]}")
+    return row
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
 
@@ -5756,6 +6300,7 @@ def main() -> int:
         clipped = run("17c symog_update clipped", phase_symog_clipped, torch, dev,
                       configs.get_config("internlm2-1.8b"))
         run("17d experiments", phase_experiments, torch, dev)
+        dist18 = run("18 distribution", phase_dist, torch, dev)
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -6057,6 +6602,18 @@ def main() -> int:
              "launches_from": "the training launcher at internlm2-1.8b's full width and depth "
                               "(4 steps x 8 quantizable leaves)",
              "pass": r["pass"] and launcher["launches"][form] > 0})
+    # phase 18: each kernel's launches on one rank's local shards (the same
+    # on both ranks; gated equal to the 1-rank serve's in 18b)
+    tp0, ep0, dp0 = (dist18["18b"]["ranks"][0], dist18["18d"]["ranks"][0],
+                     dist18["18e"]["ranks"][0])
+    for k in summary:
+        n = k["name"]
+        k["phase18_launches_per_rank"] = {
+            "tp_serve_bf16_pool": tp0["bf16"]["launches"].get(n, 0),
+            "tp_serve_int4_pool": tp0["int4_fp"]["launches"].get(n, 0),
+            "ep_serve": ep0["launches"].get(n, 0),
+            "dp_step": dp0["2_ranks"].get("symog_update" if n == "symog_update_clipped" else n,
+                                          0)}
     if not all(k["pass"] for k in summary):
         print("chip_smoke: FAILED: a kernel row did not pass", file=sys.stderr)
         return 1

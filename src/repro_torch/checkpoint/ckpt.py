@@ -207,7 +207,12 @@ class CheckpointManager:
 
     # -- save --------------------------------------------------------------
     def save(self, step: int, tree: Any, *, metadata: Optional[Dict] = None,
-             blocking: bool = False) -> None:
+             blocking: bool = False, mesh=None) -> None:
+        """Write ``tree`` as ``ckpt_<step>``.  On a ``mesh`` the tree is the
+        same on every rank (data-parallel training keeps it replicated) and
+        rank 0 alone writes the full logical arrays: JAX's format."""
+        if mesh is not None and mesh.rank != 0:
+            return
         self.wait()  # back-pressure: at most one save in flight
         # snapshot to host memory now, so the caller may change the tensors
         host = [(path, _to_numpy(leaf, copy=True)) for path, leaf in _leaves(tree)]
@@ -232,16 +237,22 @@ class CheckpointManager:
                 self._pending = None
 
     # -- restore -----------------------------------------------------------
-    def restore(self, like: Any, *, step: Optional[int] = None, device=None
-                ) -> Tuple[Any, Dict, int]:
+    def restore(self, like: Any, *, step: Optional[int] = None, device=None, mesh=None,
+                rules=None) -> Tuple[Any, Dict, int]:
         """(tree, metadata, step) of ``step`` (default the latest), its
         leaves on ``device`` (the engine's, in place of the JAX package's
-        ``shardings``)."""
+        ``shardings``).  With ``mesh`` and ``rules`` (``nn.sharding``) each
+        rank keeps its slice of every leaf (``shard_tree``); ``like`` holds
+        the full logical shapes."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.root}")
         d = self.path(step)
         tree = load_pytree(d, like, device=device)
+        if mesh is not None and rules is not None:
+            from repro_torch.nn.sharding import shard_tree
+
+            tree = shard_tree(rules, mesh, tree)
         return tree, load_manifest(d)["metadata"], step
 
     # -- retention ---------------------------------------------------------

@@ -32,6 +32,9 @@ CONFIG = ModelConfig(
     v_head_dim=128,
     use_mtp=True,
     tie_lm_head=False,
+    moe_impl="ep",
+    ep_axes=("data", "model"),  # 256 experts over 256 ranks: one a rank
+    sharding_profile="fsdp_tp",
 )
 
 REDUCED = ModelConfig(

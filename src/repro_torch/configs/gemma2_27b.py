@@ -24,6 +24,7 @@ CONFIG = ModelConfig(
     post_norm=True,
     embed_scale=True,
     query_scale=144.0 ** -0.5,
+    sharding_profile="fsdp_tp",
 )
 
 REDUCED = ModelConfig(

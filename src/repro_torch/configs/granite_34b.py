@@ -19,6 +19,7 @@ CONFIG = ModelConfig(
     mlp_gated=False,
     act="gelu",
     tie_lm_head=False,
+    sharding_profile="fsdp_tp",
 )
 
 REDUCED = ModelConfig(

@@ -22,6 +22,7 @@ CONFIG = ModelConfig(
     router="softmax",
     qk_norm=True,
     tie_lm_head=False,
+    moe_impl="ep",
 )
 
 REDUCED = ModelConfig(

@@ -34,8 +34,16 @@ a ``torch.profiler`` capture (a Chrome trace with the device's kernels).
 
 ``--ckpt-dir`` restores the params from the newest checkpoint there; the
 format is the JAX package's, so a checkpoint its trainer wrote serves here.
-``--mesh`` and ``--moe-impl`` belong to the distribution slice and are
-refused.
+
+``--mesh DxM`` serves sharded on a (data, model) mesh of D·M ranks started
+by ``torchrun`` (``python -m torch.distributed.run --nproc-per-node N -m
+repro_torch.launch.serve ... --mesh DxM``; ``dxm`` sizes the model axis to
+the world): every rank runs this program, holds its shard of the params and
+of the paged KV pool, and serves the same requests; rank 0 prints, and the
+ranks' token streams are checked equal.  NCCL joins ranks that have a card
+each, gloo ranks that share one (or the CPU).  ``--moe-impl ep`` routes MoE
+layers expert-parallel when the mesh's EP axes exceed 1; off a mesh they
+take the capacity dispatch and ``ep_moe`` says why.
 The weights are the port's own seeded init (``models.init_lm``), not the
 JAX package's: the two launchers agree on the workload and the schedule,
 and on the tokens only when both restore one checkpoint.  whisper's frame
@@ -47,7 +55,9 @@ row of them, as in the JAX launcher.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import io
 import math
 import time
 
@@ -59,6 +69,7 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import ARCHS, get_config, get_reduced
 from repro_torch.device import resolve_device
 from repro_torch.launch import threefry
+from repro_torch.launch.mesh import close_distributed, make_host_mesh, world_from_env
 from repro_torch.models import init_lm
 from repro_torch.models.lm import image_prefix_len
 from repro_torch.serve import (
@@ -96,14 +107,16 @@ def kv_pool_report(eng: ServeEngine, config: ServeConfig) -> None:
     """One line of capacity math for the paged KV pool: bytes per decode
     slot at the engine's KV dtype (per-block SYMOG mantissas + int32 scale
     leaves when quantized) next to the bf16 pool of the same geometry."""
-    from repro_torch.models.lm import PAGED_CACHE_LEAVES, scan_groups
+    from repro_torch.models.lm import PAGED_CACHE_LEAVES, init_caches, scan_groups
 
     blk = config.block_size
     n_per_slot = math.ceil(eng.max_len / blk)
     qbits = eng.kv_quant_bits
-    specs = eng.prefill_cache_specs()
+    # the whole model's pool (a sharded engine's own is its shard of it)
+    specs = init_caches(eng.global_cfg, 1, eng.max_len, eng.compute_dtype, device="meta",
+                        prefill=True)
     quant = bf16 = 0
-    for g in scan_groups(eng.cfg):
+    for g in scan_groups(eng.global_cfg):
         axis = 1 if g.stacked else 0
         for j, paged in enumerate(g.paged):
             for name, sd in specs[g.name][f"sub{j}"].items():
@@ -123,6 +136,13 @@ def kv_pool_report(eng: ServeEngine, config: ServeConfig) -> None:
           f"block={blk}) vs {bf16} at bf16 — "
           f"{bf16 / quant:.1f}x the dense-bf16 slot capacity on the same "
           f"HBM budget")
+    if eng.model_shards() > 1:
+        from repro_torch.serve.sharding import pool_bytes_per_device
+
+        total, per_dev = pool_bytes_per_device(eng, blk, n_per_slot)
+        print(f"  sharded pool: {per_dev} of {total} bytes/slot resident per "
+              f"device ({total / per_dev:.1f}x capacity at {eng.model_shards()} "
+              "model shards; scale leaves and block tables replicated)")
 
 
 def make_ragged_workload(cfg, *, n_requests: int, prompt_len: int, steps: int, seed: int,
@@ -164,7 +184,7 @@ def _suffixed(path: str, tag: str) -> str:
 
 
 def run_continuous(eng: ServeEngine, reqs, config: ServeConfig, *, label: str,
-                   metrics_json: str = "", trace_out: str = "") -> None:
+                   metrics_json: str = "", trace_out: str = ""):
     useful = sum(r.max_new_tokens for r in reqs)
     # warm up with the SAME sampling config but default telemetry, so the
     # warmup neither spends the --profile-dir window nor leaves first-call
@@ -214,6 +234,13 @@ def run_continuous(eng: ServeEngine, reqs, config: ServeConfig, *, label: str,
               f"{sched.tracer.dropped} dropped; load in Perfetto or chrome://tracing)")
     if sched._profile is not None and sched._profile.trace_path:
         print(f"  profiler trace -> {sched._profile.trace_path}")
+    return comps
+
+
+def _agreement(a, b) -> float:
+    """Share of equal tokens over two completion lists, position by position."""
+    pairs = [(x, y) for ca, cb in zip(a, b) for x, y in zip(ca.tokens, cb.tokens)]
+    return sum(x == y for x, y in pairs) / max(1, len(pairs))
 
 
 def _sync(eng: ServeEngine) -> None:
@@ -267,9 +294,14 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--draft-k", type=int, default=4,
                     help="--speculative: max draft tokens per verify round")
     ap.add_argument("--mesh", default="",
-                    help="refused: sharded serving comes with ROADMAP Queue 1 item 5")
+                    help="serve sharded on a DxM (data, model) mesh of D·M torchrun "
+                         "ranks, e.g. --mesh 1x2: params and the paged KV pool shard "
+                         "over 'model' per the nn/sharding rules; 'dxm' sizes the "
+                         "model axis to the world")
     ap.add_argument("--moe-impl", default="", choices=("dispatch", "ep"),
-                    help="refused: expert parallelism comes with ROADMAP Queue 1 item 5")
+                    help="override cfg.moe_impl: 'ep' routes MoE layers expert-"
+                         "parallel by all-to-all (needs --mesh whose EP axes exceed "
+                         "1; the capacity dispatch otherwise). No-op on dense archs")
     ap.add_argument("--metrics-json", default="",
                     help="--continuous: write the metrics-registry snapshot "
                          "(counters/gauges/histograms) as JSON to this path")
@@ -289,22 +321,61 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def _parse_mesh(ap, spec: str, world: int):
+    if spec == "dxm":
+        d, m = 1, world
+    else:
+        try:
+            d, m = (int(v) for v in spec.lower().split("x"))
+        except ValueError:
+            ap.error(f"--mesh must be DxM (e.g. 2x4) or 'dxm', got {spec!r}")
+    if d * m != world:
+        ap.error(f"--mesh {d}x{m} needs {d * m} devices, have {world}")
+    return d, m
+
+
 def main(argv=None) -> None:
     ap = build_parser()
     args = ap.parse_args(argv)
     if args.speculative and args.prefix_cache:
         ap.error("--speculative and --prefix-cache are mutually exclusive")
+    rank, world, _, _ = world_from_env()
+    mesh = None
     if args.mesh:
-        ap.error("--mesh: the port serves on one card; sharded serving comes with "
-                 "ROADMAP Queue 1 item 5 (distribution)")
-    if args.moe_impl:
-        ap.error("--moe-impl: the port has no expert-parallel dispatch; it comes with "
-                 "ROADMAP Queue 1 item 5 (distribution)")
+        d, m = _parse_mesh(ap, args.mesh, world)
+        mesh = make_host_mesh((d, m), device=args.device)
+    elif world > 1:
+        ap.error(f"{world} ranks need --mesh (DxM with D·M = {world})")
+    # every rank runs the program; rank 0 alone prints
+    out = contextlib.nullcontext() if rank == 0 else contextlib.redirect_stdout(io.StringIO())
+    with out:
+        _serve(args, mesh)
+    if mesh is not None:
+        close_distributed()
 
+
+def _streams_equal(mesh, comps) -> bool:
+    """Whether every rank produced the same token streams (SPMD)."""
+    import torch.distributed as dist
+
+    mine = [list(c.tokens) for c in comps]
+    if mesh is None or mesh.size == 1:
+        return True
+    every = [None] * mesh.size
+    dist.all_gather_object(every, mine)
+    return all(e == every[0] for e in every)
+
+
+def _serve(args, mesh) -> None:
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    if args.moe_impl:
+        cfg = dataclasses.replace(cfg, moe_impl=args.moe_impl)
     if args.kv_bits != 16:
         cfg = dataclasses.replace(cfg, kv_cache_dtype={8: "int8_fp", 4: "int4_fp"}[args.kv_bits])
     dev = resolve_device(args.device)
+    if mesh is not None:
+        print(f"mesh: {mesh.shape['data']} data x {mesh.shape['model']} model over "
+              f"{mesh.size} {dev.type} ranks ({mesh.backend or 'one process'})")
     params = init_lm(args.seed, cfg, device=dev)
     if args.ckpt_dir:
         mgr = CheckpointManager(args.ckpt_dir)
@@ -321,7 +392,15 @@ def main(argv=None) -> None:
 
     max_len = args.prompt_len + args.steps + args.system_prompt_len + image_prefix_len(cfg)
     dtype = torch.float32 if args.reduced else torch.bfloat16
-    eng = ServeEngine(cfg, params, max_len=max_len, compute_dtype=dtype, device=dev)
+    eng = ServeEngine(cfg, params, max_len=max_len, compute_dtype=dtype, device=dev, mesh=mesh)
+    if mesh is not None:
+        ep = eng.capabilities()["ep_moe"]
+        print(f"  sharded: profile '{eng.sharding_profile or cfg.sharding_profile}', "
+              f"{eng.model_shards()} model shards; ep_moe: "
+              f"{'on' if ep else 'off (' + ep.reason + ')'}")
+    elif args.moe_impl == "ep" and cfg.moe:
+        print(f"  ep_moe: off ({eng.capabilities()['ep_moe'].reason}) — MoE layers take "
+              "the capacity dispatch")
 
     if args.continuous:
         spec = None
@@ -342,22 +421,39 @@ def main(argv=None) -> None:
         reqs = make_ragged_workload(cfg, n_requests=args.requests, prompt_len=args.prompt_len,
                                     steps=args.steps, seed=args.seed, batch_extras=extras,
                                     system_len=args.system_prompt_len)
-        run_continuous(eng, reqs, serve_cfg, label="float",
-                       metrics_json=args.metrics_json, trace_out=args.trace_out)
+        comps = run_continuous(eng, reqs, serve_cfg, label="float",
+                               metrics_json=args.metrics_json, trace_out=args.trace_out)
+        same = _streams_equal(mesh, comps)
         if args.quantized or args.packed:
             scfg = core.SymogConfig(n_bits=args.n_bits, total_steps=1)
             sst = core.symog_init(params, scfg)
+            qt = core.quantize_tree(params, sst, scfg)
             if args.packed:
                 qeng = ServeEngine.from_symog(cfg, params, sst, scfg, max_len=max_len,
-                                              compute_dtype=dtype, device=dev)
+                                              compute_dtype=dtype, device=dev, mesh=mesh)
                 label = f"packed {args.n_bits}-bit"
             else:
-                qeng = ServeEngine(cfg, core.quantize_tree(params, sst, scfg), max_len=max_len,
-                                   compute_dtype=dtype, device=dev)
+                qeng = ServeEngine(cfg, qt, max_len=max_len, compute_dtype=dtype, device=dev,
+                                   mesh=mesh)
                 label = f"quantized {args.n_bits}-bit"
-            run_continuous(qeng, reqs, serve_cfg, label=label,
-                           metrics_json=_suffixed(args.metrics_json, label.split()[0]),
-                           trace_out=_suffixed(args.trace_out, label.split()[0]))
+            del params
+            qcomps = run_continuous(qeng, reqs, serve_cfg, label=label,
+                                    metrics_json=_suffixed(args.metrics_json, label.split()[0]),
+                                    trace_out=_suffixed(args.trace_out, label.split()[0]))
+            same = same and _streams_equal(mesh, qcomps)
+            if args.packed:
+                del qeng
+                ceng = ServeEngine(cfg, qt, max_len=max_len, compute_dtype=dtype, device=dev,
+                                   mesh=mesh)
+                # default telemetry: no trace, metrics or profiler window of its own
+                ref = ceng.serve(reqs, dataclasses.replace(serve_cfg, telemetry=TelemetryConfig()))
+                exact = _agreement(qcomps, ref)
+                print(f"continuous packed vs quantized token agreement: {exact:.2%}; "
+                      f"vs float: {_agreement(qcomps, comps):.2%}")
+        if mesh is not None:
+            print(f"ranks' token streams equal: {same}")
+            if not same:
+                raise SystemExit("the ranks' token streams differ")
         return
 
     t0 = time.time()
@@ -370,7 +466,8 @@ def main(argv=None) -> None:
         scfg = core.SymogConfig(n_bits=args.n_bits, total_steps=1)
         sst = core.symog_init(params, scfg)
         qparams = core.quantize_tree(params, sst, scfg)
-        qeng = ServeEngine(cfg, qparams, max_len=max_len, compute_dtype=dtype, device=dev)
+        qeng = ServeEngine(cfg, qparams, max_len=max_len, compute_dtype=dtype, device=dev,
+                           mesh=mesh)
         out_q = qeng.generate(batch, args.steps)
         agree = float(np.mean(out_q.numpy() == out_float.numpy()))
         qm = core.quant_error_metrics(params, sst, scfg)
@@ -380,7 +477,7 @@ def main(argv=None) -> None:
 
     if args.packed:
         peng = ServeEngine.from_symog(cfg, params, sst, scfg, max_len=max_len,
-                                      compute_dtype=dtype, device=dev)
+                                      compute_dtype=dtype, device=dev, mesh=mesh)
         t0 = time.time()
         out_p = peng.generate(batch, args.steps)
         dt = time.time() - t0

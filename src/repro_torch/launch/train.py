@@ -15,10 +15,14 @@ route, one norm pass and one ``symog_update`` per quantizable leaf a step
 
 A checkpoint holds the whole ``TrainState`` and ``{"data": <stream
 state>}`` in the JAX package's format, so either launcher resumes from the
-other's ``--ckpt-dir``.  ``--mesh`` other than ``1x1`` belongs to the
-distribution slice and is refused.  The weights are the port's own seeded
-init (``models.init_lm``), not the JAX package's; a resumed run continues
-from the checkpoint's.
+other's ``--ckpt-dir``.  ``--mesh Dx1`` trains data-parallel over D ranks
+started by ``torchrun`` (``python -m torch.distributed.run --nproc-per-node
+D -m repro_torch.launch.train ... --mesh Dx1``): every rank draws the same
+global batch, trains on its rows, and the gradients are mean-all-reduced
+before the same update on every rank; rank 0 prints and writes the
+checkpoints.  A model axis > 1 (tensor-parallel training) is refused.  The
+weights are the port's own seeded init (``models.init_lm``), not the JAX
+package's; a resumed run continues from the checkpoint's.
 
 Each step is timed to the card's completion (a synchronize before the
 monitor stops), so the straggler monitor sees device time.
@@ -26,6 +30,8 @@ monitor stops), so the straggler monitor sees device time.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import time
 from typing import Any, Callable, Dict, Optional
 
@@ -37,6 +43,7 @@ from repro_torch.configs import ARCHS, get_config, get_reduced
 from repro_torch.data import SyntheticLM, SyntheticLMConfig
 from repro_torch.device import resolve_device
 from repro_torch.distributed import StepTimeMonitor
+from repro_torch.launch.mesh import close_distributed, make_host_mesh, world_from_env
 from repro_torch.models import init_lm
 from repro_torch.models.config import ModelConfig
 from repro_torch.train import init_train_state, make_train_step
@@ -54,7 +61,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--n-bits", type=int, default=2)
     ap.add_argument("--accum", type=int, default=1)
     ap.add_argument("--mesh", default="1x1",
-                    help="only 1x1: sharded training comes with ROADMAP Queue 1 item 5")
+                    help="DxM (data, model) mesh of D·M torchrun ranks; M must be 1 "
+                         "(data parallel)")
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--ckpt-every", type=int, default=100)
     ap.add_argument("--resume", action="store_true")
@@ -71,12 +79,14 @@ def _sync(dev: torch.device) -> None:
 
 
 def run(cfg: ModelConfig, args: argparse.Namespace,
-        on_step: Optional[Callable[[int, Any, Dict[str, Any]], None]] = None) -> Dict[str, Any]:
+        on_step: Optional[Callable[[int, Any, Dict[str, Any]], None]] = None,
+        mesh=None) -> Dict[str, Any]:
     """The launcher's body on ``cfg`` (a registry config, or one cut in depth
     by the caller).  Prints JAX's lines; returns ``losses``, ``step_s`` (each
     step to the card's completion), ``clip_scales`` and ``state`` of the
     steps this call ran, and ``start`` (the resumed step, else 0).
-    ``on_step(i, state, metrics)`` runs after each step."""
+    ``on_step(i, state, metrics)`` runs after each step.  ``mesh``: a Dx1
+    mesh (data parallel)."""
     dev = resolve_device(args.device)
     data = SyntheticLM(SyntheticLMConfig(
         vocab_size=cfg.vocab_size, seq_len=args.seq, global_batch=args.batch, seed=args.seed,
@@ -87,7 +97,7 @@ def run(cfg: ModelConfig, args: argparse.Namespace,
                  if args.symog else None)
     compute_dtype = torch.float32 if args.reduced else torch.bfloat16
     step_fn = make_train_step(cfg, tx, lr_sched, symog_cfg=symog_cfg, accum_steps=args.accum,
-                              compute_dtype=compute_dtype)
+                              compute_dtype=compute_dtype, mesh=mesh)
 
     state = init_train_state(init_lm(args.seed, cfg, device=dev), tx, symog_cfg)
     ckpt = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
@@ -117,9 +127,10 @@ def run(cfg: ModelConfig, args: argparse.Namespace,
                   + (f" λ {m['symog_lambda']:.1f}" if "symog_lambda" in m else "")
                   + (" [straggler]" if slow else ""), flush=True)
         if ckpt and (i + 1) % args.ckpt_every == 0:
-            ckpt.save(i + 1, state, metadata={"data": data.state_dict()})
+            ckpt.save(i + 1, state, metadata={"data": data.state_dict()}, mesh=mesh)
     if ckpt:
-        ckpt.save(args.steps, state, metadata={"data": data.state_dict()}, blocking=True)
+        ckpt.save(args.steps, state, metadata={"data": data.state_dict()}, blocking=True,
+                  mesh=mesh)
 
     if symog_cfg is not None:
         qm = core.quant_error_metrics(state.params, state.symog, symog_cfg)
@@ -133,10 +144,33 @@ def run(cfg: ModelConfig, args: argparse.Namespace,
 def main(argv=None) -> Dict[str, Any]:
     ap = build_parser()
     args = ap.parse_args(argv)
-    if args.mesh != "1x1":
-        ap.error("--mesh: the port trains on one card; sharded training comes with "
-                 "ROADMAP Queue 1 item 5 (distribution)")
-    return run(get_reduced(args.arch) if args.reduced else get_config(args.arch), args)
+    try:
+        d, m = (int(v) for v in args.mesh.lower().split("x"))
+    except ValueError:
+        ap.error(f"--mesh must be DxM (e.g. 2x1), got {args.mesh!r}")
+    if m != 1:
+        ap.error("--mesh: tensor-parallel training (a model axis > 1) is not ported yet; "
+                 "it is the next piece of ROADMAP Queue 1 item 5 (distribution). "
+                 "Train data-parallel on a Dx1 mesh")
+    rank, world, _, _ = world_from_env()
+    if d * m != world:
+        ap.error(f"--mesh {d}x{m} needs {d * m} devices, have {world}")
+    cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    if world == 1:
+        return run(cfg, args)
+    mesh = make_host_mesh((d, m), device=args.device)
+    # every rank trains; rank 0 alone prints
+    out = contextlib.nullcontext() if rank == 0 else contextlib.redirect_stdout(io.StringIO())
+    with out:
+        res = run(cfg, args, mesh=mesh)
+    import torch.distributed as dist
+
+    every = [None] * world
+    dist.all_gather_object(every, res["losses"])
+    if rank == 0:
+        print(f"ranks' losses equal: {all(e == every[0] for e in every)}")
+    close_distributed()
+    return res
 
 
 if __name__ == "__main__":

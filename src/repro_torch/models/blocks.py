@@ -47,6 +47,7 @@ from repro_torch.models.layers import (
     layernorm_init,
     rmsnorm_apply,
     rmsnorm_init,
+    tp_reduce,
 )
 from repro_torch.models.mlp import MLPConfig, mlp_apply, mlp_init
 from repro_torch.models.moe import MoEConfig, moe_apply, moe_init
@@ -64,6 +65,7 @@ from repro_torch.models.ssd import (
     ssd_init,
     ssd_init_cache,
 )
+from repro_torch.nn.sharding import current_mesh, mesh_axis_size
 
 
 def _attn_cfg(cfg: ModelConfig) -> AttnConfig:
@@ -96,6 +98,20 @@ def _mlp_cfg(cfg: ModelConfig) -> MLPConfig:
     return MLPConfig(
         d_model=cfg.d_model, d_ff=cfg.d_ff, gated=cfg.mlp_gated, act=cfg.act, bias=cfg.attn_bias
     )
+
+
+def _ep_active(cfg: ModelConfig, mesh=None) -> bool:
+    """True when the mesh (default: the thread's current one, ``with
+    mesh:``) carries the config's EP axes at total size > 1 and the expert
+    count divides over them: the condition under which ``moe_impl='ep'``
+    dispatches ``moe_apply_ep``.  Off a mesh MoE layers take the capacity
+    dispatch: the same routing decisions, so the fallback is
+    token-compatible.  The trainer enters no mesh: its MoE layers dispatch."""
+    mesh = current_mesh() if mesh is None else mesh
+    if mesh is None:
+        return False
+    ep = mesh_axis_size(mesh, *cfg.ep_axes)
+    return ep > 1 and cfg.n_experts % ep == 0
 
 
 def _moe_cfg(cfg: ModelConfig) -> MoEConfig:
@@ -205,14 +221,30 @@ def _mla_prefill_cache(c_kv, k_rope, cfg: ModelConfig, cache_len: int):
     return {"c_kv": cache_write(c_kv, dt), "k_rope": cache_write(k_rope, dt)}
 
 
-def _ffn(p, h, cfg: ModelConfig, kind: str, compute_dtype, with_aux: bool = False, **moe_kw):
+def _ffn(p, h, cfg: ModelConfig, kind: str, compute_dtype, with_aux: bool = False,
+         dropless: Optional[bool] = None, **moe_kw):
     """(y, aux): aux is None unless asked for, then the MoE losses (zeros
-    for an MLP block)."""
+    for an MLP block).  An MoE block under ``moe_impl='ep'`` on a mesh
+    routes expert-parallel (``_ep_active``): a full-sequence call with the
+    dispatch's capacity factor as ``capacity_mult``, a decode step
+    (``dropless`` not None) at the EP capacities' bounds when dropless.  In
+    serving every rank holds the whole batch (``dp_axes=()``)."""
     if kind == "E":
-        y, aux = moe_apply(p["moe"], h, cfg=_moe_cfg(cfg), compute_dtype=compute_dtype,
-                           with_aux=with_aux, **moe_kw)
+        if cfg.moe_impl == "ep" and _ep_active(cfg):
+            from repro_torch.models.moe_ep import moe_apply_ep
+
+            if dropless is None:
+                ep_kw = dict(seq_len=moe_kw.get("seq_len"), capacity_mult=cfg.capacity_factor)
+            else:
+                ep_kw = dict(dropless=dropless)
+            y, aux = moe_apply_ep(p["moe"], h, cfg=_moe_cfg(cfg), compute_dtype=compute_dtype,
+                                  ep_axes=tuple(cfg.ep_axes), dp_axes=(), with_aux=with_aux,
+                                  **ep_kw)
+        else:
+            y, aux = moe_apply(p["moe"], h, cfg=_moe_cfg(cfg), compute_dtype=compute_dtype,
+                               with_aux=with_aux, **moe_kw)
         return y, (aux if with_aux else None)
-    y = mlp_apply(p["mlp"], h, cfg=_mlp_cfg(cfg), compute_dtype=compute_dtype)
+    y = tp_reduce(mlp_apply(p["mlp"], h, cfg=_mlp_cfg(cfg), compute_dtype=compute_dtype), "mlp")
     return y, (zero_aux(h.device) if with_aux else None)
 
 
@@ -231,7 +263,9 @@ def _finish_block(p, x, y, cfg: ModelConfig, kind: str, compute_dtype, with_aux:
                   **moe_kw):
     """The block after attention: y (the attention output) through the
     post-attention norm into the residual, then the FFN half.  Returns (x,
-    aux) as ``_ffn``."""
+    aux) as ``_ffn``.  A tensor-parallel attention's ``o_proj`` partials
+    are summed here."""
+    y = tp_reduce(y, "attn")
     if cfg.post_norm:
         y = _norm_apply(cfg, p["post_attn_norm"], y)
     return _ffn_residual(p, x + y, cfg, kind, compute_dtype, with_aux, **moe_kw)
@@ -438,4 +472,5 @@ def block_decode(p, x, cache, pos, *, cfg: ModelConfig, kind: str, window=None,
         B = x.shape[0]
         cap = B if dropless_moe else max(cfg.top_k,
                                          math.ceil(2.0 * B * cfg.top_k / cfg.n_experts))
-    return _finish_block(p, x, y, cfg, kind, compute_dtype, capacity=cap)[0], cache
+    return _finish_block(p, x, y, cfg, kind, compute_dtype, capacity=cap,
+                         **({"dropless": dropless_moe} if kind == "E" else {}))[0], cache

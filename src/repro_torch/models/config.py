@@ -62,6 +62,13 @@ class ModelConfig:
     n_dense_layers: int = 0  # deepseek: leading dense-FFN layers (kind 'D')
     router: str = "softmax"
     capacity_factor: float = 1.25
+    # 'dispatch': the capacity dispatch of models/moe.py on every rank;
+    # 'ep': expert-parallel all-to-all routing (models/moe_ep.py) when a
+    # mesh's ``ep_axes`` multiply past 1 (the dispatch otherwise)
+    moe_impl: str = "dispatch"
+    # mesh axes the expert dim shards over; 2-D ('data', 'model') puts the
+    # fewest experts on a rank
+    ep_axes: tuple = ("model",)
     # mla (deepseek): low-rank q and compressed kv (rank r = kv_lora_rank);
     # the paged pools hold c_kv (r) and k_rope (qk_rope_dim) per token
     use_mla: bool = False
@@ -100,6 +107,8 @@ class ModelConfig:
     # training: recompute each layer's forward in the backward
     # (``torch.utils.checkpoint``)
     remat: bool = True
+    # nn/sharding.py profile the param leaves shard by on a mesh
+    sharding_profile: str = "dp_tp"
 
     @property
     def moe(self) -> bool:

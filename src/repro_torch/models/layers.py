@@ -4,18 +4,79 @@ the JAX package's names).
 
 Initializers draw from an explicit ``torch.Generator`` on the target device;
 ``lead`` prepends stacked-layer dims, so a scan group is drawn in one call.
+
+Tensor parallelism: a serving engine on a mesh whose ``model`` axis has m
+ranks runs the model code unchanged on local shapes (H/m query heads, K/m
+KV heads, d_ff/m, vocab/m) under a ``TPPlan``, set per thread around its
+calls as the dispatch backends are.  The plan says which pieces are
+sharded; the only collectives are ``tp_reduce`` after a row-parallel
+projection (attention's ``o_proj``, the MLP's ``down_proj``), the masked
+vocab-parallel embedding lookup and the all-gather of vocab-parallel
+logits.  A piece whose dimensions do not divide by m stays replicated and
+runs no collective.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
-from typing import Optional, Sequence, Tuple
+import threading
+from typing import Any, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from repro_torch.models.quantized import as_dense, is_packed, packed_dense_apply, packed_take
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class TPPlan:
+    """Which pieces of a decoder run sharded over a mesh's ``model`` axis
+    (``serve.sharding.make_tp_plan`` decides): ``attn`` (q/k/v
+    column-parallel, ``o_proj`` row-parallel, the pool at K/m heads; MLA on
+    H/m heads), ``mlp`` (gate/up column-, down row-parallel), ``embed`` /
+    ``head`` (vocab-parallel table / read-out), ``ep`` (MoE layers expert
+    parallel, ``models.moe_ep``; else an MoE block replicates), ``shared``
+    (under ``ep``, the shared experts' d_ff split over the model axis).  ``group``
+    is the model axis's process group, ``index`` this rank's place on it."""
+
+    mesh: Any
+    group: Any
+    size: int
+    index: int
+    attn: bool = False
+    mlp: bool = False
+    embed: bool = False
+    head: bool = False
+    ep: bool = False
+    shared: bool = False  # under ``ep``: the shared experts' d_ff split over 'model'
+
+
+class _TPLocal(threading.local):
+    plan: Optional[TPPlan] = None
+
+
+_tp = _TPLocal()
+
+
+def set_tp(plan: Optional[TPPlan]) -> Optional[TPPlan]:
+    """Set the thread's tensor-parallel plan (None: one rank holds every
+    piece); returns the previous one, to restore."""
+    prev, _tp.plan = _tp.plan, plan
+    return prev
+
+
+def tp_reduce(y: torch.Tensor, piece: str) -> torch.Tensor:
+    """Sum the row-parallel partials of ``piece`` ('attn' / 'mlp') over the
+    model axis: in fp32, rounded once to y's dtype (summing bf16 partials
+    would round twice and can flip a greedy token)."""
+    plan = _tp.plan
+    if plan is None or not getattr(plan, piece):
+        return y
+    from repro_torch.distributed.collectives import ReduceSum
+
+    return ReduceSum.apply(y.to(torch.float32), plan.group).to(y.dtype)
 
 
 def _normal(gen: torch.Generator, shape, std: float, dtype) -> torch.Tensor:
@@ -101,13 +162,42 @@ def embed_init(gen, vocab: int, dim: int, *, stddev: float = 0.02, dtype=torch.f
     return {"embedding": _normal(gen, (vocab, dim), stddev, dtype)}
 
 
-def embed_apply(p, ids, *, compute_dtype=None):
-    e = p["embedding"]
+def _take(e, ids, compute_dtype):
     if is_packed(e):  # gather packed rows, dequantize only those
         return packed_take(e, ids, dtype=compute_dtype)
     if compute_dtype is not None:
         e = e.to(compute_dtype)
     return e[ids]
+
+
+def embed_apply(p, ids, *, compute_dtype=None):
+    """Row lookup.  Under a plan with ``embed`` the table holds this rank's
+    vocab / m rows: ids outside them read row 0 and are zeroed, and the sum
+    over the model axis (one nonzero term a token: exact) gives every rank
+    the whole lookup."""
+    e = p["embedding"]
+    plan = _tp.plan
+    if plan is None or not plan.embed:
+        return _take(e, ids, compute_dtype)
+    from repro_torch.distributed.collectives import ReduceSum
+
+    rows = e.shape[0]
+    local = ids - plan.index * rows
+    mine = (local >= 0) & (local < rows)
+    x = _take(e, torch.where(mine, local, 0), compute_dtype)
+    x = x * mine[..., None].to(x.dtype)
+    return ReduceSum.apply(x.to(torch.float32), plan.group).to(x.dtype)
+
+
+def gather_vocab(logits: torch.Tensor) -> torch.Tensor:
+    """Vocab-parallel logits (..., vocab / m) -> the whole vocabulary on
+    every rank (the plan's ``head``)."""
+    plan = _tp.plan
+    if plan is None or not plan.head:
+        return logits
+    from repro_torch.distributed.collectives import all_gather
+
+    return all_gather(logits.contiguous(), plan.group, dim=-1)
 
 
 def embed_logits(p, x):

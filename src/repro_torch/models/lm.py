@@ -54,6 +54,7 @@ from repro_torch.models.layers import (
     embed_apply,
     embed_init,
     embed_logits,
+    gather_vocab,
     layernorm_apply,
     layernorm_init,
     rmsnorm_apply,
@@ -227,6 +228,7 @@ def _head(params, cfg: ModelConfig, x):
         logits = embed_logits(params["embed"], h)
     else:
         logits = dense_apply(params["lm_head"], h.to(torch.float32))
+    logits = gather_vocab(logits)  # vocab-parallel: every rank gets the whole row
     if cfg.final_softcap > 0:
         logits = softcap_fn(logits, cfg.final_softcap)
     return logits, h

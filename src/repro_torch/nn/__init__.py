@@ -1,6 +1,6 @@
 """Functional NN toolkit of the port (mirrors ``repro/nn``): nested-dict
-param trees, dtype policies and initializers.  The sharding rules come with
-the distribution slice."""
+param trees, dtype policies and initializers; the sharding rules and the
+mesh are ``nn.sharding``."""
 from repro_torch.nn.dtypes import DEFAULT_POLICY, FP32_POLICY, DTypePolicy
 from repro_torch.nn.initializers import (
     he_normal,

@@ -171,17 +171,46 @@ def capabilities(engine) -> Dict[str, Capability]:
     chunked_prefill — ``prefill_chunk`` would chunk (the same tier);
     speculative     — draft / verify rounds would run (the tier with MLA
                       allowed: the verify has an absorbed MLA form);
-    ep_moe          — the port has no expert parallelism: MoE layers run
-                      on one card."""
+    ep_moe          — MoE layers would route expert-parallel through
+                      ``moe_apply_ep``'s all-to-all: requires
+                      ``moe_impl='ep'``, a pinned mesh whose ``ep_axes``
+                      multiply past 1, and experts divisible by that
+                      product.  Dense engines report the no-experts reason;
+                      eligible engines off a mesh fall back to the capacity
+                      dispatch (the serving output contract either way)."""
     strict = _tier_reasons(engine)
     with_mla = _tier_reasons(engine, allow_mla=True)
+    ep = _ep_moe_reasons(engine)
     full = Capability(not strict, "; ".join(strict))
     return {
         "fully_paged": full,
         "prefix_cache": full,
         "chunked_prefill": full,
         "speculative": Capability(not with_mla, "; ".join(with_mla)),
-        "ep_moe": Capability(False, "no MoE layers" if not engine.cfg.moe
-                             else "the port has no expert parallelism: MoE layers run on one "
-                                  "card"),
+        "ep_moe": Capability(not ep, "; ".join(ep)),
     }
+
+
+def _ep_moe_reasons(engine) -> list:
+    """Why ``engine`` would not decode MoE layers expert-parallel (empty
+    when it would).  Mirrors ``models.blocks._ep_active`` plus the config
+    preconditions, so the report and the dispatch can never disagree."""
+    from repro_torch.nn.sharding import mesh_axis_size
+
+    cfg = engine.cfg
+    r = []
+    if not cfg.moe:
+        r.append("no MoE layers")
+        return r
+    if cfg.moe_impl != "ep":
+        r.append(f"moe_impl '{cfg.moe_impl}' is the capacity dispatch, not the EP all-to-all")
+    mesh = getattr(engine, "mesh", None)
+    if mesh is None:
+        r.append("no mesh pinned on the engine")
+        return r
+    ep = mesh_axis_size(mesh, *cfg.ep_axes)
+    if ep <= 1:
+        r.append(f"ep_axes {tuple(cfg.ep_axes)} multiply to 1 on this mesh")
+    elif cfg.n_experts % ep:
+        r.append(f"{cfg.n_experts} experts do not divide over {ep} EP shards")
+    return r

@@ -30,6 +30,15 @@ around every call on the calling thread (the dispatch backends are
 thread-local, so engines stepping on other threads never see them), as in
 the JAX package.  Caches and
 the KV pool are updated in place (the JAX package donates them).
+
+On a mesh (``mesh=``, or constructed under ``with mesh:``; pinned like the
+backends) every rank runs the same engine and scheduler (SPMD): the host
+bookkeeping (block tables, slot state, ``_scale`` exponents) is the same on
+every rank, each rank holds its shard of the params and of the paged pool,
+and the model code runs on the local config (``serve.sharding``): a
+decoder's attention, MLP, embedding and head split over the ``model`` axis
+where they divide, MoE layers expert-parallel under ``moe_impl='ep'``.  The
+``data`` axis replicates.
 """
 from __future__ import annotations
 
@@ -52,6 +61,7 @@ from repro_torch.models.attention import (
     word_bits,
 )
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import set_tp
 from repro_torch.models.lm import (
     PAGED_CACHE_LEAVES,
     DecoderLM,
@@ -63,6 +73,7 @@ from repro_torch.models.lm import (
     scan_groups,
 )
 from repro_torch.models.quantized import tree_has_packed
+from repro_torch.nn.sharding import current_mesh, make_rules, mesh_axis_size, shard_tree
 from repro_torch.nn.tree import flatten_with_paths, is_packed, tree_bytes, tree_to
 
 
@@ -336,12 +347,27 @@ class ServeEngine:
     max_len: int
     compute_dtype: Any = torch.bfloat16
     device: Any = None  # None: the card (raises without one); "cpu" on request
+    # a nn.sharding.Mesh: None (and a 1-rank mesh) serves exactly as before
+    mesh: Any = None
+    sharding_profile: str = ""  # defaults to cfg.sharding_profile
 
     def __post_init__(self):
         kv = self.cfg.kv_cache_dtype
         if kv not in ("bf16", "int8_fp", "int4_fp"):
             raise ValueError(f"kv_cache_dtype must be bf16, int8_fp or int4_fp, got {kv!r}")
         self.device = resolve_device(self.device)
+        if self.mesh is None:
+            self.mesh = current_mesh()  # constructing under `with mesh:` pins it
+        self.global_cfg = self.cfg
+        self.rules = self.tp = None
+        if self.mesh is not None:
+            from repro_torch.serve.sharding import local_config, make_tp_plan, serve_spec_fn
+
+            self.rules = make_rules(self.mesh, self.sharding_profile or self.cfg.sharding_profile)
+            self.tp = make_tp_plan(self.cfg, self.params, self.mesh, self.rules)
+            self.params = shard_tree(self.rules, self.mesh, self.params,
+                                     serve_spec_fn(self.cfg, self.tp))
+            self.cfg = local_config(self.cfg, self.tp)
         self.model = DecoderLM(self.cfg, tree_to(self.params, self.device))
         self.params = self.model.params
         self.packed = tree_has_packed(self.params)
@@ -353,24 +379,38 @@ class ServeEngine:
 
     @classmethod
     def from_symog(cls, cfg: ModelConfig, params, symog_state, symog_cfg, *, max_len: int,
-                   compute_dtype=torch.bfloat16, device=None) -> "ServeEngine":
+                   compute_dtype=torch.bfloat16, device=None, mesh=None,
+                   sharding_profile: str = "") -> "ServeEngine":
         """Pack a SYMOG-trained float tree and serve the Packed artifact."""
         from repro_torch.core.symog import pack_tree
 
         dev = resolve_device(device)
         tree = pack_tree(tree_to(params, dev), symog_state, symog_cfg)
-        return cls(cfg, tree, max_len=max_len, compute_dtype=compute_dtype, device=dev)
+        return cls(cfg, tree, max_len=max_len, compute_dtype=compute_dtype, device=dev,
+                   mesh=mesh, sharding_profile=sharding_profile)
 
     def _with_backend(self, fn, *args, **kw):
         prev_p, prev_a = dispatch.get_packed_backend(), dispatch.get_attention_backend()
         dispatch.set_packed_backend(self.backend)
         dispatch.set_attention_backend(self.attn_backend)
+        prev_tp = set_tp(self.tp)
         try:
             with torch.no_grad():
-                return fn(*args, **kw)
+                if self.mesh is None:
+                    return fn(*args, **kw)
+                # the mesh is part of the pinned environment: MoE layers
+                # read it to route expert-parallel
+                with self.mesh:
+                    return fn(*args, **kw)
         finally:
+            set_tp(prev_tp)
             dispatch.set_packed_backend(prev_p)
             dispatch.set_attention_backend(prev_a)
+
+    def model_shards(self) -> int:
+        """Size of the mesh's ``model`` axis (1 off a mesh): the tensor / KV
+        head / expert parallel degree the pool's byte count is over."""
+        return mesh_axis_size(self.mesh, "model")
 
     @property
     def kv_quant_bits(self) -> int:

@@ -238,8 +238,9 @@ class SpeculativeScheduler(Scheduler):
 
         draft = spec.draft
         if not isinstance(draft, ServeEngine):
-            draft = ServeEngine(engine.cfg, draft, max_len=engine.max_len,
-                                compute_dtype=engine.compute_dtype, device=engine.device)
+            draft = ServeEngine(engine.global_cfg, draft, max_len=engine.max_len,
+                                compute_dtype=engine.compute_dtype, device=engine.device,
+                                mesh=engine.mesh, sharding_profile=engine.sharding_profile)
         if draft.cfg != engine.cfg:
             raise ValueError("draft must share the target's architecture (cache shapes mirror)")
         if draft.max_len != engine.max_len:

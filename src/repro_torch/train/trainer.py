@@ -37,8 +37,16 @@ route the state passed to the step is consumed: its tensors are updated.
 An MoE expert stack's per-expert f goes to the kernel as a Δ per (layer,
 expert) group.  The CNN half (``make_cnn_train_step``, ``make_cnn_eval``)
 trains the paper's CNNs through the same update; BN's running stats ride
-along in the state.  The sharding hooks (``mb_constraint``, ``act_pspec``)
-are not ported yet (ROADMAP Queue 1 item 5).
+along in the state.
+
+Data parallelism (``make_train_step(..., mesh=)``, a mesh whose ``model``
+axis is 1): every rank runs the same program on its share of the global
+batch (rows split over the (pod, data) axes), the gradients are
+mean-all-reduced in fp32 over the data group before the update, the clip's
+global norm is taken once from the reduced gradients, and the update then
+runs the same on every rank: the parameters stay replicated.  MoE layers
+take the capacity dispatch there (the trainer enters no mesh).  A ``model``
+axis > 1 is tensor-parallel training, not ported yet.
 """
 from __future__ import annotations
 
@@ -234,6 +242,43 @@ def _on_device(batch, params):
     return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
 
 
+_DATA_AXES = ("pod", "data")
+
+
+def _data_parallel(mesh):
+    """(group, ranks, this rank's index) of the mesh's data axes; refuses a
+    model axis > 1."""
+    from repro_torch.nn.sharding import mesh_axis_size
+
+    if mesh is None:
+        return None, 1, 0
+    if mesh_axis_size(mesh, "model") > 1:
+        raise NotImplementedError(
+            "tensor-parallel training (a mesh whose model axis is > 1) is not ported yet: "
+            "ROADMAP Queue 1 item 5 (distribution); train on a Dx1 mesh")
+    return mesh.group(_DATA_AXES), mesh_axis_size(mesh, *_DATA_AXES), mesh.axis_index(_DATA_AXES)
+
+
+def _my_rows(batch, n: int, i: int):
+    """Rank i's rows of every batch entry (split along B into n shares)."""
+    if n == 1:
+        return batch
+    B = next(iter(batch.values())).shape[0]
+    if B % n:
+        raise ValueError(f"batch {B} does not split over {n} data ranks")
+    b = B // n
+    return {k: v[i * b:(i + 1) * b] for k, v in batch.items()}
+
+
+def _mean_over(tree, group, n: int):
+    """Mean of every leaf over the data ranks, summed in fp32."""
+    from repro_torch.distributed.collectives import all_reduce
+
+    if n == 1:
+        return tree
+    return tree_map(lambda g: all_reduce(g.to(torch.float32), group) / n, tree)
+
+
 def make_train_step(
     cfg: ModelConfig,
     tx: GradientTransformation,
@@ -243,7 +288,10 @@ def make_train_step(
     accum_steps: int = 1,
     compute_dtype=torch.bfloat16,
     loss_fn: Optional[Callable] = None,
+    mb_constraint: Optional[Callable] = None,
+    act_pspec=None,
     cast_params: bool = False,
+    mesh=None,
 ) -> Callable[[TrainState, Dict[str, Any]], Tuple[TrainState, Dict[str, Any]]]:
     """``train_step(state, batch) -> (state, metrics)``; batch values
     (``tokens``, and ``frames`` / ``patches`` for whisper / paligemma) may be
@@ -253,7 +301,18 @@ def make_train_step(
     ``symog_lambda`` (floats); with ``chain(clip_by_global_norm(c), ...)``
     also ``clip_scale`` (0-d, the port's own: the scale the clip applied to
     g + λ·∂R/∂w).  The update backend is pinned here
-    (``dispatch.get_update_backend``)."""
+    (``dispatch.get_update_backend``).
+
+    ``mesh`` (a Dx1 ``nn.sharding.Mesh``): data-parallel, as the module
+    docstring says; the step takes the GLOBAL batch (the same on every
+    rank) and trains on this rank's rows of it, and ``loss`` and the other
+    loss metrics are means over the ranks.  ``mb_constraint`` and
+    ``act_pspec`` are JAX's signature (``act_pspec`` from
+    ``ShardingRules.act_pspec``): they pin GSPMD layouts, which the port's
+    explicit per-rank layout does not have, so they are accepted and not
+    read."""
+    del mb_constraint, act_pspec
+    group, n_data, my = _data_parallel(mesh)
     update = _make_update(tx, lr_schedule, symog_cfg)
     if loss_fn is None:
         def loss_fn(params, batch):  # noqa: F811 — default LM loss
@@ -270,9 +329,10 @@ def make_train_step(
             return base_loss_fn(cparams, batch)
 
     def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, Any]]:
-        batch = _on_device(batch, state.params)
+        batch = _my_rows(_on_device(batch, state.params), n_data, my)
         _, metrics, grads = _accum_grads(loss_fn, state.params, batch, accum_steps)
-        metrics = dict(metrics)
+        grads = _mean_over(grads, group, n_data)
+        metrics = dict(_mean_over(metrics, group, n_data))
         metrics["grad_norm"] = global_norm(grads)
         params, opt_state, lr, lam, stats = update(state.params, grads, state.opt_state,
                                                    state.symog, state.step)

@@ -1868,3 +1868,91 @@ def test_ssd_scan_overflowing_exponents_on_card(dev):
         atol = 1e-5 * max(1.0, float(c.abs().max()))
         torch.testing.assert_close(g.cpu(), c, rtol=1e-4, atol=atol,
                                    msg=lambda m, n=name: f"{n}: {m}")
+
+
+# ---------------------------------------------------------------------------
+# the kernels on a tensor- / expert-parallel rank's local shards (the shapes
+# a (1, 2) mesh gives them; chip_smoke.py phase 18 runs them under the ranks)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("n_bits", [2, 4])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("part", ["column", "row"])
+def test_fixedpoint_matmul_on_tensor_parallel_shards(dev, part, dtype, n_bits):
+    """internlm2's gate_proj (column: whole words of N/2 columns) and
+    down_proj (row: K/2 rows) cut for model rank r of 2: each shard's
+    launch equals the plain version on it; the row shards' fp32 partials
+    sum to the whole product."""
+    dt = getattr(torch, dtype)
+    K, N, M, m = (2048, 8192, 4, 2) if part == "column" else (8192, 2048, 4, 2)
+    rng = np.random.default_rng(K + n_bits)
+    w = torch.from_numpy((rng.standard_normal((K, N)) * K**-0.5).astype(np.float32)).to(dev)
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)).to(dev, dt)
+    f = torch.tensor(4, dtype=torch.int32, device=dev)
+    pw = pack_weight(w, f, n_bits)
+    per = 8 // n_bits
+    tol = dict(rtol=1e-5, atol=1e-5) if dt == torch.float32 else dict(rtol=1e-2, atol=1e-2)
+    parts = []
+    for r in range(m):
+        if part == "column":
+            words, xs, n = pw[:, r * N // per // m:(r + 1) * N // per // m], x, N // m
+        else:
+            words, xs, n = pw[r * K // m:(r + 1) * K // m], x[:, r * K // m:(r + 1) * K // m], N
+        words = words.contiguous()
+        before = _counts()
+        got = fixedpoint_matmul(xs.contiguous(), words, f, n_bits=n_bits, n_out=n)
+        torch.cuda.synchronize()
+        assert _launched(before, fops._pick_route(dt, M, True))
+        want = fixedpoint_matmul_ref(xs, words, f, n_bits=n_bits, n_out=n).to(dt)
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+        parts.append(got.float())
+    whole = fixedpoint_matmul_ref(x, pw, f, n_bits=n_bits, n_out=N).float()
+    got = torch.cat(parts, dim=-1) if part == "column" else parts[0] + parts[1]
+    torch.testing.assert_close(got, whole, **(tol if dt == torch.float32 else
+                                              dict(rtol=2e-2, atol=2e-2)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fixedpoint_matmul_experts_on_local_expert_shards(dev, dtype):
+    """olmoe's 64-expert gate stack cut to a rank's 32 (words and one f
+    each, as a (1, 2) mesh's expert parallelism gives them): the launch on
+    the local stack equals the plain version and the whole stack's rows."""
+    dt = getattr(torch, dtype)
+    x, words, f = _experts_case(dev, 64, 4, 2048, 1024, 2, dt, seed=27)
+    whole = fixedpoint_matmul_experts_ref(x, words, f, n_bits=2, n_out=1024).to(dt)
+    tol = dict(rtol=1e-5, atol=1e-5) if dt == torch.float32 else dict(rtol=1e-2, atol=1e-2)
+    for r in range(2):
+        sl = slice(32 * r, 32 * (r + 1))
+        before = _counts()
+        got = fixedpoint_matmul_experts(x[sl].contiguous(), words[sl].contiguous(),
+                                        f[sl].contiguous(), n_bits=2, n_out=1024)
+        torch.cuda.synchronize()
+        assert _launched(before, fops._pick_route(dt, 4, True), experts=True)
+        torch.testing.assert_close(got.float(), whole[sl].float(), **tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_attention_on_local_kv_heads(dev, dtype):
+    """internlm2's decode shape (K 8, G 2, hd 128) and its K/2 heads on a
+    rank of 2: the launch over the local pool slice equals the plain
+    version and the whole launch's heads."""
+    qdt = getattr(torch, dtype)
+    B, T, K, G, hd, block, mb = 4, 1, 8, 2, 128, 16, 20
+    rng = np.random.default_rng(8)
+    n_blocks = B * mb + 1
+    bt = torch.from_numpy((rng.permutation(n_blocks - 1)[: B * mb] + 1).reshape(B, mb)
+                          .astype(np.int32)).to(dev)
+    pos0 = torch.from_numpy(rng.integers(0, mb * block, size=B).astype(np.int32)).to(dev)
+    q = torch.from_numpy(rng.standard_normal((B, T, K, G, hd)).astype(np.float32)).to(dev, qdt)
+    kp, vp = (torch.from_numpy(rng.standard_normal((n_blocks, block, K, hd)).astype(np.float32))
+              .to(dev, qdt) for _ in range(2))
+    kw = dict(scale=hd**-0.5, cap=0.0, window=None, kv_scale=1.0)
+    whole = paged_attention_ref(q, kp, vp, bt, pos0, **kw)
+    tol = dict(rtol=2e-4, atol=2e-5) if qdt == torch.float32 else dict(rtol=1e-2, atol=1e-2)
+    for r in range(2):
+        hs = slice(K // 2 * r, K // 2 * (r + 1))
+        before = aops.launches
+        got = paged_attention(q[:, :, hs].contiguous(), kp[:, :, hs].contiguous(),
+                              vp[:, :, hs].contiguous(), bt, pos0, **kw)
+        torch.cuda.synchronize()
+        assert aops.launches == before + 1
+        torch.testing.assert_close(got.float(), whole[:, :, hs].float(), **tol)

@@ -13,8 +13,10 @@ against ``python -m repro.launch.serve``), reduced internlm2 on the CPU.
     reduced whisper and paligemma, whose requests carry frames / patches
     (the port draws them from its own generator: the metrics do not read
     them);
-  - ``--mesh`` and ``--moe-impl`` are refused with the ROADMAP item that
-    brings them."""
+  - ``--mesh 1x1`` in one process serves exactly as no mesh; a mesh
+    larger than the world exits 2 with JAX's device-count message;
+    ``--moe-impl ep`` off a mesh takes the capacity dispatch and says why
+    (the sharded runs are tests/test_torch_sharded_serve.py's)."""
 import json
 import os
 import sys
@@ -149,12 +151,34 @@ def test_main_metrics_equal_jax_encdec_vlm(arch, tmp_path, monkeypatch, capsys):
     assert "packed vs quantized token agreement: 100.00%" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("argv,needle", [
-    (["--mesh", "1x1"], "Queue 1 item 5"),
-    (["--moe-impl", "ep"], "Queue 1 item 5"),
-])
-def test_refused_flags_name_the_roadmap_item(argv, needle, capsys):
-    base = ["--arch", "internlm2-1.8b", "--reduced", "--device", "cpu"]
+def test_mesh_1x1_serves_as_no_mesh(tmp_path, capsys):
+    base = ["--arch", "internlm2-1.8b"] + ARGV[2:] + ["--device", "cpu"]
+    tlaunch.main(base + ["--metrics-json", str(tmp_path / "plain.json")])
+    plain = capsys.readouterr().out
+    tlaunch.main(base + ["--mesh", "1x1", "--metrics-json", str(tmp_path / "mesh.json")])
+    out = capsys.readouterr().out
+    assert "mesh: 1 data x 1 model" in out and "1 model shards" in out
+    assert "ranks' token streams equal: True" in out
+    for suffix in ("", ".packed"):
+        assert (_metrics(str(tmp_path / f"mesh{suffix}.json"))
+                == _metrics(str(tmp_path / f"plain{suffix}.json")))
+    for tag in ("continuous (float)", "continuous (packed 2-bit)", "token agreement"):
+        assert [ln.split(" in ")[0] for ln in out.splitlines() if ln.startswith(tag)] == [
+            ln.split(" in ")[0] for ln in plain.splitlines() if ln.startswith(tag)]
+
+
+def test_mesh_larger_than_the_world_exits_with_jax_message(capsys):
     with pytest.raises(SystemExit) as e:
-        tlaunch.main(base + argv)
-    assert e.value.code == 2 and needle in capsys.readouterr().err
+        tlaunch.main(["--arch", "internlm2-1.8b", "--reduced", "--device", "cpu",
+                      "--mesh", "2x4"])
+    assert e.value.code == 2
+    assert "--mesh 2x4 needs 8 devices, have 1" in capsys.readouterr().err
+
+
+def test_moe_impl_ep_off_a_mesh_falls_back_to_dispatch(capsys):
+    tlaunch.main(["--arch", "olmoe-1b-7b", "--reduced", "--device", "cpu", "--moe-impl", "ep",
+                  "--continuous", "--requests", "3", "--slots", "2", "--prompt-len", "5",
+                  "--steps", "3"])
+    out = capsys.readouterr().out
+    assert "ep_moe: off (no mesh pinned on the engine)" in out
+    assert "continuous (float): 3 requests" in out
