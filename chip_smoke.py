@@ -115,13 +115,14 @@ Phases, one JSON line each:
      reduced   the card's fused route against the CPU's composed one, every
                loss term and param (``phase_train_reduced``, which 16b
                runs on four more archs);
-  8. olmoe   — olmoe-1b-7b at full width and all 16 layers, 2-bit packed
+  8. olmoe   — olmoe-1b-7b at full width and 8 of its 16 layers
+               (``SERVE_LAYERS``), 2-bit packed
                with one Δ per expert (``symog_init`` timed), served as in
                phase 5 (same traffic and checks) from an int4 SYMOG KV pool;
                the same requests again must give identical tokens; a bf16
                pool's greedy agreement is printed; then its decode profile;
-  9. deepseek — deepseek-v3 at full width, 7 layers (its 3 dense layers and
-               4 MoE layers of 256 experts top-8 + a shared expert, vocab
+  9. deepseek — deepseek-v3 at full width, 5 layers (its 3 dense layers and
+               2 MoE layers of 256 experts top-8 + a shared expert, vocab
                129,280), 2-bit packed with one Δ per (layer, expert), built
                one layer at a time (``build_layerwise``: the fp32 tree of
                198.5 GB never exists), served as in phase 8 from an int4 MLA
@@ -205,9 +206,9 @@ Phases, one JSON line each:
                unit + the RR tail), mamba2 4 layers, the engine's own
                admission step, logits within PARITY_ATOL, argmax 1.0,
                launches as the layers give them; (d) full-width 2-bit
-               bf16 serves of mamba2-2.7b (16 of its 64 layers) and
+               bf16 serves of mamba2-2.7b (4 of its 64 layers) and
                recurrentgemma-2b
-               (14 of 26 layers, bf16 pool and again under int8_fp) on phase 5's
+               (8 of 26 layers, bf16 pool and again under int8_fp) on phase 5's
                traffic: launches by route (6 packed matmuls an SSD or
                RG-LRU layer, 7 a local-attention layer, a call; gqa_decode
                8 a decode step for recurrentgemma, none for mamba2),
@@ -232,7 +233,7 @@ Phases, one JSON line each:
                patches in the batch), then teacher-forced paged decode
                steps: logits within PARITY_ATOL, argmax 1.0, launches as
                the layers give them; (d) full-width 2-bit bf16 serves of
-               whisper-large-v3 (8 + 8 of its 32 + 32 layers) and
+               whisper-large-v3 (4 + 4 of its 32 + 32 layers) and
                paligemma-3b (18
                layers) on phase 5's traffic (max_len 512, + 256 for
                paligemma), each request with its own seeded frames /
@@ -244,10 +245,10 @@ Phases, one JSON line each:
                tied head's dequantize, a profiled decode window; (e)
                reduced whisper and paligemma served greedy on the card and
                on the CPU under a preempting pool: token-identical;
- 16. train   — (a) SYMOG training of mamba2-2.7b (16 of its 64 layers),
-     other     recurrentgemma-2b (26), whisper-large-v3 (8 + 8 of 32 +
+ 16. train   — (a) SYMOG training of mamba2-2.7b (8 of its 64 layers),
+     other     recurrentgemma-2b (14 of 26), whisper-large-v3 (4 + 4 of 32 +
      families  32) and paligemma-3b (18) at every published width (the
-               two depth cuts, ``FAMILY_TRAIN_LAYERS``, keep the script
+               three depth cuts, ``FAMILY_TRAIN_LAYERS``, keep the script
                inside its time limit; a depth is also cut where the
                printed reckoning of peak bytes passes the card's 80 GB):
                fp32 masters, bf16 compute through a bf16 copy
@@ -326,13 +327,39 @@ Phases, one JSON line each:
                gradients within JAX's bounds.  The ranks load the kernels
                this process built; each group of ranks is joined within
                DIST_TIMEOUT and killed past it.
+ 19. TP and  — tensor-parallel and FSDP SYMOG training, two ranks on the
+     FSDP      card over gloo: (a) the training launcher under
+     training  ``torch.distributed.run`` at ``--mesh 1x2``, internlm2-1.8b
+               at full width and depth, bf16, the clipped chain, 2 steps of
+               8 x 128: exit 0, the ranks' losses equal, losses and grad
+               norms finite; every rank's step ms and peak bytes (beside
+               the reckoned state) and the collectives a step printed;
+               (b)–(d) spawned ranks, fp32, the launcher's optimizer, one
+               step of 8 x 128 from the seeded init, rank 0 taking the
+               1-rank step first: (b) internlm2 at ``TPT_LAYERS`` of 24,
+               ``dp_tp`` at (1, 2), fused and composed; (c) olmoe at
+               ``EPT_LAYERS`` of 16, ``moe_impl='ep'``, capacity factor 8
+               (neither route drops), 32 local experts and their f; (d)
+               gemma2-27b at ``FSDP_LAYERS`` of 46, ``fsdp_tp`` at (2, 1)
+               (the ``embed`` dims split over 'data').  Gates: every leaf
+               gathered to rank 0 within TRAIN_RTOL (of its max) of the
+               1-rank step, loss and clip scale equal on both ranks, loss
+               and grad norm within TRAIN_RTOL of 1 rank, ``symog_update``
+               and ``symog_sqnorm`` launched once a quantizable leaf (fused;
+               none composed), and on each rank's shard of one leaf (an
+               expert slice, a Δ per (layer, expert), in (c)) with the
+               whole leaf's λ_eff: the update bit-identical to its plain
+               version and the norm pass within SQNORM_RTOL of its plain
+               version, each the same bits on two calls; their times
+               beside the byte bounds, the step's ms, peak bytes, and the
+               gloo share of the step (collectives timed) printed.
 Each serving and training path zeroes every kernel's launch count just
 before it runs and reads them just after.
 Then each phase's seconds and the total, the ``kernels`` summary line (the
 seven kernels, the tensor-core and decode routes of both matmul forms,
 MLA's tensor-core route for float and quantized pools, and the clipped
-SYMOG update's two forms), the
-nvidia-smi line, and the last line
+SYMOG update's two forms; each kernel's launches a rank in phases 18
+and 19), the nvidia-smi line, and the last line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before it.
 The script imports no jax and nothing of the JAX package.
 """
@@ -372,13 +399,14 @@ SPEC_K = 4  # draft tokens a speculative round (phase 11c)
 # depth cuts of earlier host-bound paths, so that the script stays inside its
 # time limit: full width, the kernels' shapes unchanged, launches as
 # the layers give them; an encoder-decoder's encoder cut with its decoder
-SERVE_LAYERS = {"internlm2-1.8b": 8, "gemma3-4b": 12, "mamba2-2.7b": 8,
-                "recurrentgemma-2b": 8, "whisper-large-v3": 4}
+SERVE_LAYERS = {"internlm2-1.8b": 8, "gemma3-4b": 12, "mamba2-2.7b": 4,
+                "recurrentgemma-2b": 8, "whisper-large-v3": 4, "olmoe-1b-7b": 8}
 # not below 12 / 8: shallower random-weight gemma3 / internlm2 sample their
 # greedy streams at temperature 0.7, top-k 50 (phases 10 and 11c gate on a
 # difference)
 SPEC_LAYERS = 8  # internlm2's 24 in phase 11c
-FAMILY_TRAIN_LAYERS = {"mamba2-2.7b": 16, "whisper-large-v3": 8}  # phase 16a
+FAMILY_TRAIN_LAYERS = {"mamba2-2.7b": 8, "recurrentgemma-2b": 14,  # phase 16a
+                       "whisper-large-v3": 4}
 # the JAX package's serve metrics (src/repro/serve/scheduler.py:401-473):
 # phase 13's launcher JSON must hold every one of them
 SERVE_METRICS = tuple("serve_" + k for k in (
@@ -3016,7 +3044,7 @@ def phase_cnn_vgg7(torch, dev, batch: int = 128):
 
 
 # ---------------------------------------------------------------------------
-# phase 8: olmoe-1b-7b at full width and depth, 2-bit packed with one Δ per
+# phase 8: olmoe-1b-7b at full width (8 of its 16 layers), 2-bit packed with one Δ per
 # expert, served from an int4 SYMOG KV pool
 # ---------------------------------------------------------------------------
 def phase_serve_olmoe(torch, dev):
@@ -3032,7 +3060,8 @@ def phase_serve_olmoe(torch, dev):
                 "paged_attention_quant": cfg.n_layers * st["decode_steps"],
                 **dict.fromkeys(MLA_COUNTS, 0), "symog_update": 0}
 
-    row, eng, reqs, sc, tokens = phase_serve(torch, dev, "olmoe-1b-7b", "int4_fp", 17, expected)
+    row, eng, reqs, sc, tokens = phase_serve(torch, dev, "olmoe-1b-7b", "int4_fp", 17, expected,
+                                             layers=SERVE_LAYERS["olmoe-1b-7b"])
     cfg = eng.cfg
     f_gate = eng.params["layers0"]["sub0"]["moe"]["experts"]["gate_proj"]["kernel"].f
     per_expert = tuple(f_gate.shape) == (cfg.n_layers, cfg.n_experts)
@@ -3289,11 +3318,11 @@ def phase_attn_mla(torch, dev):
 
 
 # ---------------------------------------------------------------------------
-# phase 9: deepseek-v3 at full width, 7 layers (3 dense + 4 MoE), 2-bit
+# phase 9: deepseek-v3 at full width, 5 layers (3 dense + 2 MoE), 2-bit
 # packed with one Δ per (layer, expert), served from an int4 MLA pool
 # ---------------------------------------------------------------------------
 DEEPSEEK = "deepseek-v3-671b"
-DEEPSEEK_LAYERS = 7  # the 3 leading dense layers and 4 MoE layers: one card's worth
+DEEPSEEK_LAYERS = 5  # the 3 leading dense layers and 2 MoE layers (a depth cut)
 
 
 def build_layerwise(torch, dev, cfg, seed: int):
@@ -4624,7 +4653,7 @@ def _layer_decode_ms(torch, dev, eng, kind: str):
 def phase_serve_recurrent(torch, dev, fp_sums):
     """Phase 5's traffic (4 slots, block 16, max_len 512, 8 requests of
     24..400 prompt tokens, 32 new tokens each) through full-width, 2-bit,
-    bf16 mamba2-2.7b (8 of its 64 SSD layers) and recurrentgemma-2b (8 of
+    bf16 mamba2-2.7b (4 of its 64 SSD layers) and recurrentgemma-2b (8 of
     its 26 layers: 2 RRL units + an RR tail; ``SERVE_LAYERS``), the latter
     from a bf16 pool and again,
     same artifact, under ``int8_fp`` (KV_F int8 attention pools).  Gates:
@@ -5941,15 +5970,15 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _spawn_ranks(world: int, ref, tmp):
-    """Run ``_dist_rank`` on ``world`` spawned processes; every one is
-    joined within DIST_TIMEOUT and killed past it."""
+def _spawn_ranks(world: int, ref, tmp, target=None, phase: str = "18"):
+    """Run ``target`` (default ``_dist_rank``) on ``world`` spawned
+    processes; every one is joined within DIST_TIMEOUT and killed past it."""
     import torch.multiprocessing as mp
 
     ctx = mp.get_context("spawn")
     port = _free_port()
     paths = [os.path.join(tmp, f"rank{r}.json") for r in range(world)]
-    procs = [ctx.Process(target=_dist_rank, args=(r, world, port, ref, paths[r]))
+    procs = [ctx.Process(target=target or _dist_rank, args=(r, world, port, ref, paths[r]))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -5967,7 +5996,7 @@ def _spawn_ranks(world: int, ref, tmp):
         elif p.exitcode != 0 or not os.path.exists(path):
             errs.append(f"rank {r}: exit code {p.exitcode}")
     if alive or errs:
-        raise Failed(f"phase 18 ranks failed ({len(alive)} killed at {DIST_TIMEOUT} s):\n"
+        raise Failed(f"phase {phase} ranks failed ({len(alive)} killed at {DIST_TIMEOUT} s):\n"
                      + "\n".join(errs))
     return [json.load(open(path)) for path in paths]
 
@@ -6160,6 +6189,337 @@ def phase_dist(torch, dev):
     return row
 
 
+# ---------------------------------------------------------------------------
+# phase 19: tensor-parallel and FSDP SYMOG training, two ranks on the one card
+# ---------------------------------------------------------------------------
+# depth cuts of phase 19's spawned paths (full width; 19a's launcher runs
+# internlm2 at full depth)
+TPT_LAYERS, EPT_LAYERS, FSDP_LAYERS = 2, 2, 1
+TPT_SEED, EPT_SEED, FSDP_SEED = 191, 193, 194
+TRAIN_RTOL = 1e-5  # a sharded step vs the 1-rank step: every leaf's max |diff| / max |value|
+LAUNCH19_ARGS = ["--arch", "internlm2-1.8b", "--steps", "2", "--batch", "8", "--seq", "128",
+                 "--symog", "--log-every", "1", "--mesh", "1x2"]
+UPDATE_BYTES, SQNORM_BYTES = 20, 8  # a fused update / norm pass, per element (fp32)
+
+
+def _tpt_cfg():
+    from repro_torch import configs
+
+    return dataclasses.replace(configs.get_config("internlm2-1.8b"), n_layers=TPT_LAYERS)
+
+
+def _ept_cfg():
+    """olmoe at EPT_LAYERS, ``moe_impl='ep'``, capacity factor 8: neither the
+    1-rank capacity dispatch nor the EP buffers drop an assignment."""
+    from repro_torch import configs
+
+    return dataclasses.replace(configs.get_config("olmoe-1b-7b"), n_layers=EPT_LAYERS,
+                               moe_impl="ep", capacity_factor=8.0)
+
+
+def _fsdp_cfg():
+    from repro_torch import configs
+
+    return dataclasses.replace(configs.get_config("gemma2-27b"), n_layers=FSDP_LAYERS)
+
+
+def _train_bytes(cfg, split: int):
+    """(whole-state bytes, this rank's state bytes): fp32 params + momentum,
+    every leaf of rank >= 2 cut ``split`` ways (the reckoning, before the run)."""
+    from repro_torch.train.sharding import param_shapes
+
+    shapes = param_shapes(cfg).values()
+    whole = sum(math.prod(s) for s in shapes)
+    local = sum(math.prod(s) // (split if len(s) >= 2 else 1) for s in shapes)
+    return 8 * whole, 8 * local
+
+
+def _shard_kernels(torch, dev, state, layout, path, scfg, seed):
+    """This rank's shard of ``path`` after the step: ``symog_update`` and
+    ``symog_sqnorm`` with the whole leaf's λ_eff, two calls each, against
+    their plain versions, and their times beside the byte bounds."""
+    from repro_torch.core import lambda_at
+    from repro_torch.core.quantizer import delta_from_f
+    from repro_torch.kernels.symog_update import ops as sops
+    from repro_torch.kernels.symog_update.ref import symog_sqnorm_ref, symog_update_ref
+    from repro_torch.nn.tree import flatten_with_paths
+
+    w = dict(flatten_with_paths(state.params))[path].detach().clone().contiguous()
+    f = dict(flatten_with_paths(state.symog.f))[path]
+    gen = torch.Generator(device=dev).manual_seed(seed + 7)
+    g = torch.randn(w.shape, generator=gen, device=dev) * 1e-4
+    v = torch.randn(w.shape, generator=gen, device=dev) * 1e-4
+    lam_eff = lambda_at(scfg, scfg.total_steps) * 2.0 / layout.numel(path)
+    kw = dict(delta=delta_from_f(f, device=dev), lam_eff=lam_eff, n_bits=scfg.n_bits)
+    ukw = dict(kw, lr=0.01, mu=0.9)
+    want_w, want_v = symog_update_ref(w, g, v, **ukw)
+    before = (sops.launches, sops.sqnorm_launches)
+    outs, sqs = [], []
+    for _ in range(2):
+        w2, v2 = w.clone(), v.clone()
+        sqs.append(sops.symog_sqnorm(w2, g, **kw))
+        sops.symog_update(w2, g, v2, **ukw)
+        outs.append((w2, v2))
+    torch.cuda.synchronize()
+    launched = (sops.launches - before[0], sops.sqnorm_launches - before[1])
+    sq_plain = float(symog_sqnorm_ref(w, g, **kw))
+    n = w.numel()
+    w2, v2 = w.clone(), v.clone()  # updated in place call after call
+    up_ms = events_ms(lambda: sops.symog_update(w2, g, v2, **ukw), 5, torch)
+    up_plain_ms = events_ms(lambda: symog_update_ref(w, g, v, **ukw), 3, torch)
+    sq_ms = events_ms(lambda: sops.symog_sqnorm(w, g, **kw), 5, torch)
+    sq_plain_ms = events_ms(lambda: symog_sqnorm_ref(w, g, **kw), 3, torch)
+    up_bound, up_by = bound(UPDATE_BYTES * n, SYMOG_FLOPS * n, "float32")
+    sq_bound, sq_by = bound(SQNORM_BYTES * n, SQNORM_FLOPS * n, "float32")
+    groups = int(kw["delta"].numel())
+    out = {"leaf": path, "shard_shape": list(w.shape), "whole_numel": layout.numel(path),
+           "groups": groups, "lam_eff": lam_eff,
+           "update": {"bit_identical_both_calls": all(torch.equal(a, want_w)
+                                                      and torch.equal(b, want_v)
+                                                      for a, b in outs),
+                      "max_abs_err": max(float((outs[0][0] - want_w).abs().max()),
+                                         float((outs[0][1] - want_v).abs().max())),
+                      "ms": up_ms, "plain_ms": up_plain_ms, "bound_ms": up_bound,
+                      "bound_by": up_by},
+           "sqnorm": {"bit_identical_both_calls": bool(torch.equal(sqs[0], sqs[1])),
+                      "rel_err_vs_plain": abs(float(sqs[0]) - sq_plain) / sq_plain,
+                      "max_abs_err": abs(float(sqs[0]) - sq_plain),
+                      "ms": sq_ms, "plain_ms": sq_plain_ms, "bound_ms": sq_bound,
+                      "bound_by": sq_by},
+           "launches": list(launched)}
+    out["pass"] = (out["update"]["bit_identical_both_calls"]
+                   and out["sqnorm"]["bit_identical_both_calls"]
+                   and out["sqnorm"]["rel_err_vs_plain"] < SQNORM_RTOL and launched == (2, 2))
+    del w, g, v, w2, v2, outs, want_w, want_v
+    return out
+
+
+def _rank_train_case(torch, dev, rank, mesh, cfg, seed, routes, kernel_leaf, refs_at_once):
+    """One of 19b–19d on one rank, per update route: each rank takes the
+    1-rank step from the seeded init (its params kept on the host; both at
+    once with ``refs_at_once``, else in turns), then both ranks the sharded
+    step from the same init, the launches and the
+    collectives counted around it alone; each rank then holds its pieces to
+    its slices of the 1-rank leaves (nothing crosses gloo to check them)."""
+    import torch.distributed as dist
+    from repro_torch import core, optim
+    from repro_torch.data import SyntheticLM, SyntheticLMConfig
+    from repro_torch.distributed import collectives
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.symog_update import ops as sops
+    from repro_torch.models import init_lm
+    from repro_torch.nn.sharding import slice_for
+    from repro_torch.nn.tree import flatten_with_paths
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.train.sharding import shard_train_state, train_layout
+
+    tx = optim.chain(optim.clip_by_global_norm(1.0), optim.sgd(momentum=0.9, nesterov=True))
+    scfg = core.SymogConfig(n_bits=2, total_steps=200)
+    lr = core.linear_lr(0.01, 0.001, 200)
+    data = SyntheticLM(SyntheticLMConfig(vocab_size=cfg.vocab_size, seq_len=128, global_batch=8,
+                                         seed=seed))
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in next(data).items()}
+    res = {}
+    for route in routes:
+        dispatch.set_update_backend(route)
+        out, ref = {}, None
+        for turn in range(1 if refs_at_once else dist.get_world_size()):
+            if refs_at_once or rank == turn:
+                state = init_train_state(init_lm(seed, cfg, device=dev), tx, scfg)
+                step = make_train_step(cfg, tx, lr, symog_cfg=scfg, compute_dtype=torch.float32)
+                torch.cuda.reset_peak_memory_stats(dev)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                state, m = step(state, batch)
+                torch.cuda.synchronize()
+                out["one_rank"] = {"step_ms": (time.perf_counter() - t) * 1e3,
+                                   "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                                   "clip_scale": float(m["clip_scale"]),
+                                   "peak_bytes": torch.cuda.max_memory_allocated(dev)}
+                ref = {p: v.cpu() for p, v in flatten_with_paths(state.params)}
+                del state, step, m
+                torch.cuda.empty_cache()
+            dist.barrier()
+        torch.cuda.reset_peak_memory_stats(dev)
+        whole = init_train_state(init_lm(seed, cfg, device=dev), tx, scfg)
+        layout = train_layout(cfg, mesh)
+        state = shard_train_state(whole, layout)
+        del whole
+        torch.cuda.empty_cache()
+        out["init_peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+        out["local_state_bytes"] = sum(v.numel() * v.element_size() for _, v in
+                                       flatten_with_paths({"p": state.params,
+                                                           "m": state.opt_state[1]}))
+        torch.cuda.reset_peak_memory_stats(dev)
+        step = make_train_step(cfg, tx, lr, symog_cfg=scfg, compute_dtype=torch.float32,
+                               mesh=mesh)
+        sops.launches = sops.sqnorm_launches = 0
+        collectives.reset_stats()
+        collectives.timing = True
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        out["step_ms"] = (time.perf_counter() - t) * 1e3
+        collectives.timing = False
+        out["launches"] = {"symog_update": sops.launches, "symog_sqnorm": sops.sqnorm_launches}
+        out["collectives"] = {k: dict(c) for k, c in collectives.stats.items()}
+        out["gloo_share"] = sum(collectives.stats["seconds"].values()) * 1e3 / out["step_ms"]
+        out["step_peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+        out["metrics"] = {k: float(v) for k, v in m.items()}
+        out["quantizable_leaves"] = int(sum(state.symog.mask.values()))
+        out["plan"] = {k: getattr(layout.plan, k) for k in ("attn", "mlp", "embed", "head", "ep")}
+        out["fsdp_leaves"] = len(layout.plan.fsdp or {})
+        out["split_leaves"] = sum(1 for s in layout.specs.values() if s)
+        rel = {}
+        for path, leaf in flatten_with_paths(state.params):
+            want = slice_for(mesh, ref[path], layout.specs[path]).to(dev)
+            rel[path] = float((leaf - want).abs().max() / want.abs().max().clamp_min(1e-30))
+            del want
+        out["params_rel_by_leaf"] = rel
+        out["params_max_rel"] = max(rel.values())
+        if route == "fused":  # in turns: the other rank leaves the card to the timing
+            for turn in range(dist.get_world_size()):
+                if rank == turn:
+                    out["kernels"] = _shard_kernels(torch, dev, state, layout, kernel_leaf,
+                                                    scfg, seed)
+                dist.barrier()
+        del state, step, ref
+        torch.cuda.empty_cache()
+        res[route] = out
+    dispatch.set_update_backend("auto")
+    return res
+
+
+def _train_rank(rank, world, port, ref, out_path):
+    """One spawned rank of 19b–19d (gloo: both ranks share the card).  The
+    groups are the mesh's, made with their timeout (``nn.sharding.Mesh``)."""
+    import datetime
+    import traceback
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
+    import torch
+    import torch.distributed as dist
+
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.cuda.set_device(0)
+        dev = torch.device("cuda", 0)
+        from repro_torch.nn.sharding import Mesh
+
+        dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                                world_size=world, timeout=datetime.timedelta(seconds=300))
+        out = {"backend": dist.get_backend(), "seconds": {}}
+        # (case, mesh, config, seed, routes, the leaf whose shard the kernels
+        # are held on, whether two 1-rank steps fit on the card at once)
+        cases = (("19b", (1, 2), _tpt_cfg(), TPT_SEED, ("fused", "composed"),
+                  "layers0/sub0/mlp/gate_proj/kernel", True),
+                 ("19c", (1, 2), _ept_cfg(), EPT_SEED, ("fused",),
+                  "layers0/sub0/moe/experts/gate_proj/kernel", True),
+                 ("19d", (2, 1), _fsdp_cfg(), FSDP_SEED, ("fused",),
+                  "layers0/sub0/mlp/gate_proj/kernel", False))
+        for name, shape, cfg, seed, routes, leaf, at_once in cases:
+            t = time.perf_counter()
+            mesh = Mesh(shape, ("data", "model"))
+            out[name] = _rank_train_case(torch, dev, rank, mesh, cfg, seed, routes, leaf,
+                                         at_once)
+            out["seconds"][name] = time.perf_counter() - t
+        with open(out_path, "w") as f:
+            json.dump(out, f)
+        dist.barrier()
+        dist.destroy_process_group()
+    except BaseException:
+        with open(out_path + ".err", "w") as f:
+            f.write(traceback.format_exc())
+        os._exit(1)
+
+
+def phase_train_tp(torch, dev):
+    """Phase 19 (module docstring).  Every gate raises."""
+    row = {"phase": "train_tp", "gates": {}, "seconds": {}}
+
+    def gate(name, ok):
+        row["gates"][name] = bool(ok)
+
+    # 19a: the training launcher on 2 ranks at --mesh 1x2, full width and depth
+    t = time.perf_counter()
+    rc, out, err, secs = _torchrun(["-m", "repro_torch.launch.train"] + LAUNCH19_ARGS,
+                                   DIST_TIMEOUT)
+    lines = out.splitlines()
+    steps = [ln.split() for ln in lines if ln.startswith("step ")]
+    losses = [float(s[3]) for s in steps]
+    gnorms = [float(s[5]) for s in steps]
+
+    def printed(prefix):
+        got = [ln[len(prefix):] for ln in lines if ln.startswith(prefix)]
+        return json.loads(got[0]) if got else None
+
+    from repro_torch import configs
+
+    whole_b, local_b = _train_bytes(configs.get_config("internlm2-1.8b"), 2)
+    row["19a"] = {"rc": rc, "seconds": secs, "stdout_tail": lines[-14:], "losses": losses,
+                  "grad_norms": gnorms, "step_ms_by_rank": printed("ranks' step ms: "),
+                  "peak_bytes_by_rank": printed("ranks' peak bytes: "),
+                  "collectives_per_step": printed("collectives per step: "),
+                  "reckoned_bytes": {"whole_state_fp32": whole_b, "rank_state_fp32": local_b,
+                                     "note": "params + momentum; the whole state is built "
+                                             "on every rank before the cut"}}
+    gate("19a_exit_0", rc == 0)
+    gate("19a_losses_equal", "ranks' losses equal: True" in out and len(losses) == 2)
+    gate("19a_finite", all(math.isfinite(x) for x in losses + gnorms) and len(gnorms) == 2)
+    gate("19a_gloo", "backend gloo, 2 ranks" in out)
+    if rc:
+        print(out[-4000:], err[-6000:], file=sys.stderr, flush=True)
+    row["seconds"]["19a"] = time.perf_counter() - t
+
+    # 19b-19d: spawned ranks
+    t = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="phase19_")
+    ranks = _spawn_ranks(2, {}, tmp, target=_train_rank, phase="19")
+    row["seconds"]["spawned_ranks"] = time.perf_counter() - t
+    row["rank_seconds"] = [r["seconds"] for r in ranks]
+    gate("19_spawned_gloo", all(r["backend"] == "gloo" for r in ranks))
+    reckon = {"19b": (_tpt_cfg(), 2), "19c": (_ept_cfg(), 2), "19d": (_fsdp_cfg(), 2)}
+    for case in ("19b", "19c", "19d"):
+        cfg, split = reckon[case]
+        whole_b, local_b = _train_bytes(cfg, split)
+        row[case] = {"layers": cfg.n_layers, "arch": cfg.name,
+                     "reckoned_bytes": {"whole_state_fp32": whole_b, "rank_state_fp32": local_b},
+                     "ranks": [r[case] for r in ranks]}
+        routes = list(ranks[0][case])
+        for route in routes:
+            r0, rs = ranks[0][case][route], [r[case][route] for r in ranks]
+            one = r0["one_rank"]
+            g = f"{case}_{route}"
+            gate(f"{g}_params_within_{TRAIN_RTOL}", all(x["params_max_rel"] < TRAIN_RTOL
+                                                        for x in rs))
+            gate(f"{g}_losses_equal", rs[0]["metrics"]["loss"] == rs[1]["metrics"]["loss"]
+                 and rs[0]["metrics"]["clip_scale"] == rs[1]["metrics"]["clip_scale"])
+            gate(f"{g}_loss_vs_1_rank", abs(r0["metrics"]["loss"] - one["loss"])
+                 <= TRAIN_RTOL * abs(one["loss"]))
+            gate(f"{g}_grad_norm", math.isfinite(r0["metrics"]["grad_norm"])
+                 and abs(r0["metrics"]["grad_norm"] - one["grad_norm"])
+                 <= TRAIN_RTOL * one["grad_norm"])
+            n_q = rs[0]["quantizable_leaves"]
+            want = n_q if route == "fused" else 0
+            gate(f"{g}_launches", all(x["launches"] == {"symog_update": want,
+                                                       "symog_sqnorm": want} for x in rs))
+            if route == "fused":
+                for x in rs:
+                    k = x["kernels"]
+                    gate(f"{g}_shard_kernels", k["pass"])
+    b, c, d = (ranks[0][k][list(ranks[0][k])[0]] for k in ("19b", "19c", "19d"))
+    gate("19b_sharded", all(b["plan"][k] for k in ("attn", "mlp", "embed", "head")))
+    gate("19c_ep", c["plan"]["ep"] and c["kernels"]["groups"] == 2 * 32)
+    gate("19d_fsdp", d["fsdp_leaves"] > 0 and not d["plan"]["attn"])
+    row["pass"] = all(row["gates"].values())
+    emit(row)
+    if not row["pass"]:
+        raise Failed(f"phase 19 failed: {[k for k, v in row['gates'].items() if not v]}")
+    return row
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
 
@@ -6301,6 +6661,7 @@ def main() -> int:
                       configs.get_config("internlm2-1.8b"))
         run("17d experiments", phase_experiments, torch, dev)
         dist18 = run("18 distribution", phase_dist, torch, dev)
+        train19 = run("19 tp and fsdp training", phase_train_tp, torch, dev)
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -6614,6 +6975,19 @@ def main() -> int:
             "ep_serve": ep0["launches"].get(n, 0),
             "dp_step": dp0["2_ranks"].get("symog_update" if n == "symog_update_clipped" else n,
                                           0)}
+    # phase 19: the update's launches in one rank's sharded step (fused)
+    for k in summary:
+        n = {"symog_update_clipped": "symog_update"}.get(k["name"], k["name"])
+        k["phase19_launches_per_rank"] = {
+            case: train19[case]["ranks"][0]["fused"]["launches"].get(n, 0)
+            for case in ("19b", "19c", "19d")}
+        form = {"symog_update": "update", "symog_sqnorm": "sqnorm"}.get(k["name"])
+        if form:  # each rank's shard of the case's leaf, after its step
+            k["phase19_shard_cases"] = [
+                dict({f: x["kernels"][f] for f in ("leaf", "shard_shape", "groups", "lam_eff")},
+                     case=case, rank=i, **x["kernels"][form])
+                for case in ("19b", "19c", "19d")
+                for i, x in enumerate(r["fused"] for r in train19[case]["ranks"])]
     if not all(k["pass"] for k in summary):
         print("chip_smoke: FAILED: a kernel row did not pass", file=sys.stderr)
         return 1

@@ -178,6 +178,18 @@ def load_pytree(directory: str, like: Any, *, device=None) -> Any:
     return walk(like, "")
 
 
+def _gather_leaf(mesh, x: torch.Tensor, spec) -> torch.Tensor:
+    """The whole leaf of which ``x`` is this rank's piece under ``spec``:
+    each split dimension all-gathered over its axes' group (members in
+    row-major order over the axes, ``nn.sharding.slice_for``'s order)."""
+    from repro_torch.distributed.collectives import all_gather
+
+    for d, entry in enumerate(spec):
+        if entry is not None:
+            x = all_gather(x.contiguous(), mesh.group(entry), dim=d)
+    return x
+
+
 class CheckpointManager:
     """Async, retained, resumable checkpoints under ``root``."""
 
@@ -207,15 +219,26 @@ class CheckpointManager:
 
     # -- save --------------------------------------------------------------
     def save(self, step: int, tree: Any, *, metadata: Optional[Dict] = None,
-             blocking: bool = False, mesh=None) -> None:
-        """Write ``tree`` as ``ckpt_<step>``.  On a ``mesh`` the tree is the
-        same on every rank (data-parallel training keeps it replicated) and
-        rank 0 alone writes the full logical arrays: JAX's format."""
+             blocking: bool = False, mesh=None, spec_fn=None) -> None:
+        """Write ``tree`` as ``ckpt_<step>``.  On a ``mesh`` rank 0 alone
+        writes the full logical arrays: JAX's format.  Without ``spec_fn``
+        the tree is the same on every rank (data-parallel training keeps it
+        replicated); with it, ``spec_fn(path, shape, ())`` gives the spec
+        each rank's leaf was cut with (``train.sharding.TrainLayout.spec_fn``)
+        and every rank joins rank 0 in gathering the leaves, one at a time."""
+        if mesh is not None and spec_fn is None and mesh.rank != 0:
+            return
+        if mesh is None or mesh.rank == 0:
+            self.wait()  # back-pressure: at most one save in flight
+        # snapshot to host memory now, so the caller may change the tensors
+        host = []
+        for path, leaf in _leaves(tree):
+            if spec_fn is not None and isinstance(leaf, torch.Tensor):
+                leaf = _gather_leaf(mesh, leaf, spec_fn(path, tuple(leaf.shape), ()))
+            if mesh is None or mesh.rank == 0:
+                host.append((path, _to_numpy(leaf, copy=True)))
         if mesh is not None and mesh.rank != 0:
             return
-        self.wait()  # back-pressure: at most one save in flight
-        # snapshot to host memory now, so the caller may change the tensors
-        host = [(path, _to_numpy(leaf, copy=True)) for path, leaf in _leaves(tree)]
 
         def work():
             _write(host, self.path(step), metadata)
@@ -238,12 +261,12 @@ class CheckpointManager:
 
     # -- restore -----------------------------------------------------------
     def restore(self, like: Any, *, step: Optional[int] = None, device=None, mesh=None,
-                rules=None) -> Tuple[Any, Dict, int]:
+                rules=None, spec_fn=None) -> Tuple[Any, Dict, int]:
         """(tree, metadata, step) of ``step`` (default the latest), its
         leaves on ``device`` (the engine's, in place of the JAX package's
         ``shardings``).  With ``mesh`` and ``rules`` (``nn.sharding``) each
-        rank keeps its slice of every leaf (``shard_tree``); ``like`` holds
-        the full logical shapes."""
+        rank keeps its slice of every leaf (``shard_tree``, its ``spec_fn``
+        too); ``like`` holds the full logical shapes."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.root}")
@@ -252,7 +275,7 @@ class CheckpointManager:
         if mesh is not None and rules is not None:
             from repro_torch.nn.sharding import shard_tree
 
-            tree = shard_tree(rules, mesh, tree)
+            tree = shard_tree(rules, mesh, tree, spec_fn)
         return tree, load_manifest(d)["metadata"], step
 
     # -- retention ---------------------------------------------------------

@@ -7,7 +7,9 @@
 
 M_l counts the whole leaf, the scan-stacked layer axis included.  The
 quantizer's derivative is taken as identically zero, so the gradient is the
-scaled quantization error.
+scaled quantization error.  Given a shard of a leaf (tensor- or FSDP-split
+training), the caller passes the whole leaf's ``m_l``; the value's sum over
+the shards is then the leaf's.
 """
 from __future__ import annotations
 
@@ -20,16 +22,16 @@ from repro_torch.core.quantizer import quant_error
 from repro_torch.nn.tree import tree_leaves, tree_map
 
 
-def layer_reg_value(w: torch.Tensor, delta, n_bits: int) -> torch.Tensor:
-    """(1/M_l)·Σ (w - Q(w))² for one layer."""
-    m_l = float(math.prod(w.shape))
+def layer_reg_value(w: torch.Tensor, delta, n_bits: int, m_l=None) -> torch.Tensor:
+    """(1/M_l)·Σ (w - Q(w))² for one layer (M_l: ``m_l``, else w's count)."""
+    m_l = float(math.prod(w.shape) if m_l is None else m_l)
     err = quant_error(w.to(torch.float32), delta, n_bits)
     return torch.sum(torch.square(err)) / m_l
 
 
-def layer_reg_grad(w: torch.Tensor, delta, n_bits: int) -> torch.Tensor:
-    """(2/M_l)·(w - Q(w)) for one layer (Eq. 4)."""
-    m_l = float(math.prod(w.shape))
+def layer_reg_grad(w: torch.Tensor, delta, n_bits: int, m_l=None) -> torch.Tensor:
+    """(2/M_l)·(w - Q(w)) for one layer (Eq. 4; M_l as ``layer_reg_value``)."""
+    m_l = float(math.prod(w.shape) if m_l is None else m_l)
     return (2.0 / m_l) * quant_error(w, delta, n_bits)
 
 

@@ -6,6 +6,14 @@ packing (lines 21–23), and the mode / quantization-error diagnostics.
 A scan-stacked (L, D, F) leaf gets ONE scalar f, as in the JAX package;
 MoE expert stacks (path matching ``per_expert_pattern``, rank ≥ 3) get one
 f per expert over every leading dim.
+
+Sharded training: ``symog_init`` runs on the whole leaves, before they are
+cut (``train.sharding``), so every f is the JAX package's.  The functions
+that read whole-leaf quantities take ``shards`` (a ``train.sharding``
+layout: ``numel(path)``, the whole leaf's count M_l, and
+``sum_over_shards({path: partial})``, each leaf's partial summed over the
+ranks its shards span, a replicated leaf counted once) and are then exact
+on this rank's shards.
 """
 from __future__ import annotations
 
@@ -97,24 +105,31 @@ def lambda_at(cfg: SymogConfig, step: int) -> float:
     return float(lam0 * torch.exp(torch.tensor(cfg.alpha, dtype=torch.float32) * frac))
 
 
-def reg_value(params: Any, state: SymogState, cfg: SymogConfig) -> torch.Tensor:
+def _m_l(shards, path):
+    return None if shards is None else shards.numel(path)
+
+
+def reg_value(params: Any, state: SymogState, cfg: SymogConfig, shards=None) -> torch.Tensor:
     """R(Θ) over quantizable leaves (paper Eq. 3)."""
 
     def per_leaf(path, w, f):
         if not state.mask[path]:
             return torch.zeros((), dtype=torch.float32, device=w.device)
-        return layer_reg_value(w, _delta_for(w, f), cfg.n_bits)
+        return layer_reg_value(w, _delta_for(w, f), cfg.n_bits, _m_l(shards, path))
 
-    return sum(tree_leaves(tree_map_with_path(per_leaf, params, state.f)))
+    parts = tree_map_with_path(per_leaf, params, state.f)
+    if shards is not None:
+        return shards.sum_over_shards(dict(flatten_with_paths(parts)))
+    return sum(tree_leaves(parts))
 
 
-def reg_grad(params: Any, state: SymogState, cfg: SymogConfig) -> Any:
+def reg_grad(params: Any, state: SymogState, cfg: SymogConfig, shards=None) -> Any:
     """∂R/∂Θ (paper Eq. 4); zeros for non-quantizable leaves."""
 
     def per_leaf(path, w, f):
         if not state.mask[path]:
             return torch.zeros_like(w)
-        return layer_reg_grad(w, _delta_for(w, f).to(w.dtype), cfg.n_bits)
+        return layer_reg_grad(w, _delta_for(w, f).to(w.dtype), cfg.n_bits, _m_l(shards, path))
 
     return tree_map_with_path(per_leaf, params, state.f)
 
@@ -165,19 +180,27 @@ def mode_tree(params: Any, state: SymogState, cfg: SymogConfig) -> Any:
     return tree_map_with_path(per_leaf, params, state.f)
 
 
-def quant_error_metrics(params: Any, state: SymogState, cfg: SymogConfig) -> Dict[str, Any]:
-    """Aggregate relative quantization error + R(Θ) for logging."""
+def quant_error_metrics(params: Any, state: SymogState, cfg: SymogConfig,
+                        shards=None) -> Dict[str, Any]:
+    """Aggregate relative quantization error + R(Θ) for logging (over the
+    shards' whole leaves with ``shards``)."""
     f_by_path = dict(flatten_with_paths(state.f))
     dev = tree_leaves(params)[0].device
-    sq_err = sq_w = torch.zeros((), device=dev)
+    sq_err, sq_w = {}, {}
     for path, w in flatten_with_paths(params):
         if not state.mask.get(path, False):
             continue
         wf = w.to(torch.float32)
         err = wf - quantize(wf, _delta_for(wf, f_by_path[path]), cfg.n_bits)
-        sq_err = sq_err + torch.sum(err * err)
-        sq_w = sq_w + torch.sum(wf * wf)
+        sq_err[path] = torch.sum(err * err)
+        sq_w[path] = torch.sum(wf * wf)
+    if shards is not None:
+        e, s = shards.sum_over_shards(sq_err), shards.sum_over_shards(sq_w)
+    else:
+        e = s = torch.zeros((), device=dev)
+        for path in sq_err:
+            e, s = e + sq_err[path], s + sq_w[path]
     return {
-        "rel_quant_error": torch.sqrt(sq_err) / (torch.sqrt(sq_w) + 1e-12),
-        "reg_value": reg_value(params, state, cfg),
+        "rel_quant_error": torch.sqrt(e) / (torch.sqrt(s) + 1e-12),
+        "reg_value": reg_value(params, state, cfg, shards),
     }

@@ -9,6 +9,16 @@ or the CPU) gets a host copy, in pinned memory for a CUDA tensor, and bf16
 travels as fp32 (exact both ways).  ``all_reduce`` sums in the dtype it is
 given, so a caller that wants one rounding sums fp32 and casts once.
 
+Autograd forms: ``AllToAll`` (backward the reverse all-to-all),
+``ReduceSum`` (Megatron's g: the sum, backward the identity),
+``EnterReplicas`` (Megatron's f: the identity, backward the sum),
+``AllGather`` (backward this member's slice of the grad) and
+``GatherShards`` (FSDP's join of a parameter's shards, backward the
+reduce-scatter sum).  ``stats`` counts every collective this process runs
+(calls and the bytes of the tensor given, by kind) and, while ``timing`` is
+on, the seconds each took from a synchronized device to its result back on
+the device (staging included).
+
 ``compressed_psum_int8`` performs a data-parallel gradient all-reduce with
 int8 payloads + error feedback:
 
@@ -24,6 +34,9 @@ a library function.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
+import time
 from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
@@ -32,6 +45,30 @@ import torch.distributed as dist
 from repro_torch.nn.tree import flatten_with_paths, tree_map, tree_map_with_path
 
 _OPS = {"sum": "SUM", "max": "MAX"}
+
+
+stats = {"calls": collections.Counter(), "bytes": collections.Counter(),
+         "seconds": collections.Counter()}
+timing = False  # also time every collective (a device synchronize before each)
+
+
+def reset_stats() -> None:
+    for c in stats.values():
+        c.clear()
+
+
+@contextlib.contextmanager
+def _counted(kind: str, x: torch.Tensor):
+    stats["calls"][kind] += 1
+    stats["bytes"][kind] += x.numel() * x.element_size()
+    if not timing:
+        yield
+        return
+    if x.is_cuda:
+        torch.cuda.synchronize(x.device)
+    t = time.perf_counter()
+    yield
+    stats["seconds"][kind] += time.perf_counter() - t
 
 
 def group_size(group) -> int:
@@ -54,6 +91,13 @@ def _to_wire(x: torch.Tensor, staged: bool) -> torch.Tensor:
     return x.to(wire_dtype).contiguous()
 
 
+def _like(w: torch.Tensor) -> torch.Tensor:
+    """A receive buffer like ``w``, pinned when ``w`` is (a staged CUDA
+    tensor's: the copy back to the card then runs at the pinned rate)."""
+    return torch.empty(w.shape, dtype=w.dtype, device=w.device,
+                       pin_memory=w.device.type == "cpu" and w.is_pinned())
+
+
 def _from_wire(w: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return w.to(device=like.device, dtype=like.dtype, non_blocking=False)
 
@@ -62,12 +106,13 @@ def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
     """Sum (or max) of ``x`` over ``group``, on every member."""
     if group_size(group) == 1:
         return x
-    staged = _staged(group)
-    w = _to_wire(x, staged)
-    if w is x:
-        w = x.clone()
-    dist.all_reduce(w, op=getattr(dist.ReduceOp, _OPS[op]), group=group)
-    return _from_wire(w, x)
+    with _counted("all_reduce", x):
+        staged = _staged(group)
+        w = _to_wire(x, staged)
+        if w is x:
+            w = x.clone()
+        dist.all_reduce(w, op=getattr(dist.ReduceOp, _OPS[op]), group=group)
+        return _from_wire(w, x)
 
 
 def all_gather(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
@@ -75,11 +120,31 @@ def all_gather(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
     n = group_size(group)
     if n == 1:
         return x
-    staged = _staged(group)
-    w = _to_wire(x, staged)
-    parts = [torch.empty_like(w) for _ in range(n)]
-    dist.all_gather(parts, w, group=group)
-    return _from_wire(torch.cat(parts, dim=dim), x)
+    with _counted("all_gather", x):
+        staged = _staged(group)
+        w = _to_wire(x, staged)
+        parts = [_like(w) for _ in range(n)]
+        dist.all_gather(parts, w, group=group)
+        if staged and x.is_cuda:  # each part back from pinned memory, joined on the card
+            return torch.cat([_from_wire(p, x) for p in parts], dim=dim)
+        return _from_wire(torch.cat(parts, dim=dim), x)
+
+
+def reduce_scatter(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
+    """The sum of the members' ``x`` over ``group``, cut along ``dim`` into
+    group-size parts: this member's part (group-rank order), in x's dtype."""
+    n = group_size(group)
+    if n == 1:
+        return x
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split {n} ways")
+    with _counted("reduce_scatter", x):
+        staged = _staged(group)
+        # cut (and made contiguous) where x lives, each part staged whole
+        parts = [_to_wire(p.contiguous(), staged) for p in x.chunk(n, dim=dim)]
+        out = _like(parts[0])
+        dist.reduce_scatter(out, parts, group=group)
+        return _from_wire(out, x)
 
 
 def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
@@ -87,11 +152,12 @@ def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     chunk j from group rank j (``jax.lax.all_to_all`` tiled on axis 0)."""
     if group_size(group) == 1:
         return x
-    staged = _staged(group)
-    w = _to_wire(x, staged)
-    out = torch.empty_like(w)
-    dist.all_to_all_single(out, w, group=group)
-    return _from_wire(out, x)
+    with _counted("all_to_all", x):
+        staged = _staged(group)
+        w = _to_wire(x, staged)
+        out = _like(w)
+        dist.all_to_all_single(out, w, group=group)
+        return _from_wire(out, x)
 
 
 class AllToAll(torch.autograd.Function):
@@ -106,6 +172,40 @@ class AllToAll(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return all_to_all(grad.contiguous(), ctx.group), None
+
+
+class AllGather(torch.autograd.Function):
+    """``all_gather`` whose backward returns this member's slice of the grad:
+    for a gathered tensor every member uses whole in the same program after
+    it (vocab-parallel logits), whose grad is the same on every member."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim, ctx.part = group, dim, x.shape[dim]
+        return all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        i = dist.get_rank(ctx.group) if group_size(ctx.group) > 1 else 0
+        return grad.narrow(ctx.dim, i * ctx.part, ctx.part), None, None
+
+
+class GatherShards(torch.autograd.Function):
+    """``all_gather`` of a parameter's shards over the FSDP axes, whose
+    backward is the reduce-scatter sum of the grad: each member computed
+    its grad of the whole parameter from its own rows of the batch, and
+    keeps the sum over the members of its own shard's part (in fp32,
+    rounded once to the grad's dtype)."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        out = reduce_scatter(grad.to(torch.float32).contiguous(), ctx.group, ctx.dim)
+        return out.to(grad.dtype), None, None
 
 
 class ReduceSum(torch.autograd.Function):

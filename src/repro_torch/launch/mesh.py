@@ -10,17 +10,14 @@ rendezvous address; a plain ``python`` start is world 1.
 """
 from __future__ import annotations
 
-import datetime
 import math
 import os
 from typing import Tuple
 
 import torch
 
+from repro_torch.nn.sharding import GROUP_TIMEOUT as TIMEOUT
 from repro_torch.nn.sharding import Mesh, choose_backend
-
-# a rank whose peer died fails inside this, not at the caller's time limit
-TIMEOUT = datetime.timedelta(seconds=300)
 
 
 def world_from_env() -> Tuple[int, int, int, int]:

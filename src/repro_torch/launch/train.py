@@ -15,14 +15,18 @@ route, one norm pass and one ``symog_update`` per quantizable leaf a step
 
 A checkpoint holds the whole ``TrainState`` and ``{"data": <stream
 state>}`` in the JAX package's format, so either launcher resumes from the
-other's ``--ckpt-dir``.  ``--mesh Dx1`` trains data-parallel over D ranks
-started by ``torchrun`` (``python -m torch.distributed.run --nproc-per-node
-D -m repro_torch.launch.train ... --mesh Dx1``): every rank draws the same
-global batch, trains on its rows, and the gradients are mean-all-reduced
-before the same update on every rank; rank 0 prints and writes the
-checkpoints.  A model axis > 1 (tensor-parallel training) is refused.  The
-weights are the port's own seeded init (``models.init_lm``), not the JAX
-package's; a resumed run continues from the checkpoint's.
+other's ``--ckpt-dir``.  ``--mesh DxM`` trains on D·M ranks started by
+``torchrun`` (``python -m torch.distributed.run --nproc-per-node D·M -m
+repro_torch.launch.train ... --mesh DxM``), as JAX's launcher places its
+state with ``state_shardings``: every rank builds the whole seeded state
+(``symog_init`` on the whole leaves), keeps its pieces under
+``cfg.sharding_profile`` (``train.sharding``: tensor-parallel pieces over
+the M model ranks, FSDP's ``embed`` split over the D data ranks under
+``fsdp_tp``, experts over the EP axes), draws the same global batch and
+trains on its data rank's rows; rank 0 prints and writes the checkpoints
+(each leaf gathered to it, JAX's format), and a resume cuts them again.
+The weights are the port's own seeded init (``models.init_lm``), not the
+JAX package's; a resumed run continues from the checkpoint's.
 
 Each step is timed to the card's completion (a synchronize before the
 monitor stops), so the straggler monitor sees device time.
@@ -32,6 +36,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import io
+import json
 import time
 from typing import Any, Callable, Dict, Optional
 
@@ -42,11 +47,12 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import ARCHS, get_config, get_reduced
 from repro_torch.data import SyntheticLM, SyntheticLMConfig
 from repro_torch.device import resolve_device
-from repro_torch.distributed import StepTimeMonitor
+from repro_torch.distributed import StepTimeMonitor, collectives
 from repro_torch.launch.mesh import close_distributed, make_host_mesh, world_from_env
 from repro_torch.models import init_lm
 from repro_torch.models.config import ModelConfig
 from repro_torch.train import init_train_state, make_train_step
+from repro_torch.train.sharding import shard_train_state, train_layout
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -61,8 +67,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--n-bits", type=int, default=2)
     ap.add_argument("--accum", type=int, default=1)
     ap.add_argument("--mesh", default="1x1",
-                    help="DxM (data, model) mesh of D·M torchrun ranks; M must be 1 "
-                         "(data parallel)")
+                    help="DxM (data, model) mesh of D·M torchrun ranks")
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--ckpt-every", type=int, default=100)
     ap.add_argument("--resume", action="store_true")
@@ -84,9 +89,13 @@ def run(cfg: ModelConfig, args: argparse.Namespace,
     """The launcher's body on ``cfg`` (a registry config, or one cut in depth
     by the caller).  Prints JAX's lines; returns ``losses``, ``step_s`` (each
     step to the card's completion), ``clip_scales`` and ``state`` of the
-    steps this call ran, and ``start`` (the resumed step, else 0).
-    ``on_step(i, state, metrics)`` runs after each step.  ``mesh``: a Dx1
-    mesh (data parallel)."""
+    steps this call ran, ``start`` (the resumed step, else 0), the
+    collectives a step ran (``collectives_per_step`` /
+    ``collective_bytes_per_step``, by kind) and ``peak_bytes`` (the card's
+    peak allocation of this process; 0 on the CPU).  Under torchrun rank 0
+    also prints every rank's step ms and peak bytes and the collectives.
+    ``on_step(i, state, metrics)`` runs after each step (``state`` holds
+    this rank's pieces).  ``mesh``: the (data, model) mesh of the ranks."""
     dev = resolve_device(args.device)
     data = SyntheticLM(SyntheticLMConfig(
         vocab_size=cfg.vocab_size, seq_len=args.seq, global_batch=args.batch, seed=args.seed,
@@ -99,16 +108,24 @@ def run(cfg: ModelConfig, args: argparse.Namespace,
     step_fn = make_train_step(cfg, tx, lr_sched, symog_cfg=symog_cfg, accum_steps=args.accum,
                               compute_dtype=compute_dtype, mesh=mesh)
 
+    # the whole state first: f from the whole leaves, as JAX's
     state = init_train_state(init_lm(args.seed, cfg, device=dev), tx, symog_cfg)
+    layout = train_layout(cfg, mesh) if mesh is not None else None
+    place = {} if layout is None else {"mesh": mesh, "rules": layout.rules,
+                                       "spec_fn": layout.spec_fn}
     ckpt = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
     start = 0
     if ckpt and args.resume and ckpt.latest_step() is not None:
-        state, meta, start = ckpt.restore(state, device=dev)
+        state, meta, start = ckpt.restore(state, device=dev, **place)
         data.load_state_dict(meta["data"])
         print(f"resumed from step {start}")
+    elif layout is not None:
+        state = shard_train_state(state, layout)
+    save_kw = {} if layout is None else {"mesh": mesh, "spec_fn": layout.spec_fn}
 
     out: Dict[str, Any] = {"losses": [], "step_s": [], "clip_scales": [], "start": start}
     mon = StepTimeMonitor()
+    calls0, bytes0 = dict(collectives.stats["calls"]), dict(collectives.stats["bytes"])
     for i in range(start, args.steps):
         batch = next(data)
         mon.start()
@@ -127,13 +144,19 @@ def run(cfg: ModelConfig, args: argparse.Namespace,
                   + (f" λ {m['symog_lambda']:.1f}" if "symog_lambda" in m else "")
                   + (" [straggler]" if slow else ""), flush=True)
         if ckpt and (i + 1) % args.ckpt_every == 0:
-            ckpt.save(i + 1, state, metadata={"data": data.state_dict()}, mesh=mesh)
+            ckpt.save(i + 1, state, metadata={"data": data.state_dict()}, **save_kw)
+    n = max(1, args.steps - start)
+    out["collectives_per_step"] = {
+        kind: (c - calls0.get(kind, 0)) / n for kind, c in collectives.stats["calls"].items()}
+    out["collective_bytes_per_step"] = {
+        kind: (b - bytes0.get(kind, 0)) / n for kind, b in collectives.stats["bytes"].items()}
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
     if ckpt:
         ckpt.save(args.steps, state, metadata={"data": data.state_dict()}, blocking=True,
-                  mesh=mesh)
+                  **save_kw)
 
     if symog_cfg is not None:
-        qm = core.quant_error_metrics(state.params, state.symog, symog_cfg)
+        qm = core.quant_error_metrics(state.params, state.symog, symog_cfg, shards=layout)
         print(f"final rel quant error: {float(qm['rel_quant_error']):.2e} "
               f"(ce floor {data.ce_floor():.3f})")
     print(f"straggler fraction: {mon.straggler_fraction():.3f}")
@@ -148,10 +171,6 @@ def main(argv=None) -> Dict[str, Any]:
         d, m = (int(v) for v in args.mesh.lower().split("x"))
     except ValueError:
         ap.error(f"--mesh must be DxM (e.g. 2x1), got {args.mesh!r}")
-    if m != 1:
-        ap.error("--mesh: tensor-parallel training (a model axis > 1) is not ported yet; "
-                 "it is the next piece of ROADMAP Queue 1 item 5 (distribution). "
-                 "Train data-parallel on a Dx1 mesh")
     rank, world, _, _ = world_from_env()
     if d * m != world:
         ap.error(f"--mesh {d}x{m} needs {d * m} devices, have {world}")
@@ -166,9 +185,14 @@ def main(argv=None) -> Dict[str, Any]:
     import torch.distributed as dist
 
     every = [None] * world
-    dist.all_gather_object(every, res["losses"])
+    dist.all_gather_object(every, (res["losses"], res["step_s"], res["peak_bytes"]))
     if rank == 0:
-        print(f"ranks' losses equal: {all(e == every[0] for e in every)}")
+        print(f"ranks' losses equal: {all(e[0] == every[0][0] for e in every)}")
+        print("ranks' step ms: " + json.dumps([[round(1e3 * t, 1) for t in e[1]] for e in every]))
+        print("ranks' peak bytes: " + json.dumps([e[2] for e in every]))
+        print("collectives per step: " + json.dumps(
+            {k: {"calls": v, "bytes": res["collective_bytes_per_step"][k]}
+             for k, v in sorted(res["collectives_per_step"].items()) if v}))
     close_distributed()
     return res
 

@@ -42,11 +42,14 @@ from repro_torch.models.attention import (
 )
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
+    current_tp,
     dense_apply,
     layernorm_apply,
     layernorm_init,
     rmsnorm_apply,
     rmsnorm_init,
+    tp_enter,
+    tp_enter_leaves,
     tp_reduce,
 )
 from repro_torch.models.mlp import MLPConfig, mlp_apply, mlp_init
@@ -228,23 +231,30 @@ def _ffn(p, h, cfg: ModelConfig, kind: str, compute_dtype, with_aux: bool = Fals
     routes expert-parallel (``_ep_active``): a full-sequence call with the
     dispatch's capacity factor as ``capacity_mult``, a decode step
     (``dropless`` not None) at the EP capacities' bounds when dropless.  In
-    serving every rank holds the whole batch (``dp_axes=()``)."""
+    serving every rank holds the whole batch; in training its rows are
+    split over the plan's ``dp_axes``.  A tensor-parallel MLP's input
+    enters through ``tp_enter``."""
     if kind == "E":
         if cfg.moe_impl == "ep" and _ep_active(cfg):
             from repro_torch.models.moe_ep import moe_apply_ep
+
+            plan = current_tp()
 
             if dropless is None:
                 ep_kw = dict(seq_len=moe_kw.get("seq_len"), capacity_mult=cfg.capacity_factor)
             else:
                 ep_kw = dict(dropless=dropless)
             y, aux = moe_apply_ep(p["moe"], h, cfg=_moe_cfg(cfg), compute_dtype=compute_dtype,
-                                  ep_axes=tuple(cfg.ep_axes), dp_axes=(), with_aux=with_aux,
+                                  ep_axes=tuple(cfg.ep_axes),
+                                  dp_axes=plan.dp_axes if plan is not None else (),
+                                  with_aux=with_aux,
                                   **ep_kw)
         else:
             y, aux = moe_apply(p["moe"], h, cfg=_moe_cfg(cfg), compute_dtype=compute_dtype,
                                with_aux=with_aux, **moe_kw)
         return y, (aux if with_aux else None)
-    y = tp_reduce(mlp_apply(p["mlp"], h, cfg=_mlp_cfg(cfg), compute_dtype=compute_dtype), "mlp")
+    y = tp_reduce(mlp_apply(p["mlp"], tp_enter(h, "mlp"), cfg=_mlp_cfg(cfg),
+                            compute_dtype=compute_dtype), "mlp")
     return y, (zero_aux(h.device) if with_aux else None)
 
 
@@ -305,14 +315,17 @@ def block_apply(p, x, *, cfg: ModelConfig, kind: str, positions, window=None,
                                      compute_dtype=compute_dtype, seq_len=seq_len)
         x, aux = _ffn_residual(p, x + y, cfg, kind, compute_dtype, with_aux)
         return x, aux, (cache if cache_len else None)
+    # a tensor-parallel attention: its replicated input and leaves enter
+    # through Megatron's f (identities without autograd)
+    h, pa = tp_enter(h, "attn"), tp_enter_leaves(p["attn"])
     if cfg.use_mla:
-        y, (c_kv, k_rope) = mla_apply(p["attn"], h, cfg=_mla_cfg(cfg), positions=positions,
+        y, (c_kv, k_rope) = mla_apply(pa, h, cfg=_mla_cfg(cfg), positions=positions,
                                       rope_base=rope_base, compute_dtype=compute_dtype,
                                       return_kv=True, rope_table=rope_table)
         if cache_len:
             cache = _mla_prefill_cache(c_kv, k_rope, cfg, cache_len)
     else:
-        y, (k, v) = attn_apply(p["attn"], h, cfg=_attn_cfg(cfg), positions=positions,
+        y, (k, v) = attn_apply(pa, h, cfg=_attn_cfg(cfg), positions=positions,
                                causal=causal, window=window, prefix_len=prefix_len,
                                rope_base=rope_base, compute_dtype=compute_dtype,
                                return_kv=True, rope_table=rope_table)

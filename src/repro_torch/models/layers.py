@@ -14,6 +14,18 @@ projection (attention's ``o_proj``, the MLP's ``down_proj``), the masked
 vocab-parallel embedding lookup and the all-gather of vocab-parallel
 logits.  A piece whose dimensions do not divide by m stays replicated and
 runs no collective.
+
+Training runs the same executor with Megatron's f / g pair: ``tp_enter``
+(the identity, its backward the sum of the grad over the model axis) on
+every replicated tensor that enters a column-parallel piece — the normed
+input of q/k/v, of gate/up and of the vocab-parallel head, and the
+leaves a sharded attention keeps whole (qk-norm scales, MLA's
+compressions) — and ``tp_reduce`` (the sum, its backward the identity) at
+the row-parallel exit.  So the grad of every replicated tensor is whole,
+and the same, on every model rank.  A plan with ``fsdp`` leaves holds
+those params split over the FSDP axes as well: ``fsdp_gather`` joins them
+where they are used (a layer's inside its remat region), its backward the
+reduce-scatter sum of the grad.
 """
 from __future__ import annotations
 
@@ -21,7 +33,7 @@ import dataclasses
 import functools
 import math
 import threading
-from typing import Any, Optional, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -51,6 +63,15 @@ class TPPlan:
     head: bool = False
     ep: bool = False
     shared: bool = False  # under ``ep``: the shared experts' d_ff split over 'model'
+    # training: the names (under ``attn/``) of the leaves a sharded attention
+    # keeps whole, the mesh axes the batch rows are split over (serving: none,
+    # every rank holds the whole batch), and the params split over the FSDP
+    # axes: {param path: (dim of the stored leaf, its size there)}, joined
+    # over ``fsdp_group``
+    attn_replicated: frozenset = frozenset()
+    dp_axes: Tuple[str, ...] = ()
+    fsdp: Optional[Dict[str, Tuple[int, int]]] = None
+    fsdp_group: Any = None
 
 
 class _TPLocal(threading.local):
@@ -65,6 +86,56 @@ def set_tp(plan: Optional[TPPlan]) -> Optional[TPPlan]:
     piece); returns the previous one, to restore."""
     prev, _tp.plan = _tp.plan, plan
     return prev
+
+
+def current_tp() -> Optional[TPPlan]:
+    """The thread's tensor-parallel plan (None: one rank holds every piece)."""
+    return _tp.plan
+
+
+def tp_enter(x: torch.Tensor, piece: str) -> torch.Tensor:
+    """Megatron's f for a replicated tensor entering ``piece`` when it is
+    sharded: the identity, whose backward sums the grad over the model axis
+    (each rank's grad covers its own heads / columns / vocab rows only).
+    Without autograd it is the identity and runs nothing."""
+    plan = _tp.plan
+    if plan is None or not getattr(plan, piece) or not x.requires_grad:
+        return x
+    from repro_torch.distributed.collectives import EnterReplicas
+
+    return EnterReplicas.apply(x, plan.group)
+
+
+def tp_enter_leaves(p: Dict[str, Any]) -> Dict[str, Any]:
+    """``p`` (an attention's params) with ``tp_enter`` on each leaf a
+    sharded attention keeps whole (the plan's ``attn_replicated``)."""
+    plan = _tp.plan
+    if plan is None or not plan.attn or not plan.attn_replicated:
+        return p
+    from repro_torch.nn.tree import tree_map_with_path
+
+    return tree_map_with_path(
+        lambda path, w: tp_enter(w, "attn") if path in plan.attn_replicated else w, p)
+
+
+def fsdp_gather(tree: Any, prefix: str, lead: int = 0) -> Any:
+    """``tree`` (the params at ``prefix``; a view of one layer of a stacked
+    group when ``lead`` is 1) with every leaf the plan splits over the FSDP
+    axes joined whole along its dim (``collectives.GatherShards``); a leaf
+    joined already passes through."""
+    plan = _tp.plan
+    if plan is None or not plan.fsdp:
+        return tree
+    from repro_torch.distributed.collectives import GatherShards
+    from repro_torch.nn.tree import tree_map_with_path
+
+    def one(path, leaf):
+        d, size = plan.fsdp.get(f"{prefix}/{path}", (None, None))
+        if d is None or leaf.shape[d - lead] != size:
+            return leaf
+        return GatherShards.apply(leaf, plan.fsdp_group, d - lead)
+
+    return tree_map_with_path(one, tree)
 
 
 def tp_reduce(y: torch.Tensor, piece: str) -> torch.Tensor:
@@ -195,9 +266,9 @@ def gather_vocab(logits: torch.Tensor) -> torch.Tensor:
     plan = _tp.plan
     if plan is None or not plan.head:
         return logits
-    from repro_torch.distributed.collectives import all_gather
+    from repro_torch.distributed.collectives import AllGather
 
-    return all_gather(logits.contiguous(), plan.group, dim=-1)
+    return AllGather.apply(logits.contiguous(), plan.group, logits.ndim - 1)
 
 
 def embed_logits(p, x):

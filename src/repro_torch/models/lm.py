@@ -29,6 +29,7 @@ conv windows, ring buffers and whisper's cross-kv stay resident per row
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
@@ -49,23 +50,28 @@ from repro_torch.models.blocks import (
 )
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
+    current_tp,
     dense_apply,
     dense_init,
     embed_apply,
     embed_init,
     embed_logits,
+    fsdp_gather,
     gather_vocab,
     layernorm_apply,
     layernorm_init,
     rmsnorm_apply,
     rmsnorm_init,
     rope_table,
+    set_tp,
     sinusoidal_angles,
     sinusoidal_pos,
     softcap as softcap_fn,
+    tp_enter,
 )
 from repro_torch.models.attention import decode_positions, paged_token_index, verify_token_index
 from repro_torch.models.quantized import scan_ready, unstack_layers
+from repro_torch.nn.sharding import current_mesh
 from repro_torch.nn.tree import tree_map
 
 # cache leaves that live in the paged block pool under the scheduler: the
@@ -222,13 +228,24 @@ def _stack_caches(per_unit, spec: GroupSpec):
     return {name: torch.stack([c[name] for c in per_unit]) for name in per_unit[0]}
 
 
-def _head(params, cfg: ModelConfig, x):
-    h = _norm_apply(cfg, params["final_norm"], x)
+def _readout(params, cfg: ModelConfig, h):
+    """fp32 logits of the normed hidden ``h`` through the (tied) head: this
+    rank's vocab slice under a vocab-parallel plan, whose input enters
+    through Megatron's f."""
+    h = tp_enter(h, "head")
     if cfg.tie_lm_head:
-        logits = embed_logits(params["embed"], h)
-    else:
-        logits = dense_apply(params["lm_head"], h.to(torch.float32))
-    logits = gather_vocab(logits)  # vocab-parallel: every rank gets the whole row
+        return embed_logits(params["embed"], h)
+    return dense_apply(params["lm_head"], h.to(torch.float32))
+
+
+def _head(params, cfg: ModelConfig, x, gather: bool = True):
+    """(logits, normed hidden).  ``gather`` False keeps a vocab-parallel
+    plan's logits as this rank's vocab slice (the training loss's
+    ``vocab_parallel_cross_entropy`` reads them so)."""
+    h = _norm_apply(cfg, params["final_norm"], x)
+    logits = _readout(params, cfg, h)
+    if gather:
+        logits = gather_vocab(logits)  # vocab-parallel: every rank gets the whole row
     if cfg.final_softcap > 0:
         logits = softcap_fn(logits, cfg.final_softcap)
     return logits, h
@@ -244,6 +261,20 @@ def _rope_tables(cfg: ModelConfig, positions: torch.Tensor) -> Dict[float, Any]:
     return {b: rope_table(positions, b, width) for b in set(cfg.layer_rope_bases())}
 
 
+_OUTER = ("embed", "lm_head", "mtp")
+
+
+def _join_outer(params):
+    """``params`` with the embedding, the head and the MTP module joined
+    whole (their FSDP split, ``fsdp_gather``) once a forward, so the tied
+    head reads the lookup's join and its grad is reduce-scattered once
+    (a joined tree passes through)."""
+    plan = current_tp()
+    if plan is None or not plan.fsdp:
+        return params
+    return {k: fsdp_gather(v, k) if k in _OUTER else v for k, v in params.items()}
+
+
 def _embed_tokens(params, cfg: ModelConfig, tokens, compute_dtype):
     x = embed_apply(params["embed"], tokens, compute_dtype=compute_dtype)
     if cfg.embed_scale:
@@ -251,12 +282,33 @@ def _embed_tokens(params, cfg: ModelConfig, tokens, compute_dtype):
     return x
 
 
+def _rerun_context():
+    """``checkpoint``'s ``context_fn``: the backward, and with it a layer's
+    recompute, runs on the device's autograd thread on the card, where the
+    forward's thread-local plan and mesh are not set; the recompute
+    re-enters them, so it runs the forward's collectives and routes."""
+    plan, mesh = current_tp(), current_mesh()
+
+    @contextlib.contextmanager
+    def rerun():
+        prev = set_tp(plan)
+        try:
+            with mesh if mesh is not None else contextlib.nullcontext():
+                yield
+        finally:
+            set_tp(prev)
+
+    return lambda: (contextlib.nullcontext(), rerun())
+
+
 def _run_layers(params, cfg: ModelConfig, x, positions, *, compute_dtype, causal: bool = True,
                 prefix_len: int = 0, enc_out=None, cache_len: int = 0, seq_len=None,
                 with_aux: bool = False, remat: bool = False):
     """Every group of ``params`` (a stack of ``cfg``'s layers) over x.
     Returns (x, aux summed over layers or None, {group: caches} when
-    ``cache_len``)."""
+    ``cache_len``).  A layer's FSDP-split params (decoders only) are joined
+    inside its remat region, so the backward joins them again rather than
+    keeping them."""
     wins, bases = cfg.layer_windows(), cfg.layer_rope_bases()
     tables = _rope_tables(cfg, positions)
     aux = zero_aux(x.device) if with_aux else None
@@ -266,13 +318,17 @@ def _run_layers(params, cfg: ModelConfig, x, positions, *, compute_dtype, causal
         for _, li0, p_u in _group_layers(params[g.name], g):
             for j, kind in enumerate(g.unit):
                 li = li0 + j
-                layer = functools.partial(
-                    block_apply, p_u[f"sub{j}"], cfg=cfg, kind=kind, positions=positions,
+                apply = functools.partial(
+                    block_apply, cfg=cfg, kind=kind, positions=positions,
                     window=wins[li], rope_base=bases[li], causal=causal, prefix_len=prefix_len,
                     compute_dtype=compute_dtype, enc_out=enc_out, cache_len=cache_len,
                     rope_table=tables.get(bases[li]), seq_len=seq_len, with_aux=with_aux)
+
+                def layer(x, p=p_u[f"sub{j}"], at=f"{g.name}/sub{j}", apply=apply):
+                    return apply(fsdp_gather(p, at, int(g.stacked)), x)
                 if remat:
-                    x, a, c = torch.utils.checkpoint.checkpoint(layer, x, use_reentrant=False)
+                    x, a, c = torch.utils.checkpoint.checkpoint(
+                        layer, x, use_reentrant=False, context_fn=_rerun_context())
                 else:
                     x, a, c = layer(x)
                 if with_aux:
@@ -300,12 +356,14 @@ def _run_encoder(params, cfg: ModelConfig, frames, compute_dtype, remat: bool = 
 
 def forward_lm(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
                compute_dtype=torch.bfloat16, prefill_len: int = 0, last_only: bool = False,
-               seq_len: Optional[int] = None, with_aux: bool = False) -> ForwardOut:
+               seq_len: Optional[int] = None, with_aux: bool = False,
+               vocab_parallel: bool = False) -> ForwardOut:
     """Full-sequence forward.  ``prefill_len`` > 0 also returns the caches
     padded to that length; ``seq_len`` marks the real length of a
     right-padded (bucketed) prompt, so ``last_only`` reads its last REAL
     position.  ``with_aux`` (training) fills ``aux`` with the MoE losses
-    summed over layers, as JAX's scan sums them.  With ``cfg.remat`` and
+    summed over layers, as JAX's scan sums them.  ``vocab_parallel`` keeps
+    a vocab-parallel plan's logits as this rank's slice.  With ``cfg.remat`` and
     autograd on, each layer's activations are recomputed in the backward
     instead of kept (the values and grads are the same bits).
 
@@ -318,6 +376,7 @@ def forward_lm(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
     is prefix-LM, and the prefix is dropped before the head; a prefill's
     caches hold the prefix's k/v ahead of the text's."""
     _check_family(cfg)
+    params = _join_outer(params)
     tokens = batch["tokens"]
     B, T = tokens.shape
     x = _embed_tokens(params, cfg, tokens, compute_dtype)
@@ -341,7 +400,7 @@ def forward_lm(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
     x = x[:, prefix_len:]
     if last_only:
         x = x[:, -1:] if seq_len is None else x[:, seq_len - 1 : seq_len]
-    logits, hidden = _head(params, cfg, x)
+    logits, hidden = _head(params, cfg, x, gather=not vocab_parallel)
     return ForwardOut(logits=logits, caches=caches if prefill_len else None, hidden=hidden,
                       aux=aux)
 
@@ -574,6 +633,42 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     return -torch.sum(ll * mask) / torch.clamp(torch.sum(mask), min=1.0)
 
 
+def vocab_parallel_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``cross_entropy`` of vocab-parallel logits (..., vocab / m), this
+    rank's slice under the thread's plan, without gathering them: three
+    all-reduces over the model axis of one fp32 value a token — the max,
+    the sum of exp(z − max) and the target's logit (from the rank that
+    holds it; the others add 0) — give every rank
+    log p = z_t − max − log Σ exp(z − max).  The sums' backward is the
+    identity, so each rank's grad is its own slice of softmax − onehot."""
+    from repro_torch.distributed.collectives import ReduceSum, all_reduce
+
+    plan = current_tp()
+    z = logits.to(torch.float32)
+    rows = z.shape[-1]
+    m = all_reduce(torch.amax(z.detach(), dim=-1), plan.group, op="max")
+    s = ReduceSum.apply(torch.sum(torch.exp(z - m[..., None]), dim=-1), plan.group)
+    local = labels.to(torch.int64) - plan.index * rows
+    mine = (local >= 0) & (local < rows)
+    zt = torch.gather(z, -1, torch.where(mine, local, 0)[..., None]).squeeze(-1)
+    zt = ReduceSum.apply(torch.where(mine, zt, torch.zeros_like(zt)), plan.group)
+    ll = zt - m - torch.log(s)
+    if mask is None:
+        return -torch.mean(ll)
+    mask = mask.to(torch.float32)
+    return -torch.sum(ll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def _train_ce(logits, labels, mask=None):
+    """The training loss's cross entropy of logits from ``forward_lm(...,
+    vocab_parallel=True)``: vocab-parallel under a plan with ``head``."""
+    plan = current_tp()
+    if plan is not None and plan.head:
+        return vocab_parallel_cross_entropy(logits, labels, mask)
+    return cross_entropy(logits, labels, mask)
+
+
 def _mtp_loss(params, cfg: ModelConfig, hidden, tokens, compute_dtype):
     """DeepSeek-V3 multi-token prediction (JAX ``_mtp_loss``): one extra
     block, fed the final hidden state at i and the embedding of token i+1,
@@ -591,12 +686,9 @@ def _mtp_loss(params, cfg: ModelConfig, hidden, tokens, compute_dtype):
     x, _, _ = block_apply(mtp["block"], x, cfg=cfg, kind="E" if cfg.moe else "A", positions=pos,
                           window=None, rope_base=cfg.rope_base, compute_dtype=compute_dtype)
     hN = _norm_apply(cfg, mtp["final_norm"], x)
-    if cfg.tie_lm_head:
-        logits = embed_logits(params["embed"], hN)
-    else:
-        logits = dense_apply(params["lm_head"], hN.to(torch.float32))
+    logits = _readout(params, cfg, hN)  # the main head's vocab slice under a plan
     # logits[:, i] (built from token i+1 and h_i) predicts token i+2
-    return cross_entropy(logits[:, : T - 2], tokens[:, 2:])
+    return _train_ce(logits[:, : T - 2], tokens[:, 2:])
 
 
 def lm_train_loss(params, batch, cfg: ModelConfig, *, compute_dtype=torch.bfloat16,
@@ -610,10 +702,12 @@ def lm_train_loss(params, batch, cfg: ModelConfig, *, compute_dtype=torch.bfloat
     and paligemma (``vlm``) its ``patches``, as ``forward_lm`` does; the
     cross entropy is over the text positions (the image prefix is dropped
     before the head)."""
-    out = forward_lm(params, batch, cfg, compute_dtype=compute_dtype, with_aux=cfg.moe)
+    params = _join_outer(params)  # once for the main head and the MTP head
+    out = forward_lm(params, batch, cfg, compute_dtype=compute_dtype, with_aux=cfg.moe,
+                     vocab_parallel=True)
     tokens = batch["tokens"]
     mask = batch.get("loss_mask")
-    ce = cross_entropy(out.logits[:, :-1], tokens[:, 1:], None if mask is None else mask[:, 1:])
+    ce = _train_ce(out.logits[:, :-1], tokens[:, 1:], None if mask is None else mask[:, 1:])
     loss = ce
     metrics = {"ce": ce}
     if cfg.moe:

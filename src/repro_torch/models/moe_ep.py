@@ -241,8 +241,18 @@ def moe_apply_ep(
         y = psum(y, repl_group)
 
     if with_aux:
-        all_axes = dp + tuple(a for a in ep_axes if a not in dp)
-        group, n = mesh.group(all_axes), mesh_axis_size(mesh, *all_axes)
-        aux = {kk: ReduceSum.apply(v, group) / n if group is not None else v
-               for kk, v in aux.items()}
+        n = mesh_axis_size(mesh, *dp, *repl_axes)
+        dp_group = mesh.group(dp) if mesh_axis_size(mesh, *dp) > 1 else None
+
+        def mean(v):
+            # the rows' ranks each take their own loss and average the grads
+            # after: the grad of a sum over them sums over them too; the
+            # copies run one loss, whose grad of a sum is already whole
+            if dp_group is not None:
+                v = ReduceSum.apply(EnterReplicas.apply(v, dp_group), dp_group)
+            if repl_group is not None:
+                v = ReduceSum.apply(v, repl_group)
+            return v / n
+
+        aux = {kk: mean(v) for kk, v in aux.items()}
     return y.reshape(Bl, T, D), aux

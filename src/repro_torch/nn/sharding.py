@@ -32,6 +32,7 @@ rank's piece of every leaf: the counterpart of ``shardings_for_tree`` plus
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import itertools
 import math
 import re
@@ -78,6 +79,12 @@ def mesh_axis_size(mesh: Optional[AbstractMesh], *names: str) -> int:
     return math.prod(mesh.shape[a] for a in names if a in mesh.axis_names)
 
 
+# every process group's timeout: a rank whose peer died (or that reaches a
+# collective its peers never call) fails inside this, not at its caller's
+# time limit
+GROUP_TIMEOUT = datetime.timedelta(seconds=300)
+
+
 def choose_backend(device: torch.device, local_world: int) -> str:
     """NCCL when every local rank has a card of its own, gloo otherwise
     (NCCL refuses a communicator in which two ranks share a device)."""
@@ -93,7 +100,7 @@ class Mesh(AbstractMesh):
     device.  Rank r sits at the row-major coordinates of r in ``shape``, so
     a group over a set of axes orders its members (ascending global ranks)
     row-major over those axes in mesh order: the order JAX's collectives
-    number a tuple of axes in."""
+    number a tuple of axes in.  Every group gets GROUP_TIMEOUT."""
 
     def __init__(self, shape: Sequence[int], axis_names: Sequence[str]):
         super().__init__(shape, axis_names)
@@ -124,7 +131,7 @@ class Mesh(AbstractMesh):
                     for idx in itertools.product(*(range(self.shape[a]) for a in axes)):
                         c = dict(at, **dict(zip(axes, idx)))
                         members.append(self._rank_of(c))
-                    group = dist.new_group(sorted(members))
+                    group = dist.new_group(sorted(members), timeout=GROUP_TIMEOUT)
                     if self.rank in members:
                         self._groups[axes] = group
 

@@ -19,14 +19,20 @@ run the fused ``symog_update`` kernel in place of ``update``:
   ``clip_norm``  c, set by ``clip_by_global_norm`` and by that chain.
 
 Every other transformation, and every other chain, leaves both None.
+
+On sharded training state (``train.sharding``) a norm must count each
+element of the logical tree once: the trainer sets the thread's layout
+(``set_norm_shards``) around ``tx.update``, and ``global_norm`` then sums
+each leaf's partial over the ranks its shards span.
 """
 from __future__ import annotations
 
+import threading
 from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.nn.tree import tree_leaves, tree_map
+from repro_torch.nn.tree import flatten_with_paths, tree_leaves, tree_map
 
 
 class GradientTransformation(NamedTuple):
@@ -63,8 +69,29 @@ def identity() -> GradientTransformation:
     return GradientTransformation(lambda p: (), lambda g, s, p, *, lr: (g, s))
 
 
-def global_norm(tree: Any) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in fp32 (sorted-path order)."""
+class _Shards(threading.local):
+    layout: Any = None
+
+
+_shards = _Shards()
+
+
+def set_norm_shards(layout: Any) -> Any:
+    """Set the thread's sharded-state layout for ``global_norm`` (None: the
+    tree is whole); returns the previous one, to restore."""
+    prev, _shards.layout = _shards.layout, layout
+    return prev
+
+
+def global_norm(tree: Any, shards: Any = None) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in fp32 (sorted-path order).
+    With ``shards`` (default: the thread's, ``set_norm_shards``) ``tree``
+    holds this rank's shards of a parameter tree's leaves, and each leaf's
+    sum is taken over the ranks its shards span."""
+    shards = _shards.layout if shards is None else shards
+    if shards is not None:
+        return torch.sqrt(shards.sum_over_shards(
+            {p: torch.sum(torch.square(g.to(torch.float32))) for p, g in flatten_with_paths(tree)}))
     return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32))) for g in tree_leaves(tree)))
 
 

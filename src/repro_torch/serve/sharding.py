@@ -120,8 +120,10 @@ _PIECES = (
 
 
 def _piece(path: str) -> Optional[str]:
-    if path.startswith("mtp/") or path.startswith("encoder/"):
-        return None  # the training loss's MTP module; whisper's encoder
+    if path.startswith("encoder/") or (path.startswith("mtp/")
+                                       and not path.startswith("mtp/block/")):
+        return None  # whisper's encoder; the MTP module's norms and projection
+    # (its block, which only the training loss runs, splits as a layer does)
     for name, pat in _PIECES:
         if pat.search(path):
             return name
@@ -154,7 +156,9 @@ def make_tp_plan(cfg: ModelConfig, params: Any, mesh: Mesh, rules: ShardingRules
     'model' in its rule spec; attention also needs K % m == 0 (H % m for
     MLA) — the test ``pool_head_shards`` applies to the pool — and no bias
     (a row-parallel bias would be added m times).  Expert stacks split over
-    ``cfg.ep_axes`` when ``moe_impl='ep'`` is active on the mesh."""
+    ``cfg.ep_axes`` when ``moe_impl='ep'`` is active on the mesh.  The
+    plan names the leaves a sharded attention keeps whole
+    (``attn_replicated``), for training's ``tp_enter_leaves``."""
     from repro_torch.models.blocks import _ep_active
 
     m = mesh_axis_size(mesh, "model")
@@ -164,13 +168,16 @@ def make_tp_plan(cfg: ModelConfig, params: Any, mesh: Mesh, rules: ShardingRules
             "Queue 1 item 5: the TP forms of the recurrent, encoder-decoder and VLM families "
             "come next); serve it on a mesh whose model axis is 1")
     sharded: Dict[str, bool] = {}
+    whole_attn = set()  # the leaves a sharded attention keeps whole
     for path, shape in _paths_and_shapes(params):
         piece = _piece(path)
         if piece is None or piece == "experts" or path.endswith("/1"):
             continue  # exponents are per leaf (or per layer): replicated
         if not any(_model_entries((rules.axis_map.get(n) if n else None,))[0]
                    for n in rules.logical_axes_for(path, shape)):
-            continue  # a leaf the rules never split (norms, MLA's q_a / kv_a)
+            if piece == "attn":  # a leaf the rules never split (qk norms, MLA's q_a / kv_a)
+                whole_attn.add(path.split("attn/", 1)[1])
+            continue
         spec = _model_entries(rules.pspec_for(path, shape))
         sharded[piece] = sharded.get(piece, True) and "model" in spec
     heads = cfg.n_heads if cfg.use_mla else cfg.n_kv_heads
@@ -185,6 +192,7 @@ def make_tp_plan(cfg: ModelConfig, params: Any, mesh: Mesh, rules: ShardingRules
                         else sharded.get("embed", False)),
         ep=ep,
         shared=ep and m > 1 and sharded.get("shared", False),
+        attn_replicated=frozenset(whole_attn) if attn else frozenset(),
     )
 
 
@@ -199,31 +207,42 @@ def local_config(cfg: ModelConfig, plan: TPPlan) -> ModelConfig:
     return dataclasses.replace(cfg, n_heads=cfg.n_heads // m, n_kv_heads=cfg.n_kv_heads // m)
 
 
+def piece_on(plan: TPPlan) -> Dict[str, bool]:
+    """Which pieces (``_piece``'s names, the expert stacks aside) run split
+    over the model axis under ``plan``."""
+    return {"attn": plan.attn, "mlp": plan.mlp, "embed": plan.embed, "head": plan.head,
+            "shared": plan.shared}
+
+
 def serve_spec_fn(cfg: ModelConfig, plan: TPPlan):
     """``shard_tree``'s ``spec_fn`` for a serving engine: a leaf keeps the
     'model' entries of its rule spec iff its piece is sharded under
     ``plan``; expert stacks split their expert axis over ``cfg.ep_axes``
     (words and per-expert exponents alike) when EP is on; everything else
     replicates.  A tied head shards with the embedding table."""
-    on = {"attn": plan.attn, "mlp": plan.mlp, "embed": plan.embed,
-          "head": plan.head, "shared": plan.shared}
-    ep_axes = tuple(a for a in plan.mesh.axis_names if a in cfg.ep_axes)
+    on = piece_on(plan)
 
     def spec_fn(path: str, shape: Tuple[int, ...], spec: Spec) -> Spec:
         piece = _piece(path)
         if piece == "experts":
-            if not plan.ep:
-                return ()
             # the expert axis: dim -3 of the words (E, K, N/per) under any
             # stacked lead, the last dim of a per-expert exponent (…, E)
-            d = len(shape) - 1 if path.endswith("/1") else len(shape) - 3
-            if d < 0 or shape[d] != cfg.n_experts:
-                return ()
-            out = [None] * len(shape)
-            out[d] = ep_axes if len(ep_axes) > 1 else ep_axes[0]
-            return tuple(out)
+            return expert_spec(cfg, plan, shape, len(shape) - 1 if path.endswith("/1")
+                               else len(shape) - 3)
         if piece is None or not on.get(piece, False) or path.endswith("/1"):
             return ()
         return _model_entries(spec)
 
     return spec_fn
+
+
+def expert_spec(cfg: ModelConfig, plan: TPPlan, shape: Tuple[int, ...], d: int) -> Spec:
+    """An expert stack's (or its per-expert exponent's) spec: dim ``d``, the
+    expert axis, split over the mesh's ``cfg.ep_axes`` under EP; replicated
+    otherwise."""
+    if not plan.ep or d < 0 or shape[d] != cfg.n_experts:
+        return ()
+    ep_axes = tuple(a for a in plan.mesh.axis_names if a in cfg.ep_axes)
+    out: list = [None] * len(shape)
+    out[d] = ep_axes if len(ep_axes) > 1 else ep_axes[0]
+    return tuple(out)

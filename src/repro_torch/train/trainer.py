@@ -39,14 +39,25 @@ expert) group.  The CNN half (``make_cnn_train_step``, ``make_cnn_eval``)
 trains the paper's CNNs through the same update; BN's running stats ride
 along in the state.
 
-Data parallelism (``make_train_step(..., mesh=)``, a mesh whose ``model``
-axis is 1): every rank runs the same program on its share of the global
-batch (rows split over the (pod, data) axes), the gradients are
-mean-all-reduced in fp32 over the data group before the update, the clip's
-global norm is taken once from the reduced gradients, and the update then
-runs the same on every rank: the parameters stay replicated.  MoE layers
-take the capacity dispatch there (the trainer enters no mesh).  A ``model``
-axis > 1 is tensor-parallel training, not ported yet.
+Distribution (``make_train_step(..., mesh=)``): the state is placed by
+``train.sharding`` (``shard_train_state`` on a whole ``TrainState``, after
+``symog_init`` ran on the whole leaves).  Every rank runs the same program
+on its share of the global batch (rows split over the (pod, data) axes),
+under the layout's ``TPPlan`` and ``with mesh:``: pieces split over a
+``model`` axis > 1 run tensor-parallel on local shapes (Megatron's f / g,
+``models.layers``), the loss is the vocab-parallel cross entropy, an FSDP
+profile's params are joined where they are used, and MoE layers under
+``moe_impl='ep'`` route expert-parallel when the mesh's EP axes multiply
+past 1.  The gradients are mean-reduced over the data axes in fp32 (the
+FSDP-split leaves' sums come from the reduce-scatter of their join's
+backward); a leaf replicated over ``model`` comes out equal on every model
+rank.  The update then reads whole-leaf quantities on the shards: λ_eff
+from the leaf's whole M_l (``layout.numel``), the clip's norm and
+``grad_norm`` from per-leaf partials summed over the ranks each leaf spans
+(``layout.sum_over_shards``), so every rank applies the same clip scale.
+An expert stack's Δ per (layer, expert) group is this rank's slice of the
+groups.  A non-decoder family runs on a mesh whose ``model`` axis is 1
+only (ROADMAP 5b).
 """
 from __future__ import annotations
 
@@ -60,9 +71,11 @@ from repro_torch.kernels import dispatch
 from repro_torch.kernels.symog_update import symog_sqnorm, symog_update
 from repro_torch.models.cnn import CNNConfig, cnn_apply, fp32_convs
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import set_tp
 from repro_torch.models.lm import lm_train_loss
 from repro_torch.nn.tree import flatten_with_paths, tree_leaves, tree_map, tree_map_with_path
 from repro_torch.optim import GradientTransformation, apply_updates, global_norm
+from repro_torch.optim.transform import set_norm_shards
 
 
 class TrainState(NamedTuple):
@@ -136,16 +149,24 @@ def _clip_scale(c: float, norm: torch.Tensor) -> torch.Tensor:
 
 def composed_update(params, grads, opt_state, symog: Optional[SymogState],
                     symog_cfg: Optional[SymogConfig], tx: GradientTransformation, *,
-                    lr: float, lam: Optional[float], stats: Optional[Dict[str, Any]] = None):
+                    lr: float, lam: Optional[float], stats: Optional[Dict[str, Any]] = None,
+                    shards=None):
     """The JAX trainer's update on whole trees: returns (params, opt_state).
     ``stats``, if given, receives the clip scale as ``clip_scale`` when ``tx``
-    clips (one more norm of the total grads)."""
+    clips (one more norm of the total grads).  ``shards`` (a
+    ``train.sharding`` layout): the trees hold this rank's shards; M_l and
+    the norms are the whole leaves' (``tx`` sees the layout through
+    ``optim.transform.set_norm_shards``)."""
     if symog_cfg is not None:
-        rg = reg_grad(params, symog, symog_cfg)
+        rg = reg_grad(params, symog, symog_cfg, shards)
         grads = tree_map(lambda g, r: g + lam * r.to(g.dtype), grads, rg)
     if stats is not None and tx.clip_norm is not None:
-        stats["clip_scale"] = _clip_scale(tx.clip_norm, global_norm(grads))
-    updates, opt_state = tx.update(grads, opt_state, params, lr=lr)
+        stats["clip_scale"] = _clip_scale(tx.clip_norm, global_norm(grads, shards))
+    prev = set_norm_shards(shards)
+    try:
+        updates, opt_state = tx.update(grads, opt_state, params, lr=lr)
+    finally:
+        set_norm_shards(prev)
     params = apply_updates(params, updates)
     if symog_cfg is not None and symog_cfg.clip:
         params = clip_tree(params, symog, symog_cfg)
@@ -155,7 +176,7 @@ def composed_update(params, grads, opt_state, symog: Optional[SymogState],
 def fused_update(params, grads, opt_state, symog: SymogState, symog_cfg: SymogConfig,
                  tx: GradientTransformation, *, lr: float, lam: float,
                  deltas: Optional[Dict[str, Tuple[torch.Tensor, torch.Tensor]]] = None,
-                 stats: Optional[Dict[str, Any]] = None):
+                 stats: Optional[Dict[str, Any]] = None, shards=None):
     """One ``symog_update`` per quantizable leaf, SGD-Nesterov in torch for
     the rest, all in place on the params and their momentum: returns the same
     (params, opt_state).  With ``clip_by_global_norm`` chained before the SGD,
@@ -164,7 +185,10 @@ def fused_update(params, grads, opt_state, symog: SymogState, symog_cfg: SymogCo
     kernels as its Δ tensor, one Δ per group; λ_eff stays λ·2/M_l over the
     whole leaf, JAX's ``layer_reg_grad``.  ``deltas`` caches each leaf's fp32
     Δ by path, keyed on the identity of its f, so Δ is made on the device
-    once per run; ``stats`` receives ``clip_scale``, as ``composed_update``."""
+    once per run; ``stats`` receives ``clip_scale``, as ``composed_update``.
+    ``shards`` (a ``train.sharding`` layout): the trees hold this rank's
+    shards; λ_eff takes the whole leaf's M_l and the clip's norm sums each
+    leaf's ``symog_sqnorm`` partial over the ranks its shards span."""
     why = _check_fusable(tx, symog_cfg)
     if why:
         raise ValueError(why)
@@ -175,7 +199,7 @@ def fused_update(params, grads, opt_state, symog: SymogState, symog_cfg: SymogCo
     v_by_path = dict(flatten_with_paths(momentum))
     g_by_path = dict(flatten_with_paths(grads))
 
-    leaves = []  # (w, g, v, Δ or None for the leaves SYMOG excludes, λ_eff)
+    leaves = []  # (path, w, g, v, Δ or None for the leaves SYMOG excludes, λ_eff)
     for path, w in flatten_with_paths(params):
         delta = None
         if symog.mask[path]:
@@ -184,19 +208,21 @@ def fused_update(params, grads, opt_state, symog: SymogState, symog_cfg: SymogCo
             if cached is None or cached[0] is not f:
                 cached = deltas[path] = (f, delta_from_f(f, device=w.device))
             delta = cached[1]
-        leaves.append((w, g_by_path[path].contiguous(), v_by_path[path], delta,
-                       lam * 2.0 / w.numel()))
+        m_l = w.numel() if shards is None else shards.numel(path)
+        leaves.append((path, w, g_by_path[path].contiguous(), v_by_path[path], delta,
+                       lam * 2.0 / m_l))
 
     with torch.no_grad():
         scale = 1.0
         if tx.clip_norm is not None:  # the sorted-path order of JAX's global norm
-            sq = sum(torch.sum(torch.square(g)) if d is None else
-                     symog_sqnorm(w, g, delta=d, lam_eff=lam_eff, n_bits=symog_cfg.n_bits)
-                     for w, g, _, d, lam_eff in leaves)
-            scale = _clip_scale(tx.clip_norm, torch.sqrt(sq))
+            sq = {path: torch.sum(torch.square(g)) if d is None else
+                  symog_sqnorm(w, g, delta=d, lam_eff=lam_eff, n_bits=symog_cfg.n_bits)
+                  for path, w, g, _, d, lam_eff in leaves}
+            total = sum(sq.values()) if shards is None else shards.sum_over_shards(sq)
+            scale = _clip_scale(tx.clip_norm, torch.sqrt(total))
             if stats is not None:
                 stats["clip_scale"] = scale
-        for w, g, v, delta, lam_eff in leaves:
+        for _, w, g, v, delta, lam_eff in leaves:
             if delta is None:  # norm scales: the same SGD-Nesterov math
                 g = g * scale if tx.clip_norm is not None else g
                 v.mul_(mu).add_(g)
@@ -219,7 +245,7 @@ def _make_update(tx: GradientTransformation, lr_schedule: Callable[[int], float]
         raise ValueError(why)
     deltas: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
 
-    def update(params, grads, opt_state, symog, step: int):
+    def update(params, grads, opt_state, symog, step: int, shards=None):
         lr = lr_schedule(step)
         lam = lambda_at(symog_cfg, step) if symog_cfg is not None else None
         dev = tree_leaves(params)[0].device
@@ -227,11 +253,13 @@ def _make_update(tx: GradientTransformation, lr_schedule: Callable[[int], float]
         if dispatch.resolve_update_backend(dev, backend) == "fused" and not why:
             # ('auto' with another optimizer composes)
             params, opt_state = fused_update(params, grads, opt_state, symog, symog_cfg, tx,
-                                             lr=lr, lam=lam, deltas=deltas, stats=stats)
+                                             lr=lr, lam=lam, deltas=deltas, stats=stats,
+                                             shards=shards)
         else:
             with torch.no_grad():
                 params, opt_state = composed_update(params, grads, opt_state, symog, symog_cfg,
-                                                    tx, lr=lr, lam=lam, stats=stats)
+                                                    tx, lr=lr, lam=lam, stats=stats,
+                                                    shards=shards)
         return params, opt_state, lr, lam, stats
 
     return update
@@ -240,23 +268,6 @@ def _make_update(tx: GradientTransformation, lr_schedule: Callable[[int], float]
 def _on_device(batch, params):
     dev = tree_leaves(params)[0].device
     return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
-
-
-_DATA_AXES = ("pod", "data")
-
-
-def _data_parallel(mesh):
-    """(group, ranks, this rank's index) of the mesh's data axes; refuses a
-    model axis > 1."""
-    from repro_torch.nn.sharding import mesh_axis_size
-
-    if mesh is None:
-        return None, 1, 0
-    if mesh_axis_size(mesh, "model") > 1:
-        raise NotImplementedError(
-            "tensor-parallel training (a mesh whose model axis is > 1) is not ported yet: "
-            "ROADMAP Queue 1 item 5 (distribution); train on a Dx1 mesh")
-    return mesh.group(_DATA_AXES), mesh_axis_size(mesh, *_DATA_AXES), mesh.axis_index(_DATA_AXES)
 
 
 def _my_rows(batch, n: int, i: int):
@@ -270,13 +281,21 @@ def _my_rows(batch, n: int, i: int):
     return {k: v[i * b:(i + 1) * b] for k, v in batch.items()}
 
 
-def _mean_over(tree, group, n: int):
-    """Mean of every leaf over the data ranks, summed in fp32."""
+def _mean_over_data(tree, layout, split=()):
+    """Mean of every leaf over the layout's data ranks, summed in fp32; the
+    leaves at paths in ``split`` (FSDP-split grads, already summed over the
+    data ranks by their join's backward) are only scaled."""
     from repro_torch.distributed.collectives import all_reduce
 
-    if n == 1:
+    if layout is None or layout.n_data == 1:
         return tree
-    return tree_map(lambda g: all_reduce(g.to(torch.float32), group) / n, tree)
+    group, n = layout.mesh.group(layout.data_axes), layout.n_data
+
+    def one(path, g):
+        g = g.to(torch.float32)
+        return (g if path in split else all_reduce(g, group)) / n
+
+    return tree_map_with_path(one, tree)
 
 
 def make_train_step(
@@ -303,20 +322,27 @@ def make_train_step(
     g + λ·∂R/∂w).  The update backend is pinned here
     (``dispatch.get_update_backend``).
 
-    ``mesh`` (a Dx1 ``nn.sharding.Mesh``): data-parallel, as the module
-    docstring says; the step takes the GLOBAL batch (the same on every
-    rank) and trains on this rank's rows of it, and ``loss`` and the other
-    loss metrics are means over the ranks.  ``mb_constraint`` and
-    ``act_pspec`` are JAX's signature (``act_pspec`` from
-    ``ShardingRules.act_pspec``): they pin GSPMD layouts, which the port's
-    explicit per-rank layout does not have, so they are accepted and not
-    read."""
+    ``mesh`` (an ``nn.sharding.Mesh`` of (pod,) data and model axes): the
+    state is ``train.sharding.shard_train_state``'s for this mesh and
+    ``cfg.sharding_profile``, as the module docstring says; the step takes
+    the GLOBAL batch (the same on every rank) and trains on this rank's
+    rows of it, and ``loss`` and the other loss metrics are means over the
+    data ranks (equal on the model ranks).  A ``loss_fn`` of the caller's
+    runs on the per-rank shapes.  ``mb_constraint`` and ``act_pspec`` are
+    JAX's signature (``act_pspec`` from ``ShardingRules.act_pspec``): they
+    pin GSPMD layouts, which the port's explicit per-rank layout does not
+    have, so they are accepted and not read."""
+    from repro_torch.train.sharding import train_layout
+
     del mb_constraint, act_pspec
-    group, n_data, my = _data_parallel(mesh)
+    layout = train_layout(cfg, mesh) if mesh is not None else None
+    n_data, my = (layout.n_data, layout.data_index) if layout is not None else (1, 0)
+    fsdp_paths = frozenset(layout.plan.fsdp or ()) if layout is not None else frozenset()
+    run_cfg = layout.cfg if layout is not None else cfg
     update = _make_update(tx, lr_schedule, symog_cfg)
     if loss_fn is None:
         def loss_fn(params, batch):  # noqa: F811 — default LM loss
-            return lm_train_loss(params, batch, cfg, compute_dtype=compute_dtype)
+            return lm_train_loss(params, batch, run_cfg, compute_dtype=compute_dtype)
 
     if cast_params:
         # mixed precision: fp32 master weights, a compute-dtype copy made
@@ -328,14 +354,24 @@ def make_train_step(
                                if p.dtype == torch.float32 and p.ndim >= 1 else p, params)
             return base_loss_fn(cparams, batch)
 
+    def grads_of(params, batch):
+        if layout is None:
+            return _accum_grads(loss_fn, params, batch, accum_steps)
+        prev = set_tp(layout.plan)
+        try:
+            with layout.mesh:  # MoE layers read it to route expert-parallel
+                return _accum_grads(loss_fn, params, batch, accum_steps)
+        finally:
+            set_tp(prev)
+
     def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, Any]]:
         batch = _my_rows(_on_device(batch, state.params), n_data, my)
-        _, metrics, grads = _accum_grads(loss_fn, state.params, batch, accum_steps)
-        grads = _mean_over(grads, group, n_data)
-        metrics = dict(_mean_over(metrics, group, n_data))
-        metrics["grad_norm"] = global_norm(grads)
+        _, metrics, grads = grads_of(state.params, batch)
+        grads = _mean_over_data(grads, layout, fsdp_paths)
+        metrics = dict(_mean_over_data(metrics, layout))
+        metrics["grad_norm"] = global_norm(grads, layout)
         params, opt_state, lr, lam, stats = update(state.params, grads, state.opt_state,
-                                                   state.symog, state.step)
+                                                   state.symog, state.step, layout)
         metrics.update(stats)
         metrics["lr"] = lr
         if symog_cfg is not None:

@@ -1415,6 +1415,49 @@ def test_clipped_symog_update_and_norm_pass_match_plain(dev, shape, lead, misali
     np.testing.assert_allclose(float(sqs[0]), want_sq, rtol=1e-5)
 
 
+@pytest.mark.parametrize("case,shape,dim", [
+    ("column", (3, 256, 8, 64), 2),  # a stacked q_proj-like leaf, its K heads cut in 2
+    ("odd_column", (2, 7, 10), 2),  # a shard of 35 elements a layer: the scalar tail
+    ("expert_slice", (6, 8, 128, 64), 1),  # a rank's 4 of 8 experts, a Δ per (layer, expert)
+])
+@pytest.mark.parametrize("n_bits", [2, 4])
+def test_symog_update_on_training_shards(dev, case, shape, dim, n_bits):
+    """One tensor-parallel rank's shard of a leaf (its second half along
+    ``dim``, a contiguous copy as ``shard_train_state`` makes it) with the
+    WHOLE leaf's λ_eff = λ·2/M_l: ``symog_update`` equals its plain version
+    bit for bit and ``symog_sqnorm`` its plain version at rtol 1e-5, each
+    the same bits over two calls."""
+    from repro_torch.kernels.symog_update import ops as sops
+    from repro_torch.kernels.symog_update import symog_sqnorm, symog_update
+    from repro_torch.kernels.symog_update.ref import symog_sqnorm_ref, symog_update_ref
+
+    rng = np.random.default_rng(sum(shape) + n_bits + 2)
+    lead = shape[:2] if case == "expert_slice" else ()
+    f = rng.integers(1, 6, size=lead) if lead else np.array(3)
+    d = np.exp2(-f.astype(np.float32)).reshape(lead + (1,) * (len(shape) - len(lead)))
+    whole = [(rng.standard_normal(shape) * s).astype(np.float32) for s in (1.3 * d, 0.05, 0.01)]
+    half = shape[dim] // 2
+    w, g, v = (torch.from_numpy(a).to(dev).narrow(dim, half, half).contiguous() for a in whole)
+    f_local = f[:, half:] if lead else f
+    delta = torch.from_numpy(np.exp2(-f_local.astype(np.float32)).reshape(-1)).to(dev)
+    kw = dict(delta=delta, lam_eff=10.0 * np.exp(9.0) * 2.0 / int(np.prod(shape)), n_bits=n_bits)
+    want_w, want_v = symog_update_ref(w, g, v, lr=0.01, mu=0.9, **kw)
+    want_sq = float(symog_sqnorm_ref(w, g, **kw))
+    outs, sqs = [], []
+    for _ in range(2):
+        w2, v2 = w.clone(), v.clone()
+        before = (sops.launches, sops.sqnorm_launches)
+        sqs.append(symog_sqnorm(w2, g, **kw))
+        symog_update(w2, g, v2, lr=0.01, mu=0.9, **kw)
+        torch.cuda.synchronize()
+        assert (sops.launches, sops.sqnorm_launches) == (before[0] + 1, before[1] + 1)
+        outs.append((w2, v2))
+    for a, b in outs:
+        assert torch.equal(a, want_w) and torch.equal(b, want_v)
+    assert torch.equal(sqs[0], sqs[1])
+    np.testing.assert_allclose(float(sqs[0]), want_sq, rtol=1e-5)
+
+
 def test_moe_train_step_repeats_bit_identical(dev):
     """Reduced olmoe at bf16 compute: two backward passes from one state give
     the same grads bit for bit (the MoE gathers' slot-order backward), and

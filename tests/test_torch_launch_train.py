@@ -16,7 +16,8 @@
     JAX's launcher from the port's; the next 3 steps' losses within rtol
     1e-5 of JAX's (tests/torch_train_parity.py's bar); a port-only
     ``--resume`` continues bit for bit; every JAX flag accepted, a ``--mesh``
-    with a model axis > 1 (tensor-parallel training) refused;
+    with a model axis > 1 (tensor-parallel training) taken, asking for its
+    ranks (tests/test_torch_tp_train.py runs it on two);
   - ``nn``: the tree helpers against JAX's, the dtype policies, and each
     initializer held to its law (mean and std within 4 sigma, the ±2σ
     truncation, fans, dtypes; ``jax.random``'s bits are not reproduced).
@@ -356,10 +357,13 @@ def test_launcher_flags_are_jax_flags_and_mesh_is_refused(capsys):
     port_flags = {o for a in tlaunch.build_parser()._actions for o in a.option_strings
                   if o.startswith("--") and o != "--help"}
     assert port_flags == jax_flags | {"--device"} and len(jax_flags) == 15
-    # a model axis > 1 is tensor-parallel training: not ported yet
+    # a model axis > 1 is tensor-parallel training: the mesh is taken and
+    # asks for its 2 ranks (one process here; tests/test_torch_tp_train.py
+    # runs it under two)
     with pytest.raises(SystemExit):
         tlaunch.main(["--arch", ARCH, "--reduced", "--device", "cpu", "--mesh", "1x2"])
-    assert "Queue 1 item 5" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "--mesh 1x2 needs 2 devices, have 1" in err and "not ported" not in err
 
 
 # ---------------------------------------------------------------------------

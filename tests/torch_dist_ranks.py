@@ -1,6 +1,6 @@
 """Rank side of the port's multi-process CPU tests (not collected: no
-``test_`` prefix; ``test_torch_sharded_serve.py`` and
-``test_torch_distributed.py`` import it).
+``test_`` prefix; ``test_torch_sharded_serve.py``,
+``test_torch_distributed.py`` and ``test_torch_tp_train.py`` import it).
 
 ``run_ranks(fn, world, payload)`` starts ``world`` spawned processes, each a
 gloo rank with one intra-op thread, runs ``fn(rank, world, payload)`` (a
@@ -77,8 +77,9 @@ def _entry(name, rank, world, port, src, out):
         payload = torch.load(src, weights_only=False)
         res = globals()[name](rank, world, payload)
         torch.save(res, out)
-        dist.barrier()
-        dist.destroy_process_group()
+        if dist.is_initialized():  # (a launcher's main leaves the group itself)
+            dist.barrier()
+            dist.destroy_process_group()
     except BaseException:  # reported to the parent, then this rank exits non-zero
         torch.save(_Failure(traceback.format_exc()), out)
         os._exit(1)
@@ -211,3 +212,183 @@ def dp_jobs(rank, world, payload):
         rounds.append((mean["w"].clone(), st.err["w"].clone()))
     out["compressed"] = rounds
     return out
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel and FSDP training
+# ---------------------------------------------------------------------------
+def _tp_run(job, route):
+    """``job``'s steps on its mesh from the bridged whole params: per step
+    metrics, and this rank's params, momentum, f and specs after."""
+    from repro_torch import core, optim
+    from repro_torch.bridge import params_from_numpy
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.kernels import dispatch
+    from repro_torch.nn.sharding import Mesh
+    from repro_torch.nn.tree import flatten_with_paths
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.train.sharding import shard_train_state, train_layout
+
+    cfg = job["cfg"]
+    mesh = Mesh(job["mesh"], ("data", "model"))
+    tx = optim.chain(optim.clip_by_global_norm(1.0), optim.sgd(momentum=0.9, nesterov=True))
+    scfg = core.SymogConfig(n_bits=2, total_steps=10, lambda0=job["lam"])
+    dispatch.set_update_backend(route)
+    try:
+        whole = init_train_state(params_from_numpy(job["params"]), tx, scfg)
+        layout = train_layout(cfg, mesh)
+        state = shard_train_state(whole, layout)
+        if job.get("ckpt") and route == "fused":  # the initial state, from every rank
+            CheckpointManager(job["ckpt"] + "_init").save(0, state, blocking=True, mesh=mesh,
+                                                          spec_fn=layout.spec_fn)
+        step = make_train_step(cfg, tx, lambda s: 0.01, symog_cfg=scfg,
+                               compute_dtype=torch.float32, mesh=mesh)
+        metrics = []
+        for b in job["batches"]:
+            state, m = step(state, b)
+            metrics.append({k: float(v) for k, v in m.items()})
+    finally:
+        dispatch.set_update_backend("auto")
+    return mesh, layout, state, {
+        "metrics": metrics, "params": state.params, "momentum": state.opt_state[1],
+        "f": state.symog.f, "coords": dict(mesh.coords), "specs": dict(layout.specs),
+        "plan": {k: getattr(layout.plan, k) for k in ("attn", "mlp", "embed", "head", "ep")},
+        "fsdp": dict(layout.plan.fsdp or {}),
+        "f_specs": {p: layout.spec_fn(f"symog/0/{p}", tuple(f.shape))
+                    for p, f in flatten_with_paths(state.symog.f)},
+    }
+
+
+def tp_train_jobs(rank, world, payload):
+    """Each job: 2 steps on a (d, m) mesh, fused and composed.  Then, on
+    world 2: the vocab-parallel cross entropy, a checkpoint of a (1, 2)
+    state, and the launcher at --mesh 1x2 (last: it leaves the group); on
+    world 4: a restore of that checkpoint onto (2, 2)."""
+    from repro_torch.checkpoint import CheckpointManager
+
+    out = {}
+    for job in payload["jobs"]:
+        for route in job["routes"]:
+            mesh, layout, state, res = _tp_run(job, route)
+            out[(job["name"], route)] = res
+            if job.get("ckpt") and route == "fused":  # the stepped state
+                CheckpointManager(job["ckpt"]).save(2, state, blocking=True, mesh=mesh,
+                                                    spec_fn=layout.spec_fn)
+    if "ce" in payload:
+        out["ce"] = _vocab_parallel_ce(payload["ce"])
+    if "remat" in payload:
+        out["remat"] = _remat_backward_elsewhere(payload["remat"])
+    if "restore" in payload:
+        out["restore"] = _restore_onto(payload["restore"])
+    if "launch" in payload:
+        import contextlib
+        import io
+
+        from repro_torch.launch import train as launch
+
+        os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                          LOCAL_WORLD_SIZE=str(world))
+        with contextlib.redirect_stdout(io.StringIO()) as text:
+            res = launch.main(payload["launch"])
+        out["launch"] = {"losses": res["losses"], "clip_scales": res["clip_scales"],
+                         "text": text.getvalue()}
+    return out
+
+
+def _vocab_parallel_ce(p):
+    """The vocab-parallel cross entropy on this rank's vocab slice of the
+    logits, and the gathered form under the same plan: losses and the grads
+    of this rank's slice."""
+    from repro_torch.models.layers import TPPlan, gather_vocab, set_tp
+    from repro_torch.models.lm import cross_entropy, vocab_parallel_cross_entropy
+    from repro_torch.nn.sharding import Mesh
+
+    mesh = Mesh((1, 2), ("data", "model"))
+    i = mesh.coords["model"]
+    plan = TPPlan(mesh=mesh, group=mesh.group("model"), size=2, index=i, head=True)
+    z = torch.from_numpy(p["logits"])
+    v = z.shape[-1] // 2
+    labels, mask = torch.from_numpy(p["labels"]), torch.from_numpy(p["mask"])
+    res = {}
+    prev = set_tp(plan)
+    try:
+        for name, fn in (("parallel", vocab_parallel_cross_entropy),
+                         ("gathered", lambda x, y, m: cross_entropy(gather_vocab(x), y, m))):
+            for masked in (False, True):
+                local = z[..., i * v:(i + 1) * v].clone().requires_grad_(True)
+                loss = fn(local, labels, mask if masked else None)
+                loss.backward()
+                res[(name, masked)] = (float(loss), local.grad)
+    finally:
+        set_tp(prev)
+    res["index"] = i
+    return res
+
+
+def _remat_backward_elsewhere(p):
+    """The loss's grads under remat with the backward run outside the plan
+    and the mesh — on another thread, as the card's autograd engine runs
+    it, and on this one after leaving them — against the backward run
+    inside them: a layer's recompute must re-enter both."""
+    import threading
+
+    from repro_torch.bridge import params_from_numpy
+    from repro_torch.models.layers import set_tp
+    from repro_torch.models.lm import lm_train_loss
+    from repro_torch.nn.sharding import Mesh
+    from repro_torch.nn.tree import tree_leaves, tree_map
+    from repro_torch.train.sharding import shard_train_state, train_layout
+
+    mesh = Mesh((1, 2), ("data", "model"))
+    layout = train_layout(p["cfg"], mesh)
+    params = shard_train_state(params_from_numpy(p["params"]), layout)
+    batch = {"tokens": torch.as_tensor(p["tokens"])}
+    out = {}
+    for where in ("inside", "this_thread", "other_thread"):
+        live = tree_map(lambda w: w.detach().requires_grad_(True), params)
+        box = {}
+
+        def backward():
+            try:
+                box["grads"] = torch.autograd.grad(box["loss"], tree_leaves(live))
+            except Exception as e:  # reported, not raised: the peer rank waits on it
+                box["error"] = repr(e)
+
+        prev = set_tp(layout.plan)
+        try:
+            with mesh:
+                box["loss"], _ = lm_train_loss(live, batch, layout.cfg,
+                                               compute_dtype=torch.float32)
+                if where == "inside":
+                    backward()
+        finally:
+            set_tp(prev)
+        if where == "this_thread":
+            backward()
+        elif where == "other_thread":
+            t = threading.Thread(target=backward)
+            t.start()
+            t.join()
+        out[where] = box.get("error") or box["grads"]
+    return out
+
+
+def _restore_onto(p):
+    """A checkpoint written from (1, 2) restored onto ``p['mesh']``'s pieces."""
+    from repro_torch import core, optim
+    from repro_torch.bridge import params_from_numpy
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.nn.sharding import Mesh
+    from repro_torch.train import init_train_state
+    from repro_torch.train.sharding import train_layout
+
+    cfg = p["cfg"]
+    mesh = Mesh(p["mesh"], ("data", "model"))
+    tx = optim.chain(optim.clip_by_global_norm(1.0), optim.sgd(momentum=0.9, nesterov=True))
+    like = init_train_state(params_from_numpy(p["params"]), tx,
+                            core.SymogConfig(n_bits=2, total_steps=10))
+    layout = train_layout(cfg, mesh)
+    state, _, step = CheckpointManager(p["ckpt"]).restore(
+        like, mesh=mesh, rules=layout.rules, spec_fn=layout.spec_fn)
+    return {"step": step, "params": state.params, "momentum": state.opt_state[1],
+            "coords": dict(mesh.coords), "specs": dict(layout.specs)}
