@@ -12,6 +12,8 @@ given, so a caller that wants one rounding sums fp32 and casts once.
 Autograd forms: ``AllToAll`` (backward the reverse all-to-all),
 ``ReduceSum`` (Megatron's g: the sum, backward the identity),
 ``EnterReplicas`` (Megatron's f: the identity, backward the sum),
+``SumShared`` (the sum, backward the sum: partials whose sum each member
+then uses in a program of its own),
 ``AllGather`` (backward this member's slice of the grad) and
 ``GatherShards`` (FSDP's join of a parameter's shards, backward the
 reduce-scatter sum).  ``stats`` counts every collective this process runs
@@ -220,6 +222,24 @@ class ReduceSum(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return grad, None
+
+
+class SumShared(torch.autograd.Function):
+    """``all_reduce`` sum whose backward is the ``all_reduce`` sum of the
+    grad: for partials whose sum every member then uses in a program of its
+    own (mamba2's gated norm over d_inner split by heads: each member
+    normalizes its own channels by the shared sum of squares), so each
+    member's grad of the sum covers its own program only.  ``ReduceSum``'s
+    identity backward would drop the other members' parts."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce(grad.contiguous(), ctx.group), None
 
 
 class EnterReplicas(torch.autograd.Function):

@@ -26,7 +26,11 @@ the M model ranks, FSDP's ``embed`` split over the D data ranks under
 trains on its data rank's rows; rank 0 prints and writes the checkpoints
 (each leaf gathered to it, JAX's format), and a resume cuts them again.
 The weights are the port's own seeded init (``models.init_lm``), not the
-JAX package's; a resumed run continues from the checkpoint's.
+JAX package's; a resumed run continues from the checkpoint's.  whisper's
+and paligemma's steps add stub frames / patches (the serve launcher's:
+N(0, 0.01) at d_model, from a ``torch.Generator`` seeded ``--seed`` + 1 +
+the step, so a resumed run draws the same ones); JAX's launcher has no
+frontend stubs and trains the token-only families alone.
 
 Each step is timed to the card's completion (a synchronize before the
 monitor stops), so the straggler monitor sees device time.
@@ -78,6 +82,19 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def _frontend_stub(cfg: ModelConfig, batch: Dict[str, Any], seed: int) -> Dict[str, Any]:
+    """``batch`` with whisper's frames / paligemma's patches for its rows,
+    drawn from ``seed`` (the other families' batches as they are)."""
+    stub = {"encdec": ("frames", cfg.encoder_len), "vlm": ("patches", cfg.prefix_len)}
+    if cfg.family not in stub:
+        return batch
+    name, n = stub[cfg.family]
+    rows = next(iter(batch.values())).shape[0]
+    gen = torch.Generator().manual_seed(seed)
+    return dict(batch, **{name: (torch.randn((rows, n, cfg.d_model), generator=gen) * 0.1)
+                          .numpy()})
+
+
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -127,7 +144,7 @@ def run(cfg: ModelConfig, args: argparse.Namespace,
     mon = StepTimeMonitor()
     calls0, bytes0 = dict(collectives.stats["calls"]), dict(collectives.stats["bytes"])
     for i in range(start, args.steps):
-        batch = next(data)
+        batch = _frontend_stub(cfg, next(data), args.seed + 1 + i)
         mon.start()
         t0 = time.perf_counter()
         state, metrics = step_fn(state, batch)

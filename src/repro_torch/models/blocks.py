@@ -10,7 +10,15 @@ values read from the config.
 
 The recurrent kinds' decode returns new state tensors and writes nothing
 in place; the attention kinds write their caches in place, as the rest of
-the port does."""
+the port does.
+
+Under a tensor-parallel plan (``layers.TPPlan``) every sublayer whose piece
+is split takes its replicated input through ``tp_enter`` and sums its
+row-parallel partials with ``tp_reduce``, its output projection's bias
+added once after the sum (``split_row_bias``): attention (self and cross;
+the cross k / v read the encoder's output through ``tp_enter`` too), the
+MLP, the SSD block (its whole leaves through ``tp_enter_leaves``) and the
+RG-LRU block."""
 from __future__ import annotations
 
 import math
@@ -48,6 +56,7 @@ from repro_torch.models.layers import (
     layernorm_init,
     rmsnorm_apply,
     rmsnorm_init,
+    split_row_bias,
     tp_enter,
     tp_enter_leaves,
     tp_reduce,
@@ -253,8 +262,9 @@ def _ffn(p, h, cfg: ModelConfig, kind: str, compute_dtype, with_aux: bool = Fals
             y, aux = moe_apply(p["moe"], h, cfg=_moe_cfg(cfg), compute_dtype=compute_dtype,
                                with_aux=with_aux, **moe_kw)
         return y, (aux if with_aux else None)
-    y = tp_reduce(mlp_apply(p["mlp"], tp_enter(h, "mlp"), cfg=_mlp_cfg(cfg),
-                            compute_dtype=compute_dtype), "mlp")
+    pm, bias = split_row_bias(p["mlp"], "mlp")
+    y = tp_reduce(mlp_apply(pm, tp_enter(h, "mlp"), cfg=_mlp_cfg(cfg),
+                            compute_dtype=compute_dtype), "mlp", bias)
     return y, (zero_aux(h.device) if with_aux else None)
 
 
@@ -269,13 +279,20 @@ def _ffn_residual(p, x, cfg: ModelConfig, kind: str, compute_dtype, with_aux: bo
     return x + y, aux
 
 
+def _attn_params(p, name: str = "attn"):
+    """(an attention sublayer's params for the attention code, the bias to
+    add after its reduce): the leaves it keeps whole enter through
+    Megatron's f, and a split attention's ``o_proj`` bias comes out."""
+    return split_row_bias(tp_enter_leaves(p[name]), "attn")
+
+
 def _finish_block(p, x, y, cfg: ModelConfig, kind: str, compute_dtype, with_aux: bool = False,
-                  **moe_kw):
+                  o_bias=None, **moe_kw):
     """The block after attention: y (the attention output) through the
     post-attention norm into the residual, then the FFN half.  Returns (x,
     aux) as ``_ffn``.  A tensor-parallel attention's ``o_proj`` partials
-    are summed here."""
-    y = tp_reduce(y, "attn")
+    are summed here, ``o_bias`` (``_attn_params``') added to the sum."""
+    y = tp_reduce(y, "attn", o_bias)
     if cfg.post_norm:
         y = _norm_apply(cfg, p["post_attn_norm"], y)
     return _ffn_residual(p, x + y, cfg, kind, compute_dtype, with_aux, **moe_kw)
@@ -307,17 +324,20 @@ def block_apply(p, x, *, cfg: ModelConfig, kind: str, positions, window=None,
     cache = None
     h = _norm_apply(cfg, p["pre_norm"], x)
     if kind == "M":
-        y, cache = ssd_block_apply(p["ssd"], h, cfg=_ssd_cfg(cfg), compute_dtype=compute_dtype,
+        y, cache = ssd_block_apply(tp_enter_leaves(p["ssd"], "ssd"), tp_enter(h, "ssd"),
+                                   cfg=_ssd_cfg(cfg), compute_dtype=compute_dtype,
                                    seq_len=seq_len)
+        y = tp_reduce(y, "ssd")
         return x + y, (zero_aux(x.device) if with_aux else None), (cache if cache_len else None)
     if kind == "R":
-        y, cache = rglru_block_apply(p["rglru"], h, cfg=_rglru_cfg(cfg),
+        y, cache = rglru_block_apply(p["rglru"], tp_enter(h, "rglru"), cfg=_rglru_cfg(cfg),
                                      compute_dtype=compute_dtype, seq_len=seq_len)
-        x, aux = _ffn_residual(p, x + y, cfg, kind, compute_dtype, with_aux)
+        x, aux = _ffn_residual(p, x + tp_reduce(y, "rglru"), cfg, kind, compute_dtype,
+                               with_aux)
         return x, aux, (cache if cache_len else None)
     # a tensor-parallel attention: its replicated input and leaves enter
     # through Megatron's f (identities without autograd)
-    h, pa = tp_enter(h, "attn"), tp_enter_leaves(p["attn"])
+    h, (pa, o_bias) = tp_enter(h, "attn"), _attn_params(p)
     if cfg.use_mla:
         y, (c_kv, k_rope) = mla_apply(pa, h, cfg=_mla_cfg(cfg), positions=positions,
                                       rope_base=rope_base, compute_dtype=compute_dtype,
@@ -332,17 +352,21 @@ def block_apply(p, x, *, cfg: ModelConfig, kind: str, positions, window=None,
         if cache_len:
             cache = _attn_prefill_cache(k, v, cfg, cache_len)
     if enc_out is None:
-        x, aux = _finish_block(p, x, y, cfg, kind, compute_dtype, with_aux, seq_len=seq_len)
+        x, aux = _finish_block(p, x, y, cfg, kind, compute_dtype, with_aux, o_bias=o_bias,
+                               seq_len=seq_len)
         return x, aux, cache
+    y = tp_reduce(y, "attn", o_bias)
     if cfg.post_norm:
         y = _norm_apply(cfg, p["post_attn_norm"], y)
     x = x + y
-    ca = p["cross_attn"]
-    kv = tuple(dense_apply(ca[n], enc_out, compute_dtype=compute_dtype)
+    ca, o_bias = _attn_params(p, "cross_attn")
+    enc_in = tp_enter(enc_out, "attn")  # this rank's cross k / v heads
+    kv = tuple(dense_apply(ca[n], enc_in, compute_dtype=compute_dtype)
                for n in ("k_proj", "v_proj"))
-    h = _norm_apply(cfg, p["cross_norm"], x)
-    x = x + attn_apply(ca, h, cfg=_attn_cfg(cfg), positions=positions, causal=False,
-                       rope_base=rope_base, compute_dtype=compute_dtype, kv=kv)
+    h = tp_enter(_norm_apply(cfg, p["cross_norm"], x), "attn")
+    x = x + tp_reduce(attn_apply(ca, h, cfg=_attn_cfg(cfg), positions=positions, causal=False,
+                                 rope_base=rope_base, compute_dtype=compute_dtype, kv=kv),
+                      "attn", o_bias)
     if cache_len:
         cache.update(cross_k=kv[0].to(torch.bfloat16), cross_v=kv[1].to(torch.bfloat16))
     x, aux = _ffn_residual(p, x, cfg, kind, compute_dtype, with_aux)
@@ -358,10 +382,11 @@ def block_prefill_paged(p, x, cache, bt_row, positions, *, cfg: ModelConfig, seq
     prefill cache returned).  Only the fully-paged tier takes this path,
     so the FFN is always the dense MLP."""
     h = _norm_apply(cfg, p["pre_norm"], x)
-    y, cache = attn_prefill_paged(p["attn"], h, cache, bt_row, positions, cfg=_attn_cfg(cfg),
+    pa, o_bias = _attn_params(p)
+    y, cache = attn_prefill_paged(pa, h, cache, bt_row, positions, cfg=_attn_cfg(cfg),
                                   seq_len=seq_len, window=window, rope_base=rope_base,
                                   compute_dtype=compute_dtype, rope_table=rope_table)
-    return _finish_block(p, x, y, cfg, "A", compute_dtype)[0], cache
+    return _finish_block(p, x, y, cfg, "A", compute_dtype, o_bias=o_bias)[0], cache
 
 
 def block_verify_paged(p, x, cache, block_tables, positions, *, cfg: ModelConfig, valid,
@@ -374,17 +399,18 @@ def block_verify_paged(p, x, cache, block_tables, positions, *, cfg: ModelConfig
     MoE capacity competition across the k + 1 tokens would break the
     one-pass == sequential-decode equivalence."""
     h = _norm_apply(cfg, p["pre_norm"], x)
+    pa, o_bias = _attn_params(p)
     if cfg.use_mla:
-        y, cache = mla_verify_paged(p["attn"], h, cache, block_tables, positions,
+        y, cache = mla_verify_paged(pa, h, cache, block_tables, positions,
                                     cfg=_mla_cfg(cfg), valid=valid, rope_base=rope_base,
                                     compute_dtype=compute_dtype, rope_table=rope_table,
                                     cache_index=cache_index)
     else:
-        y, cache = attn_verify_paged(p["attn"], h, cache, block_tables, positions,
+        y, cache = attn_verify_paged(pa, h, cache, block_tables, positions,
                                      cfg=_attn_cfg(cfg), valid=valid, window=window,
                                      rope_base=rope_base, compute_dtype=compute_dtype,
                                      rope_table=rope_table, cache_index=cache_index)
-    return _finish_block(p, x, y, cfg, "A", compute_dtype)[0], cache
+    return _finish_block(p, x, y, cfg, "A", compute_dtype, o_bias=o_bias)[0], cache
 
 
 def block_cache_init(batch: int, max_len: int, cfg: ModelConfig, kind: str,
@@ -455,35 +481,39 @@ def block_decode(p, x, cache, pos, *, cfg: ModelConfig, kind: str, window=None,
     if kind == "M":
         y, cache = ssd_block_decode(p["ssd"], h, cache, cfg=_ssd_cfg(cfg),
                                     compute_dtype=compute_dtype)
-        return x + y, cache
+        return x + tp_reduce(y, "ssd"), cache
     if kind == "R":
         y, cache = rglru_block_decode(p["rglru"], h, cache, cfg=_rglru_cfg(cfg),
                                       compute_dtype=compute_dtype)
-        return _ffn_residual(p, x + y, cfg, kind, compute_dtype)[0], cache
+        return _ffn_residual(p, x + tp_reduce(y, "rglru"), cfg, kind, compute_dtype)[0], cache
+    pa, o_bias = _attn_params(p)
     if cfg.use_mla:
-        y, cache = mla_decode(p["attn"], h, cache, pos, cfg=_mla_cfg(cfg), rope_base=rope_base,
+        y, cache = mla_decode(pa, h, cache, pos, cfg=_mla_cfg(cfg), rope_base=rope_base,
                               compute_dtype=compute_dtype, block_tables=block_tables,
                               rope_table=rope_table, cache_index=cache_index)
     elif "kv_pos" in cache:
-        y, cache = _attn_decode_ring(p["attn"], h, cache, pos, cfg=cfg, rope_base=rope_base,
+        y, cache = _attn_decode_ring(pa, h, cache, pos, cfg=cfg, rope_base=rope_base,
                                      compute_dtype=compute_dtype, rope_table=rope_table)
     else:
-        y, cache = attn_decode(p["attn"], h, cache, pos, cfg=_attn_cfg(cfg), window=window,
+        y, cache = attn_decode(pa, h, cache, pos, cfg=_attn_cfg(cfg), window=window,
                                rope_base=rope_base, compute_dtype=compute_dtype,
                                block_tables=block_tables, rope_table=rope_table,
                                cache_index=cache_index)
     if enc_kv is not None:
+        y = tp_reduce(y, "attn", o_bias)
         if cfg.post_norm:
             y = _norm_apply(cfg, p["post_attn_norm"], y)
         x = x + y
         h = _norm_apply(cfg, p["cross_norm"], x)
-        y, _ = attn_decode(p["cross_attn"], h, None, pos, cfg=_attn_cfg(cfg), rope_base=rope_base,
+        ca, o_bias = _attn_params(p, "cross_attn")
+        y, _ = attn_decode(ca, h, None, pos, cfg=_attn_cfg(cfg), rope_base=rope_base,
                            compute_dtype=compute_dtype, kv=enc_kv)
-        return _ffn_residual(p, x + y, cfg, kind, compute_dtype)[0], cache
+        return _ffn_residual(p, x + tp_reduce(y, "attn", o_bias), cfg, kind,
+                             compute_dtype)[0], cache
     cap = 0
     if kind == "E":
         B = x.shape[0]
         cap = B if dropless_moe else max(cfg.top_k,
                                          math.ceil(2.0 * B * cfg.top_k / cfg.n_experts))
-    return _finish_block(p, x, y, cfg, kind, compute_dtype, capacity=cap,
+    return _finish_block(p, x, y, cfg, kind, compute_dtype, o_bias=o_bias, capacity=cap,
                          **({"dropless": dropless_moe} if kind == "E" else {}))[0], cache

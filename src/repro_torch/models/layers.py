@@ -9,18 +9,23 @@ Tensor parallelism: a serving engine on a mesh whose ``model`` axis has m
 ranks runs the model code unchanged on local shapes (H/m query heads, K/m
 KV heads, d_ff/m, vocab/m) under a ``TPPlan``, set per thread around its
 calls as the dispatch backends are.  The plan says which pieces are
-sharded; the only collectives are ``tp_reduce`` after a row-parallel
-projection (attention's ``o_proj``, the MLP's ``down_proj``), the masked
-vocab-parallel embedding lookup and the all-gather of vocab-parallel
-logits.  A piece whose dimensions do not divide by m stays replicated and
-runs no collective.
+sharded; the collectives are ``tp_reduce`` after a row-parallel
+projection (attention's ``o_proj``, the MLP's ``down_proj`` / ``fc2``, an
+SSD or RG-LRU block's ``out_proj``), the masked vocab-parallel embedding
+lookup, the all-gather of vocab-parallel logits and, in mamba2's gated
+norm, the sum of squares over d_inner (``ssd.py``).  A row-parallel
+projection's bias (whisper's ``o_proj`` / ``fc2``) is added once, after the
+reduce (``split_row_bias``): added to each partial it would count m times.  A piece whose dimensions do
+not divide by m stays replicated and runs no collective.
 
 Training runs the same executor with Megatron's f / g pair: ``tp_enter``
 (the identity, its backward the sum of the grad over the model axis) on
 every replicated tensor that enters a column-parallel piece — the normed
-input of q/k/v, of gate/up and of the vocab-parallel head, and the
-leaves a sharded attention keeps whole (qk-norm scales, MLA's
-compressions) — and ``tp_reduce`` (the sum, its backward the identity) at
+input of q/k/v, of gate/up, of an SSD / RG-LRU block's projections, of
+whisper's cross k / v (the encoder's output) and of the vocab-parallel
+head, and the leaves a sharded piece keeps whole (qk-norm scales, MLA's
+compressions; mamba2's B / C projections, conv kernel and norm scale) —
+and ``tp_reduce`` (the sum, its backward the identity) at
 the row-parallel exit.  So the grad of every replicated tensor is whole,
 and the same, on every model rank.  A plan with ``fsdp`` leaves holds
 those params split over the FSDP axes as well: ``fsdp_gather`` joins them
@@ -44,14 +49,18 @@ from repro_torch.models.quantized import as_dense, is_packed, packed_dense_apply
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class TPPlan:
-    """Which pieces of a decoder run sharded over a mesh's ``model`` axis
+    """Which pieces of a model run sharded over a mesh's ``model`` axis
     (``serve.sharding.make_tp_plan`` decides): ``attn`` (q/k/v
     column-parallel, ``o_proj`` row-parallel, the pool at K/m heads; MLA on
-    H/m heads), ``mlp`` (gate/up column-, down row-parallel), ``embed`` /
-    ``head`` (vocab-parallel table / read-out), ``ep`` (MoE layers expert
-    parallel, ``models.moe_ep``; else an MoE block replicates), ``shared``
-    (under ``ep``, the shared experts' d_ff split over the model axis).  ``group``
-    is the model axis's process group, ``index`` this rank's place on it."""
+    H/m heads; whisper's encoder and cross-attention too), ``mlp`` (gate/up
+    or fc1 column-, down or fc2 row-parallel), ``embed`` / ``head``
+    (vocab-parallel table / read-out), ``ep`` (MoE layers expert parallel,
+    ``models.moe_ep``; else an MoE block replicates), ``shared`` (under
+    ``ep``, the shared experts' d_ff split over the model axis), ``ssd``
+    (mamba2's SSD heads: z / x / dt column-parallel, ``out_proj``
+    row-parallel, the state at H/m heads) and ``rglru`` (the RG-LRU block's
+    heads and channels).  ``group`` is the model axis's process group,
+    ``index`` this rank's place on it."""
 
     mesh: Any
     group: Any
@@ -63,12 +72,14 @@ class TPPlan:
     head: bool = False
     ep: bool = False
     shared: bool = False  # under ``ep``: the shared experts' d_ff split over 'model'
-    # training: the names (under ``attn/``) of the leaves a sharded attention
-    # keeps whole, the mesh axes the batch rows are split over (serving: none,
-    # every rank holds the whole batch), and the params split over the FSDP
-    # axes: {param path: (dim of the stored leaf, its size there)}, joined
-    # over ``fsdp_group``
-    attn_replicated: frozenset = frozenset()
+    ssd: bool = False
+    rglru: bool = False
+    # training: {piece: the names (under the piece's key) of the leaves a
+    # sharded piece keeps whole}, the mesh axes the batch rows are split over
+    # (serving: none, every rank holds the whole batch), and the params split
+    # over the FSDP axes: {param path: (dim of the stored leaf, its size
+    # there)}, joined over ``fsdp_group``
+    whole: Optional[Dict[str, frozenset]] = None
     dp_axes: Tuple[str, ...] = ()
     fsdp: Optional[Dict[str, Tuple[int, int]]] = None
     fsdp_group: Any = None
@@ -99,23 +110,45 @@ def tp_enter(x: torch.Tensor, piece: str) -> torch.Tensor:
     (each rank's grad covers its own heads / columns / vocab rows only).
     Without autograd it is the identity and runs nothing."""
     plan = _tp.plan
-    if plan is None or not getattr(plan, piece) or not x.requires_grad:
-        return x
+    if plan is None or not getattr(plan, piece) or not getattr(x, "requires_grad", False):
+        return x  # (a ``Packed`` leaf is served, never trained)
     from repro_torch.distributed.collectives import EnterReplicas
 
     return EnterReplicas.apply(x, plan.group)
 
 
-def tp_enter_leaves(p: Dict[str, Any]) -> Dict[str, Any]:
-    """``p`` (an attention's params) with ``tp_enter`` on each leaf a
-    sharded attention keeps whole (the plan's ``attn_replicated``)."""
+def tp_enter_leaves(p: Dict[str, Any], piece: str = "attn") -> Dict[str, Any]:
+    """``p`` (the params of ``piece``: an attention's, an SSD block's) with
+    ``tp_enter`` on each leaf a sharded ``piece`` keeps whole (the plan's
+    ``whole``)."""
     plan = _tp.plan
-    if plan is None or not plan.attn or not plan.attn_replicated:
+    names = plan.whole.get(piece) if plan is not None and plan.whole else None
+    if not names or not getattr(plan, piece) or not torch.is_grad_enabled():
         return p
     from repro_torch.nn.tree import tree_map_with_path
 
-    return tree_map_with_path(
-        lambda path, w: tp_enter(w, "attn") if path in plan.attn_replicated else w, p)
+    return tree_map_with_path(lambda path, w: tp_enter(w, piece) if path in names else w, p)
+
+
+# the row-parallel projection of each piece with a biased form (whisper's):
+# its bias is added after the reduce
+_ROW_OUT = {"attn": ("o_proj",), "mlp": ("down_proj", "fc2")}
+
+
+def split_row_bias(p: Dict[str, Any], piece: str) -> Tuple[Dict[str, Any], Any]:
+    """(``p``, None), or, under a plan that splits ``piece``, (``p`` with its
+    row-parallel projection's bias taken out, that bias): the caller passes
+    the bias to ``tp_reduce``, which adds it once to the sum (each rank adding
+    it to its partial would give m·b)."""
+    plan = _tp.plan
+    if plan is None or not getattr(plan, piece):
+        return p, None
+    for name in _ROW_OUT[piece]:
+        if name in p and "bias" in p[name]:
+            q = dict(p)
+            q[name] = {k: v for k, v in p[name].items() if k != "bias"}
+            return q, p[name]["bias"]
+    return p, None
 
 
 def fsdp_gather(tree: Any, prefix: str, lead: int = 0) -> Any:
@@ -138,16 +171,21 @@ def fsdp_gather(tree: Any, prefix: str, lead: int = 0) -> Any:
     return tree_map_with_path(one, tree)
 
 
-def tp_reduce(y: torch.Tensor, piece: str) -> torch.Tensor:
-    """Sum the row-parallel partials of ``piece`` ('attn' / 'mlp') over the
-    model axis: in fp32, rounded once to y's dtype (summing bf16 partials
-    would round twice and can flip a greedy token)."""
+def tp_reduce(y: torch.Tensor, piece: str, bias: Optional[torch.Tensor] = None
+              ) -> torch.Tensor:
+    """Sum the row-parallel partials of ``piece`` ('attn', 'mlp', 'ssd',
+    'rglru') over the model axis: in fp32, plus ``bias`` (``split_row_bias``'s:
+    None unless the piece is split and biased), rounded once to y's dtype
+    (summing bf16 partials would round twice and can flip a greedy token)."""
     plan = _tp.plan
     if plan is None or not getattr(plan, piece):
         return y
     from repro_torch.distributed.collectives import ReduceSum
 
-    return ReduceSum.apply(y.to(torch.float32), plan.group).to(y.dtype)
+    out = ReduceSum.apply(y.to(torch.float32), plan.group)
+    if bias is not None:
+        out = out + bias.to(torch.float32)
+    return out.to(y.dtype)
 
 
 def _normal(gen: torch.Generator, shape, std: float, dtype) -> torch.Tensor:

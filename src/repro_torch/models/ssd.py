@@ -14,6 +14,16 @@ The chunked algorithm (matmuls, and one short loop over chunks):
 Recurrence and decay math is fp32 (bf16 underflows the decay products).
 Every function returns new state tensors and writes no cache in place: the
 caller gates the write-back per row (``models.lm.decode_lm``).
+
+Tensor parallelism (a plan with ``ssd``): the config is the rank's (H/m
+heads, d_inner/m channels), z / x / dt and the per-head leaves are the
+rank's slices, and ``out_proj``'s partial is summed by the caller.  The B /
+C projections (one group, read by every head), the conv kernel over
+[x, B, C] and the gated norm's scale stay whole on every rank: each rank
+takes its x channels' conv columns and B / C's, and its channels of the
+scale.  The gated norm runs over all of d_inner, so its fp32 sum of squares
+is summed over the ranks (``SumShared``: the backward sums too, since each
+rank normalizes its own channels by it).
 """
 from __future__ import annotations
 
@@ -26,6 +36,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.layers import (
     _normal,
+    current_tp,
     dense_apply,
     dense_init,
     rmsnorm_apply,
@@ -70,6 +81,21 @@ def ssd_init(gen, cfg: SSDConfig, dtype=torch.float32, lead: Tuple[int, ...] = (
     }
 
 
+def _split():
+    """The thread's plan when it splits the SSD heads, else None."""
+    plan = current_tp()
+    return plan if plan is not None and plan.ssd else None
+
+
+def _rank_channels(w: torch.Tensor, R: int, plan, tail: bool) -> torch.Tensor:
+    """A whole leaf's columns for this rank's R channels of d_inner (the
+    plan's index-th R of m·R), followed, with ``tail``, by everything past
+    d_inner (the conv's B and C columns)."""
+    i, Rg = plan.index, R * plan.size
+    own = w[..., i * R:(i + 1) * R]
+    return torch.cat([own, w[..., Rg:]], dim=-1) if tail else own
+
+
 def _in_projections(p, u, cfg: SSDConfig, compute_dtype, conv_state=None,
                     seq_len: Optional[int] = None):
     """Shared by full / decode: projections + causal conv over (x, B, C)."""
@@ -79,8 +105,11 @@ def _in_projections(p, u, cfg: SSDConfig, compute_dtype, conv_state=None,
     Cm = dense_apply(p["in_proj_C"], u, compute_dtype=compute_dtype)
     dt_raw = dense_apply(p["in_proj_dt"], u, compute_dtype=compute_dtype)
     xbc = torch.cat([x, Bm, Cm], dim=-1)
-    xbc, new_conv = _conv_causal(as_dense(p["conv1d"]["kernel"]), F.silu(xbc), conv_state,
-                                 seq_len=seq_len)
+    kernel = as_dense(p["conv1d"]["kernel"])
+    plan = _split()
+    if plan is not None:
+        kernel = _rank_channels(kernel, cfg.d_inner, plan, tail=True)
+    xbc, new_conv = _conv_causal(kernel, F.silu(xbc), conv_state, seq_len=seq_len)
     R, N = cfg.d_inner, cfg.d_state
     x, Bm, Cm = xbc[..., :R], xbc[..., R: R + N], xbc[..., R + N:]
     dt = _softplus(dt_raw.to(torch.float32) + p["dt_bias"])  # (B,T,H)
@@ -90,6 +119,23 @@ def _in_projections(p, u, cfg: SSDConfig, compute_dtype, conv_state=None,
         valid = (torch.arange(u.shape[1], device=u.device) < seq_len)[None, :, None]
         dt = torch.where(valid, dt, 0.0)
     return z, x, Bm, Cm, dt, new_conv
+
+
+def _gated_norm(p, y, z, cfg: SSDConfig):
+    """rmsnorm(y · silu(z)) over d_inner.  Split over the ranks, each rank's
+    fp32 sum of squares of its channels is summed over them (its backward
+    too) and its channels of the whole scale are read."""
+    g = y * F.silu(z)
+    plan = _split()
+    if plan is None:
+        return rmsnorm_apply(p["norm"], g)
+    from repro_torch.distributed.collectives import SumShared
+
+    gf = g.to(torch.float32)
+    ss = SumShared.apply(torch.sum(torch.square(gf), dim=-1, keepdim=True), plan.group)
+    out = gf * torch.rsqrt(ss / (cfg.d_inner * plan.size) + 1e-6)
+    scale = _rank_channels(p["norm"]["scale"], cfg.d_inner, plan, tail=False)
+    return (out * (1.0 + scale.to(torch.float32))).to(g.dtype)
 
 
 def ssd_scan_ref(x, dt, A, Bm, Cm, *, chunk: int):
@@ -171,7 +217,7 @@ def ssd_block_apply(p, u, *, cfg: SSDConfig, compute_dtype=torch.bfloat16,
         y = y[:, :T]
     y = y + p["ssm_D"][None, None, :, None] * x.reshape(B, T, H, P).to(torch.float32)
     y = y.reshape(B, T, cfg.d_inner).to(compute_dtype)
-    y = rmsnorm_apply(p["norm"], y * F.silu(z))
+    y = _gated_norm(p, y, z, cfg)
     out = dense_apply(p["out_proj"], y, compute_dtype=compute_dtype)
     return out, {"h": h_last, "conv": new_conv}
 
@@ -201,6 +247,6 @@ def ssd_block_decode(p, u, cache, *, cfg: SSDConfig, compute_dtype=torch.bfloat1
     y = torch.matmul(h, Cm[:, 0].to(torch.float32)[:, None, :, None])[..., 0]  # (B,H,P)
     y = y + p["ssm_D"][None, :, None] * xh
     y = y.reshape(B, 1, cfg.d_inner).to(compute_dtype)
-    y = rmsnorm_apply(p["norm"], y * F.silu(z))
+    y = _gated_norm(p, y, z, cfg)
     out = dense_apply(p["out_proj"], y, compute_dtype=compute_dtype)
     return out, {"h": h, "conv": new_conv}

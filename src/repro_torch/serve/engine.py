@@ -35,10 +35,13 @@ On a mesh (``mesh=``, or constructed under ``with mesh:``; pinned like the
 backends) every rank runs the same engine and scheduler (SPMD): the host
 bookkeeping (block tables, slot state, ``_scale`` exponents) is the same on
 every rank, each rank holds its shard of the params and of the paged pool,
-and the model code runs on the local config (``serve.sharding``): a
-decoder's attention, MLP, embedding and head split over the ``model`` axis
-where they divide, MoE layers expert-parallel under ``moe_impl='ep'``.  The
-``data`` axis replicates.
+and the model code runs on the local config (``serve.sharding``): attention,
+MLP, embedding and head split over the ``model`` axis where they divide
+(whisper's encoder and cross-attention too), mamba2's SSD heads and
+recurrentgemma's RG-LRU heads likewise, MoE layers expert-parallel under
+``moe_impl='ep'``.  The resident per-slot state (SSD / RG-LRU states and
+conv windows, whisper's cross-kv) then holds the rank's heads alone, as the
+paged pool holds its K/m heads.  The ``data`` axis replicates.
 """
 from __future__ import annotations
 
@@ -366,7 +369,7 @@ class ServeEngine:
             self.rules = make_rules(self.mesh, self.sharding_profile or self.cfg.sharding_profile)
             self.tp = make_tp_plan(self.cfg, self.params, self.mesh, self.rules)
             self.params = shard_tree(self.rules, self.mesh, self.params,
-                                     serve_spec_fn(self.cfg, self.tp))
+                                     serve_spec_fn(self.cfg, self.tp, self.rules))
             self.cfg = local_config(self.cfg, self.tp)
         self.model = DecoderLM(self.cfg, tree_to(self.params, self.device))
         self.params = self.model.params

@@ -5,11 +5,13 @@ One place decides where every serving array lives on a ``(data, model)``
 mesh:
 
   * packed/float **param** leaves follow the repo's path-based logical
-    rules (``nn/sharding.py``), read by the tensor-parallel executor's plan
-    (``make_tp_plan``): a piece (a layer's attention, its MLP, the
-    embedding, the head, the expert stacks) shards only when all of its
-    leaves do, else it replicates whole — the model code runs on local
-    shapes, so a piece is either sharded end to end or not at all;
+    rules (``nn/sharding.py``) and the plan's own slices (``leaf_spec``:
+    biases, mamba2's shared B / C / conv / norm), read by the
+    tensor-parallel executor's plan (``make_tp_plan``): a piece (a layer's
+    attention, its MLP, an SSD or RG-LRU block, the embedding, the head,
+    the expert stacks) shards only when all of its split leaves do, else it
+    replicates whole — the model code runs on local shapes, so a piece is
+    either sharded end to end or not at all;
   * paged KV **pool data leaves** shard their KV-head axis over the rules'
     ``kv_heads`` mapping — each model shard holds its head slice of every
     physical block, so pool capacity scales with the mesh;
@@ -110,20 +112,35 @@ def pool_bytes_per_device(engine, block_size: int, n_blocks: int, *,
 # the tensor-parallel executor's plan and its param slices
 # ---------------------------------------------------------------------------
 _PIECES = (
-    ("attn", re.compile(r"(^|/)attn/")),
+    ("attn", re.compile(r"(^|/)(cross_)?attn/")),
     ("mlp", re.compile(r"(^|/)mlp/")),
     ("experts", re.compile(r"(^|/)moe/experts/")),
     ("shared", re.compile(r"(^|/)moe/shared/")),
+    ("ssd", re.compile(r"(^|/)ssd/")),
+    ("rglru", re.compile(r"(^|/)rglru/")),
     ("embed", re.compile(r"^embed/")),
     ("head", re.compile(r"^lm_head/")),
 )
+# Leaves the plan places itself, not the rules (which replicate every bias,
+# and split every SSD projection and its conv over 'model'):
+#  * a column-parallel bias splits with its outputs (dim -2: q / k / v's
+#    heads; dim -1: fc1 / gate / up's d_ff);
+#  * a row-parallel bias stays whole, added once after the reduce
+#    (``layers.split_row_bias``);
+#  * mamba2's B / C projections (one group, read by every head), its conv
+#    kernel over [x, B, C] and its gated norm's scale stay whole: each rank
+#    slices its channels inside the forward (``models.ssd``) and, training,
+#    enters them through Megatron's f.
+_COL_BIAS = ((re.compile(r"(^|/)(q_proj|k_proj|v_proj)/bias$"), -2),
+             (re.compile(r"(^|/)(fc1|gate_proj|up_proj)/bias$"), -1))
+_ROW_BIAS = re.compile(r"(^|/)(o_proj|down_proj|fc2)/bias$")
+_SSD_WHOLE = re.compile(r"(^|/)ssd/(in_proj_B/kernel|in_proj_C/kernel|conv1d/kernel|norm/scale)$")
 
 
 def _piece(path: str) -> Optional[str]:
-    if path.startswith("encoder/") or (path.startswith("mtp/")
-                                       and not path.startswith("mtp/block/")):
-        return None  # whisper's encoder; the MTP module's norms and projection
-    # (its block, which only the training loss runs, splits as a layer does)
+    if path.startswith("mtp/") and not path.startswith("mtp/block/"):
+        return None  # the MTP module's norms and projection (its block, which
+    # only the training loss runs, splits as a layer does)
     for name, pat in _PIECES:
         if pat.search(path):
             return name
@@ -149,75 +166,107 @@ def _paths_and_shapes(params):
             yield path, tuple(leaf.shape)
 
 
+def leaf_spec(rules: ShardingRules, path: str, shape: Tuple[int, ...]) -> Optional[Spec]:
+    """The 'model' entries a param leaf (a ``Packed`` leaf's words at
+    ``<param>/0``) takes when its piece splits: None for a leaf that stays
+    whole on every rank (one the rules never split, and the plan's own
+    whole leaves above); a spec without 'model' for one that cannot split
+    on this mesh (its piece then stays whole)."""
+    param = re.sub(r"/0$", "", path)
+    if _ROW_BIAS.search(param) or _SSD_WHOLE.search(param):
+        return None
+    m = mesh_axis_size(rules.mesh, "model")
+    for pat, dim in _COL_BIAS:
+        if pat.search(param):
+            out = [None] * len(shape)
+            if shape[dim] % m == 0:
+                out[len(shape) + dim] = "model"
+            return tuple(out)
+    if not any(_model_entries((rules.axis_map.get(n) if n else None,))[0]
+               for n in rules.logical_axes_for(path, shape)):
+        return None
+    return _model_entries(rules.pspec_for(path, shape))
+
+
+def _whole_key(piece: str, path: str) -> str:
+    """A whole leaf's name under its piece's key (``q_norm/scale`` under
+    ``attn/`` or ``cross_attn/``, ``conv1d/kernel`` under ``ssd/``)."""
+    return re.sub(r"/0$", "", path).rsplit(f"{piece}/", 1)[1]
+
+
 def make_tp_plan(cfg: ModelConfig, params: Any, mesh: Mesh, rules: ShardingRules) -> TPPlan:
-    """Decide which pieces of ``cfg``'s decoder shard over ``mesh``'s model
-    axis.  A piece shards iff every one of its leaves (float or ``Packed``
-    words: a 2-bit word holds 4 columns, so only whole words split) gets
-    'model' in its rule spec; attention also needs K % m == 0 (H % m for
-    MLA) — the test ``pool_head_shards`` applies to the pool — and no bias
-    (a row-parallel bias would be added m times).  Expert stacks split over
-    ``cfg.ep_axes`` when ``moe_impl='ep'`` is active on the mesh.  The
-    plan names the leaves a sharded attention keeps whole
-    (``attn_replicated``), for training's ``tp_enter_leaves``."""
+    """Decide which pieces of ``cfg``'s model shard over ``mesh``'s model
+    axis.  A piece shards iff every one of its leaves that ``leaf_spec``
+    splits (float or ``Packed`` words: a 2-bit word holds 4 columns, so
+    only whole words split) gets 'model'; attention also needs K % m == 0
+    (H % m for MLA) — the test ``pool_head_shards`` applies to the pool.
+    A piece that cannot split stays whole on every rank, for any family:
+    the families' single-KV-head attention (recurrentgemma, paligemma), a
+    reduced mamba2's 2-bit ``in_proj_dt`` of fewer than 4·m heads.  Expert
+    stacks split over ``cfg.ep_axes`` when ``moe_impl='ep'`` is active on
+    the mesh.  The plan names the leaves a sharded piece keeps whole
+    (``whole``: qk norms, MLA's compressions, mamba2's B / C / conv / norm),
+    for training's ``tp_enter_leaves``."""
     from repro_torch.models.blocks import _ep_active
 
     m = mesh_axis_size(mesh, "model")
-    if m > 1 and cfg.family != "decoder":
-        raise NotImplementedError(
-            f"family '{cfg.family}' has no tensor-parallel form in the port yet (ROADMAP "
-            "Queue 1 item 5: the TP forms of the recurrent, encoder-decoder and VLM families "
-            "come next); serve it on a mesh whose model axis is 1")
     sharded: Dict[str, bool] = {}
-    whole_attn = set()  # the leaves a sharded attention keeps whole
+    whole: Dict[str, set] = {}
     for path, shape in _paths_and_shapes(params):
         piece = _piece(path)
         if piece is None or piece == "experts" or path.endswith("/1"):
             continue  # exponents are per leaf (or per layer): replicated
-        if not any(_model_entries((rules.axis_map.get(n) if n else None,))[0]
-                   for n in rules.logical_axes_for(path, shape)):
-            if piece == "attn":  # a leaf the rules never split (qk norms, MLA's q_a / kv_a)
-                whole_attn.add(path.split("attn/", 1)[1])
+        spec = leaf_spec(rules, path, shape)
+        if spec is None:
+            if not _ROW_BIAS.search(path):  # a row-parallel bias's grad is whole already
+                whole.setdefault(piece, set()).add(_whole_key(piece, path))
             continue
-        spec = _model_entries(rules.pspec_for(path, shape))
         sharded[piece] = sharded.get(piece, True) and "model" in spec
     heads = cfg.n_heads if cfg.use_mla else cfg.n_kv_heads
-    attn = (m > 1 and sharded.get("attn", False) and heads % m == 0 and not cfg.attn_bias)
+    on = {k: m > 1 and sharded.get(k, False) for k in ("attn", "mlp", "embed", "ssd", "rglru")}
+    on["attn"] = on["attn"] and heads % m == 0
+    on["ssd"] = on["ssd"] and cfg.ssm_heads % m == 0
+    on["rglru"] = on["rglru"] and cfg.rnn_heads % m == 0
     ep = cfg.moe and cfg.moe_impl == "ep" and _ep_active(cfg, mesh)
     return TPPlan(
         mesh=mesh, group=mesh.group("model"), size=m, index=mesh.axis_index("model"),
-        attn=attn,
-        mlp=m > 1 and sharded.get("mlp", False) and not cfg.attn_bias,
-        embed=m > 1 and sharded.get("embed", False),
         head=m > 1 and (sharded.get("head", False) if not cfg.tie_lm_head
                         else sharded.get("embed", False)),
         ep=ep,
         shared=ep and m > 1 and sharded.get("shared", False),
-        attn_replicated=frozenset(whole_attn) if attn else frozenset(),
+        whole={k: frozenset(v) for k, v in whole.items() if on.get(k)},
+        **on,
     )
 
 
 def local_config(cfg: ModelConfig, plan: TPPlan) -> ModelConfig:
     """The per-rank config the model code runs on: H/m query heads and K/m
-    KV heads where attention is sharded (MLA: H/m)."""
-    if not plan.attn:
-        return cfg
-    m = plan.size
-    if cfg.use_mla:
-        return dataclasses.replace(cfg, n_heads=cfg.n_heads // m)
-    return dataclasses.replace(cfg, n_heads=cfg.n_heads // m, n_kv_heads=cfg.n_kv_heads // m)
+    KV heads where attention is sharded (MLA: H/m), d_inner/m and H/m SSD
+    heads, d_rnn/m and H/m RG-LRU heads.  Caches and pools built from it
+    (``init_caches``) come out at the rank's shapes."""
+    m, rep = plan.size, {}
+    if plan.attn:
+        rep["n_heads"] = cfg.n_heads // m
+        if not cfg.use_mla:
+            rep["n_kv_heads"] = cfg.n_kv_heads // m
+    if plan.ssd:
+        rep.update(d_inner=cfg.d_inner // m, ssm_heads=cfg.ssm_heads // m)
+    if plan.rglru:
+        rep.update(d_rnn=cfg.d_rnn // m, rnn_heads=cfg.rnn_heads // m)
+    return dataclasses.replace(cfg, **rep) if rep else cfg
 
 
 def piece_on(plan: TPPlan) -> Dict[str, bool]:
     """Which pieces (``_piece``'s names, the expert stacks aside) run split
     over the model axis under ``plan``."""
     return {"attn": plan.attn, "mlp": plan.mlp, "embed": plan.embed, "head": plan.head,
-            "shared": plan.shared}
+            "shared": plan.shared, "ssd": plan.ssd, "rglru": plan.rglru}
 
 
-def serve_spec_fn(cfg: ModelConfig, plan: TPPlan):
+def serve_spec_fn(cfg: ModelConfig, plan: TPPlan, rules: ShardingRules):
     """``shard_tree``'s ``spec_fn`` for a serving engine: a leaf keeps the
     'model' entries of its rule spec iff its piece is sharded under
-    ``plan``; expert stacks split their expert axis over ``cfg.ep_axes``
+    ``plan`` (``leaf_spec``); expert stacks split their expert axis over ``cfg.ep_axes``
     (words and per-expert exponents alike) when EP is on; everything else
     replicates.  A tied head shards with the embedding table."""
     on = piece_on(plan)
@@ -231,7 +280,7 @@ def serve_spec_fn(cfg: ModelConfig, plan: TPPlan):
                                else len(shape) - 3)
         if piece is None or not on.get(piece, False) or path.endswith("/1"):
             return ()
-        return _model_entries(spec)
+        return leaf_spec(rules, path, shape) or ()
 
     return spec_fn
 

@@ -6,10 +6,14 @@ counterpart of ``repro/launch/shardings.py::state_shardings`` plus
 and ``cfg.sharding_profile``'s rules, where every param lives, the same way
 a serving engine does (``serve.sharding.make_tp_plan`` / ``local_config``):
 
-  * a piece (a layer's attention, its MLP, the embedding, the head) splits
-    over the ``model`` axis only when all of its leaves do; expert stacks
-    split their expert axis over ``cfg.ep_axes`` under EP; the rest is
-    replicated over ``model`` (``TPPlan``);
+  * a piece (a layer's attention, its MLP, an SSD or RG-LRU block, the
+    embedding, the head) splits over the ``model`` axis only when all of
+    its split leaves do (``serve.sharding.leaf_spec``: a column-parallel
+    bias with its outputs; a row-parallel bias, mamba2's B / C
+    projections, conv kernel and norm scale whole, the last four entering
+    through Megatron's f); expert stacks split their expert axis over
+    ``cfg.ep_axes`` under EP; the rest is replicated over ``model``
+    (``TPPlan``);
   * under an FSDP profile (``fsdp_tp``) every decoder leaf whose ``embed``
     dimension the rules put on the (pod, data) axes keeps that split as
     well (ZeRO-3): the model code joins it where it is used
@@ -41,6 +45,7 @@ from repro_torch.nn.tree import flatten_with_paths
 from repro_torch.serve.sharding import (
     _piece,
     expert_spec,
+    leaf_spec,
     local_config,
     make_tp_plan,
     piece_on,
@@ -144,11 +149,13 @@ def _param_spec(cfg: ModelConfig, plan: TPPlan, rules: ShardingRules, path: str,
     piece = _piece(path)
     if piece == "experts":
         return expert_spec(cfg, plan, shape, len(shape) - 3)
-    model_on = piece is not None and piece_on(plan).get(piece, False)
+    model = ()
+    if piece is not None and piece_on(plan).get(piece, False):
+        model = leaf_spec(rules, path, shape) or ()
     out = []
-    for e in rules.pspec_for(path, shape):
+    for d, e in enumerate(rules.pspec_for(path, shape)):
         axes = _axes(e)
-        if model_on and "model" in axes:
+        if d < len(model) and model[d] == "model":
             out.append("model")
         elif fsdp_axes and axes == fsdp_axes:  # a partial fallback stays whole
             out.append(fsdp_axes[0] if len(fsdp_axes) == 1 else fsdp_axes)
@@ -186,8 +193,8 @@ def _cached_layout(cfg: ModelConfig, mesh: Mesh, profile: str) -> TrainLayout:
 def train_layout(cfg: ModelConfig, mesh: Mesh, profile: str = "") -> TrainLayout:
     """The layout of ``cfg``'s training state on ``mesh`` under ``profile``
     (default ``cfg.sharding_profile``); made once per (config, mesh,
-    profile).  A non-decoder family on a model axis > 1 is refused
-    (``make_tp_plan``)."""
+    profile).  Every family takes a model axis > 1: a piece that cannot
+    split stays whole (``make_tp_plan``)."""
     return _cached_layout(cfg, mesh, profile or cfg.sharding_profile)
 
 

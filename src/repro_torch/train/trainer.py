@@ -56,8 +56,9 @@ from the leaf's whole M_l (``layout.numel``), the clip's norm and
 ``grad_norm`` from per-leaf partials summed over the ranks each leaf spans
 (``layout.sum_over_shards``), so every rank applies the same clip scale.
 An expert stack's Δ per (layer, expert) group is this rank's slice of the
-groups.  A non-decoder family runs on a mesh whose ``model`` axis is 1
-only (ROADMAP 5b).
+groups.  Every family runs on a ``model`` axis: mamba2's SSD heads and
+recurrentgemma's RG-LRU heads split, and whisper's encoder, self- and
+cross-attention, their biases placed by the plan (``serve.sharding``).
 """
 from __future__ import annotations
 

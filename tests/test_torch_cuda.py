@@ -1999,3 +1999,92 @@ def test_paged_attention_on_local_kv_heads(dev, dtype):
         torch.cuda.synchronize()
         assert aops.launches == before + 1
         torch.testing.assert_close(got.float(), whole[:, :, hs].float(), **tol)
+
+
+# ---------------------------------------------------------------------------
+# the kernels at one model rank's shapes of mamba2, recurrentgemma, whisper
+# and paligemma on a (1, 2) mesh (chip_smoke.py phase 20 runs them under the
+# ranks): (family, projection, K, N, bias) — whisper's column-parallel
+# projections keep their biases' halves, its row-parallel ones add theirs
+# after the reduce
+# ---------------------------------------------------------------------------
+FAMILY_RANK_SHAPES = [
+    ("mamba2", "in_proj_x", 2560, 2560, False), ("mamba2", "in_proj_B", 2560, 128, False),
+    ("mamba2", "in_proj_dt", 2560, 40, False),
+    ("recurrentgemma", "in_proj_x", 2560, 1280, False),
+    ("recurrentgemma", "out_proj", 1280, 2560, False),
+    ("recurrentgemma", "gate_proj", 2560, 3840, False),
+    ("recurrentgemma", "down_proj", 3840, 2560, False),
+    ("whisper", "q_proj", 1280, 640, True), ("whisper", "o_proj", 640, 1280, False),
+    ("whisper", "fc1", 1280, 2560, True), ("whisper", "fc2", 2560, 1280, False),
+    ("paligemma", "gate_proj", 2048, 8192, False), ("paligemma", "down_proj", 8192, 2048, False),
+]
+
+
+@pytest.mark.parametrize("M", [4, 512])
+@pytest.mark.parametrize("family,name,K,N,bias", FAMILY_RANK_SHAPES,
+                         ids=[f"{a}-{b}" for a, b, *_ in FAMILY_RANK_SHAPES])
+def test_fixedpoint_matmul_at_family_rank_shapes(dev, family, name, K, N, bias, M):
+    """One rank's projection, 2-bit, bf16: the route the rule picks (the
+    decode kernel at M 4, the tensor cores at 512) equals the plain version."""
+    rng = np.random.default_rng(K * 3 + N)
+    w = torch.from_numpy((rng.standard_normal((K, N)) * K**-0.5).astype(np.float32)).to(dev)
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)).to(dev, torch.bfloat16)
+    b = (torch.from_numpy(rng.standard_normal(N).astype(np.float32) * 0.1).to(dev)
+         if bias else None)
+    f = torch.tensor(4, dtype=torch.int32, device=dev)
+    pw = pack_weight(w, f, 2)
+    before = _counts()
+    got = fixedpoint_matmul(x, pw, f, b, n_bits=2, n_out=N)
+    torch.cuda.synchronize()
+    assert _launched(before, fops._pick_route(torch.bfloat16, M, True))
+    want = fixedpoint_matmul_ref(x, pw, f, b, n_bits=2, n_out=N).to(torch.bfloat16)
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=1e-2)
+
+
+def test_row_parallel_bias_added_once_after_the_sum(dev):
+    """whisper's fc2 (5,120 -> 1,280, biased) cut by rows for 2 ranks: the
+    kernels' fp32 partials without the bias, summed, plus the bias once,
+    equal the whole biased product; the bias on each partial would be off by b."""
+    K, N, M = 5120, 1280, 4
+    rng = np.random.default_rng(51)
+    w = torch.from_numpy((rng.standard_normal((K, N)) * K**-0.5).astype(np.float32)).to(dev)
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)).to(dev)
+    b = torch.from_numpy(rng.standard_normal(N).astype(np.float32)).to(dev)
+    f = torch.tensor(4, dtype=torch.int32, device=dev)
+    pw = pack_weight(w, f, 2)
+    parts = [fixedpoint_matmul(x[:, r * K // 2:(r + 1) * K // 2].contiguous(),
+                               pw[r * K // 2:(r + 1) * K // 2].contiguous(), f, n_bits=2, n_out=N)
+             for r in range(2)]
+    torch.cuda.synchronize()
+    whole = fixedpoint_matmul_ref(x, pw, f, b, n_bits=2, n_out=N)
+    torch.testing.assert_close(parts[0] + parts[1] + b, whole, rtol=1e-5, atol=1e-5)
+    assert float((parts[0] + parts[1] + 2 * b - whole).abs().max()) > 0.1
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_attention_on_whisper_local_heads(dev, dtype):
+    """whisper's decode shape (MHA K 20, hd 64) and one rank's 10 heads: the
+    launch over the local pool slice equals the plain version and the whole
+    launch's heads."""
+    qdt = getattr(torch, dtype)
+    B, T, K, G, hd, block, mb = 4, 1, 20, 1, 64, 16, 20
+    rng = np.random.default_rng(20)
+    n_blocks = B * mb + 1
+    bt = torch.from_numpy((rng.permutation(n_blocks - 1)[: B * mb] + 1).reshape(B, mb)
+                          .astype(np.int32)).to(dev)
+    pos0 = torch.from_numpy(rng.integers(0, mb * block, size=B).astype(np.int32)).to(dev)
+    q = torch.from_numpy(rng.standard_normal((B, T, K, G, hd)).astype(np.float32)).to(dev, qdt)
+    kp, vp = (torch.from_numpy(rng.standard_normal((n_blocks, block, K, hd)).astype(np.float32))
+              .to(dev, qdt) for _ in range(2))
+    kw = dict(scale=hd**-0.5, cap=0.0, window=None, kv_scale=1.0)
+    whole = paged_attention_ref(q, kp, vp, bt, pos0, **kw)
+    tol = dict(rtol=2e-4, atol=2e-5) if qdt == torch.float32 else dict(rtol=1e-2, atol=1e-2)
+    for r in range(2):
+        hs = slice(K // 2 * r, K // 2 * (r + 1))
+        before = aops.launches
+        got = paged_attention(q[:, :, hs].contiguous(), kp[:, :, hs].contiguous(),
+                              vp[:, :, hs].contiguous(), bt, pos0, **kw)
+        torch.cuda.synchronize()
+        assert aops.launches == before + 1
+        torch.testing.assert_close(got.float(), whole[:, :, hs].float(), **tol)

@@ -13,8 +13,9 @@ CPU; the contracts of tests/test_sharded_serve.py):
   * olmoe and deepseek at ``moe_impl='ep'`` decode expert-parallel under
     the scheduler (``capabilities()['ep_moe']`` on the mesh, not off it),
     token-identical to the 1-rank capacity dispatch;
-  * a family with no tensor-parallel form (mamba2) is refused on a model
-    axis > 1, naming the ROADMAP item.
+  * mamba2 with 3 SSD heads on a model axis of 2: its SSD blocks stay whole
+    (the heads do not divide), its embedding and tied head still split,
+    streams unchanged.
 
 Each world's ranks are spawned once (a module fixture; JAX references in
 this process, never in the ranks).
@@ -130,10 +131,11 @@ def served():
         extra[name] = eng.capabilities()["ep_moe"]
         jobs.append(dict(name=name, cfg=cfg, params=p, mesh=(1, 2), max_len=MAX_LEN,
                          requests=reqs))
-    cfg = tconfigs.get_reduced("mamba2-2.7b")
-    ref["refuse/mamba2"] = None
-    jobs.append(dict(name="refuse/mamba2", cfg=cfg, params=init_lm(0, cfg, device="cpu"),
-                     mesh=(1, 2), max_len=MAX_LEN, refused=True))
+    cfg = dataclasses.replace(tconfigs.get_reduced("mamba2-2.7b"), ssm_heads=3, d_inner=48)
+    reqs = _requests(cfg.vocab_size)
+    ref["whole/mamba2"] = _one_rank(cfg, init_lm(0, cfg, device="cpu"), reqs)[0]
+    jobs.append(dict(name="whole/mamba2", cfg=cfg, params=init_lm(0, cfg, device="cpu"),
+                     mesh=(1, 2), max_len=MAX_LEN, requests=reqs))
     torch.set_num_threads(n)
     ranks = run_ranks(serve_jobs, 2, {"jobs": jobs})
     return {name: (ref[name], [r[name] for r in ranks]) for name in ref}, extra
@@ -220,12 +222,15 @@ def test_ep_moe_decodes_under_scheduler(served, arch):
         assert r["tokens"] == ref
 
 
-def test_model_axis_refused_for_families_without_tp_form(served):
-    """mamba2 on a (1, 2) mesh: no tensor-parallel form yet, the engine
-    names the ROADMAP item (a data axis alone would serve)."""
-    jobs, _ = served
-    for r in jobs["refuse/mamba2"][1]:
-        assert "ROADMAP Queue 1 item 5" in r["refused"] and "'ssm'" in r["refused"]
+def test_piece_whose_heads_do_not_divide_stays_whole(served):
+    """mamba2 with 3 SSD heads on a (1, 2) mesh: nothing refuses; its SSD
+    blocks run whole on both ranks (the whole state, all 3 heads), the
+    vocab-parallel embedding and head split, the streams are one rank's."""
+    ref, ranks = served[0]["whole/mamba2"]
+    for r in ranks:
+        assert r["model_shards"] == 2 and r["tokens"] == ref
+        assert not r["plan"]["ssd"] and r["plan"]["embed"] and r["plan"]["head"]
+        assert r["local_ssm_heads"] == 3
 
 
 def test_engine_pins_ambient_mesh_at_construction():

@@ -99,13 +99,6 @@ def serve_jobs(rank, world, payload):
     out = {}
     for job in payload["jobs"]:
         mesh = Mesh(job["mesh"], ("data", "model"))
-        if job.get("refused"):  # a family with no tensor-parallel form
-            try:
-                ServeEngine(job["cfg"], job["params"], max_len=job["max_len"],
-                            compute_dtype=torch.float32, device="cpu", mesh=mesh)
-            except NotImplementedError as e:
-                out[job["name"]] = {"refused": str(e)}
-            continue
         eng = ServeEngine(job["cfg"], job["params"], max_len=job["max_len"],
                           compute_dtype=torch.float32, device="cpu", mesh=mesh)
         reqs = [Request(tokens=np.asarray(t), max_new_tokens=b) for t, b in job["requests"]]
@@ -124,7 +117,8 @@ def serve_jobs(rank, world, payload):
         out[job["name"]] = {
             "tokens": [list(map(int, c.tokens)) for c in comps],
             "model_shards": eng.model_shards(),
-            "plan": {k: getattr(eng.tp, k) for k in ("attn", "mlp", "embed", "head", "ep")},
+            "plan": {k: getattr(eng.tp, k) for k in ("attn", "mlp", "embed", "head", "ep",
+                                                      "ssd")},
             "ep_moe": bool(eng.capabilities()["ep_moe"]),
             "pools": pools,
             "scales": scales,
@@ -132,6 +126,7 @@ def serve_jobs(rank, world, payload):
             "paged_pool_bytes": sched.paged_pool_bytes(),
             "pool_bytes": pool_bytes_per_device(eng, sched.block_size, n_blocks),
             "local_heads": (eng.cfg.n_heads, eng.cfg.n_kv_heads),
+            "local_ssm_heads": eng.cfg.ssm_heads,
         }
     return out
 
@@ -342,7 +337,7 @@ def _remat_backward_elsewhere(p):
     mesh = Mesh((1, 2), ("data", "model"))
     layout = train_layout(p["cfg"], mesh)
     params = shard_train_state(params_from_numpy(p["params"]), layout)
-    batch = {"tokens": torch.as_tensor(p["tokens"])}
+    batch = {k: torch.as_tensor(v) for k, v in p.get("batch", {"tokens": p.get("tokens")}).items()}
     out = {}
     for where in ("inside", "this_thread", "other_thread"):
         live = tree_map(lambda w: w.detach().requires_grad_(True), params)
@@ -392,3 +387,151 @@ def _restore_onto(p):
         like, mesh=mesh, rules=layout.rules, spec_fn=layout.spec_fn)
     return {"step": step, "params": state.params, "momentum": state.opt_state[1],
             "coords": dict(mesh.coords), "specs": dict(layout.specs)}
+
+
+# ---------------------------------------------------------------------------
+# the tensor-parallel forms of mamba2, recurrentgemma, whisper and paligemma
+# ---------------------------------------------------------------------------
+def static_logits(eng, batch, steps: int):
+    """The greedy static loop's tokens and its final decode step's logits
+    (``ServeEngine.generate_static`` with the logits kept)."""
+    from repro_torch.models.lm import image_prefix_len
+    from repro_torch.serve.engine import _greedy
+
+    batch = eng._tokens(batch)
+    T = batch["tokens"].shape[1]
+    logits, caches = eng.prefill(batch)
+    cur = _greedy(logits[:, -1:])
+    out = [cur]
+    for i in range(steps - 1):
+        logits, caches = eng.decode(caches, cur, image_prefix_len(eng.cfg) + T + i)
+        cur = _greedy(logits[:, -1:])
+        out.append(cur)
+    return torch.cat(out, dim=1), logits[:, -1]
+
+
+def family_serve(job, mesh=None):
+    """``job``'s greedy serve (each request with its frames / patches) and
+    static loop on ``mesh`` (None: one rank), and what the engine placed:
+    the scheduler's pool leaves by name, shapes and bytes."""
+    from repro_torch.serve import Request, ServeConfig, ServeEngine
+
+    eng = ServeEngine(job["cfg"], job["params"], max_len=job["max_len"],
+                      compute_dtype=torch.float32, device="cpu", mesh=mesh)
+    reqs = [Request(tokens=np.asarray(t), max_new_tokens=b, extras=e)
+            for t, b, e in job["requests"]]
+    comps, sched = eng.serve(reqs, ServeConfig(n_slots=2, temperature=0.0),
+                             return_scheduler=True)
+    static, logits = static_logits(eng, job["batch"], job["steps"])
+    leaves = {f"{g}/{s}/{n}": tuple(leaf.shape) for g, sub in sched.caches.items()
+              for s, c in sub.items() for n, leaf in c.items()}
+    tp = eng.tp
+    return {
+        "tokens": [list(map(int, c.tokens)) for c in comps],
+        "static": static, "logits": logits,
+        "plan": {k: getattr(tp, k) for k in ("attn", "mlp", "embed", "head", "ssd", "rglru")}
+        if tp is not None else {},
+        "leaves": leaves,
+        "cache_bytes": sched.cache_bytes(), "paged_pool_bytes": sched.paged_pool_bytes(),
+        "local": {k: getattr(eng.cfg, k) for k in ("n_heads", "n_kv_heads", "d_inner",
+                                                    "ssm_heads", "d_rnn", "rnn_heads")},
+    }
+
+
+def _rejoin(port: int, rank: int, world: int) -> None:
+    """Join a fresh default group after a launcher left the last one."""
+    if not dist.is_initialized():
+        dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                                world_size=world, timeout=datetime.timedelta(seconds=120))
+
+
+def _faulty(fault: str):
+    """A context in which one trap's repair is undone: 'norm_identity_backward'
+    (the gated norm's sum of squares summed with ``ReduceSum``, whose
+    backward is the identity), 'norm_no_reduce' (each rank's own sum of
+    squares) or 'bias_before_reduce' (a row-parallel bias added to every
+    rank's partial)."""
+    import contextlib
+
+    from repro_torch.distributed import collectives
+    from repro_torch.models import blocks
+
+    @contextlib.contextmanager
+    def ctx():
+        saved = collectives.SumShared, blocks.split_row_bias
+        if fault == "norm_identity_backward":
+            collectives.SumShared = collectives.ReduceSum
+        elif fault == "norm_no_reduce":
+            class _Own(torch.autograd.Function):
+                @staticmethod
+                def forward(c, x, group):
+                    return x * 2  # this rank's channels stand for all m = 2 shares
+
+                @staticmethod
+                def backward(c, g):
+                    return g * 2, None
+
+            collectives.SumShared = _Own
+        elif fault == "bias_before_reduce":
+            blocks.split_row_bias = lambda p, piece: (p, None)
+        try:
+            yield
+        finally:
+            collectives.SumShared, blocks.split_row_bias = saved
+
+    return ctx()
+
+
+def family_tp_jobs(rank, world, payload):
+    """Serve jobs, then training jobs (2 steps, each of the job's routes), then
+    one fused step under each fault of ``payload['faults']``, then the
+    launchers (each leaves the group: the next joins a fresh one)."""
+    import contextlib
+    import io
+
+    from repro_torch.nn.sharding import Mesh
+
+    out = {}
+    mesh = Mesh((1, 2), ("data", "model"))
+    for job in payload["serve"]:
+        out[("serve", job["name"])] = family_serve(job, mesh)
+    for job in payload["train"]:
+        for route in job["routes"]:
+            _, layout, state, res = _tp_run(job, route)
+            res["whole"] = {k: sorted(v) for k, v in (layout.plan.whole or {}).items()}
+            out[(job["name"], route)] = res
+    for name, job in payload.get("remat", {}).items():
+        out[("remat", name)] = _remat_backward_elsewhere(job)
+    for name, (job, fault) in payload.get("faults", {}).items():
+        with _faulty(fault):
+            out[("fault", name)] = _tp_run(job, "fused")[3]
+    for i, (kind, argv) in enumerate(payload.get("launch", [])):
+        _rejoin(payload["ports"][i], rank, world)
+        os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                          LOCAL_WORLD_SIZE=str(world))
+        if kind == "serve":
+            from repro_torch.launch import serve as launch
+
+            got = []
+            inner = launch.run_continuous
+
+            def run(*a, **kw):
+                comps = inner(*a, **kw)
+                got.append([list(map(int, c.tokens)) for c in comps])
+                return comps
+
+            launch.run_continuous = run
+            try:
+                with contextlib.redirect_stdout(io.StringIO()) as text:
+                    launch.main(argv)
+            finally:
+                launch.run_continuous = inner
+            out[("launch", i)] = {"streams": got, "text": text.getvalue()}
+        else:
+            from repro_torch.launch import train as launch
+
+            with contextlib.redirect_stdout(io.StringIO()) as text:
+                res = launch.main(argv)
+            out[("launch", i)] = {"losses": res["losses"], "clip_scales": res["clip_scales"],
+                                  "text": text.getvalue()}
+    return out
