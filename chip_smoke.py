@@ -379,19 +379,41 @@ Phases, one JSON line each:
                off) and ``gqa_decode`` at whisper's 10 local heads, each
                against its plain version, timed beside its bound and
                ``torch.matmul`` / SDPA.
+ 21. dry run — ``launch/dryrun.py`` held to the card: (a) internlm2-1.8b
+               training at full width and depth, 8 x 128 tokens, bf16
+               ``cast_params``, remat on, the composed update: the step
+               traced on fake tensors of the card at one rank, then run
+               for real on the same routes; gated: ``op_cost``'s flops and
+               dot_bytes of the real run equal the trace's, and
+               ``max_memory_allocated`` (reset after the state is built)
+               within 10% of the traced peak; the fused route's real peak,
+               step ms and launches printed, and the card's total memory;
+               (b) its 2-bit packed serve at 8 of its 24 layers
+               (``SERVE_LAYERS``), a prefill of 4 x 512 and 32 decode
+               steps on dense caches: the same two gates on the
+               'unpack' route, the kernel route's peak and launches
+               printed; (c) the dry-run CLI, a subprocess a cell, all
+               started before phase 18 at niceness 10 (host cores only;
+               phase 21 reads their records): internlm2 ``train_4k``, ``prefill_32k``,
+               ``decode_32k`` and ``decode_32k --quantized``, mamba2
+               ``long_500k`` and whisper ``long_500k`` at 16x16; gated:
+               every status ``OK`` or ``SKIP`` as ``cell_supported``
+               says; per-rank peak GB, dominant term and trace seconds
+               printed.
 Each serving and training path zeroes every kernel's launch count just
 before it runs and reads them just after.
 Then each phase's seconds and the total, the ``kernels`` summary line (the
 seven kernels, the tensor-core and decode routes of both matmul forms,
 MLA's tensor-core route for float and quantized pools, and the clipped
 SYMOG update's two forms; each kernel's launches a rank in phases 18,
-19 and 20, and phase 20's per-rank kernel cases), the nvidia-smi line, and the last line
+19 and 20, phase 20's per-rank kernel cases, and phase 21's launches), the nvidia-smi line, and the last line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before it.
 The script imports no jax and nothing of the JAX package.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -6844,6 +6866,254 @@ def phase_family_tp(torch, dev, ranks):
     return row
 
 
+# ---------------------------------------------------------------------------
+# 21. the dry run (launch/dryrun.py) calibrated against the card: its fake
+# trace of a step against the same step run for real
+# ---------------------------------------------------------------------------
+DRYRUN_MEM_RTOL = 0.10  # the card's peak within ±10% of the traced peak
+DRYRUN_TRAIN = (8, 128)  # 21a: rows x tokens
+DRYRUN_SERVE = (4, 512, 32)  # 21b: rows x prompt tokens, decode steps
+# 21c: (arch, shape, --quantized) cells of the dry-run CLI at 16x16
+DRYRUN_CELLS = (("internlm2-1.8b", "train_4k", False), ("internlm2-1.8b", "prefill_32k", False),
+                ("internlm2-1.8b", "decode_32k", False), ("internlm2-1.8b", "decode_32k", True),
+                ("mamba2-2.7b", "long_500k", False), ("whisper-large-v3", "long_500k", False))
+DRYRUN_CLI_TIMEOUT = 240  # phase 21's wait for the 21c subprocesses still running
+
+
+def _free_card(torch) -> None:
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def _real_step(torch, dev, build, counted: bool = True):
+    """Build ``(state, run)`` on the card and run it once: the run's
+    op_cost (when ``counted``), its peak above the memory in use before the
+    build (``torch.cuda.max_memory_allocated``, reset after the build), the
+    state's bytes and the run's ms."""
+    from repro_torch.launch.op_cost import OpCounter
+
+    _free_card(torch)
+    base = torch.cuda.memory_allocated(dev)
+    state, run = build()
+    torch.cuda.synchronize()
+    state_bytes = torch.cuda.memory_allocated(dev) - base
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops = OpCounter()
+    t = time.perf_counter()
+    with ops if counted else contextlib.nullcontext():
+        run()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    del state, run
+    _free_card(torch)
+    return {"logical": dict(ops.totals) if counted else None, "peak_bytes": peak,
+            "state_bytes": state_bytes, "ms": ms}
+
+
+def _traced(torch, dev, build):
+    """``build()``'s run traced on fake tensors of the card (``dryrun.measure``)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.launch import dryrun
+
+    with FakeTensorMode():
+        state, run = build()
+        out = dryrun.measure(run, state, dev)
+    del out["records"]
+    return out
+
+
+def _calibrate(torch, dev, name, build):
+    """One 21a / 21b case on the plain routes: the trace and the real run,
+    and the two gates (counts equal; real peak within DRYRUN_MEM_RTOL of the
+    traced peak)."""
+    from repro_torch.launch import dryrun
+
+    with dryrun.plain_routes():
+        tr = _traced(torch, dev, build)
+        real = _real_step(torch, dev, build)
+    rel = (real["peak_bytes"] - tr["peak_bytes"]) / tr["peak_bytes"]
+    return {"case": name, "traced": tr, "real": real, "peak_rel_diff": rel,
+            "gates": {"counts_equal": real["logical"] == tr["logical"],
+                      "peak_within_10pct": abs(rel) <= DRYRUN_MEM_RTOL}}
+
+
+def _dryrun_train_build(torch, dev, cfg):
+    from repro_torch.configs import ShapeCell
+    from repro_torch.launch import dryrun
+    from repro_torch.nn.sharding import Mesh
+
+    rows, seq = DRYRUN_TRAIN
+    cell = ShapeCell("train", "train", seq, rows)
+    mesh = Mesh((1, 1), ("data", "model"))
+    return lambda: dryrun.train_case(cfg, cell, mesh, 1, dev)
+
+
+def _dryrun_serve_build(torch, dev, cfg):
+    """A 2-bit packed prefill of rows x prompt tokens, then the decode steps
+    on its dense caches, each step's token the argmax of the last logits."""
+    from repro_torch.launch import dryrun
+    from repro_torch.models.lm import decode_lm, prefill_lm
+    from repro_torch.nn.sharding import Mesh
+
+    rows, prompt, steps = DRYRUN_SERVE
+    mesh = Mesh((1, 1), ("data", "model"))
+
+    def build():
+        plan, lcfg, params = dryrun.serve_params(cfg, mesh, True, dev, shapes_only=False)
+        tokens = torch.zeros((rows, prompt), dtype=torch.int32, device=dev)
+
+        def serve():
+            logits, caches = prefill_lm(params, {"tokens": tokens}, lcfg, max_len=prompt + steps)
+            tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+            for i in range(steps):
+                logits, caches = decode_lm(params, caches, tok, prompt + i, lcfg)
+                tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+            return tok
+
+        return (params, tokens), dryrun.served(plan, mesh, serve)
+
+    return build
+
+
+def _dryrun_cli_start():
+    """21c: the dry-run CLI, one subprocess a cell, all started at once (16x16,
+    rank 0 on fake tensors of the card; host CPU only, at niceness 10: they
+    trace on the host's spare cores while phases 18-20 run)."""
+    from repro_torch.launch import dryrun
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.path.join(here, "src"), OMP_NUM_THREADS="1")
+    procs = []
+    for arch, shape, q in DRYRUN_CELLS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+               "--shape", shape] + (["--quantized"] if q else [])
+        path = dryrun._result_path(arch, shape, False, q)
+        if os.path.exists(path):
+            os.remove(path)
+        err = tempfile.TemporaryFile("w+")  # not a pipe: nothing blocks unread
+        proc = subprocess.Popen(cmd, cwd=here, env=env, stdout=subprocess.DEVNULL, stderr=err,
+                                text=True, start_new_session=True,
+                                preexec_fn=lambda: os.nice(10))
+        procs.append((arch, shape, q, path, proc, err))
+    return procs
+
+
+def _dryrun_cli_finish(procs):
+    """21c's records, waiting at most DRYRUN_CLI_TIMEOUT for the subprocesses
+    still running (those left then are killed)."""
+    from repro_torch.configs import cell_supported, get_config
+
+    t0 = time.perf_counter()
+    cells = []
+    for arch, shape, q, path, proc, err_file in procs:
+        try:
+            proc.wait(timeout=max(1.0, DRYRUN_CLI_TIMEOUT - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            _dryrun_cli_stop([(arch, shape, q, path, proc, err_file)])
+        err_file.seek(0)
+        err = err_file.read()
+        rec = {"status": "NO RECORD"}
+        if os.path.exists(path):
+            with open(path) as f:
+                rec = json.load(f)
+        want = "OK" if cell_supported(get_config(arch), shape)[0] else "SKIP"
+        mem = rec.get("memory", {})
+        cells.append({
+            "arch": arch, "shape": shape, "quantized": q, "rc": proc.returncode,
+            "status": rec.get("status"), "want": want, "site": rec.get("site"),
+            "trace_s": rec.get("trace_s"), "trace_device": rec.get("trace_device"),
+            "peak_GB": mem.get("peak_bytes", 0) / 1e9 if mem else None,
+            "state_GB": mem.get("state_bytes", 0) / 1e9 if mem else None,
+            "fits_80GB": mem.get("fits"),
+            "dominant": rec.get("roofline", {}).get("dominant"),
+            "roofline_s": {k: rec["roofline"][k] for k in ("compute_s", "memory_s",
+                                                          "collective_s")}
+            if "roofline" in rec else None,
+            "collective_total_bytes": rec.get("collectives", {}).get("total_bytes"),
+            "stderr_tail": (err or "")[-400:] if rec.get("status") != want else ""})
+    return cells, time.perf_counter() - t0
+
+
+def _dryrun_cli_stop(procs) -> None:
+    """Kill every 21c subprocess still running (and its process group)."""
+    import signal
+
+    for *_, proc, _err in procs:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+
+
+def phase_dryrun(torch, dev, cli_procs):
+    """Phase 21 (module docstring); ``cli_procs`` from ``_dryrun_cli_start``,
+    started before phase 18.  Every gate raises."""
+    row = {"phase": "dryrun", "gates": {}, "seconds": {},
+           "total_memory_bytes": torch.cuda.get_device_properties(0).total_memory}
+    _dryrun_calibration(torch, dev, row)
+    cells, secs = _dryrun_cli_finish(cli_procs)
+    row["21c"] = cells
+    row["seconds"]["21c_wait"] = secs
+    row["gates"]["21c statuses as cell_supported says"] = all(
+        c["status"] == c["want"] for c in cells)
+    row["pass"] = all(row["gates"].values())
+    emit(row)
+    if not row["pass"]:
+        raise Failed(f"phase 21 failed: {[k for k, v in row['gates'].items() if not v]}")
+    return row
+
+
+def _dryrun_calibration(torch, dev, row):
+    """21a and 21b into ``row``."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import dispatch
+
+    cfg = dataclasses.replace(get_config("internlm2-1.8b"), remat=True)
+    t = time.perf_counter()
+    train_build = _dryrun_train_build(torch, dev, cfg)
+    a = _calibrate(torch, dev, "21a train", train_build)
+    # the fused route's step, the kernel counted
+    prev = dispatch.get_update_backend()
+    dispatch.set_update_backend("fused")
+    try:
+        zero_counts()
+        fused = _real_step(torch, dev, train_build, counted=False)
+        fused["launches"] = {k: v for k, v in read_counts().items() if v}
+    finally:
+        dispatch.set_update_backend(prev)
+    a["fused_real"] = fused
+    row["21a"] = a
+    row["seconds"]["21a"] = time.perf_counter() - t
+    t = time.perf_counter()
+    serve_cfg = dataclasses.replace(cfg, n_layers=SERVE_LAYERS["internlm2-1.8b"])
+    row["21b_layers"] = serve_cfg.n_layers
+    serve_build = _dryrun_serve_build(torch, dev, serve_cfg)
+    b = _calibrate(torch, dev, "21b serve", serve_build)
+    prev = dispatch.get_packed_backend()
+    dispatch.set_packed_backend("kernel")
+    try:
+        zero_counts()
+        kern = _real_step(torch, dev, serve_build, counted=False)
+        kern["launches"] = {k: v for k, v in read_counts().items() if v}
+    finally:
+        dispatch.set_packed_backend(prev)
+    b["kernel_route_real"] = kern
+    row["21b"] = b
+    row["seconds"]["21b"] = time.perf_counter() - t
+    for case in ("21a", "21b"):
+        for g, ok in row[case]["gates"].items():
+            row["gates"][f"{case} {g}"] = ok
+    row["gates"]["21a fused route launched symog_update"] = (
+        fused["launches"].get("symog_update", 0) > 0)
+    row["gates"]["21b kernel route launched the matmul kernels"] = (
+        kern["launches"].get("fixedpoint_matmul_decode", 0) > 0
+        and kern["launches"].get("fixedpoint_matmul_tc", 0) > 0)
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
 
@@ -6984,9 +7254,16 @@ def main() -> int:
         clipped = run("17c symog_update clipped", phase_symog_clipped, torch, dev,
                       configs.get_config("internlm2-1.8b"))
         run("17d experiments", phase_experiments, torch, dev)
-        dist18 = run("18 distribution", phase_dist, torch, dev)
-        train19, ranks20 = run("19 tp and fsdp training", phase_train_tp, torch, dev)
-        fam20 = run("20 family tp", phase_family_tp, torch, dev, ranks20)
+        # 21c's dry-run CLI cells trace on the host's spare cores (no device
+        # work) while phases 18-20 run; phase 21 reads their records
+        cli21 = _dryrun_cli_start()
+        try:
+            dist18 = run("18 distribution", phase_dist, torch, dev)
+            train19, ranks20 = run("19 tp and fsdp training", phase_train_tp, torch, dev)
+            fam20 = run("20 family tp", phase_family_tp, torch, dev, ranks20)
+            dry21 = run("21 dry run", phase_dryrun, torch, dev, cli21)
+        finally:
+            _dryrun_cli_stop(cli21)
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -7324,6 +7601,13 @@ def main() -> int:
             **{f"train {a}": x["ranks"][0]["launches"].get(n, 0)
                for a, x in fam20["20b"].items()}}
         k["phase20_kernel_cases"] = [c for c in fam20["20c"] if c["kernel"] == k["name"]]
+    # phase 21: each kernel's launches in 21a's fused-route training step and
+    # 21b's kernel-route serve (the traced and gated runs take the plain routes)
+    for k in summary:
+        n = {"symog_update_clipped": "symog_update"}.get(k["name"], k["name"])
+        k["phase21_launches"] = {
+            "21a train fused": dry21["21a"]["fused_real"]["launches"].get(n, 0),
+            "21b serve kernel route": dry21["21b"]["kernel_route_real"]["launches"].get(n, 0)}
     if not all(k["pass"] for k in summary):
         print("chip_smoke: FAILED: a kernel row did not pass", file=sys.stderr)
         return 1

@@ -19,6 +19,7 @@ CONFIG = ModelConfig(
     ssm_state=128,
     conv_width=4,
     ssd_chunk=128,
+    supports_long=True,
 )
 
 REDUCED = ModelConfig(
@@ -34,4 +35,5 @@ REDUCED = ModelConfig(
     conv_width=4,
     ssd_chunk=8,
     remat=False,
+    supports_long=True,
 )

@@ -23,6 +23,7 @@ CONFIG = ModelConfig(
     d_rnn=2560,
     rnn_heads=10,
     embed_scale=True,
+    supports_long=True,
 )
 
 REDUCED = ModelConfig(
@@ -42,4 +43,5 @@ REDUCED = ModelConfig(
     rnn_heads=2,
     embed_scale=True,
     remat=False,
+    supports_long=True,
 )

@@ -3,7 +3,10 @@
     f_l = argmin_{f ∈ ℤ}  || W_l - Q_N(W_l; 2^{-f}) ||²
 
 An exhaustive integer search over [F_MIN, F_MAX]; ties go to the smaller f
-(``torch.argmin`` returns the first minimum, as ``jnp.argmin`` does)."""
+(``torch.argmin`` returns the first minimum, as ``jnp.argmin`` does).  f* is
+``f_min`` plus the argmin's index, computed on the device: no value is read
+back to the host, so the search runs under ``FakeTensorMode`` and costs no
+device sync."""
 from __future__ import annotations
 
 from typing import Tuple
@@ -28,5 +31,5 @@ def optimal_f(
     """Return (f*, Δ*=2^{-f*}) minimizing the quantization SSE of ``w``."""
     fs = torch.arange(f_min, f_max + 1, device=w.device)
     sses = torch.stack([sse_for_f(w, f, n_bits) for f in fs])
-    f_star = fs[torch.argmin(sses)]
+    f_star = f_min + torch.argmin(sses)
     return f_star, delta_from_f(f_star)

@@ -80,8 +80,13 @@ def _delta_for(w: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
     return d
 
 
-def symog_init(params: Any, cfg: SymogConfig) -> SymogState:
-    """Alg. 1 lines 2–5: per-layer (or per-expert) integer grid search for Δ."""
+def symog_init(params: Any, cfg: SymogConfig, *, shapes_only: bool = False) -> SymogState:
+    """Alg. 1 lines 2–5: per-layer (or per-expert) integer grid search for Δ.
+
+    ``shapes_only``: skip the search and give every f as zeros of its shape
+    and dtype (the counterpart of ``jax.eval_shape`` over ``symog_init``,
+    for ``launch/dryrun.py``, which reads f's shape only: a search per
+    expert under ``FakeTensorMode`` takes ~40 ms, deepseek-v3 has 45,312)."""
     mask = {p: bool(cfg.quant_filter(p, v)) for p, v in flatten_with_paths(params)}
 
     def per_leaf(path: str, w):
@@ -89,9 +94,13 @@ def symog_init(params: Any, cfg: SymogConfig) -> SymogState:
             return torch.zeros((), dtype=torch.int32, device=w.device)
         if re.search(cfg.per_expert_pattern, path) and w.ndim >= 3:
             lead = w.shape[:-2]
+            if shapes_only:
+                return torch.zeros(lead, dtype=torch.int32, device=w.device)
             w2 = w.reshape((-1,) + tuple(w.shape[-2:]))
             fs = [optimal_f(e, cfg.n_bits, cfg.f_min, cfg.f_max)[0] for e in w2]
             return torch.stack(fs).reshape(lead).to(torch.int32)
+        if shapes_only:
+            return torch.zeros((), dtype=torch.int32, device=w.device)
         f, _ = optimal_f(w, cfg.n_bits, cfg.f_min, cfg.f_max)
         return f.to(torch.int32)
 

@@ -19,7 +19,12 @@ then uses in a program of its own),
 reduce-scatter sum).  ``stats`` counts every collective this process runs
 (calls and the bytes of the tensor given, by kind) and, while ``timing`` is
 on, the seconds each took from a synchronized device to its result back on
-the device (staging included).
+the device (staging included).  Inside ``recorded()`` each call also
+appends a ``Record``: its kind, the bytes of its RESULT (an all-gather's
+is g times the tensor given, a reduce-scatter's 1/g of it), the group
+size g and whether the group lies in one 8-GPU node; ``launch/comm_cost.py``
+turns them into wire bytes.  A group of torch's ``fake`` backend (the dry
+run's: ``launch/dryrun.py``) takes tensors as they are, as NCCL does.
 
 ``compressed_psum_int8`` performs a data-parallel gradient all-reduce with
 int8 payloads + error feedback:
@@ -39,7 +44,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import time
-from typing import Any, NamedTuple, Optional, Tuple
+from typing import Any, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -52,6 +57,17 @@ _OPS = {"sum": "SUM", "max": "MAX"}
 stats = {"calls": collections.Counter(), "bytes": collections.Counter(),
          "seconds": collections.Counter()}
 timing = False  # also time every collective (a device synchronize before each)
+NODE_GPUS = 8  # ranks of one host joined by NVLink (an HGX H100 node)
+
+
+class Record(NamedTuple):
+    kind: str  # 'all_reduce' | 'all_gather' | 'reduce_scatter' | 'all_to_all'
+    result_bytes: int
+    group: int  # g, the group's size
+    in_node: bool  # every member in one NODE_GPUS-rank node
+
+
+_records: Optional[List[Record]] = None
 
 
 def reset_stats() -> None:
@@ -60,9 +76,30 @@ def reset_stats() -> None:
 
 
 @contextlib.contextmanager
-def _counted(kind: str, x: torch.Tensor):
+def recorded():
+    """Collect a ``Record`` of every collective run inside (on any thread:
+    the autograd engine's too); yields the list."""
+    global _records
+    prev, _records = _records, []
+    try:
+        yield _records
+    finally:
+        _records = prev
+
+
+def _in_node(group) -> bool:
+    ranks = dist.get_process_group_ranks(group)
+    return max(ranks) // NODE_GPUS == min(ranks) // NODE_GPUS
+
+
+@contextlib.contextmanager
+def _counted(kind: str, x: torch.Tensor, group=None, result_bytes: Optional[int] = None):
+    nbytes = x.numel() * x.element_size()
     stats["calls"][kind] += 1
-    stats["bytes"][kind] += x.numel() * x.element_size()
+    stats["bytes"][kind] += nbytes
+    if _records is not None:
+        _records.append(Record(kind, nbytes if result_bytes is None else result_bytes,
+                               group_size(group), _in_node(group)))
     if not timing:
         yield
         return
@@ -79,7 +116,7 @@ def group_size(group) -> int:
 
 def _staged(group) -> bool:
     """Whether tensors cross ``group`` through host memory (gloo)."""
-    return dist.get_backend(group) != "nccl"
+    return dist.get_backend(group) not in ("nccl", "fake")
 
 
 def _to_wire(x: torch.Tensor, staged: bool) -> torch.Tensor:
@@ -108,7 +145,7 @@ def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
     """Sum (or max) of ``x`` over ``group``, on every member."""
     if group_size(group) == 1:
         return x
-    with _counted("all_reduce", x):
+    with _counted("all_reduce", x, group):
         staged = _staged(group)
         w = _to_wire(x, staged)
         if w is x:
@@ -122,7 +159,7 @@ def all_gather(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
     n = group_size(group)
     if n == 1:
         return x
-    with _counted("all_gather", x):
+    with _counted("all_gather", x, group, n * x.numel() * x.element_size()):
         staged = _staged(group)
         w = _to_wire(x, staged)
         parts = [_like(w) for _ in range(n)]
@@ -140,7 +177,7 @@ def reduce_scatter(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
         return x
     if x.shape[dim] % n:
         raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split {n} ways")
-    with _counted("reduce_scatter", x):
+    with _counted("reduce_scatter", x, group, x.numel() * x.element_size() // n):
         staged = _staged(group)
         # cut (and made contiguous) where x lives, each part staged whole
         parts = [_to_wire(p.contiguous(), staged) for p in x.chunk(n, dim=dim)]
@@ -154,7 +191,7 @@ def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     chunk j from group rank j (``jax.lax.all_to_all`` tiled on axis 0)."""
     if group_size(group) == 1:
         return x
-    with _counted("all_to_all", x):
+    with _counted("all_to_all", x, group):
         staged = _staged(group)
         w = _to_wire(x, staged)
         out = _like(w)

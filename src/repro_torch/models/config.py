@@ -104,11 +104,14 @@ class ModelConfig:
     encoder_len: int = 1500
     # vlm (paligemma): image-prefix length (patch embeddings at d_model)
     prefix_len: int = 0
+    frontend_dim: int = 0  # stub embedding dim == d_model
     # training: recompute each layer's forward in the backward
     # (``torch.utils.checkpoint``)
     remat: bool = True
     # nn/sharding.py profile the param leaves shard by on a mesh
     sharding_profile: str = "dp_tp"
+    # capability flags
+    supports_long: bool = False  # sub-quadratic decode at 500k (the long_500k cell)
 
     @property
     def moe(self) -> bool:
@@ -144,3 +147,63 @@ class ModelConfig:
             local = c == "L" and self.rope_base_local > 0
             out.append(self.rope_base_local if local else self.rope_base)
         return out
+
+    def param_count(self) -> int:
+        """Analytic parameter count (for 6·N·D roofline bookkeeping)."""
+        D, V = self.d_model, self.vocab_size
+        total = V * D  # embedding
+        if not self.tie_lm_head:
+            total += V * D
+        kinds = self.layer_kinds()
+        for k in kinds:
+            if k == "M":
+                R, N, H = self.d_inner, self.ssm_state, self.ssm_heads
+                total += D * (2 * R + 2 * N + H) + self.conv_width * (R + 2 * N)
+                total += R * D + 3 * H + R
+                continue
+            if k == "R":
+                R, H = self.d_rnn, self.rnn_heads
+                dh = R // H
+                total += 2 * D * R + self.conv_width * R + 2 * H * dh * dh + R * D
+                total += 2 * D * self.d_ff + self.d_ff * D  # its MLP (gated)
+                continue
+            # attention
+            if self.use_mla:
+                total += D * self.q_lora_rank
+                total += self.q_lora_rank * self.n_heads * (self.qk_nope_dim + self.qk_rope_dim)
+                total += D * self.kv_lora_rank + D * self.qk_rope_dim
+                total += self.kv_lora_rank * self.n_heads * (self.qk_nope_dim + self.v_head_dim)
+                total += self.n_heads * self.v_head_dim * D
+            else:
+                hd = self.head_dim
+                total += D * self.n_heads * hd + 2 * D * self.n_kv_heads * hd
+                total += self.n_heads * hd * D
+            # ffn
+            if k == "E":
+                total += D * self.n_experts  # router
+                total += self.n_experts * (3 * D * self.d_ff_expert)
+                total += self.n_shared_experts * 3 * D * self.d_ff_expert
+            elif k == "D" and self.moe:
+                total += (3 if self.mlp_gated else 2) * D * self.d_ff
+            else:
+                total += (3 if self.mlp_gated else 2) * D * self.d_ff
+        if self.family == "encdec":
+            # encoder layers: attn + plain mlp
+            hd = self.head_dim
+            per = D * self.n_heads * hd + 2 * D * self.n_kv_heads * hd + self.n_heads * hd * D
+            per += 2 * D * self.d_ff
+            # decoder cross-attn adds another attention per decoder layer
+            total += self.n_encoder_layers * per
+            per_dec = D * self.n_heads * hd + 2 * D * self.n_kv_heads * hd + self.n_heads * hd * D
+            total += self.n_layers * per_dec
+        return total
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: only routed top-k + shared)."""
+        if not self.moe:
+            return self.param_count()
+        full = self.param_count()
+        kinds = self.layer_kinds()
+        n_moe = sum(1 for k in kinds if k == "E")
+        inactive = n_moe * (self.n_experts - self.top_k) * 3 * self.d_model * self.d_ff_expert
+        return full - inactive

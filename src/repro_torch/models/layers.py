@@ -38,6 +38,7 @@ import dataclasses
 import functools
 import math
 import threading
+import weakref
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -316,7 +317,29 @@ def embed_logits(p, x):
     return matmul_rows(x.to(torch.float32), e.t())
 
 
-@functools.lru_cache(maxsize=32)
+def _table_cache(fn):
+    """Cache a host-built table per argument tuple, and separately per active
+    ``FakeTensorMode`` (the dry run's trace): no fake tensor outlives its
+    mode or meets a real one, and a trace keeps each table alive as the
+    real program's cache does."""
+    cached = functools.lru_cache(maxsize=64)(fn)
+    per_mode: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+    @functools.wraps(fn)
+    def get(*args):
+        mode = torch._C._get_dispatch_mode(torch._C._TorchDispatchModeKey.FAKE)
+        if mode is None:
+            return cached(*args)
+        tables = per_mode.setdefault(mode, {})
+        if args not in tables:
+            tables[args] = fn(*args)
+        return tables[args]
+
+    get.cache_clear = cached.cache_clear
+    return get
+
+
+@_table_cache
 def _sin_divisors(dim: int, device: torch.device, reciprocal: bool = False) -> torch.Tensor:
     """(dim // 2,) fp32 divisors 10000^(2i/dim) of ``sinusoidal_pos`` (or
     their fp32 reciprocals), with the bits the JAX package's jitted traces
@@ -352,7 +375,7 @@ def sinusoidal_pos(seq_len: int, dim: int, dtype=torch.float32, device=None) -> 
     return sinusoidal_angles(pos, dim).to(dtype)
 
 
-@functools.lru_cache(maxsize=64)
+@_table_cache
 def _rope_freq(base: float, half: int, device: torch.device) -> torch.Tensor:
     """exp(-ln(base)·i/half) in fp32, as the JAX package computes it; built
     on the device once per (base, width) — every layer of every step reuses it."""
