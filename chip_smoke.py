@@ -442,6 +442,9 @@ PARITY_ATOL = 1e-3  # fp32 logits, 4 layers: same math, other summation orders
 # then the tensor-core route's alone
 MLA_COUNTS = ("paged_attention_mla", "paged_attention_mla_quant", "paged_attention_mla_tc",
               "paged_attention_mla_tc_quant")
+# rows 2 / 3 on the tensor-core prefill route alone (``paged_attention`` /
+# ``paged_attention_quant`` count every launch of rows 2 / 3 on either route)
+PREFILL_COUNTS = ("paged_attention_prefill", "paged_attention_prefill_quant")
 PARITY_LAYERS = 4
 SPEC_K = 4  # draft tokens a speculative round (phase 11c)
 # depth cuts of earlier host-bound paths, so that the script stays inside its
@@ -890,6 +893,34 @@ def _attn_length_sweep(torch, dev, gen, *, quant: bool):
     return rows
 
 
+def _ptxas(kernel: str):
+    """Registers, spill stores / loads and stack of each instantiation of
+    ``kernel`` in the last build's ptxas report (``build.build_log``)."""
+    import re
+
+    from repro_torch.kernels import build
+
+    out, name = {}, None
+    for line in build.build_log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", line)
+        if m:
+            t = re.search(kernel + r"ILi(\d+)ELi(\d+)E", m.group(1))  # <pool code, max hd>
+            name = f"pool {t.group(1)}, hd <= {t.group(2)}" if t else None
+            continue
+        if name is None:
+            continue
+        rec = out.setdefault(name, {})
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                      r"loads", line)
+        if m:
+            rec.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            rec["registers"] = int(m.group(1))
+    return out
+
+
 def _case_entry(row):
     """A kernel case's shape, times and bound, for the ``kernels`` line."""
     keys = ("arch", "B", "K", "G", "hd", "T", "pos0", "window", "cap", "q_mult", "M", "N",
@@ -993,14 +1024,17 @@ def _attn_dense_case(torch, gen, dev, shape, c):
     kv_scale = 2.0**-5 if int8 else 1.0
     kw = dict(scale=c.get("scale", hd**-0.5), cap=c["cap"], window=c["window"],
               kv_scale=kv_scale)
+    rule = aops._gqa_route(dt, aops._pool_code(kp.dtype, 0), kv_scale, hd, block, T * G)
+    n0 = aops.prefill_launches
     out = aops.paged_attention(q, kp, vp, bt, pos0, **kw)
     again = aops.paged_attention(q, kp, vp, bt, pos0, **kw)
     ref = paged_attention_ref(q, kp, vp, bt, pos0, **kw)
     torch.cuda.synchronize()
+    on_route = aops.prefill_launches - n0 == (2 if rule == "prefill" else 0)
     err = (out.float() - ref.float()).abs().max().item()
     tol = ATTN_TOL[dname]
     same = bool(torch.equal(out, again))
-    ok = bool(torch.allclose(out.float(), ref.float(), **tol)) and same
+    ok = bool(torch.allclose(out.float(), ref.float(), **tol)) and same and on_route
     # bytes this run's data needs: the blocks each row can see, once
     kv_bytes = 2 * _visible_blocks(pos0, T, c["window"], block, mb) * block * K * hd * \
         kp.element_size()
@@ -1014,11 +1048,15 @@ def _attn_dense_case(torch, gen, dev, shape, c):
            "K": K, "G": G, "hd": hd, "block": block, "T": T,
            "kv_dtype": str(kp.dtype).split(".")[-1], "q_dtype": dname,
            "window": c["window"], "cap": c["cap"], "q_mult": c["q_mult"],
-           "verify": c.get("verify", False), "pos0": pos0.tolist(),
+           "verify": c.get("verify", False), "of": c.get("of"), "pos0": pos0.tolist(),
            "mean_cached_tokens": (pos0.float() + T).mean().item(), "max_abs_err": err,
-           "tol": tol, "bit_identical": same, "pass": ok}
+           "tol": tol, "bit_identical": same, "route": rule, "launched_on_route": on_route,
+           "pass": ok}
     row["ms"] = timed(lambda a, b, cc: aops.paged_attention(a, b, cc, bt, pos0, **kw),
                       args, torch)
+    if rule == "prefill":  # the decode kernel on the same inputs, for the record
+        row["decode_route_ms"] = timed(lambda a, b, cc: aops.paged_attention(
+            a, b, cc, bt, pos0, _route="decode", **kw), args, torch)
     row["plain_ms"] = timed(lambda a, b, cc: paged_attention_ref(a, b, cc, bt, pos0, **kw),
                             args, torch)
     # library yardstick: SDPA over the gathered (logical) cache; timed
@@ -1036,7 +1074,8 @@ def _attn_dense_case(torch, gen, dev, shape, c):
     del pools, args
     emit(row)
     if not ok:
-        raise Failed(f"paged_attention case {c}: err {err}, bit-identical {same}")
+        raise Failed(f"paged_attention case {c}: err {err}, bit-identical {same}, "
+                     f"route {rule} launched {on_route}")
     return row
 
 
@@ -1483,14 +1522,17 @@ def phase_attn_quant(torch, dev):
             torch, gen, dev, K=K, G=G, T=T, dt=dt, bits=bits, q_mult=c.get("q_mult", 1.0),
             wide=c["wide"], **shape)
         kw = dict(scale=hd**-0.5, cap=c["cap"], window=c["window"], kv_bits=bits)
+        rule = aops._gqa_route(dt, aops._QUANT_CODE[bits], 1.0, hd, block, T * G)
+        n0 = aops.prefill_quant_launches
         out = aops.paged_attention(q, kp, vp, bt, pos0, k_scale_exp=ke, v_scale_exp=ve, **kw)
         again = aops.paged_attention(q, kp, vp, bt, pos0, k_scale_exp=ke, v_scale_exp=ve, **kw)
         ref = paged_attention_ref(q, kp, vp, bt, pos0, k_scale_exp=ke, v_scale_exp=ve, **kw)
         torch.cuda.synchronize()
+        on_route = aops.prefill_quant_launches - n0 == (2 if rule == "prefill" else 0)
         err = (out.float() - ref.float()).abs().max().item()
         tol = ATTN_TOL[dname]
         same = bool(torch.equal(out, again))
-        ok = bool(torch.allclose(out.float(), ref.float(), **tol)) and same
+        ok = bool(torch.allclose(out.float(), ref.float(), **tol)) and same and on_route
         worst = max(worst, err)
         caught = None
         if c.get("tail_prefill") and c.get("q_mult", 1.0) != 1.0:
@@ -1522,9 +1564,14 @@ def phase_attn_quant(torch, dev):
                "wide_exponents": c["wide"],
                "exp_range": [int(min(ke.min(), ve.min())), int(max(ke.max(), ve.max()))],
                "q_mult": c.get("q_mult", 1.0), "faults_caught": caught,
-               "max_abs_err": err, "tol": tol, "bit_identical": same, "pass": ok}
+               "max_abs_err": err, "tol": tol, "bit_identical": same, "route": rule,
+               "launched_on_route": on_route, "pass": ok}
         row["ms"] = timed(lambda a, b, cc, d, e: aops.paged_attention(
             a, b, cc, bt, pos0, k_scale_exp=d, v_scale_exp=e, **kw), args, torch)
+        if rule == "prefill":  # the decode kernel on the same inputs, for the record
+            row["decode_route_ms"] = timed(lambda a, b, cc, d, e: aops.paged_attention(
+                a, b, cc, bt, pos0, k_scale_exp=d, v_scale_exp=e, _route="decode", **kw),
+                args, torch)
         row["plain_ms"] = timed(lambda a, b, cc, d, e: paged_attention_ref(
             a, b, cc, bt, pos0, k_scale_exp=d, v_scale_exp=e, **kw), args, torch)
         # library yardstick: SDPA over the gathered, dequantized cache; timed only
@@ -1542,9 +1589,183 @@ def phase_attn_quant(torch, dev):
         if main is None:
             main = row
         if not ok:
-            raise Failed(f"paged_attention_quant case {c}: err {err}, bit-identical {same}")
+            raise Failed(f"paged_attention_quant case {c}: err {err}, bit-identical {same}, "
+                         f"route {rule} launched {on_route}")
     main["length_sweep"] = _attn_length_sweep(torch, dev, gen, quant=True)
+    # the prefill route over bf16 pools: gemma3's admission, internlm2's, the verify
+    for c in PREFILL_BF16_CASES:
+        row = _attn_dense_case(torch, gen, dev, c["shape"],
+                               dict(c, dt=torch.bfloat16, int8=False, q_mult=1.0))
+        rows.append(row)
+        worst = max(worst, row["max_abs_err"])
     return rows, worst, main
+
+
+# the prefill route over bf16 pools (bf16 queries): gemma3's admission at T
+# 2048 under its window of 1,024 (B 1, K 4, G 2, hd 256), internlm2's at T
+# 512 (K 8, G 2, hd 128), and the speculative verify (B 4, T = k + 1, ~300
+# cached tokens a row, the last row's queries past its table)
+PREFILL_BF16_CASES = [
+    dict(arch="gemma3-4b", T=2048, window=1024, cap=0.0, scale=256**-0.5, of="admission",
+         shape=dict(B=1, K=4, G=2, hd=256, block=16, max_blocks=128, pos_last=(2047, 2048))),
+    dict(arch="internlm2-1.8b", T=512, window=None, cap=0.0, scale=128**-0.5, of="admission",
+         shape=dict(B=1, K=8, G=2, hd=128, block=16, max_blocks=32, pos_last=(511, 512))),
+    dict(arch="internlm2-1.8b", T=VERIFY_T, window=None, cap=0.0, scale=128**-0.5,
+         verify=True, of="verify",
+         shape=dict(B=4, K=8, G=2, hd=128, block=16, max_blocks=32, pos_last=(280, 320)))]
+
+
+# the crossover of the two GQA kernels over T·G (bf16 queries): gemma3's
+# shape (B 1, K 4, G 2, hd 256, int4 pool, window 1,024) and internlm2's (B
+# 4, K 8, G 2, hd 128, bf16 pool), ~1,000 / ~300 cached tokens a row
+CROSSOVER_TG = (8, 10, 16, 32, 64, 128, 512)
+
+
+def phase_prefill_crossover(torch, dev):
+    """Both GQA routes timed at each T·G of CROSSOVER_TG (the prefill kernel
+    forced below the rule's threshold too), each held to the plain version
+    at the bf16 bar: where the prefill kernel starts to win is where the
+    rule's PREFILL_MIN_ROWS comes from.  Emits one row."""
+    from repro_torch.kernels.paged_attention import ops as aops
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    shapes = {"gemma3-4b": dict(B=1, K=4, G=2, hd=256, block=16, max_blocks=128, bits=4,
+                                window=1024, pos_last=(1000, 1032)),
+              "internlm2-1.8b": dict(B=4, K=8, G=2, hd=128, block=16, max_blocks=32, bits=0,
+                                     window=None, pos_last=(280, 320))}
+    out = {"phase": "prefill_crossover", "rule_min_rows": aops.PREFILL_MIN_ROWS, "shapes": {},
+           "tol": ATTN_TOL["bfloat16"]}
+    ok = True
+    floor = aops.PREFILL_MIN_ROWS
+    aops.PREFILL_MIN_ROWS = 1  # the prefill kernel forced below the threshold
+    try:
+        for name, sh in shapes.items():
+            pts = []
+            for TG in CROSSOVER_TG:
+                T = TG // sh["G"]
+                common = dict(B=sh["B"], K=sh["K"], G=sh["G"], hd=sh["hd"], block=sh["block"],
+                              max_blocks=sh["max_blocks"], T=T, dt=torch.bfloat16, q_mult=1.0,
+                              pos_last=sh["pos_last"])
+                if sh["bits"]:
+                    q, kp, vp, ke, ve, bt, pos0 = _attn_quant_case(torch, gen, dev, bits=4,
+                                                                   wide=False, **common)
+                    kw = dict(k_scale_exp=ke, v_scale_exp=ve, kv_bits=4)
+                else:
+                    q, kp, vp, bt, pos0 = _attn_case(torch, gen, dev, int8=False, **common)
+                    kw = {}
+                kw.update(scale=sh["hd"]**-0.5, window=sh["window"])
+                ref = paged_attention_ref(q, kp, vp, bt, pos0, **kw).float()
+                pt = {"TG": TG, "T": T}
+                for route in aops.GQA_ROUTES:
+                    got = aops.paged_attention(q, kp, vp, bt, pos0, _route=route, **kw).float()
+                    good = bool(torch.allclose(got, ref, **ATTN_TOL["bfloat16"]))
+                    ok = ok and good
+                    pt[route + "_ms"] = timed(lambda: aops.paged_attention(
+                        q, kp, vp, bt, pos0, _route=route, **kw), [()], torch)
+                    pt[route + "_max_abs_err"] = (got - ref).abs().max().item()
+                pts.append(pt)
+            wins = [p["TG"] for p in pts if p["prefill_ms"] <= p["decode_ms"]]
+            # the least T·G from which the prefill kernel wins at every larger point
+            cross = next((p["TG"] for i, p in enumerate(pts)
+                          if all(q["prefill_ms"] <= q["decode_ms"] for q in pts[i:])), None)
+            out["shapes"][name] = {"points": pts, "prefill_wins_at": wins, "crossover_TG": cross}
+    finally:
+        aops.PREFILL_MIN_ROWS = floor
+    crosses = [v["crossover_TG"] for v in out["shapes"].values()]
+    out["crossover_TG"] = None if None in crosses else max(crosses)
+    # where the rule sits against this run's crossover (timed, so printed: not a gate)
+    out["rule_at_or_past_crossover"] = (out["crossover_TG"] is not None
+                                        and floor >= out["crossover_TG"])
+    out["pass"] = ok
+    emit(out)
+    if not ok:
+        raise Failed("prefill crossover: a route missed the bf16 bar")
+    return out
+
+
+PREFILL_MODEL_LENS = (300, 1100, 1800)  # gemma3's window of 1,024 binds on the last two
+
+
+def phase_prefill_route_model(torch, dev, layers: int = 6):
+    """gemma3-4b at ``layers`` layers (its global layer among them), full
+    width, bf16 compute, a bf16 pool: each prompt's tail-prefill admission
+    (start 0, T = its bucket) with the rule's route (``gqa_prefill`` in
+    every layer) against the same admission with the decode route forced
+    (the rule replaced), and an fp32-compute admission (fp32 queries:
+    ``gqa_decode``).  Bar: the two bf16 routes' last-position logits differ
+    by no more than twice the bf16 decode route's own distance from fp32
+    (the kernels round differently inside bf16 compute; a wrong key, mask or
+    scale moves the logits far past bf16's noise); argmax agreement is
+    reported."""
+    from repro_torch import configs
+    from repro_torch.core import SymogConfig, pack_tree, symog_init
+    from repro_torch.kernels.paged_attention import ops as aops
+    from repro_torch.models import init_lm, prefill_prefix_lm
+    from repro_torch.serve import ServeConfig, ServeEngine
+    from repro_torch.serve.scheduler import Scheduler
+
+    cfg = dataclasses.replace(configs.get_config("gemma3-4b"), n_layers=layers,
+                              kv_cache_dtype="bf16")
+    params = init_lm(13, cfg, device=dev)
+    scfg = SymogConfig(n_bits=2)
+    packed = pack_tree(params, symog_init(params, scfg), scfg)
+    del params
+    max_len, block = 2048, 16
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(5)
+    prompts = [torch.randint(0, cfg.vocab_size, (L,), generator=gen) for L in PREFILL_MODEL_LENS]
+    bt = torch.arange(1, max_len // block + 1, dtype=torch.int32, device=dev)
+
+    def admit(compute_dtype):
+        eng = ServeEngine(cfg, packed, max_len=max_len, compute_dtype=compute_dtype, device=dev)
+        out = []
+        zero_counts()
+        for pr in prompts:
+            caches = Scheduler(eng, ServeConfig(n_slots=1, block_size=block)).caches
+            L = int(pr.shape[0])
+            tokens = torch.zeros((1, 1 << (L - 1).bit_length()), dtype=torch.int32, device=dev)
+            tokens[0, :L] = pr.to(dev)
+            lg, _ = eng._with_backend(prefill_prefix_lm, eng.params, {"tokens": tokens}, caches,
+                                      bt, 0, cfg, seq_len=L, compute_dtype=compute_dtype)
+            out.append(lg[0, -1].float())
+            del caches
+        torch.cuda.synchronize()
+        counts = read_counts()
+        del eng
+        return torch.stack(out), {k: counts[k]
+                                  for k in ("paged_attention", "paged_attention_prefill")}
+
+    rule, rule_counts = admit(torch.bfloat16)
+    inner = aops._gqa_route
+    aops._gqa_route = lambda *a, **k: "decode"
+    try:
+        dec, dec_counts = admit(torch.bfloat16)
+    finally:
+        aops._gqa_route = inner
+    f32, _ = admit(torch.float32)
+    diff = (rule - dec).abs().max().item()
+    own = (dec - f32).abs().max().item()
+    n = layers * len(prompts)
+    row = {"phase": "prefill_route_model", "arch": cfg.name, "layers": layers,
+           "compute": "bfloat16", "kv_cache_dtype": "bf16", "prompt_lens": list(PREFILL_MODEL_LENS),
+           "rule_launches": rule_counts, "decode_forced_launches": dec_counts,
+           "max_abs_logit_diff_routes": diff, "bf16_own_max_abs_diff_from_fp32": own,
+           "bar": 2 * own, "logit_scale": dec.abs().max().item(),
+           "argmax_agreement_routes": (rule.argmax(-1) == dec.argmax(-1)).float().mean().item(),
+           "argmax_agreement_rule_vs_fp32": (rule.argmax(-1) == f32.argmax(-1)).float().mean()
+           .item(),
+           "finite": bool(torch.isfinite(rule).all() and torch.isfinite(dec).all())}
+    row["pass"] = (row["finite"] and diff <= 2 * own
+                   and rule_counts == {"paged_attention": n, "paged_attention_prefill": n}
+                   and dec_counts == {"paged_attention": n, "paged_attention_prefill": 0})
+    del packed
+    torch.cuda.empty_cache()
+    emit(row)
+    if not row["pass"]:
+        raise Failed(f"prefill route model check: {row}")
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -2053,6 +2274,8 @@ def _counters():
             "fixedpoint_matmul_experts_decode": (fops, "decode_experts_launches"),
             "paged_attention": (aops, "launches"),
             "paged_attention_quant": (aops, "quant_launches"),
+            "paged_attention_prefill": (aops, "prefill_launches"),
+            "paged_attention_prefill_quant": (aops, "prefill_quant_launches"),
             "paged_attention_mla": (aops, "mla_launches"),
             "paged_attention_mla_quant": (aops, "mla_quant_launches"),
             "paged_attention_mla_tc": (aops, "mla_tc_launches"),
@@ -2067,6 +2290,18 @@ def zero_counts() -> None:
 
 def read_counts():
     return {name: getattr(mod, attr) for name, (mod, attr) in _counters().items()}
+
+
+def _prefill_route_calls(cfg, rows, pool_code: int) -> int:
+    """How many of the bf16 GQA calls of ``rows`` query positions each (a
+    tail prefill's bucket, a verify's k + 1) the rule sends to the prefill
+    kernel, over a pool of ``pool_code`` (1 bf16, 4 SYMOG int4 words)."""
+    import torch
+    from repro_torch.kernels.paged_attention import ops as aops
+
+    G = cfg.n_heads // cfg.n_kv_heads
+    return sum(aops._gqa_route(torch.bfloat16, pool_code, 1.0, cfg.head_dim, 16, T * G)
+               == "prefill" for T in rows)
 
 
 def _capacity(cfg, bucket: int) -> int:
@@ -2321,7 +2556,8 @@ def phase_serve_internlm2(torch, dev):
         # once per admission prefill (the prefill cache reuses attention's k/v)
         return {**_matmul_counts(7 * cfg.n_layers, 0, st["decode_steps"], buckets),
                 "paged_attention": cfg.n_layers * st["decode_steps"],
-                "paged_attention_quant": 0, **dict.fromkeys(MLA_COUNTS, 0), "symog_update": 0}
+                "paged_attention_quant": 0, **dict.fromkeys(MLA_COUNTS + PREFILL_COUNTS, 0),
+                "symog_update": 0}
 
     row, eng, reqs, _, tokens = phase_serve(torch, dev, "internlm2-1.8b", "bf16", 7, expected,
                                             layers=SERVE_LAYERS["internlm2-1.8b"])
@@ -3107,7 +3343,7 @@ def phase_serve_olmoe(torch, dev):
         return {**_matmul_counts(4 * L, 3 * L, st["decode_steps"], buckets, cfg, head=True),
                 "paged_attention": 0,  # the pool is int4: every decode read is quantized
                 "paged_attention_quant": cfg.n_layers * st["decode_steps"],
-                **dict.fromkeys(MLA_COUNTS, 0), "symog_update": 0}
+                **dict.fromkeys(MLA_COUNTS + PREFILL_COUNTS, 0), "symog_update": 0}
 
     row, eng, reqs, sc, tokens = phase_serve(torch, dev, "olmoe-1b-7b", "int4_fp", 17, expected,
                                              layers=SERVE_LAYERS["olmoe-1b-7b"])
@@ -3524,6 +3760,7 @@ def phase_serve_deepseek(torch, dev):
         return {**_matmul_counts(10 * L, 3 * n_moe, st["decode_steps"], buckets, cfg,
                                  head=True, decode_2d=8 * L),
                 "paged_attention": 0, "paged_attention_quant": 0,
+                **dict.fromkeys(PREFILL_COUNTS, 0),
                 # the pool is int4: every decode read is quantized, each on the
                 # tensor-core kernel (bf16 queries), one launch a call
                 "paged_attention_mla": 0, "paged_attention_mla_tc": 0,
@@ -3599,11 +3836,14 @@ def phase_serve_gemma3(torch, dev):
         # every packed projection of every layer once per decode step and once
         # per admission (the tied head dequantizes the table: no kernel); the
         # int4 pool's kernel once per layer and decode step and once per
-        # layer and admission (the tail prefill attends the pool)
+        # layer and admission (the tail prefill attends the pool, on the
+        # tensor-core prefill kernel where the rule sends its bucket)
         L = cfg.n_layers
         return {**_matmul_counts(7 * L, 0, st["decode_steps"], buckets),
                 "paged_attention": 0,
                 "paged_attention_quant": L * (st["decode_steps"] + len(buckets)),
+                "paged_attention_prefill": 0,
+                "paged_attention_prefill_quant": L * _prefill_route_calls(cfg, buckets, 4),
                 **dict.fromkeys(MLA_COUNTS, 0), "symog_update": 0}
 
     row, eng, reqs, sc, tokens = phase_serve(torch, dev, "gemma3-4b", "int4_fp", 29, expected,
@@ -3612,6 +3852,9 @@ def phase_serve_gemma3(torch, dev):
     cfg = eng.cfg
     L = cfg.n_layers
     row["tail_prefill_launches"] = L * row["prefills"]
+    row["tail_prefill_launches_by_route"] = {
+        "prefill": row["launches"]["paged_attention_prefill_quant"],
+        "decode": L * row["prefills"] - row["launches"]["paged_attention_prefill_quant"]}
     again = [list(map(int, c.tokens)) for c in eng.serve(reqs, sc)]
 
     def streams(rs, n_slots):
@@ -3638,7 +3881,8 @@ def phase_serve_gemma3(torch, dev):
     restore_adm16()
     steps16 = sched16.stats["decode_steps"]
     want16 = dict(expected(cfg, sched16.stats, adm16["buckets"]),
-                  paged_attention=L * steps16, paged_attention_quant=0)
+                  paged_attention=L * steps16, paged_attention_quant=0,
+                  paged_attention_prefill_quant=0)
     same = total = 0
     for a, c in zip(tokens, comps16):
         same += sum(int(x == y) for x, y in zip(a, c.tokens))
@@ -3763,6 +4007,9 @@ def phase_prefix_chunks(torch, dev, eng):
         want = {**_matmul_counts(7 * L, 0, st["decode_steps"], adm["buckets"]),
                 "paged_attention": 0,
                 "paged_attention_quant": L * (st["decode_steps"] + calls),
+                "paged_attention_prefill": 0,
+                "paged_attention_prefill_quant": L * _prefill_route_calls(cfg, adm["buckets"],
+                                                                          4),
                 **dict.fromkeys(MLA_COUNTS, 0), "symog_update": 0}
         same = total = 0
         for a, b in zip(base, tokens):
@@ -4002,8 +4249,13 @@ def phase_speculative(torch, dev):
         vanilla = [list(map(int, c.tokens)) for c in v_comps]
         draft_buckets = [b for b, p in zip(adm["buckets"], adm["params"]) if p is draft.params]
         draft_steps = sum(k + 1 for k in depths)
+        # each round: k + 1 draft decode steps and one verify of k + 1 rows,
+        # the verify on the prefill kernel where the rule sends it
         want = {**_matmul_counts(7 * L, 0, draft_steps, draft_buckets),
                 "paged_attention": L * sum(k + 2 for k in depths), "paged_attention_quant": 0,
+                "paged_attention_prefill": L * _prefill_route_calls(
+                    cfg, [k + 1 for k in depths], 1),
+                "paged_attention_prefill_quant": 0,
                 **dict.fromkeys(MLA_COUNTS, 0), "symog_update": 0}
         prefill_s, v_prefill_s = sum(adm["ms"]) / 1e3, sum(v_adm["ms"]) / 1e3
         dec_tok = st["tokens_emitted"] - st["prefills"]
@@ -4664,7 +4916,7 @@ def _recurrent_expected(cfg, st, buckets):
     return {**_matmul_counts(sum(PACKED_PER_KIND[k] for k in kinds), 0, st["decode_steps"],
                              buckets),
             "paged_attention": kinds.count("A") * st["decode_steps"], "paged_attention_quant": 0,
-            **dict.fromkeys(MLA_COUNTS, 0), "symog_update": 0}
+            **dict.fromkeys(MLA_COUNTS + PREFILL_COUNTS, 0), "symog_update": 0}
 
 
 def _layer_decode_ms(torch, dev, eng, kind: str):
@@ -4982,7 +5234,7 @@ def _encdec_vlm_expected(cfg, st, buckets):
     n_admit, n_step = _encdec_vlm_counts(cfg)
     return {**_matmul_counts(n_admit, 0, st["decode_steps"], buckets, decode_2d=n_step),
             "paged_attention": cfg.n_layers * st["decode_steps"], "paged_attention_quant": 0,
-            **dict.fromkeys(MLA_COUNTS, 0), "symog_update": 0}
+            **dict.fromkeys(MLA_COUNTS + PREFILL_COUNTS, 0), "symog_update": 0}
 
 
 def _timed_encoder(torch):
@@ -7169,6 +7421,7 @@ def main() -> int:
                                                        phase_fpmm_gemma3, torch, dev)
         cx_rows, cross = run("3g crossover", phase_crossover, torch, dev)
         aq_rows, aq_err, aq_main = run("3e paged_attention_quant", phase_attn_quant, torch, dev)
+        pf_cross = run("3e prefill crossover", phase_prefill_crossover, torch, dev)
         mla_rows, mla_err, mla_main = run("3f paged_attention_mla", phase_attn_mla, torch, dev)
         run("4 parity internlm2", phase_parity, torch, dev, PARITY_LAYERS)
         for arch in ("gemma2-27b", "granite-34b"):
@@ -7181,6 +7434,7 @@ def main() -> int:
         run("4 parity gemma3-4b", phase_parity, torch, dev, 6, arch="gemma3-4b", tail=True)
         par_g3 = run("4 parity gemma3-4b", phase_parity, torch, dev, 6, arch="gemma3-4b",
                      kv_cache_dtype="int4_fp")
+        pf_model = run("4 prefill route gemma3-4b", phase_prefill_route_model, torch, dev)
         par_olmoe = run("4 parity olmoe", phase_parity, torch, dev, PARITY_LAYERS,
                         arch="olmoe-1b-7b")
         run("4 parity olmoe", phase_parity, torch, dev, PARITY_LAYERS, arch="olmoe-1b-7b",
@@ -7370,9 +7624,9 @@ def main() -> int:
          "work": "int4 pool, B=4 K=16 G=1 hd=128 block=16 T=1 bf16, ~300 cached tokens a row",
          "length_sweep": [_sweep_entry(r) for r in aq_main["length_sweep"]],
          "tail_prefill_cases": [_case_entry(r) for r in aq_rows
-                                if r["tail_prefill"] and r["of"] == "admission"],
+                                if r.get("tail_prefill") and r["of"] == "admission"],
          "chunk_and_prefix_hit_cases": [dict(_case_entry(r), of=r["of"]) for r in aq_rows
-                                        if r["tail_prefill"] and r["of"] != "admission"],
+                                        if r.get("tail_prefill") and r["of"] != "admission"],
          "launches_gemma3_prefix_chunk_serves": {w: r["launches"]["paged_attention_quant"]
                                                  for w, r in prefix.items()},
          "launches_gemma3_serve": gemma3["launches"]["paged_attention_quant"],
@@ -7381,6 +7635,35 @@ def main() -> int:
              "paged_attention_quant"],
          "pass": all(r["pass"] for r in aq_rows)},
     ]
+    # rows 2 and 3 at T·G >= PREFILL_MIN_ROWS: the tensor-core prefill kernel
+    pf_rows = [r for r in aq_rows if r.get("route") == "prefill"]
+    pf_main = next(r for r in pf_rows if r["T"] == 2048 and r["window"] == 1024
+                   and r["kernel"] == "paged_attention_quant")
+    summary.append(
+        {"name": "gqa_prefill", "route": "cuda", "source": "src/repro_torch/csrc/gqa_prefill.cu",
+         "replaces": "src/repro/kernels/paged_attention/kernel.py:89 (_attn_kernel) and :131 "
+                     "(_attn_kernel_quant) at T·G >= the rule's threshold",
+         "launches": gemma3["launches"]["paged_attention_prefill_quant"],
+         "max_abs_err": max(r["max_abs_err"] for r in pf_rows), "ms": pf_main["ms"],
+         "plain_ms": pf_main["plain_ms"], "bound_ms": pf_main["bound_ms"],
+         "bound_by": pf_main["bound_by"], "library_ms": pf_main["library_ms"],
+         "decode_route_ms": pf_main["decode_route_ms"],
+         "work": "gemma3-4b's admission: int4 pool, B=1 K=4 G=2 hd=256 T=2048 from 0 under "
+                 "the window of 1,024, bf16 q",
+         "launches_from": "gemma3-4b serve (phase 10): one tail-prefill call a layer and "
+                          "admission on the prefill route",
+         "cases": [dict(_case_entry(r), kernel=r["kernel"], of=r.get("of"),
+                        decode_route_ms=r.get("decode_route_ms")) for r in pf_rows],
+         "rule_min_rows": pf_cross["rule_min_rows"], "crossover_TG": pf_cross["crossover_TG"],
+         "launches_gemma3_prefix_chunk_serves": {
+             w: r["launches"]["paged_attention_prefill_quant"] for w, r in prefix.items()},
+         "launches_speculative_serves": {t: r["launches"]["paged_attention_prefill"]
+                                         for t, r in spec.items()},
+         "model_check": {k: pf_model[k] for k in (
+             "max_abs_logit_diff_routes", "bar", "argmax_agreement_routes", "rule_launches")},
+         "ptxas": _ptxas("gqa_prefill"),
+         "pass": gemma3["launches"]["paged_attention_prefill_quant"] > 0
+         and all(r["pass"] for r in pf_rows) and pf_model["pass"]})
     # rows 4 and 5: the tensor-core kernel takes every bf16 call of the
     # serves; mla_partial the fp32 ones (the 4-layer parities)
     for quant in (False, True):

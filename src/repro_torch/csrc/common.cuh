@@ -36,6 +36,66 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
                : "memory");
 }
 
+__device__ __forceinline__ void cp_async(void* dst, const void* src, int bytes) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a)
+               : "memory");
+}
+
+// async copy of `bytes` (16, 8 or 4); bytes past src_bytes (0 or bytes) are zero-filled
+__device__ __forceinline__ void cp_async_z(void* dst, const void* src, int bytes, int src_bytes) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+                 "r"(src_bytes) : "memory");
+  else if (bytes == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d), "l"(src),
+                 "r"(src_bytes) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+                 "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(float a, float b) {  // a in the low half
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// p as bf16 pairs hi = bf16(p), lo = bf16(p - hi)
+__device__ __forceinline__ void split_bf16x2(float a, float b, uint32_t& hi, uint32_t& lo) {
+  hi = bf16x2_bits(a, b);
+  lo = bf16x2_bits(a - __uint_as_float(hi << 16), b - __uint_as_float(hi & 0xffff0000u));
+}
+
+// Two int4 fields f (two's complement, bits 0-3 of each 16-bit half of u)
+// times 2^e as bf16x2, exact: (f ^ 8) in the mantissa of bf16(128) is 136 + f,
+// and one bf16x2 FMA by (2^e, 2^e) less (136 * 2^e) leaves f * 2^e.
+__device__ __forceinline__ uint32_t nibbles_bf16x2(uint32_t u, uint32_t s2, uint32_t c2) {
+  uint32_t v, o;
+  asm("lop3.b32 %0, %1, %2, %3, 0x6a;\n" : "=r"(v) : "r"(u), "n"(0x000f000f), "r"(0x43084308u));
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(o) : "r"(v), "r"(s2), "r"(c2));
+  return o;
+}
+
 // 16-byte vector -> 16/sizeof(T) floats
 template <typename T>
 __device__ __forceinline__ void unpack16(const uint4& v, float* out) {

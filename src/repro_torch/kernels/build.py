@@ -122,6 +122,12 @@ def library() -> ctypes.CDLL:
             F, F, F, P,
         ]
         lib.paged_attention_launch.restype = I
+        lib.gqa_prefill_launch.argtypes = [
+            P, P, P, P, P, P, P, P,
+            I, I, I, I, I, I, I, I, I, I,
+            F, F, F, P,
+        ]
+        lib.gqa_prefill_launch.restype = I
         lib.paged_attention_mla_launch.argtypes = [
             P, P, P, P, P, P, P, P, P, P, P, P,
             I, I, I, I, I, I, I, I, I, I,

@@ -2,10 +2,13 @@
 tail prefill, and the absorbed multi-head-latent-attention (MLA) decode.
 
 ``paged_attention`` and ``paged_attention_mla`` launch their CUDA kernels
-(``csrc/paged_attention.cu``) for CUDA tensors and run their plain versions
-(``ref.py``) for CPU tensors.  The MLA wrapper has two kernels behind one
-rule (``_mla_route``): the tensor-core ``mla_decode_tc`` for bf16 queries
-over pools exact in bf16, ``mla_partial`` + ``attn_combine`` otherwise.
+(``csrc/paged_attention.cu``, ``csrc/gqa_prefill.cu``) for CUDA tensors and
+run their plain versions (``ref.py``) for CPU tensors.  Each has two kernels
+behind one rule: GQA (``_gqa_route``) the tensor-core ``gqa_prefill`` for
+bf16 queries with many rows a KV head over pools exact in bf16,
+``gqa_decode`` otherwise; MLA (``_mla_route``) the tensor-core
+``mla_decode_tc`` for bf16 queries over pools exact in bf16,
+``mla_partial`` + ``attn_combine`` otherwise.
 Queries must be contiguous per row: q_pos[b, t] = pos0[b] + t.
 ``window=None`` maps onto the 2^30 sentinel; ``kv_scale`` is 2^-KV_F for
 int8 fixed-point (KV_F) pools and 1.0 for float pools.  SYMOG-quantized
@@ -29,11 +32,14 @@ _Q_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _KV_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _QUANT_CODE = {8: 3, 4: 4}  # int8 words / int4 split-halves words, with exponents
 # kernel launches (plain-version calls on the CPU do not count): float / KV_F
-# pools, and SYMOG-quantized pools (the `_attn_kernel_quant` variant); the
-# same two for the MLA kernels (`_mla_kernel`, `_mla_kernel_quant`) on either
+# pools, and SYMOG-quantized pools (the `_attn_kernel_quant` variant), on
+# either GQA route, and again for the prefill route alone (`gqa_prefill`);
+# the same for the MLA kernels (`_mla_kernel`, `_mla_kernel_quant`) on either
 # route, and again for the tensor-core route alone (`mla_decode_tc`)
 launches = 0
 quant_launches = 0
+prefill_launches = 0
+prefill_quant_launches = 0
 mla_launches = 0
 mla_quant_launches = 0
 mla_tc_launches = 0
@@ -91,6 +97,96 @@ def worker_tiles(u_lo: int, u_hi: int, n_split: int):
     return [(u_lo + w * n // nw, u_lo + (w + 1) * n // nw) for w in range(nw)]
 
 
+# csrc/gqa_prefill.cu: a thread block takes PREFILL_ROWS query rows of one
+# (b, kv_head)'s T·G row axis and key tiles of PREFILL_KEYS tokens; a
+# cluster of at most PREFILL_MAX_SPLIT thread blocks splits a query tile's
+# key range
+PREFILL_ROWS, PREFILL_KEYS, PREFILL_MAX_SPLIT = 64, 64, 4
+# T·G from which the rule takes the prefill kernel: chip_smoke.py 3e's
+# crossover sweep of the two kernels on the card (H100, 8 .. 512 rows): the
+# prefill kernel wins from 64 rows at gemma3's shape (B 1, K 4, hd 256, int4
+# pool, ~1,000 cached tokens) and from 10 at internlm2's (B 4, K 8, hd 128,
+# bf16 pool, ~300); 64 is the least count where it wins at both
+PREFILL_MIN_ROWS = 64
+GQA_ROUTES = ("decode", "prefill")  # gqa_decode; gqa_prefill
+
+
+def _pow2(x: float) -> bool:
+    return x > 0 and math.frexp(x)[0] == 0.5
+
+
+def _pool_code(pool_dtype, kv_bits: int):
+    """The kernels' pool code: 0 fp32, 1 bf16, 2 int8 (KV_F), 3 / 4 SYMOG
+    int8 / int4 words (None: a dtype no kernel takes)."""
+    return _QUANT_CODE.get(kv_bits) if kv_bits else _KV_CODE.get(pool_dtype)
+
+
+def _gqa_route(q_dtype, pool_code, kv_scale: float, hd: int, block: int, TG: int,
+               aligned: bool = True) -> str:
+    """Which GQA kernel takes a call.  'prefill' (``gqa_prefill``, the
+    tensor cores) for bf16 queries over a pool whose values are exact in
+    bf16 -- SYMOG int8 / int4 words (codes 3 / 4), KV_F int8 under a
+    power-of-two ``kv_scale``, or bf16 under kv_scale 1 -- with hd a multiple
+    of 16 up to 256 (its k-steps and column pairs), ``block`` a multiple of 16
+    (a 16-key step never straddles two blocks), pools 8-byte aligned
+    (``aligned``: its row copies) and at least PREFILL_MIN_ROWS query rows a
+    KV head (T·G).  'decode' (``gqa_decode``, fp32 on the CUDA cores) for
+    everything else: fp32 queries or pools, other scales and widths, the
+    decode steps."""
+    exact = (pool_code in (3, 4) or (pool_code == 1 and kv_scale == 1.0)
+             or (pool_code == 2 and _pow2(kv_scale)))
+    widths = hd % 16 == 0 and 16 <= hd <= HD_MAX and block % 16 == 0
+    take = (q_dtype == torch.bfloat16 and exact and widths and aligned
+            and TG >= PREFILL_MIN_ROWS)
+    return "prefill" if take else "decode"
+
+
+def _prefill_split(B: int, K: int, q_tiles: int, max_blocks: int, block: int, n_sm: int) -> int:
+    """gqa_prefill's thread blocks per (query tile, b, kv_head), one
+    cluster: doubled up to PREFILL_MAX_SPLIT while the grid stays within
+    the SM count (a 256-row chunk of gemma3: 8 tiles x 4 heads, 4 ranks) and
+    the longest possible row has a key tile a rank (``max_blocks`` is only
+    that bound: the kernel cuts each query tile's own range on the device)."""
+    tiles = math.ceil(max_blocks * block / PREFILL_KEYS)
+    s = 1
+    while 2 * s <= min(PREFILL_MAX_SPLIT, tiles) and 2 * s * q_tiles * B * K <= n_sm:
+        s *= 2
+    return s
+
+
+def prefill_key_tiles(pos0: int, G: int, row0: int, rows: int, window: int, block: int,
+                      max_blocks: int):
+    """The key tiles [v_lo, v_hi) that query rows row0.. row0 + rows - 1 of
+    one (b, kv_head) can see, as gqa_prefill derives them from pos0 on the
+    device: tile v holds logical tokens PREFILL_KEYS·v..; tiles past the
+    last row's position (or the table), or wholly before the first row's
+    window, are skipped.  A Python mirror for the tests."""
+    hi_tok = min(pos0 + (row0 + rows - 1) // G, max_blocks * block - 1)
+    lo_tok = max(0, pos0 + row0 // G - window + 1)
+    if lo_tok > hi_tok:
+        return 0, 0
+    return lo_tok // PREFILL_KEYS, hi_tok // PREFILL_KEYS + 1
+
+
+def prefill_read_tokens(pos0: int, G: int, row0: int, rows: int, window: int, block: int,
+                        max_blocks: int, v: int):
+    """The tokens [t_lo, t_hi) of key tile v that gqa_prefill reads for that
+    query tile: its 16-token sub-tiles holding a key in [first row's window
+    start, last row's position]; the others it zero-fills.  A Python mirror
+    for the tests."""
+    hi_tok = min(pos0 + (row0 + rows - 1) // G, max_blocks * block - 1)
+    lo_tok = max(0, pos0 + row0 // G - window + 1)
+    kv0 = v * PREFILL_KEYS
+    return max(0, lo_tok - kv0) // 16 * 16, min(PREFILL_KEYS, (hi_tok - kv0) // 16 * 16 + 16)
+
+
+def prefill_rank_tiles(v_lo: int, v_hi: int, n_split: int):
+    """gqa_prefill's cut of [v_lo, v_hi) over a cluster's ranks, in rank
+    order: contiguous, balanced to one tile, possibly empty."""
+    n = v_hi - v_lo
+    return [(v_lo + c * n // n_split, v_lo + (c + 1) * n // n_split) for c in range(n_split)]
+
+
 def _check_quant(k_pool, v_pool, k_exp, v_exp, kv_bits: int, nb: int, K: int) -> int:
     """The pool code of a SYMOG-quantized pool pair (3: int8, 4: int4)."""
     if kv_bits not in _QUANT_CODE:
@@ -107,8 +203,8 @@ def _check_quant(k_pool, v_pool, k_exp, v_exp, kv_bits: int, nb: int, K: int) ->
 
 
 def _launch(q, k_pool, v_pool, block_tables, pos0, *, scale, cap, window, kv_scale,
-            k_exp=None, v_exp=None, kv_bits: int = 0):
-    global launches, quant_launches
+            k_exp=None, v_exp=None, kv_bits: int = 0, route: str = "decode"):
+    global launches, quant_launches, prefill_launches, prefill_quant_launches
     dev = q.device
     B, T, K, G, hd = q.shape
     nb, block = k_pool.shape[:2]
@@ -143,16 +239,35 @@ def _launch(q, k_pool, v_pool, block_tables, pos0, *, scale, cap, window, kv_sca
     q = q.contiguous()
     bt, pos0 = block_tables.contiguous(), pos0.contiguous()
     TG, max_blocks = T * G, bt.shape[1]
-    n_split = _n_split(B, K, math.ceil(TG / _row_tile(TG)), max_blocks, block,
-                       build.sm_count(dev))
-    out = torch.empty_like(q)
-    err = build.library().paged_attention_launch(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), bt.data_ptr(), pos0.data_ptr(),
-        None if k_exp is None else k_exp.data_ptr(), None if v_exp is None else v_exp.data_ptr(),
-        out.data_ptr(), B, K, T, G, hd, block, max_blocks, int(window), q_code, kv_code,
-        n_split, float(scale), float(cap), float(kv_scale), build.current_stream(dev),
-    )
-    build.check(err, "paged_attention")
+    exps = (None if k_exp is None else k_exp.data_ptr(),
+            None if v_exp is None else v_exp.data_ptr())
+    if route == "prefill":
+        if q.data_ptr() % 16:
+            q = q.clone()  # the kernel stages query rows by 16-byte copies
+        n_split = _prefill_split(B, K, math.ceil(TG / PREFILL_ROWS), max_blocks, block,
+                                 build.sm_count(dev))
+        out = torch.empty_like(q)
+        err = build.library().gqa_prefill_launch(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), bt.data_ptr(), pos0.data_ptr(),
+            *exps, out.data_ptr(), B, K, T, G, hd, block, max_blocks, int(window), kv_code,
+            n_split, float(scale), float(cap), float(kv_scale), build.current_stream(dev),
+        )
+        build.check(err, "paged_attention (gqa_prefill)")
+        if kv_bits:
+            prefill_quant_launches += 1
+        else:
+            prefill_launches += 1
+    else:
+        n_split = _n_split(B, K, math.ceil(TG / _row_tile(TG)), max_blocks, block,
+                           build.sm_count(dev))
+        out = torch.empty_like(q)
+        err = build.library().paged_attention_launch(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), bt.data_ptr(), pos0.data_ptr(),
+            *exps, out.data_ptr(), B, K, T, G, hd, block, max_blocks, int(window), q_code,
+            kv_code, n_split, float(scale), float(cap), float(kv_scale),
+            build.current_stream(dev),
+        )
+        build.check(err, "paged_attention")
     if kv_bits:
         quant_launches += 1
     else:
@@ -162,21 +277,34 @@ def _launch(q, k_pool, v_pool, block_tables, pos0, *, scale, cap, window, kv_sca
 
 def paged_attention(q, k_pool, v_pool, block_tables, pos0, *, scale: float, cap: float = 0.0,
                     window=None, kv_scale: float = 1.0, k_scale_exp=None, v_scale_exp=None,
-                    kv_bits: int = 0, out_dtype=None):
+                    kv_bits: int = 0, out_dtype=None, _route=None):
     """q (B, T, K, G, hd); k/v pools (n_blocks, block, K, hd) float or int8
     (hd/2 int8 words for int4 pools); block_tables (B, max_blocks) int32
     (trash block 0 for unused entries); pos0 (B,) int32 first query position
     per row; ``k_scale_exp``/``v_scale_exp`` (n_blocks, K) int32 with
-    ``kv_bits`` for SYMOG-quantized pools.  Returns (B, T, K, G, hd)."""
+    ``kv_bits`` for SYMOG-quantized pools.  Returns (B, T, K, G, hd).  On
+    the card ``_gqa_route`` picks the kernel; ``_route`` ('decode' or
+    'prefill') forces one (card tests and chip_smoke.py), and a 'prefill'
+    the rule refuses raises ValueError on either device."""
     quant = k_scale_exp is not None
     if quant != (v_scale_exp is not None) or quant != (kv_bits != 0) or kv_bits not in (0, 4, 8):
         raise ValueError("quantized pools take both exponent leaves and kv_bits 8 or 4; "
                          f"got k/v exponents {quant}/{v_scale_exp is not None}, kv_bits {kv_bits}")
+    if _route not in (None,) + GQA_ROUTES:
+        raise ValueError(f"route {_route!r} is not one of {GQA_ROUTES}")
+    if q.is_cuda or _route == "prefill":
+        B, T, K, G, hd = q.shape
+        aligned = k_pool.data_ptr() % 8 == 0 and v_pool.data_ptr() % 8 == 0
+        rule = _gqa_route(q.dtype, _pool_code(k_pool.dtype, kv_bits), kv_scale, hd,
+                          k_pool.shape[1], T * G, aligned)
+        if _route == "prefill" and rule != "prefill":
+            raise ValueError(f"route 'prefill' does not take this call (the rule gives {rule!r})")
+        _route = _route or rule
     if q.is_cuda:
         w = _NO_WINDOW if window is None else int(window)
         out = _launch(q, k_pool, v_pool, block_tables, pos0, scale=scale, cap=cap,
                       window=w, kv_scale=kv_scale, k_exp=k_scale_exp, v_exp=v_scale_exp,
-                      kv_bits=kv_bits)
+                      kv_bits=kv_bits, route=_route)
     else:
         out = paged_attention_ref(q, k_pool, v_pool, block_tables, pos0, scale=scale,
                                   cap=cap, window=window, kv_scale=kv_scale,
@@ -192,10 +320,6 @@ MLA_ROWS = 16  # query rows (T·H) per thread block of mla_partial: csrc kMlaRow
 MLA_TC_ROWS = 32  # of mla_decode_tc: csrc kTcRows
 MLA_TC_MAX_RANK, MLA_TC_MAX_DEPTH = 512, 576  # r, and r + rope, its registers hold
 MLA_ROUTES = ("partial", "tc")  # mla_partial + attn_combine; mla_decode_tc
-
-
-def _pow2(x: float) -> bool:
-    return x > 0 and math.frexp(x)[0] == 0.5
 
 
 def _mla_route(q_dtype, pool_dtype, kv_bits: int, kv_scale: float, r: int, rope: int,

@@ -21,7 +21,9 @@ rank's slices, and ``out_proj``'s partial is summed by the caller.  The B /
 C projections (one group, read by every head), the conv kernel over
 [x, B, C] and the gated norm's scale stay whole on every rank: each rank
 takes its x channels' conv columns and B / C's, and its channels of the
-scale.  The gated norm runs over all of d_inner, so its fp32 sum of squares
+scale.  A packed ``in_proj_dt`` whose words do not split over the ranks
+stays whole too (the plan's ``whole``), and each rank takes its heads'
+columns of dt.  The gated norm runs over all of d_inner, so its fp32 sum of squares
 is summed over the ranks (``SumShared``: the backward sums too, since each
 rank normalizes its own channels by it).
 """
@@ -109,6 +111,8 @@ def _in_projections(p, u, cfg: SSDConfig, compute_dtype, conv_state=None,
     plan = _split()
     if plan is not None:
         kernel = _rank_channels(kernel, cfg.d_inner, plan, tail=True)
+        if "in_proj_dt/kernel" in (plan.whole or {}).get("ssd", ()):
+            dt_raw = _rank_channels(dt_raw, cfg.n_heads, plan, tail=False)
     xbc, new_conv = _conv_causal(kernel, F.silu(xbc), conv_state, seq_len=seq_len)
     R, N = cfg.d_inner, cfg.d_state
     x, Bm, Cm = xbc[..., :R], xbc[..., R: R + N], xbc[..., R + N:]

@@ -130,11 +130,16 @@ _PIECES = (
 #  * mamba2's B / C projections (one group, read by every head), its conv
 #    kernel over [x, B, C] and its gated norm's scale stay whole: each rank
 #    slices its channels inside the forward (``models.ssd``) and, training,
-#    enters them through Megatron's f.
+#    enters them through Megatron's f;
+#  * a packed mamba2 ``in_proj_dt`` whose words do not split whole over the
+#    ranks (a 2-bit word holds 4 heads' columns) stays whole the same way:
+#    each rank takes its heads' columns of the output (``models.ssd``), as
+#    JAX's rules replicate that one leaf (``repro/nn/sharding.py:154-161``).
 _COL_BIAS = ((re.compile(r"(^|/)(q_proj|k_proj|v_proj)/bias$"), -2),
              (re.compile(r"(^|/)(fc1|gate_proj|up_proj)/bias$"), -1))
 _ROW_BIAS = re.compile(r"(^|/)(o_proj|down_proj|fc2)/bias$")
 _SSD_WHOLE = re.compile(r"(^|/)ssd/(in_proj_B/kernel|in_proj_C/kernel|conv1d/kernel|norm/scale)$")
+_SSD_DT = re.compile(r"(^|/)ssd/in_proj_dt/kernel/0$")  # packed words: whole when they do not split
 
 
 def _piece(path: str) -> Optional[str]:
@@ -176,6 +181,8 @@ def leaf_spec(rules: ShardingRules, path: str, shape: Tuple[int, ...]) -> Option
     if _ROW_BIAS.search(param) or _SSD_WHOLE.search(param):
         return None
     m = mesh_axis_size(rules.mesh, "model")
+    if _SSD_DT.search(path) and shape[-1] % m:
+        return None
     for pat, dim in _COL_BIAS:
         if pat.search(param):
             out = [None] * len(shape)
@@ -201,11 +208,13 @@ def make_tp_plan(cfg: ModelConfig, params: Any, mesh: Mesh, rules: ShardingRules
     only whole words split) gets 'model'; attention also needs K % m == 0
     (H % m for MLA) — the test ``pool_head_shards`` applies to the pool.
     A piece that cannot split stays whole on every rank, for any family:
-    the families' single-KV-head attention (recurrentgemma, paligemma), a
-    reduced mamba2's 2-bit ``in_proj_dt`` of fewer than 4·m heads.  Expert
+    the families' single-KV-head attention (recurrentgemma, paligemma).  (A
+    packed ``in_proj_dt`` whose words do not divide by m stays whole inside
+    a split SSD piece.)  Expert
     stacks split over ``cfg.ep_axes`` when ``moe_impl='ep'`` is active on
     the mesh.  The plan names the leaves a sharded piece keeps whole
-    (``whole``: qk norms, MLA's compressions, mamba2's B / C / conv / norm),
+    (``whole``: qk norms, MLA's compressions, mamba2's B / C / conv / norm
+    and such a packed ``in_proj_dt``),
     for training's ``tp_enter_leaves``."""
     from repro_torch.models.blocks import _ep_active
 

@@ -607,6 +607,145 @@ def test_paged_attention_head_dims_and_blocks(dev, pool, hd, block, T, G, misali
     assert torch.equal(got, again)
 
 
+PREFILL_POOLS = ["bf16", "kv_f", "q8", "q4"]  # pool codes 1-4: exact in bf16
+
+
+def _prefill_case(dev, rng, *, pool, B, T, K, G, hd, block, mb, pos0, wide=True):
+    """bf16 queries and a pool the prefill route takes: bf16, KV_F int8 x
+    2^-5, or SYMOG int8 / int4 words (``wide``: under the wide exponent
+    spread, |v| up to 127·2^4; else as a paged write makes them of
+    unit-scale k / v); a shuffled block table; ``pos0`` per row."""
+    n_blocks = B * mb + 1
+    bt = (rng.permutation(n_blocks - 1)[: B * mb] + 1).reshape(B, mb).astype(np.int32)
+    q = torch.from_numpy(rng.standard_normal((B, T, K, G, hd)).astype(np.float32))
+    kw = {}
+    if pool in ("q8", "q4"):
+        bits = 8 if pool == "q8" else 4
+        (kp, vp), (ke, ve) = _quant_pools(rng, n_blocks, block, K, hd, bits, wide=wide)
+        kw = dict(k_scale_exp=ke.to(dev), v_scale_exp=ve.to(dev), kv_bits=bits)
+    else:
+        kp, vp = (torch.from_numpy(rng.standard_normal((n_blocks, block, K, hd))
+                                   .astype(np.float32)) for _ in range(2))
+        if pool == "kv_f":
+            kp, vp = (torch.clamp(torch.round(x * 16), -127, 127).to(torch.int8) for x in (kp, vp))
+            kw["kv_scale"] = 2.0**-5
+        else:
+            kp, vp = kp.to(torch.bfloat16), vp.to(torch.bfloat16)
+    return (q.to(dev, torch.bfloat16), kp.to(dev), vp.to(dev), torch.from_numpy(bt).to(dev),
+            torch.tensor(pos0, dtype=torch.int32, device=dev), kw)
+
+
+def _prefill_counts():
+    return (aops.launches, aops.quant_launches, aops.prefill_launches,
+            aops.prefill_quant_launches)
+
+
+@pytest.mark.parametrize("pool", PREFILL_POOLS)
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("T,G", [(63, 1), (32, 2), (65, 1), (64, 8)])  # T·G 63 / 64 / 65 / 512
+@pytest.mark.parametrize("window,cap", [(None, 0.0), (40, 5.0)])
+def test_paged_attention_prefill_matches_plain(dev, monkeypatch, pool, hd, T, G, window, cap):
+    """The tensor-core prefill route against the plain version at the bf16
+    bar over ragged rows (from position 0, mid-block, and running to the
+    table's last slot), two calls bit-identical, its launch counted under
+    both its route's counter and the row's; the decode route forced on the
+    same inputs holds the same bar.  SYMOG pools under the wide exponent
+    spread up to hd 128; at hd 256 its logits reach the thousands, where
+    two fp32 sums of q.k in another order (the plain version's and any
+    kernel's) move a near-one-hot softmax past the bf16 bar, so hd 256
+    takes the pools a paged write makes (gemma3's serving shape)."""
+    K, block, B = 2, 16, 3
+    mb = -(-(200 + T) // block)
+    rng = np.random.default_rng(hd + T * 7 + G)
+    pos0 = [0, 21, mb * block - T]
+    q, kp, vp, bt, p0, kw = _prefill_case(dev, rng, pool=pool, B=B, T=T, K=K, G=G, hd=hd,
+                                          block=block, mb=mb, pos0=pos0, wide=hd <= 128)
+    kw.update(scale=hd**-0.5, cap=cap, window=window)
+    quant = pool in ("q8", "q4")
+    route = aops._gqa_route(q.dtype, aops._pool_code(kp.dtype, kw.get("kv_bits", 0)),
+                            kw.get("kv_scale", 1.0), hd, block, T * G)
+    assert route == ("prefill" if T * G >= aops.PREFILL_MIN_ROWS else "decode")
+    # the prefill kernel at every T·G here, below the rule's threshold too
+    monkeypatch.setattr(aops, "PREFILL_MIN_ROWS", 1)
+    before = _prefill_counts()
+    got = paged_attention(q, kp, vp, bt, p0, **kw)
+    again = paged_attention(q, kp, vp, bt, p0, **kw)
+    torch.cuda.synchronize()
+    after = _prefill_counts()
+    assert [a - b for a, b in zip(after, before)] == ([0, 2, 0, 2] if quant else [2, 0, 2, 0])
+    assert got.dtype == torch.bfloat16 and torch.equal(got, again)
+    want = paged_attention_ref(q, kp, vp, bt, p0, **kw)
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=1e-2)
+    dec = paged_attention(q, kp, vp, bt, p0, _route="decode", **kw)
+    torch.cuda.synchronize()
+    assert _prefill_counts()[2:] == after[2:]  # the forced decode route: not gqa_prefill
+    torch.testing.assert_close(dec.float(), want.float(), rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("pool", ["bf16", "q4"])
+@pytest.mark.parametrize("window", [None, 40])
+def test_paged_attention_prefill_ragged_rows_and_splits(dev, pool, window):
+    """Four query tiles a KV head (T 100, G 2) on rows from position 0 to
+    the table's last slot, their spare table entries on the trash block;
+    every block no row sees (the trash block, blocks wholly before every
+    window) filled with NaN in the bf16 pool: a read of it would reach the
+    output through p . v.  B 1 and K 1 put 4 query tiles on the card, so the
+    key range splits over a cluster; held to the plain version on clean
+    pools, two calls bit-identical."""
+    K, G, hd, block, mb, T = 1, 2, 128, 16, 40, 100
+    for B in (5, 1):
+        rng = np.random.default_rng(B + (window or 0))
+        pos_last = np.linspace(T - 1, mb * block - 1, B).round().astype(np.int64)
+        pos0 = (pos_last - (T - 1)).astype(np.int32)
+        q, kp, vp, _, p0, kw = _prefill_case(dev, rng, pool=pool, B=B, T=T, K=K, G=G, hd=hd,
+                                             block=block, mb=mb, pos0=pos0.tolist())
+        ids = rng.permutation(kp.shape[0] - 1)[: B * mb].reshape(B, mb) + 1
+        bt = np.zeros((B, mb), np.int32)
+        hidden = [0]
+        w = aops._NO_WINDOW if window is None else window
+        for b in range(B):
+            n_own = pos_last[b] // block + 1
+            bt[b, :n_own] = ids[b, :n_own]
+            lo = max(0, int(pos0[b]) - w + 1) // block
+            hidden += [int(ids[b, j]) for j in range(n_own) if j < lo]
+        bt = torch.from_numpy(bt).to(dev)
+        kw.update(scale=hd**-0.5, window=window)
+        want = paged_attention_ref(q, kp, vp, bt, p0, **kw)
+        if pool == "bf16":
+            kp[hidden], vp[hidden] = float("nan"), float("nan")
+        got = paged_attention(q, kp, vp, bt, p0, _route="prefill", **kw)
+        again = paged_attention(q, kp, vp, bt, p0, _route="prefill", **kw)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(got).all()) and torch.equal(got, again)
+        torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=1e-2)
+    assert aops._prefill_split(1, 1, 4, mb, block, 132) == 4
+
+
+def test_paged_attention_prefill_refuses_what_it_does_not_take(dev):
+    """A forced 'prefill' raises ValueError where the rule gives 'decode':
+    fp32 queries, an fp32 pool, a bf16 pool under a scale, hd not a multiple
+    of 16, a block not a multiple of 16, too few rows, a misaligned pool."""
+    rng = np.random.default_rng(0)
+    base = dict(pool="bf16", B=1, T=32, K=2, G=2, hd=64, block=16, mb=4, pos0=[0])
+    q, kp, vp, bt, p0, kw = _prefill_case(dev, rng, **base)
+    paged_attention(q, kp, vp, bt, p0, scale=0.125, _route="prefill")  # taken
+    bad = [
+        (q.float(), kp, vp, bt, dict()),
+        (q, kp.float(), vp.float(), bt, dict()),
+        (q, kp, vp, bt, dict(kv_scale=0.5)),
+        (q[:, :4], kp, vp, bt, dict()),
+        (q, *(torch.cat([x.new_zeros(1), x.reshape(-1)])[1:].view(x.shape) for x in (kp, vp)),
+         bt, dict()),
+    ]
+    q72, k72, v72, bt72, _, _ = _prefill_case(dev, rng, **dict(base, hd=72))
+    bad.append((q72, k72, v72, bt72, dict()))
+    q8, k8, v8, bt8, _, _ = _prefill_case(dev, rng, **dict(base, block=8, mb=8))
+    bad.append((q8, k8, v8, bt8, dict()))
+    for qq, kk, vv, bb, extra in bad:
+        with pytest.raises(ValueError):
+            paged_attention(qq, kk, vv, bb, p0, scale=0.125, _route="prefill", **extra)
+
+
 def test_paged_attention_rejects_head_dims_it_does_not_take(dev):
     q = torch.zeros((1, 1, 1, 1, 12), device=dev)
     pool = torch.zeros((2, 4, 1, 12), device=dev)

@@ -143,13 +143,14 @@ def _serve_job(arch):
                 requests=reqs, batch=static, steps=4)
 
 
-def _packed_serve_job():
-    """mamba2's 4-bit ``pack_tree`` artifact: its whole leaves (B / C, the
-    conv kernel) ``Packed``, its ``in_proj_dt`` words split 2 heads a rank."""
+def _packed_serve_job(bits=4):
+    """mamba2's ``pack_tree`` artifact: its whole leaves (B / C, the conv
+    kernel) ``Packed``; at 4 bits its ``in_proj_dt`` words split 2 heads a
+    rank, at 2 bits its one word of 4 heads stays whole."""
     job = _serve_job("mamba2-2.7b")
-    scfg = tcore.SymogConfig(n_bits=4, total_steps=1)
+    scfg = tcore.SymogConfig(n_bits=bits, total_steps=1)
     p = job["params"]
-    return dict(job, name="mamba2-2.7b/packed4",
+    return dict(job, name=f"mamba2-2.7b/packed{bits}",
                 params=tcore.pack_tree(p, tcore.symog_init(p, scfg), scfg))
 
 
@@ -173,7 +174,8 @@ def ranks(tmp_path_factory):
               for name, arch in FAULTS.items()}
     launch = [("serve", _serve_argv(a) + ["--mesh", "1x2"]) for a in LAUNCH_SERVE]
     launch += [("train", _train_argv(a) + ["--mesh", "1x2"]) for a in LAUNCH_TRAIN]
-    payload = {"serve": [_serve_job(a) for a in ARCHS] + [_packed_serve_job()],
+    payload = {"serve": [_serve_job(a) for a in ARCHS] + [_packed_serve_job(),
+                                                          _packed_serve_job(2)],
                "train": [_train_job(a, **({"ckpt": str(tmp / "mamba2")}
                                           if a == "mamba2-2.7b" else {})) for a in ARCHS],
                "faults": faults, "launch": launch, "remat": {a: _remat_job(a) for a in REMAT},
@@ -307,19 +309,22 @@ def test_plan_pieces(arch, reduced):
 
 def test_packed_words_that_do_not_divide_keep_the_piece_whole():
     """Reduced mamba2's 2-bit ``in_proj_dt`` (4 heads: one 4-column word)
-    cannot split over 2 ranks: its SSD block stays whole, the embedding
-    still splits; at 4 bits (2 columns a word) it splits."""
+    cannot split over 2 ranks: that one leaf stays whole on every rank (as
+    JAX's rules replicate it) and the rest of the SSD block still splits,
+    each rank taking its heads' columns of dt; at 4 bits (2 columns a word)
+    the leaf splits with its block."""
     cfg = tconfigs.get_reduced("mamba2-2.7b")
     p = init_lm(0, cfg, device="cpu")
     mesh = _Mesh((1, 2), ("data", "model"))
     rules = make_rules(mesh, cfg.sharding_profile)
-    for bits, ssd in ((2, False), (4, True)):
+    for bits, dt_whole in ((2, True), (4, False)):
         scfg = tcore.SymogConfig(n_bits=bits, total_steps=1)
         tree = tcore.pack_tree(p, tcore.symog_init(p, scfg), scfg)
         plan = make_tp_plan(cfg, tree, mesh, rules)
-        assert plan.ssd == ssd and plan.embed, bits
-        # a whole SSD block runs on the whole config: its state keeps every head
-        assert (local_config(cfg, plan).ssm_heads == cfg.ssm_heads) != ssd
+        assert plan.ssd and plan.embed, bits
+        assert ("in_proj_dt/kernel" in plan.whole["ssd"]) == dt_whole, bits
+        # the split SSD block runs on the rank's config: its state keeps half the heads
+        assert local_config(cfg, plan).ssm_heads == cfg.ssm_heads // 2
 
 
 # ---------------------------------------------------------------------------
@@ -346,6 +351,30 @@ def test_packed_whole_leaves_serve_split(ranks):
         got = r[("serve", "mamba2-2.7b/packed4")]
         assert got["plan"]["ssd"] and got["tokens"] == one["tokens"]
         assert torch.equal(got["static"], one["static"])
+
+
+def test_packed_in_proj_dt_whole_serves_split_and_steps(ranks):
+    """The 2-bit artifact, whose ``in_proj_dt`` word (4 heads) does not split
+    over 2 ranks, serves with that leaf whole and the rest of the SSD block
+    split: token-identical to one rank's serve, the static loop's logits
+    within 1e-5, each rank holding half the SSD state.  The 2-bit SYMOG
+    training of the same model (laid out from its float shapes, where
+    ``in_proj_dt`` splits) stays within 1e-5 of one rank at every leaf."""
+    one = family_serve(_packed_serve_job(2))
+    cfg = tconfigs.get_reduced("mamba2-2.7b")
+    for r in ranks[0]:
+        got = r[("serve", "mamba2-2.7b/packed2")]
+        assert got["plan"]["ssd"] and "in_proj_dt/kernel" in got["whole"]["ssd"]
+        assert got["local"]["ssm_heads"] == cfg.ssm_heads // 2
+        assert got["tokens"] == one["tokens"]
+        assert torch.equal(got["static"], one["static"])
+        _close(got["logits"], one["logits"], "2-bit mamba2 final logits")
+        res = r[("mamba2-2.7b", "fused")]
+        assert "in_proj_dt/kernel" not in res["whole"]["ssd"]
+    _, params, _ = _one_rank_train("mamba2-2.7b", "fused")
+    joined = _join(ranks[0], ("mamba2-2.7b", "fused"), "params")
+    for path, want in params.items():
+        _close(joined[path], want, path)
 
 
 def _split_dim(arch, name, shape):

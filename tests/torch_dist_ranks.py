@@ -431,6 +431,7 @@ def family_serve(job, mesh=None):
         "static": static, "logits": logits,
         "plan": {k: getattr(tp, k) for k in ("attn", "mlp", "embed", "head", "ssd", "rglru")}
         if tp is not None else {},
+        "whole": {k: sorted(v) for k, v in (tp.whole or {}).items()} if tp is not None else {},
         "leaves": leaves,
         "cache_bytes": sched.cache_bytes(), "paged_pool_bytes": sched.paged_pool_bytes(),
         "local": {k: getattr(eng.cfg, k) for k in ("n_heads", "n_kv_heads", "d_inner",
